@@ -1,0 +1,61 @@
+"""Parameter initializers and tree helpers (port of
+``repro/models/param.py``, reduced to what the port needs).
+
+Parameter trees are plain nested dicts (and lists, for layer-stack
+segments) of tensors with the JAX key paths. There is no ``Param``
+wrapper: the logical-axes tree feeds the JAX sharding engine only, and
+the single-device port has none.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def dense(gen: torch.Generator, shape, *, dtype=torch.float32,
+          device=None, fan_in: int | None = None) -> torch.Tensor:
+    """Truncated-normal fan-in init (lecun_normal-style): a standard
+    normal truncated to [-2, 2], scaled by ``1 / sqrt(fan_in)``."""
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    v = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (v * std).to(dtype)
+
+
+def normal(gen: torch.Generator, shape, *, std=0.02, dtype=torch.float32,
+           device=None) -> torch.Tensor:
+    v = torch.empty(shape, dtype=torch.float32, device=device)
+    v.normal_(0.0, 1.0, generator=gen)
+    return (v * std).to(dtype)
+
+
+def ones(shape, *, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def zeros(shape, *, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def count_params(values) -> int:
+    return sum(int(v.numel()) for v in tree_leaves(values))

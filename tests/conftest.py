@@ -15,3 +15,6 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)"
+    )
