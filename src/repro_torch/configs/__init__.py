@@ -85,6 +85,15 @@ class ArchConfig:
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
 
+    def with_moe(self, moe: Optional[MoECfg]) -> "ArchConfig":
+        return dataclasses.replace(self, moe=moe)
+
+    def dense_parent(self) -> "ArchConfig":
+        """The dense architecture this MoE config upcycles from."""
+        return dataclasses.replace(
+            self, moe=None, name=self.name + "-dense-parent"
+        )
+
 
 _MODULES = ("granite_moe_1b",)
 

@@ -51,9 +51,12 @@ def _positions_of(top_e, E: int):
     assignment, how many earlier assignments claimed the same expert."""
     G, g, k = top_e.shape
     oh = F.one_hot(top_e.long(), E + 1)[..., :E]  # dead id E -> zeros
-    flat = oh.reshape(G, g * k, E)
-    pos_flat = torch.cumsum(flat, dim=1) - flat
-    return (pos_flat * flat).sum(-1).reshape(G, g, k)
+    # (G, E, g*k) int32: the scan runs along the innermost axis, where
+    # CUDA's scan is fast (along the token axis it took ~9 ms a layer at
+    # the training shapes on an H100).
+    flat = oh.reshape(G, g * k, E).transpose(1, 2).to(torch.int32)
+    pos_flat = torch.cumsum(flat, dim=-1, dtype=torch.int32) - flat
+    return (pos_flat * flat).sum(1).reshape(G, g, k)
 
 
 def route_top_k(

@@ -46,16 +46,19 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One CUDA kernel library: its source, its C entry point, its
-    ctypes binding (built on first use) and its launch count.
+    """One CUDA kernel: its source library, its C entry point, its
+    ctypes binding (built on first use) and its launch count. Entry
+    points of one source (``source`` names it, default ``name``) share
+    one library.
 
     ``launches`` counts successful launches of the kernel itself; the
     plain PyTorch versions never touch it.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, *,
+                 source: str | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
@@ -68,7 +71,7 @@ class Kernel:
         for p in (self.source, CSRC / "common.cuh"):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return build_dir() / f"{self.name}-{h.hexdigest()[:12]}.so"
+        return build_dir() / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def _command(self, out: Path) -> list:
         nvcc = nvcc_path()
@@ -112,10 +115,12 @@ def build_all(kernels) -> float:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
+    queued = set()
     for k in kernels:
         lib = k.library_path()
-        if lib.exists():
+        if lib.exists() or lib in queued:
             continue
+        queued.add(lib)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
             k._command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -123,15 +128,17 @@ def build_all(kernels) -> float:
         )
         procs.append((k, proc, tmp, lib))
     failed = []
+    logs = {}
     for k, proc, tmp, lib in procs:
-        k.build_log, _ = proc.communicate()
+        logs[lib], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{k.source.name}:\n{k.build_log}")
+            failed.append(f"{k.source.name}:\n{logs[lib]}")
             continue
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for k in kernels:
+        k.build_log = logs.get(k.library_path(), k.build_log)
         if k._fn is None:
             k._bind()
     return time.perf_counter() - t0

@@ -1,0 +1,175 @@
+"""Dense GQA flash attention, forward and backward: the CUDA kernel
+wrappers (port of ``repro/kernels/flash_attention.py``; kernels in
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``).
+
+The forward returns the output and the per-row log-sum-exp ``lse``
+(B, H, Sq), +inf for a row with no valid key; the backward recomputes
+each probability tile from (q, k, lse) and takes ``delta = rowsum(dO *
+O)`` computed here, outside the kernels, as the reference does.
+``q_offset`` and ``kv_len`` are int32 scalars in device memory.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import Kernel
+
+ACC_VALUES = 2048  # bq * G * dh (and bkv * dh) the per-thread accumulators hold
+MAX_KV_TILE = 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel("flash_attention", "flash_attention_fwd",
+                [_P] * 7 + [_I] * 9 + [_P])
+KERNEL_DQ = Kernel("flash_attention_dq", "flash_attention_dq",
+                   [_P] * 9 + [_I] * 9 + [_P], source="flash_attention_bwd")
+KERNEL_DKV = Kernel("flash_attention_dkv", "flash_attention_dkv",
+                    [_P] * 10 + [_I] * 10 + [_P],
+                    source="flash_attention_bwd")
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+def pick_q_tile(seq: int, group_dim: int) -> int:
+    """Query rows per block: the largest power of two whose ``bq *
+    group_dim`` values (group_dim = G * dh) fit the accumulators, no
+    larger than the sequence needs."""
+    if group_dim > ACC_VALUES:
+        raise ValueError(f"flash attention kernel: GQA group x head_dim "
+                         f"{group_dim} exceeds {ACC_VALUES}")
+    bq = _pow2_floor(ACC_VALUES // group_dim)
+    return min(bq, 1 << max(seq - 1, 0).bit_length())
+
+
+def pick_kv_tile(dh: int) -> int:
+    """Keys per dk/dv block: dk and dv of ``bkv * dh`` values each fit
+    the accumulators."""
+    return min(MAX_KV_TILE, _pow2_floor(ACC_VALUES // dh))
+
+
+def scalar_i32(x, device) -> torch.Tensor:
+    """``q_offset`` / ``kv_len`` as a (1,) int32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(1)
+    return torch.tensor([int(x)], dtype=torch.int32, device=device)
+
+
+def _check(name, q, k, v, *rest):
+    B, Sq, H, dh = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    if v.shape != k.shape or H % k.shape[2]:
+        raise ValueError(f"{name}: v {tuple(v.shape)} must match k and "
+                         f"H {H} be a multiple of Kh {k.shape[2]}")
+    for t in (q, k, v, *rest):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: every input must be a CUDA tensor "
+                             "on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
+                         "(float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v must share a dtype")
+
+
+def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
+    """q (B, Sq, H, dh), k/v (B, Skv, Kh, dh); q_offset, kv_len (1,)
+    int32 on the card. Returns (o (B, Sq, H, dh) in q's dtype,
+    lse (B, H, Sq) float32)."""
+    _check("flash attention kernel", q, k, v, q_offset, kv_len)
+    B, Sq, H, dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B * Sq * H == 0:
+        return o, lse
+    bq = pick_q_tile(Sq, (H // Kh) * dh)
+    KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
+        kv_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, Sq, Skv, H, Kh, dh, bq, int(causal),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return o, lse
+
+
+def _check_rows(name, q, lse, delta):
+    B, Sq, H, _ = q.shape
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or t.shape != (B, H, Sq):
+            raise ValueError(f"{name}: lse and delta must be float32 "
+                             f"(B, H, Sq) = {(B, H, Sq)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """delta = rowsum(dO * O) as (B, H, Sq) float32: elementwise, taken
+    outside the backward kernels as the reference does."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_dq_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
+                            causal: bool):
+    """dq of :func:`flash_attention_fwd_cuda` for the output cotangent
+    ``do``, given its ``lse`` and ``delta`` (B, H, Sq) float32."""
+    _check("flash attention dq kernel", q, k, v, do, lse, delta, q_offset,
+           kv_len)
+    _check_rows("flash attention dq kernel", q, lse, delta)
+    B, Sq, H, dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    if B * Sq * H == 0 or Skv == 0:
+        return dq.zero_()
+    KERNEL_DQ.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), q_offset.data_ptr(),
+        kv_len.data_ptr(), dq.data_ptr(), B, Sq, Skv, H, Kh, dh,
+        pick_q_tile(Sq, (H // Kh) * dh), int(causal),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dq
+
+
+def flash_attention_dkv_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
+                             causal: bool):
+    """(dk, dv) of :func:`flash_attention_fwd_cuda`, each summed over its
+    kv head's query heads inside the kernel."""
+    _check("flash attention dk/dv kernel", q, k, v, do, lse, delta,
+           q_offset, kv_len)
+    _check_rows("flash attention dk/dv kernel", q, lse, delta)
+    B, Sq, H, dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if B * Sq * H == 0 or Skv == 0:
+        return dk.zero_(), dv.zero_()
+    KERNEL_DKV.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), q_offset.data_ptr(),
+        kv_len.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Kh,
+        dh, pick_q_tile(Sq, (H // Kh) * dh), pick_kv_tile(dh), int(causal),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, q_offset, kv_len, *,
+                             causal: bool):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_fwd_cuda` for the
+    output cotangent ``do``: delta outside, then the dq and dk/dv
+    kernels."""
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, q_offset, kv_len)
+    dq = flash_attention_dq_cuda(*args, causal=causal)
+    dk, dv = flash_attention_dkv_cuda(*args, causal=causal)
+    return dq, dk, dv

@@ -1,6 +1,8 @@
 """Grouped-GEMM expert FFN over the sorted ragged token buffer: layout
-helpers and the CUDA kernel wrapper (port of
-``repro/kernels/grouped_mlp.py``; kernel in ``csrc/grouped_mlp.cu``).
+helpers and the CUDA kernel wrappers (port of
+``repro/kernels/grouped_mlp.py``; forward kernel in
+``csrc/grouped_mlp.cu``, the dx and dW kernels in
+``csrc/grouped_mlp_bwd.cu``).
 
 Layout contract (shared with core/moe.py): tokens arrive as an
 expert-sorted stream ``xs (G, M, d)`` in which expert e's valid rows
@@ -24,10 +26,13 @@ ROW_BLOCK = 16  # rows per CUDA thread block (BM in csrc/grouped_mlp.cu)
 _ACTS = {"silu": 0, "gelu": 1}
 SMEM_OPTIN = 232_448  # dynamic shared memory a block may opt into, sm_90
 
-KERNEL = Kernel(
-    "grouped_mlp", "grouped_mlp",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel("grouped_mlp", "grouped_mlp", [_P] * 7 + [_I] * 7 + [_P])
+KERNEL_DX = Kernel("grouped_mlp_dx", "grouped_mlp_dx",
+                   [_P] * 11 + [_I] * 7 + [_P], source="grouped_mlp_bwd")
+KERNEL_DW = Kernel("grouped_mlp_dw", "grouped_mlp_dw",
+                   [_P] * 10 + [_I] * 6 + [_P], source="grouped_mlp_bwd")
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +106,47 @@ def block_tables(group_sizes: torch.Tensor, bm: int, nb: int):
 # ---------------------------------------------------------------------------
 
 
+def _check(name, xs, wi, wg, wo, group_sizes, act, block, *extra):
+    if block != ROW_BLOCK:
+        raise ValueError(
+            f"the CUDA grouped MLP walks {ROW_BLOCK}-row blocks; lay the "
+            f"ragged buffer out with block={ROW_BLOCK} (got {block})"
+        )
+    if act not in _ACTS:
+        raise ValueError(f"{name}: unsupported act {act!r}")
+    G, M, d = xs.shape
+    E, _, f = wi.shape
+    ws = [w for w in (wi, wg, wo) if w is not None]
+    for t in (xs, *ws, group_sizes, *extra):
+        if not t.is_cuda or t.device != xs.device:
+            raise ValueError(f"{name}: every input must be a CUDA tensor "
+                             "on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if xs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {xs.dtype} not supported "
+                         "(float32, bfloat16)")
+    if any(w.dtype != xs.dtype for w in (*ws, *extra)):
+        raise ValueError(f"{name}: weights (and dy) must share xs' dtype")
+    if (wi.shape != (E, d, f) or wo.shape != (E, f, d)
+            or (wg is not None and wg.shape != (E, d, f))
+            or group_sizes.shape != (G, E)
+            or any(t.shape != xs.shape for t in extra)):
+        raise ValueError(
+            f"{name}: shapes xs {tuple(xs.shape)}, wi {tuple(wi.shape)}, "
+            f"wo {tuple(wo.shape)}, group_sizes "
+            f"{tuple(group_sizes.shape)} disagree"
+        )
+    if M % block:
+        raise ValueError(f"ragged rows ({M}) must be a multiple of {block}")
+
+
+def _smem_check(name, nbytes: int, what: str) -> None:
+    if nbytes > SMEM_OPTIN:
+        raise ValueError(f"{name}: {what} needs {nbytes} bytes of shared "
+                         f"memory per block; sm_90 allows {SMEM_OPTIN}")
+
+
 def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
                      block: int = ROW_BLOCK):
     """xs: (G, M, d) expert-sorted block-aligned rows -> (G, M, d), on
@@ -108,44 +154,11 @@ def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
     xs' dtype (float32 or bfloat16); group_sizes (G, E) valid rows per
     expert. The kernel walks row blocks of :data:`ROW_BLOCK` rows, so
     the buffer must be laid out at that block."""
-    if block != ROW_BLOCK:
-        raise ValueError(
-            f"the CUDA grouped MLP walks {ROW_BLOCK}-row blocks; lay the "
-            f"ragged buffer out with block={ROW_BLOCK} (got {block})"
-        )
-    if act not in _ACTS:
-        raise ValueError(f"grouped MLP kernel: unsupported act {act!r}")
+    name = "grouped MLP kernel"
+    _check(name, xs, wi, wg, wo, group_sizes, act, block)
     G, M, d = xs.shape
     E, _, f = wi.shape
-    ws = [w for w in (wi, wg, wo) if w is not None]
-    for t in (xs, *ws, group_sizes):
-        if not t.is_cuda or t.device != xs.device:
-            raise ValueError("grouped MLP kernel: every input must be a "
-                             "CUDA tensor on one device")
-        if not t.is_contiguous():
-            raise ValueError("grouped MLP kernel: inputs must be "
-                             "contiguous")
-    if xs.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"grouped MLP kernel: dtype {xs.dtype} not "
-                         "supported (float32, bfloat16)")
-    if any(w.dtype != xs.dtype for w in ws):
-        raise ValueError("grouped MLP kernel: weights must share xs' dtype")
-    if (wi.shape != (E, d, f) or wo.shape != (E, f, d)
-            or (wg is not None and wg.shape != (E, d, f))
-            or group_sizes.shape != (G, E)):
-        raise ValueError(
-            f"grouped MLP kernel: shapes xs {tuple(xs.shape)}, wi "
-            f"{tuple(wi.shape)}, wo {tuple(wo.shape)}, group_sizes "
-            f"{tuple(group_sizes.shape)} disagree"
-        )
-    if M % block:
-        raise ValueError(f"ragged rows ({M}) must be a multiple of {block}")
-    smem = ROW_BLOCK * (d + f) * 4  # x tile + hidden tile, f32
-    if smem > SMEM_OPTIN:
-        raise ValueError(
-            f"grouped MLP kernel: d + f = {d + f} needs {smem} bytes of "
-            f"shared memory per block; sm_90 allows {SMEM_OPTIN}"
-        )
+    _smem_check(name, ROW_BLOCK * (d + f) * 4, f"d + f = {d + f}")
     out = torch.empty_like(xs)
     nb = M // block
     if G * nb == 0:
@@ -159,3 +172,96 @@ def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     return out
+
+
+def grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes, *,
+                        act: str = "silu", block: int = ROW_BLOCK):
+    """dx of :func:`grouped_mlp_cuda` for the output cotangent ``dy (G,
+    M, d)``, on the card; dead blocks give dx = 0. The kernel recomputes
+    each live block's hidden tile and also returns the float32 (G, M, f)
+    da, dg (None when wg is) and h of the live blocks' rows — the dW
+    kernel's inputs; their rows in dead blocks are left unwritten.
+    Returns (dx, da, dg, h)."""
+    name = "grouped MLP dx kernel"
+    _check(name, xs, wi, wg, wo, group_sizes, act, block, dy)
+    G, M, d = xs.shape
+    E, _, f = wi.shape
+    _smem_check(name, ROW_BLOCK * 2 * (d + f) * 4,
+                f"2 (d + f) = {2 * (d + f)}")
+    dev, f32 = xs.device, torch.float32
+    dx = torch.empty_like(xs)
+    da = torch.empty((G, M, f), dtype=f32, device=dev)
+    dg = torch.empty_like(da) if wg is not None else None
+    h = torch.empty_like(da)
+    nb = M // block
+    if G * nb == 0:
+        return dx, da, dg, h
+    be, bl = block_tables(group_sizes, block, nb)
+    KERNEL_DX.launch(
+        xs.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+        dy.data_ptr(), be.data_ptr(), bl.data_ptr(), dx.data_ptr(),
+        da.data_ptr(), _ptr(dg), h.data_ptr(),
+        G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return dx, da, dg, h
+
+
+def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
+                        block: int = ROW_BLOCK):
+    """Per-group float32 dW of :func:`grouped_mlp_cuda`, on the card:
+    one thread block per (64 x 64 tile, expert, group) walks the expert's
+    segment of valid rows over ``da``, ``dg`` (None when ungated) and
+    ``h`` from :func:`grouped_mlp_dx_cuda`. Returns (dwi, dwg, dwo) of
+    shapes (G, E, d, f) / (G, E, f, d); an empty expert gets zeros."""
+    name = "grouped MLP dW kernel"
+    G, M, d = xs.shape
+    E, f = group_sizes.shape[1], da.shape[-1]
+    for t in (xs, dy, da, dg, h, group_sizes):
+        if t is not None and (not t.is_cuda or not t.is_contiguous()):
+            raise ValueError(f"{name}: inputs must be contiguous CUDA "
+                             "tensors")
+    if (dy.shape != xs.shape or dy.dtype != xs.dtype
+            or da.shape != (G, M, f) or h.shape != da.shape
+            or (dg is not None and dg.shape != da.shape)
+            or any(t.dtype != torch.float32 for t in (da, dg, h)
+                   if t is not None)
+            or group_sizes.shape[0] != G or group_sizes.dtype != torch.int32
+            or M % block or block != ROW_BLOCK):
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, dy "
+                         f"{tuple(dy.shape)}, float32 da/dg/h "
+                         f"{tuple(da.shape)} and int32 group_sizes "
+                         f"{tuple(group_sizes.shape)} disagree")
+    dev, f32 = xs.device, torch.float32
+    # Every (tile, expert, group) block writes its whole tile.
+    dwi = torch.empty((G, E, d, f), dtype=f32, device=dev)
+    dwg = torch.empty_like(dwi) if dg is not None else None
+    dwo = torch.empty((G, E, f, d), dtype=f32, device=dev)
+    row_off, _ = ragged_row_offsets(group_sizes, block)
+    row_off = row_off.to(torch.int32).contiguous()
+    KERNEL_DW.launch(
+        xs.data_ptr(), dy.data_ptr(), da.data_ptr(), _ptr(dg),
+        h.data_ptr(), row_off.data_ptr(), group_sizes.data_ptr(),
+        dwi.data_ptr(), _ptr(dwg), dwo.data_ptr(),
+        G, M, d, f, E, int(xs.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return dwi, dwg, dwo
+
+
+def grouped_mlp_bwd_cuda(xs, wi, wg, wo, dy, group_sizes, *,
+                         act: str = "silu", block: int = ROW_BLOCK):
+    """Gradients (dx, dwi, dwg, dwo) of :func:`grouped_mlp_cuda`: the dx
+    kernel, then the dW kernel, the per-group dW summed over G here in
+    float32 and cast to the weights' dtype. dwg is None when wg is."""
+    dx, da, dg, h = grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes,
+                                        act=act, block=block)
+    dwi, dwg, dwo = grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes,
+                                        block=block)
+    return (dx, dwi.sum(0).to(wi.dtype),
+            None if dwg is None else dwg.sum(0).to(wg.dtype),
+            dwo.sum(0).to(wo.dtype))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()

@@ -36,7 +36,12 @@ SERVE = dict(max_batch=8, max_len=512, block_size=16, chunk_size=64,
              chunks_per_step=2)
 PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "paged_prefill": "prefill_kernel",
-                "grouped_mlp": "grouped_mlp_kernel"}
+                "grouped_mlp": "grouped_mlp_kernel",
+                "flash_attention": "flash_fwd_kernel",
+                "flash_attention_dq": "flash_dq_kernel",
+                "flash_attention_dkv": "flash_dkv_kernel",
+                "grouped_mlp_dx": "grouped_dx_kernel",
+                "grouped_mlp_dw": "grouped_dw_kernel"}
 
 
 def mixed_step_inputs(cfg, device, *, serve: dict = SERVE):
@@ -86,24 +91,50 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile(cfg, device, *, steps: int) -> dict:
+def mixed_step_fn(cfg, device):
+    """One serve-cell mixed step, as a closure."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
 
     from repro_torch.models import model_zoo as zoo
 
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg, device=device)
     _, args = mixed_step_inputs(cfg, device)
+    return lambda: zoo.paged_mixed_step(params, *args, cfg)
+
+
+def train_step_fn(cfg, device, *, batch: int, seq: int):
+    """One train-cell MoE step on a fixed batch, as a closure."""
+    import torch
+
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.training import init_train_state, make_train_step
+
+    opt = adafactor(inverse_sqrt(peak=0.01, warmup_steps=100))
+    state = init_train_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, opt, device=device)
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    data = next(make_iterator(cfg, global_batch=batch, seq_len=seq,
+                              task=task))
+    step = make_train_step(cfg, opt)
+    return lambda: step(state, data)
+
+
+def profile(step_fn, cfg, device, *, steps: int) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     for _ in range(2):  # warm-up: allocator, cuBLAS, kernel builds
-        zoo.paged_mixed_step(params, *args, cfg)
+        step_fn()
     sync()
     t0 = time.perf_counter()
     for _ in range(steps):
-        zoo.paged_mixed_step(params, *args, cfg)
+        step_fn()
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -111,7 +142,7 @@ def profile(cfg, device, *, steps: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            zoo.paged_mixed_step(params, *args, cfg)
+            step_fn()
         sync()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = list(prof.events())
@@ -148,6 +179,10 @@ def profile(cfg, device, *, steps: int) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--train", action="store_true",
+                    help="trace a MoE train step instead of a mixed step")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--device", default="cuda",
@@ -163,10 +198,15 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_reduced(ARCH) if args.reduced else get_config(ARCH)
-    # Dropless routing, as chip_smoke.py serves the model.
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
-    out = profile(cfg, device, steps=args.steps)
+    if args.train:
+        step_fn = train_step_fn(cfg, device, batch=args.batch, seq=args.seq)
+    else:
+        # Dropless routing, as chip_smoke.py serves the model.
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        step_fn = mixed_step_fn(cfg, device)
+    out = profile(step_fn, cfg, device, steps=args.steps)
+    out["step"] = "train" if args.train else "mixed"
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

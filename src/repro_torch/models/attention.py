@@ -1,13 +1,13 @@
-"""GQA attention over the paged KV cache (port of the paged subset of
-``repro/models/attention.py``).
+"""GQA attention: the dense training path and the paged KV-cache serve
+path (port of those subsets of ``repro/models/attention.py``).
 
 Shapes keep the JAX layouts: ``wq (d, H, dh)``, ``wk/wv (d, Kh, dh)``,
 ``wo (H, dh, d)``; pools ``(P, bs, Kh, dh)`` with block 0 the trash
 block dead rows write into. Unlike JAX, the cache writes here update the
 pools IN PLACE (the JAX engine donated them to the jitted step).
 
-The dense training/prefill attention (``flash_attention``) and the
-static-cache decode path are queued in ROADMAP.md (static engine).
+The static-cache prefill/decode path and cross-attention are queued in
+ROADMAP.md (static engine, other families).
 """
 from __future__ import annotations
 
@@ -69,13 +69,19 @@ def attention_apply(
     x,
     cfg: ArchConfig,
     *,
-    cache,
-    cache_index,
-    block_tables,
+    cache=None,
+    cache_index=None,
+    block_tables=None,
     mixed: MixedMeta | None = None,
     implementation: str = "auto",
 ):
-    """Paged self-attention. x: (B, 1, d) single-token rows.
+    """Self-attention. Returns (y, cache).
+
+    ``cache`` None — the dense causal training path: x (B, S, d) at
+    positions 0..S-1 through ``ops.flash_attention`` (the flash kernels,
+    forward and backward, on "cuda"); differentiable.
+
+    Otherwise paged self-attention over single-token rows x (B, 1, d):
 
     ``mixed`` set — the fused decode + chunked-prefill step:
     ``cache_index`` carries PER-ROW absolute positions and
@@ -91,22 +97,30 @@ def attention_apply(
     blocks (free slots, length 0, attend nothing and give zeros).
 
     ``implementation``: "auto" | "cuda" | "eager" (see kernels/ops.py).
-    Returns (y, cache) — the cache dict holds the same pool tensors,
+    The paged cache dict comes back holding the same pool tensors,
     updated in place.
     """
     from repro_torch.kernels import ops
 
     B, Sq, _ = x.shape
-    if Sq != 1:
+    if cache is not None and Sq != 1:
         raise NotImplementedError(
-            "the port runs paged single-token rows only; dense prefill "
-            "(flash attention) is queued in ROADMAP.md"
+            "the paged path runs single-token rows; prefill into a cache "
+            "(the static engine) is queued in ROADMAP.md"
         )
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cache is None:
+        if cfg.pos_emb == "rope":
+            positions = torch.arange(Sq, device=x.device)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        y = ops.flash_attention(q, k, v, causal=True,
+                                implementation=implementation)
+        return _out(y, p["wo"]), None
     pool_k, pool_v = cache["k"], cache["v"]
     if mixed is None:
         lengths = cache_index

@@ -1,10 +1,13 @@
-"""Top-level model builders for paged serving (port of the serving subset
-of ``repro/models/model_zoo.py``): ``init_params``,
+"""Top-level model builders for decoder-only attention stacks (port of
+the training and paged-serving subsets of ``repro/models/model_zoo.py``):
+``init_params``, ``forward_train``, ``loss_fn``,
 ``init_paged_serve_cache``, ``paged_mixed_step`` and
-``paged_decode_step`` for decoder-only attention stacks.
+``paged_decode_step``. Batches are ``{"tokens": (B, S), "targets": (B,
+S)}`` with -1 marking masked-out targets.
 
-Training forwards, the static-cache prefill/decode and the speculative
-verify step are queued in ROADMAP.md.
+The chunked cross-entropy (``ce_chunk``), remat, the static-cache
+prefill/decode and the speculative verify step are queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -51,10 +54,10 @@ class ApplyCfg:
         )
 
 
-def _check_serving(cfg: ArchConfig) -> None:
+def _check_decoder(cfg: ArchConfig) -> None:
     if cfg.structure != "decoder_only":
         raise NotImplementedError(
-            f"{cfg.name} is {cfg.structure}: the port serves decoder-only "
+            f"{cfg.name} is {cfg.structure}: the port runs decoder-only "
             "models (other families are queued in ROADMAP.md)"
         )
 
@@ -64,7 +67,7 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
 
     ``gen`` is a ``torch.Generator`` on ``device`` or an int seed.
     ``device`` defaults to "cuda" and raises without a card."""
-    _check_serving(cfg)
+    _check_decoder(cfg)
     device = resolve_device(device)
     if isinstance(gen, int):
         gen = torch.Generator(device=device).manual_seed(gen)
@@ -77,12 +80,46 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     }
 
 
+def forward_train(params, batch, cfg: ArchConfig, *,
+                  ac: ApplyCfg = ApplyCfg()):
+    """Causal LM forward over ``batch["tokens"] (B, S)`` at positions
+    0..S-1, through the flash-attention and grouped-GEMM kernels (and
+    their backward kernels under autograd) on a CUDA device. Returns
+    (logits (B, S, V) float32, metrics)."""
+    _check_decoder(cfg)
+    tokens = batch["tokens"].long()
+    ac = ac.resolve(tokens.device)
+    S = tokens.shape[1]
+    x = embed_apply(params["embed"], tokens, cfg,
+                    positions=torch.arange(S, device=tokens.device))
+    x, mets, _ = _stack(params, x, cfg, ac)
+    x = norm_apply(params["final_norm"], x, cfg)
+    return head_apply(params.get("head", {}), x, params["embed"],
+                      cfg).float(), mets
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+    """Returns (loss, metrics): mean cross-entropy over the valid
+    targets (``targets >= 0``) plus the weighted MoE aux and z losses."""
+    logits, mets = forward_train(params, batch, cfg, ac=ac)
+    targets = batch["targets"].long()
+    valid = targets >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    ce_tok = -torch.gather(logp, -1, targets.clamp(min=0)[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, ce_tok, torch.zeros_like(ce_tok)).sum() / denom
+    loss = ce + mets["aux_loss"] + mets["z_loss"]
+    out = dict(mets)
+    out.update(loss=loss, ce=ce)
+    return loss, out
+
+
 def init_paged_serve_cache(cfg: ArchConfig, num_blocks: int,
                            block_size: int, *, dtype=torch.bfloat16,
                            device=None):
     """Per-layer KV block pools addressed by shared per-slot block
     tables. ``device`` defaults to "cuda" and raises without a card."""
-    _check_serving(cfg)
+    _check_decoder(cfg)
     device = resolve_device(device)
     return {"stack": stk.stack_paged_cache_init(
         cfg, stk.layer_descs(cfg), num_blocks, block_size, dtype=dtype,

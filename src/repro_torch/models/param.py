@@ -49,6 +49,26 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_zip_map(fn, tree, *others):
+    """Apply ``fn(leaf, *others_at_leaf)`` over ``tree``'s structure;
+    each of ``others`` mirrors ``tree`` down to its leaves (where it may
+    hold any object, e.g. an optimizer's per-leaf slot dict)."""
+    if isinstance(tree, dict):
+        return {k: tree_zip_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zip_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` in the order of
+    :func:`tree_leaves`."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

@@ -4,8 +4,10 @@ of ``repro/models/stack.py``).
 Params of each segment position are stacked over repeats with a leading
 axis, exactly the JAX layout (``stack/segments/<i>/pos<j>/...``). JAX
 scans over that axis; the port walks it with a Python loop, taking
-per-layer views. Per-layer KV pools are slices of one
-``(reps, P, bs, Kh, dh)`` tensor per position, written in place.
+per-layer views (gradients flow back into the stacked leaves). Per-layer
+KV pools are slices of one ``(reps, P, bs, Kh, dh)`` tensor per
+position, written in place. Without a cache the stack runs the dense
+training forward.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.models.attention import (
     init_paged_cache,
 )
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,29 +106,41 @@ def layer_init(gen, cfg: ArchConfig, desc: LayerDesc, *,
     return p
 
 
-def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache,
-                cache_index, block_tables, token_mask=None, mixed=None,
-                router_kind: str = "top_k", dispatch: str = "sorted",
-                moe_impl: str = "auto", attn_impl: str = "auto"):
-    """One pre-norm decoder layer over single-token rows. Returns
-    (x, metrics, cache)."""
+def zero_metrics(device=None):
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("aux_loss", "z_loss", "dropped_frac_sum",
+                      "moe_layer_count")}
+
+
+def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
+                cache_index=None, block_tables=None, token_mask=None,
+                mixed=None, router_kind: str = "top_k",
+                dispatch: str = "sorted", moe_impl: str = "auto",
+                attn_impl: str = "auto"):
+    """One pre-norm decoder layer: the dense training forward over
+    (B, S, d) when ``cache`` is None, else paged single-token rows.
+    Returns (x, metrics, cache)."""
     h = norm_apply(p["pre_norm"], x, cfg)
     y, mix_cache = attention_apply(
-        p["mixer"], h, cfg, cache=cache["mixer"], cache_index=cache_index,
-        block_tables=block_tables, mixed=mixed, implementation=attn_impl,
+        p["mixer"], h, cfg, cache=None if cache is None else cache["mixer"],
+        cache_index=cache_index, block_tables=block_tables, mixed=mixed,
+        implementation=attn_impl,
     )
     x = x + y
     h = norm_apply(p["ffn_norm"], x, cfg)
-    metrics = {}
+    metrics = {}  # a dense layer adds nothing to zero_metrics()
     if desc.ffn == "moe":
-        y, metrics = moe_apply(
+        y, m = moe_apply(
             p["ffn"], h, cfg, cfg.moe, router_kind=router_kind,
             dispatch=dispatch, implementation=moe_impl,
             token_mask=token_mask,
         )
+        metrics = {"aux_loss": m["aux_loss"], "z_loss": m["z_loss"],
+                   "dropped_frac_sum": m["dropped_frac"],
+                   "moe_layer_count": torch.ones_like(m["aux_loss"])}
     else:
         y = mlp_apply(p["ffn"], h, cfg)
-    return x + y, metrics, {"mixer": mix_cache}
+    return x + y, metrics, None if cache is None else {"mixer": mix_cache}
 
 
 def _stack_trees(trees):
@@ -170,27 +184,41 @@ def stack_paged_cache_init(cfg: ArchConfig, descs, num_blocks: int,
     return {"segments": out}
 
 
-def stack_apply(params, x, cfg: ArchConfig, descs, *, cache, cache_index,
-                block_tables, token_mask=None, mixed=None,
-                router_kind: str = "top_k", dispatch: str = "sorted",
-                moe_impl: str = "auto", attn_impl: str = "auto"):
-    """Apply every layer in order; the pools in ``cache`` are updated in
-    place. Returns (x, summed metrics, cache)."""
-    totals: dict = {}
+def _per_layer(tree, reps: int) -> list:
+    """Per-layer views of a stacked tree, through ONE unbind per leaf:
+    its backward stacks the layers' gradients once, where indexing each
+    layer would add a full-size gradient into the stacked leaf per
+    layer."""
+    unbound = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[r] for u in unbound])
+            for r in range(reps)]
+
+
+def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
+                cache_index=None, block_tables=None, token_mask=None,
+                mixed=None, router_kind: str = "top_k",
+                dispatch: str = "sorted", moe_impl: str = "auto",
+                attn_impl: str = "auto"):
+    """Apply every layer in order: the training forward when ``cache``
+    is None, else the paged serve step with the pools in ``cache``
+    updated in place. Returns (x, summed metrics, cache)."""
+    totals = zero_metrics(x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
-        seg_params = params["segments"][si]
-        seg_cache = cache["segments"][si]
+        seg_params = {k: _per_layer(v, reps)
+                      for k, v in params["segments"][si].items()}
         for r in range(reps):
             for i, d in enumerate(pdescs):
                 take = lambda t: t[r]  # noqa: E731
+                layer_cache = None if cache is None else tree_map(
+                    take, cache["segments"][si][f"pos{i}"])
                 x, m, _ = layer_apply(
-                    tree_map(take, seg_params[f"pos{i}"]), x, cfg, d,
-                    cache=tree_map(take, seg_cache[f"pos{i}"]),
-                    cache_index=cache_index, block_tables=block_tables,
-                    token_mask=token_mask, mixed=mixed,
-                    router_kind=router_kind, dispatch=dispatch,
-                    moe_impl=moe_impl, attn_impl=attn_impl,
+                    seg_params[f"pos{i}"][r], x, cfg, d,
+                    cache=layer_cache, cache_index=cache_index,
+                    block_tables=block_tables, token_mask=token_mask,
+                    mixed=mixed, router_kind=router_kind,
+                    dispatch=dispatch, moe_impl=moe_impl,
+                    attn_impl=attn_impl,
                 )
                 for k, v in m.items():
-                    totals[k] = totals[k] + v if k in totals else v
+                    totals[k] = totals[k] + v
     return x, totals, cache

@@ -1,9 +1,11 @@
-"""Port parity: paged attention of ``repro_torch`` against the JAX
-package — the row/decode cache writes, the plain decode and prefill
-attention against JAX ``ops.*`` on "xla" and "pallas" (interpret mode),
-and ``attention_apply`` in mixed and decode-only mode. All in float32
-at atol 1e-5 (bf16 pools: both sides read the same bf16 values and
-accumulate in f32). The CUDA kernels are held against the plain
+"""Port parity: attention of ``repro_torch`` against the JAX package —
+the row/decode cache writes, the plain decode and prefill attention
+against JAX ``ops.*`` on "xla" and "pallas" (interpret mode), the plain
+flash forward and backward against the Pallas kernels (interpret mode),
+the differentiable ``ops.flash_attention`` against ``jax.grad``, and
+``attention_apply`` in mixed, decode-only and dense training mode. All
+in float32 at atol 1e-5 (bf16 pools: both sides read the same bf16
+values and accumulate in f32). The CUDA kernels are held against the plain
 versions on the card in ``test_torch_kernels.py``."""
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs import get_reduced as jax_reduced
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro.models import param as jpm
@@ -259,3 +262,95 @@ def test_attention_apply_decode_only_matches_jax(layer):
     _close(ty, jy)
     for n in ("k", "v"):
         _close(tc[n][1:], jc[n][1:])
+
+
+# ---------------------------------------------------------------------------
+# dense flash attention (training): forward, backward, autograd
+# ---------------------------------------------------------------------------
+# (B, Sq, Skv, H, Kh, dh, causal, q_offset, kv_len)
+FLASH_CASES = [
+    (2, 12, 12, 4, 2, 16, True, 0, None),      # training: causal GQA
+    (1, 9, 20, 8, 2, 8, True, 7, 15),          # offset queries, kv_len
+    (2, 10, 14, 4, 4, 8, False, 0, 11),        # non-causal, kv_len mask
+    (1, 8, 16, 4, 1, 8, True, -3, 16),         # rows 0-2: no valid key
+]
+
+
+def _flash_case(case, seed=0):
+    B, Sq, Skv, H, Kh, dh = case[:6]
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return f(B, Sq, H, dh), f(B, Skv, Kh, dh), f(B, Skv, Kh, dh), \
+        f(B, Sq, H, dh)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_forward_plain_matches_pallas(case):
+    from repro_torch.kernels import ref
+
+    *_, causal, qoff, kvlen = case
+    q, k, v, _ = _flash_case(case)
+    jo, jlse = jfa.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_offset=qoff, kv_len=kvlen, interpret=True, return_residuals=True)
+    to, tlse = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                                       q_offset=qoff, kv_len=kvlen)
+    _close(to, jo)
+    jlse = np.asarray(jlse)[..., :q.shape[1]]
+    np.testing.assert_allclose(tlse.numpy(), jlse, atol=ATOL, rtol=ATOL)
+    if qoff < 0:
+        # A row with no valid key: exact zeros and lse = +inf.
+        assert np.isinf(tlse.numpy()[..., :-qoff]).all()
+        assert not to[:, :-qoff].any()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_backward_plain_matches_pallas(case):
+    from repro_torch.kernels import ref
+
+    *_, causal, qoff, kvlen = case
+    q, k, v, do = _flash_case(case, seed=1)
+    kw = dict(causal=causal, q_offset=qoff, kv_len=kvlen)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa.flash_attention_pallas(jq, jk, jv, interpret=True,
+                                          return_residuals=True, **kw)
+    jgrads = jfa._flash_attention_pallas_bwd(
+        jq, jk, jv, jo, jlse, jdo, qoff,
+        k.shape[1] if kvlen is None else kvlen,
+        causal=causal, bq=None, bk=None, interpret=True)
+    to, tlse = ref.flash_attention_ref(_t(q), _t(k), _t(v), **kw)
+    tgrads = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), to, tlse,
+                                         _t(do), **kw)
+    for name, t, j in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
+                                   rtol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:2])
+def test_flash_autograd_matches_jax_grad(case):
+    *_, causal, qoff, kvlen = case
+    q, k, v, w = _flash_case(case, seed=2)
+    kw = dict(causal=causal, q_offset=qoff, kv_len=kvlen)
+
+    def jloss(q, k, v):
+        o = jops.flash_attention(q, k, v, implementation="pallas", **kw)
+        return jnp.sum(o * jnp.asarray(w))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    xs = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = ops.flash_attention(*xs, **kw)
+    tg = torch.autograd.grad((o * _t(w)).sum(), xs)
+    for t, j in zip(tg, jg):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
+                                   rtol=ATOL)
+
+
+def test_attention_apply_dense_matches_jax(layer):
+    jcfg, cfg, vals, tvals = layer
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 11, cfg.d_model)).astype(np.float32)
+    jy, _ = jattn.attention_apply(vals, jnp.asarray(x), jcfg,
+                                  implementation="xla")
+    ty, cache = tattn.attention_apply(tvals, _t(x), cfg)
+    assert cache is None
+    _close(ty, jy)

@@ -97,3 +97,142 @@ def test_grouped_kernel_matches_plain(cuda, dtype, act, gated):
     got = ops.grouped_mlp(*args, act=act, implementation="cuda")
     want = ops.grouped_mlp(*args, act=act, implementation="eager")
     torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# training kernels: flash attention forward/backward, grouped backward
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, Kh, dh, causal, q_offset, kv_len)
+FLASH_CASES = [
+    (2, 64, 64, 16, 8, 64, True, 0, None),     # granite's heads, causal
+    (1, 37, 50, 4, 2, 16, True, 13, 45),       # ragged tiles, offset
+    (2, 70, 70, 8, 1, 64, False, 0, 51),       # non-causal, kv_len mask
+    (1, 20, 40, 4, 4, 32, True, -10, 40),      # rows with no valid key
+]
+
+
+def _flash_inputs(rng, dev, dtype, B, Sq, Skv, H, Kh, dh):
+    t = lambda *s: torch.tensor(rng.normal(size=s), dtype=dtype,  # noqa
+                                device=dev)
+    return t(B, Sq, H, dh), t(B, Skv, Kh, dh), t(B, Skv, Kh, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, Sq, Skv, H, Kh, dh, causal, qoff, kvlen = case
+    rng = np.random.default_rng(Sq)
+    q, k, v = _flash_inputs(rng, cuda, dtype, B, Sq, Skv, H, Kh, dh)
+    kvlen = Skv if kvlen is None else kvlen
+    qo, kl = fa.scalar_i32(qoff, cuda), fa.scalar_i32(kvlen, cuda)
+    kw = dict(causal=causal, q_offset=qo, kv_len=kl)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, qo, kl, causal=causal)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_ref, **_tol(dtype))
+    torch.testing.assert_close(lse, lse_ref, **_tol(torch.float32))
+    dead = torch.isinf(lse_ref)
+    if qoff < 0:
+        assert bool(dead.any())
+    assert torch.equal(torch.isinf(lse), dead)
+    dead_rows = dead.transpose(1, 2)[..., None].expand_as(o)
+    assert bool((o[dead_rows] == 0).all())
+    do = torch.tensor(rng.normal(size=o.shape), dtype=dtype, device=cuda)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o_ref, lse_ref, do, qo, kl,
+                                      causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_cuda_matches_eager(cuda):
+    rng = np.random.default_rng(7)
+    q, k, v = _flash_inputs(rng, cuda, torch.float32, 2, 48, 48, 16, 8, 64)
+    do = torch.tensor(rng.normal(size=q.shape), dtype=torch.float32,
+                      device=cuda)
+    outs = {}
+    for impl in ("cuda", "eager"):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*xs, causal=True, implementation=impl)
+        outs[impl] = (o, *torch.autograd.grad(o, xs, do))
+    for a, b in zip(outs["cuda"], outs["eager"]):
+        torch.testing.assert_close(a, b, **_tol(torch.float32))
+
+
+def _ragged(rng, dev, dtype, counts, E, d):
+    counts = np.asarray(counts, np.int32)
+    G = counts.shape[0]
+    M = ragged_buffer_rows(int(counts.sum(-1).max()), E, ROW_BLOCK)
+    row_off, _ = ragged_row_offsets(torch.tensor(counts), ROW_BLOCK)
+    xs = np.zeros((G, M, d), np.float32)
+    dy = np.zeros((G, M, d), np.float32)
+    for g in range(G):
+        for e in range(E):
+            s, c = int(row_off[g, e]), int(counts[g, e])
+            xs[g, s:s + c] = rng.normal(size=(c, d))
+            dy[g, s:s + c] = rng.normal(size=(c, d))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return t(xs), t(dy), torch.tensor(counts, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,gated,d,f", [("silu", True, 128, 96),
+                                          ("gelu", False, 128, 96),
+                                          ("silu", True, 1024, 512)])
+def test_grouped_backward_kernels_match_plain(cuda, dtype, act, gated, d, f):
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    E = 5
+    xs, dy, counts = _ragged(rng, cuda, dtype,
+                             [[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], E, d)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    # Weights at fan-in scale, as the model initialises them.
+    wi, wo = t(rng.normal(size=(E, d, f)) / d ** 0.5), \
+        t(rng.normal(size=(E, f, d)) / f ** 0.5)
+    wg = t(rng.normal(size=(E, d, f)) / d ** 0.5) if gated else None
+    got = gm.grouped_mlp_bwd_cuda(xs, wi, wg, wo, dy, counts, act=act)
+    want = ref.grouped_mlp_bwd_ref(xs, wi, wg, wo, dy, counts,
+                                   block=ROW_BLOCK, act=act)
+    tol = _tol(dtype)
+    if dtype == torch.float32 and d > 128:
+        # dW sums, over a segment's rows, products whose factors are
+        # themselves sums over d = 1024 terms in another order.
+        tol = dict(atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, **tol)
+    # Dead blocks (tail blocks, empty experts) give dx = 0; an expert
+    # with no rows in any group gets zero dW.
+    nb = xs.shape[1] // ROW_BLOCK
+    _, bl = gm.block_tables(counts.to(torch.int32), ROW_BLOCK, nb)
+    dead = (bl == 0).repeat_interleave(ROW_BLOCK, 1)
+    assert bool((got[0][dead] == 0).all())
+    assert bool((got[1][1] == 0).all()) and bool((got[3][1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_grouped_autograd_cuda_matches_eager(cuda):
+    rng = np.random.default_rng(11)
+    E, d, f = 4, 64, 32
+    xs, dy, counts = _ragged(rng, cuda, torch.float32,
+                             [[20, 0, 5, 31], [16, 2, 0, 0]], E, d)
+    w = lambda *s: torch.tensor(rng.normal(size=s) * 0.1,  # noqa: E731
+                                dtype=torch.float32, device=cuda)
+    wi, wg, wo = w(E, d, f), w(E, d, f), w(E, f, d)
+    outs = {}
+    for impl in ("cuda", "eager"):
+        ps = [p.clone().requires_grad_() for p in (xs, wi, wg, wo)]
+        y = ops.grouped_mlp(*ps, counts, implementation=impl)
+        outs[impl] = (y, *torch.autograd.grad(y, ps, dy))
+    for a, b in zip(outs["cuda"], outs["eager"]):
+        torch.testing.assert_close(a, b, **_tol(torch.float32))

@@ -225,14 +225,20 @@ def test_import_leaves_jax_and_repro_out():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print('ok', len([k for k in sys.modules "
-        "if k.startswith('repro_torch')]))\n"
+        "print('ok', *sorted(k for k in sys.modules "
+        "if k.startswith('repro_torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[1]) >= 20
+    walked = set(res.stdout.split()[1:])
+    assert len(walked) >= 40
+    # The training slice's modules are among those walked.
+    assert {f"repro_torch.{m}" for m in (
+        "core.upcycle", "data.pipeline", "data.synthetic",
+        "kernels.flash_attention", "launch.train", "optim.adafactor",
+        "optim.base", "optim.schedules", "training.train_loop")} <= walked
 
 
 def test_entry_points_need_a_card_unless_cpu(granite, capsys):
