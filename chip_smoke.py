@@ -7,16 +7,18 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository checkout beside this file; exits non-zero otherwise, and on
 any failure, before printing its result line. It
 
-1. prints the card's name and power limit, builds the eight CUDA
+1. prints the card's name and power limit, builds the eleven CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all at once) and prints the build seconds and each kernel's
    registers;
 2. holds each kernel against its plain PyTorch version on the card —
    the serve kernels at the serve shapes below in float32 and bfloat16,
    the training kernels (flash attention forward, dq, dk/dv; grouped
-   dx, dW) at the training shapes in float32 — and times on the
-   device's clock the kernel, the plain version and (where one exists)
-   a single PyTorch library call computing the same function;
+   dx, dW) at the training shapes in float32, the expert-FFN kernels
+   (forward, dx, dW) and the flash kernels without the causal mask at
+   the ViT-B/16 shapes — and times on the device's clock the kernel,
+   the plain version and (where one exists) a PyTorch library yardstick
+   computing the same function;
 3. builds granite-moe-1b-a400m at full width with the package's own
    ``init_params`` (random weights from a seeded generator, dropless
    routing) and runs one mixed step through the kernels with every
@@ -36,7 +38,14 @@ any failure, before printing its result line. It
    launches in that run, then holds the first MoE step's loss and
    gradient norm against the same step through the plain versions and
    witnesses every kernel call of it against its plain version;
-7. prints one JSON line of per-kernel numbers, then the result line
+7. trains the paper's vision model the same way at full width:
+   ViT-B/16 (``vit-b16-upcycled``'s dense parent, batch 104 images x 196
+   patches) takes 2 steps, is upcycled into 32-expert Expert Choice MoE
+   layers in its last 6 layers with the Adafactor state carried over,
+   and takes 4 steps with ``dispatch="gather"`` through the expert-FFN
+   kernels; checks each kernel's launches a step, and holds and
+   witnesses the first MoE step as in 6;
+8. prints one JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -79,19 +88,31 @@ TIE_GAP = 1e-4
 
 # Training (the train cell): global batch 16 x 512 tokens = two routing
 # groups of 4096; 2 dense-parent steps, then 4 steps of the upcycled MoE
-# at the config's own capacity factor. The data task covers the first
-# TASK_VOCAB ids (repro_torch.launch.train).
-TRAIN = dict(batch=16, seq=512, dense_steps=2, moe_steps=4, peak_lr=0.01,
-             warmup=100)
+# at the config's own capacity factor, through the sorted dispatch, with
+# fresh optimizer state. The data task covers the first TASK_VOCAB ids
+# (repro_torch.launch.train).
+TRAIN = dict(arch="granite-moe-1b-a400m", batch=16, seq=512, dense_steps=2,
+             moe_steps=4, peak_lr=0.01, warmup=100, dispatch="sorted",
+             resume_opt=False)
+# The ViT train cell: 104 images x 196 patches = 20,384 tokens, five
+# routing groups of 4096 (the last padded with 96 zero tokens); the
+# vision recipe's Expert Choice layers through the gather dispatch, the
+# dense Adafactor state carried into the MoE (paper §B.6).
+VIT_TRAIN = dict(arch="vit-b16-upcycled", batch=104, seq=196, dense_steps=2,
+                 moe_steps=4, peak_lr=0.01, warmup=100, dispatch="gather",
+                 resume_opt=True)
 # First MoE step, kernels vs plain: the loss within 1e-4 relative, the
 # global gradient norm within 1e-3 relative (f32 summation order through
 # 24 layers of forward and backward, on conditioned weights).
 LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3
 
 SERVE_KERNELS = ("decode_attention", "paged_prefill", "grouped_mlp")
-TRAIN_KERNELS = ("flash_attention", "flash_attention_dq",
-                 "flash_attention_dkv", "grouped_mlp", "grouped_mlp_dx",
-                 "grouped_mlp_dw")
+FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv")
+TRAIN_KERNELS = FLASH_KERNELS + ("grouped_mlp", "grouped_mlp_dx",
+                                 "grouped_mlp_dw")
+EXPERT_KERNELS = ("expert_mlp", "expert_mlp_dx", "expert_mlp_dw")
+VIT_KERNELS = FLASH_KERNELS + EXPERT_KERNELS
 
 
 def fail(msg: str) -> None:
@@ -308,6 +329,21 @@ def grouped_work(c, itemsize):
     return nbytes, 6 * rows * d * f
 
 
+def _record(kname, src, replaces, max_err, ms, plain_ms, nbytes, flops,
+            lib_ms, dtype="float32"):
+    """One kernel's JSON record; its bound is the larger of the bytes
+    over the memory rate and the FLOPs over the dtype's peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return {
+        "name": kname, "route": "cuda", "source": src,
+        "replaces": replaces, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    }
+
+
 def check_kernels(cfg, device):
     """Every kernel against its plain version, f32 and bf16, with times.
     Returns the per-kernel JSON records (float32, the serve dtype)."""
@@ -398,15 +434,8 @@ def check_kernels(cfg, device):
             plain_ms = (time_synced_ms if kname == "grouped_mlp"
                         else time_ms)(lambda: plain(*args), flush=flush)
             lib_ms = time_ms(lib, flush=flush) if lib is not None else None
-            t_bytes = nbytes / PEAK_BYTES_S * 1e3
-            t_ops = flops / PEAK_FLOP_S[name] * 1e3
-            rec = {
-                "name": kname, "route": "cuda", "source": src,
-                "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms,
-            }
+            rec = _record(kname, src, replaces, max_err, ms, plain_ms, nbytes,
+                          flops, lib_ms, dtype=name)
             if tables_ms is not None:
                 rec["tables_ms"] = tables_ms
             print(f"[kernel] {kname} {name}: max_abs_err={max_err:.3e} "
@@ -466,12 +495,12 @@ def train_cases(cfg, device, gen):
                  wo=mk(E, f, d, fan=f), counts=counts))
 
 
-def flash_work(a, kind):
+def flash_work(a, kind, causal=True):
     """Bytes (inputs once, outputs once) and FLOPs of one flash call on
-    these causal inputs: the live (query, key) pairs only."""
+    these inputs: the live (query, key) pairs only."""
     B, S, H, dh = a["q"].shape
     Kh = a["k"].shape[2]
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     q_b, kv_b, row_b = B * S * H * dh * 4, B * S * Kh * dh * 4, B * H * S * 4
     if kind == "fwd":  # q, k, v -> o, lse; QK^T and PV
         return 2 * q_b + 2 * kv_b + row_b, 4 * dh * pairs
@@ -615,15 +644,8 @@ def check_train_kernels(cfg, device):
         plain_ms = (time_synced_ms if kname.startswith("grouped")
                     else time_ms)(plain, flush=flush)
         lib_ms = time_ms(lib, flush=flush) if lib is not None else None
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOP_S["float32"] * 1e3
-        rec = {
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-        }
+        rec = _record(kname, src, replaces, max_err, ms, plain_ms, nbytes,
+                      flops, lib_ms)
         print(f"[train-kernel] {kname} float32: ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -631,6 +653,220 @@ def check_train_kernels(cfg, device):
               f"{nbytes} B, {flops} FLOP)", flush=True)
         records.append(rec)
     return records
+
+
+def vit_cases(cfg, device, gen):
+    """Flash and expert-FFN inputs at the ViT train cell's shapes: q, k,
+    v, dO (104, 196, 12, 64), non-causal; the padded capacity buffer
+    xe (5, 32, 256, 768) of five routing groups with every Expert Choice
+    slot filled, dy, wi/wg (32, 768, 3072) and wo (32, 3072, 768) at
+    fan-in scale."""
+    import torch
+
+    from repro_torch.core.routing import capacity
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S = VIT_TRAIN["batch"], cfg.n_frontend_positions
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    a = dict(q=rnd(B, S, H, dh), k=rnd(B, S, Kh, dh), v=rnd(B, S, Kh, dh),
+             do=rnd(B, S, H, dh), qo=fa.scalar_i32(0, device),
+             kl=fa.scalar_i32(S, device))
+    moe = cfg.moe
+    G = -(-B * S // moe.group_size)
+    E, cap, d, f = moe.num_experts, capacity(moe.group_size, moe), \
+        cfg.d_model, cfg.d_ff
+    mk = lambda *s, fan: rnd(*s) / fan ** 0.5  # noqa: E731
+    c = dict(xe=rnd(G, E, cap, d), dy=rnd(G, E, cap, d),
+             wi=mk(E, d, f, fan=d), wg=mk(E, d, f, fan=d),
+             wo=mk(E, f, d, fan=f))
+    return a, c
+
+
+def expert_work(c, kind):
+    """Bytes (inputs once, outputs once) and FLOPs of one ungated f32
+    expert-FFN kernel call over every row of the buffer (Expert Choice
+    fills every slot)."""
+    G, E, cap, d = c["xe"].shape
+    f = c["wi"].shape[-1]
+    rows, wbytes = G * E * cap, 2 * E * d * f * 4
+    if kind == "fwd":  # x, wi, wo -> y: x wi, h wo
+        return 2 * rows * d * 4 + wbytes, 4 * rows * d * f
+    if kind == "dx":  # x, dy, wi, wo -> dx, da, h: a, dh, da wi^T
+        return 3 * rows * d * 4 + wbytes + 2 * rows * f * 4, \
+            6 * rows * d * f
+    # dW: x, dy, da, h -> dwi, dwo
+    return 2 * rows * d * 4 + 2 * rows * f * 4 + wbytes, 4 * rows * d * f
+
+
+def check_vit_kernels(cfg, device):
+    """The three expert-FFN kernels (float32, the forward in bfloat16
+    too; ungated gelu as the ViT runs them, and gated silu) and the
+    flash kernels without the causal mask, at the ViT train cell's
+    shapes, against their plain versions, with times. The expert
+    kernels' library yardstick is the float32 ``torch.matmul`` chain
+    over the same rows (forward: x wi, gelu, @ wo — 3 calls; dx:
+    recompute a, dh, gelu's backward, @ wi^T — 4 calls; dW: x^T da and
+    h^T dy — 2 calls). Returns (the expert kernels' JSON records, the
+    flash kernels' numbers at these shapes by name)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    a, c = vit_cases(cfg, device, gen)
+    atol, rtol = TOL["float32"]
+
+    def held(tag, y, y_ref, tol=TOL["float32"]):
+        err, ratio = _max_err(y, y_ref, *tol)
+        print(f"[vit-kernel] {tag}: max |kernel - plain| = {err:.3e}, "
+              f"max err / limit = {ratio:.3f} (atol {tol[0]}, rtol "
+              f"{tol[1]})", flush=True)
+        if not ratio <= 1.0:
+            fail(f"{tag}: kernel and plain version differ beyond their "
+                 f"tolerance (ratio {ratio:.3g})")
+        return err
+
+    # Checks only: the gated (silu) kernels and the bf16 forward.
+    xe, dy, wi, wg, wo = (c[k] for k in ("xe", "dy", "wi", "wg", "wo"))
+    held("expert_mlp gated silu float32",
+         em.expert_ffn_cuda(xe, wi, wg, wo, act="silu"),
+         ref.expert_ffn_ref(xe, wi, wg, wo, act="silu"))
+    gdx = em.expert_ffn_dx_cuda(xe, wi, wg, wo, dy, act="silu")
+    held("expert_mlp_dx gated silu float32", gdx,
+         ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act="silu"))
+    held("expert_mlp_dw gated silu float32", em.expert_ffn_dw_cuda(
+        xe, dy, *gdx[1:]), ref.expert_ffn_dw_ref(xe, dy, *gdx[1:]))
+    del gdx
+    bf = [t.to(torch.bfloat16) for t in (xe, wi, wo)]
+    held("expert_mlp gelu bfloat16",
+         em.expert_ffn_cuda(bf[0], bf[1], None, bf[2], act="gelu"),
+         ref.expert_ffn_ref(bf[0], bf[1], None, bf[2], act="gelu"),
+         TOL["bfloat16"])
+    del bf, wg
+    torch.cuda.empty_cache()
+
+    # The ViT's own kernels (ungated gelu), checked and timed.
+    dxs = em.expert_ffn_dx_cuda(xe, wi, None, wo, dy, act="gelu")
+    scratch = (dxs[1], None, dxs[3])
+    # The yardstick's inputs: each expert's G * cap rows together (set-up,
+    # not timed).
+    G, E, cap, d = xe.shape
+    xt = xe.transpose(0, 1).reshape(E, G * cap, d).contiguous()
+    dyt = dy.transpose(0, 1).reshape(E, G * cap, d).contiguous()
+    da_t = dxs[1].transpose(0, 1).reshape(E, G * cap, -1).contiguous()
+    h_t = dxs[3].transpose(0, 1).reshape(E, G * cap, -1).contiguous()
+    gelu = lambda t: F.gelu(t, approximate="tanh")  # noqa: E731
+
+    def lib_fwd():
+        torch.matmul(gelu(torch.matmul(xt, wi)), wo)
+
+    def lib_dx():
+        at = torch.matmul(xt, wi)
+        dh = torch.matmul(dyt, wo.transpose(1, 2))
+        da = torch.ops.aten.gelu_backward(dh, at, approximate="tanh")
+        torch.matmul(da, wi.transpose(1, 2))
+
+    def lib_dw():
+        torch.matmul(xt.transpose(1, 2), da_t)
+        torch.matmul(h_t.transpose(1, 2), dyt)
+
+    cases = [
+        ("expert_mlp", lambda: em.expert_ffn_cuda(xe, wi, None, wo,
+                                                  act="gelu"),
+         lambda: ref.expert_ffn_ref(xe, wi, None, wo, act="gelu"),
+         expert_work(c, "fwd"), lib_fwd, 3,
+         "src/repro_torch/kernels/csrc/expert_mlp.cu",
+         "src/repro/kernels/expert_mlp.py:79"),
+        ("expert_mlp_dx", lambda: em.expert_ffn_dx_cuda(xe, wi, None, wo, dy,
+                                                        act="gelu"),
+         lambda: ref.expert_ffn_dx_ref(xe, wi, None, wo, dy, act="gelu"),
+         expert_work(c, "dx"), lib_dx, 4,
+         "src/repro_torch/kernels/csrc/expert_mlp_bwd.cu",
+         "src/repro/kernels/expert_mlp.py:227"),
+        ("expert_mlp_dw", lambda: em.expert_ffn_dw_cuda(xe, dy, *scratch),
+         lambda: ref.expert_ffn_dw_ref(xe, dy, *scratch),
+         expert_work(c, "dw"), lib_dw, 2,
+         "src/repro_torch/kernels/csrc/expert_mlp_bwd.cu",
+         "src/repro/kernels/expert_mlp.py:299"),
+    ]
+    records = []
+    for kname, kern, plain, (nbytes, flops), lib, ncalls, src, rep in cases:
+        y = kern()
+        torch.cuda.synchronize()
+        err = held(f"{kname} gelu float32", y, plain())
+        del y
+        ms = time_ms(kern, flush=flush)
+        plain_ms = time_ms(plain, flush=flush)
+        lib_ms = time_ms(lib, flush=flush)
+        rec = _record(kname, src, rep, err, ms, plain_ms, nbytes, flops,
+                      lib_ms)
+        rec["library_calls"] = ncalls
+        print(f"[vit-kernel] {kname} float32: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"({ncalls} torch calls) bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}: {nbytes} B, {flops} FLOP)", flush=True)
+        records.append(rec)
+    del dxs, scratch, xt, dyt, da_t, h_t, c, xe, dy, wi, wo
+    torch.cuda.empty_cache()
+
+    # Flash attention, non-causal, MHA, S = 196 (a ragged last kv tile).
+    kw = dict(causal=False, q_offset=a["qo"], kv_len=a["kl"])
+    o, lse = fa.flash_attention_fwd_cuda(a["q"], a["k"], a["v"], a["qo"],
+                                         a["kl"], causal=False)
+    delta = fa.attention_delta(o, a["do"])
+    bwd_args = (a["q"], a["k"], a["v"], a["do"], lse, delta)
+    lq, lk, lv = (a[n].transpose(1, 2).contiguous().requires_grad_()
+                  for n in ("q", "k", "v"))
+    lo = F.scaled_dot_product_attention(lq, lk, lv)
+    ldo = a["do"].transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(lq, lk, lv)
+
+    def sdpa_bwd():
+        torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+    flash = [
+        ("flash_attention",
+         lambda: fa.flash_attention_fwd_cuda(a["q"], a["k"], a["v"], a["qo"],
+                                             a["kl"], causal=False),
+         lambda: ref.flash_attention_ref(a["q"], a["k"], a["v"], **kw),
+         "fwd", sdpa_fwd),
+        ("flash_attention_dq",
+         lambda: fa.flash_attention_dq_cuda(*bwd_args, a["qo"], a["kl"],
+                                            causal=False),
+         lambda: ref.flash_attention_dq_ref(*bwd_args, **kw), "dq",
+         sdpa_bwd),
+        ("flash_attention_dkv",
+         lambda: fa.flash_attention_dkv_cuda(*bwd_args, a["qo"], a["kl"],
+                                             causal=False),
+         lambda: ref.flash_attention_dkv_ref(*bwd_args, **kw), "dkv",
+         sdpa_bwd),
+    ]
+    at_vit = {}
+    for kname, kern, plain, kind, lib in flash:
+        y = kern()
+        torch.cuda.synchronize()
+        err = held(f"{kname} non-causal float32", y, plain())
+        nbytes, flops = flash_work(a, kind, causal=False)
+        rec = _record(kname, "", "", err, time_ms(kern, flush=flush),
+                      time_ms(plain, flush=flush), nbytes, flops,
+                      time_ms(lib, flush=flush))
+        at_vit[kname] = {k: rec[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        print(f"[vit-kernel] {kname} non-causal {tuple(a['q'].shape)} float32: "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']:.4f} bound_ms="
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes} B, "
+              f"{flops} FLOP)", flush=True)
+    return records, at_vit
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +967,7 @@ def witnessed_kernels():
     import torch
 
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import expert_mlp as em
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import paged_prefill as pp
@@ -765,6 +1002,9 @@ def witnessed_kernels():
          flash_bwd_plain(ref.flash_attention_dkv_ref)),
         (gm, "grouped_mlp_dx_cuda", "grouped_mlp_dx", dx_plain),
         (gm, "grouped_mlp_dw_cuda", "grouped_mlp_dw", ref.grouped_mlp_dw_ref),
+        (em, "expert_ffn_cuda", "expert_mlp", ref.expert_ffn_ref),
+        (em, "expert_ffn_dx_cuda", "expert_mlp_dx", ref.expert_ffn_dx_ref),
+        (em, "expert_ffn_dw_cuda", "expert_mlp_dw", ref.expert_ffn_dw_ref),
     ]
 
     def witness(kern, plain, name):
@@ -833,7 +1073,8 @@ def compare_mixed_step(params, cfg, device):
             for seg in cache["stack"]["segments"]]}}
         return zoo.paged_mixed_step(
             params, *args[:2], c, *args[3:], cfg,
-            ac=zoo.ApplyCfg(moe_impl=impl, attn_impl=impl))[1]
+            ac=zoo.ApplyCfg(dispatch="sorted", moe_impl=impl,
+                            attn_impl=impl))[1]
 
     out = {}
     with witnessed_kernels() as wit:
@@ -858,94 +1099,124 @@ def _sync_ms(t0) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def train_path(cfg, device):
+def train_path(cfg, device, spec, kernels):
     """Dense parent -> upcycle -> MoE, through the kernels, at full
-    width. Returns (launches of the run, and the first MoE step's params
-    (a copy), batch and metrics)."""
+    width, as ``spec`` (TRAIN, VIT_TRAIN) sets it out. Every kernel in
+    ``kernels`` must launch; in every step each attention kernel runs
+    once a layer, and in every MoE step each of the path's expert
+    kernels once a MoE layer. Returns (launches of the run, and the
+    first MoE step's params (a copy), batch and metrics)."""
     import torch
 
-    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.core.upcycle import upcycle_opt_state, upcycle_params
     from repro_torch.data import ClusteredBigramTask, make_iterator
     from repro_torch.kernels import ops
     from repro_torch.launch.train import TASK_VOCAB
     from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
     from repro_torch.models.param import count_params, tree_map
     from repro_torch.optim import adafactor, inverse_sqrt
     from repro_torch.training import init_train_state, make_train_step
 
+    name = spec["arch"]
     dense_cfg = cfg.dense_parent()
-    opt = adafactor(inverse_sqrt(peak=TRAIN["peak_lr"],
-                                 warmup_steps=TRAIN["warmup"]))
+    encoder = cfg.structure == "encoder_only"
+    opt = adafactor(inverse_sqrt(peak=spec["peak_lr"],
+                                 warmup_steps=spec["warmup"]))
     task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
-    it = make_iterator(dense_cfg, global_batch=TRAIN["batch"],
-                       seq_len=TRAIN["seq"], task=task)
+    it = make_iterator(dense_cfg, global_batch=spec["batch"],
+                       seq_len=spec["seq"], task=task)
     gen = torch.Generator(device=device).manual_seed(0)
     params = zoo.init_params(gen, dense_cfg, device=device)
     condition_attention(params, dense_cfg)
     state = init_train_state(None, dense_cfg, opt, params=params)
-    ac = zoo.ApplyCfg(dispatch="sorted", moe_impl="cuda", attn_impl="cuda")
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    print(f"[train] {dense_cfg.name}: {count_params(params) / 1e9:.3f} B "
-          f"params; batch {TRAIN['batch']} x {TRAIN['seq']} = {tokens} "
-          f"tokens a step (task vocab {task.vocab_size})", flush=True)
+    ac = zoo.ApplyCfg(dispatch=spec["dispatch"], moe_impl="cuda",
+                      attn_impl="cuda")
+    tokens = spec["batch"] * spec["seq"]
+    what = "images" if encoder else "sequences"
+    print(f"[{name}] {dense_cfg.name}: {count_params(params) / 1e9:.3f} B "
+          f"params; batch {spec['batch']} {what} x {spec['seq']} = {tokens} "
+          f"tokens a step" + ("" if encoder else
+                              f" (task vocab {task.vocab_size})"),
+          flush=True)
+    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
+    moe_kernels = [k for k in kernels if k not in FLASH_KERNELS]
     rows = []
 
     def run(step_fn, st, batch, tag):
+        before = ops.launch_counts()
         t0 = time.perf_counter()
         st, m = step_fn(st, batch)
         ms = _sync_ms(t0)
         m = {k: float(v) for k, v in m.items()}
-        print(f"[train] {tag} step {int(st['step'])}: loss={m['loss']:.5f} "
+        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ran = {k: v for k, v in per.items() if v}
+        print(f"[{name}] {tag} step {int(st['step'])}: loss={m['loss']:.5f} "
               f"ce={m['ce']:.5f} aux={m['aux_loss']:.5f} "
+              f"dropped={m['dropped_frac_sum']:.4f} "
               f"grad_norm={m['grad_norm']:.5f} skipped={m['skipped']:.0f} "
-              f"ms={ms:.1f}", flush=True)
+              f"ms={ms:.1f} launches={ran}", flush=True)
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
                        m.values())):
             fail(f"{tag} step: non-finite metrics {m}")
         if m["skipped"]:
             fail(f"{tag} step was skipped by the non-finite guard")
+        want = {k: cfg.n_layers for k in FLASH_KERNELS}
+        want.update({k: n_moe if tag == "moe" else 0 for k in moe_kernels})
+        if any(per[k] != v for k, v in want.items()):
+            fail(f"{name} {tag} step launched {per}, expected {want}")
         rows.append((tag, ms, m))
         return st, m
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     dense_step = make_train_step(dense_cfg, opt, ac=ac)
-    for _ in range(TRAIN["dense_steps"]):
+    for _ in range(spec["dense_steps"]):
         state, _ = run(dense_step, state, next(it), "dense")
     t0 = time.perf_counter()
     sparse = upcycle_params(state["params"], dense_cfg, cfg, gen)
-    print(f"[train] upcycled ({cfg.moe.expert_init}) to {cfg.name}: "
+    print(f"[{name}] upcycled ({cfg.moe.expert_init}) to {cfg.name}: "
           f"{count_params(sparse) / 1e9:.3f} B params in "
           f"{_sync_ms(t0):.0f} ms", flush=True)
-    step0 = state["step"]
-    del state, params
     first_params = tree_map(torch.clone, sparse)
     sstate = init_train_state(None, cfg, opt, params=sparse)
-    sstate["step"] = step0  # the step counter carries over
+    if spec["resume_opt"]:
+        # The Adafactor state carries over, its step counter with it.
+        sstate["opt_state"] = upcycle_opt_state(
+            sstate["opt_state"], state["opt_state"], dense_cfg, cfg)
+    sstate["step"] = state["step"]  # the step counter carries over
+    del state, params
     moe_step = make_train_step(cfg, opt, ac=ac)
     first_batch = next(it)
     sstate, first = run(moe_step, sstate, first_batch, "moe")
-    for _ in range(TRAIN["moe_steps"] - 1):
+    for _ in range(spec["moe_steps"] - 1):
         sstate, _ = run(moe_step, sstate, next(it), "moe")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moe_ms = [ms for tag, ms, _ in rows if tag == "moe"]
     dense_ms = [ms for tag, ms, _ in rows if tag == "dense"]
-    print(f"[train] tokens/s: dense {tokens / (sum(dense_ms) / 1e3 / len(dense_ms)):.0f} "
+    rate = lambda ms, n: n / (sum(ms) / 1e3 / len(ms))  # noqa: E731
+    after = (f"; images/s after the first step "
+             f"{rate(moe_ms[1:], spec['batch']):.1f}" if encoder else "")
+    print(f"[{name}] tokens/s: dense {rate(dense_ms, tokens):.0f} "
           f"(steps {', '.join(f'{x:.1f}' for x in dense_ms)} ms), MoE "
-          f"{tokens / (sum(moe_ms) / 1e3 / len(moe_ms)):.0f} (steps "
+          f"{rate(moe_ms, tokens):.0f} (steps "
           f"{', '.join(f'{x:.1f}' for x in moe_ms)} ms); MoE after the "
-          f"first step {tokens / (sum(moe_ms[1:]) / 1e3 / len(moe_ms[1:])):.0f}; "
-          f"peak memory {peak:.1f} GiB", flush=True)
-    print(f"[train] launches: {launches}", flush=True)
-    missing = [k for k in TRAIN_KERNELS if not launches[k]]
+          f"first step {rate(moe_ms[1:], tokens):.0f} ms/step "
+          f"{sum(moe_ms[1:]) / len(moe_ms[1:]):.1f}{after}; peak memory "
+          f"{peak:.1f} GiB ({torch.cuda.max_memory_allocated()} B)",
+          flush=True)
+    print(f"[{name}] launches: {launches}", flush=True)
+    missing = [k for k in kernels if not launches[k]]
     if missing:
-        fail(f"kernels of the training path never launched: {missing}")
+        fail(f"kernels of the {name} training path never launched: "
+             f"{missing}")
     del sstate
     return launches, first_params, first_batch, first
 
 
-def compare_first_moe_step(cfg, device, params, batch, kernel_mets):
+def compare_first_moe_step(cfg, device, params, batch, kernel_mets, spec,
+                           kernels):
     """The first MoE step's loss and gradient norm through the plain
     versions, against the kernels' (from the main path); then the same
     step through the kernels with every kernel call witnessed."""
@@ -955,37 +1226,45 @@ def compare_first_moe_step(cfg, device, params, batch, kernel_mets):
     from repro_torch.optim.base import global_norm
     from repro_torch.training.train_loop import batch_to, loss_and_grads
 
+    from repro_torch.kernels import ops
+
+    name = spec["arch"]
     batch = batch_to(batch, device)
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     grads, m = loss_and_grads(
         params, batch, cfg,
-        ac=zoo.ApplyCfg(dispatch="sorted", moe_impl="eager",
+        ac=zoo.ApplyCfg(dispatch=spec["dispatch"], moe_impl="eager",
                         attn_impl="eager"))
     gn = float(global_norm(grads))
     del grads
     plain_ms = _sync_ms(t0)
+    if any(ops.launch_counts().values()):
+        fail(f"the plain step launched kernels: {ops.launch_counts()}")
     loss = float(m["loss"])
-    print(f"[check] first MoE step, plain versions: loss={loss:.6f} "
-          f"grad_norm={gn:.6f} ({plain_ms:.0f} ms, peak memory "
+    print(f"[check] {name} first MoE step, plain versions (no kernel "
+          f"launched): loss={loss!r} grad_norm={gn!r}; kernels: "
+          f"loss={kernel_mets['loss']!r} grad_norm="
+          f"{kernel_mets['grad_norm']!r} ({plain_ms:.0f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)",
           flush=True)
     d_loss = abs(kernel_mets["loss"] - loss) / abs(loss)
     d_gn = abs(kernel_mets["grad_norm"] - gn) / abs(gn)
-    print(f"[check] first MoE step, kernels vs plain: loss rel diff "
+    print(f"[check] {name} first MoE step, kernels vs plain: loss rel diff "
           f"{d_loss:.3e} (limit {LOSS_RTOL}), grad_norm rel diff {d_gn:.3e} "
           f"(limit {GRAD_NORM_RTOL})", flush=True)
     if not (d_loss <= LOSS_RTOL and d_gn <= GRAD_NORM_RTOL):
-        fail("the first MoE step through the kernels and through the "
-             "plain versions disagree")
+        fail(f"the {name} first MoE step through the kernels and through "
+             "the plain versions disagree")
     with witnessed_kernels() as wit:
         grads, _ = loss_and_grads(
             params, batch, cfg,
-            ac=zoo.ApplyCfg(dispatch="sorted", moe_impl="cuda",
+            ac=zoo.ApplyCfg(dispatch=spec["dispatch"], moe_impl="cuda",
                             attn_impl="cuda"))
         torch.cuda.synchronize()
     del grads
-    report_witness(wit, TRAIN_KERNELS)
+    report_witness(wit, kernels)
 
 
 def main() -> int:
@@ -1018,8 +1297,14 @@ def main() -> int:
     full = get_config("granite-moe-1b-a400m")
     cfg = dataclasses.replace(full, moe=dataclasses.replace(
         full.moe, capacity_factor=float(full.moe.num_experts)))
+    vit = get_config(VIT_TRAIN["arch"])
     records = check_kernels(cfg, device)
     records += check_train_kernels(full, device)
+    vit_records, flash_at_vit = check_vit_kernels(vit, device)
+    records += vit_records
+    for rec in records:
+        if rec["name"] in flash_at_vit:
+            rec["at_vit_shapes"] = flash_at_vit[rec["name"]]
 
     t0 = time.perf_counter()
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
@@ -1099,14 +1384,25 @@ def main() -> int:
 
     # Training: the MoE runs at the config's own capacity factor.
     train_launches, first_params, first_batch, first_mets = train_path(
-        full, device)
+        full, device, TRAIN, TRAIN_KERNELS)
     compare_first_moe_step(full, device, first_params, first_batch,
-                           first_mets)
+                           first_mets, TRAIN, TRAIN_KERNELS)
+    del first_params, first_batch
+    torch.cuda.empty_cache()
+
+    # The paper's vision model: Expert Choice through the gather
+    # dispatch and the expert-FFN kernels.
+    vit_launches, first_params, first_batch, first_mets = train_path(
+        vit, device, VIT_TRAIN, VIT_KERNELS)
+    compare_first_moe_step(vit, device, first_params, first_batch,
+                           first_mets, VIT_TRAIN, VIT_KERNELS)
+    del first_params, first_batch
 
     for rec in records:
         name = rec["name"]
         by_path = {"serve": launches.get(name, 0),
-                   "train": train_launches.get(name, 0)}
+                   "granite_train": train_launches.get(name, 0),
+                   "vit_train": vit_launches.get(name, 0)}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": records}), flush=True)

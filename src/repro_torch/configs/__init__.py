@@ -1,7 +1,8 @@
 """Architecture configuration (port of ``repro/configs/__init__.py``).
 
 A copy of ``ArchConfig``, ``MoECfg`` and the registry; the port
-registers the architectures it serves (``granite-moe-1b-a400m``).
+registers the architectures it runs (``granite-moe-1b-a400m``,
+``vit-b16-upcycled``).
 ``get_reduced`` returns the CPU-test-sized config of the same family.
 """
 from __future__ import annotations
@@ -95,7 +96,7 @@ class ArchConfig:
         )
 
 
-_MODULES = ("granite_moe_1b",)
+_MODULES = ("granite_moe_1b", "vit_upcycled")
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, ArchConfig] = {}

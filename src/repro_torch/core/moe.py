@@ -1,17 +1,25 @@
-"""The MoE layer: router + sorted ragged dispatch + grouped expert FFN +
-scatter-add combine (port of ``repro/core/moe.py``, ``dispatch="sorted"``).
+"""The MoE layer: router + dispatch + expert FFN + combine (port of
+``repro/core/moe.py``). Three dispatches, as in the reference:
 
-The flat assignment stream is stable-sorted by expert into a
-block-aligned ragged buffer ``(G, M, d)`` (M independent of the
-capacity factor) that goes through ``kernels.ops.grouped_mlp``. The
-padded einsum/gather dispatches and expert parallelism are queued in
-ROADMAP.md; asking for them raises.
+* ``"gather"`` (the default) — the padded capacity buffer ``xe (G, E,
+  cap, d)`` gathered from the routers' slot tables, through
+  ``kernels.ops.expert_ffn`` (the expert-FFN kernels on the card), and
+  an ``index_add`` combine into ``(G, g + 1, d)`` (row g takes the
+  unfilled slots);
+* ``"einsum"`` — the same buffer and FFN through one-hot dispatch and
+  combine einsums (the GShard-era path);
+* ``"sorted"`` — the flat assignment stream stable-sorted by expert
+  into a block-aligned ragged buffer ``(G, M, d)`` (M independent of
+  the capacity factor) through ``kernels.ops.grouped_mlp``.
+
+Expert parallelism needs a device mesh and is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig, MoECfg
 from repro_torch.core import routing as R
@@ -35,15 +43,58 @@ def moe_init(gen, cfg: ArchConfig, moe: MoECfg, *, dtype=torch.float32,
             "experts": experts}
 
 
-def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig,
-                     moe: MoECfg, *, implementation: str):
+def expert_ffn(experts, xe, cfg: ArchConfig, *, implementation="auto"):
+    """xe: (G, E, cap, d) -> (G, E, cap, d) through ``ops.expert_ffn``."""
+    return ops.expert_ffn(xe, experts["wi"], experts.get("wg"),
+                          experts["wo"], act=cfg.act,
+                          implementation=implementation)
+
+
+def _gather_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
+                     implementation: str):
+    """Padded gather dispatch: xe[g, e, c] = xg[g, token_idx[g, e, c]]
+    (unfilled slots zeroed), the expert FFN, then the weighted rows
+    added back per token with ``index_add`` (unfilled slots land in the
+    trash row g). On the card the adds run in no fixed order: f32 sums
+    of a token's slots may differ in the last bits from run to run.
+    Returns y (G, g, d)."""
+    G, g, d = xg.shape
+    idx = r.token_idx  # (G, E, cap)
+    safe = torch.clamp(idx, max=g - 1).reshape(G, -1, 1).expand(-1, -1, d)
+    valid = (idx < g)[..., None].to(xg.dtype)
+    xe = torch.gather(xg, 1, safe).reshape(*idx.shape, d) * valid
+    ye = expert_ffn(params["experts"], xe, cfg,
+                    implementation=implementation)
+    w = (r.combine[..., None] * valid).to(ye.dtype)
+    yw = (ye * w).to(xg.dtype).reshape(-1, d)
+    rows = (torch.arange(G, device=xg.device)[:, None] * (g + 1)
+            + idx.reshape(G, -1)).reshape(-1)
+    y = xg.new_zeros((G * (g + 1), d)).index_add(0, rows, yw)
+    return y.reshape(G, g + 1, d)[:, :g]
+
+
+def _einsum_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
+                     implementation: str):
+    """One-hot dispatch and combine (the GShard-era faithful path) over
+    the same padded buffer and expert FFN. Returns y (G, g, d)."""
+    g = xg.shape[1]
+    oh = F.one_hot(r.token_idx, g + 1)[..., :g].to(xg.dtype)
+    xe = torch.einsum("Gect,Gtd->Gecd", oh, xg)
+    ye = expert_ffn(params["experts"], xe, cfg,
+                    implementation=implementation)
+    comb = oh * r.combine[..., None].to(xg.dtype)
+    return torch.einsum("Gect,Gecd->Gtd", comb, ye)
+
+
+def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
+                     implementation: str):
     """Sort the flat assignment stream by expert into a ragged buffer
     aligned to the grouped kernel's row block (:data:`ROW_BLOCK`; results
     do not depend on it), run it through the grouped FFN, unsort through
     a scatter-add combine (one row per surviving assignment, accumulated
     per token). Returns y (G, g, d)."""
     G, g, d = xg.shape
-    E = moe.num_experts
+    E = r.probs.shape[-1]
     tok, eid, w = R.assignment_stream(r, E, g)
     N = tok.shape[1]
     valid = (eid < E) & (tok < g)
@@ -92,21 +143,25 @@ def moe_apply(
     moe: MoECfg,
     *,
     router_kind: Optional[str] = None,
-    dispatch: str = "sorted",
+    dispatch: str = "gather",
     implementation: str = "auto",
     token_mask=None,
 ):
     """x: (B, S, d) or (N, d). Returns (y, metrics dict).
 
+    ``dispatch``: "gather" | "einsum" (padded capacity buffer through
+    the expert FFN) | "sorted" (ragged grouped GEMM); the routing, and
+    so the result, is the same for all three.
+
     ``token_mask``: None, or a bool tensor broadcastable to x's token
     dims — False marks dead tokens (free decode slots, idle chunk
     lanes): they claim no experts, no capacity and no ragged rows, and
     their outputs are zero."""
-    if dispatch != "sorted":
-        raise NotImplementedError(
-            f"dispatch={dispatch!r} is not ported yet; the port runs "
-            "dispatch='sorted' (einsum/gather are queued in ROADMAP.md)"
-        )
+    dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
+                  "sorted": _sorted_dispatch}
+    if dispatch not in dispatches:
+        raise ValueError(f"unknown dispatch {dispatch!r} "
+                         f"{tuple(dispatches)}")
     router_kind = router_kind or moe.router
     orig_shape = x.shape
     x2d = x.reshape(-1, x.shape[-1])
@@ -120,9 +175,10 @@ def moe_apply(
             m1 = torch.cat([m1, m1.new_zeros(pad)])
         mg = m1.reshape(G, g)
     logits = xg.float() @ params["router"]["w"].float()
-    r = R.route(logits, moe, router_kind, token_mask=mg)
-    y = _sorted_dispatch(params, xg, r, cfg, moe,
-                         implementation=implementation)
+    r = R.route(logits, moe, router_kind, token_mask=mg,
+                slot_tables=dispatch != "sorted")
+    y = dispatches[dispatch](params, xg, r, cfg,
+                             implementation=implementation)
     y = y.reshape(-1, d)
     if pad:
         y = y[:n]

@@ -24,7 +24,7 @@ from repro_torch.configs import ArchConfig, MoECfg
 from repro_torch.core.moe import moe_init
 from repro_torch.core.routing import router_init
 from repro_torch.models import stack as stk
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map
 
 
 def _unstack(stack_tree, descs) -> list:
@@ -82,7 +82,10 @@ def _expand_ffn(dense_ffn, cfg: ArchConfig, moe: MoECfg, gen, router):
 def upcycle_params(dense_params, dense_cfg: ArchConfig,
                    target_cfg: ArchConfig, gen=None, *,
                    routers: Optional[Sequence] = None):
-    """Dense values tree -> sparse values tree (Figure 1).
+    """Dense values tree -> sparse values tree (Figure 1). The layers
+    that become MoE are those of ``target_cfg``'s layer pattern (every
+    other, all, or the last half, which splits the stack into a dense
+    and a MoE segment).
 
     ``gen``: a ``torch.Generator`` (or int seed) on the params' device
     for the routers (and for expert noise / random experts). ``routers``:
@@ -91,10 +94,10 @@ def upcycle_params(dense_params, dense_cfg: ArchConfig,
     moe = target_cfg.moe
     if moe is None:
         raise ValueError("target config has no MoE section")
-    if target_cfg.structure != "decoder_only":
+    if target_cfg.structure not in ("decoder_only", "encoder_only"):
         raise NotImplementedError(
-            "the port upcycles decoder-only stacks (encoder stacks are "
-            "queued in ROADMAP.md)")
+            "the port upcycles decoder-only and encoder-only stacks (the "
+            "encoder-decoder family is queued in ROADMAP.md)")
     dense_descs = stk.layer_descs(dense_cfg)
     target_descs = stk.layer_descs(target_cfg)
     if len(dense_descs) != len(target_descs):
@@ -102,7 +105,7 @@ def upcycle_params(dense_params, dense_cfg: ArchConfig,
             f"layer count mismatch: dense {len(dense_descs)} vs "
             f"target {len(target_descs)}")
     if gen is None or isinstance(gen, int):
-        device = dense_params["embed"]["tokens"].device
+        device = tree_leaves(dense_params)[0].device
         gen = torch.Generator(device=device).manual_seed(gen or 0)
     out = []
     layers = _unstack(dense_params["stack"], dense_descs)

@@ -42,12 +42,20 @@ def make_iterator(
     seq_len: int,
     task: Optional[syn.ClusteredBigramTask] = None,
 ) -> DataIterator:
-    """The clustered-bigram LM stream of a decoder-only model (the
-    other families' streams are queued in ROADMAP.md)."""
+    """The arch's synthetic stream: the clustered-bigram LM stream of a
+    decoder-only model, the patch task of an encoder-only one (whose
+    sequence is its ``n_frontend_positions`` patches: ``seq_len`` is not
+    read). The encoder-decoder family's streams are queued in
+    ROADMAP.md."""
+    if cfg.structure == "encoder_only":
+        return DataIterator(batch_fn=lambda step: syn.patch_batch(
+            global_batch, cfg.n_frontend_positions, cfg.d_model,
+            cfg.vocab_size, step))
     if cfg.structure != "decoder_only" or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the port's data pipeline serves decoder-only "
-            "language models (other families are queued in ROADMAP.md)")
+            "language models and encoder-only vision models (other "
+            "families are queued in ROADMAP.md)")
     task = task or syn.ClusteredBigramTask(vocab_size=cfg.vocab_size)
     return DataIterator(
         batch_fn=lambda step: syn.lm_batch(task, global_batch, seq_len,

@@ -11,8 +11,11 @@ stateless-resumable: the iterator state is one step counter.
 
 The tables are (K, V, V) float64: 155 GB at a 49k-token vocabulary, so
 a full-width model trains on a task over its first few thousand ids
-(``make_iterator(task=...)``). The span-corruption, patch and frame
-batches of the other families are queued in ROADMAP.md.
+(``make_iterator(task=...)``).
+
+The encoder-only (ViT) family trains on ``patch_batch``, the reference's
+synthetic vision task. The span-corruption and frame batches of the
+encoder-decoder family are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -81,3 +84,16 @@ def lm_batch(task: ClusteredBigramTask, batch: int, seq_len: int,
         "tokens": toks[:, :-1].astype(np.int32),
         "targets": toks[:, 1:].astype(np.int32),
     }
+
+
+def patch_batch(batch: int, n_patches: int, d_model: int, n_classes: int,
+                step: int, *, seed: int = 99) -> dict:
+    """Synthetic vision task: label = argmax of a fixed random linear
+    functional of the mean patch embedding (learnable by GAP + head)."""
+    rng = np.random.Generator(
+        np.random.Philox(key=seed, counter=[0, 0, 0, step]))
+    wrng = np.random.Generator(np.random.Philox(seed + 1))
+    w = wrng.normal(size=(d_model, n_classes))
+    x = rng.normal(size=(batch, n_patches, d_model)).astype(np.float32)
+    labels = (x.mean(1) @ w).argmax(-1).astype(np.int32)
+    return {"patch_embeds": x, "labels": labels}

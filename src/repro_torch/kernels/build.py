@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exports a plain C function; it is compiled at
 first use by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/`` at the repository root and loaded
-with ``ctypes``. Libraries are
-named by a hash of their sources and flags, so an edited source is
+with ``ctypes``. Libraries are named by a hash of their source, every
+header in ``csrc`` and the flags, so an edited source or header is
 rebuilt and a stale library is never loaded. Nothing is built when a
 module is imported: the CPU tests import every module.
 """
@@ -68,7 +68,7 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in (self.source, CSRC / "common.cuh"):
+        for p in (self.source, *sorted(CSRC.glob("*.cuh"))):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return build_dir() / f"{self.source.stem}-{h.hexdigest()[:12]}.so"

@@ -23,6 +23,26 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// The expert FFNs' activations (act 0 = silu, 1 = tanh-gelu, as
+// jax.nn.gelu's default) and their derivatives. act(0) = 0 for both, so
+// zero rows (padded slots, dead blocks) give zero hidden rows.
+__device__ __forceinline__ float act_fn(float x, int act) {
+  if (act == 0) return x / (1.f + expf(-x));  // silu
+  const float k0 = 0.7978845608028654f;       // sqrt(2/pi), tanh-gelu
+  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ float act_grad(float x, int act) {
+  if (act == 0) {
+    const float s = 1.f / (1.f + expf(-x));
+    return s * (1.f + x * (1.f - s));
+  }
+  const float k0 = 0.7978845608028654f, c = 0.044715f;
+  const float t = tanhf(k0 * (x + c * x * x * x));
+  return 0.5f * (1.f + t) +
+         0.5f * x * (1.f - t * t) * k0 * (1.f + 3.f * c * x * x);
+}
+
 // Raise the dynamic shared-memory cap when a launch needs more than the
 // default 48 KB; a refused size surfaces through cudaGetLastError().
 template <typename K>

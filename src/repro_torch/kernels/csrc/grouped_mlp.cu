@@ -34,12 +34,6 @@ constexpr int BM = 16;    // rows per block (ROW_BLOCK in grouped_mlp.py)
 constexpr int kHid = 2;   // hidden columns per thread, phase 1
 constexpr int kOut = 4;   // output columns per thread, phase 2
 
-__device__ __forceinline__ float act_fn(float x, int act) {
-  if (act == 0) return x / (1.f + expf(-x));  // silu
-  const float k0 = 0.7978845608028654f;       // sqrt(2/pi), tanh-gelu
-  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
 __device__ __forceinline__ void load_rows(const float* __restrict__ p,
                                           float v[BM]) {
 #pragma unroll

@@ -46,23 +46,6 @@ constexpr int kCols = 2;  // output columns per warp step (warp products)
 constexpr int TD = 64, TF = 64;  // dW tile of (d, f)
 constexpr int kRows = 32;  // segment rows staged per dW step
 
-__device__ __forceinline__ float act_fwd(float x, int act) {
-  if (act == 0) return x / (1.f + expf(-x));  // silu
-  const float k0 = 0.7978845608028654f;       // sqrt(2/pi), tanh-gelu
-  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float act_grad(float x, int act) {
-  if (act == 0) {
-    const float s = 1.f / (1.f + expf(-x));
-    return s * (1.f + x * (1.f - s));
-  }
-  const float k0 = 0.7978845608028654f, c = 0.044715f;
-  const float t = tanhf(k0 * (x + c * x * x * x));
-  return 0.5f * (1.f + t) +
-         0.5f * x * (1.f - t * t) * k0 * (1.f + 3.f * c * x * x);
-}
-
 // Sum each of v[0..15] over the warp. Returns, in every lane, the total
 // of row lane >> 1 (lanes 2r and 2r+1 hold row r): 16 shuffles instead
 // of 16 separate butterflies.
@@ -192,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = c0 + j, r = lane >> 1;
       if ((lane & 1) == 0 && c < f) {
         const float a = as[r * f + c];
-        const float s = act_fwd(a, act);
+        const float s = act_fn(a, act);
         const size_t at = (row0 + r) * f + c;
         if (wge) {
           const float gv = gs[r * f + c];

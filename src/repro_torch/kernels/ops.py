@@ -8,16 +8,18 @@ Every op takes ``implementation``:
 * ``"cuda"``  — the hand-written kernel; CPU tensors raise;
 * ``"eager"`` — the plain version (kernels/ref.py), only when asked for.
 
-``flash_attention`` and ``grouped_mlp`` are differentiable: each is a
-``torch.autograd.Function`` whose backward runs the backward kernels
-(or, on "eager", the plain backward versions) and which saves only its
-inputs plus O(rows) statistics, as the reference's ``custom_vjp``s do.
+``flash_attention``, ``grouped_mlp`` and ``expert_ffn`` are
+differentiable: each is a ``torch.autograd.Function`` whose backward
+runs the backward kernels (or, on "eager", the plain backward versions)
+and which saves only its inputs plus O(rows) statistics, as the
+reference's ``custom_vjp``s do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import expert_mlp as _em
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_mlp as _gm
 from repro_torch.kernels import paged_prefill as _pp
@@ -25,7 +27,8 @@ from repro_torch.kernels import ref as _ref
 
 IMPLEMENTATIONS = ("auto", "cuda", "eager")
 KERNELS = (_da.KERNEL, _pp.KERNEL, _gm.KERNEL, _fa.KERNEL, _fa.KERNEL_DQ,
-           _fa.KERNEL_DKV, _gm.KERNEL_DX, _gm.KERNEL_DW)
+           _fa.KERNEL_DKV, _gm.KERNEL_DX, _gm.KERNEL_DW, _em.KERNEL,
+           _em.KERNEL_DX, _em.KERNEL_DW)
 
 
 def resolve(implementation: str, x: torch.Tensor) -> str:
@@ -129,6 +132,47 @@ def grouped_mlp(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
     return _GroupedMLP.apply(xs, wi, wg, wo,
                              group_sizes.to(torch.int32).contiguous(), act,
                              block, impl)
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """Expert FFN over the padded capacity buffer with its backward
+    kernels (port of ``_make_expert_ffn_vjp``): saves the inputs only
+    (``wg`` None when ungated); the backward recomputes the hidden
+    tiles."""
+
+    @staticmethod
+    def forward(ctx, xe, wi, wg, wo, act, impl):
+        ctx.save_for_backward(xe, wi, wg, wo)
+        ctx.act, ctx.impl = act, impl
+        if impl == "eager":
+            return _ref.expert_ffn_ref(xe, wi, wg, wo, act=act)
+        return _em.expert_ffn_cuda(xe, wi, wg, wo, act=act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, wi, wg, wo = ctx.saved_tensors
+        bwd = (_ref.expert_ffn_bwd_ref if ctx.impl == "eager"
+               else _em.expert_ffn_bwd_cuda)
+        dx, dwi, dwg, dwo = bwd(xe, wi, wg, wo, dy.contiguous(),
+                                act=ctx.act)
+        return dx, dwi, dwg, dwo, None, None
+
+
+def expert_ffn(xe, wi, wg, wo, *, act: str = "silu", implementation="auto"):
+    """Expert FFN over the padded capacity buffer (the gather and einsum
+    dispatches' hot path), differentiable in xe and the weights. xe:
+    (G, E, cap, d) or (E, cap, d); wi/wg (E, d, f) (wg may be None), wo
+    (E, f, d). The weight gradients are summed over G, as the
+    reference's vmap over G sums them."""
+    impl = resolve(implementation, xe)
+    squeeze = xe.dim() == 3
+    if squeeze:
+        xe = xe[None]
+    if impl == "cuda":
+        xe, wi, wo = xe.contiguous(), wi.contiguous(), wo.contiguous()
+        wg = None if wg is None else wg.contiguous()
+    y = _ExpertFFN.apply(xe, wi, wg, wo, act, impl)
+    return y[0] if squeeze else y
 
 
 class _FlashAttention(torch.autograd.Function):

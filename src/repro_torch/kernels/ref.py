@@ -115,7 +115,7 @@ def _act_grad(act: str, a):
         t = torch.tanh(k0 * (a + c * a ** 3))
         return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * k0 * (
             1.0 + 3.0 * c * a * a)
-    raise ValueError(f"grouped MLP backward: unsupported act {act!r}")
+    raise ValueError(f"expert FFN backward: unsupported act {act!r}")
 
 
 def grouped_mlp_dx_ref(xs, wi, wg, wo, dy, group_sizes, *, block: int,
@@ -193,6 +193,65 @@ def grouped_mlp_bwd_ref(xs, wi, wg, wo, dy, group_sizes, *, block: int,
     return (dx, dwi.sum(0).to(wi.dtype),
             None if dwg is None else dwg.sum(0).to(wg.dtype),
             dwo.sum(0).to(wo.dtype))
+
+
+def expert_ffn_ref(xe, wi, wg, wo, *, act: str = "silu"):
+    """Expert FFN over the padded capacity buffer, in float32: y[..., e]
+    = act(x[..., e] @ wi[e]) [* (x[..., e] @ wg[e])] @ wo[e]. xe:
+    (..., E, cap, d); wi/wg (E, d, f) (wg may be None), wo (E, f, d).
+    Zero rows (unfilled slots) give zero rows. Returns xe's shape and
+    dtype."""
+    x = xe.float()
+    h = torch.einsum("...ecd,edf->...ecf", x, wi.float())
+    if wg is not None:
+        h = activation(act)(h) * torch.einsum("...ecd,edf->...ecf", x,
+                                              wg.float())
+    else:
+        h = activation(act)(h)
+    return torch.einsum("...ecf,efd->...ecd", h, wo.float()).to(xe.dtype)
+
+
+def expert_ffn_dx_ref(xe, wi, wg, wo, dy, *, act: str = "silu"):
+    """dx of :func:`expert_ffn_ref` by explicit recompute (the dx
+    kernel's arithmetic): a = x wi, g = x wg, dh = dy wo^T,
+    da = act'(a) dh g, dg = dh act(a), dx = da wi^T + dg wg^T. Also
+    returns the float32 (..., E, cap, f) da, dg (None when ungated) and
+    h = act(a) g, the dW kernel's inputs. Returns (dx in xe's dtype, da,
+    dg, h)."""
+    x, gy = xe.float(), dy.float()
+    a = torch.einsum("...ecd,edf->...ecf", x, wi.float())
+    dh = torch.einsum("...ecd,efd->...ecf", gy, wo.float())
+    s_a = activation(act)(a)
+    if wg is not None:
+        gt = torch.einsum("...ecd,edf->...ecf", x, wg.float())
+        h, da, dg = s_a * gt, _act_grad(act, a) * dh * gt, dh * s_a
+        dx = (torch.einsum("...ecf,edf->...ecd", da, wi.float())
+              + torch.einsum("...ecf,edf->...ecd", dg, wg.float()))
+    else:
+        h, da, dg = s_a, _act_grad(act, a) * dh, None
+        dx = torch.einsum("...ecf,edf->...ecd", da, wi.float())
+    return dx.to(xe.dtype), da, dg, h
+
+
+def expert_ffn_dw_ref(xe, dy, da, dg, h):
+    """float32 dW over every row of each expert, summed over the leading
+    group axes and the capacity: dwi = x^T da, dwg = x^T dg (None when dg
+    is), dwo = h^T dy; shapes (E, d, f) / (E, f, d)."""
+    x, gy = xe.float(), dy.float()
+    dwi = torch.einsum("...ecd,...ecf->edf", x, da)
+    dwg = None if dg is None else torch.einsum("...ecd,...ecf->edf", x, dg)
+    dwo = torch.einsum("...ecf,...ecd->efd", h, gy)
+    return dwi, dwg, dwo
+
+
+def expert_ffn_bwd_ref(xe, wi, wg, wo, dy, *, act: str = "silu"):
+    """Backward of :func:`expert_ffn_ref`: dx (and da, dg, h), then dW
+    in float32, cast to the weights' dtype. Returns (dx, dwi, dwg, dwo);
+    dwg is None when wg is."""
+    dx, da, dg, h = expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act)
+    dwi, dwg, dwo = expert_ffn_dw_ref(xe, dy, da, dg, h)
+    return (dx, dwi.to(wi.dtype),
+            None if dwg is None else dwg.to(wg.dtype), dwo.to(wo.dtype))
 
 
 def _attention_mask(Sq, Skv, causal, q_offset, kv_len, device):

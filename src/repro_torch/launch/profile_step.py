@@ -2,14 +2,21 @@
 report where its time goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
+        [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled] \\
+         [--batch N] [--seq S]] \\
         [--reduced] [--steps 3] [--device cuda|cpu] \\
         [--out trace_summary.json]
 
-The model is granite-moe-1b-a400m, the serve cell's, with dropless
-routing. The step carries the serve shapes of ``chip_smoke.py`` (8
-decode rows of ragged lengths, two 64-token chunk lanes, 16-token
-blocks, 512-token sequences) over random pools and random weights from
-seed 0. It prints one JSON object per run:
+Without ``--train`` the model is granite-moe-1b-a400m, the serve
+cell's, with dropless routing and the sorted dispatch. The step carries
+the serve shapes of ``chip_smoke.py`` (8 decode rows of ragged lengths,
+two 64-token chunk lanes, 16-token blocks, 512-token sequences) over
+random pools and random weights from seed 0. ``--train`` traces one MoE
+train step of ``--arch`` instead, on a fixed batch of the arch's
+synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
+granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
+images of 196 patches (its sequence; ``--seq`` is not read) through the
+gather dispatch. It prints one JSON object per run:
 
 * ``wall_ms``: host wall time per step, synchronised at both ends,
   untraced; ``traced_wall_ms`` the same under the profiler;
@@ -41,7 +48,14 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "flash_attention_dq": "flash_dq_kernel",
                 "flash_attention_dkv": "flash_dkv_kernel",
                 "grouped_mlp_dx": "grouped_dx_kernel",
-                "grouped_mlp_dw": "grouped_dw_kernel"}
+                "grouped_mlp_dw": "grouped_dw_kernel",
+                "expert_mlp": "expert_ffn_kernel",
+                "expert_mlp_dx": "expert_dx_kernel",
+                "expert_mlp_dw": "expert_dw_kernel"}
+# The train cells of chip_smoke.py: default batch (images for the
+# encoder-only ViT) and MoE dispatch.
+TRAIN_CELLS = {"granite-moe-1b-a400m": dict(batch=16, dispatch="sorted"),
+               "vit-b16-upcycled": dict(batch=104, dispatch="gather")}
 
 
 def mixed_step_inputs(cfg, device, *, serve: dict = SERVE):
@@ -100,15 +114,17 @@ def mixed_step_fn(cfg, device):
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg, device=device)
     _, args = mixed_step_inputs(cfg, device)
-    return lambda: zoo.paged_mixed_step(params, *args, cfg)
+    ac = zoo.ApplyCfg(dispatch="sorted")
+    return lambda: zoo.paged_mixed_step(params, *args, cfg, ac=ac)
 
 
-def train_step_fn(cfg, device, *, batch: int, seq: int):
+def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str):
     """One train-cell MoE step on a fixed batch, as a closure."""
     import torch
 
     from repro_torch.data import ClusteredBigramTask, make_iterator
     from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
     from repro_torch.optim import adafactor, inverse_sqrt
     from repro_torch.training import init_train_state, make_train_step
 
@@ -118,7 +134,7 @@ def train_step_fn(cfg, device, *, batch: int, seq: int):
     task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
     data = next(make_iterator(cfg, global_batch=batch, seq_len=seq,
                               task=task))
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(dispatch=dispatch))
     return lambda: step(state, data)
 
 
@@ -181,7 +197,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
                     help="trace a MoE train step instead of a mixed step")
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--arch", default=ARCH, choices=sorted(TRAIN_CELLS),
+                    help="the model of --train")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="--train batch (default: the arch's train cell)")
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=3)
@@ -197,9 +216,13 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_reduced(ARCH) if args.reduced else get_config(ARCH)
+    arch = args.arch if args.train else ARCH
+    cfg = get_reduced(arch) if args.reduced else get_config(arch)
     if args.train:
-        step_fn = train_step_fn(cfg, device, batch=args.batch, seq=args.seq)
+        cell = TRAIN_CELLS[arch]
+        batch = args.batch or cell["batch"]
+        step_fn = train_step_fn(cfg, device, batch=batch, seq=args.seq,
+                                dispatch=cell["dispatch"])
     else:
         # Dropless routing, as chip_smoke.py serves the model.
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -207,6 +230,8 @@ def main(argv=None) -> None:
         step_fn = mixed_step_fn(cfg, device)
     out = profile(step_fn, cfg, device, steps=args.steps)
     out["step"] = "train" if args.train else "mixed"
+    if args.train:
+        out.update(batch=batch, dispatch=cell["dispatch"])
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

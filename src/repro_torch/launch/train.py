@@ -1,15 +1,18 @@
 """Training launcher of the port (the single-process step subset of
 ``repro/launch/train.py``): random weights from a seed, Adafactor on an
-inverse-sqrt schedule, the clustered-bigram synthetic stream.
+inverse-sqrt schedule, the arch's synthetic stream (clustered bigrams
+for a decoder-only LM, the patch task for the encoder-only ViT).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch granite-moe-1b-a400m [--reduced] [--steps 6] [--batch 8] \\
-        [--seq 64] [--impl auto|cuda|eager] [--dispatch sorted] \\
-        [--peak-lr 0.01] [--warmup 100] [--device cuda|cpu]
+        --arch granite-moe-1b-a400m|vit-b16-upcycled [--reduced] \\
+        [--steps 6] [--batch 8] [--seq 64] [--impl auto|cuda|eager] \\
+        [--dispatch gather|einsum|sorted] [--peak-lr 0.01] \\
+        [--warmup 100] [--device cuda|cpu]
 
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch path. The data task covers at most the first
-``TASK_VOCAB`` token ids (its bigram tables are (K, V, V)).
+``TASK_VOCAB`` token ids (its bigram tables are (K, V, V)). An
+encoder-only model's sequence is its patches: ``--seq`` is not read.
 Checkpoints (``--ckpt-dir``), ``--upcycle-from``, remat, accumulation,
 compression and the Trainer runtime are queued in ROADMAP.md.
 """
@@ -33,9 +36,12 @@ def main(argv=None) -> None:
                     help="kernels for attention and the expert FFN: "
                          "'auto' = the CUDA kernels (forward and backward) "
                          "on the card, the plain versions on the CPU")
-    ap.add_argument("--dispatch", default="sorted", choices=["sorted"],
-                    help="MoE dispatch (the port runs the sorted ragged "
-                         "dispatch; gather/einsum are queued)")
+    ap.add_argument("--dispatch", default="gather",
+                    choices=["gather", "einsum", "sorted"],
+                    help="MoE dispatch: 'gather'/'einsum' build the padded "
+                         "capacity buffer (the expert-FFN kernels), "
+                         "'sorted' the ragged buffer (the grouped-GEMM "
+                         "kernels)")
     ap.add_argument("--peak-lr", type=float, default=0.01)
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--device", default="cuda",

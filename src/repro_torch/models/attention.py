@@ -7,7 +7,7 @@ block dead rows write into. Unlike JAX, the cache writes here update the
 pools IN PLACE (the JAX engine donated them to the jitted step).
 
 The static-cache prefill/decode path and cross-attention are queued in
-ROADMAP.md (static engine, other families).
+ROADMAP.md (static engine, encoder-decoder family).
 """
 from __future__ import annotations
 
@@ -73,13 +73,15 @@ def attention_apply(
     cache_index=None,
     block_tables=None,
     mixed: MixedMeta | None = None,
+    causal: bool = True,
     implementation: str = "auto",
 ):
     """Self-attention. Returns (y, cache).
 
-    ``cache`` None — the dense causal training path: x (B, S, d) at
-    positions 0..S-1 through ``ops.flash_attention`` (the flash kernels,
-    forward and backward, on "cuda"); differentiable.
+    ``cache`` None — the dense training path: x (B, S, d) at positions
+    0..S-1 through ``ops.flash_attention`` (the flash kernels, forward
+    and backward, on "cuda"); differentiable. ``causal`` False is the
+    encoder's bidirectional attention (ViT: learned positions, no rope).
 
     Otherwise paged self-attention over single-token rows x (B, 1, d):
 
@@ -118,7 +120,7 @@ def attention_apply(
             positions = torch.arange(Sq, device=x.device)
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-        y = ops.flash_attention(q, k, v, causal=True,
+        y = ops.flash_attention(q, k, v, causal=causal,
                                 implementation=implementation)
         return _out(y, p["wo"]), None
     pool_k, pool_v = cache["k"], cache["v"]

@@ -1,4 +1,5 @@
-"""Core NN layers: activations, norms, MLP, embeddings, RoPE (port of
+"""Core NN layers: activations, norms, MLP, embeddings, RoPE and the
+patch frontend (port of
 ``repro/models/layers.py``). Plain functions on tensors; parameter
 trees keep the JAX layouts (``wi (d, f)``, ``wo (f, d)``, embedding
 ``tokens (V, d)``).
@@ -124,3 +125,18 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def frontend_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
+                  device=None):
+    """Projection from the stub patch embeddings into the backbone."""
+    if cfg.frontend is None:
+        return {}
+    return {"proj": pm.dense(gen, (cfg.d_model, cfg.d_model), dtype=dtype,
+                             device=device)}
+
+
+def frontend_apply(p, embeds, cfg: ArchConfig):
+    if cfg.frontend is None:
+        return embeds
+    return embeds @ p["proj"]

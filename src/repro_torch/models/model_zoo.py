@@ -1,9 +1,13 @@
-"""Top-level model builders for decoder-only attention stacks (port of
-the training and paged-serving subsets of ``repro/models/model_zoo.py``):
-``init_params``, ``forward_train``, ``loss_fn``,
-``init_paged_serve_cache``, ``paged_mixed_step`` and
-``paged_decode_step``. Batches are ``{"tokens": (B, S), "targets": (B,
-S)}`` with -1 marking masked-out targets.
+"""Top-level model builders for decoder-only and encoder-only attention
+stacks (port of the training and paged-serving subsets of
+``repro/models/model_zoo.py``): ``init_params``, ``forward_train``,
+``loss_fn``, ``init_paged_serve_cache``, ``paged_mixed_step`` and
+``paged_decode_step``.
+
+Batch formats
+  decoder_only : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
+                 marking masked-out targets;
+  encoder_only : ``{"patch_embeds": (B, P, d), "labels": (B,)}`` (ViT).
 
 The chunked cross-entropy (``ce_chunk``), remat, the static-cache
 prefill/decode and the speculative verify step are queued in
@@ -18,11 +22,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.ops import IMPLEMENTATIONS
+from repro_torch.models import param as pm
 from repro_torch.models import stack as stk
 from repro_torch.models.attention import MixedMeta
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
+    frontend_apply,
+    frontend_init,
     head_apply,
     head_init,
     norm_apply,
@@ -36,7 +43,7 @@ class ApplyCfg:
     ``resolve(device)`` pins "auto" to the CUDA kernels on a CUDA device
     and to the plain PyTorch versions elsewhere."""
 
-    dispatch: str = "sorted"  # the port's one MoE dispatch
+    dispatch: str = "gather"  # moe dispatch: gather | einsum | sorted
     moe_impl: str = "auto"
     attn_impl: str = "auto"
 
@@ -54,11 +61,12 @@ class ApplyCfg:
         )
 
 
-def _check_decoder(cfg: ArchConfig) -> None:
-    if cfg.structure != "decoder_only":
+def _check_structure(cfg: ArchConfig, *ok: str) -> None:
+    if cfg.structure not in ok:
         raise NotImplementedError(
-            f"{cfg.name} is {cfg.structure}: the port runs decoder-only "
-            "models (other families are queued in ROADMAP.md)"
+            f"{cfg.name} is {cfg.structure}: this entry point runs "
+            f"{' and '.join(ok)} models (the encoder-decoder family is "
+            "queued in ROADMAP.md)"
         )
 
 
@@ -67,11 +75,21 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
 
     ``gen`` is a ``torch.Generator`` on ``device`` or an int seed.
     ``device`` defaults to "cuda" and raises without a card."""
-    _check_decoder(cfg)
+    _check_structure(cfg, "decoder_only", "encoder_only")
     device = resolve_device(device)
     if isinstance(gen, int):
         gen = torch.Generator(device=device).manual_seed(gen)
     kw = dict(dtype=dtype, device=device)
+    if cfg.structure == "encoder_only":
+        return {
+            "frontend": frontend_init(gen, cfg, **kw),
+            "pos": pm.normal(gen, (cfg.n_frontend_positions, cfg.d_model),
+                             **kw),
+            "stack": stk.stack_init(gen, cfg, stk.layer_descs(cfg), **kw),
+            "final_norm": norm_init(cfg, device=device),
+            "head": {"w": pm.dense(gen, (cfg.d_model, cfg.vocab_size),
+                                   **kw)},
+        }
     return {
         "embed": embed_init(gen, cfg, **kw),
         "stack": stk.stack_init(gen, cfg, stk.layer_descs(cfg), **kw),
@@ -82,11 +100,29 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
 
 def forward_train(params, batch, cfg: ArchConfig, *,
                   ac: ApplyCfg = ApplyCfg()):
-    """Causal LM forward over ``batch["tokens"] (B, S)`` at positions
-    0..S-1, through the flash-attention and grouped-GEMM kernels (and
-    their backward kernels under autograd) on a CUDA device. Returns
-    (logits (B, S, V) float32, metrics)."""
-    _check_decoder(cfg)
+    """The training forward, through the flash-attention and expert-FFN
+    kernels (and their backward kernels under autograd) on a CUDA
+    device. Decoder-only: causal LM over ``batch["tokens"] (B, S)`` at
+    positions 0..S-1, logits (B, S, V). Encoder-only (ViT): the patch
+    frontend plus learned positions, the bidirectional stack (Expert
+    Choice in its MoE layers), the final norm, global average pooling
+    and the class head, logits (B, V). Returns (logits float32,
+    metrics)."""
+    _check_structure(cfg, "decoder_only", "encoder_only")
+    if cfg.structure == "encoder_only":
+        pe = batch["patch_embeds"]
+        ac = ac.resolve(pe.device)
+        x = frontend_apply(params["frontend"], pe, cfg)
+        x = x + params["pos"][None]
+        x, mets, _ = stk.stack_apply(
+            params["stack"], x, cfg, stk.layer_descs(cfg), causal=False,
+            router_kind=stk.stack_router_kind(cfg, stack="encoder"),
+            dispatch=ac.dispatch, moe_impl=ac.moe_impl,
+            attn_impl=ac.attn_impl,
+        )
+        x = norm_apply(params["final_norm"], x, cfg)
+        pooled = x.mean(dim=1)  # global average pooling (paper §2.2)
+        return (pooled @ params["head"]["w"]).float(), mets
     tokens = batch["tokens"].long()
     ac = ac.resolve(tokens.device)
     S = tokens.shape[1]
@@ -100,14 +136,21 @@ def forward_train(params, batch, cfg: ArchConfig, *,
 
 def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
     """Returns (loss, metrics): mean cross-entropy over the valid
-    targets (``targets >= 0``) plus the weighted MoE aux and z losses."""
+    targets (``targets >= 0``), or over the images' ``labels`` for an
+    encoder-only model, plus the weighted MoE aux and z losses."""
     logits, mets = forward_train(params, batch, cfg, ac=ac)
-    targets = batch["targets"].long()
-    valid = targets >= 0
     logp = torch.log_softmax(logits, dim=-1)
-    ce_tok = -torch.gather(logp, -1, targets.clamp(min=0)[..., None])[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
-    ce = torch.where(valid, ce_tok, torch.zeros_like(ce_tok)).sum() / denom
+    if cfg.structure == "encoder_only":
+        labels = batch["labels"].long()
+        ce = -torch.gather(logp, -1, labels[:, None]).mean()
+    else:
+        targets = batch["targets"].long()
+        valid = targets >= 0
+        ce_tok = -torch.gather(logp, -1,
+                               targets.clamp(min=0)[..., None])[..., 0]
+        denom = torch.clamp(valid.sum(), min=1)
+        ce = torch.where(valid, ce_tok,
+                         torch.zeros_like(ce_tok)).sum() / denom
     loss = ce + mets["aux_loss"] + mets["z_loss"]
     out = dict(mets)
     out.update(loss=loss, ce=ce)
@@ -119,7 +162,7 @@ def init_paged_serve_cache(cfg: ArchConfig, num_blocks: int,
                            device=None):
     """Per-layer KV block pools addressed by shared per-slot block
     tables. ``device`` defaults to "cuda" and raises without a card."""
-    _check_decoder(cfg)
+    _check_structure(cfg, "decoder_only")
     device = resolve_device(device)
     return {"stack": stk.stack_paged_cache_init(
         cfg, stk.layer_descs(cfg), num_blocks, block_size, dtype=dtype,

@@ -88,7 +88,7 @@ def _check_desc(desc: LayerDesc) -> None:
     if desc.mixer != "attn" or desc.cross:
         raise NotImplementedError(
             f"layer {desc} is not ported yet: the port runs attention "
-            "decoders (mamba/rwkv6/cross-attention are queued in ROADMAP.md)"
+            "stacks (mamba/rwkv6/cross-attention are queued in ROADMAP.md)"
         )
 
 
@@ -114,17 +114,17 @@ def zero_metrics(device=None):
 
 def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
                 cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, router_kind: str = "top_k",
-                dispatch: str = "sorted", moe_impl: str = "auto",
+                mixed=None, causal: bool = True, router_kind: str = "top_k",
+                dispatch: str = "gather", moe_impl: str = "auto",
                 attn_impl: str = "auto"):
-    """One pre-norm decoder layer: the dense training forward over
-    (B, S, d) when ``cache`` is None, else paged single-token rows.
-    Returns (x, metrics, cache)."""
+    """One pre-norm layer: the dense training forward over (B, S, d)
+    when ``cache`` is None (``causal`` False for encoders), else paged
+    single-token rows. Returns (x, metrics, cache)."""
     h = norm_apply(p["pre_norm"], x, cfg)
     y, mix_cache = attention_apply(
         p["mixer"], h, cfg, cache=None if cache is None else cache["mixer"],
         cache_index=cache_index, block_tables=block_tables, mixed=mixed,
-        implementation=attn_impl,
+        causal=causal, implementation=attn_impl,
     )
     x = x + y
     h = norm_apply(p["ffn_norm"], x, cfg)
@@ -196,12 +196,13 @@ def _per_layer(tree, reps: int) -> list:
 
 def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
                 cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, router_kind: str = "top_k",
-                dispatch: str = "sorted", moe_impl: str = "auto",
+                mixed=None, causal: bool = True, router_kind: str = "top_k",
+                dispatch: str = "gather", moe_impl: str = "auto",
                 attn_impl: str = "auto"):
     """Apply every layer in order: the training forward when ``cache``
-    is None, else the paged serve step with the pools in ``cache``
-    updated in place. Returns (x, summed metrics, cache)."""
+    is None (bidirectional when ``causal`` is False), else the paged
+    serve step with the pools in ``cache`` updated in place. Returns
+    (x, summed metrics, cache)."""
     totals = zero_metrics(x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
         seg_params = {k: _per_layer(v, reps)
@@ -215,7 +216,7 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
                     seg_params[f"pos{i}"][r], x, cfg, d,
                     cache=layer_cache, cache_index=cache_index,
                     block_tables=block_tables, token_mask=token_mask,
-                    mixed=mixed, router_kind=router_kind,
+                    mixed=mixed, causal=causal, router_kind=router_kind,
                     dispatch=dispatch, moe_impl=moe_impl,
                     attn_impl=attn_impl,
                 )

@@ -95,6 +95,11 @@ class ServeEngine:
                 f"engine on {self.device}"
             )
         self.params, self.cfg, self.sc = params, cfg, sc
+        if cfg.moe is not None and ac.dispatch == "gather":
+            # The serving hot path: the live-token ragged dispatch instead
+            # of the padded capacity buffer ("gather" is only ApplyCfg's
+            # generic default; an explicit "einsum" stays as asked).
+            ac = dataclasses.replace(ac, dispatch="sorted")
         self.ac = ac.resolve(self.device)
         self.cache_dtype = getattr(torch, sc.cache_dtype)
         # Fail fast on stacks the paged engine cannot serve.

@@ -109,6 +109,7 @@ FLASH_CASES = [
     (1, 37, 50, 4, 2, 16, True, 13, 45),       # ragged tiles, offset
     (2, 70, 70, 8, 1, 64, False, 0, 51),       # non-causal, kv_len mask
     (1, 20, 40, 4, 4, 32, True, -10, 40),      # rows with no valid key
+    (2, 196, 196, 12, 12, 64, False, 0, None),  # ViT-B/16: non-causal MHA
 ]
 
 
@@ -236,3 +237,92 @@ def test_grouped_autograd_cuda_matches_eager(cuda):
         outs[impl] = (y, *torch.autograd.grad(y, ps, dy))
     for a, b in zip(outs["cuda"], outs["eager"]):
         torch.testing.assert_close(a, b, **_tol(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# expert FFN kernels over the padded capacity buffer
+# ---------------------------------------------------------------------------
+
+# (G, E, cap, d, f): cap not a multiple of the 32-row block, f not a
+# multiple of the 256-column tile; the last case has d > 768, so the
+# forward and dx kernels make two passes over the output columns.
+EXPERT_CASES = [(2, 3, 37, 64, 96), (1, 2, 70, 200, 300),
+                (2, 2, 33, 1024, 260)]
+
+
+def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    xe = rng.normal(size=(G, E, cap, d))
+    xe[0, 0, -3:] = 0.0  # unfilled slots arrive as zero rows
+    dy = rng.normal(size=(G, E, cap, d))
+    # Weights at fan-in scale, as the model initialises them.
+    wi = rng.normal(size=(E, d, f)) / d ** 0.5
+    wg = rng.normal(size=(E, d, f)) / d ** 0.5 if gated else None
+    wo = rng.normal(size=(E, f, d)) / f ** 0.5
+    return t(xe), t(wi), None if wg is None else t(wg), t(wo), t(dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True)])
+@pytest.mark.parametrize("case", EXPERT_CASES)
+def test_expert_kernels_match_plain(cuda, dtype, act, gated, case):
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+
+    G, E, cap, d, f = case
+    rng = np.random.default_rng(cap + d)
+    xe, wi, wg, wo, dy = _expert_inputs(rng, cuda, dtype, *case, gated)
+    tol = _tol(dtype)
+    if dtype == torch.float32 and d > 128:
+        # Sums of products whose factors are themselves sums over d terms,
+        # taken in another order (as in the grouped backward test).
+        tol = dict(atol=1e-4, rtol=1e-4)
+    y = em.expert_ffn_cuda(xe, wi, wg, wo, act=act)
+    torch.testing.assert_close(y, ref.expert_ffn_ref(xe, wi, wg, wo,
+                                                     act=act), **tol)
+    assert bool((y[0, 0, -3:] == 0).all())  # zero rows give zeros
+    got = em.expert_ffn_dx_cuda(xe, wi, wg, wo, dy, act=act)
+    want = ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, **tol)
+    scratch = [None if t is None else t.contiguous() for t in want[1:]]
+    got = em.expert_ffn_dw_cuda(xe, dy, *scratch)
+    for g, w in zip(got, ref.expert_ffn_dw_ref(xe, dy, *scratch)):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, **tol)
+    # A zero row adds nothing to dW: dropping its scratch rows changes
+    # no weight gradient.
+    da, dg, h = (None if t is None else t.clone() for t in scratch)
+    for t in (da, dg, h):
+        if t is not None:
+            t[0, 0, -3:] = 0.0
+    for g, w in zip(got, em.expert_ffn_dw_cuda(xe, dy, da, dg, h)):
+        if g is not None:
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_expert_autograd_cuda_matches_eager(cuda, gated):
+    rng = np.random.default_rng(13)
+    xe, wi, wg, wo, dy = _expert_inputs(rng, cuda, torch.float32, 2, 4, 40,
+                                        96, 160, gated)
+    act = "silu" if gated else "gelu"
+    for squeeze in (False, True):
+        x, gy = (xe[0], dy[0]) if squeeze else (xe, dy)
+        outs = {}
+        for impl in ("cuda", "eager"):
+            ps = [p.clone().requires_grad_() for p in (x, wi, wo)]
+            pg = wg.clone().requires_grad_() if gated else None
+            y = ops.expert_ffn(ps[0], ps[1], pg, ps[2], act=act,
+                               implementation=impl)
+            outs[impl] = (y, *torch.autograd.grad(
+                y, ps + ([pg] if gated else []), gy))
+        for a, b in zip(outs["cuda"], outs["eager"]):
+            torch.testing.assert_close(a, b, **_tol(torch.float32))

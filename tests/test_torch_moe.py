@@ -88,8 +88,11 @@ def test_switch_route_and_capacity_match_jax():
                      (7, 0.25, 3), (4096, 1.25, 32)]:
         assert trt.capacity(g, MoECfg(num_experts=E, capacity_factor=cf)) \
             == jrt.capacity(g, JMoECfg(num_experts=E, capacity_factor=cf))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.route(_t(lg), MoECfg(**kw), "expert_choice")
+    # Expert Choice takes no token mask, as in the reference (decoders,
+    # the only stacks with dead slots, route token-choice).
+    with pytest.raises(ValueError, match="token-choice"):
+        trt.route(_t(lg), MoECfg(**kw), "expert_choice",
+                  token_mask=torch.ones(1, 10, dtype=torch.bool))
 
 
 def test_assignment_stream_matches_jax():
@@ -203,7 +206,7 @@ def test_moe_apply_sorted_matches_jax(cf, masked):
         token_mask=None if mask is None else jnp.asarray(mask),
     )
     ty, tm = tmoe.moe_apply(
-        tvals, _t(x), tcfg, tcfg.moe,
+        tvals, _t(x), tcfg, tcfg.moe, dispatch="sorted",
         token_mask=None if mask is None else _t(mask),
     )
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL,
@@ -216,10 +219,11 @@ def test_moe_apply_sorted_matches_jax(cf, masked):
 
 
 def test_unported_dispatch_raises():
+    # gather, einsum and sorted are all ported; any other name raises.
     _, tcfg, _, tvals = _moe_setup(2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown dispatch"):
         tmoe.moe_apply(tvals, torch.zeros(2, tcfg.d_model), tcfg, tcfg.moe,
-                       dispatch="gather")
+                       dispatch="ragged")
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +340,7 @@ def test_moe_apply_sorted_grads_match_jax(cf):
     jgv, jgx = jax.grad(jloss, argnums=(0, 1))(vals, jnp.asarray(x))
     leaves = [t.requires_grad_() for t in jax.tree.leaves(tvals)]
     tx = _t(x).requires_grad_()
-    y, m = tmoe.moe_apply(tvals, tx, tcfg, tcfg.moe)
+    y, m = tmoe.moe_apply(tvals, tx, tcfg, tcfg.moe, dispatch="sorted")
     tg = torch.autograd.grad((y * _t(wy)).sum() + m["aux_loss"],
                              leaves + [tx])
     for t, j in zip(tg, jax.tree.leaves(jgv) + [jgx]):
@@ -396,3 +400,200 @@ def test_segment_walk_matches_the_gathered_plain_version(act, gated, d, f):
     else:
         torch.testing.assert_close(new, old, rtol=0,
                                    atol=2e-6 * float(old.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Expert Choice, the slot tables, the padded expert FFN and the gather /
+# einsum dispatches
+# ---------------------------------------------------------------------------
+
+
+def _ec_logits(G, g, E, pad, seed):
+    """Router logits whose per-expert token rankings have no near-ties
+    (gaps of at least 1e-5 between the probabilities an expert ranks),
+    with the last ``pad`` tokens of the last group exactly zero — the
+    zero-padded tail ``_group`` appends, whose uniform probabilities tie
+    exactly and must resolve toward the lower token id."""
+    rng = np.random.default_rng(seed)
+    while True:
+        lg = (rng.normal(size=(G, g, E)) * 2.0).astype(np.float32)
+        if pad:
+            lg[-1, g - pad:] = 0.0
+        p = np.exp(lg - lg.max(-1, keepdims=True))
+        p = p / p.sum(-1, keepdims=True)
+        real = p.copy()
+        if pad:
+            real[-1, g - pad:] = np.nan
+        gaps = [np.diff(np.sort(col[~np.isnan(col)]))
+                for col in real.transpose(0, 2, 1).reshape(-1, g)]
+        near_uniform = np.abs(real[~np.isnan(real)] - 1.0 / E).min()
+        if min(x.min() for x in gaps) > 1e-5 and near_uniform > 1e-5:
+            return lg
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("cf,pad", [(2.0, 0), (2.0, 9), (0.5, 5)])
+def test_route_expert_choice_matches_jax(normalize, cf, pad):
+    G, g, E = 2, 24, 4
+    lg = _ec_logits(G, g, E, pad, seed=int(cf * 10) + pad + normalize)
+    kw = dict(num_experts=E, capacity_factor=cf, router="expert_choice",
+              normalize_combine_weights=normalize)
+    jr = jrt.route(jnp.asarray(lg), JMoECfg(**kw), "expert_choice")
+    tr = trt.route(_t(lg), MoECfg(**kw), "expert_choice")
+    np.testing.assert_array_equal(tr.token_idx.numpy(),
+                                  np.asarray(jr.token_idx))
+    for name in ("combine", "probs", "aux_loss", "dropped_frac"):
+        np.testing.assert_allclose(
+            getattr(tr, name).numpy(), np.asarray(getattr(jr, name)),
+            atol=1e-6, rtol=1e-6, err_msg=name)
+    assert tr.token_expert is None and tr.token_weight is None
+    if pad and cf > 1.0:
+        # The padded tokens' probabilities tie exactly; some expert takes
+        # only part of them: the lower ids, as lax.top_k does.
+        taken = [sorted(int(t) for t in row if t >= g - pad)
+                 for row in tr.token_idx[-1]]
+        part = [t for t in taken if 0 < len(t) < pad]
+        assert part and all(t == list(range(g - pad, g - pad + len(t)))
+                            for t in part)
+    if cf < 1.0:
+        assert float(tr.dropped_frac) > 0
+    for a, b in zip(trt.assignment_stream(tr, E, g),
+                    jrt.assignment_stream(jr, E, g)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+@pytest.mark.parametrize("router,cf,masked", [
+    ("top_k", 0.5, False), ("top_k", 2.0, True), ("switch", 1.0, False),
+    ("switch", 0.25, True)])
+def test_token_choice_slot_tables_match_jax(router, cf, masked):
+    G, g, E = 2, 12, 6
+    lg = _logits(G, g, E, seed=int(cf * 8) + masked)
+    mask = np.random.default_rng(3).random((G, g)) > 0.3 if masked else None
+    kw = dict(num_experts=E, top_k=2, capacity_factor=cf)
+    jr = jrt.route(jnp.asarray(lg), JMoECfg(**kw), router,
+                   token_mask=None if mask is None else jnp.asarray(mask))
+    tr = trt.route(_t(lg), MoECfg(**kw), router,
+                   token_mask=None if mask is None else _t(mask))
+    np.testing.assert_array_equal(tr.token_idx.numpy(),
+                                  np.asarray(jr.token_idx))
+    np.testing.assert_allclose(tr.combine.numpy(), np.asarray(jr.combine),
+                               atol=1e-6, rtol=1e-6)
+    if cf >= 1.0:
+        assert (tr.token_idx == g).any()  # unfilled slots are marked g
+    bare = trt.route(_t(lg), MoECfg(**kw), router, slot_tables=False,
+                     token_mask=None if mask is None else _t(mask))
+    assert bare.token_idx is None and bare.combine is None
+    assert torch.equal(bare.token_expert, tr.token_expert)
+
+
+def _expert_case(G, E, cap, d, f, gated, seed):
+    rng = np.random.default_rng(seed)
+    xe = rng.normal(size=(G, E, cap, d)).astype(np.float32)
+    xe[0, 1, cap - 2:] = 0.0  # unfilled slots arrive as zero rows
+    w = lambda *s, fan: (rng.normal(size=s) / fan ** 0.5).astype(  # noqa
+        np.float32)
+    wi, wo = w(E, d, f, fan=d), w(E, f, d, fan=f)
+    wg = w(E, d, f, fan=d) if gated else None
+    dy = rng.normal(size=xe.shape).astype(np.float32)
+    return xe, wi, wg, wo, dy
+
+
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", False)])
+def test_expert_ffn_plain_matches_pallas(act, gated):
+    """The plain expert FFN and its explicit backward against the TPU
+    kernel's custom VJP run in interpret mode (``ops.expert_ffn`` with
+    "pallas", vmapped over G = 2), zero rows included: forward at atol
+    1e-5, gradients at rtol 2e-4."""
+    from repro_torch.kernels import ref as tref
+
+    xe, wi, wg, wo, dy = _expert_case(2, 3, 8, 16, 24, gated, seed=5)
+    jw = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    tw = lambda a: None if a is None else _t(a)  # noqa: E731
+
+    def jloss(xe, wi, wg, wo):
+        y = jops.expert_ffn(xe, wi, wg, wo, act=act,
+                            implementation="pallas")
+        return jnp.sum(y * jnp.asarray(dy)), y
+
+    argnums = (0, 1, 2, 3) if gated else (0, 1, 3)
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=argnums, has_aux=True)(
+        jnp.asarray(xe), jnp.asarray(wi), jw(wg), jnp.asarray(wo))
+    ty = ops.expert_ffn(_t(xe), _t(wi), tw(wg), _t(wo), act=act)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL,
+                               rtol=ATOL)
+    assert torch.equal(ty[0, 1, -2:], torch.zeros_like(ty[0, 1, -2:]))
+    dx, dwi, dwg, dwo = tref.expert_ffn_bwd_ref(
+        _t(xe), _t(wi), tw(wg), _t(wo), _t(dy), act=act)
+    got = [dx, dwi] + ([dwg] if gated else []) + [dwo]
+    for t, j in zip(got, jg):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=2e-4,
+                                   atol=2e-4 * np.abs(j).max())
+    # Autograd through ops.expert_ffn runs the same explicit backward,
+    # with (E, cap, d) input too (the reference's squeeze path).
+    ps = [_t(xe[1]).requires_grad_(), _t(wi).requires_grad_()]
+    y1 = ops.expert_ffn(ps[0], ps[1], tw(wg), _t(wo), act=act)
+    g1 = torch.autograd.grad((y1 * _t(dy[1])).sum(), ps)
+    jy1 = jops.expert_ffn(jnp.asarray(xe[1]), jnp.asarray(wi), jw(wg),
+                          jnp.asarray(wo), act=act, implementation="pallas")
+    np.testing.assert_allclose(y1.detach().numpy(), np.asarray(jy1),
+                               atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(g1[0].numpy(), dx[1].numpy(), atol=1e-6)
+
+
+def _dispatch_setup(arch, cf, router_std, seed):
+    """Reduced ``arch`` MoE params from the JAX init, the router scaled
+    to ``router_std`` so that routing decisions have no near-ties."""
+    jcfg = jax_reduced(arch)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, capacity_factor=cf))
+    tcfg = get_reduced(arch)
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, capacity_factor=cf))
+    vals, _ = jpm.split(jmoe.moe_init(jax.random.PRNGKey(seed), jcfg,
+                                      jcfg.moe))
+    vals = jax.tree.map(np.array, vals)
+    vals["router"]["w"] = vals["router"]["w"] * np.float32(router_std / 0.02)
+    return jcfg, tcfg, vals, from_jax_values(vals)
+
+
+@pytest.mark.parametrize("dispatch", ["gather", "einsum"])
+@pytest.mark.parametrize("arch,cf", [("vit-b16-upcycled", 2.0),
+                                     ("vit-b16-upcycled", 0.5),
+                                     ("granite-moe-1b-a400m", 1.0)])
+def test_moe_apply_padded_dispatch_matches_jax(dispatch, arch, cf):
+    """The gather and einsum dispatches against JAX's, with Expert
+    Choice (the ViT's router, combine weights normalised) and top-k
+    (granite's, gated silu): 70 tokens, two routing groups of 64, the
+    second padded with 58 zero tokens. Outputs at atol 1e-5; gradients
+    through the router, the combine weights, the gather and the expert
+    FFN at rtol 1e-4."""
+    jcfg, tcfg, vals, tvals = _dispatch_setup(arch, cf, 0.3, seed=6)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(7, 10, tcfg.d_model)).astype(np.float32)
+    wy = rng.normal(size=x.shape).astype(np.float32)
+
+    def jloss(vals, x):
+        y, m = jmoe.moe_apply(vals, x, jcfg, jcfg.moe, dispatch=dispatch)
+        return jnp.sum(y * jnp.asarray(wy)) + m["aux_loss"], (y, m)
+
+    (_, (jy, jm)), (jgv, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, vals), jnp.asarray(x))
+    leaves = [t.requires_grad_() for t in jax.tree.leaves(tvals)]
+    tx = _t(x).requires_grad_()
+    ty, tm = tmoe.moe_apply(tvals, tx, tcfg, tcfg.moe, dispatch=dispatch)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               atol=ATOL, rtol=ATOL)
+    for name in ("aux_loss", "dropped_frac"):
+        np.testing.assert_allclose(tm[name].detach().numpy(),
+                                   np.asarray(jm[name]), atol=1e-6,
+                                   err_msg=name)
+    tg = torch.autograd.grad((ty * _t(wy)).sum() + tm["aux_loss"],
+                             leaves + [tx])
+    for t, j in zip(tg, jax.tree.leaves(jgv) + [jgx]):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
+                                   rtol=1e-4)
+    # The three dispatches route alike, so they compute one function.
+    ys, _ = tmoe.moe_apply(tvals, _t(x), tcfg, tcfg.moe, dispatch="sorted")
+    torch.testing.assert_close(ys, ty.detach(), atol=ATOL, rtol=ATOL)

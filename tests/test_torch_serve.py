@@ -105,7 +105,8 @@ def test_mixed_step_matches_jax(granite):
         **{k: jnp.asarray(v) for k, v in args.items()},
     )
     tc, tl = zoo.paged_mixed_step(
-        tvals, cache=tc, cfg=cfg, **{k: _t(v) for k, v in args.items()},
+        tvals, cache=tc, cfg=cfg, ac=zoo.ApplyCfg(dispatch="sorted"),
+        **{k: _t(v) for k, v in args.items()},
     )
     live_rows = slice(0, B + NC - 1)  # the idle lane's logits are unused
     np.testing.assert_allclose(tl.numpy()[live_rows],
@@ -131,7 +132,8 @@ def test_decode_step_matches_jax(granite):
         ac=jzoo.ApplyCfg(dispatch="sorted", sorted_block=8),
     )
     tc, tl = zoo.paged_decode_step(tvals, _t(toks), tc, _t(tabs),
-                                   _t(lengths), cfg)
+                                   _t(lengths), cfg,
+                                   ac=zoo.ApplyCfg(dispatch="sorted"))
     live = lengths > 0
     np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
                                atol=ATOL, rtol=ATOL)
@@ -191,6 +193,34 @@ def test_engine_temperature_matches_jax_given_its_seed(granite):
     assert to == jo
 
 
+def test_engine_runs_sorted_dispatch_under_default_apply_cfg(granite,
+                                                             monkeypatch):
+    """``ApplyCfg``'s default dispatch is the reference's "gather"; the
+    paged engine switches it to the sorted ragged dispatch, as the
+    reference's engine does, so its mixed steps run the grouped FFN and
+    never the padded expert FFN."""
+    from repro_torch.kernels import ops
+
+    _, cfg, _, tvals = granite
+    assert zoo.ApplyCfg().dispatch == "gather"
+    calls = {"grouped_mlp": 0, "expert_ffn": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(ops, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    eng = ServeEngine(tvals, cfg, ServeConfig(
+        max_batch=2, max_len=64, block_size=BS, chunk_size=8,
+        chunks_per_step=2), device="cpu")
+    assert eng.ac.dispatch == "sorted"
+    eng.serve([Request(rid=0, prompt=list(range(10, 22)), max_new=3)])
+    assert calls["grouped_mlp"] > 0 and calls["expert_ffn"] == 0
+    # An explicit non-default dispatch is kept.
+    eng = ServeEngine(tvals, cfg, ServeConfig(max_len=64, block_size=BS),
+                      ac=zoo.ApplyCfg(dispatch="einsum"), device="cpu")
+    assert eng.ac.dispatch == "einsum"
+
+
 def test_single_step_signature_and_eos(granite):
     """A heterogeneous trace (prompts across lengths, evictions,
     re-admissions, an EOS stop) runs ONE mixed-step input signature,
@@ -233,12 +263,14 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     walked = set(res.stdout.split()[1:])
-    assert len(walked) >= 40
-    # The training slice's modules are among those walked.
+    assert len(walked) >= 42
+    # The training and vision slices' modules are among those walked.
     assert {f"repro_torch.{m}" for m in (
-        "core.upcycle", "data.pipeline", "data.synthetic",
-        "kernels.flash_attention", "launch.train", "optim.adafactor",
-        "optim.base", "optim.schedules", "training.train_loop")} <= walked
+        "configs.vit_upcycled", "core.routing", "core.upcycle",
+        "data.pipeline", "data.synthetic", "kernels.expert_mlp",
+        "kernels.flash_attention", "launch.profile_step", "launch.train",
+        "optim.adafactor", "optim.base", "optim.schedules",
+        "training.train_loop")} <= walked
 
 
 def test_entry_points_need_a_card_unless_cpu(granite, capsys):

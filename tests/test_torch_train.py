@@ -37,6 +37,7 @@ ARCH = "granite-moe-1b-a400m"
 # runs its plain versions on the CPU.
 JAC = jzoo.ApplyCfg(dispatch="sorted", sorted_block=8, moe_impl="xla",
                     attn_impl="xla")
+TAC = zoo.ApplyCfg(dispatch="sorted")
 # Batches of 4 x 32 tokens: two routing groups of the reduced config's 64.
 B, S = 4, 32
 
@@ -282,7 +283,7 @@ def test_loss_and_grads_match_jax(cfgs, dense_jax, which):
     (jl, jm), jg = jax.value_and_grad(jzoo.loss_fn, has_aux=True)(
         vals, jax.tree.map(jnp.asarray, batch), jc, ac=JAC)
     tg, tm = loss_and_grads(from_jax_values(_np(vals)),
-                            batch_to(batch, "cpu"), tc)
+                            batch_to(batch, "cpu"), tc, ac=TAC)
     for k in ("loss", "ce", "aux_loss", "z_loss"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-4,
                                    err_msg=k)
@@ -314,7 +315,7 @@ def test_dense_upcycle_moe_steps_match_jax(cfgs):
                          host_count=1)
     tit = make_iterator(td, global_batch=B, seq_len=S)
     jstep = jax.jit(jtl.make_train_step(jd, jopt, ac=JAC))
-    tstep = make_train_step(td, topt)
+    tstep = make_train_step(td, topt, ac=TAC)
     losses = []
     for _ in range(2):
         js, jm = jstep(js, next(jit))
@@ -331,7 +332,7 @@ def test_dense_upcycle_moe_steps_match_jax(cfgs):
     ts2 = init_train_state(0, tcfg, topt, params=tsparse)
     ts2["step"] = ts["step"]
     jstep2 = jax.jit(jtl.make_train_step(jcfg, jopt, ac=JAC))
-    tstep2 = make_train_step(tcfg, topt)
+    tstep2 = make_train_step(tcfg, topt, ac=TAC)
     for _ in range(3):
         js2, jm = jstep2(js2, next(jit))
         ts2, tm = tstep2(ts2, next(tit))
@@ -365,7 +366,7 @@ def test_launch_train_runs_on_cpu(capsys):
     train.main(["--arch", ARCH, "--reduced", "--steps", "2", "--batch", "2",
                 "--seq", "16", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "[train] kernels: moe=eager attn=eager dispatch=sorted" in out
+    assert "[train] kernels: moe=eager attn=eager dispatch=gather" in out
     assert "[train] finished at step 2, loss" in out
 
 
