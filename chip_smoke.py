@@ -7,7 +7,7 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository checkout beside this file; exits non-zero otherwise, and on
 any failure, before printing its result line. It
 
-1. prints the card's name and power limit, builds the eleven CUDA
+1. prints the card's name and power limit, builds the twelve CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all at once) and prints the build seconds and each kernel's
    registers;
@@ -45,8 +45,27 @@ any failure, before printing its result line. It
    and takes 4 steps with ``dispatch="gather"`` through the expert-FFN
    kernels; checks each kernel's launches a step, and holds and
    witnesses the first MoE step as in 6;
-8. prints one JSON line of per-kernel numbers, then the result line
-   ``{"ok": true, "device": {...}}``.
+8. serves granite (as in 4) through the static engine,
+   ``ServeEngine(paged=False)``, right after 5: 4 prompts of 64..128
+   tokens, 16 new each, through the kernels (the flash forward at
+   prefill, the expert FFN under the gather dispatch) and through the
+   plain versions, token-identical, each kernel's launches counted and
+   one prefill and decode step witnessed;
+9. holds the WKV-6 kernel against the chunked plain version and the
+   sequential oracle at the rwkv serve shapes (prefill 8 x 512 and a
+   decode step, 64 heads of 64, f32 and bf16) and times it;
+10. builds rwkv6-7b at full width and depth (7.5 B params, float32) and
+    serves 8 prompts of 256..512 tokens, 64 new tokens each, through the
+    static engine, through the kernels and the plain versions twice
+    each, interleaved: token-identical, exactly 32 x 64 WKV launches a
+    run, prefill and decode tokens/s and peak memory, one prefill and
+    decode step witnessed;
+11. upcycles rwkv6-7b's dense parent at full width and 4 layers into
+    its channel-mix MoE (32 experts, top-2, every other layer, 8.7 B
+    params) and serves 8 prompts of 128 tokens, 16 new, the same way
+    (the WKV and expert-FFN kernels);
+12. prints one JSON line of per-kernel numbers (all twelve kernels),
+    then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -105,6 +124,44 @@ VIT_TRAIN = dict(arch="vit-b16-upcycled", batch=104, seq=196, dense_steps=2,
 # global gradient norm within 1e-3 relative (f32 summation order through
 # 24 layers of forward and backward, on conditioned weights).
 LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3
+
+# The rwkv serve cells, static engine, greedy, float32 caches. Dense
+# rwkv6-7b at full width and depth: 8 prompts of 256..512 tokens from
+# the seed, 64 new tokens each, served through the kernels and through
+# the plain versions RWKV_RUNS times each, interleaved. The upcycled
+# channel-mix MoE (rwkv6_7b.upcycled(): 32 experts, top-2, every other
+# layer) at full width and RWKV_MOE_LAYERS layers (the full depth would
+# be 263 GB in float32), dropless: 8 prompts of 128 tokens, 16 new.
+RWKV_SERVE = dict(max_batch=8, max_len=576)
+RWKV_PROMPTS, RWKV_PLEN, RWKV_NEW, RWKV_RUNS = 8, (256, 512), 64, 2
+RWKV_MOE_LAYERS, RWKV_MOE_PLEN, RWKV_MOE_NEW = 4, 128, 16
+# The rwkv cells' near-tie bound. Even conditioned (condition_rwkv), a
+# random 32-layer rwkv6 amplifies float32 rounding into its logits: fed
+# the same tokens, the kernels' path and the plain path part by ~1e-3
+# over a 463-token prefill and 63 decode steps (printed by each run, as
+# is the same drift against the WKV's sequential oracle), while every WKV
+# call agrees with its plain versions to ~1e-6 of its largest output.
+# Across 512 greedy tokens, near-ties narrower than that may flip. A
+# divergence is accepted only at a top-2 gap below RWKV_TIE_GAP, and only
+# if the two paths' logits, fed the same tokens, never part by more than
+# RWKV_TIE_GAP; a wrong kernel parts them by O(1) (each run prints the
+# drift at the reference init too, where the model is chaotic).
+RWKV_TIE_GAP = 1e-2
+# The static attention path on granite: 4 prompts of 64..128 tokens, 16
+# new tokens each.
+GRANITE_STATIC = dict(prompts=4, plen=(64, 128), max_new=16)
+# The WKV kernel against a plain version: max |kernel - plain| over the
+# call's output (and, apart, its final state) within WKV_RTOL times the
+# largest |plain| there. A WKV sum mixes terms of very different sizes
+# (decays from ~1e-9 to ~1 a step), so an element's rounding follows the
+# call's largest terms, not its own size. Against the sequential oracle
+# (the same recurrence, other summation order) float32 rounding only;
+# against the chunked version (the reference's XLA path, the port's
+# eager one) that version's own error: its decay ratios are differences
+# of cumulative log sums, exact to 2^-24 * sum |log w| (|log w| up to
+# e^3.5 a step over a 64-step chunk), 10x the oracle's distance at the
+# prefill shape; bfloat16 outputs round once more (2^-8).
+WKV_RTOL = {"oracle": 1e-5, "chunked": 2e-4, "bfloat16": 1e-2}
 
 SERVE_KERNELS = ("decode_attention", "paged_prefill", "grouped_mlp")
 FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
@@ -545,6 +602,21 @@ def _max_err(y, y_ref, atol, rtol):
     return float(err.max()), float((err / lim).max())
 
 
+def wkv_err(y, y_ref, rtol):
+    """(max |y - y_ref|, its largest ratio to ``rtol * max |y_ref|``)
+    over the WKV's output and, apart, its final state: see WKV_RTOL."""
+    import torch
+
+    errs = []
+    for a, b in zip(y, y_ref):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            return float("inf"), float("inf")
+        e = float((a - b).abs().max())
+        errs.append((e, e / (rtol * max(float(b.abs().max()), 1e-30))))
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
 def check_train_kernels(cfg, device):
     """The five training kernels against their plain versions at the
     training shapes, float32, with times. Returns their JSON records."""
@@ -894,6 +966,51 @@ def condition_attention(params, cfg) -> None:
             m["wv"] *= (Kh / d) ** 0.5
 
 
+def condition_rwkv(params, cfg) -> None:
+    """Condition a random rwkv6 model, in place, so that two float32
+    implementations can be held token for token over 32 layers.
+
+    ``init_params`` copies the reference's init, and two of its rules
+    make a deep random model chaotic. (1) ``w0`` rises with the channel
+    index, so each head holds a contiguous band of decays and the last
+    heads decay within a step (w = exp(-exp(w0)) down to 1e-9 at w0 = 3):
+    there o_t ~ (r_t . k_{t-1}) v_{t-1}, and the per-head group norm turns
+    that into +-v_{t-1}/|v_{t-1}|, whose sign flips wherever a rounding
+    moves r_t . k_{t-1} across 0. (2) The fan-in rule takes the head
+    count as the fan-in of ``wr/wk/wv/wg (d, H, K)`` (ROADMAP queue 3).
+    Interleaving ``w0`` (every head then spans the whole spread, the
+    same set of decays per layer) and rescaling those four projections to
+    fan-in d tames both; the rescaling alone does not
+    (``tests/test_torch_rwkv.py::
+    test_reference_init_is_chaotic_until_conditioned``)."""
+    H, K, d = cfg.n_heads, cfg.ssm.head_size, cfg.d_model
+    for seg in params["stack"]["segments"]:
+        for pos in seg.values():
+            m = pos["mixer"]
+            reps = m["w0"].shape[0]
+            m["w0"].copy_(m["w0"].reshape(reps, H, K).transpose(1, 2)
+                          .reshape(reps, d))
+            for n in ("wr", "wk", "wv", "wg"):
+                m[n] *= (H / d) ** 0.5
+
+
+@contextlib.contextmanager
+def wkv_sequential():
+    """Inside the block the plain path's WKV (``ops.rwkv6`` "eager") is
+    the sequential oracle instead of the chunked version: the recurrence
+    itself in float32, without the chunked version's log-space error
+    (WKV_RTOL). A second plain path to read the kernels' against."""
+    from repro_torch.kernels import ref
+
+    chunked = ref.rwkv6_chunked_ref
+    ref.rwkv6_chunked_ref = lambda r, k, v, w, u, *, initial_state=None, \
+        chunk=64: ref.rwkv6_ref(r, k, v, w, u, initial_state=initial_state)
+    try:
+        yield
+    finally:
+        ref.rwkv6_chunked_ref = chunked
+
+
 def make_requests(cfg, seed: int = 0):
     """12 requests, prompts of 64..384 tokens, staggered arrivals;
     requests 2, 6 and 7 share a 128-token prefix (6 and 7 arrive in the
@@ -963,7 +1080,8 @@ def witnessed_kernels():
     version on that call's own inputs (for the serve step: the pools as
     the step has just written them). Yields ``{kernel: [calls, max |err|,
     max err/limit]}`` with the float32 limit ``atol + rtol * |plain|``
-    of :data:`TOL`."""
+    of :data:`TOL` (the WKV kernel: :data:`WKV_RTOL` against its chunked
+    plain version)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -972,6 +1090,7 @@ def witnessed_kernels():
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6 as wkv
 
     def flash_plain(q, k, v, qo, kl, *, causal):
         return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=qo,
@@ -1005,6 +1124,9 @@ def witnessed_kernels():
         (em, "expert_ffn_cuda", "expert_mlp", ref.expert_ffn_ref),
         (em, "expert_ffn_dx_cuda", "expert_mlp_dx", ref.expert_ffn_dx_ref),
         (em, "expert_ffn_dw_cuda", "expert_mlp_dw", ref.expert_ffn_dw_ref),
+        (wkv, "rwkv6_cuda", "rwkv6",
+         lambda r, k, v, w, u, s0=None: ref.rwkv6_chunked_ref(
+             r, k, v, w, u, initial_state=s0)),
     ]
 
     def witness(kern, plain, name):
@@ -1025,7 +1147,10 @@ def witnessed_kernels():
             first = y_cmp[0] if isinstance(y_cmp, tuple) else y_cmp
             if not torch.isfinite(first.float()).all():
                 fail(f"{name}: non-finite output in the witnessed step")
-            err, ratio = _max_err(y_cmp, ref_cmp, atol, rtol)
+            if name == "rwkv6":  # against the chunked plain version
+                err, ratio = wkv_err(y_cmp, ref_cmp, WKV_RTOL["chunked"])
+            else:
+                err, ratio = _max_err(y_cmp, ref_cmp, atol, rtol)
             st = stats.setdefault(name, [0, 0.0, 0.0])
             st[0] += 1
             st[1] = max(st[1], err)
@@ -1267,6 +1392,397 @@ def compare_first_moe_step(cfg, device, params, batch, kernel_mets, spec,
     report_witness(wit, kernels)
 
 
+# ---------------------------------------------------------------------------
+# rwkv6: the WKV kernel and the static engine
+# ---------------------------------------------------------------------------
+
+
+def wkv_case(cfg, T, device, gen, *, state: bool):
+    """WKV inputs at the full width (B 8, H 64, K = V = 64): r, k, v
+    standard normal, u ~ 0.3 N(0, 1), and the decay in its real range,
+    w = exp(-exp(w0 + 0.5 N(0, 1))) over the config's w0 spread (-5 at
+    the first channel to 3 at the last, ``time_mix_init``'s rule), which
+    puts some w near 1 and some below 1e-9; s0 standard normal or
+    None."""
+    import torch
+
+    B, H, K = RWKV_SERVE["max_batch"], cfg.n_heads, cfg.ssm.head_size
+    d = H * K
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    w0 = -5.0 + 8.0 * (torch.arange(d, device=device) / (d - 1)) ** 0.7
+    w = torch.exp(-torch.exp(w0 + 0.5 * rnd(B, T, d))).reshape(B, T, H, K)
+    return dict(r=rnd(B, T, H, K), k=rnd(B, T, H, K), v=rnd(B, T, H, K),
+                w=w, u=0.3 * rnd(H, K), s0=rnd(B, H, K, K) if state else None)
+
+
+def wkv_work(c, itemsize):
+    """Bytes (r, k, v in the inputs' dtype, w in f32, each read once; s0
+    read if given; o written in v's dtype and the f32 state written once)
+    and FLOPs (about 4 K V a (b, t, h): r^T S and the state update) of
+    one WKV call on these inputs."""
+    B, T, H, K = c["r"].shape
+    V = c["v"].shape[-1]
+    state = B * H * K * V * 4
+    nbytes = (B * T * H * ((2 * K + 2 * V) * itemsize + 4 * K)
+              + state * (2 if c["s0"] is not None else 1) + H * K * 4)
+    return nbytes, 4 * B * T * H * K * V
+
+
+def check_rwkv_kernel(cfg, device):
+    """The WKV kernel against the chunked plain version and the sequential
+    oracle at the serve shapes: the prefill (8, 512, 64, 64, 64) from a
+    zero state and a decode step (8, 1, 64, 64, 64) from a random one, in
+    float32, and the prefill with bfloat16 r, k, v; times the kernel and
+    the chunked plain version on the device's clock. No single PyTorch
+    call computes WKV-6, so it has no library time. Returns its JSON
+    record (the prefill, the decode shape under ``at_decode_shape``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6 as wkv
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    rec = None
+    for tag, T, state, dtype in (("prefill", RWKV_PLEN[1], False,
+                                  torch.float32),
+                                 ("decode", 1, True, torch.float32),
+                                 ("prefill", RWKV_PLEN[1], False,
+                                  torch.bfloat16)):
+        c = wkv_case(cfg, T, device, gen, state=state)
+        for n in ("r", "k", "v"):
+            c[n] = c[n].to(dtype)
+        args = (c["r"], c["k"], c["v"], c["w"], c["u"], c["s0"])
+        y = wkv.rwkv6_cuda(*args)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[1]
+        errs = {}
+        for plain, fn in (("oracle", ref.rwkv6_ref),
+                          ("chunked", ref.rwkv6_chunked_ref)):
+            rtol = WKV_RTOL["bfloat16" if dtype == torch.bfloat16
+                            else plain]
+            err, ratio = wkv_err(y, fn(*args[:5], initial_state=args[5]),
+                                 rtol)
+            errs[plain] = err
+            print(f"[rwkv-kernel] {tag} {tuple(c['v'].shape)} {name} vs "
+                  f"{plain}: max |kernel - plain| = {err:.3e}, max err / "
+                  f"limit = {ratio:.3f} (rtol {rtol} x max |plain|)",
+                  flush=True)
+            if not ratio <= 1.0:
+                fail(f"rwkv6 {tag} {name}: kernel and {plain} version "
+                     f"differ beyond their tolerance (ratio {ratio:.3g})")
+        if dtype != torch.float32:
+            continue
+        nbytes, flops = wkv_work(c, 4)
+        ms = time_ms(lambda: wkv.rwkv6_cuda(*args), flush=flush)
+        # The chunked version launches ~25 kernels a chunk: 20 queued
+        # calls would overrun the launch queue, so it is timed per call.
+        plain_ms = time_synced_ms(lambda: ref.rwkv6_chunked_ref(
+            *args[:5], initial_state=args[5]), flush=flush)
+        r = _record("rwkv6", "src/repro_torch/kernels/csrc/rwkv6.cu",
+                    "src/repro/kernels/rwkv6_kernel.py:31", errs["chunked"],
+                    ms, plain_ms, nbytes, flops, None)
+        r["max_abs_err_oracle"] = errs["oracle"]
+        print(f"[rwkv-kernel] {tag} float32: ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}"
+              f": {nbytes} B, {flops} FLOP) = {r['bound_ms'] / ms:.3f} of "
+              f"the bound", flush=True)
+        if rec is None:
+            rec = r
+        else:
+            rec["at_decode_shape"] = {k: r[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return rec
+
+
+def static_prompts(cfg, n, plen, seed):
+    """``n`` prompts from the seed: token ids in 1..vocab-1, lengths in
+    ``plen`` (an inclusive (lo, hi) range) or exactly ``plen``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = ([int(x) for x in rng.integers(plen[0], plen[1] + 1, n)]
+            if isinstance(plen, tuple) else [plen] * n)
+    return [rng.integers(1, cfg.vocab_size, m).tolist() for m in lens]
+
+
+def teacher_forced(paths, prompts, tokens):
+    """Replay the static batch through each of ``paths`` ({name: (engine,
+    context)}) in lockstep, every path fed the same ``tokens`` (a run's
+    outputs): the prefill, then one decode step per generated token
+    after the first. Returns (max |logits - the first path's logits| over
+    every step, by path; the first path's top-2 logit gap of every row at
+    every step, (steps, B))."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    steps = len(tokens[0]) - len(prompts[0])
+    toks = torch.zeros(B, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    caches = {}
+    diffs = {name: 0.0 for name in paths}
+    gaps = []
+    with torch.no_grad():
+        for s in range(steps):
+            cur = torch.tensor([[o[len(p) + s - 1]] for o, p in
+                                zip(tokens, prompts)]) if s else None
+            first = None
+            for name, (eng, ctx) in paths.items():
+                with ctx():
+                    if s == 0:
+                        caches[name] = zoo.init_serve_cache(
+                            eng.cfg, B, plen + steps, dtype=eng.cache_dtype,
+                            device=eng.device)
+                        caches[name], lg = zoo.prefill(
+                            eng.params, {"tokens": toks.to(eng.device)},
+                            caches[name], eng.cfg, ac=eng.ac)
+                    else:
+                        caches[name], lg = zoo.decode_step(
+                            eng.params, cur.to(eng.device), caches[name],
+                            plen + s - 1, eng.cfg, ac=eng.ac)
+                lg = lg[:, -1]
+                if first is None:
+                    first = lg
+                    top = torch.topk(lg, 2, dim=-1).values
+                    gaps.append((top[:, 0] - top[:, 1]).cpu())
+                else:
+                    diffs[name] = max(diffs[name],
+                                      float((lg - first).abs().max()))
+    return diffs, torch.stack(gaps)
+
+
+def first_static_divergence(prompts, a, b):
+    """(row, token index) where the outputs ``a`` and ``b`` first part,
+    or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        n = next((j for j in range(len(prompts[i]), len(x)) if x[j] != y[j]),
+                 None)
+        if n is not None:
+            return i, n
+    return None
+
+
+def serve_static(tag, params, cfg, device, prompts, max_new, runs, expect):
+    """Serve ``prompts`` through ``ServeEngine(paged=False)``, through the
+    kernels and through the plain versions, ``runs`` times each,
+    interleaved (kernels, plain, kernels, plain, ...), after one warm-up
+    of each. Greedy outputs must be token-identical (a divergence only at
+    a top-2 logit gap below TIE_GAP, RWKV_TIE_GAP for an rwkv stack, and
+    then only if the paths' logits, fed the same tokens, part by no more
+    than that), every kernel run must launch exactly ``expect``
+    ({kernel: count}) and the plain runs none. For an rwkv stack the
+    replay also reads the plain path with the WKV's sequential oracle.
+    Prints prefill and decode tokens/s per run and the peak memory;
+    returns (the kernel runs' launches, the kernels' engine)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    sc = ServeConfig(**RWKV_SERVE)
+    eng_k = ServeEngine(params, cfg, sc, device=device)
+    eng_p = ServeEngine(params, cfg, sc, device=device, ac=zoo.ApplyCfg(
+        moe_impl="eager", attn_impl="eager", mixer_impl="eager"))
+    rwkv = cfg.attn_pattern == "none"
+    for eng in (eng_k, eng_p):  # warm-up: cuBLAS, the allocator
+        eng.generate([prompts[0][:16]], max_new=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    outs, launches = {}, None
+    for key, eng in [("kernels", eng_k), ("plain", eng_p)] * runs:
+        ops.reset_launch_counts()
+        got = eng.generate(prompts, max_new=max_new)
+        ran = {k: v for k, v in ops.launch_counts().items() if v}
+        st = eng.last_stats
+        pre = B * plen / st["prefill_s"]
+        dec = B * st["decode_steps"] / st["decode_s"]
+        print(f"[{tag}] {key}: prefill {B} x {plen} tokens in "
+              f"{st['prefill_s']:.3f} s = {pre:.1f} tokens/s; "
+              f"{st['decode_steps']} decode steps in {st['decode_s']:.3f} s "
+              f"= {dec:.1f} tokens/s "
+              f"({st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.2f} ms "
+              f"a step); launches={ran}", flush=True)
+        if key == "kernels" and ran != expect:
+            fail(f"{tag}: the kernels' run launched {ran}, expected {expect}")
+        if key == "plain" and ran:
+            fail(f"{tag}: a plain run launched kernels: {ran}")
+        if key in outs and got != outs[key]:
+            fail(f"{tag}: a repeated {key} run changed its outputs")
+        outs[key] = got
+        launches = ran if key == "kernels" else launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] peak memory over the runs {peak / 2 ** 30:.2f} GiB "
+          f"({peak} B)", flush=True)
+    # Both paths fed the kernels' tokens: how far their logits part, and
+    # the kernels' top-2 gaps where the outputs part.
+    paths = {"kernels": (eng_k, contextlib.nullcontext),
+             "plain": (eng_p, contextlib.nullcontext)}
+    if rwkv:
+        paths["plain, sequential WKV"] = (eng_p, wkv_sequential)
+    diffs, gaps = teacher_forced(paths, prompts, outs["kernels"])
+    for key in list(paths)[1:]:
+        print(f"[{tag}] fed the kernels' tokens, the {key} path's logits "
+              f"part from the kernels' by at most {diffs[key]:.3e} over "
+              f"{gaps.shape[0]} steps", flush=True)
+    tie = RWKV_TIE_GAP if rwkv else TIE_GAP
+    if diffs["plain"] > tie:
+        fail(f"{tag}: fed the same tokens, the kernels' and the plain "
+             f"path's logits part by {diffs['plain']:.3e} > {tie}")
+    div = first_static_divergence(prompts, outs["kernels"], outs["plain"])
+    if div is None:
+        print(f"[{tag}] greedy outputs token-identical between the kernels "
+              f"and the plain versions ({B} rows x {max_new} tokens)",
+              flush=True)
+    else:
+        i, n = div
+        gap = float(gaps[n - len(prompts[i]), i])
+        print(f"[{tag}] kernels vs plain: row {i} diverges at token {n} "
+              f"(generated token {n - len(prompts[i])}): the kernels' top-2 "
+              f"logit gap there {gap:.3e}", flush=True)
+        if gap >= tie:
+            fail(f"{tag}: greedy divergence at row {i} token {n} with top-2 "
+                 f"gap {gap:.3e} >= {tie}")
+    return launches, eng_k
+
+
+def witness_static_step(tag, eng, prompts, expect):
+    """One prefill and one decode step of the static batch through the
+    kernels with every kernel call witnessed; also prints how far the
+    prefill's logits through the kernels are from the plain path's."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    toks = torch.zeros(B, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.to(eng.device)
+    paths = [("kernels", "cuda", witnessed_kernels),
+             ("plain", "eager", contextlib.nullcontext)]
+    logits = {}
+    with torch.no_grad():
+        for key, impl, ctx in paths:
+            ac = dc.replace(eng.ac, moe_impl=impl, attn_impl=impl,
+                            mixer_impl=impl)
+            cache = zoo.init_serve_cache(eng.cfg, B, plen + 1,
+                                         dtype=eng.cache_dtype,
+                                         device=eng.device)
+            with ctx() as wit:
+                cache, lg = zoo.prefill(eng.params, {"tokens": toks}, cache,
+                                        eng.cfg, ac=ac)
+                nxt = torch.argmax(lg[:, -1], -1)[:, None]
+                zoo.decode_step(eng.params, nxt, cache, plen, eng.cfg, ac=ac)
+                torch.cuda.synchronize()
+            logits[key] = lg
+            del cache
+            if key == "kernels":
+                report_witness(wit, expect)
+    print(f"[{tag}] prefill logits, kernels vs plain: max |diff| = "
+          f"{float((logits['kernels'] - logits['plain']).abs().max()):.3e} "
+          f"(max |logit| {float(logits['plain'].abs().max()):.3f})",
+          flush=True)
+
+
+def rwkv_dense(device):
+    """R2: rwkv6-7b at full width and depth through the static engine."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    torch.cuda.synchronize()
+    print(f"[rwkv] {cfg.name} full width and depth: "
+          f"{count_params(params) / 1e9:.3f} B params (float32), init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = static_prompts(cfg, RWKV_PROMPTS, RWKV_PLEN, seed=5)
+    print(f"[rwkv] prompt lengths {[len(p) for p in prompts]}, "
+          f"{RWKV_NEW} new tokens each", flush=True)
+    # At the package's own init every WKV call must match its plain
+    # version on its own inputs; the logits are printed, not held: at
+    # this init the paths part (see condition_rwkv).
+    print("[rwkv] one prefill and decode step at the reference init:",
+          flush=True)
+    witness_static_step("rwkv", ServeEngine(params, cfg, ServeConfig(
+        **RWKV_SERVE), device=device), prompts, ("rwkv6",))
+    condition_rwkv(params, cfg)
+    launches, eng = serve_static(
+        "rwkv", params, cfg, device, prompts, RWKV_NEW, RWKV_RUNS,
+        {"rwkv6": cfg.n_layers * RWKV_NEW})
+    witness_static_step("rwkv", eng, prompts, ("rwkv6",))
+    return launches
+
+
+
+def rwkv_moe(device):
+    """R3: the dense parent of rwkv6_7b.upcycled() at full width and
+    RWKV_MOE_LAYERS layers, upcycled (experts copied) into the channel-mix
+    MoE and served dropless through the static engine."""
+    import torch
+
+    from repro_torch.configs.rwkv6_7b import upcycled
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
+    from repro_torch.models.param import count_params
+
+    up = upcycled()
+    cfg = dataclasses.replace(
+        up, n_layers=RWKV_MOE_LAYERS, moe=dataclasses.replace(
+            up.moe, capacity_factor=float(up.moe.num_experts)))
+    dense_cfg = cfg.dense_parent()
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    parent = zoo.init_params(gen, dense_cfg, device=device)
+    condition_rwkv(parent, dense_cfg)  # its layers are copied as they are
+    n_dense = count_params(parent)
+    params = upcycle_params(parent, dense_cfg, cfg, gen)
+    del parent
+    torch.cuda.empty_cache()
+    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
+    print(f"[rwkv-moe] {dense_cfg.name} at {cfg.n_layers} layers: "
+          f"{n_dense / 1e9:.3f} B params -> upcycled ({cfg.moe.expert_init}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} in {n_moe} "
+          f"layers, capacity factor {cfg.moe.capacity_factor}): "
+          f"{count_params(params) / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = static_prompts(cfg, RWKV_PROMPTS, RWKV_MOE_PLEN, seed=6)
+    launches, eng = serve_static(
+        "rwkv-moe", params, cfg, device, prompts, RWKV_MOE_NEW, 1,
+        {"rwkv6": cfg.n_layers * RWKV_MOE_NEW,
+         "expert_mlp": n_moe * RWKV_MOE_NEW})
+    witness_static_step("rwkv-moe", eng, prompts, ("rwkv6", "expert_mlp"))
+    return launches
+
+
+def granite_static(params, cfg, device):
+    """R4: granite (conditioned, dropless) through the static engine: the
+    flash forward at prefill, the plain decode attention, the expert FFN
+    under the gather dispatch."""
+    prompts = static_prompts(cfg, GRANITE_STATIC["prompts"],
+                             GRANITE_STATIC["plen"], seed=7)
+    new = GRANITE_STATIC["max_new"]
+    launches, eng = serve_static(
+        "granite-static", params, cfg, device, prompts, new, 1,
+        {"flash_attention": cfg.n_layers, "expert_mlp": cfg.n_layers * new})
+    witness_static_step("granite-static", eng, prompts,
+                        ("flash_attention", "expert_mlp"))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1321,7 +1837,7 @@ def main() -> int:
     print(f"[witness] reference init, one mixed step: max |logit diff| = "
           f"{raw_err:.3e}", flush=True)
     condition_attention(params, cfg)
-    sc = ServeConfig(**SERVE)
+    sc = ServeConfig(paged=True, **SERVE)
     eng = ServeEngine(params, cfg, sc, device=device)
     eng.serve(make_requests(cfg)[:1])  # warm-up: cuBLAS, allocator
     ops.reset_launch_counts()
@@ -1379,7 +1895,10 @@ def main() -> int:
     if not step_err <= STEP_ATOL:
         fail(f"mixed step logits differ by {step_err:.3e}")
 
-    del eng, eager, params
+    # The static engine's attention path on the same (conditioned) model.
+    del eng, eager
+    static_launches = granite_static(params, cfg, device)
+    del params
     torch.cuda.empty_cache()
 
     # Training: the MoE runs at the config's own capacity factor.
@@ -1397,12 +1916,23 @@ def main() -> int:
     compare_first_moe_step(vit, device, first_params, first_batch,
                            first_mets, VIT_TRAIN, VIT_KERNELS)
     del first_params, first_batch
+    torch.cuda.empty_cache()
+
+    # rwkv6: the WKV kernel, then the static engine on the dense model at
+    # full width and depth and on its upcycled channel-mix MoE.
+    records.append(check_rwkv_kernel(get_config("rwkv6-7b"), device))
+    rwkv_launches = rwkv_dense(device)
+    torch.cuda.empty_cache()
+    rwkv_moe_launches = rwkv_moe(device)
 
     for rec in records:
         name = rec["name"]
         by_path = {"serve": launches.get(name, 0),
+                   "granite_static": static_launches.get(name, 0),
                    "granite_train": train_launches.get(name, 0),
-                   "vit_train": vit_launches.get(name, 0)}
+                   "vit_train": vit_launches.get(name, 0),
+                   "rwkv_static": rwkv_launches.get(name, 0),
+                   "rwkv_moe_static": rwkv_moe_launches.get(name, 0)}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
     print(json.dumps({"kernels": records}), flush=True)

@@ -2,7 +2,7 @@
 
 A copy of ``ArchConfig``, ``MoECfg`` and the registry; the port
 registers the architectures it runs (``granite-moe-1b-a400m``,
-``vit-b16-upcycled``).
+``vit-b16-upcycled``, ``rwkv6-7b``).
 ``get_reduced`` returns the CPU-test-sized config of the same family.
 """
 from __future__ import annotations
@@ -96,7 +96,7 @@ class ArchConfig:
         )
 
 
-_MODULES = ("granite_moe_1b", "vit_upcycled")
+_MODULES = ("granite_moe_1b", "vit_upcycled", "rwkv6_7b")
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, ArchConfig] = {}

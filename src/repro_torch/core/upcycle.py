@@ -53,10 +53,13 @@ def _restack(layers, descs):
 
 def _tile_expert(v: torch.Tensor, num_experts: int, gen,
                  noise_std: float) -> torch.Tensor:
-    t = v[None].expand(num_experts, *v.shape).clone()
+    """The dense leaf repeated over a leading expert axis: a broadcast
+    view (``_restack`` materialises it once, in the stacked leaf) unless
+    noise is added."""
+    t = v[None].expand(num_experts, *v.shape)
     if noise_std:
-        t += noise_std * torch.randn(t.shape, generator=gen, dtype=t.dtype,
-                                     device=t.device)
+        t = t + noise_std * torch.randn(t.shape, generator=gen,
+                                        dtype=t.dtype, device=t.device)
     return t
 
 

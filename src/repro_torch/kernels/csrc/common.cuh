@@ -24,15 +24,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // The expert FFNs' activations (act 0 = silu, 1 = tanh-gelu, as
-// jax.nn.gelu's default) and their derivatives. act(0) = 0 for both, so
-// zero rows (padded slots, dead blocks) give zero hidden rows.
+// jax.nn.gelu's default, 2 = squared relu, RWKV's channel-mix) and their
+// derivatives. act(0) = 0 for all three, so zero rows (padded slots,
+// dead blocks) give zero hidden rows.
 __device__ __forceinline__ float act_fn(float x, int act) {
   if (act == 0) return x / (1.f + expf(-x));  // silu
+  if (act == 2) return fmaxf(x, 0.f) * fmaxf(x, 0.f);  // sqrelu
   const float k0 = 0.7978845608028654f;       // sqrt(2/pi), tanh-gelu
   return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
 __device__ __forceinline__ float act_grad(float x, int act) {
+  if (act == 2) return 2.f * fmaxf(x, 0.f);
   if (act == 0) {
     const float s = 1.f / (1.f + expf(-x));
     return s * (1.f + x * (1.f - s));

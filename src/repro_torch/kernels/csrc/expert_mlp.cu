@@ -17,7 +17,8 @@
 // device memory. For d > DC the block makes one pass per DC output
 // columns and recomputes h in each. Rows past cap (cap need not be a
 // multiple of BM) read as zeros and are not written; zero rows (unfilled
-// slots) give zero outputs, since act(0) = 0 for silu and tanh-gelu.
+// slots) give zero outputs, since act(0) = 0 for silu, tanh-gelu and
+// squared relu.
 //
 // Bound on this card: operations. 4 * rows * d * f f32 FLOPs (6 gated)
 // — 386.5 GFLOP at the ViT-B/16 MoE shapes (40,960 rows, d 768, f 3072),
@@ -112,7 +113,7 @@ extern "C" int expert_mlp(const void* xe, const void* wi, const void* wg,
                           const void* wo, void* out, int G, int E, int cap,
                           int d, int f, int act, int bf16, void* stream) {
   if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 ||
-      (act != 0 && act != 1)) {
+      (act < 0 || act > 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);

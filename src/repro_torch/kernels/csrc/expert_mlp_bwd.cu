@@ -278,7 +278,7 @@ extern "C" int expert_mlp_dx(const void* xe, const void* wi, const void* wg,
                              int cap, int d, int f, int act, int bf16,
                              void* stream) {
   if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 ||
-      (act != 0 && act != 1) || (wg == nullptr) != (dg == nullptr)) {
+      (act < 0 || act > 2) || (wg == nullptr) != (dg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 
-_ACTS = {"silu": 0, "gelu": 1}
+_ACTS = {"silu": 0, "gelu": 1, "sqrelu": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -12,7 +12,9 @@ Every op takes ``implementation``:
 differentiable: each is a ``torch.autograd.Function`` whose backward
 runs the backward kernels (or, on "eager", the plain backward versions)
 and which saves only its inputs plus O(rows) statistics, as the
-reference's ``custom_vjp``s do.
+reference's ``custom_vjp``s do. ``rwkv6`` is forward-only on "cuda", as
+the reference's kernel is; its "eager" version is differentiable by
+autograd.
 """
 from __future__ import annotations
 
@@ -24,11 +26,12 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_mlp as _gm
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6 as _wkv
 
 IMPLEMENTATIONS = ("auto", "cuda", "eager")
 KERNELS = (_da.KERNEL, _pp.KERNEL, _gm.KERNEL, _fa.KERNEL, _fa.KERNEL_DQ,
            _fa.KERNEL_DKV, _gm.KERNEL_DX, _gm.KERNEL_DW, _em.KERNEL,
-           _em.KERNEL_DX, _em.KERNEL_DW)
+           _em.KERNEL_DX, _em.KERNEL_DW, _wkv.KERNEL)
 
 
 def resolve(implementation: str, x: torch.Tensor) -> str:
@@ -220,3 +223,36 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     if impl == "cuda":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _FlashAttention.apply(q, k, v, qo, kl, bool(causal), impl)
+
+
+def rwkv6(r, k, v, w, u, *, initial_state=None, chunk: int = 64,
+          implementation="auto"):
+    """RWKV-6 WKV: o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T), S_t =
+    diag(w_t) S_{t-1} + k_t v_t^T. r, k, w: (B, T, H, K); v: (B, T, H,
+    V); u: (H, K); initial_state (B, H, K, V) or None (zeros). Returns
+    (o (B, T, H, V) in v's dtype, final state float32).
+
+    "eager" runs the plain chunked version (``chunk`` steps a chunk; the
+    reference's default XLA path), differentiable by autograd; "cuda"
+    runs the step-by-step kernel, which has no chunk. The kernel is
+    forward-only, as the reference's is: asking autograd for a gradient
+    through it raises."""
+    if resolve(implementation, r) == "eager":
+        return _ref.rwkv6_chunked_ref(r, k, v, w, u,
+                                      initial_state=initial_state,
+                                      chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, w, u, initial_state)):
+        raise NotImplementedError(
+            "the WKV-6 kernel is forward-only (the reference's Pallas "
+            "kernel has no custom_vjp either): train rwkv stacks with "
+            "mixer_impl='eager' (autograd through the plain chunked "
+            "version); a backward kernel is queued in ROADMAP.md")
+    f32 = torch.float32
+    return _wkv.rwkv6_cuda(
+        r.contiguous(), k.contiguous(), v.contiguous(),
+        w.to(f32).contiguous(), u.to(f32).contiguous(),
+        None if initial_state is None
+        else initial_state.to(f32).contiguous(),
+    )

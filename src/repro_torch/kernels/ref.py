@@ -106,7 +106,9 @@ def grouped_mlp_ref(xs, wi, wg, wo, group_sizes, *, block: int,
 
 
 def _act_grad(act: str, a):
-    """d act(a) / d a, explicitly (silu, tanh-gelu)."""
+    """d act(a) / d a, explicitly (silu, tanh-gelu, squared relu)."""
+    if act == "sqrelu":
+        return 2.0 * torch.relu(a)
     if act == "silu":
         s = torch.sigmoid(a)
         return s * (1.0 + a * (1.0 - s))
@@ -348,3 +350,83 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
     dq = flash_attention_dq_ref(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_attention_dkv_ref(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
+
+
+def rwkv6_chunked_ref(r, k, v, w, u, *, initial_state=None, chunk=64):
+    """Chunked-parallel WKV-6 (port of the reference's XLA path,
+    ``ops._rwkv6_chunked_xla``): within a chunk of c steps, with the
+    cumulative decay A_t = prod_{s<=t} w_s taken in log space (w clipped
+    to [1e-12, 1]),
+
+        o_t  = r_t A_{t-1} . S_in + sum_{s<t} (r_t A_{t-1} / A_s) . k_s v_s
+               + r_t . (u k_t) v_t
+        S_out = A_c S_in + sum_s (A_c / A_s) k_s v_s
+
+    r, k, w: (B, T, H, K); v: (B, T, H, V); u: (H, K); initial_state
+    (B, H, K, V) float32 or None (zeros). The tail is padded with w = 1.
+    Returns (o (B, T, H, V) in v's dtype, final state float32)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32, out_dtype = torch.float32, v.dtype
+    c = min(chunk, T)
+    pad = (-T) % c
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    if pad:
+        zpad = lambda t, val=0.0: torch.nn.functional.pad(  # noqa: E731
+            t, (0, 0, 0, 0, 0, pad), value=val)
+        r, k, v, w = zpad(r), zpad(k), zpad(v), zpad(w, 1.0)
+    n = (T + pad) // c
+    S = (torch.zeros(B, H, K, V, dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    u32 = u.to(f32)
+    logw = torch.log(torch.clamp(w, 1e-12, 1.0)).reshape(B, n, c, H, K)
+    logA = torch.cumsum(logw, dim=2)  # inclusive
+    rs, ks = r.reshape(B, n, c, H, K), k.reshape(B, n, c, H, K)
+    vs = v.reshape(B, n, c, H, V)
+    mask = (torch.arange(c, device=r.device)[:, None]
+            > torch.arange(c, device=r.device)[None, :])
+    outs = []
+    for i in range(n):
+        rc, kc, vc, la, lw = rs[:, i], ks[:, i], vs[:, i], logA[:, i], \
+            logw[:, i]
+        la_prev = la - lw  # A_{t-1}
+        o = torch.einsum("bchk,bhkv->bchv", rc * torch.exp(la_prev), S)
+        ratio = la_prev[:, :, None] - la[:, None, :]  # (B, t, s, H, K)
+        decay = torch.exp(ratio.masked_fill(
+            ~mask[None, :, :, None, None], float("-inf")))
+        att = torch.einsum("bthk,btshk,bshk->btsh", rc, decay, kc)
+        o = o + torch.einsum("btsh,bshv->bthv", att, vc)
+        o = o + torch.einsum("bthk,hk,bthk,bthv->bthv", rc, u32, kc, vc)
+        outs.append(o)
+        la_end = la[:, -1][:, None]  # (B, 1, H, K)
+        carry = torch.exp(la_end - la)
+        S = torch.exp(la_end[:, 0])[..., None] * S + torch.einsum(
+            "bshk,bshv->bhkv", kc * carry, vc)
+    return torch.cat(outs, dim=1)[:, :T].to(out_dtype), S
+
+
+def rwkv6_ref(r, k, v, w, u, *, initial_state=None):
+    """WKV-6 oracle, the sequential recurrence (port of the reference's
+    ``rwkv6_ref``), in float32:
+
+        o_t = r_t . (S + u * k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
+
+    Shapes as :func:`rwkv6_chunked_ref`; w is used as given (no clip).
+    Returns (o (B, T, H, V) in v's dtype, final state float32)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    out_dtype = v.dtype
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    u = u.to(f32)
+    S = (torch.zeros(B, H, K, V, dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, K, V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    o = (torch.stack(outs, dim=1) if outs
+         else torch.zeros(B, 0, H, V, dtype=f32, device=r.device))
+    return o.to(out_dtype), S

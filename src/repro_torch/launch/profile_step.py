@@ -1,9 +1,12 @@
-"""Trace one fixed-shape ``paged_mixed_step`` with ``torch.profiler`` and
+"""Trace one fixed-shape ``paged_mixed_step`` (or a train step, or the
+static engine's prefill and decode step) with ``torch.profiler`` and
 report where its time goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled] \\
          [--batch N] [--seq S]] \\
+        [--static [--arch rwkv6-7b|granite-moe-1b-a400m] [--batch 8] \\
+         [--seq 512]] \\
         [--reduced] [--steps 3] [--device cuda|cpu] \\
         [--out trace_summary.json]
 
@@ -16,7 +19,13 @@ train step of ``--arch`` instead, on a fixed batch of the arch's
 synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
 images of 196 patches (its sequence; ``--seq`` is not read) through the
-gather dispatch. It prints one JSON object per run:
+gather dispatch. ``--static`` traces the static engine on ``--arch``
+instead (random weights from seed 0, dropless routing, float32 caches):
+one prefill of ``--batch`` x ``--seq`` random tokens from an empty cache
+(the cache's allocation included, as ``generate`` does it), and one
+decode step of the batch at position ``--seq``; each phase gets the
+fields below under ``"prefill"`` and ``"decode"``. It prints one JSON
+object per run:
 
 * ``wall_ms``: host wall time per step, synchronised at both ends,
   untraced; ``traced_wall_ms`` the same under the profiler;
@@ -51,7 +60,8 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "grouped_mlp_dw": "grouped_dw_kernel",
                 "expert_mlp": "expert_ffn_kernel",
                 "expert_mlp_dx": "expert_dx_kernel",
-                "expert_mlp_dw": "expert_dw_kernel"}
+                "expert_mlp_dw": "expert_dw_kernel",
+                "rwkv6": "wkv6_kernel"}
 # The train cells of chip_smoke.py: default batch (images for the
 # encoder-only ViT) and MoE dispatch.
 TRAIN_CELLS = {"granite-moe-1b-a400m": dict(batch=16, dispatch="sorted"),
@@ -138,6 +148,32 @@ def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str):
     return lambda: step(state, data)
 
 
+def static_step_fns(cfg, device, *, batch: int, seq: int):
+    """The static engine's prefill (from a fresh cache) and one decode
+    step at position ``seq``, as closures."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=device)
+
+    def fresh_cache():
+        return zoo.init_serve_cache(cfg, batch, seq + 1, dtype=torch.float32,
+                                    device=device)
+
+    def prefill():
+        return zoo.prefill(params, {"tokens": toks[:, :seq]}, fresh_cache(),
+                           cfg)
+
+    cache, _ = prefill()
+    return prefill, lambda: zoo.decode_step(params, toks[:, seq:], cache,
+                                            seq, cfg)
+
+
 def profile(step_fn, cfg, device, *, steps: int) -> dict:
     import torch
     from torch.autograd import DeviceType
@@ -197,10 +233,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
                     help="trace a MoE train step instead of a mixed step")
-    ap.add_argument("--arch", default=ARCH, choices=sorted(TRAIN_CELLS),
-                    help="the model of --train")
+    ap.add_argument("--static", action="store_true",
+                    help="trace the static engine's prefill and decode "
+                         "step instead of a mixed step")
+    ap.add_argument("--arch", default=ARCH,
+                    choices=sorted({*TRAIN_CELLS, "rwkv6-7b"}),
+                    help="the model of --train or --static")
     ap.add_argument("--batch", type=int, default=None,
-                    help="--train batch (default: the arch's train cell)")
+                    help="--train batch (default: the arch's train cell); "
+                         "--static batch (default 8)")
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=3)
@@ -216,8 +257,27 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    arch = args.arch if args.train else ARCH
+    arch = args.arch if args.train or args.static else ARCH
     cfg = get_reduced(arch) if args.reduced else get_config(arch)
+    if args.static:
+        if cfg.moe is not None:  # dropless, as chip_smoke.py serves it
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        batch = args.batch or 8
+        with torch.no_grad():
+            fns = static_step_fns(cfg, device, batch=batch, seq=args.seq)
+            out = {"arch": cfg.name, "layers": cfg.n_layers,
+                   "device": str(device), "step": "static", "batch": batch,
+                   "seq": args.seq}
+            for phase, fn in zip(("prefill", "decode"), fns):
+                out[phase] = profile(fn, cfg, device, steps=args.steps)
+        out["card"] = out["prefill"]["card"]
+        text = json.dumps(out)
+        print(text, flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(text + "\n")
+        return
     if args.train:
         cell = TRAIN_CELLS[arch]
         batch = args.batch or cell["batch"]

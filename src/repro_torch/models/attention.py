@@ -1,13 +1,14 @@
-"""GQA attention: the dense training path and the paged KV-cache serve
-path (port of those subsets of ``repro/models/attention.py``).
+"""GQA attention: the dense training path, the static-cache serve path
+and the paged KV-cache serve path (port of those subsets of
+``repro/models/attention.py``).
 
 Shapes keep the JAX layouts: ``wq (d, H, dh)``, ``wk/wv (d, Kh, dh)``,
-``wo (H, dh, d)``; pools ``(P, bs, Kh, dh)`` with block 0 the trash
-block dead rows write into. Unlike JAX, the cache writes here update the
-pools IN PLACE (the JAX engine donated them to the jitted step).
+``wo (H, dh, d)``; static caches ``(B, max_len, Kh, dh)``; pools
+``(P, bs, Kh, dh)`` with block 0 the trash block dead rows write into.
+Unlike JAX, the cache writes here update the caches and pools IN PLACE
+(the JAX engine donated them to the jitted step).
 
-The static-cache prefill/decode path and cross-attention are queued in
-ROADMAP.md (static engine, encoder-decoder family).
+Cross-attention is queued in ROADMAP.md (encoder-decoder family).
 """
 from __future__ import annotations
 
@@ -83,6 +84,16 @@ def attention_apply(
     and backward, on "cuda"); differentiable. ``causal`` False is the
     encoder's bidirectional attention (ViT: learned positions, no rope).
 
+    ``cache`` set and ``block_tables`` None — the static engine's dense
+    cache ``{"k", "v"}`` of (B, max_len, Kh, dh): this step's k/v are
+    written at ``cache_index`` (an int, shared by the batch) onward, in
+    place. A prefill (Sq > 1) attends over its own fresh k/v through
+    ``ops.flash_attention`` (causal, rows at ``cache_index`` onward; it
+    assumes an empty cache, as ``prefill`` drives it); a decode step
+    (Sq = 1) attends over the cache's first ``cache_index + 1`` positions
+    through the plain :func:`_decode_attention` (the reference computes
+    it outside any kernel).
+
     Otherwise paged self-attention over single-token rows x (B, 1, d):
 
     ``mixed`` set — the fused decode + chunked-prefill step:
@@ -105,10 +116,10 @@ def attention_apply(
     from repro_torch.kernels import ops
 
     B, Sq, _ = x.shape
-    if cache is not None and Sq != 1:
-        raise NotImplementedError(
-            "the paged path runs single-token rows; prefill into a cache "
-            "(the static engine) is queued in ROADMAP.md"
+    if block_tables is not None and Sq != 1:
+        raise ValueError(
+            "the paged path runs single-token rows; prefill-on-join into "
+            "paged blocks is queued in ROADMAP.md"
         )
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -123,6 +134,9 @@ def attention_apply(
         y = ops.flash_attention(q, k, v, causal=causal,
                                 implementation=implementation)
         return _out(y, p["wo"]), None
+    if block_tables is None:
+        return _static_attention(p, q, k, v, cfg, cache, int(cache_index),
+                                 causal, implementation)
     pool_k, pool_v = cache["k"], cache["v"]
     if mixed is None:
         lengths = cache_index
@@ -179,6 +193,52 @@ def attention_apply(
         ys.append(y_ch.reshape(NC * C, 1, *y_ch.shape[2:]))
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
     return _out(y, p["wo"]), cache
+
+
+def _static_attention(p, q, k, v, cfg, cache, index: int, causal: bool,
+                      implementation: str):
+    """The static-cache branch of :func:`attention_apply`."""
+    from repro_torch.kernels import ops
+
+    Sq = q.shape[1]
+    if cfg.pos_emb == "rope":
+        positions = torch.arange(index, index + Sq, device=q.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    cache["k"][:, index:index + Sq] = k.to(cache["k"].dtype)
+    cache["v"][:, index:index + Sq] = v.to(cache["v"].dtype)
+    if Sq > 1:
+        # Prefill: attend over the LOCAL fresh k/v, not the cache view.
+        y = ops.flash_attention(q, k, v, causal=causal, q_offset=index,
+                                implementation=implementation)
+    else:
+        y = _decode_attention(q, cache["k"], cache["v"], index + 1)
+    return _out(y, p["wo"]), cache
+
+
+def _decode_attention(q, k, v, kv_len: int):
+    """q: (B, 1, H, dh); k, v: (B, S, Kh, dh). Softmax over the first
+    ``kv_len`` (>= 1) positions, shared by the batch. Plain PyTorch in
+    float32, as the reference computes it outside any kernel. Returns
+    (B, 1, H, dh) in q's dtype."""
+    B, _, H, dh = q.shape
+    Kh = k.shape[2]
+    qg = q.float().reshape(B, Kh, H // Kh, dh)
+    kk, vv = k[:, :kv_len].float(), v[:, :kv_len].float()
+    p = torch.softmax(torch.einsum("bkgd,btkd->bkgt", qg, kk) * dh ** -0.5,
+                      dim=-1)
+    y = torch.einsum("bkgt,btkd->bkgd", p, vv)
+    return y.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device=None):
+    """The static engine's dense KV cache, (B, max_len, Kh, dh) each."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
 
 
 def _out(y, wo):

@@ -1,16 +1,17 @@
-"""Top-level model builders for decoder-only and encoder-only attention
-stacks (port of the training and paged-serving subsets of
+"""Top-level model builders for decoder-only and encoder-only stacks
+(port of the training and serving subsets of
 ``repro/models/model_zoo.py``): ``init_params``, ``forward_train``,
-``loss_fn``, ``init_paged_serve_cache``, ``paged_mixed_step`` and
-``paged_decode_step``.
+``loss_fn``, the static engine's ``init_serve_cache``, ``prefill`` and
+``decode_step``, and the paged engine's ``init_paged_serve_cache``,
+``paged_mixed_step`` and ``paged_decode_step``.
 
 Batch formats
   decoder_only : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
                  marking masked-out targets;
   encoder_only : ``{"patch_embeds": (B, P, d), "labels": (B,)}`` (ViT).
 
-The chunked cross-entropy (``ce_chunk``), remat, the static-cache
-prefill/decode and the speculative verify step are queued in
+The chunked cross-entropy (``ce_chunk``), remat, ``paged_prefill``
+(prefill-on-join) and the speculative verify step are queued in
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -39,26 +40,26 @@ from repro_torch.models.layers import (
 
 @dataclasses.dataclass(frozen=True)
 class ApplyCfg:
-    """Runtime knobs. ``moe_impl``/``attn_impl`` in ``auto|cuda|eager``:
-    ``resolve(device)`` pins "auto" to the CUDA kernels on a CUDA device
-    and to the plain PyTorch versions elsewhere."""
+    """Runtime knobs. ``moe_impl``/``attn_impl``/``mixer_impl`` (the
+    RWKV WKV) in ``auto|cuda|eager``: ``resolve(device)`` pins "auto" to
+    the CUDA kernels on a CUDA device and to the plain PyTorch versions
+    elsewhere. The reference's "pallas" is the port's "cuda"; its "xla"
+    and "ref" are the port's "eager"."""
 
     dispatch: str = "gather"  # moe dispatch: gather | einsum | sorted
     moe_impl: str = "auto"
     attn_impl: str = "auto"
+    mixer_impl: str = "auto"
 
     def resolve(self, device) -> "ApplyCfg":
-        for impl in (self.moe_impl, self.attn_impl):
-            if impl not in IMPLEMENTATIONS:
-                raise ValueError(
-                    f"unknown implementation {impl!r} {IMPLEMENTATIONS}"
-                )
+        impls = ("moe_impl", "attn_impl", "mixer_impl")
+        for name in impls:
+            if getattr(self, name) not in IMPLEMENTATIONS:
+                raise ValueError(f"unknown implementation "
+                                 f"{getattr(self, name)!r} {IMPLEMENTATIONS}")
         pin = "cuda" if torch.device(device).type == "cuda" else "eager"
-        return dataclasses.replace(
-            self,
-            moe_impl=pin if self.moe_impl == "auto" else self.moe_impl,
-            attn_impl=pin if self.attn_impl == "auto" else self.attn_impl,
-        )
+        return dataclasses.replace(self, **{
+            name: pin for name in impls if getattr(self, name) == "auto"})
 
 
 def _check_structure(cfg: ArchConfig, *ok: str) -> None:
@@ -103,7 +104,9 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     """The training forward, through the flash-attention and expert-FFN
     kernels (and their backward kernels under autograd) on a CUDA
     device. Decoder-only: causal LM over ``batch["tokens"] (B, S)`` at
-    positions 0..S-1, logits (B, S, V). Encoder-only (ViT): the patch
+    positions 0..S-1, logits (B, S, V); an rwkv6 stack runs forward
+    only through the WKV kernel (it raises under autograd: pass
+    ``mixer_impl="eager"`` to differentiate). Encoder-only (ViT): the patch
     frontend plus learned positions, the bidirectional stack (Expert
     Choice in its MoE layers), the final norm, global average pooling
     and the class head, logits (B, V). Returns (logits float32,
@@ -174,8 +177,8 @@ def _stack(params, x, cfg, ac: ApplyCfg, **kw):
     return stk.stack_apply(
         params["stack"], x, cfg, stk.layer_descs(cfg),
         router_kind=stk.stack_router_kind(cfg, stack="decoder"),
-        dispatch=ac.dispatch,
-        moe_impl=ac.moe_impl, attn_impl=ac.attn_impl, **kw,
+        dispatch=ac.dispatch, moe_impl=ac.moe_impl, attn_impl=ac.attn_impl,
+        mixer_impl=ac.mixer_impl, **kw,
     )
 
 
@@ -183,6 +186,53 @@ def _logits(params, h, cfg):
     h = norm_apply(params["final_norm"], h, cfg)
     return head_apply(params.get("head", {}), h, params["embed"],
                       cfg).float()
+
+
+def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+                     dtype=torch.bfloat16, device=None):
+    """The static engine's caches: a dense (B, max_len, Kh, dh) KV cache
+    per attention layer, the time-mix ``x_prev``/``wkv`` and channel-mix
+    ``x_prev`` states per rwkv6 layer (``wkv`` always float32).
+    ``device`` defaults to "cuda" and raises without a card."""
+    _check_structure(cfg, "decoder_only")
+    device = resolve_device(device)
+    return {"stack": stk.stack_cache_init(
+        cfg, stk.layer_descs(cfg), batch, max_len, dtype=dtype,
+        device=device,
+    )}
+
+
+def prefill(params, batch, cache, cfg: ArchConfig, *,
+            ac: ApplyCfg = ApplyCfg()):
+    """Run the full prompts ``batch["tokens"] (B, S)`` from an empty
+    cache, writing it in place. Returns (cache, logits (B, 1, V) float32
+    at the last position)."""
+    _check_structure(cfg, "decoder_only")
+    tokens = batch["tokens"].long()
+    ac = ac.resolve(tokens.device)
+    S = tokens.shape[1]
+    x = embed_apply(params["embed"], tokens, cfg,
+                    positions=torch.arange(S, device=tokens.device))
+    x, _, cache["stack"] = _stack(params, x, cfg, ac, cache=cache["stack"],
+                                  cache_index=0)
+    return cache, _logits(params, x[:, -1:], cfg)
+
+
+def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
+                *, ac: ApplyCfg = ApplyCfg()):
+    """One autoregressive step of the static engine. tokens: (B, 1) at
+    position ``cache_index`` (an int, shared by the batch). Updates the
+    cache in place; returns (cache, logits (B, 1, V) float32)."""
+    _check_structure(cfg, "decoder_only")
+    tokens = tokens.long()
+    ac = ac.resolve(tokens.device)
+    index = int(cache_index)
+    x = embed_apply(params["embed"], tokens, cfg,
+                    positions=torch.arange(index, index + 1,
+                                           device=tokens.device))
+    x, _, cache["stack"] = _stack(params, x, cfg, ac, cache=cache["stack"],
+                                  cache_index=index)
+    return cache, _logits(params, x, cfg)
 
 
 def paged_decode_step(params, tokens, cache, block_tables, lengths,

@@ -4,10 +4,15 @@ of ``repro/models/stack.py``).
 Params of each segment position are stacked over repeats with a leading
 axis, exactly the JAX layout (``stack/segments/<i>/pos<j>/...``). JAX
 scans over that axis; the port walks it with a Python loop, taking
-per-layer views (gradients flow back into the stacked leaves). Per-layer
-KV pools are slices of one ``(reps, P, bs, Kh, dh)`` tensor per
-position, written in place. Without a cache the stack runs the dense
-training forward.
+per-layer views (gradients flow back into the stacked leaves). Caches
+are stacked the same way: per-layer KV pools are slices of one ``(reps,
+P, bs, Kh, dh)`` tensor per position, the static engine's KV caches and
+RWKV states slices of ``(reps, B, ...)`` tensors, all written in place.
+Without a cache the stack runs the training forward.
+
+Mixers: attention and RWKV-6 time-mix (with its channel-mix wrapper
+``cm`` around the FFN); mamba and cross-attention are queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -17,9 +22,11 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.moe import moe_apply, moe_init
+from repro_torch.models import rwkv
 from repro_torch.models.attention import (
     attention_apply,
     attention_init,
+    init_cache as attn_cache_init,
     init_paged_cache,
 )
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
@@ -85,10 +92,11 @@ def find_segments(descs: list[LayerDesc]) -> list[tuple[int, list[LayerDesc]]]:
 
 
 def _check_desc(desc: LayerDesc) -> None:
-    if desc.mixer != "attn" or desc.cross:
+    if desc.mixer not in ("attn", "rwkv6") or desc.cross:
         raise NotImplementedError(
-            f"layer {desc} is not ported yet: the port runs attention "
-            "stacks (mamba/rwkv6/cross-attention are queued in ROADMAP.md)"
+            f"layer {desc} is not ported yet: the port runs attention and "
+            "rwkv6 stacks (mamba and cross-attention are queued in "
+            "ROADMAP.md)"
         )
 
 
@@ -96,14 +104,32 @@ def layer_init(gen, cfg: ArchConfig, desc: LayerDesc, *,
                dtype=torch.float32, device=None):
     _check_desc(desc)
     kw = dict(dtype=dtype, device=device)
-    p = {"pre_norm": norm_init(cfg, device=device),
-         "mixer": attention_init(gen, cfg, **kw),
-         "ffn_norm": norm_init(cfg, device=device)}
+    p = {"pre_norm": norm_init(cfg, device=device)}
+    if desc.mixer == "attn":
+        p["mixer"] = attention_init(gen, cfg, **kw)
+    else:
+        p["mixer"] = rwkv.time_mix_init(gen, cfg, **kw)
+    p["ffn_norm"] = norm_init(cfg, device=device)
+    if desc.mixer == "rwkv6":
+        p["cm"] = rwkv.channel_mix_init(gen, cfg, **kw)
     if desc.ffn == "moe":
         p["ffn"] = moe_init(gen, cfg, cfg.moe, **kw)
     else:
         p["ffn"] = mlp_init(gen, cfg, **kw)
     return p
+
+
+def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int,
+                     max_len: int, *, dtype=torch.bfloat16, device=None):
+    """The static engine's cache of one layer: the dense KV cache of an
+    attention layer, the time-mix and channel-mix states of an rwkv6
+    layer."""
+    _check_desc(desc)
+    kw = dict(dtype=dtype, device=device)
+    if desc.mixer == "attn":
+        return {"mixer": attn_cache_init(cfg, batch, max_len, **kw)}
+    return {"mixer": rwkv.time_mix_cache_init(cfg, batch, **kw),
+            "cm": rwkv.channel_mix_cache_init(cfg, batch, **kw)}
 
 
 def zero_metrics(device=None):
@@ -114,20 +140,33 @@ def zero_metrics(device=None):
 
 def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
                 cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, causal: bool = True, router_kind: str = "top_k",
-                dispatch: str = "gather", moe_impl: str = "auto",
-                attn_impl: str = "auto"):
-    """One pre-norm layer: the dense training forward over (B, S, d)
-    when ``cache`` is None (``causal`` False for encoders), else paged
-    single-token rows. Returns (x, metrics, cache)."""
+                mixed=None, causal: bool = True,
+                router_kind: str = "top_k", dispatch: str = "gather",
+                moe_impl: str = "auto", attn_impl: str = "auto",
+                mixer_impl: str = "auto"):
+    """One pre-norm layer: the training forward over (B, S, d) when
+    ``cache`` is None (``causal`` False for encoders); with a cache, the
+    static engine's prefill or decode step (``block_tables`` None) or
+    the paged single-token rows. An rwkv6 layer gates its FFN
+    output with the channel-mix receptance. Returns (x, metrics, cache),
+    the cache updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
-    y, mix_cache = attention_apply(
-        p["mixer"], h, cfg, cache=None if cache is None else cache["mixer"],
-        cache_index=cache_index, block_tables=block_tables, mixed=mixed,
-        causal=causal, implementation=attn_impl,
-    )
+    mix_cache = None if cache is None else cache["mixer"]
+    if desc.mixer == "attn":
+        y, _ = attention_apply(
+            p["mixer"], h, cfg, cache=mix_cache, cache_index=cache_index,
+            block_tables=block_tables, mixed=mixed, causal=causal,
+            implementation=attn_impl,
+        )
+    else:
+        y, _ = rwkv.time_mix_apply(p["mixer"], h, cfg, cache=mix_cache,
+                                   implementation=mixer_impl)
     x = x + y
     h = norm_apply(p["ffn_norm"], x, cfg)
+    gate = None
+    if "cm" in p:
+        h, gate, _ = rwkv.channel_mix_pre(
+            p["cm"], h, cache=None if cache is None else cache["cm"])
     metrics = {}  # a dense layer adds nothing to zero_metrics()
     if desc.ffn == "moe":
         y, m = moe_apply(
@@ -140,7 +179,9 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
                    "moe_layer_count": torch.ones_like(m["aux_loss"])}
     else:
         y = mlp_apply(p["ffn"], h, cfg)
-    return x + y, metrics, None if cache is None else {"mixer": mix_cache}
+    if gate is not None:
+        y = gate * y
+    return x + y, metrics, cache
 
 
 def _stack_trees(trees):
@@ -152,15 +193,39 @@ def _stack_trees(trees):
 
 def stack_init(gen, cfg: ArchConfig, descs, *, dtype=torch.float32,
                device=None):
+    """Layer params stacked over each segment's repeats. Each layer is
+    drawn in order and copied into its slot of the stacked leaves, so
+    the stack never holds a second copy of itself (rwkv6-7b is 30 GB in
+    float32)."""
     out = []
     for reps, pdescs in find_segments(descs):
-        per_pos = {f"pos{i}": [] for i in range(len(pdescs))}
-        for _ in range(reps):
+        seg = {}
+        for r in range(reps):
             for i, d in enumerate(pdescs):
-                per_pos[f"pos{i}"].append(
-                    layer_init(gen, cfg, d, dtype=dtype, device=device)
-                )
-        out.append({k: _stack_trees(v) for k, v in per_pos.items()})
+                layer = layer_init(gen, cfg, d, dtype=dtype, device=device)
+                if r == 0:
+                    seg[f"pos{i}"] = tree_map(
+                        lambda t: t.new_empty((reps, *t.shape)), layer)
+                for dst, src in zip(tree_leaves(seg[f"pos{i}"]),
+                                    tree_leaves(layer)):
+                    dst[r].copy_(src)
+                del layer
+        out.append(seg)
+    return {"segments": out}
+
+
+def stack_cache_init(cfg: ArchConfig, descs, batch: int, max_len: int, *,
+                     dtype=torch.bfloat16, device=None):
+    """The static engine's caches, stacked over segment repeats."""
+    out = []
+    for reps, pdescs in find_segments(descs):
+        seg = {}
+        for i, d in enumerate(pdescs):
+            one = layer_cache_init(cfg, d, batch, max_len, dtype=dtype,
+                                   device=device)
+            seg[f"pos{i}"] = tree_map(
+                lambda v: v[None].repeat(reps, *([1] * v.dim())), one)
+        out.append(seg)
     return {"segments": out}
 
 
@@ -173,7 +238,10 @@ def stack_paged_cache_init(cfg: ArchConfig, descs, num_blocks: int,
     for reps, pdescs in find_segments(descs):
         seg = {}
         for i, d in enumerate(pdescs):
-            _check_desc(d)
+            if d.mixer != "attn":
+                raise ValueError(
+                    "paged serving supports attention mixers only, got "
+                    f"{d.mixer!r} (serve it through the static engine)")
             one = init_paged_cache(cfg, num_blocks, block_size,
                                    dtype=dtype, device=device)
             seg[f"pos{i}"] = {"mixer": {
@@ -196,13 +264,15 @@ def _per_layer(tree, reps: int) -> list:
 
 def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
                 cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, causal: bool = True, router_kind: str = "top_k",
-                dispatch: str = "gather", moe_impl: str = "auto",
-                attn_impl: str = "auto"):
+                mixed=None, causal: bool = True,
+                router_kind: str = "top_k", dispatch: str = "gather",
+                moe_impl: str = "auto", attn_impl: str = "auto",
+                mixer_impl: str = "auto"):
     """Apply every layer in order: the training forward when ``cache``
-    is None (bidirectional when ``causal`` is False), else the paged
-    serve step with the pools in ``cache`` updated in place. Returns
-    (x, summed metrics, cache)."""
+    is None (bidirectional when ``causal`` is False), else the static
+    engine's prefill or decode step (``block_tables`` None) or the paged
+    serve step, with the caches in ``cache`` updated in place.
+    Returns (x, summed metrics, cache)."""
     totals = zero_metrics(x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
         seg_params = {k: _per_layer(v, reps)
@@ -216,9 +286,10 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
                     seg_params[f"pos{i}"][r], x, cfg, d,
                     cache=layer_cache, cache_index=cache_index,
                     block_tables=block_tables, token_mask=token_mask,
-                    mixed=mixed, causal=causal, router_kind=router_kind,
-                    dispatch=dispatch, moe_impl=moe_impl,
-                    attn_impl=attn_impl,
+                    mixed=mixed, causal=causal,
+                    router_kind=router_kind, dispatch=dispatch,
+                    moe_impl=moe_impl, attn_impl=attn_impl,
+                    mixer_impl=mixer_impl,
                 )
                 for k, v in m.items():
                     totals[k] = totals[k] + v

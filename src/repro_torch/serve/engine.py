@@ -1,22 +1,33 @@
-"""Paged continuous-batching serve engine with chunked-prefill mixed
-steps (port of ``repro/serve/engine.py``, ``ServeEngine(paged=True,
-admission="chunked")`` and ``ChunkedSession``).
+"""Serving engines (port of ``repro/serve/engine.py``): the static-batch
+engine, ``ServeEngine(paged=False)`` (the default, as in the
+reference), and the paged continuous-batching engine with chunked-prefill
+mixed steps, ``ServeEngine(paged=True, admission="chunked")`` and
+``ChunkedSession``.
 
-Every tick runs ONE fixed-shape ``zoo.paged_mixed_step``: one decode row
-per slot plus ``chunks_per_step`` prefill chunk lanes of ``chunk_size``
-prompt tokens. Admission maps shared prompt-prefix blocks copy-free
-(copy-on-write for a partial tail block, done in place on the pools),
-same-tick followers share a donor's in-flight blocks, and each tick
-pays one host->device copy of its lane buffers and ONE device->host
-copy of the logits.
+The static engine's ``generate`` packs up to ``max_batch`` prompts into
+one batch, right-pads them with token 0, runs one ``zoo.prefill`` over
+a dense cache of ``plen + max_new`` positions and then the decode loop,
+sampling every row at the padded last position (as the reference does:
+for an RWKV stack the pad tokens enter the recurrent state). It serves
+every stack the port runs, attention and rwkv6.
 
-Not ported yet (they raise, see ROADMAP.md): the static engine
-(``paged=False``), ``admission="prefill_on_join"``, speculative decoding
-(``draft != "none"``), chaos injection and the fleet hooks.
+In the paged engine every tick runs ONE fixed-shape
+``zoo.paged_mixed_step``: one decode row per slot plus
+``chunks_per_step`` prefill chunk lanes of ``chunk_size`` prompt tokens.
+Admission maps shared prompt-prefix blocks copy-free (copy-on-write for
+a partial tail block, done in place on the pools), same-tick followers
+share a donor's in-flight blocks, and each tick pays one host->device
+copy of its lane buffers and ONE device->host copy of the logits. It
+serves attention-only stacks.
+
+Not ported yet (they raise, see ROADMAP.md): ``admission=
+"prefill_on_join"``, speculative decoding (``draft != "none"``), chaos
+injection and the fleet hooks.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -42,9 +53,9 @@ class ServeConfig:
     max_len: int = 256
     temperature: float = 0.0  # 0 => greedy
     cache_dtype: str = "float32"  # float32 | bfloat16
-    # The port serves the paged engine only; paged=False (the static
-    # engine) is queued in ROADMAP.md.
-    paged: bool = True
+    # False: the static-batch engine (``generate``); True: the paged
+    # continuous-batching engine (``serve``).
+    paged: bool = False
     block_size: int = 16
     # 0 => 1 trash block + max_batch * ceil(max_len / block_size).
     num_blocks: int = 0
@@ -65,27 +76,27 @@ def _unported(what: str) -> NotImplementedError:
 
 
 class ServeEngine:
-    """The paged chunked serve engine over ``params`` (a tensor tree on
-    ``device``, which defaults to "cuda" and raises without a card)."""
+    """The static-batch engine (``sc.paged`` False) or the paged chunked
+    engine over ``params`` (a tensor tree on ``device``, which defaults
+    to "cuda" and raises without a card)."""
 
     def __init__(self, params, cfg: ArchConfig,
                  sc: Optional[ServeConfig] = None, *,
                  ac: zoo.ApplyCfg = zoo.ApplyCfg(), device=None):
         sc = ServeConfig() if sc is None else sc
-        if not sc.paged:
-            raise _unported("the static-batch engine (paged=False)")
-        if sc.admission != "chunked":
-            raise _unported(f"admission={sc.admission!r}")
-        if sc.draft != "none":
-            raise _unported("speculative decoding (draft != 'none')")
-        if sc.chaos is not None:
-            raise _unported("chaos injection")
-        if sc.chunk_size < 1 or sc.chunks_per_step < 1:
-            raise ValueError(
-                "chunked admission needs chunk_size >= 1 and "
-                f"chunks_per_step >= 1; got {sc.chunk_size}, "
-                f"{sc.chunks_per_step}"
-            )
+        if sc.paged:
+            if sc.admission != "chunked":
+                raise _unported(f"admission={sc.admission!r}")
+            if sc.draft != "none":
+                raise _unported("speculative decoding (draft != 'none')")
+            if sc.chaos is not None:
+                raise _unported("chaos injection")
+            if sc.chunk_size < 1 or sc.chunks_per_step < 1:
+                raise ValueError(
+                    "chunked admission needs chunk_size >= 1 and "
+                    f"chunks_per_step >= 1; got {sc.chunk_size}, "
+                    f"{sc.chunks_per_step}"
+                )
         if sc.cache_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown cache_dtype {sc.cache_dtype!r}")
         self.device = resolve_device(device)
@@ -95,18 +106,84 @@ class ServeEngine:
                 f"engine on {self.device}"
             )
         self.params, self.cfg, self.sc = params, cfg, sc
-        if cfg.moe is not None and ac.dispatch == "gather":
-            # The serving hot path: the live-token ragged dispatch instead
-            # of the padded capacity buffer ("gather" is only ApplyCfg's
-            # generic default; an explicit "einsum" stays as asked).
+        if sc.paged and cfg.moe is not None and ac.dispatch == "gather":
+            # The paged serving hot path: the live-token ragged dispatch
+            # instead of the padded capacity buffer ("gather" is only
+            # ApplyCfg's generic default; an explicit "einsum" stays as
+            # asked). The static engine keeps "gather", as the
+            # reference's does.
             ac = dataclasses.replace(ac, dispatch="sorted")
         self.ac = ac.resolve(self.device)
         self.cache_dtype = getattr(torch, sc.cache_dtype)
-        # Fail fast on stacks the paged engine cannot serve.
-        zoo.init_paged_serve_cache(cfg, 2, sc.block_size,
-                                   dtype=self.cache_dtype, device=self.device)
+        if sc.paged:
+            # Fail fast on stacks the paged engine cannot serve.
+            zoo.init_paged_serve_cache(cfg, 2, sc.block_size,
+                                       dtype=self.cache_dtype,
+                                       device=self.device)
         self.last_stats: dict = {}
         self._signatures: set = set()
+
+    # -- the static-batch engine --------------------------------------------
+    def generate(self, prompts: list[list[int]], max_new: int = 32, *,
+                 seed: int = 0) -> list[list[int]]:
+        """The static engine: generate ``max_new`` tokens for each prompt
+        as one fixed batch (right-padded prompts, one prefill, then the
+        decode loop over a dense cache; every row samples at the padded
+        last position, as the reference's does); returns prompt +
+        generated tokens per prompt. ``seed`` keys the temperature
+        sampling (a ``torch.Generator``: it matches the reference's
+        greedy outputs only). ``last_stats`` gets the host seconds of the
+        prefill (to the first sampled tokens on the host) and of the
+        decode steps. A paged engine serves through :meth:`serve`."""
+        if self.sc.paged:
+            raise ValueError("generate() is the static engine's; the paged "
+                             "engine runs serve()")
+        B = len(prompts)
+        if not 1 <= B <= self.sc.max_batch:
+            raise ValueError(f"the static engine serves 1..{self.sc.max_batch}"
+                             f" prompts at once, got {B}")
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((B, plen), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p  # right padding with token 0
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = zoo.init_serve_cache(self.cfg, B, plen + max_new,
+                                         dtype=self.cache_dtype,
+                                         device=self.device)
+            cache, logits = zoo.prefill(
+                self.params, {"tokens": torch.from_numpy(toks).to(
+                    self.device)}, cache, self.cfg, ac=self.ac)
+            cur = self._sample(logits, gen)
+            cur_host = cur.cpu()
+            t1 = time.perf_counter()
+            out = [list(p) for p in prompts]
+            for t in range(max_new):
+                for i in range(B):
+                    out[i].append(int(cur_host[i, 0]))
+                if t == max_new - 1:
+                    break
+                cache, logits = zoo.decode_step(self.params, cur, cache,
+                                                plen + t, self.cfg,
+                                                ac=self.ac)
+                cur = self._sample(logits, gen)
+                cur_host = cur.cpu()
+        self.last_stats = {
+            "mode": "static", "batch": B, "prompt_len": plen,
+            "decode_steps": max(max_new - 1, 0),
+            "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
+        }
+        return out
+
+    def _sample(self, logits, gen):
+        """Next tokens (B, 1) from the last position's logits: argmax, or
+        a draw at ``temperature`` from ``gen``."""
+        lg = logits[:, -1]
+        if self.sc.temperature <= 0.0:
+            return torch.argmax(lg, dim=-1)[:, None]
+        probs = torch.softmax(lg.float() / self.sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)
 
     # -- device side ------------------------------------------------------
     def _mixed_step(self, cache, lanes: dict):
@@ -159,6 +236,9 @@ class ServeEngine:
 
     def open_session(self, *, on_token=None, on_event=None,
                      seed: int = 0) -> "ChunkedSession":
+        if not self.sc.paged:
+            raise ValueError("serve() needs ServeConfig(paged=True); the "
+                             "static engine runs generate()")
         return ChunkedSession(self, on_token=on_token, on_event=on_event,
                               seed=seed)
 

@@ -264,7 +264,8 @@ def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True)])
+@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
+                                       ("sqrelu", False)])
 @pytest.mark.parametrize("case", EXPERT_CASES)
 def test_expert_kernels_match_plain(cuda, dtype, act, gated, case):
     from repro_torch.kernels import expert_mlp as em
@@ -326,3 +327,71 @@ def test_expert_autograd_cuda_matches_eager(cuda, gated):
                 y, ps + ([pg] if gated else []), gy))
         for a, b in zip(outs["cuda"], outs["eager"]):
             torch.testing.assert_close(a, b, **_tol(torch.float32))
+
+
+# B, T, H, K, V, with_state: T not a multiple of the staged tile, V != K
+# (and V not a multiple of a warp), T = 1 (a decode step), every head
+# size the kernel is built for.
+RWKV_CASES = [
+    (2, 37, 2, 8, 8, False),
+    (1, 64, 4, 16, 16, True),
+    (2, 33, 2, 8, 12, True),
+    (3, 1, 2, 64, 64, True),
+    (1, 70, 1, 32, 40, False),
+]
+
+
+def _wkv_inputs(rng, dev, dtype, B, T, H, K, V, with_state):
+    t = lambda a, dt=torch.float32: torch.tensor(  # noqa: E731
+        a, dtype=dt, device=dev)
+    r, k = (t(0.5 * rng.normal(size=(B, T, H, K)), dtype) for _ in range(2))
+    v = t(0.5 * rng.normal(size=(B, T, H, V)), dtype)
+    w = t(0.6 / (1 + np.exp(-rng.normal(size=(B, T, H, K)))) + 0.3)
+    u = t(0.3 * rng.normal(size=(H, K)))
+    s0 = t(0.2 * rng.normal(size=(B, H, K, V))) if with_state else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_kernel_matches_plain(cuda, dtype, case):
+    """The WKV-6 kernel against the sequential oracle (same recurrence,
+    another summation order: the f32 tolerance) and against the chunked
+    plain version (the reference's tolerance, 2e-4). The final state is
+    float32 whatever the inputs' dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6 as wkv
+
+    rng = np.random.default_rng(sum(case))
+    args = _wkv_inputs(rng, cuda, dtype, *case)
+    before = wkv.KERNEL.launches
+    o, s = wkv.rwkv6_cuda(*args)
+    torch.cuda.synchronize()
+    assert wkv.KERNEL.launches == before + 1
+    assert o.dtype == dtype and s.dtype == torch.float32
+    so, ss = ref.rwkv6_ref(*args[:5], initial_state=args[5])
+    torch.testing.assert_close(o, so, **_tol(dtype))
+    torch.testing.assert_close(s, ss, **_tol(torch.float32))
+    co, cs = ref.rwkv6_chunked_ref(*args[:5], initial_state=args[5])
+    chunked = dict(atol=2e-4, rtol=2e-4) if dtype == torch.float32 else \
+        _tol(dtype)
+    torch.testing.assert_close(o, co, **chunked)
+    torch.testing.assert_close(s, cs, atol=2e-4, rtol=2e-4)
+    # ops.rwkv6 on CUDA tensors launches the kernel.
+    o2, s2 = ops.rwkv6(*args[:5], initial_state=args[5])
+    assert wkv.KERNEL.launches == before + 2
+    torch.testing.assert_close(o2, o, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_rwkv6_cuda_refuses_autograd(cuda):
+    rng = np.random.default_rng(3)
+    r, k, v, w, u, _ = _wkv_inputs(rng, cuda, torch.float32, 1, 8, 2, 8, 8,
+                                   False)
+    with pytest.raises(NotImplementedError, match="mixer_impl='eager'"):
+        ops.rwkv6(r.requires_grad_(), k, v, w, u)
+    with torch.no_grad():
+        ops.rwkv6(r, k, v, w, u)
+    o, _ = ops.rwkv6(r, k, v, w, u, implementation="eager")
+    assert o.requires_grad

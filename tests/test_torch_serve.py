@@ -150,7 +150,8 @@ def _serve_both(granite, reqs, *, seed_rng=None, **sc):
     seed = 0
     if seed_rng is not None:
         seed = int(jax.random.randint(seed_rng, (), 0, 2 ** 31 - 1))
-    teng = ServeEngine(tvals, cfg, ServeConfig(**common), device="cpu")
+    teng = ServeEngine(tvals, cfg, ServeConfig(paged=True, **common),
+                       device="cpu")
     touts, tfin = teng.serve([Request(**r) for r in reqs], seed=seed)
     return (jouts, jfin, jeng.last_stats), (touts, tfin, teng.last_stats)
 
@@ -210,13 +211,14 @@ def test_engine_runs_sorted_dispatch_under_default_apply_cfg(granite,
             return _fn(*a, **kw)
         monkeypatch.setattr(ops, name, counted)
     eng = ServeEngine(tvals, cfg, ServeConfig(
-        max_batch=2, max_len=64, block_size=BS, chunk_size=8,
+        paged=True, max_batch=2, max_len=64, block_size=BS, chunk_size=8,
         chunks_per_step=2), device="cpu")
     assert eng.ac.dispatch == "sorted"
     eng.serve([Request(rid=0, prompt=list(range(10, 22)), max_new=3)])
     assert calls["grouped_mlp"] > 0 and calls["expert_ffn"] == 0
     # An explicit non-default dispatch is kept.
-    eng = ServeEngine(tvals, cfg, ServeConfig(max_len=64, block_size=BS),
+    eng = ServeEngine(tvals, cfg, ServeConfig(paged=True, max_len=64,
+                                              block_size=BS),
                       ac=zoo.ApplyCfg(dispatch="einsum"), device="cpu")
     assert eng.ac.dispatch == "einsum"
 
@@ -227,7 +229,7 @@ def test_single_step_signature_and_eos(granite):
     frees every block, and stops at the first EOS like the reference."""
     _, cfg, _, tvals = granite
     eng = ServeEngine(tvals, cfg, ServeConfig(
-        max_batch=2, max_len=64, block_size=BS, chunk_size=8,
+        paged=True, max_batch=2, max_len=64, block_size=BS, chunk_size=8,
         chunks_per_step=2), device="cpu")
     reqs = lambda eos=None: [  # noqa: E731
         Request(rid=i, prompt=list(range(10 + i, 10 + i + plen)),
@@ -263,9 +265,10 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     walked = set(res.stdout.split()[1:])
-    assert len(walked) >= 42
-    # The training and vision slices' modules are among those walked.
+    assert len(walked) >= 45
+    # The training, vision and rwkv slices' modules are among those walked.
     assert {f"repro_torch.{m}" for m in (
+        "configs.rwkv6_7b", "kernels.rwkv6", "models.rwkv",
         "configs.vit_upcycled", "core.routing", "core.upcycle",
         "data.pipeline", "data.synthetic", "kernels.expert_mlp",
         "kernels.flash_attention", "launch.profile_step", "launch.train",
@@ -291,18 +294,18 @@ def test_entry_points_need_a_card_unless_cpu(granite, capsys):
     p = zoo.init_params(0, cfg, device="cpu")
     assert p["embed"]["tokens"].device.type == "cpu"
     launch.main(["--arch", "granite-moe-1b-a400m", "--reduced",
-                 "--device", "cpu", "--max-new", "3"])
+                 "--device", "cpu", "--max-new", "3", "--paged"])
     out = capsys.readouterr().out
     assert "compile_count=1" in out and "req2:" in out
 
 
 @pytest.mark.parametrize("field,value", [
-    ("paged", False), ("admission", "prefill_on_join"), ("draft", "dense"),
+    ("admission", "prefill_on_join"), ("draft", "dense"),
     ("chaos", object()),
 ])
 def test_unported_engine_options_raise(granite, field, value):
     _, cfg, _, tvals = granite
-    sc = ServeConfig(**{field: value})
+    sc = ServeConfig(paged=True, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(tvals, cfg, sc, device="cpu")
 
