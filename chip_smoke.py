@@ -50,7 +50,10 @@ any failure, before printing its result line. It
    tokens, 16 new each, through the kernels (the flash forward at
    prefill, the expert FFN under the gather dispatch) and through the
    plain versions, token-identical, each kernel's launches counted and
-   one prefill and decode step witnessed;
+   one prefill and decode step witnessed; then holds and times the
+   flash forward at the prefill's shape and the expert FFN at the
+   prefill's and a decode step's buffer (the model's own expert
+   weights);
 9. holds the WKV-6 kernel against the chunked plain version and the
    sequential oracle at the rwkv serve shapes (prefill 8 x 512 and a
    decode step, 64 heads of 64, f32 and bf16) and times it;
@@ -63,7 +66,9 @@ any failure, before printing its result line. It
 11. upcycles rwkv6-7b's dense parent at full width and 4 layers into
     its channel-mix MoE (32 experts, top-2, every other layer, 8.7 B
     params) and serves 8 prompts of 128 tokens, 16 new, the same way
-    (the WKV and expert-FFN kernels);
+    (the WKV and expert-FFN kernels); then holds and times the expert
+    FFN at the prefill's (cap 1024) and a decode step's (cap 8) buffer
+    with one MoE layer's weights;
 12. prints one JSON line of per-kernel numbers (all twelve kernels),
     then the result line ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +88,11 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TF32_S = 495e12
+# Kernels whose float32 products run on tensor cores as three TF32
+# products (csrc/mma_sm90.cuh): their bound is 3 x FLOPs over the TF32
+# rate (or the bytes), with the CUDA-core bound recorded beside it.
+TF32X3_KERNELS = ("flash_attention", "expert_mlp")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -389,16 +399,24 @@ def grouped_work(c, itemsize):
 def _record(kname, src, replaces, max_err, ms, plain_ms, nbytes, flops,
             lib_ms, dtype="float32"):
     """One kernel's JSON record; its bound is the larger of the bytes
-    over the memory rate and the FLOPs over the dtype's peak."""
+    over the memory rate and the FLOPs over the dtype's peak: for a
+    float32 call of a kernel in TF32X3_KERNELS, 3 x FLOPs over the TF32
+    tensor-core rate, with the CUDA-core bound as ``cuda_core_bound_ms``."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
-    return {
+    rec = {
         "name": kname, "route": "cuda", "source": src,
         "replaces": replaces, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms,
     }
+    if kname in TF32X3_KERNELS and dtype == "float32":
+        t_tc = 3 * flops / PEAK_TF32_S * 1e3
+        rec.update(bound_ms=max(t_bytes, t_tc),
+                   bound_by="bytes" if t_bytes >= t_tc else "operations",
+                   cuda_core_bound_ms=max(t_bytes, t_ops))
+    return rec
 
 
 def check_kernels(cfg, device):
@@ -930,15 +948,139 @@ def check_vit_kernels(cfg, device):
         rec = _record(kname, "", "", err, time_ms(kern, flush=flush),
                       time_ms(plain, flush=flush), nbytes, flops,
                       time_ms(lib, flush=flush))
-        at_vit[kname] = {k: rec[k] for k in (
+        at_vit[kname] = {k: v for k, v in rec.items() if k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+            "cuda_core_bound_ms", "library_ms")}
         print(f"[vit-kernel] {kname} non-causal {tuple(a['q'].shape)} float32: "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
               f"library_ms={rec['library_ms']:.4f} bound_ms="
               f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes} B, "
               f"{flops} FLOP)", flush=True)
     return records, at_vit
+
+
+def _bounds_text(rec):
+    cc = rec.get("cuda_core_bound_ms")
+    return (f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})"
+            + ("" if cc is None else f" cuda_core_bound_ms={cc:.4f}"))
+
+
+def _shape_row(tag, kname, y, y_ref, kern, plain, lib, ncalls, work, flush,
+               iters):
+    """Hold one float32 kernel call against its plain version on the
+    same inputs (TOL["float32"]), time the kernel, the plain version and
+    the library yardstick, and print and return the numbers as one row
+    of the kernel's JSON record (``at_shapes``)."""
+    err, ratio = _max_err(y, y_ref, *TOL["float32"])
+    print(f"[{tag}] {kname} float32: max |kernel - plain| = {err:.3e}, max "
+          f"err / limit = {ratio:.3f}", flush=True)
+    if not ratio <= 1.0:
+        fail(f"{tag} {kname}: kernel and plain version differ beyond their "
+             f"tolerance (ratio {ratio:.3g})")
+    nbytes, flops = work
+    ms, plain_ms, lib_ms = (time_ms(fn, flush=flush, iters=iters)
+                            for fn in (kern, plain, lib))
+    rec = _record(kname, "", "", err, ms, plain_ms, nbytes, flops, lib_ms)
+    row = {k: v for k, v in rec.items() if k not in (
+        "name", "route", "source", "replaces")}
+    row["library_calls"] = ncalls
+    print(f"[{tag}] {kname} float32: ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+          f"({ncalls} torch calls) {_bounds_text(rec)} ({nbytes} B, "
+          f"{flops} FLOP)", flush=True)
+    return kname, tag, row
+
+
+def model_experts(params):
+    """The first MoE layer's expert weights of a stack ({"wi", "wo"[,
+    "wg"]} as (E, d, f) / (E, f, d) views, the repeat axis dropped)."""
+    todo = [params]
+    while todo:
+        t = todo.pop(0)
+        if isinstance(t, dict):
+            if "experts" in t:
+                return {k: w[0] for k, w in t["experts"].items()}
+            todo.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            todo.extend(t)
+    raise ValueError("no MoE layer in the parameters")
+
+
+def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20):
+    """The expert-FFN kernel where a static engine's step runs it: the
+    (G, E, cap, d) buffer of ``tokens`` tokens (dropless, every slot
+    filled with a standard normal row) through the served model's own
+    expert weights of one MoE layer, against the plain version and the
+    float32 ``torch.matmul`` chain over each expert's rows."""
+    import torch
+
+    from repro_torch.core.routing import capacity
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import activation
+
+    wi, wg, wo = experts["wi"], experts.get("wg"), experts["wo"]
+    E, d, f = wi.shape
+    g = min(cfg.moe.group_size, tokens)
+    G, cap = -(-tokens // g), capacity(g, cfg.moe)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xe = torch.randn(G, E, cap, d, generator=gen, device=device)
+    xt = xe.transpose(0, 1).reshape(E, G * cap, d).contiguous()
+    act = activation(cfg.act)
+
+    def lib():
+        h = act(torch.matmul(xt, wi))
+        if wg is not None:
+            h = h * torch.matmul(xt, wg)
+        torch.matmul(h, wo)
+
+    kern = lambda: em.expert_ffn_cuda(xe, wi, wg, wo, act=cfg.act)  # noqa
+    plain = lambda: ref.expert_ffn_ref(xe, wi, wg, wo, act=cfg.act)  # noqa
+    y = kern()
+    torch.cuda.synchronize()
+    rows, nw = G * E * cap, 3 if wg is not None else 2
+    work = ((2 * rows * d + nw * E * d * f) * 4,
+            (2 * nw) * rows * d * f)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    out = _shape_row(tag, "expert_mlp", y, plain(), kern, plain, lib,
+                     nw + 1 + (wg is not None), work, flush, iters)
+    out[2]["shape"] = [G, E, cap, d, f]
+    return out
+
+
+def flash_shape_row(tag, cfg, B, S, device, *, seed):
+    """The flash forward where the static prefill runs it: q (B, S, H,
+    dh), k/v (B, S, Kh, dh) standard normal, causal from position 0,
+    against the plain version and SDPA (GQA heads expanded, set-up)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    a = dict(q=rnd(B, S, H, dh), k=rnd(B, S, Kh, dh), v=rnd(B, S, Kh, dh))
+    qo, kl = fa.scalar_i32(0, device), fa.scalar_i32(S, device)
+    lq = a["q"].transpose(1, 2).contiguous()
+    lk, lv = (a[n].transpose(1, 2).repeat_interleave(H // Kh, 1)
+              .contiguous() for n in ("k", "v"))
+
+    def sdpa():
+        F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+    kern = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
+        a["q"], a["k"], a["v"], qo, kl, causal=True)
+    plain = lambda: ref.flash_attention_ref(  # noqa: E731
+        a["q"], a["k"], a["v"], causal=True, q_offset=qo, kv_len=kl)
+    y = kern()
+    torch.cuda.synchronize()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    out = _shape_row(tag, "flash_attention", y, plain(), kern, plain, sdpa,
+                     1, flash_work(a, "fwd"), flush, 20)
+    out[2]["shape"] = [B, S, H, Kh, dh]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1730,7 +1872,10 @@ def rwkv_dense(device):
 def rwkv_moe(device):
     """R3: the dense parent of rwkv6_7b.upcycled() at full width and
     RWKV_MOE_LAYERS layers, upcycled (experts copied) into the channel-mix
-    MoE and served dropless through the static engine."""
+    MoE and served dropless through the static engine; then the
+    expert-FFN kernel timed at the prefill's and a decode step's buffer
+    with one MoE layer's weights. Returns (the kernels' launches, the
+    timing rows)."""
     import torch
 
     from repro_torch.configs.rwkv6_7b import upcycled
@@ -1765,13 +1910,22 @@ def rwkv_moe(device):
         {"rwkv6": cfg.n_layers * RWKV_MOE_NEW,
          "expert_mlp": n_moe * RWKV_MOE_NEW})
     witness_static_step("rwkv-moe", eng, prompts, ("rwkv6", "expert_mlp"))
-    return launches
+    del eng
+    torch.cuda.empty_cache()
+    experts = model_experts(params)
+    rows = [expert_shape_row("rwkv-moe", cfg, experts, RWKV_PROMPTS * n,
+                             device, seed=8, iters=iters)
+            for n, iters in ((RWKV_MOE_PLEN, 5), (1, 20))]
+    return launches, [(k, f"rwkv_moe_{ph}", r)
+                      for (k, _, r), ph in zip(rows, ("prefill", "decode"))]
 
 
 def granite_static(params, cfg, device):
     """R4: granite (conditioned, dropless) through the static engine: the
     flash forward at prefill, the plain decode attention, the expert FFN
-    under the gather dispatch."""
+    under the gather dispatch; then the flash forward at the prefill's
+    shape and the expert FFN at the prefill's and a decode step's buffer
+    timed. Returns (the kernels' launches, the timing rows)."""
     prompts = static_prompts(cfg, GRANITE_STATIC["prompts"],
                              GRANITE_STATIC["plen"], seed=7)
     new = GRANITE_STATIC["max_new"]
@@ -1780,7 +1934,16 @@ def granite_static(params, cfg, device):
         {"flash_attention": cfg.n_layers, "expert_mlp": cfg.n_layers * new})
     witness_static_step("granite-static", eng, prompts,
                         ("flash_attention", "expert_mlp"))
-    return launches
+    del eng
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    experts = model_experts(params)
+    rows = [flash_shape_row("granite-static", cfg, B, plen, device, seed=9),
+            expert_shape_row("granite-static", cfg, experts, B * plen,
+                             device, seed=10),
+            expert_shape_row("granite-static", cfg, experts, B, device,
+                             seed=11)]
+    return launches, [(k, f"granite_static_{ph}", r) for (k, _, r), ph in
+                      zip(rows, ("prefill", "prefill", "decode"))]
 
 
 def main() -> int:
@@ -1897,7 +2060,7 @@ def main() -> int:
 
     # The static engine's attention path on the same (conditioned) model.
     del eng, eager
-    static_launches = granite_static(params, cfg, device)
+    static_launches, shape_rows = granite_static(params, cfg, device)
     del params
     torch.cuda.empty_cache()
 
@@ -1923,7 +2086,8 @@ def main() -> int:
     records.append(check_rwkv_kernel(get_config("rwkv6-7b"), device))
     rwkv_launches = rwkv_dense(device)
     torch.cuda.empty_cache()
-    rwkv_moe_launches = rwkv_moe(device)
+    rwkv_moe_launches, rows = rwkv_moe(device)
+    shape_rows += rows
 
     for rec in records:
         name = rec["name"]
@@ -1935,6 +2099,9 @@ def main() -> int:
                    "rwkv_moe_static": rwkv_moe_launches.get(name, 0)}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+        at = {tag: row for k, tag, row in shape_rows if k == name}
+        if at:
+            rec["at_shapes"] = at
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,121 +5,233 @@
 // Replaces the TPU kernel src/repro/kernels/expert_mlp.py:79 (_kernel,
 // reached through expert_ffn_pallas), which the reference vmaps over G.
 //
-// One thread block per (BM-row tile of one (g, e) segment, g, e); the
-// grid runs the blocks of one expert together, so its weights stay in
-// L2 while its G * cap rows pass. A block walks f in tiles of BF hidden
-// columns, as the TPU grid does: it computes the (BM, BF) hidden tile
-// h = act(x wi[:, tile]) [* x wg[:, tile]] into shared memory (f32) and
-// adds h wo[tile, :] into the (BM, d) output, which stays in registers
-// (32 x 768 f32 per block, 96 values a thread) across the f tiles and is
-// rounded once to the output type at the end (the TPU kernel accumulated
-// in the output block's own dtype). The (rows, f) hidden never reaches
-// device memory. For d > DC the block makes one pass per DC output
-// columns and recomputes h in each. Rows past cap (cap need not be a
-// multiple of BM) read as zeros and are not written; zero rows (unfilled
-// slots) give zero outputs, since act(0) = 0 for silu, tanh-gelu and
-// squared relu.
+// Bound on this card. 4 * rows * d * f FLOPs (6 gated) over every row of
+// the buffer, and the weights read once. float32 products run on tensor
+// cores as 3xTF32 (mma_sm90.cuh: f32 accuracy at three TF32 products),
+// so the tensor-core bound is max(bytes / 3.35 TB/s, 3 * FLOPs / 495
+// TFLOP/s); the CUDA-core bound, FLOPs / 67 TFLOP/s, is what an f32 FMA
+// kernel could reach. At the main path's shapes:
+//   ViT-B/16 MoE (5, 32, 256, 768), f 3072: 386.5 GFLOP, 0.6 GB —
+//     2.34 ms on tensor cores (5.77 on CUDA cores);
+//   rwkv6 MoE prefill (1, 32, 1024, 4096), f 14336: 7.70 TFLOP, 15.0 GB
+//     of weights — 46.7 ms (115 ms);
+//   rwkv6 MoE decode (1, 32, 8, 4096): 15.0 GB of weights, 4.49 ms;
+//   granite static decode (1, 32, 4, 1024), f 512, gated: 201 MB, 0.060 ms.
+// A decode step is bound by the weight bytes, a prefill or a training
+// step by the products.
 //
-// Bound on this card: operations. 4 * rows * d * f f32 FLOPs (6 gated)
-// — 386.5 GFLOP at the ViT-B/16 MoE shapes (40,960 rows, d 768, f 3072),
-// 5.77 ms at 67 TFLOP/s — against 0.6 GB of weights and activations
-// (0.2 ms at 3.35 TB/s). The products run on CUDA cores in f32 from
-// shared-memory tiles (8 x 4 and 8 x 12 register tiles a thread);
-// tensor cores (wgmma on TMA-fed tiles, in TF32 or bf16) are later work.
+// Design: two passes inside one entry point, each a tensor-core GEMM over
+// (row tile, column tile, expert) with the weights streamed through a
+// 3-stage cp.async ring in shared memory (strides padded so that the
+// fragment reads are free of bank conflicts):
+//   pass 1: h = act(x wi) [* x wg] into a float32 (G, E, cap, f) scratch
+//           that the wrapper allocates;
+//   pass 2: y = h wo, each block over the full depth f. For bf16 inputs
+//           h stays f32 and is split for two TF32 products with the bf16
+//           weights (rounding h to bf16 would add an error the size of
+//           the bf16 tolerance).
+// Every weight byte is read once a row tile (never recomputed for wide
+// d), and the column tiles give every expert f/128 (pass 1) or d/128
+// (pass 2) blocks, so at small capacity — one 16-row tile, rows past cap
+// zero-filled — every SM streams weights (rwkv decode: 3,584 and 1,024
+// blocks). At large capacity 64- or 128-row tiles feed each staged weight
+// tile to many rows. The scratch costs 2 * rows * f * 4 bytes of traffic
+// (3.76 GB, ~1.1 ms, at the rwkv prefill against >= 46.7 ms of products).
+// Rows past cap are neither read nor written; zero rows (unfilled slots)
+// give zero rows, since act(0) = 0 for silu, tanh-gelu and squared relu.
 
-#include "expert_tiles.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
 
-template <typename T, bool kGated>
-__global__ void __launch_bounds__(kThreads, 1)
-    expert_ffn_kernel(const T* __restrict__ xe, const T* __restrict__ wi,
-                      const T* __restrict__ wg, const T* __restrict__ wo,
-                      T* __restrict__ out, int cap, int d, int f, int act) {
-  extern __shared__ __align__(16) float smem[];
-  float* ht = smem;           // [BF][XS]  hidden tile, transposed
-  float* lt = ht + BF * XS;   // [BK][XS]  staged x chunk, transposed
-  float* rs = lt + BK * XS;   // [BK][RS]  staged wi / wg chunk
-  float* ws = lt;             // [BK2][WS2] staged wo chunk (reuses both)
-  const int tid = threadIdx.x, ty = tid >> 6, tx = tid & 63;
-  const int r0 = blockIdx.x * BM, g = blockIdx.y, e = blockIdx.z;
-  const int E = gridDim.z;
-  const int nrows = min(BM, cap - r0);
-  const size_t row0 = ((size_t)g * E + e) * cap + r0;
-  const T* x = xe + row0 * d;
-  const T* wie = wi + (size_t)e * d * f;
-  const T* wge = kGated ? wg + (size_t)e * d * f : nullptr;
-  const T* woe = wo + (size_t)e * f * d;
+constexpr int BN = 128;    // output columns a block
+constexpr int BK = 32;     // depth of a staged slab
+constexpr int STAGES = 3;  // slabs in flight
 
-  for (int c0 = 0; c0 < d; c0 += DC) {
-    float y[8][12];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 12; ++j) y[i][j] = 0.f;
-    for (int f0 = 0; f0 < f; f0 += BF) {
-      float p[8][4];
-      tile_product<T, false>(p, x, nrows, wie, d, f, f0, lt, rs);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          ht[(tx * 4 + q) * XS + ty * 8 + i] = act_fn(p[i][q], act);
-      if (kGated) {
-        tile_product<T, false>(p, x, nrows, wge, d, f, f0, lt, rs);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            ht[(tx * 4 + q) * XS + ty * 8 + i] *= p[i][q];
-      }
-      out_product<T, false, false>(y, ht, woe, nullptr, nullptr, ws, nullptr,
-                                   d, f, f0, c0);
-    }
-    store_rows<T>(out + row0 * d, y, nrows, d, c0);
-  }
+// Shared-memory row strides: rows stay 16-byte aligned for cp.async and
+// the fragment reads stay free of bank conflicts.
+template <typename T>
+__host__ __device__ constexpr int lda() {
+  return BK + (sizeof(T) == 4 ? 4 : 8);
+}
+constexpr int LDB = BN + 8;
+
+template <typename TA, typename TB, int BM, bool kGated>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return sizeof(TA) * BM * lda<TA>() +
+         (kGated ? 2 : 1) * sizeof(TB) * BK * LDB;
 }
 
-template <typename T, bool kGated>
-int launch(const void* xe, const void* wi, const void* wg, const void* wo,
-           void* out, int G, int E, int cap, int d, int f, int act,
-           cudaStream_t stream) {
-  constexpr int kProd = BK * XS + BK * RS, kOut = BK2 * WS2;
-  const size_t smem =
-      sizeof(float) * (size_t)(BF * XS + (kProd > kOut ? kProd : kOut));
-  auto kernel = expert_ffn_kernel<T, kGated>;
+template <int MI, int NI>
+__device__ __forceinline__ void add_to(float (&sum)[MI][NI][4],
+                                       const float (&part)[MI][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[mi][ni][q] += part[mi][ni][q];
+}
+
+// C[g, e] (rows, N) = epilogue(A[g, e] (rows, K) B[e] (K, N)) over one
+// (BM-row tile of segment (g, e), BN-column tile, expert e) block: with
+// kAct, C = act(A B) [* A B2 when kGated]; else C = A B. A and C hold
+// G * E segments of cap rows; B and B2 are (E, K, N). Each slab's
+// products start from zero and are added to the block's f32 sums with an
+// ordinary add (the tensor cores' accumulation truncates; mma_sm90.cuh).
+template <typename TA, typename TB, typename TC, int BM, int WM, int WN,
+          bool kGated, bool kAct>
+__global__ void __launch_bounds__(32 * WM * WN)
+    ffn_gemm(const TA* __restrict__ A, const TB* __restrict__ B,
+             const TB* __restrict__ B2, TC* __restrict__ C, int cap, int K,
+             int N, int act, bool aligned) {
+  constexpr int NT = 32 * WM * WN, WTM = BM / WM, WTN = BN / WN;
+  constexpr int MI = WTM / 16, NI = WTN / 8, LDA = lda<TA>();
+  constexpr size_t SA = sizeof(TA) * BM * LDA, SB = sizeof(TB) * BK * LDB;
+  constexpr size_t SS = stage_bytes<TA, TB, BM, kGated>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;  // lambdas capture the pointer
+
+  const int rtiles = (cap + BM - 1) / BM;
+  const int g = blockIdx.x / rtiles, r0 = (blockIdx.x % rtiles) * BM;
+  const int n0 = blockIdx.y * BN, e = blockIdx.z, E = gridDim.z;
+  const int nrows = min(BM, cap - r0), ncols = min(BN, N - n0);
+  const size_t row0 = ((size_t)g * E + e) * cap + r0;
+  const TA* a = A + row0 * K;
+  const TB* b = B + (size_t)e * K * N + n0;
+  const TB* b2 = kGated ? B2 + (size_t)e * K * N + n0 : nullptr;
+  auto tile_a = [&](int kt) {
+    return reinterpret_cast<TA*>(smem + (kt % STAGES) * SS);
+  };
+  auto tile_b = [&](int kt, int i) {
+    return reinterpret_cast<TB*>(smem + (kt % STAGES) * SS + SA + i * SB);
+  };
+
+  auto load = [&](int kt) {
+    const int k0 = kt * BK, nk = min(BK, K - k0);
+    stage_tile<TA, BM, BK, NT>(tile_a(kt), LDA, a + k0, K, nrows, nk,
+                               aligned);
+    stage_tile<TB, BK, BN, NT>(tile_b(kt, 0), LDB, b + (size_t)k0 * N, N, nk,
+                               ncols, aligned);
+    if (kGated) {
+      stage_tile<TB, BK, BN, NT>(tile_b(kt, 1), LDB, b2 + (size_t)k0 * N, N,
+                                 nk, ncols, aligned);
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
+  float acc[MI][NI][4] = {}, acc2[MI][NI][4] = {};  // acc2: the gate
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slab kt is in; every warp is done with kt - 1
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+    cp_async_commit();
+    const TA* as = tile_a(kt) + wm * WTM * LDA;
+    auto ra = [&](int r, int k) { return to_f32(as[r * LDA + k]); };
+#pragma unroll
+    for (int i = 0; i < (kGated ? 2 : 1); ++i) {
+      const TB* bs = tile_b(kt, i) + wn * WTN;
+      float part[MI][NI][4] = {};
+      warp_mma<TA, TB, MI, NI, BK>(
+          part, ra, [&](int k, int n) { return to_f32(bs[k * LDB + n]); });
+      if (i == 0) {
+        add_to(acc, part);
+      } else {
+        add_to(acc2, part);
+      }
+    }
+  }
+
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tg = lane & 3;
+  TC* c = C + row0 * N + n0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = wm * WTM + 16 * mi + gr + (q >= 2 ? 8 : 0);
+        const int col = wn * WTN + 8 * ni + 2 * tg + (q & 1);
+        if (r >= nrows || col >= ncols) continue;
+        float v = acc[mi][ni][q];
+        if (kAct) v = act_fn(v, act);
+        if (kGated) v *= acc2[mi][ni][q];
+        c[(size_t)r * N + col] = from_f32<TC>(v);
+      }
+}
+
+template <typename TA, typename TB, typename TC, int BM, int WM, int WN,
+          bool kGated, bool kAct>
+int launch_gemm(const TA* A, const TB* B, const TB* B2, TC* C, int G, int E,
+                int cap, int K, int N, int act, cudaStream_t stream) {
+  const size_t smem = STAGES * stage_bytes<TA, TB, BM, kGated>();
+  auto kernel = ffn_gemm<TA, TB, TC, BM, WM, WN, kGated, kAct>;
   allow_smem(kernel, smem);
-  const dim3 grid((cap + BM - 1) / BM, G, E);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)xe, (const T*)wi, (const T*)wg, (const T*)wo, (T*)out, cap,
-      d, f, act);
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const bool aligned = K % (16 / sizeof(TA)) == 0 &&
+                       N % (16 / sizeof(TB)) == 0 && al(A) && al(B) &&
+                       (!kGated || al(B2));
+  const dim3 grid(G * ((cap + BM - 1) / BM), (N + BN - 1) / BN, E);
+  kernel<<<grid, 32 * WM * WN, smem, stream>>>(A, B, B2, C, cap, K, N, act,
+                                              aligned);
   return (int)cudaGetLastError();
 }
 
+// Pass 1 then pass 2 at one row tiling; h is float32 for either T.
+template <typename T, int BM, int WM, int WN>
+int run(const T* xe, const T* wi, const T* wg, const T* wo, float* h, T* out,
+        int G, int E, int cap, int d, int f, int act, cudaStream_t s) {
+  const int rc =
+      wg ? launch_gemm<T, T, float, BM, WM, WN, true, true>(
+               xe, wi, wg, h, G, E, cap, d, f, act, s)
+         : launch_gemm<T, T, float, BM, WM, WN, false, true>(
+               xe, wi, nullptr, h, G, E, cap, d, f, act, s);
+  if (rc != 0) return rc;
+  return launch_gemm<float, T, T, BM, WM, WN, false, false>(
+      h, wo, nullptr, out, G, E, cap, f, d, act, s);
+}
+
+// Row tiling by capacity: one 16-row tile (4 warps across the columns)
+// at decode-sized cap, 64 rows (2 x 2 warps) in between, else 128 rows
+// (4 x 2 warps); a warp holds 16 x 32 or 32 x 64 accumulators.
 template <typename T>
-int launch_t(const void* xe, const void* wi, const void* wg, const void* wo,
-             void* out, int G, int E, int cap, int d, int f, int act,
-             cudaStream_t s) {
-  if (wg) return launch<T, true>(xe, wi, wg, wo, out, G, E, cap, d, f, act, s);
-  return launch<T, false>(xe, wi, wg, wo, out, G, E, cap, d, f, act, s);
+int run_t(const void* xe, const void* wi, const void* wg, const void* wo,
+          void* h, void* out, int G, int E, int cap, int d, int f, int act,
+          cudaStream_t s) {
+  auto args = [&](auto fn) {
+    return fn((const T*)xe, (const T*)wi, (const T*)wg, (const T*)wo,
+              (float*)h, (T*)out, G, E, cap, d, f, act, s);
+  };
+  if (cap <= 16) return args(run<T, 16, 1, 4>);
+  if (cap <= 64) return args(run<T, 64, 2, 2>);
+  return args(run<T, 128, 4, 2>);
 }
 
 }  // namespace
 
 // xe (G,E,cap,d), wi/wg (E,d,f) (wg may be null), wo (E,f,d) -> out
-// (G,E,cap,d); all tensors of one dtype (f32 or bf16). Launches on
-// `stream`; no sync, no allocation.
+// (G,E,cap,d), through the f32 scratch h (G,E,cap,f); all tensors but h
+// of one dtype (f32 or bf16). Two launches on `stream`; no sync, no
+// allocation.
 extern "C" int expert_mlp(const void* xe, const void* wi, const void* wg,
-                          const void* wo, void* out, int G, int E, int cap,
-                          int d, int f, int act, int bf16, void* stream) {
-  if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 ||
+                          const void* wo, void* h, void* out, int G, int E,
+                          int cap, int d, int f, int act, int bf16,
+                          void* stream) {
+  if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 || E > 65535 ||
+      (f + BN - 1) / BN > 65535 || (d + BN - 1) / BN > 65535 ||
       (act < 0 || act > 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);
   if (bf16) {
-    return launch_t<__nv_bfloat16>(xe, wi, wg, wo, out, G, E, cap, d, f, act,
-                                   s);
+    return run_t<__nv_bfloat16>(xe, wi, wg, wo, h, out, G, E, cap, d, f, act,
+                                s);
   }
-  return launch_t<float>(xe, wi, wg, wo, out, G, E, cap, d, f, act, s);
+  return run_t<float>(xe, wi, wg, wo, h, out, G, E, cap, d, f, act, s);
 }

@@ -120,8 +120,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      out_product<T, true, kGated>(acc, at, wie, gt, wge, ws, ws2, d, f, f0,
-                                   c0);
+      out_product<T, kGated>(acc, at, wie, gt, wge, ws, ws2, d, f, f0, c0);
     }
     store_rows<T>(dx + row0 * d, acc, nrows, d, c0);
   }

@@ -1,8 +1,8 @@
-// Tile products shared by the expert-FFN kernels (expert_mlp.cu,
-// expert_mlp_bwd.cu): f32 CUDA-core matrix products over one block of
-// BM rows of the padded (G, E, cap, d) capacity buffer, staged through
-// shared memory in chunks. 256 threads; thread (ty, tx) = (tid / 64,
-// tid % 64) owns rows ty*8 .. ty*8+7 of the block.
+// Tile products of the expert-FFN backward kernels (expert_mlp_bwd.cu;
+// the forward runs on tensor cores): f32 CUDA-core matrix products over
+// one block of BM rows of the padded (G, E, cap, d) capacity buffer,
+// staged through shared memory in chunks. 256 threads; thread (ty, tx) =
+// (tid / 64, tid % 64) owns rows ty*8 .. ty*8+7 of the block.
 #pragma once
 
 #include "common.cuh"
@@ -82,11 +82,10 @@ __device__ __forceinline__ void tile_product(
 // 256*jj + q] over one f tile (hidden columns f0 ..), plus the same with
 // (L2, W2) when kTwo: the thread's 8 x 12 part of the block's (BM, DC)
 // output columns from c0. L, L2 are (BF, BM) tiles in shared memory (row
-// stride XS). W[c][j] is w[(f0 + c) * d + j] (kTransW false: wo) or
-// w[j * f + f0 + c] (kTransW true: wi^T, wg^T); hidden rows past f and
-// columns past d read as zeros. `ws`, `ws2` ([BK2][WS2]) are the staging
-// buffers. Starts with a barrier.
-template <typename T, bool kTransW, bool kTwo>
+// stride XS). W[c][j] is w[j * f + f0 + c] (wi^T, wg^T); hidden rows past
+// f and columns past d read as zeros. `ws`, `ws2` ([BK2][WS2]) are the
+// staging buffers. Starts with a barrier.
+template <typename T, bool kTwo>
 __device__ __forceinline__ void out_product(
     float acc[8][12], const float* lt, const T* __restrict__ w,
     const float* lt2, const T* __restrict__ w2, float* ws, float* ws2,
@@ -95,11 +94,9 @@ __device__ __forceinline__ void out_product(
   for (int kk = 0; kk < BF && f0 + kk < f; kk += BK2) {
     __syncthreads();
     for (int i = tid; i < BK2 * DC; i += kThreads) {
-      const int k = kTransW ? i % BK2 : i / DC;
-      const int j = kTransW ? i / BK2 : i % DC;
+      const int k = i % BK2, j = i / BK2;
       const bool ok = f0 + kk + k < f && c0 + j < d;
-      const size_t at = kTransW ? (size_t)(c0 + j) * f + f0 + kk + k
-                                : (size_t)(f0 + kk + k) * d + c0 + j;
+      const size_t at = (size_t)(c0 + j) * f + f0 + kk + k;
       ws[k * WS2 + j] = ok ? to_f32(w[at]) : 0.f;
       if (kTwo) ws2[k * WS2 + j] = ok ? to_f32(w2[at]) : 0.f;
     }

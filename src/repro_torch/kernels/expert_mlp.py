@@ -25,7 +25,7 @@ _ACTS = {"silu": 0, "gelu": 1, "sqrelu": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = Kernel("expert_mlp", "expert_mlp", [_P] * 5 + [_I] * 7 + [_P])
+KERNEL = Kernel("expert_mlp", "expert_mlp", [_P] * 6 + [_I] * 7 + [_P])
 KERNEL_DX = Kernel("expert_mlp_dx", "expert_mlp_dx", [_P] * 9 + [_I] * 7
                    + [_P], source="expert_mlp_bwd")
 KERNEL_DW = Kernel("expert_mlp_dw", "expert_mlp_dw", [_P] * 8 + [_I] * 6
@@ -72,14 +72,16 @@ def _stream(t):
 def expert_ffn_cuda(xe, wi, wg, wo, *, act: str = "silu"):
     """y = act(xe wi) [* xe wg] wo per expert, on the card. xe: (G, E,
     cap, d); wi/wg (E, d, f) (wg may be None), wo (E, f, d); all of xe's
-    dtype (float32 or bfloat16), accumulated in float32. Returns (G, E,
-    cap, d)."""
+    dtype (float32 or bfloat16), accumulated in float32. The kernel's
+    two passes meet in a float32 (G, E, cap, f) scratch, alive for the
+    call only. Returns (G, E, cap, d)."""
     G, E, cap, d, f = _check("expert FFN kernel", xe, wi, wg, wo, act)
     out = torch.empty_like(xe)
     if out.numel() == 0:
         return out
+    h = torch.empty((G, E, cap, f), dtype=torch.float32, device=xe.device)
     KERNEL.launch(xe.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-                  out.data_ptr(), G, E, cap, d, f, _ACTS[act],
+                  h.data_ptr(), out.data_ptr(), G, E, cap, d, f, _ACTS[act],
                   int(xe.dtype == torch.bfloat16), _stream(xe))
     return out
 

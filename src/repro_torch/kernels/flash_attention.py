@@ -16,8 +16,10 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 
-ACC_VALUES = 2048  # bq * G * dh (and bkv * dh) the per-thread accumulators hold
+ACC_VALUES = 2048  # bq * G * dh (and bkv * dh) the backward's accumulators
 MAX_KV_TILE = 64
+FWD_ROWS = 64  # query rows (position x head) of a forward block
+FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims the forward is built for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,16 @@ def pick_q_tile(seq: int, group_dim: int) -> int:
                          f"{group_dim} exceeds {ACC_VALUES}")
     bq = _pow2_floor(ACC_VALUES // group_dim)
     return min(bq, 1 << max(seq - 1, 0).bit_length())
+
+
+def pick_fwd_q_tile(group: int, dh: int) -> int:
+    """Query positions per forward block: its FWD_ROWS rows hold whole
+    GQA groups of ``group`` heads."""
+    if group > FWD_ROWS or dh not in FWD_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel: GQA group {group} > "
+                         f"{FWD_ROWS} or head_dim {dh} not in "
+                         f"{FWD_HEAD_DIMS}")
+    return FWD_ROWS // group
 
 
 def pick_kv_tile(dh: int) -> int:
@@ -86,11 +98,14 @@ def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
     _check("flash attention kernel", q, k, v, q_offset, kv_len)
     B, Sq, H, dh = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
+    bq = pick_fwd_q_tile(H // Kh, dh)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention kernel: q, k and v must be "
+                         "16-byte aligned")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B * Sq * H == 0:
         return o, lse
-    bq = pick_q_tile(Sq, (H // Kh) * dh)
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
         kv_len.data_ptr(), o.data_ptr(), lse.data_ptr(),

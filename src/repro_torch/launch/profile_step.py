@@ -5,8 +5,8 @@ report where its time goes.
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled] \\
          [--batch N] [--seq S]] \\
-        [--static [--arch rwkv6-7b|granite-moe-1b-a400m] [--batch 8] \\
-         [--seq 512]] \\
+        [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m] \\
+         [--batch 8] [--seq 512]] \\
         [--reduced] [--steps 3] [--device cuda|cpu] \\
         [--out trace_summary.json]
 
@@ -20,7 +20,9 @@ synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
 images of 196 patches (its sequence; ``--seq`` is not read) through the
 gather dispatch. ``--static`` traces the static engine on ``--arch``
-instead (random weights from seed 0, dropless routing, float32 caches):
+instead (random weights from seed 0, dropless routing, float32 caches;
+``rwkv6-7b-moe`` is rwkv6-7b's channel-mix MoE, ``rwkv6_7b.upcycled()``,
+at 4 layers as ``chip_smoke.py`` serves it):
 one prefill of ``--batch`` x ``--seq`` random tokens from an empty cache
 (the cache's allocation included, as ``generate`` does it), and one
 decode step of the batch at position ``--seq``; each phase gets the
@@ -47,6 +49,7 @@ import json
 import time
 
 ARCH = "granite-moe-1b-a400m"
+RWKV_MOE, RWKV_MOE_LAYERS = "rwkv6-7b-moe", 4
 # The serve shapes of chip_smoke.py.
 SERVE = dict(max_batch=8, max_len=512, block_size=16, chunk_size=64,
              chunks_per_step=2)
@@ -58,7 +61,7 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "flash_attention_dkv": "flash_dkv_kernel",
                 "grouped_mlp_dx": "grouped_dx_kernel",
                 "grouped_mlp_dw": "grouped_dw_kernel",
-                "expert_mlp": "expert_ffn_kernel",
+                "expert_mlp": "ffn_gemm",
                 "expert_mlp_dx": "expert_dx_kernel",
                 "expert_mlp_dw": "expert_dw_kernel",
                 "rwkv6": "wkv6_kernel"}
@@ -237,7 +240,7 @@ def main(argv=None) -> None:
                     help="trace the static engine's prefill and decode "
                          "step instead of a mixed step")
     ap.add_argument("--arch", default=ARCH,
-                    choices=sorted({*TRAIN_CELLS, "rwkv6-7b"}),
+                    choices=sorted({*TRAIN_CELLS, "rwkv6-7b", RWKV_MOE}),
                     help="the model of --train or --static")
     ap.add_argument("--batch", type=int, default=None,
                     help="--train batch (default: the arch's train cell); "
@@ -258,7 +261,15 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = args.arch if args.train or args.static else ARCH
-    cfg = get_reduced(arch) if args.reduced else get_config(arch)
+    if arch == RWKV_MOE:
+        from repro_torch.configs import rwkv6_7b
+
+        cfg = (rwkv6_7b.REDUCED if args.reduced else dataclasses.replace(
+            rwkv6_7b.FULL, n_layers=RWKV_MOE_LAYERS))
+        cfg = dataclasses.replace(cfg.with_moe(rwkv6_7b.upcycled().moe),
+                                  name=RWKV_MOE)
+    else:
+        cfg = get_reduced(arch) if args.reduced else get_config(arch)
     if args.static:
         if cfg.moe is not None:  # dropless, as chip_smoke.py serves it
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(

@@ -165,6 +165,44 @@ def test_flash_autograd_cuda_matches_eager(cuda):
         torch.testing.assert_close(a, b, **_tol(torch.float32))
 
 
+# Shapes that break the forward's tilings (B, Sq, Skv, H, Kh, dh, causal,
+# q_offset, kv_len): the ViT's 196 positions (a ragged last kv tile), G =
+# 1, 2, 4; a causal chunk at q_offset > 0 with kv_len < Skv, as the
+# static prefill calls it; rows with no valid key; every head dim the
+# forward is built for.
+FLASH_FWD_CASES = [
+    (2, 196, 196, 12, 12, 64, False, 0, None),
+    (1, 130, 200, 16, 8, 64, True, 50, 170),
+    (2, 77, 77, 16, 4, 64, True, 0, None),
+    (1, 40, 64, 8, 2, 128, True, -12, 50),
+    (1, 33, 90, 16, 16, 16, False, 0, 70),
+    (2, 45, 45, 8, 4, 32, True, 0, 30),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_FWD_CASES)
+def test_flash_forward_tilings(cuda, dtype, case):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, Sq, Skv, H, Kh, dh, causal, qoff, kvlen = case
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = _flash_inputs(rng, cuda, dtype, B, Sq, Skv, H, Kh, dh)
+    kvlen = Skv if kvlen is None else kvlen
+    qo, kl = fa.scalar_i32(qoff, cuda), fa.scalar_i32(kvlen, cuda)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, qo, kl, causal=causal)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             q_offset=qo, kv_len=kl)
+    torch.testing.assert_close(o, o_ref, **_tol(dtype))
+    torch.testing.assert_close(lse, lse_ref, **_tol(torch.float32))
+    dead = torch.isinf(lse_ref)
+    assert bool(dead.any()) == (qoff < 0)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert bool((o[dead.transpose(1, 2)[..., None].expand_as(o)] == 0).all())
+
+
 def _ragged(rng, dev, dtype, counts, E, d):
     counts = np.asarray(counts, np.int32)
     G = counts.shape[0]
@@ -327,6 +365,38 @@ def test_expert_autograd_cuda_matches_eager(cuda, gated):
                 y, ps + ([pg] if gated else []), gy))
         for a, b in zip(outs["cuda"], outs["eager"]):
             torch.testing.assert_close(a, b, **_tol(torch.float32))
+
+
+# (G, E, cap, d, f) for the forward's tilings: cap 1, 4 and 8 (one
+# 16-row tile, rows past cap masked), 17 (two), 70 (64-row tiles) and
+# 256 (128-row tiles); d and f not multiples of the 128-column tile;
+# d = 97, whose rows are not 16-byte aligned (staged element by element).
+EXPERT_FWD_CASES = [(1, 3, 1, 768, 300), (2, 2, 4, 1024, 512),
+                    (1, 4, 8, 1000, 260), (2, 3, 17, 97, 130),
+                    (1, 2, 70, 200, 300), (1, 2, 256, 768, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
+                                       ("sqrelu", False)])
+@pytest.mark.parametrize("case", EXPERT_FWD_CASES)
+def test_expert_forward_tilings(cuda, dtype, act, gated, case):
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+
+    G, E, cap, d, f = case
+    rng = np.random.default_rng(cap * d)
+    xe, wi, wg, wo, _ = _expert_inputs(rng, cuda, dtype, *case, gated)
+    xe[-1, -1, -1:] = 0.0  # the last slot unfilled as well
+    tol = _tol(dtype)
+    if dtype == torch.float32 and d > 128:
+        tol = dict(atol=1e-4, rtol=1e-4)  # as test_expert_kernels_match_plain
+    y = em.expert_ffn_cuda(xe, wi, wg, wo, act=act)
+    torch.testing.assert_close(y, ref.expert_ffn_ref(xe, wi, wg, wo,
+                                                     act=act), **tol)
+    assert bool((y[0, 0, -min(3, cap):] == 0).all())
+    assert bool((y[-1, -1, -1] == 0).all())
 
 
 # B, T, H, K, V, with_state: T not a multiple of the staged tile, V != K

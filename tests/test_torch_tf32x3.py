@@ -1,0 +1,109 @@
+"""Why the port's float32 tensor-core products are 3xTF32 (the split in
+``src/repro_torch/kernels/csrc/mma_sm90.cuh``), shown on the CPU.
+
+The card's ``cvt.rna.tf32.f32`` is done on the float32 bit pattern, as
+the kernels do it with integer ops: the mantissa is rounded to 10 bits,
+to nearest, ties away from zero. A tensor-core product of TF32 values is
+exact and accumulated in float32, so the products are summed here in
+float64. On seeded inputs at reduced
+expert and attention shapes, one TF32 product misses the float32
+tolerance that ``chip_smoke.py`` holds every kernel to, and the
+three-product sum (small*big + big*small + big*big) stays well within
+it."""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_smoke)
+ATOL, RTOL = _smoke.TOL["float32"]
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away
+    from zero: add half of the dropped 13 bits to the magnitude, then
+    clear them (the sign bit is untouched)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def three_products(a, b):
+    """a b as the kernels take it: small*big + big*small + big*big."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    mm = lambda x, y: x.double() @ y.double()  # noqa: E731
+    return mm(as_, bb) + mm(ab, bs) + mm(ab, bb)
+
+
+def one_product(a, b):
+    return tf32_rna(a).double() @ tf32_rna(b).double()
+
+
+def limit_ratio(y, ref):
+    """max |y - ref| / (ATOL + RTOL |ref|), y rounded to float32 first."""
+    err = (y.float().double() - ref).abs()
+    return float((err / (ATOL + RTOL * ref.abs())).max())
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0
+    cases = {
+        one + 2 ** -11: one + 2 ** -10,      # a tie rounds away from zero
+        -(one + 2 ** -11): -(one + 2 ** -10),
+        one + 2 ** -12: one,                 # below the tie: down
+        one + 3 * 2 ** -12: one + 2 ** -10,  # above the tie: up
+        2 - 2 ** -23: 2.0,                   # carries into the exponent
+    }
+    x = torch.tensor(list(cases), dtype=torch.float32)
+    want = torch.tensor(list(cases.values()), dtype=torch.float32)
+    assert torch.equal(tf32_rna(x), want)
+    assert not bool((tf32_rna(x).view(torch.int32) & 0x1FFF).any())
+
+
+def test_split_keeps_float32_accuracy():
+    x = torch.tensor(np.random.default_rng(0).normal(size=4096),
+                     dtype=torch.float32)
+    big, small = split(x)
+    assert torch.equal(tf32_rna(big), big)
+    rel = ((big.double() + small.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -21
+    assert float(((big.double() - x.double()).abs()
+                  / x.double().abs()).max()) > 2.0 ** -12
+
+
+def _operands(case, rng):
+    """Reduced shapes of the two kernels' products: the expert FFN's
+    x wi at depth d 768 (weights at fan-in scale), attention's scaled
+    scores Q K^T / 8 and its P V with P a softmax over 256 keys, dh 64."""
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    if case == "expert x wi":
+        return (t(rng.normal(size=(64, 768))),
+                t(rng.normal(size=(768, 256)) / 768 ** 0.5), 1.0)
+    q, k = rng.normal(size=(128, 64)), rng.normal(size=(256, 64))
+    if case == "attention scores":
+        return t(q), t(k.T), 64 ** -0.5
+    s = torch.tensor(q @ k.T / 8.0)
+    return torch.softmax(s, -1).float(), t(rng.normal(size=(256, 64))), 1.0
+
+
+@pytest.mark.parametrize("case", ["expert x wi", "attention scores",
+                                  "attention P V"])
+def test_three_tf32_products_hold_the_float32_tolerance(case):
+    a, b, scale = _operands(case, np.random.default_rng(1))
+    ref = (a.double() @ b.double()) * scale
+    three = limit_ratio(three_products(a, b) * scale, ref)
+    one = limit_ratio(one_product(a, b) * scale, ref)
+    plain = limit_ratio((a @ b) * scale, ref)
+    assert three < 0.05, three    # measured ~0.004
+    assert one > 1.0, one         # one TF32 product misses the tolerance
+    assert three <= 2 * plain + 0.01, (three, plain)  # as close as f32 FMAs
