@@ -92,7 +92,8 @@ PEAK_TF32_S = 495e12
 # Kernels whose float32 products run on tensor cores as three TF32
 # products (csrc/mma_sm90.cuh): their bound is 3 x FLOPs over the TF32
 # rate (or the bytes), with the CUDA-core bound recorded beside it.
-TF32X3_KERNELS = ("flash_attention", "expert_mlp")
+TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
+                  "flash_attention_dkv", "expert_mlp")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -739,10 +740,23 @@ def check_train_kernels(cfg, device):
         print(f"[train-kernel] {kname} float32: ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: "
-              f"{nbytes} B, {flops} FLOP)", flush=True)
+              f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)", flush=True)
         records.append(rec)
+    print_flash_pair("train-kernel", "causal (16, 512, 16/8, 64)",
+                     {r["name"]: r for r in records})
     return records
+
+
+def print_flash_pair(tag, shape, by_name):
+    """One line: the dq and dk/dv kernels' summed ms against SDPA's
+    whole backward (dq, dk and dv in one call; each row timed it)."""
+    dq, dkv = by_name["flash_attention_dq"], by_name["flash_attention_dkv"]
+    pair = dq["ms"] + dkv["ms"]
+    lib = (dq["library_ms"] + dkv["library_ms"]) / 2
+    print(f"[{tag}] flash backward {shape}: dq + dk/dv = {pair:.4f} ms "
+          f"against SDPA backward {lib:.4f} ms (the two rows' readings "
+          f"{dq['library_ms']:.4f}, {dkv['library_ms']:.4f}): "
+          f"{pair / lib:.3f}x", flush=True)
 
 
 def vit_cases(cfg, device, gen):
@@ -953,9 +967,10 @@ def check_vit_kernels(cfg, device):
             "cuda_core_bound_ms", "library_ms")}
         print(f"[vit-kernel] {kname} non-causal {tuple(a['q'].shape)} float32: "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"library_ms={rec['library_ms']:.4f} bound_ms="
-              f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes} B, "
-              f"{flops} FLOP)", flush=True)
+              f"library_ms={rec['library_ms']:.4f} {_bounds_text(rec)} "
+              f"({nbytes} B, {flops} FLOP)", flush=True)
+    print_flash_pair("vit-kernel", f"non-causal {tuple(a['q'].shape)}",
+                     at_vit)
     return records, at_vit
 
 

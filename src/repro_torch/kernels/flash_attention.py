@@ -7,6 +7,15 @@ The forward returns the output and the per-row log-sum-exp ``lse``
 each probability tile from (q, k, lse) and takes ``delta = rowsum(dO *
 O)`` computed here, outside the kernels, as the reference does.
 ``q_offset`` and ``kv_len`` are int32 scalars in device memory.
+
+All three kernels run their products on tensor cores (``csrc/mma_sm90.cuh``;
+float32 as 3xTF32) and take head dims ``HEAD_DIMS`` and 16-byte aligned
+inputs. A forward block holds ``FWD_ROWS`` query rows of whole GQA
+groups, so the forward takes groups of up to 64 heads. The backward
+kernels see a kv head's queries as one run of Sq * G rows (position x
+head): dq takes 64 rows a block against 32-key tiles; dk/dv takes 64
+keys a block against q tiles of 32 rows, summing the group inside the
+block; so they take any group.
 """
 from __future__ import annotations
 
@@ -16,51 +25,28 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 
-ACC_VALUES = 2048  # bq * G * dh (and bkv * dh) the backward's accumulators
-MAX_KV_TILE = 64
 FWD_ROWS = 64  # query rows (position x head) of a forward block
-FWD_HEAD_DIMS = (16, 32, 64, 128)  # head dims the forward is built for
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("flash_attention", "flash_attention_fwd",
                 [_P] * 7 + [_I] * 9 + [_P])
 KERNEL_DQ = Kernel("flash_attention_dq", "flash_attention_dq",
-                   [_P] * 9 + [_I] * 9 + [_P], source="flash_attention_bwd")
+                   [_P] * 9 + [_I] * 8 + [_P], source="flash_attention_bwd")
 KERNEL_DKV = Kernel("flash_attention_dkv", "flash_attention_dkv",
-                    [_P] * 10 + [_I] * 10 + [_P],
+                    [_P] * 10 + [_I] * 8 + [_P],
                     source="flash_attention_bwd")
-
-
-def _pow2_floor(x: int) -> int:
-    return 1 << (max(x, 1).bit_length() - 1)
-
-
-def pick_q_tile(seq: int, group_dim: int) -> int:
-    """Query rows per block: the largest power of two whose ``bq *
-    group_dim`` values (group_dim = G * dh) fit the accumulators, no
-    larger than the sequence needs."""
-    if group_dim > ACC_VALUES:
-        raise ValueError(f"flash attention kernel: GQA group x head_dim "
-                         f"{group_dim} exceeds {ACC_VALUES}")
-    bq = _pow2_floor(ACC_VALUES // group_dim)
-    return min(bq, 1 << max(seq - 1, 0).bit_length())
 
 
 def pick_fwd_q_tile(group: int, dh: int) -> int:
     """Query positions per forward block: its FWD_ROWS rows hold whole
     GQA groups of ``group`` heads."""
-    if group > FWD_ROWS or dh not in FWD_HEAD_DIMS:
+    if group > FWD_ROWS or dh not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: GQA group {group} > "
                          f"{FWD_ROWS} or head_dim {dh} not in "
-                         f"{FWD_HEAD_DIMS}")
+                         f"{HEAD_DIMS}")
     return FWD_ROWS // group
-
-
-def pick_kv_tile(dh: int) -> int:
-    """Keys per dk/dv block: dk and dv of ``bkv * dh`` values each fit
-    the accumulators."""
-    return min(MAX_KV_TILE, _pow2_floor(ACC_VALUES // dh))
 
 
 def scalar_i32(x, device) -> torch.Tensor:
@@ -116,13 +102,24 @@ def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
     return o, lse
 
 
-def _check_rows(name, q, lse, delta):
-    B, Sq, H, _ = q.shape
+def _check_bwd(name, q, k, v, do, lse, delta, q_offset, kv_len):
+    """The backward kernels' inputs: as the forward's, plus ``do`` like
+    q, lse and delta float32 (B, H, Sq), a head dim in HEAD_DIMS and
+    q, k, v, do 16-byte aligned. Any GQA group is taken."""
+    _check(name, q, k, v, do, lse, delta, q_offset, kv_len)
+    B, Sq, H, dh = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
+                         f"match q {tuple(q.shape)} {q.dtype}")
     for t in (lse, delta):
         if t.dtype != torch.float32 or t.shape != (B, H, Sq):
             raise ValueError(f"{name}: lse and delta must be float32 "
                              f"(B, H, Sq) = {(B, H, Sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError(f"{name}: q, k, v and do must be 16-byte aligned")
 
 
 def attention_delta(o, do) -> torch.Tensor:
@@ -134,10 +131,11 @@ def attention_delta(o, do) -> torch.Tensor:
 def flash_attention_dq_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
                             causal: bool):
     """dq of :func:`flash_attention_fwd_cuda` for the output cotangent
-    ``do``, given its ``lse`` and ``delta`` (B, H, Sq) float32."""
-    _check("flash attention dq kernel", q, k, v, do, lse, delta, q_offset,
-           kv_len)
-    _check_rows("flash attention dq kernel", q, lse, delta)
+    ``do``, given its ``lse`` and ``delta`` (B, H, Sq) float32: one
+    block per 64 rows of a kv head's run, walking its live 32-key
+    tiles."""
+    _check_bwd("flash attention dq kernel", q, k, v, do, lse, delta,
+               q_offset, kv_len)
     B, Sq, H, dh = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -147,8 +145,7 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), q_offset.data_ptr(),
         kv_len.data_ptr(), dq.data_ptr(), B, Sq, Skv, H, Kh, dh,
-        pick_q_tile(Sq, (H // Kh) * dh), int(causal),
-        int(q.dtype == torch.bfloat16),
+        int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq
@@ -157,10 +154,10 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
 def flash_attention_dkv_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
                              causal: bool):
     """(dk, dv) of :func:`flash_attention_fwd_cuda`, each summed over its
-    kv head's query heads inside the kernel."""
-    _check("flash attention dk/dv kernel", q, k, v, do, lse, delta,
-           q_offset, kv_len)
-    _check_rows("flash attention dk/dv kernel", q, lse, delta)
+    kv head's query heads inside the kernel: one block per 64 keys,
+    walking the q tiles that see them."""
+    _check_bwd("flash attention dk/dv kernel", q, k, v, do, lse, delta,
+               q_offset, kv_len)
     B, Sq, H, dh = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
@@ -171,8 +168,7 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), q_offset.data_ptr(),
         kv_len.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Kh,
-        dh, pick_q_tile(Sq, (H // Kh) * dh), pick_kv_tile(dh), int(causal),
-        int(q.dtype == torch.bfloat16),
+        dh, int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dk, dv

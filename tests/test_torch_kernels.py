@@ -113,15 +113,40 @@ FLASH_CASES = [
 ]
 
 
+# Shapes that break the forward's tilings (B, Sq, Skv, H, Kh, dh, causal,
+# q_offset, kv_len): the ViT's 196 positions (a ragged last kv tile), G =
+# 1, 2, 4; a causal chunk at q_offset > 0 with kv_len < Skv, as the
+# static prefill calls it; rows with no valid key; every head dim the
+# forward is built for.
+FLASH_FWD_CASES = [
+    (2, 196, 196, 12, 12, 64, False, 0, None),
+    (1, 130, 200, 16, 8, 64, True, 50, 170),
+    (2, 77, 77, 16, 4, 64, True, 0, None),
+    (1, 40, 64, 8, 2, 128, True, -12, 50),
+    (1, 33, 90, 16, 16, 16, False, 0, 70),
+    (2, 45, 45, 8, 4, 32, True, 0, 30),
+]
+
+
 def _flash_inputs(rng, dev, dtype, B, Sq, Skv, H, Kh, dh):
     t = lambda *s: torch.tensor(rng.normal(size=s), dtype=dtype,  # noqa
                                 device=dev)
     return t(B, Sq, H, dh), t(B, Skv, Kh, dh), t(B, Skv, Kh, dh)
 
 
+# The largest GQA group the kernels take (the forward's 64 heads a kv
+# head), at the old backward's limit G * dh = 2048.
+FLASH_MAX_GROUP_CASE = (1, 24, 40, 64, 1, 32, True, 8, 36)
+# The backward at every forward tiling too: dh 128, G = 1-4, q_offset >
+# 0 with kv_len < Skv, rows with no valid key.
+FLASH_BWD_CASES = FLASH_CASES + [c for c in FLASH_FWD_CASES
+                                 if c not in FLASH_CASES] + \
+    [FLASH_MAX_GROUP_CASE]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
 def test_flash_kernels_match_plain(cuda, dtype, case):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -151,33 +176,20 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
-def test_flash_autograd_cuda_matches_eager(cuda):
+@pytest.mark.parametrize("S,H,Kh,causal", [(48, 16, 8, True),     # granite
+                                           (196, 12, 12, False)])  # ViT
+def test_flash_autograd_cuda_matches_eager(cuda, S, H, Kh, causal):
     rng = np.random.default_rng(7)
-    q, k, v = _flash_inputs(rng, cuda, torch.float32, 2, 48, 48, 16, 8, 64)
+    q, k, v = _flash_inputs(rng, cuda, torch.float32, 2, S, S, H, Kh, 64)
     do = torch.tensor(rng.normal(size=q.shape), dtype=torch.float32,
                       device=cuda)
     outs = {}
     for impl in ("cuda", "eager"):
         xs = [t.clone().requires_grad_() for t in (q, k, v)]
-        o = ops.flash_attention(*xs, causal=True, implementation=impl)
+        o = ops.flash_attention(*xs, causal=causal, implementation=impl)
         outs[impl] = (o, *torch.autograd.grad(o, xs, do))
     for a, b in zip(outs["cuda"], outs["eager"]):
         torch.testing.assert_close(a, b, **_tol(torch.float32))
-
-
-# Shapes that break the forward's tilings (B, Sq, Skv, H, Kh, dh, causal,
-# q_offset, kv_len): the ViT's 196 positions (a ragged last kv tile), G =
-# 1, 2, 4; a causal chunk at q_offset > 0 with kv_len < Skv, as the
-# static prefill calls it; rows with no valid key; every head dim the
-# forward is built for.
-FLASH_FWD_CASES = [
-    (2, 196, 196, 12, 12, 64, False, 0, None),
-    (1, 130, 200, 16, 8, 64, True, 50, 170),
-    (2, 77, 77, 16, 4, 64, True, 0, None),
-    (1, 40, 64, 8, 2, 128, True, -12, 50),
-    (1, 33, 90, 16, 16, 16, False, 0, 70),
-    (2, 45, 45, 8, 4, 32, True, 0, 30),
-]
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@ float64. On seeded inputs at reduced
 expert and attention shapes, one TF32 product misses the float32
 tolerance that ``chip_smoke.py`` holds every kernel to, and the
 three-product sum (small*big + big*small + big*big) stays well within
-it."""
+it: for the forwards' products and for the flash backward's, whose dS
+tiles come from cancelling differences."""
 import importlib.util
 from pathlib import Path
 
@@ -81,14 +82,39 @@ def test_split_keeps_float32_accuracy():
                   / x.double().abs()).max()) > 2.0 ** -12
 
 
+def _backward_tiles(rng):
+    """Reduced attention backward tiles, as the kernels hold them in
+    float32: 512 query rows (256 positions x a GQA group of 2, granite's
+    G; the kernels' dk/dv depth is 1,024 rows at S 512) against 256 keys,
+    dh 64, p = softmax(q k^T / 8) and ds = p (dO v^T - delta) with delta
+    = rowsum(p dO v^T) = rowsum(dO O): its cancellations are where the
+    products lose digits."""
+    q, k, v = (rng.normal(size=s) for s in ((512, 64), (256, 64), (256, 64)))
+    do = rng.normal(size=(512, 64))
+    s = q @ k.T / 8.0
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    dp = do @ v.T
+    ds = p * (dp - (p * dp).sum(-1, keepdims=True))
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return t(q), t(k), t(do), t(p), t(ds)
+
+
 def _operands(case, rng):
-    """Reduced shapes of the two kernels' products: the expert FFN's
-    x wi at depth d 768 (weights at fan-in scale), attention's scaled
-    scores Q K^T / 8 and its P V with P a softmax over 256 keys, dh 64."""
+    """Reduced shapes of the kernels' products: the expert FFN's x wi at
+    depth d 768 (weights at fan-in scale); the flash forward's scaled
+    scores Q K^T / 8 and its P V with P a softmax over 256 keys, dh 64;
+    the flash backward's dQ = dS K / 8 (depth: the 256 keys), dK = dS^T
+    Q / 8 and dV = P^T dO (depth: the 512 q rows of a kv head)."""
     t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
     if case == "expert x wi":
         return (t(rng.normal(size=(64, 768))),
                 t(rng.normal(size=(768, 256)) / 768 ** 0.5), 1.0)
+    if case.startswith("attention d"):
+        q, k, do, p, ds = _backward_tiles(rng)
+        return {"attention dS K": (ds, k, 1 / 8),
+                "attention dS^T Q": (ds.T.contiguous(), q, 1 / 8),
+                "attention P^T dO": (p.T.contiguous(), do, 1.0)}[case]
     q, k = rng.normal(size=(128, 64)), rng.normal(size=(256, 64))
     if case == "attention scores":
         return t(q), t(k.T), 64 ** -0.5
@@ -97,7 +123,8 @@ def _operands(case, rng):
 
 
 @pytest.mark.parametrize("case", ["expert x wi", "attention scores",
-                                  "attention P V"])
+                                  "attention P V", "attention dS K",
+                                  "attention dS^T Q", "attention P^T dO"])
 def test_three_tf32_products_hold_the_float32_tolerance(case):
     a, b, scale = _operands(case, np.random.default_rng(1))
     ref = (a.double() @ b.double()) * scale
