@@ -10,7 +10,7 @@ any failure, before printing its result line. It
 1. prints the card's name and power limit, builds the twelve CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all at once) and prints the build seconds and each kernel's
-   registers;
+   registers and spill bytes;
 2. holds each kernel against its plain PyTorch version on the card —
    the serve kernels at the serve shapes below in float32 and bfloat16,
    the training kernels (flash attention forward, dq, dk/dv; grouped
@@ -78,6 +78,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -93,7 +94,8 @@ PEAK_TF32_S = 495e12
 # products (csrc/mma_sm90.cuh): their bound is 3 x FLOPs over the TF32
 # rate (or the bytes), with the CUDA-core bound recorded beside it.
 TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
-                  "flash_attention_dkv", "expert_mlp")
+                  "flash_attention_dkv", "expert_mlp", "expert_mlp_dx",
+                  "paged_prefill")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -185,6 +187,23 @@ VIT_KERNELS = FLASH_KERNELS + EXPERT_KERNELS
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def ptxas_usage(log: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel in an ``nvcc -Xptxas -v`` log, the kernel by its mangled
+    name."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            out.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return out
 
 
 def card_line() -> str:
@@ -501,6 +520,11 @@ def check_kernels(cfg, device):
                 fail(f"{kname} {name}: max |kernel - plain| = {max_err:.3g} "
                      f"beyond atol {atol} + rtol {rtol}")
             ms = time_ms(lambda: kern(*args), flush=flush)
+            # The prefill's walk split over blocks, against one block a
+            # walk (splits=1) on the same inputs.
+            unsplit_ms = (time_ms(lambda: kern(*args, splits=1),
+                                  flush=flush)
+                          if kname == "paged_prefill" else None)
             # The grouped wrapper builds its block tables with ~15 small
             # PyTorch ops before the launch: their share is timed alone.
             tables_ms = (time_ms(lambda: gm.block_tables(
@@ -514,6 +538,10 @@ def check_kernels(cfg, device):
                           flops, lib_ms, dtype=name)
             if tables_ms is not None:
                 rec["tables_ms"] = tables_ms
+            if unsplit_ms is not None:
+                rec["unsplit_ms"] = unsplit_ms
+                print(f"[kernel] {kname} {name}: unsplit_ms="
+                      f"{unsplit_ms:.4f}", flush=True)
             print(f"[kernel] {kname} {name}: max_abs_err={max_err:.3e} "
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -1984,9 +2012,9 @@ def main() -> int:
           f"{len({k.source for k in ops.KERNELS})} sources in {secs:.1f} s",
           flush=True)
     for lib in sorted({k.source.name: k for k in ops.KERNELS}.items()):
-        for line in lib[1].build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {lib[0]}: {line.strip()}")
+        for fn, regs, stores, loads in ptxas_usage(lib[1].build_log):
+            print(f"[build] {lib[0]}: {fn}: {regs} registers, spill "
+                  f"stores {stores} B, loads {loads} B")
 
     full = get_config("granite-moe-1b-a400m")
     cfg = dataclasses.replace(full, moe=dataclasses.replace(

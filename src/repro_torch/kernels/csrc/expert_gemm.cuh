@@ -1,0 +1,189 @@
+// The tensor-core GEMM of the expert-FFN kernels over the padded (G, E,
+// cap, .) capacity buffer, for Hopper (sm_90a): the forward's two passes
+// (expert_mlp.cu) and the dx kernel's two (expert_mlp_bwd.cu) each run
+// it over (row tile, column tile, expert) blocks.
+//
+// A block computes C = A B over a (BM-row tile of segment (g, e)) x (BN
+// columns) tile of expert e, K deep. A's rows and the weights stream
+// through a cp.async ring of slabs in shared memory (the forward's: 3
+// slabs 32 deep; dx's: 2 slabs 64 deep; strides padded so that the
+// fragment reads are free of bank conflicts). B is read as stored, (K, N) row-major (x wi: wi (E, d,
+// f)), or transposed from the rows of an (N, K) matrix (dy wo^T: wo (E,
+// f, d); da wi^T: wi (E, d, f)): each stored row holds one column of B
+// contiguous in k, the column-major B that mma.sync takes. Warps tile
+// the block WM x WN; a warp holds (BM / WM) x (BN / WN) f32 sums in
+// registers. Each slab's products start from zero and are added to the
+// sums with an ordinary f32 add (the tensor cores' accumulation
+// truncates; mma_sm90.cuh).
+#pragma once
+
+#include "mma_sm90.cuh"
+
+namespace {
+
+constexpr int BN = 128;  // output columns a block
+// The depth of one product summed from zero in the tensor cores (their
+// truncating accumulation runs at most this deep), and the ring's
+// defaults (the forward's): slabs of BK staged, STAGES in flight.
+constexpr int BK = 32;
+constexpr int STAGES = 3;
+
+// Shared-memory row strides: rows stay 16-byte aligned for cp.async and
+// the fragment reads stay free of bank conflicts. lda: a slab row SK
+// deep; LDB: a row of BN columns.
+template <typename T, int SK = BK>
+__host__ __device__ constexpr int lda() {
+  return SK + (sizeof(T) == 4 ? 4 : 8);
+}
+constexpr int LDB = BN + 8;
+
+template <int BM, int WM, int WN>
+struct Warps {
+  static constexpr int NT = 32 * WM * WN;         // threads
+  static constexpr int WTM = BM / WM, WTN = BN / WN;  // a warp's tile
+  static constexpr int MI = WTM / 16, NI = WTN / 8;   // its mma tiles
+};
+
+// Shared bytes of the ring: NS slabs, SK deep, of A and NB B operands.
+template <typename TA, typename TB, int BM, int NB, bool kTransB,
+          int SK = BK, int NS = STAGES>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return NS * (sizeof(TA) * BM * lda<TA, SK>() +
+               NB * sizeof(TB) * (kTransB ? BN * lda<TB, SK>() : SK * LDB));
+}
+
+// The block's tile: blockIdx = (g * row tiles + row tile, column tile,
+// expert e) over an (N)-column output.
+struct Tile {
+  size_t row0;  // first row of the tile in the G * E * cap rows
+  int nrows, n0, ncols, e;
+};
+
+template <int BM>
+__device__ __forceinline__ Tile block_tile(int cap, int N) {
+  const int rtiles = (cap + BM - 1) / BM;
+  const int g = blockIdx.x / rtiles, r0 = (blockIdx.x % rtiles) * BM;
+  Tile t;
+  t.e = blockIdx.z;
+  t.row0 = ((size_t)g * gridDim.z + t.e) * cap + r0;
+  t.nrows = min(BM, cap - r0);
+  t.n0 = blockIdx.y * BN;
+  t.ncols = min(BN, N - t.n0);
+  return t;
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void add_to(float (&sum)[MI][NI][4],
+                                       const float (&part)[MI][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[mi][ni][q] += part[mi][ni][q];
+}
+
+// acc[i] += A B_i over k < K for the block's tile, i < NB (NB B operands
+// share each staged A slab). a: the tile's first row (row stride K);
+// b0, b1: B_0, B_1 at the tile's first column (b1 read when NB == 2),
+// row stride ldb; rows past nrows, columns past ncols and depth past K
+// read as zeros. `aligned` (uniform): every staged row is 16-byte
+// aligned and a whole number of chunks, so slabs move as cp.async
+// chunks; otherwise element by element. The ring holds NS slabs of depth
+// SK (ring_bytes), a multiple of BK; each BK of a slab is summed from
+// zero and added to acc. Ends with a barrier, so the caller may restage
+// the ring.
+template <typename TA, typename TB, int BM, int WM, int WN, int NB,
+          bool kTransB, int SK = BK, int NS = STAGES>
+__device__ __forceinline__ void gemm_slabs(
+    float (&acc)[NB][Warps<BM, WM, WN>::MI][Warps<BM, WM, WN>::NI][4],
+    const TA* __restrict__ a, const TB* __restrict__ b0,
+    const TB* __restrict__ b1, size_t ldb, int K, int nrows, int ncols,
+    bool aligned, unsigned char* smem) {
+  using W = Warps<BM, WM, WN>;
+  static_assert(SK % BK == 0, "a slab holds whole BK-deep parts");
+  constexpr int NT = W::NT, MI = W::MI, NI = W::NI;
+  constexpr int LDA = lda<TA, SK>(), LDT = lda<TB, SK>();
+  constexpr size_t SA = sizeof(TA) * BM * LDA;
+  constexpr size_t SB = sizeof(TB) * (kTransB ? BN * LDT : SK * LDB);
+  constexpr size_t SS = SA + NB * SB;
+  auto tile_a = [=](int kt) {
+    return reinterpret_cast<TA*>(smem + (kt % NS) * SS);
+  };
+  auto tile_b = [=](int kt, int i) {
+    return reinterpret_cast<TB*>(smem + (kt % NS) * SS + SA + i * SB);
+  };
+
+  auto load = [&](int kt) {
+    const int k0 = kt * SK, nk = min(SK, K - k0);
+    stage_tile<TA, BM, SK, NT>(tile_a(kt), LDA, a + k0, K, nrows, nk,
+                               aligned);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const TB* b = i == 0 ? b0 : b1;
+      if constexpr (kTransB) {
+        stage_tile<TB, BN, SK, NT>(tile_b(kt, i), LDT, b + k0, ldb, ncols,
+                                   nk, aligned);
+      } else {
+        stage_tile<TB, SK, BN, NT>(tile_b(kt, i), LDB, b + k0 * ldb, ldb,
+                                   nk, ncols, aligned);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
+  const int nk = (K + SK - 1) / SK;
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // slab kt is in; every warp is done with kt - 1
+    if (kt + NS - 1 < nk) load(kt + NS - 1);
+    cp_async_commit();
+#pragma unroll
+    for (int k0 = 0; k0 < SK; k0 += BK) {
+      const TA* as = tile_a(kt) + wm * W::WTM * LDA + k0;
+      auto ra = [&](int r, int k) { return to_f32(as[r * LDA + k]); };
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        float part[MI][NI][4] = {};
+        if constexpr (kTransB) {
+          const TB* bs = tile_b(kt, i) + wn * W::WTN * LDT + k0;
+          warp_mma<TA, TB, MI, NI, BK>(part, ra, [&](int k, int n) {
+            return to_f32(bs[n * LDT + k]);
+          });
+        } else {
+          const TB* bs = tile_b(kt, i) + k0 * LDB + wn * W::WTN;
+          warp_mma<TA, TB, MI, NI, BK>(part, ra, [&](int k, int n) {
+            return to_f32(bs[k * LDB + n]);
+          });
+        }
+        add_to(acc[i], part);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+}
+
+// f(mi, ni, q, r, col) for each sum the thread holds: acc[.][mi][ni][q]
+// is the tile's entry (r, col).
+template <int BM, int WM, int WN, typename F>
+__device__ __forceinline__ void each_entry(F f) {
+  using W = Warps<BM, WM, WN>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / WN, wn = warp % WN, gr = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        f(mi, ni, q, wm * W::WTM + 16 * mi + gr + (q >= 2 ? 8 : 0),
+          wn * W::WTN + 8 * ni + 2 * tg + (q & 1));
+      }
+}
+
+}  // namespace

@@ -22,8 +22,8 @@
 //
 // Design: two passes inside one entry point, each a tensor-core GEMM over
 // (row tile, column tile, expert) with the weights streamed through a
-// 3-stage cp.async ring in shared memory (strides padded so that the
-// fragment reads are free of bank conflicts):
+// 3-stage cp.async ring in shared memory (expert_gemm.cuh, which the dx
+// kernel shares):
 //   pass 1: h = act(x wi) [* x wg] into a float32 (G, E, cap, f) scratch
 //           that the wrapper allocates;
 //   pass 2: y = h wo, each block over the full depth f. For bf16 inputs
@@ -40,137 +40,44 @@
 // Rows past cap are neither read nor written; zero rows (unfilled slots)
 // give zero rows, since act(0) = 0 for silu, tanh-gelu and squared relu.
 
-#include "mma_sm90.cuh"
+#include "expert_gemm.cuh"
 
 namespace {
-
-constexpr int BN = 128;    // output columns a block
-constexpr int BK = 32;     // depth of a staged slab
-constexpr int STAGES = 3;  // slabs in flight
-
-// Shared-memory row strides: rows stay 16-byte aligned for cp.async and
-// the fragment reads stay free of bank conflicts.
-template <typename T>
-__host__ __device__ constexpr int lda() {
-  return BK + (sizeof(T) == 4 ? 4 : 8);
-}
-constexpr int LDB = BN + 8;
-
-template <typename TA, typename TB, int BM, bool kGated>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return sizeof(TA) * BM * lda<TA>() +
-         (kGated ? 2 : 1) * sizeof(TB) * BK * LDB;
-}
-
-template <int MI, int NI>
-__device__ __forceinline__ void add_to(float (&sum)[MI][NI][4],
-                                       const float (&part)[MI][NI][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum[mi][ni][q] += part[mi][ni][q];
-}
 
 // C[g, e] (rows, N) = epilogue(A[g, e] (rows, K) B[e] (K, N)) over one
 // (BM-row tile of segment (g, e), BN-column tile, expert e) block: with
 // kAct, C = act(A B) [* A B2 when kGated]; else C = A B. A and C hold
-// G * E segments of cap rows; B and B2 are (E, K, N). Each slab's
-// products start from zero and are added to the block's f32 sums with an
-// ordinary add (the tensor cores' accumulation truncates; mma_sm90.cuh).
+// G * E segments of cap rows; B and B2 are (E, K, N).
 template <typename TA, typename TB, typename TC, int BM, int WM, int WN,
           bool kGated, bool kAct>
 __global__ void __launch_bounds__(32 * WM * WN)
     ffn_gemm(const TA* __restrict__ A, const TB* __restrict__ B,
              const TB* __restrict__ B2, TC* __restrict__ C, int cap, int K,
              int N, int act, bool aligned) {
-  constexpr int NT = 32 * WM * WN, WTM = BM / WM, WTN = BN / WN;
-  constexpr int MI = WTM / 16, NI = WTN / 8, LDA = lda<TA>();
-  constexpr size_t SA = sizeof(TA) * BM * LDA, SB = sizeof(TB) * BK * LDB;
-  constexpr size_t SS = stage_bytes<TA, TB, BM, kGated>();
+  using W = Warps<BM, WM, WN>;
+  constexpr int NB = kGated ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw;  // lambdas capture the pointer
-
-  const int rtiles = (cap + BM - 1) / BM;
-  const int g = blockIdx.x / rtiles, r0 = (blockIdx.x % rtiles) * BM;
-  const int n0 = blockIdx.y * BN, e = blockIdx.z, E = gridDim.z;
-  const int nrows = min(BM, cap - r0), ncols = min(BN, N - n0);
-  const size_t row0 = ((size_t)g * E + e) * cap + r0;
-  const TA* a = A + row0 * K;
-  const TB* b = B + (size_t)e * K * N + n0;
-  const TB* b2 = kGated ? B2 + (size_t)e * K * N + n0 : nullptr;
-  auto tile_a = [&](int kt) {
-    return reinterpret_cast<TA*>(smem + (kt % STAGES) * SS);
-  };
-  auto tile_b = [&](int kt, int i) {
-    return reinterpret_cast<TB*>(smem + (kt % STAGES) * SS + SA + i * SB);
-  };
-
-  auto load = [&](int kt) {
-    const int k0 = kt * BK, nk = min(BK, K - k0);
-    stage_tile<TA, BM, BK, NT>(tile_a(kt), LDA, a + k0, K, nrows, nk,
-                               aligned);
-    stage_tile<TB, BK, BN, NT>(tile_b(kt, 0), LDB, b + (size_t)k0 * N, N, nk,
-                               ncols, aligned);
-    if (kGated) {
-      stage_tile<TB, BK, BN, NT>(tile_b(kt, 1), LDB, b2 + (size_t)k0 * N, N,
-                                 nk, ncols, aligned);
-    }
-  };
-
-  const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
-  float acc[MI][NI][4] = {}, acc2[MI][NI][4] = {};  // acc2: the gate
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab kt is in; every warp is done with kt - 1
-    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
-    cp_async_commit();
-    const TA* as = tile_a(kt) + wm * WTM * LDA;
-    auto ra = [&](int r, int k) { return to_f32(as[r * LDA + k]); };
-#pragma unroll
-    for (int i = 0; i < (kGated ? 2 : 1); ++i) {
-      const TB* bs = tile_b(kt, i) + wn * WTN;
-      float part[MI][NI][4] = {};
-      warp_mma<TA, TB, MI, NI, BK>(
-          part, ra, [&](int k, int n) { return to_f32(bs[k * LDB + n]); });
-      if (i == 0) {
-        add_to(acc, part);
-      } else {
-        add_to(acc2, part);
-      }
-    }
-  }
-
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tg = lane & 3;
-  TC* c = C + row0 * N + n0;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = wm * WTM + 16 * mi + gr + (q >= 2 ? 8 : 0);
-        const int col = wn * WTN + 8 * ni + 2 * tg + (q & 1);
-        if (r >= nrows || col >= ncols) continue;
-        float v = acc[mi][ni][q];
-        if (kAct) v = act_fn(v, act);
-        if (kGated) v *= acc2[mi][ni][q];
-        c[(size_t)r * N + col] = from_f32<TC>(v);
-      }
+  const Tile t = block_tile<BM>(cap, N);
+  const size_t boff = (size_t)t.e * K * N + t.n0;
+  float acc[NB][W::MI][W::NI][4] = {};  // acc[1]: the gate
+  gemm_slabs<TA, TB, BM, WM, WN, NB, false>(
+      acc, A + t.row0 * K, B + boff, kGated ? B2 + boff : nullptr, N, K,
+      t.nrows, t.ncols, aligned, smem_raw);
+  TC* c = C + t.row0 * N + t.n0;
+  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
+    if (r >= t.nrows || col >= t.ncols) return;
+    float v = acc[0][mi][ni][q];
+    if (kAct) v = act_fn(v, act);
+    if (kGated) v *= acc[NB - 1][mi][ni][q];
+    c[(size_t)r * N + col] = from_f32<TC>(v);
+  });
 }
 
 template <typename TA, typename TB, typename TC, int BM, int WM, int WN,
           bool kGated, bool kAct>
 int launch_gemm(const TA* A, const TB* B, const TB* B2, TC* C, int G, int E,
                 int cap, int K, int N, int act, cudaStream_t stream) {
-  const size_t smem = STAGES * stage_bytes<TA, TB, BM, kGated>();
+  const size_t smem = ring_bytes<TA, TB, BM, kGated ? 2 : 1, false>();
   auto kernel = ffn_gemm<TA, TB, TC, BM, WM, WN, kGated, kAct>;
   allow_smem(kernel, smem);
   auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };

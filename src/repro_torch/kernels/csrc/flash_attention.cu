@@ -25,8 +25,8 @@
 // A warp computes its 16 x 32 scores S = Q K^T with
 // mma.sync into registers, takes the online softmax (m, l) there with
 // quad shuffles for the row max, and adds P V into its 16 x dh output
-// straight from the score registers (warp_mma_cfrag: no shuffle, no
-// round trip through shared memory). Query row i sits at q_offset + i and
+// straight from the score registers (flash_tile.cuh's attend_tile, which
+// the paged prefill shares). Query row i sits at q_offset + i and
 // attends key t iff t < kv_len and, when causal, t <= q_offset + i;
 // q_offset and kv_len are read from device memory. The walk stops at the
 // tile's last live key, so a causal tile wholly in the future is never
@@ -34,13 +34,12 @@
 // A row with no valid key gives exact zeros and lse = +inf (so exp(s -
 // lse) = 0 in the backward).
 
-#include "mma_sm90.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // query rows (position x head) a block
-constexpr int kBK = 32;        // keys a kv tile
 
 template <typename T, int DH>
 struct Layout {
@@ -120,54 +119,10 @@ __global__ void __launch_bounds__(kThreads)
     const T* vs = ks + KVT;
     const int kv0 = j * kBK;
 
-    float s[1][kBK / 8][4] = {};
-    warp_mma<T, T, 1, kBK / 8, DH>(
-        s, [&](int r, int c) { return to_f32(qw[r * LD + c]); },
-        [&](int c, int n) { return to_f32(ks[n * LD + c]); });
-    const bool masked = kv0 + kBK > full;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = kv0 + 8 * n + 2 * tg + (e & 1), h = e >> 1;
-        float x = s[0][n][e] * scale;
-        if (masked && !(t < kvlen && (!causal || t <= pos[h]))) x = -INFINITY;
-        s[0][n][e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      alpha[h] = expf(m[h] - m_safe);  // 0 while the row had no valid key
-      m[h] = m_new;
-      mx[h] = m_safe;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[0][n][e] - mx[e >> 1]);
-        s[0][n][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
-    // This tile's P V from zero, then one rounded f32 FMA into the sum.
-    float pv[NO][4] = {};
-    warp_mma_cfrag<T, NO, kBK>(
-        pv, s[0], [&](int t, int c) { return to_f32(vs[t * LD + c]); });
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
-      }
+    attend_tile<T, T, DH, LD, LD>(
+        qw, ks, vs, kv0, kv0 + kBK > full,
+        [&](int t, int h) { return t < kvlen && (!causal || t <= pos[h]); },
+        scale, m, l, acc);
     __syncthreads();  // every warp is done with this stage
   }
   cp_async_wait<0>();  // Q's copy when no tile was live

@@ -158,7 +158,9 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4], FA a,
 // of each step are permuted (slot tg <-> column 8j + 2tg, slot tg + 4 <->
 // 8j + 2tg + 1) so that P needs no shuffle; B is read with the same
 // permutation. bf16: two tiles make one k16 step, P rounded to bf16.
-template <typename T, int NI, int K, typename FB>
+// TB is B's stored type: a bf16 B under a float P is exact in TF32, so
+// it is not split and takes two products.
+template <typename T, int NI, int K, typename TB = T, typename FB>
 __device__ __forceinline__ void warp_mma_cfrag(float (&acc)[NI][4],
                                                const float (&p)[K / 8][4],
                                                FB b) {
@@ -174,10 +176,17 @@ __device__ __forceinline__ void warp_mma_cfrag(float (&acc)[NI][4],
       const int k = 8 * j + 2 * tg;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
-        uint32_t bb[2], bs[2];
-        split_tf32(b(k, 8 * ni + gr), bb[0], bs[0]);
-        split_tf32(b(k + 1, 8 * ni + gr), bb[1], bs[1]);
-        mma_3xtf32(acc[ni], ab, as, bb, bs);
+        if constexpr (std::is_same<TB, float>::value) {
+          uint32_t bb[2], bs[2];
+          split_tf32(b(k, 8 * ni + gr), bb[0], bs[0]);
+          split_tf32(b(k + 1, 8 * ni + gr), bb[1], bs[1]);
+          mma_3xtf32(acc[ni], ab, as, bb, bs);
+        } else {
+          const uint32_t bb[2] = {__float_as_uint(b(k, 8 * ni + gr)),
+                                  __float_as_uint(b(k + 1, 8 * ni + gr))};
+          mma_tf32(acc[ni], as, bb);
+          mma_tf32(acc[ni], ab, bb);
+        }
       }
     }
   } else {

@@ -43,9 +43,6 @@ def check_paged_inputs(name, q, k_pool, v_pool, tables, int_args):
     if dh != dh_kv or H % Kh:
         raise ValueError(f"{name}: q heads {H}x{dh} do not fit pools "
                          f"{tuple(k_pool.shape)}")
-    if (H // Kh) * dh > MAX_GROUP_DIM:
-        raise ValueError(f"{name}: GQA group x head_dim {(H // Kh) * dh} "
-                         f"exceeds {MAX_GROUP_DIM}")
 
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
@@ -56,6 +53,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     P, bs, Kh, _ = k_pool.shape
     check_paged_inputs("decode attention kernel", q, k_pool, v_pool,
                        block_tables, (lengths,))
+    if (H // Kh) * dh > MAX_GROUP_DIM:
+        raise ValueError(f"decode attention kernel: GQA group x head_dim "
+                         f"{(H // Kh) * dh} exceeds {MAX_GROUP_DIM}")
     nb = block_tables.shape[1]
     if block_tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError("decode attention kernel: tables/lengths must "

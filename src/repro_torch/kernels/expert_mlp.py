@@ -1,8 +1,8 @@
 """Expert FFN over the padded capacity buffer: the CUDA kernel wrappers
 (port of ``repro/kernels/expert_mlp.py``; forward kernel in
 ``csrc/expert_mlp.cu``, the dx and dW kernels in
-``csrc/expert_mlp_bwd.cu``, their shared tiles in
-``csrc/expert_tiles.cuh``).
+``csrc/expert_mlp_bwd.cu``; the forward and dx share the tensor-core
+GEMM of ``csrc/expert_gemm.cuh``).
 
 Layout contract (shared with core/moe.py's gather and einsum
 dispatches): ``xe (G, E, cap, d)`` holds, for every group g and expert
@@ -88,9 +88,10 @@ def expert_ffn_cuda(xe, wi, wg, wo, *, act: str = "silu"):
 
 def expert_ffn_dx_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
     """dx of :func:`expert_ffn_cuda` for the output cotangent ``dy (G,
-    E, cap, d)``, on the card, recomputing the hidden tiles. Also returns
-    the float32 (G, E, cap, f) da, dg (None when wg is) and h — the dW
-    kernel's inputs. Returns (dx, da, dg, h)."""
+    E, cap, d)``, on the card, recomputing the hidden tiles on tensor
+    cores: the hidden products leave the float32 (G, E, cap, f) da, dg
+    (None when wg is) and h — the dW kernel's inputs — and dx is taken
+    from them. Returns (dx, da, dg, h)."""
     G, E, cap, d, f = _check("expert FFN dx kernel", xe, wi, wg, wo, act,
                              dy)
     f32 = torch.float32

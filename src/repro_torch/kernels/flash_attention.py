@@ -39,11 +39,13 @@ KERNEL_DKV = Kernel("flash_attention_dkv", "flash_attention_dkv",
                     source="flash_attention_bwd")
 
 
-def pick_fwd_q_tile(group: int, dh: int) -> int:
-    """Query positions per forward block: its FWD_ROWS rows hold whole
-    GQA groups of ``group`` heads."""
+def pick_fwd_q_tile(group: int, dh: int, *,
+                    name: str = "flash attention kernel") -> int:
+    """Query positions per forward block (the paged prefill tiles its
+    chunk rows the same way): its FWD_ROWS rows hold whole GQA groups of
+    ``group`` heads."""
     if group > FWD_ROWS or dh not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: GQA group {group} > "
+        raise ValueError(f"{name}: GQA group {group} > "
                          f"{FWD_ROWS} or head_dim {dh} not in "
                          f"{HEAD_DIMS}")
     return FWD_ROWS // group

@@ -1,48 +1,54 @@
 """Paged chunked-prefill attention: the CUDA kernel wrapper (port of
 ``repro/kernels/paged_prefill.py``; kernel in ``csrc/paged_prefill.cu``).
 
-One thread block per (chunk lane, kv head, q tile): row i of lane c
-attends pool positions ``<= starts[c] + i``, the block walk stops at the
-tile's causal limit, and rows ``i >= lens[c]`` are exact zeros. The
-chunk's own k/v are already in the pool when it runs.
+One thread block per (chunk lane, kv head, q tile of 64 // G chunk rows,
+as the flash forward tiles its rows): row i of lane c attends pool
+positions ``<= starts[c] + i``, the block walk stops at the tile's
+causal limit, and rows ``i >= lens[c]`` are exact zeros. The chunk's own
+k/v are already in the pool when it runs. P V on tensor cores (float32
+as 3xTF32); the scores on tensor cores for a bfloat16 output and as
+float32 FMAs for a float32 one (``csrc/flash_tile.cuh``); head dims and
+GQA groups as the flash forward's.
+When those blocks would leave SMs idle, each walk is split over several
+blocks (:func:`pick_splits`) whose partial sums a second launch combines.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.decode_attention import check_paged_inputs
-
-TILE_ROWS = 2048  # bq * G * dh the kernel's per-thread accumulators hold
+from repro_torch.kernels.flash_attention import pick_fwd_q_tile
 
 KERNEL = Kernel(
     "paged_prefill", "paged_prefill_attention",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 )
+KV_TILE = 32  # keys a kernel block stages at a time
 
 
-def pick_q_tile(chunk_tokens: int, group_dim: int) -> int:
-    """Largest power-of-two divisor of the chunk length whose tile of
-    ``bq * group_dim`` (group_dim = G * dh) values fits the kernel's
-    accumulators."""
-    if chunk_tokens <= 0:
-        raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
-    bq = chunk_tokens & -chunk_tokens
-    while bq > 1 and bq * group_dim > TILE_ROWS:
-        bq //= 2
-    if bq * group_dim > TILE_ROWS:
-        raise ValueError(f"paged prefill kernel: GQA group x head_dim "
-                         f"{group_dim} exceeds {TILE_ROWS}")
-    return bq
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pick_splits(blocks: int, kv_tiles: int, sms: int) -> int:
+    """Runs to cut each block's kv walk into: enough blocks to give every
+    SM one, and at least two ``KV_TILE``-key tiles a run at the tables'
+    capacity of ``kv_tiles`` tiles."""
+    return max(1, min(-(-sms // blocks), kv_tiles // 2))
 
 
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
-                                 lens):
+                                 lens, *, splits: int | None = None):
     """q: (NC, C, H, dh); pools: (P, bs, Kh, dh) with the chunks' k/v
     already written; block_tables: (NC, nb) int32; starts/lens: (NC,)
-    int32. Returns (NC, C, H, dh) in q's dtype."""
+    int32; q and the pools 16-byte aligned. ``splits``: runs of each
+    kv walk (default :func:`pick_splits`'s). Returns (NC, C, H, dh) in
+    q's dtype."""
     NC, C, H, dh = q.shape
     P, bs, Kh, _ = k_pool.shape
     check_paged_inputs("paged prefill kernel", q, k_pool, v_pool,
@@ -52,15 +58,23 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
             or lens.shape != (NC,)):
         raise ValueError("paged prefill kernel: tables/starts/lens must "
                          "have one row per chunk lane")
-    bq = pick_q_tile(C, (H // Kh) * dh)
+    bq = pick_fwd_q_tile(H // Kh, dh, name="paged prefill kernel")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged prefill kernel: q and the pools must be "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     if NC * C == 0:
         return out
+    if splits is None:
+        splits = pick_splits(-(-C // bq) * Kh * NC, -(-nb * bs // KV_TILE),
+                             _sm_count(q.device))
+    part = (torch.empty(splits * NC * C * H * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     KERNEL.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-        out.data_ptr(),
-        NC, C, H, Kh, dh, bs, nb, bq,
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        NC, C, H, Kh, dh, bs, nb, bq, splits,
         int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

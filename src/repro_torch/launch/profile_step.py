@@ -62,7 +62,7 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "grouped_mlp_dx": "grouped_dx_kernel",
                 "grouped_mlp_dw": "grouped_dw_kernel",
                 "expert_mlp": "ffn_gemm",
-                "expert_mlp_dx": "expert_dx_kernel",
+                "expert_mlp_dx": "expert_dx_",
                 "expert_mlp_dw": "expert_dw_kernel",
                 "rwkv6": "wkv6_kernel"}
 # The train cells of chip_smoke.py: default batch (images for the

@@ -7,6 +7,9 @@ so it runs where the card is:
 float32 tolerance atol/rtol 1e-5: both sides accumulate in f32 and
 differ only in summation order; bfloat16 outputs may differ by one
 bf16 rounding (2^-8 relative), so they use 1e-2."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -33,10 +36,10 @@ def _tol(dtype):
         dict(atol=1e-2, rtol=1e-2)
 
 
-def _paged(rng, dev, dtype, rows, H, Kh, dh, nb):
+def _paged(rng, dev, dtype, rows, H, Kh, dh, nb, bs=BS):
     P = 1 + rows * nb
-    kp = torch.tensor(rng.normal(size=(P, BS, Kh, dh)), dtype=dtype, device=dev)
-    vp = torch.tensor(rng.normal(size=(P, BS, Kh, dh)), dtype=dtype, device=dev)
+    kp = torch.tensor(rng.normal(size=(P, bs, Kh, dh)), dtype=dtype, device=dev)
+    vp = torch.tensor(rng.normal(size=(P, bs, Kh, dh)), dtype=dtype, device=dev)
     tab = torch.tensor(rng.permutation(np.arange(1, P)).reshape(rows, nb),
                        dtype=torch.int32, device=dev)
     return kp, vp, tab
@@ -58,22 +61,85 @@ def test_decode_kernel_matches_plain(cuda, dtype, H, Kh):
     assert torch.equal(y[0], torch.zeros_like(y[0]))
 
 
+def test_prefill_split_covers_the_card():
+    """The split walk's run count (CPU): the serve shapes' 32 blocks
+    (2 lanes x 8 kv heads x 2 q tiles, 512-token tables) are cut into 5
+    runs for 132 SMs; a grid that fills the card, or tables of under four
+    32-key tiles, walk unsplit."""
+    from repro_torch.kernels.paged_prefill import pick_splits
+
+    assert pick_splits(32, 16, 132) == 5
+    assert pick_splits(132, 16, 132) == 1
+    assert pick_splits(500, 64, 132) == 1
+    assert pick_splits(24, 3, 132) == 1
+    assert pick_splits(1, 8, 132) == 4
+
+
+# (C, H, Kh, dh, bs, starts) of three chunk lanes with lens (C, C - 3,
+# 0): granite's heads at 16-token blocks, a full and a partial chunk;
+# GQA groups 1, 5 (a 60-row tile) and 8; dh 128 and 32; blocks of 8 and
+# 48 tokens; starts off the block and the 32-key tile grid.
+PREFILL_CASES = [
+    (64, 16, 8, 64, 16, (0, 37, 5)),
+    (12, 16, 8, 64, 16, (0, 37, 5)),
+    (64, 4, 4, 64, 8, (3, 45, 77)),
+    (40, 10, 2, 128, 48, (13, 100, 0)),
+    (33, 16, 2, 32, 16, (50, 7, 90)),
+]
+DTYPE_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [64, 12])
-def test_prefill_kernel_matches_plain(cuda, dtype, C):
-    rng = np.random.default_rng(C)
-    kp, vp, tab = _paged(rng, cuda, dtype, 3, 16, 8, 64, 8)
-    starts = torch.tensor([0, 37, 5], dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_prefill_kernel_matches_plain(cuda, q_dtype, kv_dtype, case):
+    C, H, Kh, dh, bs, starts = case
+    rng = np.random.default_rng(C + H + bs)
+    nb = -(-(max(starts) + C) // bs)
+    kp, vp, tab = _paged(rng, cuda, kv_dtype, 3, H, Kh, dh, nb, bs)
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
     lens = torch.tensor([C, C - 3, 0], dtype=torch.int32, device=cuda)
-    q = torch.tensor(rng.normal(size=(3, C, 16, 64)), dtype=dtype,
+    q = torch.tensor(rng.normal(size=(3, C, H, dh)), dtype=q_dtype,
                      device=cuda)
     y = ops.prefill_attention(q, kp, vp, tab, starts, lens,
                               implementation="cuda")
     want = ops.prefill_attention(q, kp, vp, tab, starts, lens,
                                  implementation="eager")
-    torch.testing.assert_close(y, want, **_tol(dtype))
+    # The output is in q's dtype; a bf16 pool is exact in float32.
+    torch.testing.assert_close(y, want, **_tol(q_dtype))
     assert torch.equal(y[2], torch.zeros_like(y[2]))
+    assert torch.equal(y[1, C - 3:], torch.zeros_like(y[1, C - 3:]))
+    # Each walk in one block, and split over three.
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention_cuda
+    for splits in (1, 3):
+        y = paged_prefill_attention_cuda(q, kp, vp, tab, starts, lens,
+                                         splits=splits)
+        torch.testing.assert_close(y, want, **_tol(q_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_holds_large_scores(cuda, kv_dtype):
+    """q and k of the sizes a randomly initialised model gives them (|q|,
+    |k| ~ 20-40 at granite's reference init), where exp() turns a score's
+    rounding into the output's: a float32 output holds the float32
+    tolerance (its scores are f32 FMAs, csrc/flash_tile.cuh)."""
+    rng = np.random.default_rng(7)
+    kp, vp, tab = _paged(rng, cuda, torch.float32, 3, 16, 8, 64, 7)
+    kp, vp = (10 * t for t in (kp, vp))
+    kp, vp = kp.to(kv_dtype), vp.to(kv_dtype)
+    starts = torch.tensor([0, 37, 5], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([64, 61, 0], dtype=torch.int32, device=cuda)
+    q = torch.tensor(10 * rng.normal(size=(3, 64, 16, 64)),
+                     dtype=torch.float32, device=cuda)
+    y = ops.prefill_attention(q, kp, vp, tab, starts, lens,
+                              implementation="cuda")
+    want = ops.prefill_attention(q, kp, vp, tab, starts, lens,
+                                 implementation="eager")
+    torch.testing.assert_close(y, want, **_tol(torch.float32))
 
 
 @pytest.mark.cuda
@@ -293,11 +359,15 @@ def test_grouped_autograd_cuda_matches_eager(cuda):
 # expert FFN kernels over the padded capacity buffer
 # ---------------------------------------------------------------------------
 
-# (G, E, cap, d, f): cap not a multiple of the 32-row block, f not a
-# multiple of the 256-column tile; the last case has d > 768, so the
-# forward and dx kernels make two passes over the output columns.
+# (G, E, cap, d, f) for the dx kernel's tilings (as the forward's: 16-,
+# 64- or 128-row tiles by cap, gated at most 64, 128-column tiles of f in
+# the hidden pass and of d in the out pass): cap 9 (one 16-row tile), 37
+# and 33 (64-row tiles), 70 (one 128-row tile; two of 64 gated); d and f
+# not multiples of the 128-column tile; d = 97 and f = 130, whose rows
+# are not 16-byte aligned (staged element by element).
 EXPERT_CASES = [(2, 3, 37, 64, 96), (1, 2, 70, 200, 300),
-                (2, 2, 33, 1024, 260)]
+                (2, 2, 33, 1024, 260), (2, 3, 9, 128, 200),
+                (1, 2, 20, 97, 130)]
 
 
 def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):
@@ -477,3 +547,38 @@ def test_rwkv6_cuda_refuses_autograd(cuda):
         ops.rwkv6(r, k, v, w, u)
     o, _ = ops.rwkv6(r, k, v, w, u, implementation="eager")
     assert o.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# kernel names, as launch/profile_step.py assigns trace time (CPU)
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"(\w+)\s*\(")
+
+
+def _global_names(path):
+    return GLOBAL.findall(path.read_text())
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_kernel_names_match_one_profile_entry(source):
+    """profile_step charges a device kernel to every PORT_KERNELS entry
+    whose symbol its name contains: each kernel of the port's sources
+    matches exactly one, so no kernel's time is charged to another."""
+    from repro_torch.launch.profile_step import PORT_KERNELS
+
+    names = _global_names(CSRC / source)
+    assert names, f"no __global__ kernel found in {source}"
+    for name in names:
+        hits = [k for k, sym in PORT_KERNELS.items() if sym in name]
+        assert len(hits) == 1, (source, name, hits)
+
+
+def test_every_profile_entry_names_a_kernel():
+    from repro_torch.launch.profile_step import PORT_KERNELS
+
+    names = [n for p in CSRC.glob("*.cu") for n in _global_names(p)]
+    for key, sym in PORT_KERNELS.items():
+        assert any(sym in n for n in names), (key, sym)

@@ -9,8 +9,8 @@ float64. On seeded inputs at reduced
 expert and attention shapes, one TF32 product misses the float32
 tolerance that ``chip_smoke.py`` holds every kernel to, and the
 three-product sum (small*big + big*small + big*big) stays well within
-it: for the forwards' products and for the flash backward's, whose dS
-tiles come from cancelling differences."""
+it: for the forwards' products, the expert dx kernel's, and the flash
+backward's, whose dS tiles come from cancelling differences."""
 import importlib.util
 from pathlib import Path
 
@@ -102,7 +102,10 @@ def _backward_tiles(rng):
 
 def _operands(case, rng):
     """Reduced shapes of the kernels' products: the expert FFN's x wi at
-    depth d 768 (weights at fan-in scale); the flash forward's scaled
+    depth d 768 (weights at fan-in scale); its dx kernel's dh = dy wo^T
+    (depth d 768, wo at fan-in f 3,072) and da wi^T (depth f 3,072, da =
+    gelu'(a) dh from a ~ N(0, 1) and dh ~ N(0, d / f), as x wi and dy
+    wo^T give them); the flash forward's scaled
     scores Q K^T / 8 and its P V with P a softmax over 256 keys, dh 64;
     the flash backward's dQ = dS K / 8 (depth: the 256 keys), dK = dS^T
     Q / 8 and dV = P^T dO (depth: the 512 q rows of a kv head)."""
@@ -110,6 +113,14 @@ def _operands(case, rng):
     if case == "expert x wi":
         return (t(rng.normal(size=(64, 768))),
                 t(rng.normal(size=(768, 256)) / 768 ** 0.5), 1.0)
+    if case == "expert dy wo^T":
+        return (t(rng.normal(size=(64, 768))),
+                t(rng.normal(size=(256, 768)).T / 3072 ** 0.5), 1.0)
+    if case == "expert da wi^T":
+        a = t(rng.normal(size=(64, 3072)))
+        dh = t(rng.normal(size=(64, 3072)) * 0.5)
+        da = torch.ops.aten.gelu_backward(dh, a, approximate="tanh")
+        return da, t(rng.normal(size=(256, 3072)).T / 768 ** 0.5), 1.0
     if case.startswith("attention d"):
         q, k, do, p, ds = _backward_tiles(rng)
         return {"attention dS K": (ds, k, 1 / 8),
@@ -122,7 +133,8 @@ def _operands(case, rng):
     return torch.softmax(s, -1).float(), t(rng.normal(size=(256, 64))), 1.0
 
 
-@pytest.mark.parametrize("case", ["expert x wi", "attention scores",
+@pytest.mark.parametrize("case", ["expert x wi", "expert dy wo^T",
+                                  "expert da wi^T", "attention scores",
                                   "attention P V", "attention dS K",
                                   "attention dS^T Q", "attention P^T dO"])
 def test_three_tf32_products_hold_the_float32_tolerance(case):
