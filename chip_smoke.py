@@ -95,7 +95,7 @@ PEAK_TF32_S = 495e12
 # rate (or the bytes), with the CUDA-core bound recorded beside it.
 TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
                   "flash_attention_dkv", "expert_mlp", "expert_mlp_dx",
-                  "paged_prefill")
+                  "expert_mlp_dw", "paged_prefill")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -204,6 +204,25 @@ def ptxas_usage(log: str):
             out.append((fn, int(m.group(1)), *spill))
             fn = None
     return out
+
+
+def sass_hmma(kernel) -> dict:
+    """Tensor-core instructions (HMMA) in the SASS of a kernel's library,
+    by ``__global__`` name of its source (``cuobjdump -sass``)."""
+    from repro_torch.kernels.build import nvcc_path
+
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                       r"(\w+)\s*\(", kernel.source.read_text())
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(kernel.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = dict.fromkeys(names, 0)
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(maxsplit=1)[0]
+        for n in names:
+            if f"{len(n)}{n}" in fn:
+                counts[n] += part.count("HMMA")
+    return counts
 
 
 def card_line() -> str:
@@ -380,29 +399,34 @@ def grouped_case(cfg, dtype, device, gen):
 
 
 def decode_work(c, itemsize):
-    """Bytes (inputs read once, output written once, only the live KV
-    blocks) and FLOPs of the decode call on these inputs."""
+    """Bytes (inputs read once, output written once: each slot's keys
+    and values below its length, the lengths and the live blocks' table
+    entries) and FLOPs of the decode call on these inputs."""
     B, H, dh = c["q_dec"].shape
     bs, Kh = c["kp"].shape[1], c["kp"].shape[2]
     lens = [int(x) for x in c["lengths"]]
     blocks = sum(-(-n // bs) for n in lens)
-    kv = 2 * blocks * bs * Kh * dh * itemsize
+    kv = 2 * sum(lens) * Kh * dh * itemsize
     nbytes = 2 * B * H * dh * itemsize + kv + 4 * (B + blocks)
     flops = sum(4 * H * dh * n for n in lens)
     return nbytes, flops
 
 
 def prefill_work(c, itemsize):
+    """Bytes (as decode_work's: the keys and values of each pool block
+    up to the last position a lane reads in it, a block shared by lanes
+    once) and FLOPs of the prefill call on these inputs."""
     NC, C, H, dh = c["q_ch"].shape
     bs, Kh = c["kp"].shape[1], c["kp"].shape[2]
-    blocks, flops = set(), 0
+    keys, flops = {}, 0
     for lane in range(NC):
         st, ln = int(c["starts"][lane]), int(c["lens"][lane])
         for b in range(-(-(st + ln) // bs)):
-            blocks.add(int(c["ctab"][lane, b]))
+            blk = int(c["ctab"][lane, b])
+            keys[blk] = max(keys.get(blk, 0), min(bs, st + ln - b * bs))
         flops += sum(4 * H * dh * (st + i + 1) for i in range(ln))
-    kv = 2 * len(blocks) * bs * Kh * dh * itemsize
-    nbytes = 2 * NC * C * H * dh * itemsize + kv + 4 * (len(blocks) + 2 * NC)
+    kv = 2 * sum(keys.values()) * Kh * dh * itemsize
+    nbytes = 2 * NC * C * H * dh * itemsize + kv + 4 * (len(keys) + 2 * NC)
     return nbytes, flops
 
 
@@ -520,11 +544,12 @@ def check_kernels(cfg, device):
                 fail(f"{kname} {name}: max |kernel - plain| = {max_err:.3g} "
                      f"beyond atol {atol} + rtol {rtol}")
             ms = time_ms(lambda: kern(*args), flush=flush)
-            # The prefill's walk split over blocks, against one block a
+            # The paged walks split over blocks, against one block a
             # walk (splits=1) on the same inputs.
             unsplit_ms = (time_ms(lambda: kern(*args, splits=1),
                                   flush=flush)
-                          if kname == "paged_prefill" else None)
+                          if kname in ("decode_attention", "paged_prefill")
+                          else None)
             # The grouped wrapper builds its block tables with ~15 small
             # PyTorch ops before the launch: their share is timed alone.
             tables_ms = (time_ms(lambda: gm.block_tables(
@@ -943,6 +968,27 @@ def check_vit_kernels(cfg, device):
               f"({ncalls} torch calls) bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']}: {nbytes} B, {flops} FLOP)", flush=True)
         records.append(rec)
+    # dW's order differs from the plain version's (tensor-core parts of
+    # 32 rows against one f32 chain of 1,280): both held against a
+    # float64 sum over two experts, the plain version's distance printed.
+    sl = slice(0, 2)
+    x64, dy64, da64, h64 = (t[:, sl].double() for t in (xe, dy, dxs[1],
+                                                         dxs[3]))
+    exact = (torch.einsum("gecd,gecf->edf", x64, da64),
+             torch.einsum("gecf,gecd->efd", h64, dy64))
+    del x64, dy64, da64, h64
+    for tag, (dwi, _, dwo) in (
+            ("kernel", em.expert_ffn_dw_cuda(xe, dy, *scratch)),
+            ("plain", ref.expert_ffn_dw_ref(xe, dy, *scratch))):
+        ratios = [_max_err(y[sl].double(), y64, atol, rtol)[1]
+                  for y, y64 in zip((dwi, dwo), exact)]
+        print(f"[vit-kernel] expert_mlp_dw {tag} against a float64 sum "
+              f"(experts 0-1): max err / limit = {ratios[0]:.3f} (dwi), "
+              f"{ratios[1]:.3f} (dwo)", flush=True)
+        if tag == "kernel" and not max(ratios) <= 1.0:
+            fail(f"expert_mlp_dw differs from a float64 sum beyond the "
+                 f"float32 tolerance (ratio {max(ratios):.3g})")
+    del exact, dwi, dwo
     del dxs, scratch, xt, dyt, da_t, h_t, c, xe, dy, wi, wo
     torch.cuda.empty_cache()
 
@@ -2015,6 +2061,10 @@ def main() -> int:
         for fn, regs, stores, loads in ptxas_usage(lib[1].build_log):
             print(f"[build] {lib[0]}: {fn}: {regs} registers, spill "
                   f"stores {stores} B, loads {loads} B")
+        hmma = sass_hmma(lib[1])
+        print(f"[build] {lib[0]}: HMMA in SASS: {sum(hmma.values())} ("
+              + ", ".join(f"{n} {c}" for n, c in hmma.items()) + ")",
+              flush=True)
 
     full = get_config("granite-moe-1b-a400m")
     cfg = dataclasses.replace(full, moe=dataclasses.replace(

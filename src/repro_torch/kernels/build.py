@@ -52,13 +52,16 @@ class Kernel:
     one library.
 
     ``launches`` counts successful launches of the kernel itself; the
-    plain PyTorch versions never touch it.
+    plain PyTorch versions never touch it. ``csrc`` is the directory of
+    the source and its headers (default: the package's own; a copy with
+    an edit builds a variant beside the original).
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list, *,
-                 source: str | None = None):
+                 source: str | None = None, csrc: Path = CSRC):
         self.name = name
-        self.source = CSRC / f"{source or name}.cu"
+        self.csrc = Path(csrc)
+        self.source = self.csrc / f"{source or name}.cu"
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
@@ -68,7 +71,7 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in (self.source, *sorted(CSRC.glob("*.cuh"))):
+        for p in (self.source, *sorted(self.csrc.glob("*.cuh"))):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return build_dir() / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
@@ -78,7 +81,7 @@ class Kernel:
         # Find the toolkit's runtime when no runtime of its soname is
         # loaded yet.
         rpath = Path(nvcc).resolve().parents[1] / "lib64"
-        return [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-Xlinker",
+        return [nvcc, *NVCC_FLAGS, f"-I{self.csrc}", "-Xlinker",
                 f"-rpath={rpath}", "-o", str(out), str(self.source)]
 
     def _bind(self) -> None:

@@ -1,15 +1,22 @@
 // The tensor-core GEMM of the expert-FFN kernels over the padded (G, E,
 // cap, .) capacity buffer, for Hopper (sm_90a): the forward's two passes
-// (expert_mlp.cu) and the dx kernel's two (expert_mlp_bwd.cu) each run
-// it over (row tile, column tile, expert) blocks.
+// (expert_mlp.cu), the dx kernel's products and the dW kernel's two
+// (expert_mlp_bwd.cu) each run it over (row tile, column tile, expert)
+// blocks.
 //
-// A block computes C = A B over a (BM-row tile of segment (g, e)) x (BN
-// columns) tile of expert e, K deep. A's rows and the weights stream
-// through a cp.async ring of slabs in shared memory (the forward's: 3
-// slabs 32 deep; dx's: 2 slabs 64 deep; strides padded so that the
-// fragment reads are free of bank conflicts). B is read as stored, (K, N) row-major (x wi: wi (E, d,
-// f)), or transposed from the rows of an (N, K) matrix (dy wo^T: wo (E,
-// f, d); da wi^T: wi (E, d, f)): each stored row holds one column of B
+// A block computes C = A B over a (BM rows) x (BN columns) tile of
+// expert e, K deep. A's rows and the weights stream through a cp.async
+// ring of slabs in shared memory (the forward's: 3 slabs 32 deep; dx's:
+// 2 slabs 64 deep; strides padded so that the fragment reads are free of
+// bank conflicts). A is read as stored, its BM rows a tile of segment
+// (g, e), or transposed (kTransA, the dW kernel's x^T and h^T): the
+// depth is then the expert's G * cap rows of the buffer, walked group
+// after group inside the block (DepthRows; a slab may cross a group
+// boundary), staged as row-major (depth, BM) slabs and read by the
+// fragments as as[k * LD + m]. B is read as stored, (K, N) row-major (x
+// wi: wi (E, d, f); dW's da, dg, dy over the same depth rows as A), or
+// transposed from the rows of an (N, K) matrix (dy wo^T: wo (E, f, d);
+// da wi^T: wi (E, d, f)): each stored row holds one column of B
 // contiguous in k, the column-major B that mma.sync takes. Warps tile
 // the block WM x WN; a warp holds (BM / WM) x (BN / WN) f32 sums in
 // registers. Each slab's products start from zero and are added to the
@@ -36,6 +43,13 @@ __host__ __device__ constexpr int lda() {
   return SK + (sizeof(T) == 4 ? 4 : 8);
 }
 constexpr int LDB = BN + 8;
+// A transposed: a slab row of BM columns, read down a column by the
+// fragments (k = tg rows apart): the stride is 8 banks (mod 32) past a
+// multiple of the 32 banks, in 32-bit words.
+template <typename T, int BM>
+__host__ __device__ constexpr int lda_t() {
+  return BM + (sizeof(T) == 4 ? 8 : 16);
+}
 
 template <int BM, int WM, int WN>
 struct Warps {
@@ -46,11 +60,39 @@ struct Warps {
 
 // Shared bytes of the ring: NS slabs, SK deep, of A and NB B operands.
 template <typename TA, typename TB, int BM, int NB, bool kTransB,
-          int SK = BK, int NS = STAGES>
+          int SK = BK, int NS = STAGES, bool kTransA = false>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return NS * (sizeof(TA) * BM * lda<TA, SK>() +
+  return NS * (sizeof(TA) * (kTransA ? SK * lda_t<TA, BM>()
+                                     : BM * lda<TA, SK>()) +
                NB * sizeof(TB) * (kTransB ? BN * lda<TB, SK>() : SK * LDB));
 }
+
+// The depth rows of the A-transposed mode: depth index j (the expert's
+// row j of its G * cap) lies in buffer row (j / cap) * E * cap + j % cap
+// past the expert's first, for A and B alike. The division is a multiply
+// by floor(2^32 / cap) (capped at 2^32 - 1) and one correction: for j <
+// 2^32 that estimate is low by at most one. When cap is a multiple of
+// the slab depth a slab lies in one group and is staged as one run of
+// rows (stage_tile); otherwise each staged chunk finds its row
+// (stage_rows). Finding every chunk's row, also inside one group, made
+// the ViT-B/16 dW 8.10 ms against 7.13 (H100 80GB HBM3, 700 W, same bits;
+// launch/ab_dw.py).
+struct DepthRows {
+  unsigned cap, inv;
+  size_t stride;  // E * cap
+  __host__ __device__ DepthRows(int cap_, int E)
+      : cap((unsigned)cap_),
+        inv(cap_ == 1 ? 0xffffffffu : (unsigned)((1ull << 32) / cap_)),
+        stride((size_t)E * cap_) {}
+  __device__ __forceinline__ size_t operator()(int j) const {
+    unsigned g = __umulhi((unsigned)j, inv), r = (unsigned)j - g * cap;
+    if (r >= cap) {
+      ++g;
+      r -= cap;
+    }
+    return g * stride + r;
+  }
+};
 
 // The block's tile: blockIdx = (g * row tiles + row tile, column tile,
 // expert e) over an (N)-column output.
@@ -87,24 +129,29 @@ __device__ __forceinline__ void add_to(float (&sum)[MI][NI][4],
 // share each staged A slab). a: the tile's first row (row stride K);
 // b0, b1: B_0, B_1 at the tile's first column (b1 read when NB == 2),
 // row stride ldb; rows past nrows, columns past ncols and depth past K
-// read as zeros. `aligned` (uniform): every staged row is 16-byte
-// aligned and a whole number of chunks, so slabs move as cp.async
-// chunks; otherwise element by element. The ring holds NS slabs of depth
-// SK (ring_bytes), a multiple of BK; each BK of a slab is summed from
-// zero and added to acc. Ends with a barrier, so the caller may restage
-// the ring.
+// read as zeros. kTransA: a is A^T's storage at the tile's first column
+// m0, row stride a_ld, and nrows counts its valid columns; depth row j
+// of a and of the B operands is row depth(j) (b's non-transposed mode
+// only). `aligned` (uniform): every staged row is 16-byte aligned and a
+// whole number of chunks, so slabs move as cp.async chunks; otherwise
+// element by element. The ring holds NS slabs of depth SK (ring_bytes),
+// a multiple of BK; each BK of a slab is summed from zero and added to
+// acc. Ends with a barrier, so the caller may restage the ring.
 template <typename TA, typename TB, int BM, int WM, int WN, int NB,
-          bool kTransB, int SK = BK, int NS = STAGES>
+          bool kTransB, int SK = BK, int NS = STAGES, bool kTransA = false>
 __device__ __forceinline__ void gemm_slabs(
     float (&acc)[NB][Warps<BM, WM, WN>::MI][Warps<BM, WM, WN>::NI][4],
     const TA* __restrict__ a, const TB* __restrict__ b0,
     const TB* __restrict__ b1, size_t ldb, int K, int nrows, int ncols,
-    bool aligned, unsigned char* smem) {
+    bool aligned, unsigned char* smem, size_t a_ld = 0,
+    DepthRows depth = DepthRows(1, 1)) {
   using W = Warps<BM, WM, WN>;
   static_assert(SK % BK == 0, "a slab holds whole BK-deep parts");
+  static_assert(!(kTransA && kTransB), "one operand transposed");
   constexpr int NT = W::NT, MI = W::MI, NI = W::NI;
-  constexpr int LDA = lda<TA, SK>(), LDT = lda<TB, SK>();
-  constexpr size_t SA = sizeof(TA) * BM * LDA;
+  constexpr int LDA = kTransA ? lda_t<TA, BM>() : lda<TA, SK>();
+  constexpr int LDT = lda<TB, SK>();
+  constexpr size_t SA = sizeof(TA) * (kTransA ? SK * LDA : BM * LDA);
   constexpr size_t SB = sizeof(TB) * (kTransB ? BN * LDT : SK * LDB);
   constexpr size_t SS = SA + NB * SB;
   auto tile_a = [=](int kt) {
@@ -116,6 +163,32 @@ __device__ __forceinline__ void gemm_slabs(
 
   auto load = [&](int kt) {
     const int k0 = kt * SK, nk = min(SK, K - k0);
+    if constexpr (kTransA) {
+      if (depth.cap % SK == 0) {  // the slab lies in one group
+        const size_t r0 = depth(k0);
+        stage_tile<TA, SK, BM, NT>(tile_a(kt), LDA, a + r0 * a_ld, a_ld, nk,
+                                   nrows, aligned);
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          stage_tile<TB, SK, BN, NT>(tile_b(kt, i), LDB,
+                                     (i == 0 ? b0 : b1) + r0 * ldb, ldb, nk,
+                                     ncols, aligned);
+        }
+        return;
+      }
+      stage_rows<TA, SK, BM, NT>(
+          tile_a(kt), LDA, [&](int r) { return a + depth(k0 + r) * a_ld; },
+          a, nk, nrows, aligned);
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const TB* b = i == 0 ? b0 : b1;
+        stage_rows<TB, SK, BN, NT>(
+            tile_b(kt, i), LDB,
+            [&](int r) { return b + depth(k0 + r) * ldb; }, b, nk, ncols,
+            aligned);
+      }
+      return;
+    }
     stage_tile<TA, BM, SK, NT>(tile_a(kt), LDA, a + k0, K, nrows, nk,
                                aligned);
 #pragma unroll
@@ -145,8 +218,11 @@ __device__ __forceinline__ void gemm_slabs(
     cp_async_commit();
 #pragma unroll
     for (int k0 = 0; k0 < SK; k0 += BK) {
-      const TA* as = tile_a(kt) + wm * W::WTM * LDA + k0;
-      auto ra = [&](int r, int k) { return to_f32(as[r * LDA + k]); };
+      const TA* as = kTransA ? tile_a(kt) + k0 * LDA + wm * W::WTM
+                             : tile_a(kt) + wm * W::WTM * LDA + k0;
+      auto ra = [&](int r, int k) {
+        return to_f32(kTransA ? as[k * LDA + r] : as[r * LDA + k]);
+      };
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
         float part[MI][NI][4] = {};

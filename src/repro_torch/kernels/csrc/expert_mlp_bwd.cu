@@ -29,24 +29,27 @@
 // rows give dx rows of act'(0) dh wi^T, as the plain version does, and
 // add nothing to dW below (x = 0 and h = act(0) = 0 there).
 //
-// dW kernel: one thread block per (64 x 128 tile of (d, f), expert e)
-// walks all G * cap rows of expert e (its cap rows in every group g,
-// from the dx kernel's scratch) and sums the tile of dwi = x^T da,
-// dwg = x^T dg and dwo = h^T dy in registers (8 x 4 entries a thread),
-// writing each entry once: the sum over the groups is taken inside the
-// block, in f32, in a fixed order — no atomics, no dependence on launch
-// order. The TPU dW kernel instead recomputes (a, g, dh) per (cap, f)
-// tile from full-d rows; on this card that would repeat the dx kernel's
-// products once per d tile, so dW reads da, dg and h from scratch:
-// 2 (3 gated) x rows x f x 4 B, 1.0 GB at the ViT-B/16 shapes, alive
-// only between the two launches of one layer's backward.
+// dW: tensor-core GEMM launches on the same header with A read
+// transposed (gemm_slabs' kTransA): dwi [and dwg, sharing each staged
+// x^T slab] = x^T da [x^T dg], then dwo = h^T dy, one block per (128 x
+// 128 tile of the (d, f) or (f, d) product, expert e). The depth is the
+// expert's G * cap rows of the buffer (its cap rows in every group g,
+// the scratch from the dx kernel), walked group after group inside the
+// block: each 32-deep part is summed from zero on the tensor cores and
+// added in f32, every entry in one fixed order and written once — no
+// split-K, no atomics, two calls give the same bits. float32 runs as
+// 3xTF32; bf16 x and dy are exact in TF32, so only the f32 scratch is
+// split (two products). The TPU dW kernel instead recomputes (a, g, dh)
+// per (cap, f) tile from full-d rows; on this card that would repeat the
+// dx kernel's products once per d tile, so dW reads da, dg and h from
+// scratch: 2 (3 gated) x rows x f x 4 B, 1.0 GB at the ViT-B/16 shapes,
+// alive only between the two launches of one layer's backward.
 //
 // Bound on this card: operations. dx 6 * rows * d * f FLOPs (10 gated:
 // a, g, dh, then two products), dW 4 * rows * d * f (6 gated): 580 and
 // 386.5 GFLOP at the ViT-B/16 MoE shapes (40,960 rows, d 768, f 3072).
-// dx runs on tensor cores as 3xTF32, held to 3 * FLOPs / 495 TFLOP/s =
-// 3.52 ms (8.65 ms for f32 FMAs at 67 TFLOP/s); dW runs on CUDA cores
-// in f32, 5.77 ms at 67 TFLOP/s.
+// Both run on tensor cores as 3xTF32, held to 3 * FLOPs / 495 TFLOP/s =
+// 3.52 and 2.34 ms (8.65 and 5.77 ms for f32 FMAs at 67 TFLOP/s).
 
 #include "expert_gemm.cuh"
 
@@ -148,105 +151,38 @@ __global__ void __launch_bounds__(32 * WM * WN)
   });
 }
 
-// dW kernel: thread (ty, tx) = (tid / 32, tid % 32) sums d rows
-// 8 ty .. 8 ty + 7 and f columns 4 tx .. 4 tx + 3 of the tile.
-constexpr int kThreads = 256;
-constexpr int TD = 64, TF = 128;  // dW tile of (d, f)
-constexpr int RB = 16;            // rows staged per dW step
-
-__device__ __forceinline__ void load8(const float* __restrict__ p,
-                                      float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-template <typename T, bool kGated>
-__global__ void __launch_bounds__(kThreads)
-    expert_dw_kernel(const T* __restrict__ xe, const T* __restrict__ dy,
-                     const float* __restrict__ da,
-                     const float* __restrict__ dg,
-                     const float* __restrict__ hh, float* __restrict__ dwi,
-                     float* __restrict__ dwg, float* __restrict__ dwo,
-                     int G, int cap, int d, int f) {
-  __shared__ __align__(16) float xs[RB][TD];
-  __shared__ __align__(16) float ys[RB][TD];
-  __shared__ __align__(16) float as[RB][TF];
-  __shared__ __align__(16) float gs[kGated ? RB : 1][TF];
-  __shared__ __align__(16) float hs[RB][TF];
-  const int nft = (f + TF - 1) / TF;
-  const int k0 = (blockIdx.x / nft) * TD, c0 = (blockIdx.x % nft) * TF;
-  const int e = blockIdx.y, E = gridDim.y;
-  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
-  const int n = G * cap;
-
-  float ai[8][4], ag[8][4], ao[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) ai[i][q] = ag[i][q] = ao[i][q] = 0.f;
-
-  for (int j0 = 0; j0 < n; j0 += RB) {
-    __syncthreads();  // the previous step's reads
-    for (int i = tid; i < RB * TD; i += kThreads) {
-      const int r = i / TD, k = i % TD, j = j0 + r;
-      const bool ok = j < n && k0 + k < d;
-      const size_t row = ((size_t)(j / cap) * E + e) * cap + j % cap;
-      xs[r][k] = ok ? to_f32(xe[row * d + k0 + k]) : 0.f;
-      ys[r][k] = ok ? to_f32(dy[row * d + k0 + k]) : 0.f;
-    }
-    for (int i = tid; i < RB * TF; i += kThreads) {
-      const int r = i / TF, c = i % TF, j = j0 + r;
-      const bool ok = j < n && c0 + c < f;
-      const size_t at =
-          (((size_t)(j / cap) * E + e) * cap + j % cap) * f + c0 + c;
-      as[r][c] = ok ? da[at] : 0.f;
-      if (kGated) gs[r][c] = ok ? dg[at] : 0.f;
-      hs[r][c] = ok ? hh[at] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < RB; ++r) {
-      float xv[8], yv[8];
-      load8(&xs[r][ty * 8], xv);
-      load8(&ys[r][ty * 8], yv);
-      const float4 av = *reinterpret_cast<const float4*>(&as[r][tx * 4]);
-      const float4 hv = *reinterpret_cast<const float4*>(&hs[r][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          ai[i][q] += xv[i] * a4[q];
-          ao[i][q] += yv[i] * h4[q];
-        }
-      if (kGated) {
-        const float4 gv = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
-        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) ag[i][q] += xv[i] * g4[q];
-      }
-    }
-  }
-
-  const size_t base = (size_t)e * d * f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + ty * 8 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + tx * 4 + q;
-      if (k < d && c < f) {
-        dwi[base + (size_t)k * f + c] = ai[i][q];
-        if (kGated) dwg[base + (size_t)k * f + c] = ag[i][q];
-        dwo[base + (size_t)c * d + k] = ao[i][q];
-      }
-    }
-  }
+// dW: C (M, N) of expert e = A^T B_i over the expert's G * cap rows
+// (depth), i < NB, one (BM x BN tile of C, expert) block each:
+//   dwi [, dwg] (d, f) = x^T da [, x^T dg]: A = x (row stride d), B_i =
+//     da [, dg], the f32 scratch (stride f); the gated dwg shares each
+//     staged x^T slab;
+//   dwo (f, d) = h^T dy: A = h, the f32 scratch (stride f), B = dy
+//     (stride d).
+// So A's row stride is M and B's is N. The sums start at zero and every
+// entry is written once.
+template <typename TA, typename TB, int NB, int BM, int WM, int WN, int SK,
+          int NS>
+__global__ void __launch_bounds__(32 * WM * WN)
+    expert_dw_kernel(const TA* __restrict__ A, const TB* __restrict__ B0,
+                     const TB* __restrict__ B1, float* __restrict__ C0,
+                     float* __restrict__ C1, int G, int cap, int M, int N,
+                     bool aligned) {
+  using W = Warps<BM, WM, WN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int nm = min(BM, M - m0), nn = min(BN, N - n0);
+  const size_t r0 = (size_t)e * cap;  // the expert's first row (g = 0)
+  float acc[NB][W::MI][W::NI][4] = {};
+  gemm_slabs<TA, TB, BM, WM, WN, NB, false, SK, NS, true>(
+      acc, A + r0 * M + m0, B0 + r0 * N + n0,
+      NB == 2 ? B1 + r0 * N + n0 : nullptr, N, G * cap, nm, nn, aligned,
+      smem_raw, M, DepthRows(cap, gridDim.z));
+  const size_t o = ((size_t)e * M + m0) * N + n0;
+  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
+    if (r >= nm || col >= nn) return;
+    C0[o + (size_t)r * N + col] = acc[0][mi][ni][q];
+    if (NB == 2) C1[o + (size_t)r * N + col] = acc[NB - 1][mi][ni][q];
+  });
 }
 
 template <typename T, int BM, int WM, int WN, int P, bool kGated>
@@ -294,15 +230,50 @@ int launch_dx(const T* xe, const T* wi, const T* wg, const T* wo,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kGated>
-int launch_dw(const void* xe, const void* dy, const void* da, const void* dg,
-              const void* h, void* dwi, void* dwg, void* dwo, int G, int E,
-              int cap, int d, int f, cudaStream_t stream) {
-  const int tiles = ((d + TD - 1) / TD) * ((f + TF - 1) / TF);
-  expert_dw_kernel<T, kGated><<<dim3(tiles, E), kThreads, 0, stream>>>(
-      (const T*)xe, (const T*)dy, (const float*)da, (const float*)dg,
-      (const float*)h, (float*)dwi, (float*)dwg, (float*)dwo, G, cap, d, f);
+// dW's tiling, timed at the ViT shape: 128 x 128 tiles of C, 4 x 2 warps
+// of 32 x 64 sums, a ring of 2 slabs 64 deep (each summed as two 32-deep
+// parts, so the bits are those of 32-deep slabs). It timed faster than
+// the forward's 3 slabs 32 deep and than 64-row tiles. Splitting each
+// staged float once a block in shared memory, instead of in every warp
+// that reads it, timed slower: the split pass sat between each slab's
+// wait and its barrier.
+constexpr int kDwBM = 128, kDwWM = 4, kDwWN = 2, kDwSK = 2 * BK, kDwNS = 2;
+
+template <typename TA, typename TB, int NB>
+int launch_dw_product(const TA* A, const TB* B0, const TB* B1, float* C0,
+                      float* C1, int G, int E, int cap, int M, int N,
+                      cudaStream_t stream) {
+  constexpr size_t smem =
+      ring_bytes<TA, TB, kDwBM, NB, false, kDwSK, kDwNS, true>();
+  auto kernel =
+      expert_dw_kernel<TA, TB, NB, kDwBM, kDwWM, kDwWN, kDwSK, kDwNS>;
+  allow_smem(kernel, smem);
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const bool aligned = M % (16 / sizeof(TA)) == 0 &&
+                       N % (16 / sizeof(TB)) == 0 && al(A) && al(B0) &&
+                       (NB == 1 || al(B1));
+  const dim3 grid((M + kDwBM - 1) / kDwBM, (N + BN - 1) / BN, E);
+  kernel<<<grid, 32 * kDwWM * kDwWN, smem, stream>>>(A, B0, B1, C0, C1, G,
+                                                    cap, M, N, aligned);
   return (int)cudaGetLastError();
+}
+
+// Two launches: dwi [and dwg] = x^T da [, x^T dg], then dwo = h^T dy.
+template <typename T>
+int dw_t(const void* xe, const void* dy, const void* da, const void* dg,
+         const void* h, void* dwi, void* dwg, void* dwo, int G, int E,
+         int cap, int d, int f, cudaStream_t s) {
+  const int rc =
+      dg ? launch_dw_product<T, float, 2>(
+               (const T*)xe, (const float*)da, (const float*)dg,
+               (float*)dwi, (float*)dwg, G, E, cap, d, f, s)
+         : launch_dw_product<T, float, 1>(
+               (const T*)xe, (const float*)da, nullptr, (float*)dwi,
+               nullptr, G, E, cap, d, f, s);
+  if (rc != 0) return rc;
+  return launch_dw_product<float, T, 1>((const float*)h, (const T*)dy,
+                                        nullptr, (float*)dwo, nullptr, G, E,
+                                        cap, f, d, s);
 }
 
 // Row tiling by capacity: one 16-row tile (4 warps across the columns)
@@ -330,18 +301,6 @@ int dx_t(const void* xe, const void* wi, const void* wg, const void* wo,
          int cap, int d, int f, int act, cudaStream_t s) {
   auto fn = wg ? dx_g<T, true> : dx_g<T, false>;
   return fn(xe, wi, wg, wo, dy, dx, da, dg, h, G, E, cap, d, f, act, s);
-}
-
-template <typename T>
-int dw_t(const void* xe, const void* dy, const void* da, const void* dg,
-         const void* h, void* dwi, void* dwg, void* dwo, int G, int E,
-         int cap, int d, int f, cudaStream_t s) {
-  if (dg) {
-    return launch_dw<T, true>(xe, dy, da, dg, h, dwi, dwg, dwo, G, E, cap, d,
-                              f, s);
-  }
-  return launch_dw<T, false>(xe, dy, da, dg, h, dwi, dwg, dwo, G, E, cap, d,
-                             f, s);
 }
 
 }  // namespace
@@ -376,8 +335,9 @@ extern "C" int expert_mlp_dw(const void* xe, const void* dy, const void* da,
                              const void* dg, const void* h, void* dwi,
                              void* dwg, void* dwo, int G, int E, int cap,
                              int d, int f, int bf16, void* stream) {
-  if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 ||
-      (dg == nullptr) != (dwg == nullptr)) {
+  if (G < 1 || E < 1 || cap < 1 || d < 1 || f < 1 || E > 65535 ||
+      (f + BN - 1) / BN > 65535 || (d + BN - 1) / BN > 65535 ||
+      (long long)G * cap > 0x7fffffff || (dg == nullptr) != (dwg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);

@@ -256,4 +256,29 @@ __device__ __forceinline__ void stage_tile(T* dst, int lds,
   }
 }
 
+// stage_tile with rows found one by one: dst[r][c] = row(r)[c], row(r)
+// the address of the tile's row r, read only for r < nr; `any` is a
+// valid address for the zero-filled chunks. A loop of its own: stage_tile
+// written as this loop over a lambda timed 5% slower in the flash dq
+// kernel's step, which stages K/V with it.
+template <typename T, int ROWS, int COLS, int NT, typename Row>
+__device__ __forceinline__ void stage_rows(T* dst, int lds, Row row,
+                                           const T* __restrict__ any, int nr,
+                                           int nc, bool aligned) {
+  constexpr int V = 16 / sizeof(T);  // elements a chunk
+  if (aligned) {
+#pragma unroll
+    for (int i = threadIdx.x; i < ROWS * COLS / V; i += NT) {
+      const int r = i / (COLS / V), c = (i % (COLS / V)) * V;
+      const bool ok = r < nr && c < nc;
+      cp_async16(dst + r * lds + c, ok ? row(r) + c : any, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      dst[r * lds + c] = r < nr && c < nc ? row(r)[c] : from_f32<T>(0.f);
+    }
+  }
+}
+
 }  // namespace

@@ -44,6 +44,7 @@
 // and sums the runs of each row (flash-decoding's split-KV).
 
 #include "flash_tile.cuh"
+#include "split_walk.cuh"
 
 namespace {
 
@@ -58,16 +59,6 @@ struct Layout {
   static constexpr int KVT = kBK * LDKV;  // a K or V tile
   static constexpr size_t QBYTES = sizeof(TQ) * kRows * LDQ;
   static constexpr size_t BYTES = QBYTES + sizeof(TKV) * 2 * kStages * KVT;
-};
-
-// The partial scratch of a split walk, over NR = NC * C * H query rows:
-// acc (splits, NR, DH) unnormalised, then (m, l) (splits, NR, 2).
-template <int DH>
-struct Partials {
-  float* acc;
-  float* ml;
-  __device__ Partials(float* part, int splits, size_t nr)
-      : acc(part), ml(part + (size_t)splits * nr * DH) {}
 };
 
 template <typename TQ, typename TKV, int DH>
@@ -193,42 +184,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The runs of a split walk summed: one warp per query row (c, i, head),
-// each run's acc and l rescaled by exp(m_run - m) to the row's largest m.
-// Rows i >= lens[c] and rows with no valid key are exact zeros.
+// The runs of a split walk summed (split_walk.cuh): one warp per query
+// row (c, i, head). Rows i >= lens[c] and rows with no valid key are
+// exact zeros.
 template <typename TQ, int DH>
 __global__ void __launch_bounds__(kThreads)
     prefill_kernel_combine(const float* __restrict__ part,
                            const int* __restrict__ lens,
                            TQ* __restrict__ out, int NC, int C, int H,
                            int splits) {
-  constexpr int PER = (DH + 31) / 32;  // values a lane
   const size_t nr = (size_t)NC * C * H;
   const size_t row = (size_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
   if (row >= nr) return;
   const int c = (int)(row / ((size_t)C * H)), i = (int)(row / H % C);
-  const Partials<DH> pt(const_cast<float*>(part), splits, nr);
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, pt.ml[2 * (s * nr + row)]);
-  float l = 0.f, o[PER] = {};
-  for (int s = 0; s < splits; ++s) {
-    const size_t at = s * nr + row;
-    const float m = pt.ml[2 * at];
-    const float w = m == -INFINITY ? 0.f : expf(m - mx);
-    l += w * pt.ml[2 * at + 1];
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int d = lane + 32 * k;
-      if (d < DH) o[k] += w * pt.acc[at * DH + d];
-    }
-  }
-  const bool live = i < min(lens[c], C) && l > 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int d = lane + 32 * k;
-    if (d < DH) out[row * DH + d] = from_f32<TQ>(live ? o[k] / l : 0.f);
-  }
+  combine_runs<TQ, DH>(part, nr, splits, row, i < min(lens[c], C), out);
 }
 
 template <typename TQ, typename TKV, int DH>

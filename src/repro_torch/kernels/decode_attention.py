@@ -2,24 +2,44 @@
 ``repro/kernels/decode_attention.py``; kernel in
 ``csrc/decode_attention.cu``).
 
-One thread block per (slot, kv head) walks only the slot's
-``ceil(length / bs)`` live table entries with an online softmax; a slot
-of length 0 gives exact zeros. Query head h reads kv head h // (H / Kh).
+Each (slot, kv head) walk over only the slot's ``ceil(length / bs)``
+live table entries is split into runs of pool blocks, one thread block
+a run (:func:`pick_splits`), whose partial softmax sums a second launch
+combines in a fixed order (flash-decoding). Within a run four warps read
+pool blocks in turn as 16-byte chunks, scores and P V as float32 FMAs
+with an online softmax; a slot of length 0 gives exact zeros. Query head
+h reads kv head h // (H / Kh); GQA groups up to ``MAX_GROUP``, head dims
+``flash_attention.HEAD_DIMS``, as the paged prefill takes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-MAX_GROUP_DIM = 512  # G * dh the kernel's per-thread accumulators hold
+MAX_GROUP = 64  # GQA group (H / Kh) the kernel takes
+WARPS = 4       # pool blocks a kernel block reads at once
 
 KERNEL = Kernel(
     "decode_attention", "paged_decode_attention",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pick_splits(walks: int, nb: int, sms: int) -> int:
+    """Runs to cut each walk into (``walks`` = slots x kv heads x query
+    head tiles): enough blocks for four an SM, and at least ``WARPS``
+    pool blocks a run at the tables' capacity of ``nb`` entries."""
+    return max(1, min(-(-4 * sms // walks), nb // WARPS))
 
 
 def check_paged_inputs(name, q, k_pool, v_pool, tables, int_args):
@@ -45,28 +65,39 @@ def check_paged_inputs(name, q, k_pool, v_pool, tables, int_args):
                          f"{tuple(k_pool.shape)}")
 
 
-def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
-    """q: (B, H, dh); pools: (P, bs, Kh, dh); block_tables: (B, nb)
-    int32; lengths: (B,) int32 valid tokens per slot. Returns (B, H, dh)
-    in q's dtype."""
+def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
+                                *, splits: int | None = None):
+    """q: (B, H, dh); pools: (P, bs, Kh, dh), 16-byte aligned;
+    block_tables: (B, nb) int32; lengths: (B,) int32 valid tokens per
+    slot. ``splits``: runs of each walk (default :func:`pick_splits`'s).
+    Returns (B, H, dh) in q's dtype."""
     B, H, dh = q.shape
     P, bs, Kh, _ = k_pool.shape
-    check_paged_inputs("decode attention kernel", q, k_pool, v_pool,
-                       block_tables, (lengths,))
-    if (H // Kh) * dh > MAX_GROUP_DIM:
-        raise ValueError(f"decode attention kernel: GQA group x head_dim "
-                         f"{(H // Kh) * dh} exceeds {MAX_GROUP_DIM}")
+    name = "decode attention kernel"
+    if H % Kh or H // Kh > MAX_GROUP or dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: {H} heads over {Kh} kv heads (GQA group "
+                         f"at most {MAX_GROUP}) of head_dim {dh} (one of "
+                         f"{HEAD_DIMS}) not supported")
+    check_paged_inputs(name, q, k_pool, v_pool, block_tables, (lengths,))
     nb = block_tables.shape[1]
     if block_tables.shape[0] != B or lengths.shape != (B,):
-        raise ValueError("decode attention kernel: tables/lengths must "
-                         "have one row per slot")
+        raise ValueError(f"{name}: tables/lengths must have one row per "
+                         "slot")
+    if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        raise ValueError(f"{name}: the pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    if splits is None:
+        tiles = -(-(H // Kh) // (32 * k_pool.element_size() // 16))
+        splits = pick_splits(B * Kh * tiles, nb, sm_count(q.device))
+    part = (torch.empty(splits * B * H * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     KERNEL.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, Kh, dh, bs, nb,
+        None if part is None else part.data_ptr(),
+        B, H, Kh, dh, bs, nb, splits,
         int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

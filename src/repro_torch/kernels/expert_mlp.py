@@ -1,8 +1,8 @@
 """Expert FFN over the padded capacity buffer: the CUDA kernel wrappers
 (port of ``repro/kernels/expert_mlp.py``; forward kernel in
 ``csrc/expert_mlp.cu``, the dx and dW kernels in
-``csrc/expert_mlp_bwd.cu``; the forward and dx share the tensor-core
-GEMM of ``csrc/expert_gemm.cuh``).
+``csrc/expert_mlp_bwd.cu``; all three run on the tensor-core GEMM of
+``csrc/expert_gemm.cuh``).
 
 Layout contract (shared with core/moe.py's gather and einsum
 dispatches): ``xe (G, E, cap, d)`` holds, for every group g and expert
@@ -109,11 +109,15 @@ def expert_ffn_dx_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
 
 
 def expert_ffn_dw_cuda(xe, dy, da, dg, h):
-    """float32 dW of :func:`expert_ffn_cuda`, on the card: one thread
-    block per (64 x 128 tile, expert) sums over all G * cap rows of the
-    expert from :func:`expert_ffn_dx_cuda`'s ``da``, ``dg`` (None when
-    ungated) and ``h``, in a fixed order. Returns (dwi, dwg, dwo) of
-    shapes (E, d, f) / (E, f, d)."""
+    """float32 dW of :func:`expert_ffn_cuda`, on the card: dwi [dwg] =
+    x^T da [x^T dg] and dwo = h^T dy as tensor-core GEMMs (float32 as
+    3xTF32, bfloat16 x/dy against the float32 scratch as two TF32
+    products) with x^T and h^T read transposed from the buffer. One
+    thread block per (128 x 128 tile, expert) sums over all G * cap rows
+    of the expert, group after group, from :func:`expert_ffn_dx_cuda`'s
+    ``da``, ``dg`` (None when ungated) and ``h``, each entry in one fixed
+    order (no atomics: two calls agree bit for bit). Returns (dwi, dwg,
+    dwo) of shapes (E, d, f) / (E, f, d)."""
     name = "expert FFN dW kernel"
     G, E, cap, d = xe.shape
     f = da.shape[-1]

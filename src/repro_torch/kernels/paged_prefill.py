@@ -15,12 +15,14 @@ blocks (:func:`pick_splits`) whose partial sums a second launch combines.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels.build import Kernel
-from repro_torch.kernels.decode_attention import check_paged_inputs
+from repro_torch.kernels.decode_attention import (
+    check_paged_inputs,
+    sm_count,
+)
 from repro_torch.kernels.flash_attention import pick_fwd_q_tile
 
 KERNEL = Kernel(
@@ -28,11 +30,6 @@ KERNEL = Kernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 )
 KV_TILE = 32  # keys a kernel block stages at a time
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pick_splits(blocks: int, kv_tiles: int, sms: int) -> int:
@@ -67,7 +64,7 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
         return out
     if splits is None:
         splits = pick_splits(-(-C // bq) * Kh * NC, -(-nb * bs // KV_TILE),
-                             _sm_count(q.device))
+                             sm_count(q.device))
     part = (torch.empty(splits * NC * C * H * (dh + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     KERNEL.launch(

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_reduced as jax_reduced
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
@@ -182,6 +183,29 @@ def test_cuda_implementation_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.decode_attention(*ta, implementation="cuda")
 
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "yi-9b"])
+def test_decode_kernel_takes_reference_head_shapes(arch):
+    """The decode kernel's wrapper takes the full-size heads of these
+    reference configs (GQA groups 5 and 8 at head_dim 128, G * dh 640 and
+    1,024): on CPU tensors its shape checks pass and the CUDA check is
+    the one that raises. A group past 64 is refused by shape."""
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_cuda,
+    )
+
+    cfg = jax_config(arch)
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pool = torch.zeros(3, BS, Kh, dh)
+    tables = torch.ones(2, 1, dtype=torch.int32)
+    lengths = torch.tensor([0, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        paged_decode_attention_cuda(torch.zeros(2, H, dh), pool, pool,
+                                    tables, lengths)
+    with pytest.raises(ValueError, match="GQA group"):
+        paged_decode_attention_cuda(torch.zeros(2, 65 * Kh, dh), pool, pool,
+                                    tables, lengths)
 
 # ---------------------------------------------------------------------------
 # attention_apply, mixed and decode-only

@@ -45,20 +45,85 @@ def _paged(rng, dev, dtype, rows, H, Kh, dh, nb, bs=BS):
     return kp, vp, tab
 
 
+# (H, Kh, dh, bs, nb) of the decode cases: granite's heads at 16-token
+# blocks; GQA groups 1, 5 (qwen2.5-14b), 8 (yi-9b) and 64; dh 16, 32, 64
+# and 128; blocks of 8, 16 and 48 tokens.
+DECODE_CASES = [(16, 8, 64, 16, 6), (8, 8, 32, 8, 9), (40, 8, 128, 16, 5),
+                (32, 4, 128, 48, 4), (64, 1, 64, 16, 4), (8, 1, 16, 16, 4)]
+DTYPE_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
+def _decode_lengths(bs, nb, dev):
+    """A free slot, one key, one and a bit more than one block, and walks
+    of 3 and 4 blocks (run boundaries at 1..4 runs) up to the tables'
+    capacity."""
+    return torch.tensor([0, 1, bs, bs + 1, 3 * bs, 4 * bs - 1, nb * bs],
+                        dtype=torch.int32, device=dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Kh", [(16, 8), (8, 1), (4, 4)])
-def test_decode_kernel_matches_plain(cuda, dtype, H, Kh):
-    rng = np.random.default_rng(H + Kh)
-    kp, vp, tab = _paged(rng, cuda, dtype, 5, H, Kh, 64, 6)
-    lengths = torch.tensor([0, 1, BS, BS + 1, 6 * BS], dtype=torch.int32,
-                           device=cuda)
-    q = torch.tensor(rng.normal(size=(5, 1, H, 64)), dtype=dtype, device=cuda)
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPE_PAIRS)
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, q_dtype, kv_dtype, case):
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_cuda,
+    )
+
+    H, Kh, dh, bs, nb = case
+    rng = np.random.default_rng(H + Kh + dh + bs)
+    kp, vp, tab = _paged(rng, cuda, kv_dtype, 7, H, Kh, dh, nb, bs)
+    lengths = _decode_lengths(bs, nb, cuda)
+    q = torch.tensor(rng.normal(size=(7, 1, H, dh)), dtype=q_dtype,
+                     device=cuda)
     y = ops.decode_attention(q, kp, vp, tab, lengths, implementation="cuda")
     want = ops.decode_attention(q, kp, vp, tab, lengths,
                                 implementation="eager")
-    torch.testing.assert_close(y, want, **_tol(dtype))
+    # The output is in q's dtype; a bf16 pool is exact in float32.
+    torch.testing.assert_close(y, want, **_tol(q_dtype))
     assert torch.equal(y[0], torch.zeros_like(y[0]))
+    # Each walk in one block, and split into 2, 3 and nb runs.
+    for splits in (1, 2, 3, nb):
+        y = paged_decode_attention_cuda(q[:, 0], kp, vp, tab, lengths,
+                                        splits=splits)
+        torch.testing.assert_close(y, want[:, 0], **_tol(q_dtype))
+        assert torch.equal(y[0], torch.zeros_like(y[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_holds_large_scores(cuda, kv_dtype):
+    """q and k of the sizes a randomly initialised model gives them (|q|,
+    |k| ~ 20-40 at granite's reference init), where exp() turns a score's
+    rounding into the output's: the float32 output holds the float32
+    tolerance (the scores are f32 FMAs)."""
+    rng = np.random.default_rng(7)
+    kp, vp, tab = _paged(rng, cuda, torch.float32, 7, 16, 8, 64, 7)
+    kp, vp = (10 * t for t in (kp, vp))
+    kp, vp = kp.to(kv_dtype), vp.to(kv_dtype)
+    lengths = _decode_lengths(BS, 7, cuda)
+    q = torch.tensor(10 * rng.normal(size=(7, 1, 16, 64)),
+                     dtype=torch.float32, device=cuda)
+    y = ops.decode_attention(q, kp, vp, tab, lengths, implementation="cuda")
+    want = ops.decode_attention(q, kp, vp, tab, lengths,
+                                implementation="eager")
+    torch.testing.assert_close(y, want, **_tol(torch.float32))
+
+
+def test_decode_split_covers_the_card():
+    """The decode walk's run count (CPU): the serve shapes' 64 walks (8
+    slots x 8 kv heads, 32-entry tables) are cut into 8 runs of at most
+    four pool blocks, one a warp; a batch that fills the card four times
+    over, or tables of under eight entries, walk unsplit."""
+    from repro_torch.kernels.decode_attention import pick_splits
+
+    assert pick_splits(64, 32, 132) == 8
+    assert pick_splits(128, 32, 132) == 5
+    assert pick_splits(528, 32, 132) == 1
+    assert pick_splits(64, 7, 132) == 1
+    assert pick_splits(1, 1024, 132) == 256
 
 
 def test_prefill_split_covers_the_card():
@@ -86,10 +151,6 @@ PREFILL_CASES = [
     (40, 10, 2, 128, 48, (13, 100, 0)),
     (33, 16, 2, 32, 16, (50, 7, 90)),
 ]
-DTYPE_PAIRS = [(torch.float32, torch.float32),
-               (torch.bfloat16, torch.bfloat16),
-               (torch.float32, torch.bfloat16),
-               (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -426,6 +487,52 @@ def test_expert_kernels_match_plain(cuda, dtype, act, gated, case):
     for g, w in zip(got, em.expert_ffn_dw_cuda(xe, dy, da, dg, h)):
         if g is not None:
             torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+# (G, E, cap, d, f) of dW cases. The depth, an expert's G * cap rows,
+# walks the groups in 64-row slabs. cap 37 and 9 over 3 groups and cap 48
+# over 5 are not multiples of 64, so slabs cross group boundaries (each
+# chunk finds its row); cap 64 over 2 groups and 128 over 3 are, so each
+# slab lies in one group (staged as one run of rows), with d and f not
+# multiples of the 128-column tile, and d = 97 in rows that are not
+# 16-byte aligned (staged element by element).
+DW_CASES = [(3, 2, 37, 64, 96), (3, 2, 9, 128, 200), (5, 2, 48, 96, 160),
+            (2, 2, 64, 96, 160), (3, 2, 128, 97, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("case", DW_CASES)
+def test_expert_dw_kernel_crosses_groups(cuda, dtype, gated, case):
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+
+    G, E, cap, d, f = case
+    rng = np.random.default_rng(G * cap + d)
+    xe, wi, wg, wo, dy = _expert_inputs(rng, cuda, dtype, *case, gated)
+    act = "silu" if gated else "gelu"
+    scratch = [None if t is None else t.contiguous() for t in
+               ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act)[1:]]
+    got = em.expert_ffn_dw_cuda(xe, dy, *scratch)
+    if dtype == torch.float32:
+        # The plain version's sums in float64: at depth 3 x 128 the float32
+        # plain version's own rounding reaches the float32 tolerance.
+        x, gy, da, dg, h = (None if t is None else t.double()
+                            for t in (xe, dy, *scratch))
+        dw = lambda a, b: torch.einsum("gecm,gecn->emn", a, b)  # noqa
+        want = (dw(x, da), None if dg is None else dw(x, dg), dw(h, gy))
+    else:
+        want = ref.expert_ffn_dw_ref(xe, dy, *scratch)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g.to(w.dtype), w, **_tol(dtype))
+    # Each entry is summed in one fixed order: two calls agree bit for bit.
+    for g, w in zip(got, em.expert_ffn_dw_cuda(xe, dy, *scratch)):
+        if g is not None:
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

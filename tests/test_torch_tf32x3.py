@@ -9,8 +9,8 @@ float64. On seeded inputs at reduced
 expert and attention shapes, one TF32 product misses the float32
 tolerance that ``chip_smoke.py`` holds every kernel to, and the
 three-product sum (small*big + big*small + big*big) stays well within
-it: for the forwards' products, the expert dx kernel's, and the flash
-backward's, whose dS tiles come from cancelling differences."""
+it: for the forwards' products, the expert dx and dW kernels', and the
+flash backward's, whose dS tiles come from cancelling differences."""
 import importlib.util
 from pathlib import Path
 
@@ -105,7 +105,11 @@ def _operands(case, rng):
     depth d 768 (weights at fan-in scale); its dx kernel's dh = dy wo^T
     (depth d 768, wo at fan-in f 3,072) and da wi^T (depth f 3,072, da =
     gelu'(a) dh from a ~ N(0, 1) and dh ~ N(0, d / f), as x wi and dy
-    wo^T give them); the flash forward's scaled
+    wo^T give them); its dW kernel's x^T da and h^T dy over depth G *
+    cap = 1,280 rows (the ViT's 5 groups of 256 slots; h = gelu(a)),
+    scaled by 1 / sqrt(1,280) to entries of unit size as the other
+    cases' are (the tolerance's atol is absolute); the flash forward's
+    scaled
     scores Q K^T / 8 and its P V with P a softmax over 256 keys, dh 64;
     the flash backward's dQ = dS K / 8 (depth: the 256 keys), dK = dS^T
     Q / 8 and dV = P^T dO (depth: the 512 q rows of a kv head)."""
@@ -121,6 +125,17 @@ def _operands(case, rng):
         dh = t(rng.normal(size=(64, 3072)) * 0.5)
         da = torch.ops.aten.gelu_backward(dh, a, approximate="tanh")
         return da, t(rng.normal(size=(256, 3072)).T / 768 ** 0.5), 1.0
+    if case == "expert x^T da":
+        x = t(rng.normal(size=(1280, 64)))
+        a = t(rng.normal(size=(1280, 256)))
+        dh = t(rng.normal(size=(1280, 256)) * 0.5)
+        da = torch.ops.aten.gelu_backward(dh, a, approximate="tanh")
+        return x.T.contiguous(), da, 1280 ** -0.5
+    if case == "expert h^T dy":
+        h = torch.nn.functional.gelu(t(rng.normal(size=(1280, 64))),
+                                     approximate="tanh")
+        return h.T.contiguous(), t(rng.normal(size=(1280, 256))), \
+            1280 ** -0.5
     if case.startswith("attention d"):
         q, k, do, p, ds = _backward_tiles(rng)
         return {"attention dS K": (ds, k, 1 / 8),
@@ -134,7 +149,8 @@ def _operands(case, rng):
 
 
 @pytest.mark.parametrize("case", ["expert x wi", "expert dy wo^T",
-                                  "expert da wi^T", "attention scores",
+                                  "expert da wi^T", "expert x^T da",
+                                  "expert h^T dy", "attention scores",
                                   "attention P V", "attention dS K",
                                   "attention dS^T Q", "attention P^T dO"])
 def test_three_tf32_products_hold_the_float32_tolerance(case):
@@ -146,3 +162,15 @@ def test_three_tf32_products_hold_the_float32_tolerance(case):
     assert three < 0.05, three    # measured ~0.004
     assert one > 1.0, one         # one TF32 product misses the tolerance
     assert three <= 2 * plain + 0.01, (three, plain)  # as close as f32 FMAs
+
+
+@pytest.mark.parametrize("case", ["expert x^T da", "expert h^T dy"])
+def test_three_tf32_products_hold_dw_at_its_own_scale(case):
+    """dW's two products unscaled, entries ~sqrt(1,280) as the kernel
+    writes them at the ViT's depth: the three-product sum stays as close
+    to the float64 product as plain f32 FMAs are."""
+    a, b, _ = _operands(case, np.random.default_rng(1))
+    ref = a.double() @ b.double()
+    three = limit_ratio(three_products(a, b), ref)
+    plain = limit_ratio(a @ b, ref)
+    assert three <= 2 * plain + 0.01, (three, plain)
