@@ -14,7 +14,7 @@ any failure, before printing its result line. It
 2. holds each kernel against its plain PyTorch version on the card —
    the serve kernels at the serve shapes below in float32 and bfloat16,
    the training kernels (flash attention forward, dq, dk/dv; grouped
-   dx, dW) at the training shapes in float32, the expert-FFN kernels
+   forward, dx, dW) at the training shapes in float32, the expert-FFN kernels
    (forward, dx, dW) and the flash kernels without the causal mask at
    the ViT-B/16 shapes — and times on the device's clock the kernel,
    the plain version and (where one exists) a PyTorch library yardstick
@@ -95,7 +95,8 @@ PEAK_TF32_S = 495e12
 # rate (or the bytes), with the CUDA-core bound recorded beside it.
 TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
                   "flash_attention_dkv", "expert_mlp", "expert_mlp_dx",
-                  "expert_mlp_dw", "paged_prefill")
+                  "expert_mlp_dw", "paged_prefill", "grouped_mlp",
+                  "grouped_mlp_dx")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -297,6 +298,11 @@ def time_synced_ms(fn, *, flush, iters: int = 20) -> float:
     return total / iters
 
 
+class HostBound(RuntimeError):
+    """The timed call waits on the device from the host, so it cannot be
+    queued ahead of it (time it with time_synced_ms)."""
+
+
 def time_ms(fn, *, flush, iters: int = 20) -> float:
     """Device milliseconds of one call of ``fn`` with L2 flushed before
     it (the serve path finds every layer's weights and pools cold: 24
@@ -331,7 +337,38 @@ def time_ms(fn, *, flush, iters: int = 20) -> float:
         if not (late_a or late_b):
             return (both - only) / iters
         spin *= 4
-    fail("could not queue the timed calls ahead of the device")
+    raise HostBound("could not queue the timed calls ahead of the device")
+
+
+# Launches the host queues behind the spin kernel at most: a stream
+# holds a bounded number of pending launches, and a host that fills it
+# waits for the device, so a longer batch cannot be queued (HostBound).
+QUEUED_LAUNCHES = 512
+
+
+def time_library_ms(lib, *, flush, iters: int = 20):
+    """(ms, chain) of a library yardstick, on the device clock (time_ms)
+    as the kernels are timed. ``lib`` is one call (chain None), or the
+    grouped kernels' chains [(label, call, torch calls)] in order of
+    preference (grouped_library): the first whose calls can be queued
+    ahead of the device is timed, ``iters`` calls in batches of at most
+    QUEUED_LAUNCHES launches, and returned as ``chain``; (None, None),
+    with the reason printed, where none can."""
+    if callable(lib):
+        return time_ms(lib, flush=flush, iters=iters), None
+    for chain in lib:
+        n = max(1, min(iters, QUEUED_LAUNCHES // (chain[2] + 1)))
+        reps = -(-iters // n)
+        try:
+            return sum(time_ms(chain[1], flush=flush, iters=n)
+                       for _ in range(reps)) / reps, chain
+        except HostBound:
+            print(f"[library] the {chain[0]} chain ({chain[2]} torch calls) "
+                  f"cannot be queued ahead of the device (it reads device "
+                  f"values on the host, or fills the launch queue)",
+                  flush=True)
+    print("[library] library_ms null: no chain could be queued", flush=True)
+    return None, None
 
 
 # ---------------------------------------------------------------------------
@@ -431,13 +468,107 @@ def prefill_work(c, itemsize):
 
 
 def grouped_work(c, itemsize):
+    """Bytes (the valid rows and the live experts' weights read once,
+    every output row written, the sizes) and FLOPs (gated: 6 d f a valid
+    row) of the grouped forward on these inputs."""
     G, M, d = c["xs"].shape
     E, _, f = c["wi"].shape
-    counts = c["counts"][0]
+    counts = c["counts"]
     rows = int(counts.sum())
-    live = int((counts > 0).sum())
-    nbytes = (rows * d + live * 3 * d * f + M * d) * itemsize + 4 * E
+    live = int((counts > 0).any(0).sum())
+    nbytes = (rows * d + live * 3 * d * f + G * M * d) * itemsize + 4 * G * E
     return nbytes, 6 * rows * d * f
+
+
+def grouped_library(c, kind, tag):
+    """The grouped kernels' library yardsticks over the same segments,
+    gated silu as granite runs it, in order of preference (see
+    time_library_ms): a ``torch._grouped_mm`` chain, one a group (group
+    g's experts end at ``row_off[g, 1:]``; padded rows are zero, the
+    tail past the last segment is not read), and a chain of per-expert
+    ``torch.matmul`` over each live segment's valid rows, which stands
+    in where the first cannot be queued (``_grouped_mm``'s float32 path
+    reads its offsets on the host). forward: x wi, x wg, silu, *, h wo
+    (5 calls a group or segment); dx: a = x wi, g = x wg, dh = dy wo^T,
+    silu(a), dh g, silu's backward, dh silu(a), da wi^T, dg wg^T, + (10
+    calls a group; 9 a segment, the sum by addmm). Segment bounds are
+    read once here, as set-up. Returns [(label, call, calls), ...]; a
+    call returns the forward's y or dx: a list of each group's segments
+    (the first row_off[g, -1] rows; the kernels also write the tail's
+    zero rows) or the (G, M, d) buffer. Where this PyTorch lacks
+    ``_grouped_mm`` or refuses the dtype, prints why, under ``tag``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_row_offsets
+
+    xs, wi, wg, wo = (c[k] for k in ("xs", "wi", "wg", "wo"))
+    G, M, d = xs.shape
+    row_off, _ = ragged_row_offsets(c["counts"], ROW_BLOCK)
+    segs = [(g, e, s, n) for g, (so, cn) in enumerate(zip(
+        row_off.tolist(), c["counts"].tolist()))
+        for e, (s, n) in enumerate(zip(so, cn)) if n > 0]
+    out = torch.zeros_like(xs)  # the rows no segment writes stay zero
+
+    def fwd_seg():
+        for g, e, s, n in segs:
+            x = xs[g, s:s + n]
+            h = F.silu(x @ wi[e]) * (x @ wg[e])
+            torch.matmul(h, wo[e], out=out[g, s:s + n])
+        return out
+
+    def dx_seg():
+        for g, e, s, n in segs:
+            x, gy = xs[g, s:s + n], c["dy"][g, s:s + n]
+            a, gt = x @ wi[e], x @ wg[e]
+            dh = gy @ wo[e].T
+            sa = F.silu(a)
+            da = torch.ops.aten.silu_backward(dh * gt, a)
+            dg = dh * sa
+            torch.matmul(da, wi[e].T, out=out[g, s:s + n])
+            out[g, s:s + n].addmm_(dg, wg[e].T)
+        return out
+
+    per_expert = (("per-expert torch.matmul", fwd_seg, 5 * len(segs))
+                  if kind == "fwd" else
+                  ("per-expert torch.matmul", dx_seg, 9 * len(segs)))
+    if not hasattr(torch, "_grouped_mm"):
+        print(f"{tag}: torch._grouped_mm is missing", flush=True)
+        return [per_expert]
+    offs = row_off[:, 1:].to(torch.int32).contiguous()
+    ends = [int(e) for e in row_off[:, -1]]
+    mm = torch._grouped_mm
+
+    def fwd():
+        ys = []
+        for g in range(G):
+            x, o = xs[g, :ends[g]], offs[g]
+            h = F.silu(mm(x, wi, offs=o)) * mm(x, wg, offs=o)
+            ys.append(mm(h, wo, offs=o))
+        return ys
+
+    def dx():
+        dxs = []
+        for g in range(G):
+            x, gy, o = xs[g, :ends[g]], c["dy"][g, :ends[g]], offs[g]
+            a, gt = mm(x, wi, offs=o), mm(x, wg, offs=o)
+            dh = mm(gy, wo.transpose(1, 2), offs=o)
+            sa = F.silu(a)
+            da = torch.ops.aten.silu_backward(dh * gt, a)
+            dg = dh * sa
+            dxs.append(mm(da, wi.transpose(1, 2), offs=o)
+                       + mm(dg, wg.transpose(1, 2), offs=o))
+        return dxs
+
+    call, calls = (fwd, 5 * G) if kind == "fwd" else (dx, 10 * G)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as err:
+        print(f"{tag}: torch._grouped_mm refused {xs.dtype}: "
+              f"{str(err).splitlines()[0]}", flush=True)
+        return [per_expert]
+    return [("torch._grouped_mm", call, calls), per_expert]
 
 
 def _record(kname, src, replaces, max_err, ms, plain_ms, nbytes, flops,
@@ -461,6 +592,48 @@ def _record(kname, src, replaces, max_err, ms, plain_ms, nbytes, flops,
                    bound_by="bytes" if t_bytes >= t_tc else "operations",
                    cuda_core_bound_ms=max(t_bytes, t_ops))
     return rec
+
+
+@contextlib.contextmanager
+def forced_row_tile(bm):
+    """The grouped wrappers launch with row tile ``bm``, whatever
+    row_tile would pick from the shapes."""
+    from repro_torch.kernels import grouped_mlp as gm
+
+    pick = gm.row_tile
+    gm.row_tile = lambda *_: bm
+    try:
+        yield
+    finally:
+        gm.row_tile = pick
+
+
+def grouped_extras(tag, label, rec, call, tiles, chain, y_ref, flush):
+    """Add the grouped kernels' own numbers to their record and print
+    them: the kernel's ms at each of its row tiles (``call()`` launches
+    it; the wrapper picks a tile from static shapes), and the library
+    chain timed (time_library_ms): its label, calls and max |library -
+    plain| against ``y_ref``."""
+    times = {}
+    for bm in tiles:
+        with forced_row_tile(bm):
+            times[bm] = time_ms(call, flush=flush)
+    rec["ms_by_row_tile"] = times
+    rec["library_chain"], _, rec["library_calls"] = chain or (None,) * 3
+    print(f"[{tag}] {label}: ms by row tile: " + ", ".join(
+        f"{bm}: {ms:.4f}" for bm, ms in times.items())
+        + (f"; library: the {chain[0]} chain of {chain[2]} torch calls, "
+           f"queued, max |library - plain| = "
+           f"{library_err(chain[1](), y_ref):.3e}" if chain else ""),
+        flush=True)
+
+
+def library_err(ys, y_ref) -> float:
+    """max |library - plain| over each group's rows that the library
+    chain returns (grouped_library) against the plain version's (G, M,
+    d)."""
+    return max(float((y.float() - y_ref[g, :len(y)].float()).abs().max())
+               for g, y in enumerate(ys))
 
 
 def check_kernels(cfg, device):
@@ -504,6 +677,7 @@ def check_kernels(cfg, device):
         qpos = a["starts"][:, None] + rows[None]
         cmask = (torch.arange(nb * bs, device=device)[None, None]
                  <= qpos[..., None])[:, None]
+        grouped_lib = grouped_library(g, "fwd", f"[kernel] grouped_mlp {name}")
         qd = a["q_dec"][:, :, None]  # (B, H, 1, dh)
         qc = a["q_ch"].transpose(1, 2)  # (NC, H, C, dh)
         cases = [
@@ -527,7 +701,7 @@ def check_kernels(cfg, device):
             ("grouped_mlp", gm.grouped_mlp_cuda,
              lambda *x: ref.grouped_mlp_ref(*x, block=gm.ROW_BLOCK),
              (g["xs"], g["wi"], g["wg"], g["wo"], g["counts"]),
-             grouped_work(g, item), None,
+             grouped_work(g, item), grouped_lib,
              "src/repro_torch/kernels/csrc/grouped_mlp.cu",
              "src/repro/kernels/grouped_mlp.py:225"),
         ]
@@ -550,19 +724,17 @@ def check_kernels(cfg, device):
                                   flush=flush)
                           if kname in ("decode_attention", "paged_prefill")
                           else None)
-            # The grouped wrapper builds its block tables with ~15 small
-            # PyTorch ops before the launch: their share is timed alone.
-            tables_ms = (time_ms(lambda: gm.block_tables(
-                g["counts"], gm.ROW_BLOCK, g["xs"].shape[1] // gm.ROW_BLOCK),
-                flush=flush) if kname == "grouped_mlp" else None)
             # The grouped plain version reads the group sizes on the host.
             plain_ms = (time_synced_ms if kname == "grouped_mlp"
                         else time_ms)(lambda: plain(*args), flush=flush)
-            lib_ms = time_ms(lib, flush=flush) if lib is not None else None
+            lib_ms, chain = (time_library_ms(lib, flush=flush)
+                             if lib is not None else (None, None))
             rec = _record(kname, src, replaces, max_err, ms, plain_ms, nbytes,
                           flops, lib_ms, dtype=name)
-            if tables_ms is not None:
-                rec["tables_ms"] = tables_ms
+            if kname == "grouped_mlp":
+                grouped_extras("kernel", f"grouped_mlp {name}", rec,
+                               lambda: kern(*args), gm.ROW_TILES, chain,
+                               y_ref, flush)
             if unsplit_ms is not None:
                 rec["unsplit_ms"] = unsplit_ms
                 print(f"[kernel] {kname} {name}: unsplit_ms="
@@ -570,9 +742,8 @@ def check_kernels(cfg, device):
             print(f"[kernel] {kname} {name}: max_abs_err={max_err:.3e} "
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"tables_ms={tables_ms if tables_ms is None else f'{tables_ms:.4f}'} "
-                  f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: "
-                  f"{nbytes} B, {flops} FLOP)", flush=True)
+                  f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)",
+                  flush=True)
             if dtype == torch.float32:
                 records.append(rec)
     return records
@@ -690,8 +861,10 @@ def wkv_err(y, y_ref, rtol):
 
 
 def check_train_kernels(cfg, device):
-    """The five training kernels against their plain versions at the
-    training shapes, float32, with times. Returns their JSON records."""
+    """The six training kernels against their plain versions at the
+    training shapes, float32, with times. Returns the JSON records of
+    all but the grouped forward, and the grouped forward's numbers at
+    these shapes (its record is the serve shape's)."""
     import torch
     import torch.nn.functional as F
 
@@ -710,6 +883,7 @@ def check_train_kernels(cfg, device):
     gargs = (c["xs"], c["wi"], c["wg"], c["wo"], c["dy"], c["counts"])
     _, da, dg, hh = ref.grouped_mlp_dx_ref(*gargs, block=gm.ROW_BLOCK)
     dw_args = (c["xs"], c["dy"], da, dg, hh, c["counts"])
+    dx_lib = grouped_library(c, "dx", "[train-kernel] grouped_mlp_dx")
 
     # The library call's inputs: (B, H, S, dh) layout, GQA expanded
     # (set-up, not timed); its backward runs through autograd.
@@ -754,7 +928,7 @@ def check_train_kernels(cfg, device):
         ("grouped_mlp_dx",
          lambda: gm.grouped_mlp_dx_cuda(*gargs),
          lambda: ref.grouped_mlp_dx_ref(*gargs, block=gm.ROW_BLOCK),
-         grouped_bwd_work(c, "dx"), None,
+         grouped_bwd_work(c, "dx"), dx_lib,
          "src/repro_torch/kernels/csrc/grouped_mlp_bwd.cu",
          "src/repro/kernels/grouped_mlp.py:406"),
         ("grouped_mlp_dw",
@@ -787,9 +961,13 @@ def check_train_kernels(cfg, device):
         # The grouped plain versions read the group sizes on the host.
         plain_ms = (time_synced_ms if kname.startswith("grouped")
                     else time_ms)(plain, flush=flush)
-        lib_ms = time_ms(lib, flush=flush) if lib is not None else None
+        lib_ms, chain = (time_library_ms(lib, flush=flush)
+                         if lib is not None else (None, None))
         rec = _record(kname, src, replaces, max_err, ms, plain_ms, nbytes,
                       flops, lib_ms)
+        if kname == "grouped_mlp_dx":
+            grouped_extras("train-kernel", "grouped_mlp_dx float32", rec,
+                           kern, gm.DX_ROW_TILES, chain, y_ref[0], flush)
         print(f"[train-kernel] {kname} float32: ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -797,7 +975,37 @@ def check_train_kernels(cfg, device):
         records.append(rec)
     print_flash_pair("train-kernel", "causal (16, 512, 16/8, 64)",
                      {r["name"]: r for r in records})
-    return records
+
+    # The grouped forward at these shapes (the training step's calls).
+    fargs = (c["xs"], c["wi"], c["wg"], c["wo"], c["counts"])
+    y = gm.grouped_mlp_cuda(*fargs)
+    torch.cuda.synchronize()
+    y_ref = ref.grouped_mlp_ref(*fargs, block=gm.ROW_BLOCK)
+    max_err, ratio = _max_err(y, y_ref, atol, rtol)
+    print(f"[train-kernel] grouped_mlp float32: max |kernel - plain| = "
+          f"{max_err:.3e}, max err / limit = {ratio:.3f} (atol {atol}, "
+          f"rtol {rtol})", flush=True)
+    if not ratio <= 1.0:
+        fail(f"grouped_mlp at the training shapes: kernel and plain version "
+             f"differ beyond atol {atol} + rtol {rtol} (ratio {ratio:.3g})")
+    lib_ms, chain = time_library_ms(
+        grouped_library(c, "fwd", "[train-kernel] grouped_mlp"), flush=flush)
+    nbytes, flops = grouped_work(c, 4)
+    rec = _record("grouped_mlp", "", "", max_err,
+                  time_ms(lambda: gm.grouped_mlp_cuda(*fargs), flush=flush),
+                  time_synced_ms(lambda: ref.grouped_mlp_ref(
+                      *fargs, block=gm.ROW_BLOCK), flush=flush),
+                  nbytes, flops, lib_ms)
+    fwd = {k: v for k, v in rec.items() if k not in (
+        "name", "route", "source", "replaces")}
+    grouped_extras("train-kernel", "grouped_mlp float32", fwd,
+                   lambda: gm.grouped_mlp_cuda(*fargs), gm.ROW_TILES, chain,
+                   y_ref, flush)
+    print(f"[train-kernel] grouped_mlp float32: ms={fwd['ms']:.4f} "
+          f"plain_ms={fwd['plain_ms']:.4f} library_ms="
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+          f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)", flush=True)
+    return records, fwd
 
 
 def print_flash_pair(tag, shape, by_name):
@@ -2071,12 +2279,15 @@ def main() -> int:
         full.moe, capacity_factor=float(full.moe.num_experts)))
     vit = get_config(VIT_TRAIN["arch"])
     records = check_kernels(cfg, device)
-    records += check_train_kernels(full, device)
+    train_records, grouped_at_train = check_train_kernels(full, device)
+    records += train_records
     vit_records, flash_at_vit = check_vit_kernels(vit, device)
     records += vit_records
     for rec in records:
         if rec["name"] in flash_at_vit:
             rec["at_vit_shapes"] = flash_at_vit[rec["name"]]
+        if rec["name"] == "grouped_mlp":
+            rec["at_train_shapes"] = grouped_at_train
 
     t0 = time.perf_counter()
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),

@@ -89,8 +89,8 @@ def _einsum_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
 def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
                      implementation: str):
     """Sort the flat assignment stream by expert into a ragged buffer
-    aligned to the grouped kernel's row block (:data:`ROW_BLOCK`; results
-    do not depend on it), run it through the grouped FFN, unsort through
+    aligned to the ragged layout's block (:data:`ROW_BLOCK`; results do
+    not depend on it), run it through the grouped FFN, unsort through
     a scatter-add combine (one row per surviving assignment, accumulated
     per token). Returns y (G, g, d)."""
     G, g, d = xg.shape

@@ -1,16 +1,19 @@
-// The tensor-core GEMM of the expert-FFN kernels over the padded (G, E,
-// cap, .) capacity buffer, for Hopper (sm_90a): the forward's two passes
-// (expert_mlp.cu), the dx kernel's products and the dW kernel's two
-// (expert_mlp_bwd.cu) each run it over (row tile, column tile, expert)
-// blocks.
+// The tensor-core GEMM of the expert-FFN kernels, for Hopper (sm_90a):
+// over the padded (G, E, cap, .) capacity buffer (expert_mlp.cu,
+// expert_mlp_bwd.cu: the forward's two passes, the dx kernel's products,
+// the dW kernel's two) and over the expert-sorted ragged buffer
+// (grouped_mlp.cu, grouped_mlp_bwd.cu: the forward's two passes and the
+// dx kernel's products). Each runs it over (row tile, column tile)
+// blocks of one expert; block_tile and ragged_tile map a block to its
+// tile of the one buffer or the other.
 //
 // A block computes C = A B over a (BM rows) x (BN columns) tile of
 // expert e, K deep. A's rows and the weights stream through a cp.async
 // ring of slabs in shared memory (the forward's: 3 slabs 32 deep; dx's:
 // 2 slabs 64 deep; strides padded so that the fragment reads are free of
-// bank conflicts). A is read as stored, its BM rows a tile of segment
-// (g, e), or transposed (kTransA, the dW kernel's x^T and h^T): the
-// depth is then the expert's G * cap rows of the buffer, walked group
+// bank conflicts). A is read as stored, its BM rows a tile of one
+// expert's segment, or transposed (kTransA, the dW kernel's x^T and h^T):
+// the depth is then the expert's G * cap rows of the buffer, walked group
 // after group inside the block (DepthRows; a slab may cross a group
 // boundary), staged as row-major (depth, BM) slabs and read by the
 // fragments as as[k * LD + m]. B is read as stored, (K, N) row-major (x
@@ -112,6 +115,116 @@ __device__ __forceinline__ Tile block_tile(int cap, int N) {
   t.n0 = blockIdx.y * BN;
   t.ncols = min(BN, N - t.n0);
   return t;
+}
+
+// The ragged buffer's layout block (ROW_BLOCK in grouped_mlp.py): expert
+// e's segment of group g holds max(1, ceil(n / 16)) blocks of 16 rows,
+// n its valid rows; the first ceil(n / 16) are live, the rest (an empty
+// expert's one block, the blocks past the last segment) are dead.
+constexpr int kRowBlock = 16;
+
+// A block's tile in the ragged buffer (G, M, .): t.row0 counts rows of
+// all G * M; t.nrows == 0 when the slot holds no live tile. Slots past
+// the live tiles are spare: spare >= 0 numbers them, nspare counts them.
+struct RaggedTile {
+  Tile t;
+  int spare, nspare;
+};
+
+// The tile of blockIdx = (slot, column tile, group g) over an N-column
+// output, from the group's expert sizes (int32, E of them, on the
+// device; no table built beforehand). A live segment of L rows (L a
+// multiple of 16) is covered by ceil(L / BM) row tiles of BM rows, the
+// last one ragged; the tiles are numbered segment after segment, so
+// tiles of one expert run side by side and share its weight slabs in L2.
+// Warp 0 scans the sizes 32 experts at a time (tiles and rows a
+// segment, inclusive sums by shuffles) and the lane whose segment holds
+// the slot's tile records it. With `row_off` (shared, E + 1 ints), the
+// segment starts and the segments' end are written there for
+// zero_dead_blocks. The live tiles of a group number at most
+// ceil(M / BM) + E, the grid's slots (tile_slots in grouped_mlp.py); a
+// group whose sizes fit its M rows always leaves at least one spare slot.
+// Sizes past M (no valid layout) are clipped to the buffer.
+template <int BM>
+__device__ __forceinline__ RaggedTile ragged_tile(const int* __restrict__ sizes,
+                                                  int M, int E, int N,
+                                                  int* row_off) {
+  static_assert(BM % kRowBlock == 0, "a row tile holds whole blocks");
+  __shared__ int found[4];  // first row in the group, rows, expert, live
+  const int g = blockIdx.z, slot = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int* n_g = sizes + (size_t)g * E;
+    if (lane == 0) found[0] = found[1] = found[2] = 0;
+    __syncwarp();
+    int tiles0 = 0, rows0 = 0;  // tiles and rows of the earlier chunks
+    for (int c = 0; c < E; c += 32) {
+      const int e = c + lane;
+      const int n = e < E ? max(n_g[e], 0) : 0;
+      const int live = (n + kRowBlock - 1) / kRowBlock * kRowBlock;
+      const int tiles = (n + BM - 1) / BM;
+      const int rows = e < E ? max(live, kRowBlock) : 0;
+      int ti = tiles, ri = rows;  // inclusive sums over the chunk
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int tu = __shfl_up_sync(0xffffffffu, ti, o);
+        const int ru = __shfl_up_sync(0xffffffffu, ri, o);
+        if (lane >= o) {
+          ti += tu;
+          ri += ru;
+        }
+      }
+      const int t0 = tiles0 + ti - tiles, r0 = rows0 + ri - rows;
+      if (row_off && e < E) row_off[e] = min(r0, M);
+      if (slot >= t0 && slot < t0 + tiles) {
+        const int k = (slot - t0) * BM;
+        found[0] = r0 + k;
+        found[1] = max(0, min(min(BM, live - k), M - r0 - k));
+        found[2] = e;
+      }
+      tiles0 += __shfl_sync(0xffffffffu, ti, 31);
+      rows0 += __shfl_sync(0xffffffffu, ri, 31);
+    }
+    if (lane == 0) {
+      found[3] = tiles0;
+      if (row_off) row_off[E] = min(rows0, M);
+    }
+  }
+  __syncthreads();
+  RaggedTile rt;
+  const int live = found[3];
+  rt.t.nrows = found[1];
+  rt.t.row0 = (size_t)g * M + found[0];
+  rt.t.e = found[2];
+  rt.t.n0 = blockIdx.y * BN;
+  rt.t.ncols = min(BN, N - rt.t.n0);
+  rt.spare = slot >= live ? slot - live : -1;
+  rt.nspare = (int)gridDim.x - live;
+  return rt;
+}
+
+// Zero the dead 16-row blocks of one group's (M, N) output `out` in
+// columns [n0, n0 + ncols): an empty expert's block and the blocks past
+// the last segment, item i of E + (tail blocks) taken by spare slot i %
+// nspare. row_off: ragged_tile's table; n_g: the group's sizes.
+template <typename T, int NT>
+__device__ __forceinline__ void zero_dead_blocks(T* __restrict__ out,
+                                                 const int* __restrict__ n_g,
+                                                 const int* row_off, int M,
+                                                 int E, int N, int n0,
+                                                 int ncols, int spare,
+                                                 int nspare) {
+  const int end = row_off[E];
+  const int items = E + (M - end + kRowBlock - 1) / kRowBlock;
+  for (int i = spare; i < items; i += nspare) {
+    if (i < E && n_g[i] > 0) continue;
+    const int r0 = i < E ? row_off[i] : end + (i - E) * kRowBlock;
+    const int nr = min(kRowBlock, M - r0);
+    for (int j = threadIdx.x; j < kRowBlock * ncols; j += NT) {
+      const int r = j / ncols, c = j - r * ncols;
+      if (r < nr) out[(size_t)(r0 + r) * N + n0 + c] = from_f32<T>(0.f);
+    }
+  }
 }
 
 template <int MI, int NI>

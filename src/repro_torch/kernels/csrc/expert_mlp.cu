@@ -22,8 +22,8 @@
 //
 // Design: two passes inside one entry point, each a tensor-core GEMM over
 // (row tile, column tile, expert) with the weights streamed through a
-// 3-stage cp.async ring in shared memory (expert_gemm.cuh, which the dx
-// kernel shares):
+// 3-stage cp.async ring in shared memory (expert_gemm.cuh; the pass
+// product of expert_ffn.cuh, which the ragged buffer's forward shares):
 //   pass 1: h = act(x wi) [* x wg] into a float32 (G, E, cap, f) scratch
 //           that the wrapper allocates;
 //   pass 2: y = h wo, each block over the full depth f. For bf16 inputs
@@ -40,37 +40,22 @@
 // Rows past cap are neither read nor written; zero rows (unfilled slots)
 // give zero rows, since act(0) = 0 for silu, tanh-gelu and squared relu.
 
-#include "expert_gemm.cuh"
+#include "expert_ffn.cuh"
 
 namespace {
 
-// C[g, e] (rows, N) = epilogue(A[g, e] (rows, K) B[e] (K, N)) over one
-// (BM-row tile of segment (g, e), BN-column tile, expert e) block: with
-// kAct, C = act(A B) [* A B2 when kGated]; else C = A B. A and C hold
-// G * E segments of cap rows; B and B2 are (E, K, N).
+// One pass over one (BM-row tile of segment (g, e), BN-column tile,
+// expert e) block (ffn_product): A and C hold G * E segments of cap
+// rows; B and B2 are (E, K, N).
 template <typename TA, typename TB, typename TC, int BM, int WM, int WN,
           bool kGated, bool kAct>
 __global__ void __launch_bounds__(32 * WM * WN)
     ffn_gemm(const TA* __restrict__ A, const TB* __restrict__ B,
              const TB* __restrict__ B2, TC* __restrict__ C, int cap, int K,
              int N, int act, bool aligned) {
-  using W = Warps<BM, WM, WN>;
-  constexpr int NB = kGated ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = block_tile<BM>(cap, N);
-  const size_t boff = (size_t)t.e * K * N + t.n0;
-  float acc[NB][W::MI][W::NI][4] = {};  // acc[1]: the gate
-  gemm_slabs<TA, TB, BM, WM, WN, NB, false>(
-      acc, A + t.row0 * K, B + boff, kGated ? B2 + boff : nullptr, N, K,
-      t.nrows, t.ncols, aligned, smem_raw);
-  TC* c = C + t.row0 * N + t.n0;
-  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
-    if (r >= t.nrows || col >= t.ncols) return;
-    float v = acc[0][mi][ni][q];
-    if (kAct) v = act_fn(v, act);
-    if (kGated) v *= acc[NB - 1][mi][ni][q];
-    c[(size_t)r * N + col] = from_f32<TC>(v);
-  });
+  ffn_product<TA, TB, TC, BM, WM, WN, kGated, kAct>(
+      block_tile<BM>(cap, N), A, B, B2, C, K, N, act, aligned, smem_raw);
 }
 
 template <typename TA, typename TB, typename TC, int BM, int WM, int WN,

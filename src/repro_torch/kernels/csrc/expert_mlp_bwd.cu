@@ -10,7 +10,8 @@
 //
 // dx: tensor-core GEMM launches over (row tile, 128-column tile, expert)
 // blocks (expert_gemm.cuh, the forward's GEMM: 3xTF32 mma.sync for
-// float32, bf16 products for bf16):
+// float32, bf16 products for bf16; the products of expert_ffn.cuh, which
+// the ragged buffer's dx shares):
 //   hidden products, over 128 columns of f: a = x wi, writing h = act(a)
 //     and act'(a) into the f32 scratch h and da (G, E, cap, f); when
 //     gated, g = x wg into dg; then dh = dy wo^T, wo^T staged from wo's
@@ -51,104 +52,34 @@
 // Both run on tensor cores as 3xTF32, held to 3 * FLOPs / 495 TFLOP/s =
 // 3.52 and 2.34 ms (8.65 and 5.77 ms for f32 FMAs at 67 TFLOP/s).
 
-#include "expert_gemm.cuh"
+#include "expert_ffn.cuh"
 
 namespace {
 
-// The products of dx, in launch order: the hidden products a, g, dh,
-// then the out product.
-enum Product { kA, kG, kDH, kOut };
-
-// dx's ring by product: the transposed products of the ViT's path (dh =
-// dy wo^T and the ungated out product) stage 64-deep slabs (each summed
-// as two 32-deep parts) two at a time, half the forward's barriers,
-// timed faster each at the ViT shape; the others keep the forward's
-// 32 x 3 ring, with which they fit their registers without spilling.
-template <int P, bool kGated>
-__host__ __device__ constexpr int slab_depth() {
-  return P == kDH || (P == kOut && !kGated) ? 2 * BK : BK;
-}
-template <int P, bool kGated>
-__host__ __device__ constexpr int ring_slabs() {
-  return slab_depth<P, kGated>() == BK ? STAGES : 2;
-}
-
-// One hidden product over a (BM-row tile, BN columns of f, expert)
-// block, its epilogue on the f32 scratch (entries of the tile only):
-//   kA:  a = x wi;     h = act(a), da = act'(a);
-//   kG:  g = x wg;     dg = g;
-//   kDH: dh = dy wo^T; da *= dh [* g], and when gated dg = dh h,
-//        h *= g (h still act(a), dg still g).
+// One hidden product of dx (dx_hidden_product) over a (BM-row tile, BN
+// columns of f, expert) block.
 template <typename T, int BM, int WM, int WN, int P, bool kGated>
 __global__ void __launch_bounds__(32 * WM * WN)
     expert_dx_hidden(const T* __restrict__ rows, const T* __restrict__ w,
                      float* __restrict__ da, float* __restrict__ dg,
                      float* __restrict__ h, int cap, int d, int f, int act,
                      bool aligned) {
-  using W = Warps<BM, WM, WN>;
-  constexpr int SK = slab_depth<P, kGated>(), NS = ring_slabs<P, kGated>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = block_tile<BM>(cap, f);
-  const size_t w0 = (size_t)t.e * d * f;
-  float acc[1][W::MI][W::NI][4] = {};
-  if constexpr (P == kDH) {
-    gemm_slabs<T, T, BM, WM, WN, 1, true, SK, NS>(
-        acc, rows + t.row0 * d, w + w0 + (size_t)t.n0 * d, nullptr, d, d,
-        t.nrows, t.ncols, aligned, smem_raw);
-  } else {
-    gemm_slabs<T, T, BM, WM, WN, 1, false, SK, NS>(
-        acc, rows + t.row0 * d, w + w0 + t.n0, nullptr, f, d, t.nrows,
-        t.ncols, aligned, smem_raw);
-  }
-  const size_t o = t.row0 * f + t.n0;
-  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
-    if (r >= t.nrows || col >= t.ncols) return;
-    const size_t at = o + (size_t)r * f + col;
-    const float v = acc[0][mi][ni][q];
-    if constexpr (P == kA) {
-      h[at] = act_fn(v, act);
-      da[at] = act_grad(v, act);
-    } else if constexpr (P == kG) {
-      dg[at] = v;
-    } else if constexpr (kGated) {
-      const float g = dg[at], s = h[at];
-      da[at] = da[at] * v * g;
-      dg[at] = v * s;
-      h[at] = s * g;
-    } else {
-      da[at] = da[at] * v;
-    }
-  });
+  dx_hidden_product<T, BM, WM, WN, P, kGated>(
+      block_tile<BM>(cap, f), rows, w, da, dg, h, d, f, act, aligned,
+      smem_raw);
 }
 
-// dx, out product: dx = da wi^T [+ dg wg^T] over one (BM-row tile, BN
-// columns of d, expert) block, depth f, into one sum.
+// dx's out product (dx_out_product) over one (BM-row tile, BN columns of
+// d, expert) block.
 template <typename T, int BM, int WM, int WN, bool kGated>
 __global__ void __launch_bounds__(32 * WM * WN)
     expert_dx_out(const float* __restrict__ da, const float* __restrict__ dg,
                   const T* __restrict__ wi, const T* __restrict__ wg,
                   T* __restrict__ dx, int cap, int d, int f, bool aligned) {
-  using W = Warps<BM, WM, WN>;
-  constexpr int SK = slab_depth<kOut, kGated>();
-  constexpr int NS = ring_slabs<kOut, kGated>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = block_tile<BM>(cap, d);
-  const size_t w0 = (size_t)t.e * d * f + (size_t)t.n0 * f;
-  float acc[1][W::MI][W::NI][4] = {};
-  gemm_slabs<float, T, BM, WM, WN, 1, true, SK, NS>(
-      acc, da + t.row0 * f, wi + w0, nullptr, f, f, t.nrows, t.ncols,
-      aligned, smem_raw);
-  if (kGated) {
-    gemm_slabs<float, T, BM, WM, WN, 1, true, SK, NS>(
-        acc, dg + t.row0 * f, wg + w0, nullptr, f, f, t.nrows, t.ncols,
-        aligned, smem_raw);
-  }
-  T* out = dx + t.row0 * d + t.n0;
-  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
-    if (r < t.nrows && col < t.ncols) {
-      out[(size_t)r * d + col] = from_f32<T>(acc[0][mi][ni][q]);
-    }
-  });
+  dx_out_product<T, BM, WM, WN, kGated>(block_tile<BM>(cap, d), da, dg, wi,
+                                        wg, dx, d, f, aligned, smem_raw);
 }
 
 // dW: C (M, N) of expert e = A^T B_i over the expert's G * cap rows
@@ -189,9 +120,7 @@ template <typename T, int BM, int WM, int WN, int P, bool kGated>
 int launch_hidden(const T* rows, const T* w, float* da, float* dg, float* h,
                   int G, int E, int cap, int d, int f, int act, bool aligned,
                   cudaStream_t stream) {
-  constexpr size_t smem =
-      ring_bytes<T, T, BM, 1, P == kDH, slab_depth<P, kGated>(),
-                 ring_slabs<P, kGated>()>();
+  constexpr size_t smem = dx_ring_bytes<T, BM, P, kGated>();
   auto kernel = expert_dx_hidden<T, BM, WM, WN, P, kGated>;
   allow_smem(kernel, smem);
   const dim3 grid(G * ((cap + BM - 1) / BM), (f + BN - 1) / BN, E);
@@ -220,9 +149,7 @@ int launch_dx(const T* xe, const T* wi, const T* wg, const T* wo,
         dy, wo, da, dg, h, G, E, cap, d, f, act, aligned, stream);
   }
   if (rc != 0) return rc;
-  constexpr size_t smem =
-      ring_bytes<float, T, BM, 1, true, slab_depth<kOut, kGated>(),
-                 ring_slabs<kOut, kGated>()>();
+  constexpr size_t smem = dx_ring_bytes<T, BM, kOut, kGated>();
   auto out = expert_dx_out<T, BM, WM, WN, kGated>;
   allow_smem(out, smem);
   out<<<dim3(G * ((cap + BM - 1) / BM), (d + BN - 1) / BN, E), 32 * WM * WN,

@@ -9,15 +9,26 @@
 //   da = act'(a) * dh * g,  dg = dh * act(a),
 //   dx = da wi^T + dg wg^T,  dwi = x^T da,  dwg = x^T dg,  dwo = h^T dy.
 //
-// dx kernel: one thread block per (row block m of BM rows, group g), as
-// the forward in grouped_mlp.cu. A dead block (block_live == 0) writes
-// zero dx rows and reads nothing: the dx = 0 contract for tail blocks
-// and dropped assignments. A live block stages its x rows (transposed)
-// and dy rows in shared memory (f32), recomputes a and g (one thread per
-// hidden column, weights read along their rows) and dh (one warp per
-// hidden column, lanes along d), applies the activation's VJP, and
-// writes da, dg and h of its rows to f32 scratch (G, M, f) for the dW
-// kernel; then dx = da wi^T + dg wg^T, one warp per output column.
+// dx: the expert dx's tensor-core launches (expert_mlp_bwd.cu, on the
+// products of expert_ffn.cuh: 3xTF32 mma.sync for float32, bf16 products
+// for bf16) over ragged tiles, (row tile, 128-column tile) blocks of one
+// expert's segment found from the group sizes on the device
+// (ragged_tile, expert_gemm.cuh; the grouped forward's map):
+//   hidden products, over 128 columns of f: a = x wi, writing h = act(a)
+//     and act'(a) into the f32 scratch h and da (G, M, f); when gated,
+//     g = x wg into dg; then dh = dy wo^T, wo's rows staged as the
+//     column-major B, whose epilogue leaves da = act'(a) dh [g] (and dg =
+//     dh act(a), h = act(a) g) there, the scratch the dW kernel reads;
+//   out product, over 128 columns of d: dx = da wi^T [+ dg wg^T].
+// A row tile is BM in {16, 64} rows of one segment's live blocks (the
+// wrapper picks it from static shapes), so each staged weight slab
+// feeds all of them; the CUDA-core kernel this replaces streamed an
+// expert's three weights once per 16-row block. Rows of live blocks are
+// written in the scratch; rows of dead blocks (tail blocks, an empty
+// expert's block) are left unwritten there and never read. The out
+// product's slots past the live tiles zero-fill the dead blocks' dx
+// rows: dx = 0 there exactly, the contract for tail blocks and dropped
+// assignments.
 //
 // dW kernel: one thread block per (64 x 64 tile of (d, f), expert e,
 // group g) walks expert e's segment of group g (rows row_off[g][e] ..
@@ -30,198 +41,58 @@
 // da/dg/h instead of recomputing them per tile (the TPU kernel's
 // recompute per f tile would cost d/64 times the forward here).
 //
-// Bound on this card: f32 FLOPs over the valid rows — dx 10*d*f a row
-// (a, g, dh, then two products for dx), dW 6*d*f a row: 1.26 and 0.76 ms
-// at the training shapes (~16.5k valid rows a layer) at 67 TFLOP/s.
-// Both kernels run on CUDA cores; tensor cores are later work.
+// Bound on this card: FLOPs over the valid rows, dx 10 d f a row (a, g,
+// dh, then two products; 6 ungated), dW 6 d f a row. At the training
+// shapes (16,128 valid rows, d 1024, f 512): dx 84.6 GFLOP, 0.513 ms on
+// the tensor cores as 3xTF32 (3 x FLOPs / 495 TFLOP/s; 1.262 for f32
+// FMAs at 67 TFLOP/s); dW 0.757 ms on CUDA cores, which it runs on.
 
-#include "common.cuh"
+#include "expert_ffn.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int BM = 16;  // rows per block (ROW_BLOCK in grouped_mlp.py)
-constexpr int kCols = 2;  // output columns per warp step (warp products)
+constexpr int kThreads = 256;  // dW
 constexpr int TD = 64, TF = 64;  // dW tile of (d, f)
 constexpr int kRows = 32;  // segment rows staged per dW step
 
-// Sum each of v[0..15] over the warp. Returns, in every lane, the total
-// of row lane >> 1 (lanes 2r and 2r+1 hold row r): 16 shuffles instead
-// of 16 separate butterflies.
-__device__ __forceinline__ float warp_sum16(float v[16]) {
-  const int lane = threadIdx.x & 31;
-  float v8[8], v4[4], v2[2];
-  const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4, b2 = lane & 2;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float send = b16 ? v[i] : v[i + 8];
-    v8[i] = (b16 ? v[i + 8] : v[i]) +
-            __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = b8 ? v8[i] : v8[i + 4];
-    v4[i] = (b8 ? v8[i + 4] : v8[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = b4 ? v4[i] : v4[i + 2];
-    v2[i] = (b4 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(0xffffffffu, send, 4);
-  }
-  const float send = b2 ? v2[0] : v2[1];
-  float v1 = (b2 ? v2[1] : v2[0]) + __shfl_xor_sync(0xffffffffu, send, 2);
-  return v1 + __shfl_xor_sync(0xffffffffu, v1, 1);
-}
-
-__device__ __forceinline__ void load16(const float* __restrict__ p,
-                                       float v[BM]) {
-#pragma unroll
-  for (int r = 0; r < BM; r += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p + r);
-    v[r] = t.x;
-    v[r + 1] = t.y;
-    v[r + 2] = t.z;
-    v[r + 3] = t.w;
+// One hidden product of dx (dx_hidden_product) over a ragged tile (BN
+// columns of f).
+template <typename T, int BM, int WM, int WN, int P, bool kGated>
+__global__ void __launch_bounds__(32 * WM * WN)
+    grouped_dx_kernel_hidden(const T* __restrict__ rows,
+                             const T* __restrict__ w, float* __restrict__ da,
+                             float* __restrict__ dg, float* __restrict__ h,
+                             const int* __restrict__ sizes, int M, int E,
+                             int d, int f, int act, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RaggedTile rt = ragged_tile<BM>(sizes, M, E, f, nullptr);
+  if (rt.t.nrows > 0) {
+    dx_hidden_product<T, BM, WM, WN, P, kGated>(rt.t, rows, w, da, dg, h, d,
+                                                f, act, aligned, smem_raw);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grouped_dx_kernel(const T* __restrict__ xs, const T* __restrict__ wi,
-                      const T* __restrict__ wg, const T* __restrict__ wo,
-                      const T* __restrict__ dy,
-                      const int* __restrict__ block_expert,
-                      const int* __restrict__ block_live,
-                      T* __restrict__ dx, float* __restrict__ da_out,
-                      float* __restrict__ dg_out, float* __restrict__ h_out,
-                      int M, int d, int f, int act) {
-  extern __shared__ __align__(16) float smem[];
-  float* xT = smem;           // [d][BM]  x transposed
-  float* dys = xT + d * BM;   // [BM][d]  dy
-  float* as = dys + BM * d;   // [BM][f]  a, then da
-  float* gs = as + BM * f;    // [BM][f]  g, then dg (gated only)
-  const int m = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nb = M / BM;
-  const size_t row0 = (size_t)g * M + (size_t)m * BM;
-  T* out = dx + row0 * d;
-  if (!block_live[(size_t)g * nb + m]) {
-    for (int i = tid; i < BM * d; i += kThreads) out[i] = from_f32<T>(0.f);
-    return;
-  }
-  const int e = block_expert[(size_t)g * nb + m];
-  const T* x = xs + row0 * d;
-  const T* dyb = dy + row0 * d;
-  for (int i = tid; i < BM * d; i += kThreads) {
-    const int k = i / BM, r = i - k * BM;
-    xT[i] = to_f32(x[(size_t)r * d + k]);
-    dys[i] = to_f32(dyb[i]);
-  }
-  __syncthreads();
-
-  // a = x wi, g = x wg: one thread per hidden column, all BM rows.
-  const T* wie = wi + (size_t)e * d * f;
-  const T* wge = wg ? wg + (size_t)e * d * f : nullptr;
-  for (int c = tid; c < f; c += kThreads) {
-    float a[BM], b[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) a[r] = b[r] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < d; ++k) {
-      float xv[BM];
-      load16(xT + k * BM, xv);
-      const float w1 = to_f32(wie[(size_t)k * f + c]);
-#pragma unroll
-      for (int r = 0; r < BM; ++r) a[r] += xv[r] * w1;
-      if (wge) {
-        const float w2 = to_f32(wge[(size_t)k * f + c]);
-#pragma unroll
-        for (int r = 0; r < BM; ++r) b[r] += xv[r] * w2;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BM; ++r) {
-      as[r * f + c] = a[r];
-      if (wge) gs[r * f + c] = b[r];
-    }
-  }
-  __syncthreads();
-
-  // dh = dy wo^T, one warp per hidden column (lanes along d, wo read
-  // along its rows), then the activation's VJP in place.
-  const T* woe = wo + (size_t)e * f * d;
-  for (int c0 = warp * kCols; c0 < f; c0 += kWarps * kCols) {
-    float p[kCols][BM];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-#pragma unroll
-      for (int r = 0; r < BM; ++r) p[j][r] = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      float w[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        w[j] = c0 + j < f ? to_f32(woe[(size_t)(c0 + j) * d + k]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        const float yv = dys[r * d + k];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) p[j][r] += yv * w[j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float dh = warp_sum16(p[j]);
-      const int c = c0 + j, r = lane >> 1;
-      if ((lane & 1) == 0 && c < f) {
-        const float a = as[r * f + c];
-        const float s = act_fn(a, act);
-        const size_t at = (row0 + r) * f + c;
-        if (wge) {
-          const float gv = gs[r * f + c];
-          as[r * f + c] = act_grad(a, act) * dh * gv;
-          gs[r * f + c] = dh * s;
-          dg_out[at] = dh * s;
-          h_out[at] = s * gv;
-        } else {
-          as[r * f + c] = act_grad(a, act) * dh;
-          h_out[at] = s;
-        }
-        da_out[at] = as[r * f + c];
-      }
-    }
-  }
-  __syncthreads();
-
-  // dx = da wi^T + dg wg^T, one warp per output column (lanes along f).
-  for (int k0 = warp * kCols; k0 < d; k0 += kWarps * kCols) {
-    float p[kCols][BM];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-#pragma unroll
-      for (int r = 0; r < BM; ++r) p[j][r] = 0.f;
-    for (int c = lane; c < f; c += 32) {
-      float w1[kCols], w2[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const bool ok = k0 + j < d;
-        w1[j] = ok ? to_f32(wie[(size_t)(k0 + j) * f + c]) : 0.f;
-        w2[j] = ok && wge ? to_f32(wge[(size_t)(k0 + j) * f + c]) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        const float dav = as[r * f + c];
-        const float dgv = wge ? gs[r * f + c] : 0.f;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) p[j][r] += dav * w1[j] + dgv * w2[j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float v = warp_sum16(p[j]);
-      const int k = k0 + j, r = lane >> 1;
-      if ((lane & 1) == 0 && k < d) out[(size_t)r * d + k] = from_f32<T>(v);
-    }
+// dx's out product (dx_out_product) over a ragged tile (BN columns of
+// d); the spare slots zero-fill the dead blocks' dx rows (the tile table
+// in the ring's memory, which they do not stage into).
+template <typename T, int BM, int WM, int WN, bool kGated>
+__global__ void __launch_bounds__(32 * WM * WN)
+    grouped_dx_kernel_out(const float* __restrict__ da,
+                          const float* __restrict__ dg,
+                          const T* __restrict__ wi, const T* __restrict__ wg,
+                          T* __restrict__ dx, const int* __restrict__ sizes,
+                          int M, int E, int d, int f, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* row_off = reinterpret_cast<int*>(smem_raw);
+  const RaggedTile rt = ragged_tile<BM>(sizes, M, E, d, row_off);
+  if (rt.t.nrows > 0) {
+    dx_out_product<T, BM, WM, WN, kGated>(rt.t, da, dg, wi, wg, dx, d, f,
+                                          aligned, smem_raw);
+  } else if (rt.spare >= 0) {
+    const size_t g = blockIdx.z;
+    zero_dead_blocks<T, 32 * WM * WN>(dx + g * M * d, sizes + g * E, row_off,
+                                      M, E, d, rt.t.n0, rt.t.ncols, rt.spare,
+                                      rt.nspare);
   }
 }
 
@@ -311,19 +182,76 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch_dx(const void* xs, const void* wi, const void* wg, const void* wo,
-              const void* dy, const void* be, const void* bl, void* dx,
-              void* da, void* dg, void* h, int G, int M, int d, int f,
-              int act, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)BM * (2 * d + 2 * f);
-  auto kernel = grouped_dx_kernel<T>;
+template <typename T, int BM, int WM, int WN, int P, bool kGated>
+int launch_hidden(const T* rows, const T* w, float* da, float* dg, float* h,
+                  const int* sizes, int G, int M, int E, int slots, int d,
+                  int f, int act, bool aligned, cudaStream_t stream) {
+  constexpr size_t smem = dx_ring_bytes<T, BM, P, kGated>();
+  auto kernel = grouped_dx_kernel_hidden<T, BM, WM, WN, P, kGated>;
   allow_smem(kernel, smem);
-  kernel<<<dim3(M / BM, G), kThreads, smem, stream>>>(
-      (const T*)xs, (const T*)wi, (const T*)wg, (const T*)wo, (const T*)dy,
-      (const int*)be, (const int*)bl, (T*)dx, (float*)da, (float*)dg,
-      (float*)h, M, d, f, act);
+  const dim3 grid(slots, (f + BN - 1) / BN, G);
+  kernel<<<grid, 32 * WM * WN, smem, stream>>>(rows, w, da, dg, h, sizes, M,
+                                              E, d, f, act, aligned);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int BM, int WM, int WN, bool kGated>
+int launch_dx(const T* xs, const T* wi, const T* wg, const T* wo,
+              const T* dy, const int* sizes, T* dx, float* da, float* dg,
+              float* h, int G, int M, int E, int slots, int d, int f,
+              int act, cudaStream_t stream) {
+  constexpr size_t smem = dx_ring_bytes<T, BM, kOut, kGated>();
+  if ((size_t)(E + 1) * sizeof(int) > smem) return (int)cudaErrorInvalidValue;
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned = d % V == 0 && f % V == 0 && al(xs) && al(wi) &&
+                       al(wo) && al(dy) && al(da) && al(h) &&
+                       (!kGated || (al(wg) && al(dg)));
+  int rc = launch_hidden<T, BM, WM, WN, kA, kGated>(
+      xs, wi, da, dg, h, sizes, G, M, E, slots, d, f, act, aligned, stream);
+  if (kGated && rc == 0) {
+    rc = launch_hidden<T, BM, WM, WN, kG, kGated>(
+        xs, wg, da, dg, h, sizes, G, M, E, slots, d, f, act, aligned,
+        stream);
+  }
+  if (rc == 0) {
+    rc = launch_hidden<T, BM, WM, WN, kDH, kGated>(
+        dy, wo, da, dg, h, sizes, G, M, E, slots, d, f, act, aligned,
+        stream);
+  }
+  if (rc != 0) return rc;
+  auto out = grouped_dx_kernel_out<T, BM, WM, WN, kGated>;
+  allow_smem(out, smem);
+  out<<<dim3(slots, (d + BN - 1) / BN, G), 32 * WM * WN, smem, stream>>>(
+      da, dg, wi, wg, dx, sizes, M, E, d, f, aligned);
+  return (int)cudaGetLastError();
+}
+
+// The row tilings, as the expert dx's: 16 rows (4 warps across the
+// columns) and 64 rows (2 x 2 warps); a warp holds 16 x 32 or 32 x 64
+// sums. 128-row tiles timed slower than 64 at the training shape.
+template <typename T, bool kGated>
+int dx_g(const void* xs, const void* wi, const void* wg, const void* wo,
+         const void* dy, const void* sizes, void* dx, void* da, void* dg,
+         void* h, int G, int M, int E, int slots, int d, int f, int act,
+         int bm, cudaStream_t s) {
+  auto args = [&](auto fn) {
+    return fn((const T*)xs, (const T*)wi, (const T*)wg, (const T*)wo,
+              (const T*)dy, (const int*)sizes, (T*)dx, (float*)da,
+              (float*)dg, (float*)h, G, M, E, slots, d, f, act, s);
+  };
+  if (bm == 16) return args(launch_dx<T, 16, 1, 4, kGated>);
+  return args(launch_dx<T, 64, 2, 2, kGated>);
+}
+
+template <typename T>
+int dx_t(const void* xs, const void* wi, const void* wg, const void* wo,
+         const void* dy, const void* sizes, void* dx, void* da, void* dg,
+         void* h, int G, int M, int E, int slots, int d, int f, int act,
+         int bm, cudaStream_t s) {
+  auto fn = wg ? dx_g<T, true> : dx_g<T, false>;
+  return fn(xs, wi, wg, wo, dy, sizes, dx, da, dg, h, G, M, E, slots, d, f,
+            act, bm, s);
 }
 
 template <typename T>
@@ -342,25 +270,29 @@ int launch_dw(const void* xs, const void* dy, const void* da, const void* dg,
 }  // namespace
 
 // xs, dy (G,M,d), wi/wg (E,d,f) (wg may be null), wo (E,f,d) of one type
-// (f32 or bf16); block tables (G, M/BM) int32 -> dx (G,M,d) in that type
-// and f32 scratch da, dg (null when ungated), h (G,M,f), written for the
-// live blocks only. Launches on `stream`; no sync, no allocation.
+// (f32 or bf16); group sizes (G,E) int32 -> dx (G,M,d) in that type and
+// f32 scratch da, dg (null when ungated), h (G,M,f), written for the live
+// blocks only. bm: the row tile (16 or 64); slots: tiles a group, at
+// least ceil(M/bm) + E. Launches on `stream`; no sync, no allocation.
 extern "C" int grouped_mlp_dx(const void* xs, const void* wi, const void* wg,
-                              const void* wo, const void* dy, const void* be,
-                              const void* bl, void* dx, void* da, void* dg,
+                              const void* wo, const void* dy,
+                              const void* sizes, void* dx, void* da, void* dg,
                               void* h, int G, int M, int d, int f, int E,
-                              int act, int bf16, void* stream) {
-  if (M % BM != 0 || E < 1 || (act != 0 && act != 1) ||
-      (wg == nullptr) != (dg == nullptr)) {
+                              int act, int bf16, int bm, int slots,
+                              void* stream) {
+  if (G < 1 || M < 1 || M % kRowBlock != 0 || d < 1 || f < 1 || E < 1 ||
+      G > 65535 || (act != 0 && act != 1) || (bm != 16 && bm != 64) ||
+      slots < (M + bm - 1) / bm + E || (f + BN - 1) / BN > 65535 ||
+      (d + BN - 1) / BN > 65535 || (wg == nullptr) != (dg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);
   if (bf16) {
-    return launch_dx<__nv_bfloat16>(xs, wi, wg, wo, dy, be, bl, dx, da, dg, h,
-                                    G, M, d, f, act, s);
+    return dx_t<__nv_bfloat16>(xs, wi, wg, wo, dy, sizes, dx, da, dg, h, G,
+                               M, E, slots, d, f, act, bm, s);
   }
-  return launch_dx<float>(xs, wi, wg, wo, dy, be, bl, dx, da, dg, h, G, M, d,
-                          f, act, s);
+  return dx_t<float>(xs, wi, wg, wo, dy, sizes, dx, da, dg, h, G, M, E,
+                     slots, d, f, act, bm, s);
 }
 
 // xs, dy (G,M,d) of one type; da, dg (null when ungated), h (G,M,f) f32
@@ -371,7 +303,7 @@ extern "C" int grouped_mlp_dw(const void* xs, const void* dy, const void* da,
                               const void* row_off, const void* sizes,
                               void* dwi, void* dwg, void* dwo, int G, int M,
                               int d, int f, int E, int bf16, void* stream) {
-  if (M % BM != 0 || E < 1 || (dg == nullptr) != (dwg == nullptr)) {
+  if (M % kRowBlock != 0 || E < 1 || (dg == nullptr) != (dwg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);

@@ -2,7 +2,8 @@
 helpers and the CUDA kernel wrappers (port of
 ``repro/kernels/grouped_mlp.py``; forward kernel in
 ``csrc/grouped_mlp.cu``, the dx and dW kernels in
-``csrc/grouped_mlp_bwd.cu``).
+``csrc/grouped_mlp_bwd.cu``; the forward and dx run on the tensor-core
+GEMM of ``csrc/expert_gemm.cuh``).
 
 Layout contract (shared with core/moe.py): tokens arrive as an
 expert-sorted stream ``xs (G, M, d)`` in which expert e's valid rows
@@ -11,8 +12,11 @@ occupy one contiguous segment, padded to a multiple of the row block
 block); padded and tail rows are zero. ``M = (ceil(N/bm) + E) * bm``
 for N assignments, independent of the capacity factor.
 
-The kernel's row block is :data:`ROW_BLOCK`; results do not depend on
-it, so the port lays the buffer out at the kernel's tile.
+The layout block is :data:`ROW_BLOCK` (16 rows). The kernels' row tile
+is another thing: a thread block covers up to ``bm / 16`` consecutive
+live blocks of one segment (:func:`row_tile` picks ``bm`` in 16, 64 or
+128 from static shapes), finding its tile from the group sizes on the
+device. Results do not depend on either.
 """
 from __future__ import annotations
 
@@ -22,15 +26,20 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 
-ROW_BLOCK = 16  # rows per CUDA thread block (BM in csrc/grouped_mlp.cu)
+ROW_BLOCK = 16  # the ragged layout's block (kRowBlock in csrc/expert_gemm.cuh)
+ROW_TILES = (16, 64, 128)  # the kernels' row tiles
+DX_ROW_TILES = (16, 64)  # the dx kernel's row tiles
+# The most experts the kernels take: the tile table of the slots that
+# zero-fill dead blocks lives in the smallest ring (16-row tiles, bf16,
+# 29,952 bytes), one int32 an expert and one more.
+MAX_EXPERTS = 7487
 _ACTS = {"silu": 0, "gelu": 1}
-SMEM_OPTIN = 232_448  # dynamic shared memory a block may opt into, sm_90
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = Kernel("grouped_mlp", "grouped_mlp", [_P] * 7 + [_I] * 7 + [_P])
+KERNEL = Kernel("grouped_mlp", "grouped_mlp", [_P] * 7 + [_I] * 9 + [_P])
 KERNEL_DX = Kernel("grouped_mlp_dx", "grouped_mlp_dx",
-                   [_P] * 11 + [_I] * 7 + [_P], source="grouped_mlp_bwd")
+                   [_P] * 10 + [_I] * 9 + [_P], source="grouped_mlp_bwd")
 KERNEL_DW = Kernel("grouped_mlp_dw", "grouped_mlp_dw",
                    [_P] * 10 + [_I] * 6 + [_P], source="grouped_mlp_bwd")
 
@@ -87,7 +96,9 @@ def ragged_destinations(key: torch.Tensor, num_experts: int, block: int):
 def block_tables(group_sizes: torch.Tensor, bm: int, nb: int):
     """(block_expert (G, nb) int32 — owner of row-block m, tail blocks
     clamped to E-1; block_live (G, nb) int32 — 1 iff the block holds at
-    least one valid row)."""
+    least one valid row). The kernels find their tiles on the device, so
+    this layout table serves the tests and the comparison with the JAX
+    package's."""
     G, E = group_sizes.shape
     blocks = torch.clamp(_ceil_div(group_sizes, bm), min=1)
     live_blocks = _ceil_div(group_sizes, bm)
@@ -102,15 +113,39 @@ def block_tables(group_sizes: torch.Tensor, bm: int, nb: int):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# the kernels' row tiles (ragged_tile in csrc/expert_gemm.cuh)
+# ---------------------------------------------------------------------------
+
+
+def row_tile(M: int, E: int, tiles=ROW_TILES) -> int:
+    """A kernel's row tile from static shapes only: by the average rows
+    an expert, (M - 16 E) / E (M holds every expert's one block besides
+    the valid rows rounded up), as the expert kernels pick theirs by
+    capacity: the forward 16 rows at decode-sized segments, 64 in
+    between, else 128; the dx kernel (``tiles`` :data:`DX_ROW_TILES`)
+    16 or 64, as the expert dx, since 128-row tiles timed slower than 64
+    at the training shape."""
+    avg = (M - ROW_BLOCK * E) / E
+    return next((bm for bm in tiles[:-1] if avg <= bm), tiles[-1])
+
+
+def tile_slots(M: int, E: int, bm: int) -> int:
+    """Thread blocks a group along the grid's row axis: an upper bound on
+    the live row tiles, ceil(M / bm) + E (every segment's last tile
+    ragged)."""
+    return -(-M // bm) + E
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 
 def _check(name, xs, wi, wg, wo, group_sizes, act, block, *extra):
     if block != ROW_BLOCK:
         raise ValueError(
-            f"the CUDA grouped MLP walks {ROW_BLOCK}-row blocks; lay the "
-            f"ragged buffer out with block={ROW_BLOCK} (got {block})"
+            f"the CUDA grouped MLP reads a ragged buffer of {ROW_BLOCK}-row "
+            f"blocks; lay it out with block={ROW_BLOCK} (got {block})"
         )
     if act not in _ACTS:
         raise ValueError(f"{name}: unsupported act {act!r}")
@@ -139,12 +174,14 @@ def _check(name, xs, wi, wg, wo, group_sizes, act, block, *extra):
         )
     if M % block:
         raise ValueError(f"ragged rows ({M}) must be a multiple of {block}")
+    if E > MAX_EXPERTS:
+        raise ValueError(f"{name}: {E} experts; the kernels take at most "
+                         f"{MAX_EXPERTS}")
 
 
-def _smem_check(name, nbytes: int, what: str) -> None:
-    if nbytes > SMEM_OPTIN:
-        raise ValueError(f"{name}: {what} needs {nbytes} bytes of shared "
-                         f"memory per block; sm_90 allows {SMEM_OPTIN}")
+def _tiling(M: int, E: int, tiles=ROW_TILES):
+    bm = row_tile(M, E, tiles)
+    return bm, tile_slots(M, E, bm)
 
 
 def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
@@ -152,24 +189,26 @@ def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
     """xs: (G, M, d) expert-sorted block-aligned rows -> (G, M, d), on
     the card. wi/wg: (E, d, f) (wg may be None), wo: (E, f, d); all of
     xs' dtype (float32 or bfloat16); group_sizes (G, E) valid rows per
-    expert. The kernel walks row blocks of :data:`ROW_BLOCK` rows, so
-    the buffer must be laid out at that block."""
+    expert, read on the device only. The buffer must be laid out at
+    :data:`ROW_BLOCK`; the row tile is :func:`row_tile`'s. The kernel's
+    two passes meet in a float32 (G, M, f) scratch,
+    alive for the call only; every output row is written (dead blocks
+    zero)."""
     name = "grouped MLP kernel"
     _check(name, xs, wi, wg, wo, group_sizes, act, block)
     G, M, d = xs.shape
     E, _, f = wi.shape
-    _smem_check(name, ROW_BLOCK * (d + f) * 4, f"d + f = {d + f}")
     out = torch.empty_like(xs)
-    nb = M // block
-    if G * nb == 0:
+    if G * M == 0:
         return out
-    be, bl = block_tables(group_sizes, block, nb)
+    bm, slots = _tiling(M, E)
+    sizes = group_sizes.to(torch.int32).contiguous()
+    h = torch.empty((G, M, f), dtype=torch.float32, device=xs.device)
     KERNEL.launch(
-        xs.data_ptr(), wi.data_ptr(),
-        wg.data_ptr() if wg is not None else None,
-        wo.data_ptr(), be.data_ptr(), bl.data_ptr(), out.data_ptr(),
-        G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16),
-        torch.cuda.current_stream(xs.device).cuda_stream,
+        xs.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+        sizes.data_ptr(), h.data_ptr(), out.data_ptr(),
+        G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16), bm,
+        slots, torch.cuda.current_stream(xs.device).cuda_stream,
     )
     return out
 
@@ -178,31 +217,30 @@ def grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes, *,
                         act: str = "silu", block: int = ROW_BLOCK):
     """dx of :func:`grouped_mlp_cuda` for the output cotangent ``dy (G,
     M, d)``, on the card; dead blocks give dx = 0. The kernel recomputes
-    each live block's hidden tile and also returns the float32 (G, M, f)
-    da, dg (None when wg is) and h of the live blocks' rows — the dW
-    kernel's inputs; their rows in dead blocks are left unwritten.
-    Returns (dx, da, dg, h)."""
+    each live tile's hidden products on tensor cores and also returns
+    the float32 (G, M, f) da, dg (None when wg is) and h of the live
+    blocks' rows — the dW kernel's inputs; their rows in dead blocks are
+    left unwritten. The row tile is :func:`row_tile`'s from
+    :data:`DX_ROW_TILES`. Returns (dx, da, dg, h)."""
     name = "grouped MLP dx kernel"
     _check(name, xs, wi, wg, wo, group_sizes, act, block, dy)
     G, M, d = xs.shape
     E, _, f = wi.shape
-    _smem_check(name, ROW_BLOCK * 2 * (d + f) * 4,
-                f"2 (d + f) = {2 * (d + f)}")
     dev, f32 = xs.device, torch.float32
     dx = torch.empty_like(xs)
     da = torch.empty((G, M, f), dtype=f32, device=dev)
     dg = torch.empty_like(da) if wg is not None else None
     h = torch.empty_like(da)
-    nb = M // block
-    if G * nb == 0:
+    if G * M == 0:
         return dx, da, dg, h
-    be, bl = block_tables(group_sizes, block, nb)
+    bm, slots = _tiling(M, E, DX_ROW_TILES)
+    sizes = group_sizes.to(torch.int32).contiguous()
     KERNEL_DX.launch(
         xs.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-        dy.data_ptr(), be.data_ptr(), bl.data_ptr(), dx.data_ptr(),
-        da.data_ptr(), _ptr(dg), h.data_ptr(),
-        G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        dy.data_ptr(), sizes.data_ptr(), dx.data_ptr(), da.data_ptr(),
+        _ptr(dg), h.data_ptr(),
+        G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16), bm,
+        slots, torch.cuda.current_stream(dev).cuda_stream,
     )
     return dx, da, dg, h
 

@@ -203,27 +203,93 @@ def test_prefill_kernel_holds_large_scores(cuda, kv_dtype):
     torch.testing.assert_close(y, want, **_tol(torch.float32))
 
 
+# Ragged buffers that break the grouped kernels' row tiles, (counts (G,
+# E), d, f): short segments and an empty expert in one group, one expert
+# holding all rows in the other (the original case); a segment of 300
+# rows (several tiles, the last ragged), counts that are multiples of 16
+# and empty experts; a group with every block dead; d and f not
+# multiples of the 128-column tile; d = 97 and f = 130, whose rows are
+# not 16-byte aligned (staged element by element); the serve step's skew
+# (32 experts, two empty; see _serve_counts) at granite's widths.
+GROUPED_CASES = [
+    ([[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], 128, 96),
+    ([[300, 0, 16, 5], [32, 48, 0, 7]], 64, 96),
+    ([[0, 0, 0, 0], [20, 0, 64, 1]], 128, 64),
+    ([[70, 0, 130, 3], [0, 200, 9, 0]], 200, 300),
+    ([[40, 0, 17], [3, 90, 0]], 97, 130),
+    ("serve", 1024, 512),
+]
+
+
+def _serve_counts():
+    """The serve step's routing: 1,088 assignments over 32 experts,
+    skewed, experts 5 and 17 empty (chip_smoke.grouped_case)."""
+    rng = np.random.default_rng(1)
+    w = rng.random(32) ** 3
+    w[[5, 17]] = 0.0
+    c = np.floor(w / w.sum() * 1088).astype(np.int32)
+    c[0] += 1088 - c.sum()
+    return [c.tolist()]
+
+
+def _poison(like, dtype=None):
+    """Leave NaNs in the caching allocator's next block of this size, so
+    a row the kernel does not write shows as NaN."""
+    torch.full_like(like, float("nan"), dtype=dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", False)])
-def test_grouped_kernel_matches_plain(cuda, dtype, act, gated):
+@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_grouped_kernel_matches_plain(cuda, monkeypatch, dtype, act, gated,
+                                      bm, case):
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+
+    # Each row tiling on every case, whatever row_tile would pick.
+    monkeypatch.setattr(gm, "row_tile", lambda *_: bm)
+    counts, d, f = case
+    counts = _serve_counts() if counts == "serve" else counts
     rng = np.random.default_rng(3)
-    G, E, d, f = 2, 5, 128, 96
-    counts = np.array([[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], np.int32)
-    M = ragged_buffer_rows(int(counts.sum(-1).max()), E, ROW_BLOCK)
-    row_off, _ = ragged_row_offsets(torch.tensor(counts), ROW_BLOCK)
-    xs = np.zeros((G, M, d), np.float32)
-    for g in range(G):
-        for e in range(E):
-            s, c = int(row_off[g, e]), int(counts[g, e])
-            xs[g, s:s + c] = rng.normal(size=(c, d))
+    E = len(counts[0])
+    xs, _, counts = _ragged(rng, cuda, dtype, counts, E, d)
     t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
-    w = lambda *s: t(rng.normal(size=s) * 0.1)  # noqa: E731
-    args = (t(xs), w(E, d, f), w(E, d, f) if gated else None, w(E, f, d),
-            torch.tensor(counts, device=cuda))
+    # Weights at fan-in scale, as the model initialises them.
+    wi, wo = t(rng.normal(size=(E, d, f)) / d ** 0.5), \
+        t(rng.normal(size=(E, f, d)) / f ** 0.5)
+    wg = t(rng.normal(size=(E, d, f)) / d ** 0.5) if gated else None
+    _poison(xs)
+    got = gm.grouped_mlp_cuda(xs, wi, wg, wo, counts, act=act)
+    want = ref.grouped_mlp_ref(xs, wi, wg, wo, counts, block=ROW_BLOCK,
+                               act=act)
+    tol = _tol(dtype)
+    if dtype == torch.float32 and d > 128:
+        # Sums of products whose factors are themselves sums over d terms,
+        # in another order (as in the expert kernels' test).
+        tol = dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    # Every row is written: the dead blocks' rows are zero.
+    nb = xs.shape[1] // ROW_BLOCK
+    _, bl = gm.block_tables(counts, ROW_BLOCK, nb)
+    assert bool((got[(bl == 0).repeat_interleave(ROW_BLOCK, 1)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", False)])
+def test_grouped_kernel_through_ops(cuda, act, gated):
+    rng = np.random.default_rng(3)
+    E, d, f = 5, 128, 96
+    xs, _, counts = _ragged(rng, cuda, torch.float32,
+                            [[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], E, d)
+    w = lambda *s: torch.tensor(rng.normal(size=s) * 0.1,  # noqa: E731
+                                dtype=torch.float32, device=cuda)
+    args = (xs, w(E, d, f), w(E, d, f) if gated else None, w(E, f, d),
+            counts)
     got = ops.grouped_mlp(*args, act=act, implementation="cuda")
     want = ops.grouped_mlp(*args, act=act, implementation="eager")
-    torch.testing.assert_close(got, want, **_tol(dtype))
+    torch.testing.assert_close(got, want, **_tol(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -360,42 +426,87 @@ def _ragged(rng, dev, dtype, counts, E, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("act,gated,d,f", [("silu", True, 128, 96),
-                                          ("gelu", False, 128, 96),
-                                          ("silu", True, 1024, 512)])
-def test_grouped_backward_kernels_match_plain(cuda, dtype, act, gated, d, f):
+@pytest.mark.parametrize("act,gated", [("silu", True), ("gelu", False)])
+@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize("case", GROUPED_CASES + [
+    ([[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], 1024, 512)])
+def test_grouped_backward_kernels_match_plain(cuda, monkeypatch, dtype, act,
+                                              gated, bm, case):
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import ref
 
+    # Each of the dx kernel's row tilings on every case.
+    monkeypatch.setattr(gm, "row_tile", lambda *_: bm)
+    counts, d, f = case
+    counts = _serve_counts() if counts == "serve" else counts
     rng = np.random.default_rng(5)
-    E = 5
-    xs, dy, counts = _ragged(rng, cuda, dtype,
-                             [[3, 0, 40, 17, 1], [0, 0, 0, 0, 33]], E, d)
+    E = len(counts[0])
+    xs, dy, counts = _ragged(rng, cuda, dtype, counts, E, d)
     t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
     # Weights at fan-in scale, as the model initialises them.
     wi, wo = t(rng.normal(size=(E, d, f)) / d ** 0.5), \
         t(rng.normal(size=(E, f, d)) / f ** 0.5)
     wg = t(rng.normal(size=(E, d, f)) / d ** 0.5) if gated else None
-    got = gm.grouped_mlp_bwd_cuda(xs, wi, wg, wo, dy, counts, act=act)
+    _poison(xs)
+    dx, da, dg, h = gm.grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, counts,
+                                           act=act)
+    dw = gm.grouped_mlp_dw_cuda(xs, dy, da, dg, h, counts)
+    got = (dx, *(None if w is None else w.sum(0).to(dtype) for w in dw))
     want = ref.grouped_mlp_bwd_ref(xs, wi, wg, wo, dy, counts,
                                    block=ROW_BLOCK, act=act)
     tol = _tol(dtype)
     if dtype == torch.float32 and d > 128:
-        # dW sums, over a segment's rows, products whose factors are
-        # themselves sums over d = 1024 terms in another order.
+        # dx sums over f products whose factors are themselves sums over
+        # d terms, in another order (as in the forward's test).
         tol = dict(atol=1e-4, rtol=1e-4)
-    for g, w in zip(got, want):
+    torch.testing.assert_close(dx, want[0], **tol)
+    if dtype == torch.float32:
+        # dW against the float64 sums of the same inputs (the dx kernel's
+        # scratch), so that only the dW kernel's order is held. Its
+        # row-after-row float32 sum over a segment deeper than 128 rows
+        # (300 here; the serve skew's largest) parts from float64 by more
+        # than the float32 tolerance, as a row-after-row float32 sum in
+        # numpy does on these inputs: such cases take 1e-4.
+        row_off, _ = ragged_row_offsets(counts, ROW_BLOCK)
+        x64, dy64 = xs.double(), dy.double()
+
+        def dw64(a, b):
+            out = torch.zeros((E, a.shape[-1], b.shape[-1]),
+                              dtype=torch.float64, device=cuda)
+            for g_, row in enumerate(counts.tolist()):
+                for e, n in enumerate(row):
+                    s = int(row_off[g_, e])
+                    out[e] += a[g_, s:s + n].T @ b[g_, s:s + n]
+            return out
+
+        want = (None, dw64(x64, da.double()),
+                None if dg is None else dw64(x64, dg.double()),
+                dw64(h.double(), dy64))
+        tol = (_tol(dtype) if int(counts.max()) <= 128
+               else dict(atol=1e-4, rtol=1e-4))
+    for g, w in zip(got[1:], want[1:]):
         if w is None:
             assert g is None
             continue
-        torch.testing.assert_close(g, w, **tol)
+        torch.testing.assert_close(g.to(w.dtype), w, **tol)
+    # The scratch the dW kernel reads, on the live blocks' rows.
+    nb = xs.shape[1] // ROW_BLOCK
+    _, bl = gm.block_tables(counts, ROW_BLOCK, nb)
+    live = (bl == 1).repeat_interleave(ROW_BLOCK, 1)
+    _, da_r, dg_r, h_r = ref.grouped_mlp_dx_ref(xs, wi, wg, wo, dy, counts,
+                                                block=ROW_BLOCK, act=act)
+    for g, w in ((da, da_r), (dg, dg_r), (h, h_r)):
+        if w is not None:
+            torch.testing.assert_close(g[live], w[live],
+                                       **_tol(torch.float32) if d <= 128
+                                       else dict(atol=1e-4, rtol=1e-4))
     # Dead blocks (tail blocks, empty experts) give dx = 0; an expert
     # with no rows in any group gets zero dW.
-    nb = xs.shape[1] // ROW_BLOCK
-    _, bl = gm.block_tables(counts.to(torch.int32), ROW_BLOCK, nb)
-    dead = (bl == 0).repeat_interleave(ROW_BLOCK, 1)
-    assert bool((got[0][dead] == 0).all())
-    assert bool((got[1][1] == 0).all()) and bool((got[3][1] == 0).all())
+    assert bool((dx[~live] == 0).all())
+    idle = (counts == 0).all(0)
+    for w in got[1:]:
+        if w is not None:
+            assert bool((w[idle] == 0).all())
 
 
 @pytest.mark.cuda
