@@ -56,7 +56,8 @@ any failure, before printing its result line. It
    weights);
 9. holds the WKV-6 kernel against the chunked plain version and the
    sequential oracle at the rwkv serve shapes (prefill 8 x 512 and a
-   decode step, 64 heads of 64, f32 and bf16) and times it;
+   decode step, 64 heads of 64, f32 and bf16), requires two calls to
+   give the same bits (as of the grouped dW in 2), and times it;
 10. builds rwkv6-7b at full width and depth (7.5 B params, float32) and
     serves 8 prompts of 256..512 tokens, 64 new tokens each, through the
     static engine, through the kernels and the plain versions twice
@@ -96,7 +97,7 @@ PEAK_TF32_S = 495e12
 TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
                   "flash_attention_dkv", "expert_mlp", "expert_mlp_dx",
                   "expert_mlp_dw", "paged_prefill", "grouped_mlp",
-                  "grouped_mlp_dx")
+                  "grouped_mlp_dx", "grouped_mlp_dw")
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -496,7 +497,11 @@ def grouped_library(c, kind, tag):
     call returns the forward's y or dx: a list of each group's segments
     (the first row_off[g, -1] rows; the kernels also write the tail's
     zero rows) or the (G, M, d) buffer. Where this PyTorch lacks
-    ``_grouped_mm`` or refuses the dtype, prints why, under ``tag``."""
+    ``_grouped_mm`` or refuses the dtype, prints why, under ``tag``.
+    dW (``kind`` "dw", over the dx's scratch ``c["da"]``, ``c["dg"]``,
+    ``c["h"]``): the per-expert chain only, x^T da, x^T dg and h^T dy
+    over each live segment, the groups summed by ``addmm`` (3 calls a
+    segment); it returns (dwi, dwg, dwo)."""
     import torch
     import torch.nn.functional as F
 
@@ -508,6 +513,30 @@ def grouped_library(c, kind, tag):
     segs = [(g, e, s, n) for g, (so, cn) in enumerate(zip(
         row_off.tolist(), c["counts"].tolist()))
         for e, (s, n) in enumerate(zip(so, cn)) if n > 0]
+    if kind == "dw":
+        E, f = wi.shape[0], wi.shape[-1]
+        dws = (torch.zeros(E, d, f, device=xs.device),
+               torch.zeros(E, d, f, device=xs.device),
+               torch.zeros(E, f, d, device=xs.device))
+        seen, firsts = set(), set()  # each expert's first segment
+        for g, e, _, _ in segs:
+            if e not in seen:
+                seen.add(e)
+                firsts.add((g, e))
+
+        def dw_seg():
+            for g, e, s, n in segs:
+                x, gy = xs[g, s:s + n], c["dy"][g, s:s + n]
+                for dst, a, b in ((dws[0][e], x, c["da"][g, s:s + n]),
+                                  (dws[1][e], x, c["dg"][g, s:s + n]),
+                                  (dws[2][e], c["h"][g, s:s + n], gy)):
+                    if (g, e) in firsts:
+                        torch.matmul(a.T, b, out=dst)
+                    else:
+                        dst.addmm_(a.T, b)
+            return dws
+
+        return [("per-expert torch.matmul", dw_seg, 3 * len(segs))]
     out = torch.zeros_like(xs)  # the rows no segment writes stay zero
 
     def fwd_seg():
@@ -811,8 +840,8 @@ def flash_work(a, kind, causal=True):
 
 
 def grouped_bwd_work(c, kind):
-    """Bytes and FLOPs of the dx / dW call over the valid rows (dead
-    blocks read nothing; dx still writes their zero rows)."""
+    """Bytes and FLOPs of the gated dx / dW call over the valid rows
+    (dead blocks read nothing; dx still writes their zero rows)."""
     G, M, d = c["xs"].shape
     E, _, f = c["wi"].shape
     counts = c["counts"]
@@ -822,8 +851,8 @@ def grouped_bwd_work(c, kind):
         nbytes = (2 * rows * d + live * 3 * d * f + G * M * d
                   + 3 * rows * f) * 4
         return nbytes, 10 * rows * d * f
-    # dW: x, dy, da, dg, h -> per-group dwi, dwg, dwo
-    return (2 * rows * d + 3 * rows * f + 3 * G * E * d * f) * 4, \
+    # dW: x, dy, da, dg, h -> dwi, dwg, dwo summed over the groups
+    return (2 * rows * d + 3 * rows * f + 3 * E * d * f) * 4, \
         6 * rows * d * f
 
 
@@ -884,6 +913,8 @@ def check_train_kernels(cfg, device):
     _, da, dg, hh = ref.grouped_mlp_dx_ref(*gargs, block=gm.ROW_BLOCK)
     dw_args = (c["xs"], c["dy"], da, dg, hh, c["counts"])
     dx_lib = grouped_library(c, "dx", "[train-kernel] grouped_mlp_dx")
+    dw_lib = grouped_library(dict(c, da=da, dg=dg, h=hh), "dw",
+                             "[train-kernel] grouped_mlp_dw")
 
     # The library call's inputs: (B, H, S, dh) layout, GQA expanded
     # (set-up, not timed); its backward runs through autograd.
@@ -934,7 +965,7 @@ def check_train_kernels(cfg, device):
         ("grouped_mlp_dw",
          lambda: gm.grouped_mlp_dw_cuda(*dw_args),
          lambda: ref.grouped_mlp_dw_ref(*dw_args, block=gm.ROW_BLOCK),
-         grouped_bwd_work(c, "dw"), None,
+         grouped_bwd_work(c, "dw"), dw_lib,
          "src/repro_torch/kernels/csrc/grouped_mlp_bwd.cu",
          "src/repro/kernels/grouped_mlp.py:476"),
     ]
@@ -968,6 +999,19 @@ def check_train_kernels(cfg, device):
         if kname == "grouped_mlp_dx":
             grouped_extras("train-kernel", "grouped_mlp_dx float32", rec,
                            kern, gm.DX_ROW_TILES, chain, y_ref[0], flush)
+        if kname == "grouped_mlp_dw":
+            # One fixed order for every sum: a second call gives the same
+            # bits.
+            if not all(torch.equal(a, b) for a, b in zip(y, kern())):
+                fail("grouped_mlp_dw: two calls gave different bits")
+            rec["library_chain"], _, rec["library_calls"] = \
+                chain or (None,) * 3
+            if chain:
+                print(f"[train-kernel] grouped_mlp_dw float32: library: the "
+                      f"{chain[0]} chain of {chain[2]} torch calls, queued, "
+                      f"max |library - plain| = "
+                      f"{_max_err(chain[1](), y_ref, atol, rtol)[0]:.3e}; "
+                      f"two calls bit-identical", flush=True)
         print(f"[train-kernel] {kname} float32: ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -1871,10 +1915,11 @@ def check_rwkv_kernel(cfg, device):
     """The WKV kernel against the chunked plain version and the sequential
     oracle at the serve shapes: the prefill (8, 512, 64, 64, 64) from a
     zero state and a decode step (8, 1, 64, 64, 64) from a random one, in
-    float32, and the prefill with bfloat16 r, k, v; times the kernel and
-    the chunked plain version on the device's clock. No single PyTorch
-    call computes WKV-6, so it has no library time. Returns its JSON
-    record (the prefill, the decode shape under ``at_decode_shape``)."""
+    float32, and the prefill with bfloat16 r, k, v (each call twice, same
+    bits required); times the kernel and the chunked plain version on the
+    device's clock. No single PyTorch call computes WKV-6, so it has no
+    library time. Returns its JSON record (the prefill, the decode shape
+    under ``at_decode_shape``)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1895,6 +1940,9 @@ def check_rwkv_kernel(cfg, device):
         y = wkv.rwkv6_cuda(*args)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[1]
+        if not all(torch.equal(a, b) for a, b in zip(y, wkv.rwkv6_cuda(
+                *args))):
+            fail(f"rwkv6 {tag} {name}: two calls gave different bits")
         errs = {}
         for plain, fn in (("oracle", ref.rwkv6_ref),
                           ("chunked", ref.rwkv6_chunked_ref)):

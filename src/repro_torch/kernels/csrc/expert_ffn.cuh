@@ -3,7 +3,8 @@
 // (expert_mlp.cu, expert_mlp_bwd.cu) and over the ragged buffer
 // (grouped_mlp.cu, grouped_mlp_bwd.cu). Each __global__ finds its Tile
 // (block_tile or ragged_tile) and runs one of these over it: the
-// forward's pass product, or one of the dx kernel's products.
+// forward's pass product, or one of the dx kernel's products; the dW
+// kernels run dw_tile over the expert's depth map.
 #pragma once
 
 #include "expert_gemm.cuh"
@@ -135,6 +136,79 @@ __device__ __forceinline__ void dx_out_product(
     if (r < t.nrows && col < t.ncols) {
       out[(size_t)r * d + col] = from_f32<T>(acc[0][mi][ni][q]);
     }
+  });
+}
+
+// dW: C_i (M, N) of one expert = A^T B_i over its depth rows, i < NB,
+// for the block's (DwTile<NB>::BM x BN tile of C) = (blockIdx.x,
+// blockIdx.y):
+//   dwi [, dwg] (d, f) = x^T da [, x^T dg]: A = x (row stride d), B_i =
+//     da [, dg], the f32 scratch (stride f); the gated dwg shares each
+//     staged x^T slab;
+//   dwo (f, d) = h^T dy: A = h, the f32 scratch (stride f), B = dy
+//     (stride d).
+// So A's row stride is M and B's is N. A, B0 and B1 point at the buffer
+// row that depth row 0 counts from; C0 and C1 at the expert's (M, N)
+// matrix. The depth map (gemm_slabs) walks the expert's rows in every
+// group inside the block: the sums start at zero, run in one fixed
+// order and every entry is written once (no split-K, no atomics).
+//
+// The tiling, timed at the ViT shape (expert_mlp_bwd.cu): 128 x 128
+// tiles of C, 4 x 2 warps of 32 x 64 sums, a ring of 2 slabs 64 deep
+// (each summed as two 32-deep parts, so the bits are those of 32-deep
+// slabs). It timed faster than the forward's 3 slabs 32 deep and than
+// 64-row tiles. Splitting each staged float once a block in shared
+// memory, instead of in every warp that reads it, timed slower: the
+// split pass sat between each slab's wait and its barrier. The gated
+// pair (NB = 2, granite's dwi and dwg) takes 64 x 128 tiles, 2 x 4 warps
+// of 32 x 32 sums each: at 128 rows its two 32 x 64 sums a warp spill
+// (588 B in float32), at 64 rows not, with the same bits.
+template <int NB>
+struct DwTile {
+  static constexpr bool kNarrow = NB == 2;  // 64-row tiles
+  static constexpr int BM = kNarrow ? 64 : 128, WM = kNarrow ? 2 : 4;
+  static constexpr int WN = 8 / WM, SK = 2 * BK, NS = 2;
+  static constexpr int NT = 32 * WM * WN;  // threads
+};
+
+template <typename TA, typename TB, int NB>
+__host__ __device__ constexpr size_t dw_ring_bytes() {
+  using D = DwTile<NB>;
+  return ring_bytes<TA, TB, D::BM, NB, false, D::SK, D::NS, true>();
+}
+
+// Whether dw_tile's slabs move as cp.async chunks (see gemm_slabs).
+template <typename TA, typename TB>
+inline bool dw_aligned(const void* A, const void* B0, const void* B1,
+                       int M, int N) {
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  return M % (16 / sizeof(TA)) == 0 && N % (16 / sizeof(TB)) == 0 &&
+         al(A) && al(B0) && (B1 == nullptr || al(B1));
+}
+
+template <typename TA, typename TB, int NB, typename Depth>
+__device__ __forceinline__ void dw_tile(const TA* __restrict__ A,
+                                        const TB* __restrict__ B0,
+                                        const TB* __restrict__ B1,
+                                        float* __restrict__ C0,
+                                        float* __restrict__ C1, int M, int N,
+                                        int K, Depth depth, bool aligned,
+                                        unsigned char* smem) {
+  using D = DwTile<NB>;
+  using W = Warps<D::BM, D::WM, D::WN>;
+  const int m0 = blockIdx.x * D::BM, n0 = blockIdx.y * BN;
+  const int nm = min(D::BM, M - m0), nn = min(BN, N - n0);
+  float acc[NB][W::MI][W::NI][4] = {};
+  gemm_slabs<TA, TB, D::BM, D::WM, D::WN, NB, false, D::SK, D::NS, true,
+             Depth>(
+      acc, A + m0, B0 + n0, NB == 2 ? B1 + n0 : nullptr, N, K, nm, nn,
+      aligned, smem, M, depth);
+  const size_t o = (size_t)m0 * N + n0;
+  each_entry<D::BM, D::WM, D::WN>([&](int mi, int ni, int q, int r,
+                                      int col) {
+    if (r >= nm || col >= nn) return;
+    C0[o + (size_t)r * N + col] = acc[0][mi][ni][q];
+    if (NB == 2) C1[o + (size_t)r * N + col] = acc[NB - 1][mi][ni][q];
   });
 }
 

@@ -12,19 +12,20 @@
 // ring of slabs in shared memory (the forward's: 3 slabs 32 deep; dx's:
 // 2 slabs 64 deep; strides padded so that the fragment reads are free of
 // bank conflicts). A is read as stored, its BM rows a tile of one
-// expert's segment, or transposed (kTransA, the dW kernel's x^T and h^T):
-// the depth is then the expert's G * cap rows of the buffer, walked group
-// after group inside the block (DepthRows; a slab may cross a group
-// boundary), staged as row-major (depth, BM) slabs and read by the
-// fragments as as[k * LD + m]. B is read as stored, (K, N) row-major (x
-// wi: wi (E, d, f); dW's da, dg, dy over the same depth rows as A), or
-// transposed from the rows of an (N, K) matrix (dy wo^T: wo (E, f, d);
-// da wi^T: wi (E, d, f)): each stored row holds one column of B
-// contiguous in k, the column-major B that mma.sync takes. Warps tile
-// the block WM x WN; a warp holds (BM / WM) x (BN / WN) f32 sums in
-// registers. Each slab's products start from zero and are added to the
-// sums with an ordinary f32 add (the tensor cores' accumulation
-// truncates; mma_sm90.cuh).
+// expert's segment, or transposed (kTransA, the dW kernels' x^T and h^T):
+// the depth is then the expert's rows in every group, walked group after
+// group inside the block through a depth map (DepthRows over the padded
+// buffer, where a slab may cross a group boundary; SegmentRuns over the
+// ragged one, in grouped_mlp_bwd.cu), staged as row-major (depth, BM)
+// slabs and read by the fragments as as[k * LD + m]. B is read as
+// stored, (K, N) row-major (x wi: wi (E, d, f); dW's da, dg, dy over the
+// same depth rows as A), or transposed from the rows of an (N, K)
+// matrix (dy wo^T: wo (E, f, d); da wi^T: wi (E, d, f)): each stored row
+// holds one column of B contiguous in k, the column-major B that
+// mma.sync takes. Warps tile the block WM x WN; a warp holds (BM / WM) x
+// (BN / WN) f32 sums in registers. Each slab's products start from zero
+// and are added to the sums with an ordinary f32 add (the tensor cores'
+// accumulation truncates; mma_sm90.cuh).
 #pragma once
 
 #include "mma_sm90.cuh"
@@ -80,13 +81,25 @@ __host__ __device__ constexpr size_t ring_bytes() {
 // (stage_rows). Finding every chunk's row, also inside one group, made
 // the ViT-B/16 dW 8.10 ms against 7.13 (H100 80GB HBM3, 700 W, same bits;
 // launch/ab_dw.py).
+//
+// A depth map of gemm_slabs: slab(k0, sk, nk, r0) says whether the
+// sk-deep slab at depth k0 is one run of rows, and if so sets r0 to its
+// first row and may lower nk (in: min(sk, K - k0)) to its valid rows;
+// with kAnyRow, operator()(j) finds any depth row (for stage_rows).
 struct DepthRows {
+  static constexpr bool kAnyRow = true;
   unsigned cap, inv;
   size_t stride;  // E * cap
   __host__ __device__ DepthRows(int cap_, int E)
       : cap((unsigned)cap_),
         inv(cap_ == 1 ? 0xffffffffu : (unsigned)((1ull << 32) / cap_)),
         stride((size_t)E * cap_) {}
+  __device__ __forceinline__ bool slab(int k0, int sk, int&,
+                                       size_t& r0) const {
+    if (cap % sk != 0) return false;  // a slab may cross into a group
+    r0 = (*this)(k0);
+    return true;
+  }
   __device__ __forceinline__ size_t operator()(int j) const {
     unsigned g = __umulhi((unsigned)j, inv), r = (unsigned)j - g * cap;
     if (r >= cap) {
@@ -243,21 +256,24 @@ __device__ __forceinline__ void add_to(float (&sum)[MI][NI][4],
 // b0, b1: B_0, B_1 at the tile's first column (b1 read when NB == 2),
 // row stride ldb; rows past nrows, columns past ncols and depth past K
 // read as zeros. kTransA: a is A^T's storage at the tile's first column
-// m0, row stride a_ld, and nrows counts its valid columns; depth row j
-// of a and of the B operands is row depth(j) (b's non-transposed mode
-// only). `aligned` (uniform): every staged row is 16-byte aligned and a
-// whole number of chunks, so slabs move as cp.async chunks; otherwise
-// element by element. The ring holds NS slabs of depth SK (ring_bytes),
+// m0, row stride a_ld, and nrows counts its valid columns; the depth map
+// `depth` places depth row j of a and of the B operands (b's
+// non-transposed mode only), its slabs asked for in increasing depth,
+// alike by every thread (so a map may keep a cursor). `aligned`
+// (uniform): every staged row is 16-byte aligned and a whole number of
+// chunks, so slabs move as cp.async chunks; otherwise element by
+// element. The ring holds NS slabs of depth SK (ring_bytes),
 // a multiple of BK; each BK of a slab is summed from zero and added to
 // acc. Ends with a barrier, so the caller may restage the ring.
 template <typename TA, typename TB, int BM, int WM, int WN, int NB,
-          bool kTransB, int SK = BK, int NS = STAGES, bool kTransA = false>
+          bool kTransB, int SK = BK, int NS = STAGES, bool kTransA = false,
+          typename Depth = DepthRows>
 __device__ __forceinline__ void gemm_slabs(
     float (&acc)[NB][Warps<BM, WM, WN>::MI][Warps<BM, WM, WN>::NI][4],
     const TA* __restrict__ a, const TB* __restrict__ b0,
     const TB* __restrict__ b1, size_t ldb, int K, int nrows, int ncols,
     bool aligned, unsigned char* smem, size_t a_ld = 0,
-    DepthRows depth = DepthRows(1, 1)) {
+    Depth depth = DepthRows(1, 1)) {
   using W = Warps<BM, WM, WN>;
   static_assert(SK % BK == 0, "a slab holds whole BK-deep parts");
   static_assert(!(kTransA && kTransB), "one operand transposed");
@@ -275,10 +291,11 @@ __device__ __forceinline__ void gemm_slabs(
   };
 
   auto load = [&](int kt) {
-    const int k0 = kt * SK, nk = min(SK, K - k0);
+    const int k0 = kt * SK;
+    int nk = min(SK, K - k0);
     if constexpr (kTransA) {
-      if (depth.cap % SK == 0) {  // the slab lies in one group
-        const size_t r0 = depth(k0);
+      size_t r0;
+      if (depth.slab(k0, SK, nk, r0)) {  // the slab is one run of rows
         stage_tile<TA, SK, BM, NT>(tile_a(kt), LDA, a + r0 * a_ld, a_ld, nk,
                                    nrows, aligned);
 #pragma unroll
@@ -289,16 +306,19 @@ __device__ __forceinline__ void gemm_slabs(
         }
         return;
       }
-      stage_rows<TA, SK, BM, NT>(
-          tile_a(kt), LDA, [&](int r) { return a + depth(k0 + r) * a_ld; },
-          a, nk, nrows, aligned);
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const TB* b = i == 0 ? b0 : b1;
-        stage_rows<TB, SK, BN, NT>(
-            tile_b(kt, i), LDB,
-            [&](int r) { return b + depth(k0 + r) * ldb; }, b, nk, ncols,
+      if constexpr (Depth::kAnyRow) {
+        stage_rows<TA, SK, BM, NT>(
+            tile_a(kt), LDA,
+            [&](int r) { return a + depth(k0 + r) * a_ld; }, a, nk, nrows,
             aligned);
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const TB* b = i == 0 ? b0 : b1;
+          stage_rows<TB, SK, BN, NT>(
+              tile_b(kt, i), LDB,
+              [&](int r) { return b + depth(k0 + r) * ldb; }, b, nk, ncols,
+              aligned);
+        }
       }
       return;
     }

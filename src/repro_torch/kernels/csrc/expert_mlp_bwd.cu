@@ -31,9 +31,10 @@
 // add nothing to dW below (x = 0 and h = act(0) = 0 there).
 //
 // dW: tensor-core GEMM launches on the same header with A read
-// transposed (gemm_slabs' kTransA): dwi [and dwg, sharing each staged
-// x^T slab] = x^T da [x^T dg], then dwo = h^T dy, one block per (128 x
-// 128 tile of the (d, f) or (f, d) product, expert e). The depth is the
+// transposed (gemm_slabs' kTransA; dw_tile of expert_ffn.cuh, which the
+// ragged buffer's dW shares): dwi [and dwg, sharing each staged x^T
+// slab] = x^T da [x^T dg], then dwo = h^T dy, one block per (128 x 128
+// tile of the (d, f) or (f, d) product, expert e). The depth is the
 // expert's G * cap rows of the buffer (its cap rows in every group g,
 // the scratch from the dx kernel), walked group after group inside the
 // block: each 32-deep part is summed from zero on the tensor cores and
@@ -82,38 +83,23 @@ __global__ void __launch_bounds__(32 * WM * WN)
                                         wg, dx, d, f, aligned, smem_raw);
 }
 
-// dW: C (M, N) of expert e = A^T B_i over the expert's G * cap rows
-// (depth), i < NB, one (BM x BN tile of C, expert) block each:
-//   dwi [, dwg] (d, f) = x^T da [, x^T dg]: A = x (row stride d), B_i =
-//     da [, dg], the f32 scratch (stride f); the gated dwg shares each
-//     staged x^T slab;
-//   dwo (f, d) = h^T dy: A = h, the f32 scratch (stride f), B = dy
-//     (stride d).
-// So A's row stride is M and B's is N. The sums start at zero and every
-// entry is written once.
-template <typename TA, typename TB, int NB, int BM, int WM, int WN, int SK,
-          int NS>
-__global__ void __launch_bounds__(32 * WM * WN)
+// dW over the padded buffer (dw_tile): one block per (128 x 128 tile of
+// C, expert e = blockIdx.z); the depth is the expert's cap rows in every
+// group, G * cap deep.
+template <typename TA, typename TB, int NB>
+__global__ void __launch_bounds__(DwTile<NB>::NT)
     expert_dw_kernel(const TA* __restrict__ A, const TB* __restrict__ B0,
                      const TB* __restrict__ B1, float* __restrict__ C0,
                      float* __restrict__ C1, int G, int cap, int M, int N,
                      bool aligned) {
-  using W = Warps<BM, WM, WN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
-  const int nm = min(BM, M - m0), nn = min(BN, N - n0);
+  const int e = blockIdx.z;
   const size_t r0 = (size_t)e * cap;  // the expert's first row (g = 0)
-  float acc[NB][W::MI][W::NI][4] = {};
-  gemm_slabs<TA, TB, BM, WM, WN, NB, false, SK, NS, true>(
-      acc, A + r0 * M + m0, B0 + r0 * N + n0,
-      NB == 2 ? B1 + r0 * N + n0 : nullptr, N, G * cap, nm, nn, aligned,
-      smem_raw, M, DepthRows(cap, gridDim.z));
-  const size_t o = ((size_t)e * M + m0) * N + n0;
-  each_entry<BM, WM, WN>([&](int mi, int ni, int q, int r, int col) {
-    if (r >= nm || col >= nn) return;
-    C0[o + (size_t)r * N + col] = acc[0][mi][ni][q];
-    if (NB == 2) C1[o + (size_t)r * N + col] = acc[NB - 1][mi][ni][q];
-  });
+  const size_t c0 = (size_t)e * M * N;
+  dw_tile<TA, TB, NB>(A + r0 * M, B0 + r0 * N,
+                      NB == 2 ? B1 + r0 * N : nullptr, C0 + c0,
+                      NB == 2 ? C1 + c0 : nullptr, M, N, G * cap,
+                      DepthRows(cap, gridDim.z), aligned, smem_raw);
 }
 
 template <typename T, int BM, int WM, int WN, int P, bool kGated>
@@ -157,31 +143,18 @@ int launch_dx(const T* xe, const T* wi, const T* wg, const T* wo,
   return (int)cudaGetLastError();
 }
 
-// dW's tiling, timed at the ViT shape: 128 x 128 tiles of C, 4 x 2 warps
-// of 32 x 64 sums, a ring of 2 slabs 64 deep (each summed as two 32-deep
-// parts, so the bits are those of 32-deep slabs). It timed faster than
-// the forward's 3 slabs 32 deep and than 64-row tiles. Splitting each
-// staged float once a block in shared memory, instead of in every warp
-// that reads it, timed slower: the split pass sat between each slab's
-// wait and its barrier.
-constexpr int kDwBM = 128, kDwWM = 4, kDwWN = 2, kDwSK = 2 * BK, kDwNS = 2;
-
 template <typename TA, typename TB, int NB>
 int launch_dw_product(const TA* A, const TB* B0, const TB* B1, float* C0,
                       float* C1, int G, int E, int cap, int M, int N,
                       cudaStream_t stream) {
-  constexpr size_t smem =
-      ring_bytes<TA, TB, kDwBM, NB, false, kDwSK, kDwNS, true>();
-  auto kernel =
-      expert_dw_kernel<TA, TB, NB, kDwBM, kDwWM, kDwWN, kDwSK, kDwNS>;
+  constexpr size_t smem = dw_ring_bytes<TA, TB, NB>();
+  auto kernel = expert_dw_kernel<TA, TB, NB>;
   allow_smem(kernel, smem);
-  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  const bool aligned = M % (16 / sizeof(TA)) == 0 &&
-                       N % (16 / sizeof(TB)) == 0 && al(A) && al(B0) &&
-                       (NB == 1 || al(B1));
-  const dim3 grid((M + kDwBM - 1) / kDwBM, (N + BN - 1) / BN, E);
-  kernel<<<grid, 32 * kDwWM * kDwWN, smem, stream>>>(A, B0, B1, C0, C1, G,
-                                                    cap, M, N, aligned);
+  const bool aligned = dw_aligned<TA, TB>(A, B0, B1, M, N);
+  using D = DwTile<NB>;
+  const dim3 grid((M + D::BM - 1) / D::BM, (N + BN - 1) / BN, E);
+  kernel<<<grid, D::NT, smem, stream>>>(A, B0, B1, C0, C1, G, cap, M, N,
+                                        aligned);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Backward of the grouped-GEMM expert FFN over the expert-sorted,
 // block-aligned ragged token buffer, for Hopper (sm_90a): a dx kernel
-// and a segment-walk dW kernel.
+// and a dW kernel, both on the tensor-core GEMM of expert_gemm.cuh.
 //
 // Replaces the TPU kernels src/repro/kernels/grouped_mlp.py:406
 // (_dx_kernel) and :476 (_dw_kernel), reached through
@@ -30,30 +30,40 @@
 // rows: dx = 0 there exactly, the contract for tail blocks and dropped
 // assignments.
 //
-// dW kernel: one thread block per (64 x 64 tile of (d, f), expert e,
-// group g) walks expert e's segment of group g (rows row_off[g][e] ..
-// + group_sizes[g][e], found from the int32 tables, so dead blocks are
-// never visited) and accumulates the tile of dwi = x^T da, dwg = x^T dg
-// and dwo = h^T dy in registers, 4 x 4 entries a thread, writing each
-// once into per-group f32 outputs (G, E, d, f) / (G, E, f, d); the sum
-// over G is taken outside in f32, so no atomics and no dependence on
-// launch order. An empty expert writes zeros. dW reads the dx kernel's
-// da/dg/h instead of recomputing them per tile (the TPU kernel's
-// recompute per f tile would cost d/64 times the forward here).
+// dW: the expert dW's tensor-core tile (dw_tile, expert_ffn.cuh: 3xTF32
+// mma.sync for float32; bf16 x and dy are exact in TF32, so only the f32
+// scratch is split, two products) with A read transposed: dwi [and dwg,
+// sharing each staged x^T slab] = x^T da [x^T dg], then dwo = h^T dy,
+// two launches, one block per (128 x 128 tile of the (d, f) or (f, d)
+// product, expert e). The depth is expert e's segment in every group,
+// walked inside the block into the same register sums (SegmentRuns
+// below), so the kernel writes the sums over the groups, (E, d, f) /
+// (E, f, d) f32, once; the TPU kernel writes per-group outputs, summed
+// outside. A segment is one run of group_sizes[g][e] rows from row g * M
+// + row_off[g][e] (the int32 tables on the device; dead blocks are never
+// read). Each run is padded to whole 64-deep slabs, so a slab never
+// crosses a group and moves as one run of rows, and one ring walks every
+// group's run: the next group's first slab loads while the last one's is
+// summed. A ragged map whose slabs cross groups would stage every chunk
+// by its own row (stage_rows), which made the padded-buffer dW 14%
+// slower (expert_gemm.cuh, DepthRows); calling the ring once per group
+// would restart its prologue each group (granite: ~4 slabs a segment).
+// Every 32-deep part is summed from zero on the tensor cores and added
+// in f32 in one fixed order: no split-K, no atomics, two calls give the
+// same bits. An expert with no rows in any group writes zeros. dW reads
+// the dx kernel's da/dg/h instead of recomputing them per tile (the TPU
+// kernel's recompute per f tile would cost d/64 times the forward here).
 //
-// Bound on this card: FLOPs over the valid rows, dx 10 d f a row (a, g,
-// dh, then two products; 6 ungated), dW 6 d f a row. At the training
-// shapes (16,128 valid rows, d 1024, f 512): dx 84.6 GFLOP, 0.513 ms on
-// the tensor cores as 3xTF32 (3 x FLOPs / 495 TFLOP/s; 1.262 for f32
-// FMAs at 67 TFLOP/s); dW 0.757 ms on CUDA cores, which it runs on.
+// Bound on this card: operations over the valid rows, dx 10 d f a row
+// (a, g, dh, then two products; 6 ungated), dW 6 d f a row (4
+// ungated). At the training shapes (16,128 valid rows, d 1024, f 512):
+// dx 84.6 GFLOP, dW 50.7 GFLOP; on the tensor cores as 3xTF32 (3 x FLOPs
+// / 495 TFLOP/s) 0.513 and 0.307 ms (1.262 and 0.757 for f32 FMAs at 67
+// TFLOP/s).
 
 #include "expert_ffn.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // dW
-constexpr int TD = 64, TF = 64;  // dW tile of (d, f)
-constexpr int kRows = 32;  // segment rows staged per dW step
 
 // One hidden product of dx (dx_hidden_product) over a ragged tile (BN
 // columns of f).
@@ -96,90 +106,62 @@ __global__ void __launch_bounds__(32 * WM * WN)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grouped_dw_kernel(const T* __restrict__ xs, const T* __restrict__ dy,
-                      const float* __restrict__ da,
-                      const float* __restrict__ dg,
-                      const float* __restrict__ hh,
-                      const int* __restrict__ row_off,
-                      const int* __restrict__ group_sizes,
-                      float* __restrict__ dwi, float* __restrict__ dwg,
-                      float* __restrict__ dwo, int M, int d, int f, int E) {
-  __shared__ __align__(16) float xs_s[kRows][TD];
-  __shared__ __align__(16) float dy_s[kRows][TD];
-  __shared__ __align__(16) float da_s[kRows][TF];
-  __shared__ __align__(16) float dg_s[kRows][TF];
-  __shared__ __align__(16) float h_s[kRows][TF];
-  const int nft = (f + TF - 1) / TF;
-  const int k0 = (blockIdx.x / nft) * TD, c0 = (blockIdx.x % nft) * TF;
-  const int e = blockIdx.y, g = blockIdx.z, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;  // 4 d rows x 4 f columns each
-  const bool gated = dg != nullptr;
-  const size_t seg0 = (size_t)g * M + row_off[(size_t)g * (E + 1) + e];
-  const int n = group_sizes[(size_t)g * E + e];
+// The grouped dW's depth map (gemm_slabs): expert e's runs of every
+// group, one after another, each padded to whole slabs of SK rows. Run g
+// starts at buffer row g * M + row_off[g][e] and holds n_g =
+// sizes[g][e] valid rows; padded depth p0 + j of it (j < n_g) is row j
+// of the run. The slabs are asked for in increasing depth, so a cursor
+// (run g from padded depth p0) moves on as they are; empty runs take no
+// depth.
+template <int SK>
+struct SegmentRuns {
+  static constexpr bool kAnyRow = false;
+  const int* row_off;  // (G, E + 1)
+  const int* sizes;    // (G, E)
+  int M, E, e;
+  int g = -1, p0 = 0, n = 0;
 
-  float ai[4][4], ag[4][4], ao[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ai[i][j] = ag[i][j] = ao[i][j] = 0.f;
-
-  for (int r0 = 0; r0 < n; r0 += kRows) {
-    __syncthreads();  // the previous step's reads
-    for (int i = tid; i < kRows * TD; i += kThreads) {
-      const int r = i / TD, k = i - r * TD;
-      const bool ok = r0 + r < n && k0 + k < d;
-      const size_t at = (seg0 + r0 + r) * d + k0 + k;
-      xs_s[r][k] = ok ? to_f32(xs[at]) : 0.f;
-      dy_s[r][k] = ok ? to_f32(dy[at]) : 0.f;
-    }
-    for (int i = tid; i < kRows * TF; i += kThreads) {
-      const int r = i / TF, c = i - r * TF;
-      const bool ok = r0 + r < n && c0 + c < f;
-      const size_t at = (seg0 + r0 + r) * f + c0 + c;
-      da_s[r][c] = ok ? da[at] : 0.f;
-      dg_s[r][c] = ok && gated ? dg[at] : 0.f;
-      h_s[r][c] = ok ? hh[at] : 0.f;
-    }
-    __syncthreads();
-    const int rows = min(kRows, n - r0);
-    for (int r = 0; r < rows; ++r) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs_s[r][ty * 4]);
-      const float4 yv = *reinterpret_cast<const float4*>(&dy_s[r][ty * 4]);
-      const float4 av = *reinterpret_cast<const float4*>(&da_s[r][tx * 4]);
-      const float4 gv = *reinterpret_cast<const float4*>(&dg_s[r][tx * 4]);
-      const float4 hv = *reinterpret_cast<const float4*>(&h_s[r][tx * 4]);
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float ya[4] = {yv.x, yv.y, yv.z, yv.w};
-      const float daa[4] = {av.x, av.y, av.z, av.w};
-      const float dga[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float ha[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ai[i][j] += xa[i] * daa[j];
-          ag[i][j] += xa[i] * dga[j];
-          ao[i][j] += ha[j] * ya[i];
-        }
-    }
+  __device__ __forceinline__ SegmentRuns(const int* row_off_,
+                                         const int* sizes_, int M_, int E_,
+                                         int e_)
+      : row_off(row_off_), sizes(sizes_), M(M_), E(E_), e(e_) {}
+  __device__ __forceinline__ int rows(int g_) const {
+    return max(sizes[(size_t)g_ * E + e], 0);
   }
-
-  const size_t base = ((size_t)g * E + e) * (size_t)d * f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (k < d && c < f) {
-        dwi[base + (size_t)k * f + c] = ai[i][j];
-        if (gated) dwg[base + (size_t)k * f + c] = ag[i][j];
-        dwo[base + (size_t)c * d + k] = ao[i][j];
-      }
-    }
+  static __device__ __forceinline__ int padded(int n_) {
+    return (n_ + SK - 1) / SK * SK;
   }
+  __device__ __forceinline__ int depth(int G) const {
+    int K = 0;
+    for (int g_ = 0; g_ < G; ++g_) K += padded(rows(g_));
+    return K;
+  }
+  __device__ __forceinline__ bool slab(int k0, int, int& nk, size_t& r0) {
+    while (k0 >= p0 + padded(n)) {
+      p0 += padded(n);
+      n = rows(++g);
+    }
+    nk = min(nk, n - (k0 - p0));
+    r0 = (size_t)g * M + row_off[(size_t)g * (E + 1) + e] + (k0 - p0);
+    return true;
+  }
+};
+
+// One dW product over the ragged buffer (dw_tile): C (E, Mc, Nc) = A^T B
+// over each expert's runs; A and B are the (G, M, .) buffers.
+template <typename TA, typename TB, int NB>
+__global__ void __launch_bounds__(DwTile<NB>::NT)
+    grouped_dw_kernel(const TA* __restrict__ A, const TB* __restrict__ B0,
+                      const TB* __restrict__ B1, float* __restrict__ C0,
+                      float* __restrict__ C1, const int* __restrict__ row_off,
+                      const int* __restrict__ sizes, int G, int M, int E,
+                      int Mc, int Nc, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.z;
+  const SegmentRuns<DwTile<NB>::SK> runs(row_off, sizes, M, E, e);
+  const size_t c0 = (size_t)e * Mc * Nc;
+  dw_tile<TA, TB, NB>(A, B0, B1, C0 + c0, NB == 2 ? C1 + c0 : nullptr, Mc,
+                      Nc, runs.depth(G), runs, aligned, smem_raw);
 }
 
 template <typename T, int BM, int WM, int WN, int P, bool kGated>
@@ -254,17 +236,40 @@ int dx_t(const void* xs, const void* wi, const void* wg, const void* wo,
             act, bm, s);
 }
 
-template <typename T>
-int launch_dw(const void* xs, const void* dy, const void* da, const void* dg,
-              const void* h, const void* row_off, const void* sizes,
-              void* dwi, void* dwg, void* dwo, int G, int M, int d, int f,
-              int E, cudaStream_t stream) {
-  const int tiles = ((d + TD - 1) / TD) * ((f + TF - 1) / TF);
-  grouped_dw_kernel<T><<<dim3(tiles, E, G), kThreads, 0, stream>>>(
-      (const T*)xs, (const T*)dy, (const float*)da, (const float*)dg,
-      (const float*)h, (const int*)row_off, (const int*)sizes, (float*)dwi,
-      (float*)dwg, (float*)dwo, M, d, f, E);
+template <typename TA, typename TB, int NB>
+int launch_dw_product(const TA* A, const TB* B0, const TB* B1, float* C0,
+                      float* C1, const int* row_off, const int* sizes, int G,
+                      int M, int E, int Mc, int Nc, cudaStream_t stream) {
+  constexpr size_t smem = dw_ring_bytes<TA, TB, NB>();
+  auto kernel = grouped_dw_kernel<TA, TB, NB>;
+  allow_smem(kernel, smem);
+  const bool aligned = dw_aligned<TA, TB>(A, B0, B1, Mc, Nc);
+  using D = DwTile<NB>;
+  const dim3 grid((Mc + D::BM - 1) / D::BM, (Nc + BN - 1) / BN, E);
+  kernel<<<grid, D::NT, smem, stream>>>(
+      A, B0, B1, C0, C1, row_off, sizes, G, M, E, Mc, Nc, aligned);
   return (int)cudaGetLastError();
+}
+
+// Two launches: dwi [and dwg] = x^T da [, x^T dg], then dwo = h^T dy.
+template <typename T>
+int dw_t(const void* xs, const void* dy, const void* da, const void* dg,
+         const void* h, const void* row_off, const void* sizes, void* dwi,
+         void* dwg, void* dwo, int G, int M, int d, int f, int E,
+         cudaStream_t s) {
+  const int* ro = (const int*)row_off;
+  const int* n = (const int*)sizes;
+  const int rc =
+      dg ? launch_dw_product<T, float, 2>(
+               (const T*)xs, (const float*)da, (const float*)dg,
+               (float*)dwi, (float*)dwg, ro, n, G, M, E, d, f, s)
+         : launch_dw_product<T, float, 1>(
+               (const T*)xs, (const float*)da, nullptr, (float*)dwi,
+               nullptr, ro, n, G, M, E, d, f, s);
+  if (rc != 0) return rc;
+  return launch_dw_product<float, T, 1>((const float*)h, (const T*)dy,
+                                        nullptr, (float*)dwo, nullptr, ro, n,
+                                        G, M, E, f, d, s);
 }
 
 }  // namespace
@@ -297,20 +302,22 @@ extern "C" int grouped_mlp_dx(const void* xs, const void* wi, const void* wg,
 
 // xs, dy (G,M,d) of one type; da, dg (null when ungated), h (G,M,f) f32
 // from grouped_mlp_dx; row_off (G,E+1) and group_sizes (G,E) int32 ->
-// per-group f32 dwi, dwg (G,E,d,f) and dwo (G,E,f,d).
+// f32 dwi, dwg (E,d,f) and dwo (E,f,d), summed over the groups.
 extern "C" int grouped_mlp_dw(const void* xs, const void* dy, const void* da,
                               const void* dg, const void* h,
                               const void* row_off, const void* sizes,
                               void* dwi, void* dwg, void* dwo, int G, int M,
                               int d, int f, int E, int bf16, void* stream) {
-  if (M % kRowBlock != 0 || E < 1 || (dg == nullptr) != (dwg == nullptr)) {
+  if (G < 1 || M < 1 || M % kRowBlock != 0 || d < 1 || f < 1 || E < 1 ||
+      E > 65535 || (long long)G * M > 0x7fffffff ||
+      (dg == nullptr) != (dwg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = torch_stream(stream);
   if (bf16) {
-    return launch_dw<__nv_bfloat16>(xs, dy, da, dg, h, row_off, sizes, dwi,
-                                    dwg, dwo, G, M, d, f, E, s);
+    return dw_t<__nv_bfloat16>(xs, dy, da, dg, h, row_off, sizes, dwi, dwg,
+                               dwo, G, M, d, f, E, s);
   }
-  return launch_dw<float>(xs, dy, da, dg, h, row_off, sizes, dwi, dwg, dwo,
-                          G, M, d, f, E, s);
+  return dw_t<float>(xs, dy, da, dg, h, row_off, sizes, dwi, dwg, dwo, G, M,
+                     d, f, E, s);
 }

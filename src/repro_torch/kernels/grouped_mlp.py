@@ -2,8 +2,8 @@
 helpers and the CUDA kernel wrappers (port of
 ``repro/kernels/grouped_mlp.py``; forward kernel in
 ``csrc/grouped_mlp.cu``, the dx and dW kernels in
-``csrc/grouped_mlp_bwd.cu``; the forward and dx run on the tensor-core
-GEMM of ``csrc/expert_gemm.cuh``).
+``csrc/grouped_mlp_bwd.cu``; all three run on the tensor-core GEMM of
+``csrc/expert_gemm.cuh``).
 
 Layout contract (shared with core/moe.py): tokens arrive as an
 expert-sorted stream ``xs (G, M, d)`` in which expert e's valid rows
@@ -247,11 +247,13 @@ def grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes, *,
 
 def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
                         block: int = ROW_BLOCK):
-    """Per-group float32 dW of :func:`grouped_mlp_cuda`, on the card:
-    one thread block per (64 x 64 tile, expert, group) walks the expert's
-    segment of valid rows over ``da``, ``dg`` (None when ungated) and
-    ``h`` from :func:`grouped_mlp_dx_cuda`. Returns (dwi, dwg, dwo) of
-    shapes (G, E, d, f) / (G, E, f, d); an empty expert gets zeros."""
+    """float32 dW of :func:`grouped_mlp_cuda`, summed over the groups, on
+    the card: one thread block per (128 x 128 output tile, expert) walks
+    the expert's segment of valid rows in every group over ``da``, ``dg``
+    (None when ungated) and ``h`` from :func:`grouped_mlp_dx_cuda`, on
+    tensor cores, and writes each sum once (the TPU kernel writes
+    per-group outputs, summed outside it). Returns (dwi, dwg, dwo) of
+    shapes (E, d, f) / (E, f, d); an expert with no rows gets zeros."""
     name = "grouped MLP dW kernel"
     G, M, d = xs.shape
     E, f = group_sizes.shape[1], da.shape[-1]
@@ -271,10 +273,13 @@ def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
                          f"{tuple(da.shape)} and int32 group_sizes "
                          f"{tuple(group_sizes.shape)} disagree")
     dev, f32 = xs.device, torch.float32
-    # Every (tile, expert, group) block writes its whole tile.
-    dwi = torch.empty((G, E, d, f), dtype=f32, device=dev)
-    dwg = torch.empty_like(dwi) if dg is not None else None
-    dwo = torch.empty((G, E, f, d), dtype=f32, device=dev)
+    # Every (tile, expert) block writes its whole tile; no rows, no launch.
+    alloc = torch.zeros if G * M == 0 else torch.empty
+    dwi = alloc((E, d, f), dtype=f32, device=dev)
+    dwg = alloc((E, d, f), dtype=f32, device=dev) if dg is not None else None
+    dwo = alloc((E, f, d), dtype=f32, device=dev)
+    if G * M == 0:
+        return dwi, dwg, dwo
     row_off, _ = ragged_row_offsets(group_sizes, block)
     row_off = row_off.to(torch.int32).contiguous()
     KERNEL_DW.launch(
@@ -290,15 +295,14 @@ def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
 def grouped_mlp_bwd_cuda(xs, wi, wg, wo, dy, group_sizes, *,
                          act: str = "silu", block: int = ROW_BLOCK):
     """Gradients (dx, dwi, dwg, dwo) of :func:`grouped_mlp_cuda`: the dx
-    kernel, then the dW kernel, the per-group dW summed over G here in
-    float32 and cast to the weights' dtype. dwg is None when wg is."""
+    kernel, then the dW kernel, whose float32 sums over the groups are
+    cast to the weights' dtype. dwg is None when wg is."""
     dx, da, dg, h = grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes,
                                         act=act, block=block)
     dwi, dwg, dwo = grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes,
                                         block=block)
-    return (dx, dwi.sum(0).to(wi.dtype),
-            None if dwg is None else dwg.sum(0).to(wg.dtype),
-            dwo.sum(0).to(wo.dtype))
+    return (dx, dwi.to(wi.dtype), None if dwg is None else dwg.to(wg.dtype),
+            dwo.to(wo.dtype))
 
 
 def _ptr(t):

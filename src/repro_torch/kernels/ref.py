@@ -158,15 +158,16 @@ def grouped_mlp_dx_ref(xs, wi, wg, wo, dy, group_sizes, *, block: int,
 
 
 def grouped_mlp_dw_ref(xs, dy, da, dg, h, group_sizes, *, block: int):
-    """Per-group float32 dW over each expert segment's valid rows:
-    dwi = x^T da, dwg = x^T dg (None when dg is), dwo = h^T dy, shapes
-    (G, E, d, f) / (G, E, f, d); an empty expert gets zeros."""
+    """float32 dW over each expert segment's valid rows, summed over the
+    groups in float32 (group after group): dwi = x^T da, dwg = x^T dg
+    (None when dg is), dwo = h^T dy, shapes (E, d, f) / (E, f, d); an
+    expert with no rows gets zeros."""
     f32 = torch.float32
-    G, _, d = xs.shape
+    d = xs.shape[-1]
     E, f = group_sizes.shape[1], da.shape[-1]
-    dwi = torch.zeros((G, E, d, f), dtype=f32, device=xs.device)
+    dwi = torch.zeros((E, d, f), dtype=f32, device=xs.device)
     dwg = None if dg is None else torch.zeros_like(dwi)
-    dwo = torch.zeros((G, E, f, d), dtype=f32, device=xs.device)
+    dwo = torch.zeros((E, f, d), dtype=f32, device=xs.device)
     row_off, _ = ragged_row_offsets(group_sizes, block)
     sizes, starts = group_sizes.tolist(), row_off.tolist()
     for g, row in enumerate(sizes):
@@ -175,26 +176,25 @@ def grouped_mlp_dw_ref(xs, dy, da, dg, h, group_sizes, *, block: int):
                 continue
             s = starts[g][e]
             x = xs[g, s:s + n].float()
-            dwi[g, e] = x.T @ da[g, s:s + n]
+            dwi[e] += x.T @ da[g, s:s + n]
             if dg is not None:
-                dwg[g, e] = x.T @ dg[g, s:s + n]
-            dwo[g, e] = h[g, s:s + n].T @ dy[g, s:s + n].float()
+                dwg[e] += x.T @ dg[g, s:s + n]
+            dwo[e] += h[g, s:s + n].T @ dy[g, s:s + n].float()
     return dwi, dwg, dwo
 
 
 def grouped_mlp_bwd_ref(xs, wi, wg, wo, dy, group_sizes, *, block: int,
                         act: str = "silu"):
     """Backward of :func:`grouped_mlp_ref`: dx (and da, dg, h) per
-    segment, then dW per (group, expert) segment, summed over the groups
-    in float32. Returns (dx, dwi, dwg, dwo) in the inputs' dtypes; dwg
-    is None when wg is."""
+    segment, then dW per expert, summed over the groups in float32.
+    Returns (dx, dwi, dwg, dwo) in the inputs' dtypes; dwg is None when
+    wg is."""
     dx, da, dg, h = grouped_mlp_dx_ref(xs, wi, wg, wo, dy, group_sizes,
                                        block=block, act=act)
     dwi, dwg, dwo = grouped_mlp_dw_ref(xs, dy, da, dg, h, group_sizes,
                                        block=block)
-    return (dx, dwi.sum(0).to(wi.dtype),
-            None if dwg is None else dwg.sum(0).to(wg.dtype),
-            dwo.sum(0).to(wo.dtype))
+    return (dx, dwi.to(wi.dtype), None if dwg is None else dwg.to(wg.dtype),
+            dwo.to(wo.dtype))
 
 
 def expert_ffn_ref(xe, wi, wg, wo, *, act: str = "silu"):

@@ -4,11 +4,13 @@
     o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
 The TPU kernel walks chunks of the sequence and turns them into matmuls;
-this one runs the recurrence step by step, one thread block per (b, h)
-and one thread per state column (its K values in registers), with no
-chunking and no padding. It is
-forward-only, as the reference's is (``ops.rwkv6`` raises when autograd
-would need its gradient).
+this one runs the recurrence step by step on CUDA cores, one thread
+block per (b, h, 64 value columns), each state column's K rows split
+over 4 lanes of a warp (2 at K = 8) whose partial sums meet by shuffles,
+the bonus term factored out as one scalar a step, and the next tile of
+steps staged while the current one is walked; no chunking and no
+padding. It is forward-only, as the reference's is (``ops.rwkv6``
+raises when autograd would need its gradient).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("rwkv6", "rwkv6_fwd", [_P] * 8 + [_I] * 6 + [_P])
 HEAD_SIZES = (8, 16, 32, 64)  # the kernel's K template instances
-MAX_V = 1024  # one thread per state column
+MAX_V = 1024  # value columns the kernel takes
 
 
 def rwkv6_cuda(r, k, v, w, u, initial_state=None):

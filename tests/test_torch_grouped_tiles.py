@@ -7,7 +7,11 @@ layout (``block_tables``, held against the JAX package's in
 ``test_torch_moe.py``) is computed by exactly one tile, no tile crosses
 its expert's segment, the live tiles fit the static grid
 (``tile_slots``), and every dead block is zero-filled by exactly one
-spare slot."""
+spare slot. The dW kernel's depth walk (``SegmentRuns`` in
+``csrc/grouped_mlp_bwd.cu``, mirrored by ``_dw_depth_walk``): each
+expert's block reads every valid row of its segments in every group
+once, in group order, in slabs that never cross a group, and no dead
+row."""
 import numpy as np
 import pytest
 import torch
@@ -47,6 +51,86 @@ def _ragged_tile_map(sizes, M: int, bm: int, slots: int):
         if first < M:
             dead[i % nspare].append(first)
     return tiles, dead
+
+
+# The dW kernel's slab depth (kDwSK in csrc/expert_ffn.cuh).
+DW_SLAB = 64
+
+
+def _dw_depth_walk(sizes, row_off, M: int, e: int):
+    """The slabs one dW block of expert ``e`` stages, in the kernel's
+    arithmetic: ``sizes`` (G, E) valid rows, ``row_off`` (G, E + 1)
+    segment starts. Each group's run is padded to whole slabs; a cursor
+    (run g from padded depth p0, n valid rows) moves on as the slabs are
+    asked for in increasing depth. Returns [(first buffer row, rows)]
+    (an empty list: the block writes its zero sums)."""
+    G = len(sizes)
+    pad = lambda n: -(-n // DW_SLAB) * DW_SLAB  # noqa: E731
+    rows = lambda g: max(int(sizes[g][e]), 0)  # noqa: E731
+    K = sum(pad(rows(g)) for g in range(G))
+    slabs, g, p0, n = [], -1, 0, 0
+    for k0 in range(0, K, DW_SLAB):
+        while k0 >= p0 + pad(n):
+            p0 += pad(n)
+            g += 1
+            n = rows(g)
+        nk = min(DW_SLAB, K - k0, n - (k0 - p0))
+        slabs.append((g * M + int(row_off[g][e]) + k0 - p0, nk))
+    return slabs
+
+
+def _check_dw_walk(sizes, M):
+    """Every expert's slabs against its segments' valid rows."""
+    sizes = np.asarray(sizes, np.int64)
+    G, E = sizes.shape
+    row_off, _ = gm.ragged_row_offsets(torch.tensor(sizes), ROW)
+    row_off = row_off.numpy()
+    _, bl = gm.block_tables(torch.tensor(sizes, dtype=torch.int32), ROW,
+                            M // ROW)
+    live = np.repeat(bl.numpy() == 1, ROW, axis=1).reshape(-1)  # (G M,)
+    for e in range(E):
+        slabs = _dw_depth_walk(sizes, row_off, M, e)
+        read = [r for r0, nk in slabs for r in range(r0, r0 + nk)]
+        want = [g * M + int(row_off[g, e]) + i for g in range(G)
+                for i in range(int(sizes[g, e]))]
+        assert read == want, e  # every valid row once, in group order
+        for r0, nk in slabs:
+            assert 0 < nk <= DW_SLAB
+            assert r0 // M == (r0 + nk - 1) // M  # a slab in one group
+        assert live[read].all() if read else not slabs  # no dead row
+        assert len(slabs) == sum(-(-int(n) // DW_SLAB)
+                                 for n in sizes[:, e])
+
+
+def test_dw_walk_reads_each_valid_row_once():
+    """Seeded random size vectors over 1 to 5 groups (empty experts,
+    one-expert pile-ups, an expert empty in every group)."""
+    rng = np.random.default_rng(3)
+    for _ in range(120):
+        G = int(rng.integers(1, 6))
+        groups = [_random_sizes(rng) for _ in range(G)]
+        E = len(groups[0][0])
+        sizes = np.zeros((G, E), np.int64)
+        for g, (sz, _) in enumerate(groups):
+            sizes[g, :min(E, len(sz))] = sz[:E]
+        M = max(gm.ragged_buffer_rows(int(sizes[g].sum()), E, ROW)
+                for g in range(G))
+        _check_dw_walk(sizes, M)
+
+
+def test_dw_walk_at_the_training_shape():
+    """Granite's training buffer: two groups of 4,096 tokens x top-8 over
+    32 experts, counts clamped at the capacity 256 (~252 valid rows an
+    expert a group, ~4 slabs), one expert empty in group 0 and one in
+    every group, as chip_smoke.train_cases lays it out."""
+    rng = np.random.default_rng(2)
+    E, N = 32, 4096 * 8
+    w = rng.random((2, E)) + 0.2
+    sizes = np.minimum(np.floor(w / w.sum(-1, keepdims=True) * N),
+                       256).astype(np.int64)
+    sizes[0, 7] = 0
+    sizes[:, 11] = 0
+    _check_dw_walk(sizes, gm.ragged_buffer_rows(N, E, ROW))
 
 
 def _random_sizes(rng):

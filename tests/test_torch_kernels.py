@@ -451,7 +451,7 @@ def test_grouped_backward_kernels_match_plain(cuda, monkeypatch, dtype, act,
     dx, da, dg, h = gm.grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, counts,
                                            act=act)
     dw = gm.grouped_mlp_dw_cuda(xs, dy, da, dg, h, counts)
-    got = (dx, *(None if w is None else w.sum(0).to(dtype) for w in dw))
+    got = (dx, *(None if w is None else w.to(dtype) for w in dw))
     want = ref.grouped_mlp_bwd_ref(xs, wi, wg, wo, dy, counts,
                                    block=ROW_BLOCK, act=act)
     tol = _tol(dtype)
@@ -462,11 +462,11 @@ def test_grouped_backward_kernels_match_plain(cuda, monkeypatch, dtype, act,
     torch.testing.assert_close(dx, want[0], **tol)
     if dtype == torch.float32:
         # dW against the float64 sums of the same inputs (the dx kernel's
-        # scratch), so that only the dW kernel's order is held. Its
-        # row-after-row float32 sum over a segment deeper than 128 rows
-        # (300 here; the serve skew's largest) parts from float64 by more
-        # than the float32 tolerance, as a row-after-row float32 sum in
-        # numpy does on these inputs: such cases take 1e-4.
+        # scratch), so that only the dW kernel's order is held. A float32
+        # sum over a segment deeper than 128 rows (300 here; the serve
+        # skew's largest) may part from float64 by more than the float32
+        # tolerance, as a row-after-row float32 sum in numpy does on these
+        # inputs: such cases take 1e-4.
         row_off, _ = ragged_row_offsets(counts, ROW_BLOCK)
         x64, dy64 = xs.double(), dy.double()
 
@@ -507,6 +507,75 @@ def test_grouped_backward_kernels_match_plain(cuda, monkeypatch, dtype, act,
     for w in got[1:]:
         if w is not None:
             assert bool((w[idle] == 0).all())
+
+
+# (counts (G, E), d, f) for the dW kernel's walk over each expert's
+# segments in every group: segments around the 64-row slab (63, 64, 65,
+# 200 rows in each group); an expert empty in every group, experts live
+# in one group only; three groups, rows not 16-byte aligned (d 97, f
+# 130: staged element by element) and an expert empty everywhere.
+GROUPED_DW_CASES = [
+    ([[63, 64, 65, 200], [200, 65, 64, 63]], 128, 96),
+    ([[0, 70, 0, 5], [0, 0, 130, 0]], 96, 160),
+    ([[33, 0, 64], [0, 0, 1], [17, 0, 0]], 97, 130),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("case", GROUPED_DW_CASES)
+def test_grouped_dw_kernel_walks_segments(cuda, dtype, gated, case):
+    """The dW kernel sums every group's segment of an expert in one
+    block: against float64 sums over the valid rows, with every other
+    row of its inputs NaN (a row read past a segment shows); zeros for an
+    expert with no rows; two calls give the same bits."""
+    from repro_torch.kernels import grouped_mlp as gm
+
+    counts, d, f = case
+    rng = np.random.default_rng(9)
+    E = len(counts[0])
+    xs, dy, counts = _ragged(rng, cuda, dtype, counts, E, d)
+    G, M, _ = xs.shape
+    row_off, _ = ragged_row_offsets(counts, ROW_BLOCK)
+    valid = torch.zeros(G, M, dtype=torch.bool, device=cuda)
+    for g_, row in enumerate(counts.tolist()):
+        for e, n in enumerate(row):
+            s = int(row_off[g_, e])
+            valid[g_, s:s + n] = True
+    nan = float("nan")
+    xs, dy = (t.masked_fill(~valid[..., None], nan) for t in (xs, dy))
+    t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                               device=cuda).masked_fill(~valid[..., None],
+                                                        nan)
+    da, h = t(rng.normal(size=(G, M, f))), t(rng.normal(size=(G, M, f)))
+    dg = t(rng.normal(size=(G, M, f))) if gated else None
+    dw = gm.grouped_mlp_dw_cuda(xs, dy, da, dg, h, counts)
+    again = gm.grouped_mlp_dw_cuda(xs, dy, da, dg, h, counts)
+
+    def dw64(a, b):
+        out = torch.zeros((E, a.shape[-1], b.shape[-1]),
+                          dtype=torch.float64, device=cuda)
+        for g_, row in enumerate(counts.tolist()):
+            for e, n in enumerate(row):
+                s = int(row_off[g_, e])
+                out[e] += a[g_, s:s + n].double().T @ b[g_, s:s + n].double()
+        return out
+
+    want = (dw64(xs, da), None if dg is None else dw64(xs, dg),
+            dw64(h, dy))
+    # As test_grouped_backward_kernels_match_plain holds the f32 dW.
+    tol = (_tol(torch.float32) if int(counts.max()) <= 128
+           else dict(atol=1e-4, rtol=1e-4))
+    idle = (counts == 0).all(0)
+    for got, rep, w in zip(dw, again, want):
+        if w is None:
+            assert got is None and rep is None
+            continue
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        torch.testing.assert_close(got.double(), w, **tol)
+        assert torch.equal(got, rep)
+        assert bool((got[idle] == 0).all())
 
 
 @pytest.mark.cuda
@@ -699,15 +768,21 @@ def test_expert_forward_tilings(cuda, dtype, act, gated, case):
     assert bool((y[-1, -1, -1] == 0).all())
 
 
-# B, T, H, K, V, with_state: T not a multiple of the staged tile, V != K
-# (and V not a multiple of a warp), T = 1 (a decode step), every head
-# size the kernel is built for.
+# B, T, H, K, V, with_state: T not a multiple of the staged tile (16
+# steps) and crossing two or more, V != K (and V not a multiple of a
+# warp; V = 12 and bf16 V = 300 rows not 16-byte aligned: plain loads),
+# T = 1 (a decode step), every head size the kernel is built for (K = 8:
+# 2 lanes a column, else 4), V > 256 and V = 1024 (several 64-column
+# blocks, the last one partial at V = 300).
 RWKV_CASES = [
     (2, 37, 2, 8, 8, False),
     (1, 64, 4, 16, 16, True),
     (2, 33, 2, 8, 12, True),
     (3, 1, 2, 64, 64, True),
     (1, 70, 1, 32, 40, False),
+    (2, 40, 2, 8, 64, True),
+    (1, 20, 2, 16, 300, True),
+    (1, 5, 1, 64, 1024, True),
 ]
 
 
@@ -752,6 +827,21 @@ def test_rwkv6_kernel_matches_plain(cuda, dtype, case):
     o2, s2 = ops.rwkv6(*args[:5], initial_state=args[5])
     assert wkv.KERNEL.launches == before + 2
     torch.testing.assert_close(o2, o, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RWKV_CASES)
+def test_rwkv6_kernel_repeats_its_bits(cuda, dtype, case):
+    """Every sum of the WKV kernel (the lanes' partial sums, their
+    shuffle tree, the bonus scalar) has one fixed order."""
+    from repro_torch.kernels import rwkv6 as wkv
+
+    rng = np.random.default_rng(sum(case) + 1)
+    args = _wkv_inputs(rng, cuda, dtype, *case)
+    first = wkv.rwkv6_cuda(*args)
+    for a, b in zip(first, wkv.rwkv6_cuda(*args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -158,6 +158,117 @@ def test_wkv_cuda_path_launches_or_raises(monkeypatch):
     assert rg.grad is not None and bool(torch.isfinite(rg.grad).all())
 
 
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the product exact in float64, one rounding
+    to float32 (a second rounding of the float64 sum aside)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _wkv_lane_split(r, k, v, w, u, s0, P):
+    """A float32 mirror of the WKV kernel's order (csrc/rwkv6.cu), numpy
+    arrays in and out: each step's bonus scalar beta = sum_i r_i u_i k_i
+    as 32 lane sums (lane l over i = l, l + 32, ...) and a shuffle tree;
+    state column j's rows split over P lanes, lane p holding the 4-row
+    chunks p, p + P, ..., its running sum acc = fma(r, S, acc) over its
+    rows in order and S = fma(w, S, k v), the lanes' shuffle tree, then
+    o = fma(v, beta, sum)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = np.float32
+    S = (np.zeros((B, H, K, V), f32) if s0 is None else s0.astype(f32))
+    NC = K // (4 * P)
+    # rows[p, cc, q]: lane p's row q of its chunk cc.
+    rows = 4 * (np.arange(NC)[None, :, None] * P
+                + np.arange(P)[:, None, None]) + np.arange(4)
+    lane = np.arange(32)
+    o = np.empty((B, T, H, V), f32)
+    for t in range(T):
+        rt, kt, wt, vt = r[:, t], k[:, t], w[:, t], v[:, t]
+        part = np.zeros((B, H, 32), f32)
+        for i0 in range(0, K, 32):
+            n = min(32, K - i0)
+            i = slice(i0, i0 + n)
+            part[..., :n] = _fma(rt[..., i] * u[None, :, i], kt[..., i],
+                                 part[..., :n])
+        for m in (16, 8, 4, 2, 1):
+            part = part + part[..., lane ^ m]
+        beta = part[..., 0]
+        tot = np.zeros((B, H, P, V), f32)
+        Sl = S[:, :, rows]  # (B, H, P, NC, 4, V)
+        for cc in range(NC):
+            for q in range(4):
+                i = rows[:, cc, q]
+                ri, ki, wi = (x[:, :, i][..., None] for x in (rt, kt, wt))
+                tot = _fma(ri, Sl[:, :, :, cc, q], tot)
+                Sl[:, :, :, cc, q] = _fma(wi, Sl[:, :, :, cc, q],
+                                          ki * vt[:, :, None, :])
+        S[:, :, rows] = Sl
+        m = 1
+        while m < P:
+            tot = tot + tot[:, :, np.arange(P) ^ m]
+            m <<= 1
+        o[:, t] = _fma(vt, beta[..., None], tot[:, :, 0])
+    return o, S
+
+
+def _wkv_config_inputs(B, T, H, K, seed):
+    """WKV inputs as chip_smoke.wkv_case makes them: r, k, v standard
+    normal, u ~ 0.3 N(0, 1), s0 standard normal, and the config's decays
+    w = exp(-exp(w0 + 0.5 N(0, 1))) over time_mix_init's w0 spread (-5
+    at the first channel to 3 at the last), some w near 1, some below
+    1e-9."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    d = H * K
+    w0 = -5.0 + 8.0 * (np.arange(d) / (d - 1)) ** 0.7
+    w = np.exp(-np.exp(w0 + 0.5 * rng.normal(size=(B, T, d))))
+    r, k, v = (rng.normal(size=(B, T, H, K)).astype(f32) for _ in range(3))
+    return (r, k, v, w.reshape(B, T, H, K).astype(f32),
+            (0.3 * rng.normal(size=(H, K))).astype(f32),
+            rng.normal(size=(B, H, K, K)).astype(f32))
+
+
+@pytest.mark.parametrize("inputs", ["card test", "config decays"])
+def test_wkv_kernel_order_matches_the_oracles(inputs):
+    """The WKV kernel's summation order, mirrored in float32 (bonus
+    factored out, 8 lanes a column, their shuffle tree), against the
+    port's sequential oracle and the reference's, at T 512 and K = V =
+    64: element by element within the card test's float32 tolerance
+    (1e-5) on its inputs, and within chip_smoke's (WKV_RTOL["oracle"]:
+    1e-5 of the largest |o| and, apart, of the largest |S|) at the
+    config's decays, whose state grows over ~150 steps."""
+    B, T, H, K = 1, 512, 2, 64
+    if inputs == "card test":
+        r, k, v, w, u, s0 = _wkv_inputs((B, T, H, K, K, 0, True, ""),
+                                        seed=5)
+    else:
+        r, k, v, w, u, s0 = _wkv_config_inputs(B, T, H, K, seed=5)
+    got = _wkv_lane_split(r, k, v, w, u, s0, P=8)
+    ts = [_t(x) for x in (r, k, v, w, u, s0)]
+    tref = ref.rwkv6_ref(*ts[:5], initial_state=ts[5])
+    jw = jref.rwkv6_ref(*(jnp.asarray(x) for x in (r, k, v, w, u)),
+                        initial_state=jnp.asarray(s0))
+    for want in ((tref[0].numpy(), tref[1].numpy()),
+                 (np.asarray(jw[0]), np.asarray(jw[1]))):
+        for a, b in zip(got, want):
+            assert np.isfinite(a).all()
+            if inputs == "card test":
+                np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
+            else:
+                assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_wkv_kernel_order_with_two_lanes():
+    """K = 8 runs 2 lanes a column: the mirror with P = 2 against the
+    sequential oracle, as above."""
+    r, k, v, w, u, s0 = _wkv_inputs((2, 40, 2, 8, 12, 0, True, ""), seed=6)
+    got = _wkv_lane_split(r, k, v, w, u, s0, P=2)
+    ts = [_t(x) for x in (r, k, v, w, u, s0)]
+    want = ref.rwkv6_ref(*ts[:5], initial_state=ts[5])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # time-mix and channel-mix
 # ---------------------------------------------------------------------------

@@ -174,3 +174,52 @@ def test_three_tf32_products_hold_dw_at_its_own_scale(case):
     three = limit_ratio(three_products(a, b), ref)
     plain = limit_ratio(a @ b, ref)
     assert three <= 2 * plain + 0.01, (three, plain)
+
+
+def slab_order(a, b, runs, slab=64, part=32):
+    """a^T b as the grouped dW kernel sums it (csrc/grouped_mlp_bwd.cu):
+    the depth rows of ``a`` (depth, M) and ``b`` (depth, N) come in runs
+    (one a group), each padded to whole ``slab``-deep slabs with zero
+    rows; every ``part``-deep part of a slab is three TF32 products
+    summed from zero (exact products, rounded once to float32 here) and
+    added to the float32 sums, part after part, run after run."""
+    acc = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+    r0 = 0
+    for n in runs:
+        pad = -(-n // slab) * slab
+        za = torch.zeros(pad, a.shape[1])
+        zb = torch.zeros(pad, b.shape[1])
+        za[:n], zb[:n] = a[r0:r0 + n], b[r0:r0 + n]
+        for k in range(0, pad, part):
+            acc = acc + three_products(za[k:k + part].T.contiguous(),
+                                       zb[k:k + part]).float()
+        r0 += n
+    return acc
+
+
+@pytest.mark.parametrize("case", ["x^T da", "h^T dy"])
+def test_three_tf32_slabs_hold_grouped_dw_over_two_groups(case):
+    """The grouped dW's order over two groups' segments of one expert at
+    granite's depth (250 + 254 valid rows, ~4 slabs each; d 1024 cut to
+    128 columns, f 512 to 96), silu gated as granite runs it: the slab
+    sums stay as close to the float64 product as one float32 product
+    over the same rows, and within the float32 tolerance, which one TF32
+    product misses."""
+    rng = np.random.default_rng(4)
+    runs, n = (250, 254), 504
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    a_pre, g = t(rng.normal(size=(n, 96))), t(rng.normal(size=(n, 96)))
+    if case == "x^T da":
+        dh = t(rng.normal(size=(n, 96)) * 0.5)
+        da = torch.ops.aten.silu_backward(dh * g, a_pre)
+        a, b = t(rng.normal(size=(n, 128))), da
+    else:
+        h = torch.nn.functional.silu(a_pre) * g
+        a, b = h, t(rng.normal(size=(n, 128)))
+    ref = a.double().T @ b.double()
+    slabs = limit_ratio(slab_order(a, b, runs), ref)
+    plain = limit_ratio(a.T @ b, ref)
+    one = limit_ratio(one_product(a.T.contiguous(), b), ref)
+    assert slabs <= 2 * plain + 0.01, (slabs, plain)  # measured ~0.02-0.04
+    assert slabs < 0.05, slabs
+    assert one > 1.0, one  # one TF32 product misses the tolerance
