@@ -14,9 +14,10 @@ any failure, before printing its result line. It
 2. holds each kernel against its plain PyTorch version on the card —
    the serve kernels at the serve shapes below in float32 and bfloat16,
    the training kernels (flash attention forward, dq, dk/dv; grouped
-   forward, dx, dW) at the training shapes in float32, the expert-FFN kernels
-   (forward, dx, dW) and the flash kernels without the causal mask at
-   the ViT-B/16 shapes — and times on the device's clock the kernel,
+   forward, dx, dW) at the training shapes in float32 (the flash kernels
+   also at the score sizes of granite's reference init), the expert-FFN
+   kernels (forward, dx, dW) and the flash kernels without the causal
+   mask at the ViT-B/16 shapes — and times on the device's clock the kernel,
    the plain version and (where one exists) a PyTorch library yardstick
    computing the same function;
 3. builds granite-moe-1b-a400m at full width with the package's own
@@ -70,7 +71,22 @@ any failure, before printing its result line. It
     (the WKV and expert-FFN kernels); then holds and times the expert
     FFN at the prefill's (cap 1024) and a decode step's (cap 8) buffer
     with one MoE layer's weights;
-12. prints one JSON line of per-kernel numbers (all twelve kernels),
+12. runs the paper's chain through the port's checkpoints, Trainer and
+    launchers at full width and depth, in a temporary directory: granite's
+    dense parent trains 4 steps through the ``Trainer`` from the
+    reference init (batch 8 x 512, checkpoints every 2 steps); the same
+    run is killed after step 3 and resumes from step 2 (the restored
+    state bit-identical to the state saved, the replayed losses within
+    LOSS_RTOL); ``launch.train.upcycle_from`` restores the dense params
+    bit for bit from the full train-state checkpoint and upcycles them
+    into granite-moe-1b-a400m, which trains 2 steps (sorted dispatch) to
+    a checkpoint; ``launch.serve.load_params`` restores it bit for bit
+    and the 12 requests of 4 are served from it and from the Trainer's
+    in-memory params (both conditioned as in 4), token-identical; then ``launch.train.main --upcycle-from``
+    and ``launch.serve.main --ckpt-dir --paged`` run once each. Every
+    step's launches are counted; every save and restore is timed (bytes,
+    seconds, GB/s);
+13. prints one JSON line of per-kernel numbers (all twelve kernels),
     then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -887,6 +903,52 @@ def wkv_err(y, y_ref, rtol):
         e = float((a - b).abs().max())
         errs.append((e, e / (rtol * max(float(b.abs().max()), 1e-30))))
     return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+# The flash kernels at the score sizes of granite's reference init (q
+# and k of 10 N(0, 1) elements: |q|, |k| ~ 30-40), held at the card
+# tests' float32 tolerance (tests/test_torch_kernels.py::
+# test_flash_kernels_hold_large_scores): (B, S, H, Kh, causal).
+LARGE_SCORE_CASES = ((2, 128, 16, 8, True), (2, 196, 12, 12, False))
+LARGE_SCORE_TOL = (1e-5, 1e-5)
+
+
+def check_flash_large_scores(device) -> None:
+    """The flash forward, dq and dk/dv against their plain versions at
+    large scores, where exp() turns a score's rounding into the output's
+    and ds = p (dP - delta) cancels: prints each output's max |kernel -
+    plain| and its ratio to LARGE_SCORE_TOL; fails above 1."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for B, S, H, Kh, causal in LARGE_SCORE_CASES:
+        q, k, v, do = (torch.randn(B, S, h, 64, generator=gen,
+                                   device=device) for h in (H, Kh, Kh, H))
+        q, k = 10 * q, 10 * k
+        qo, kl = fa.scalar_i32(0, device), fa.scalar_i32(S, device)
+        kw = dict(causal=causal, q_offset=qo, kv_len=kl)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, qo, kl, causal=causal)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, **kw)
+        delta = fa.attention_delta(o_ref, do)
+        args = (q, k, v, do, lse_ref, delta, qo, kl)
+        got = (o, lse, fa.flash_attention_dq_cuda(*args, causal=causal),
+               *fa.flash_attention_dkv_cuda(*args, causal=causal))
+        want = (o_ref, lse_ref,
+                *ref.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                             **kw))
+        errs = {n: _max_err(g, w, *LARGE_SCORE_TOL) for n, g, w in zip(
+            ("o", "lse", "dq", "dk", "dv"), got, want)}
+        print(f"[train-kernel] flash at large scores ({B}, {S}, {H}/{Kh}, "
+              f"64){' causal' if causal else ''}, max |q| "
+              f"{float(q.abs().max()):.1f}, |k| {float(k.abs().max()):.1f}: "
+              + ", ".join(f"{n} {e:.3e} ({r:.3f} of the limit)"
+                          for n, (e, r) in errs.items()), flush=True)
+        if any(r > 1.0 for _, r in errs.values()):
+            fail(f"a flash kernel left the float32 tolerance at large "
+                 f"scores: {errs}")
 
 
 def check_train_kernels(cfg, device):
@@ -1707,6 +1769,31 @@ def _sync_ms(t0) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def step_launches(cfg, kernels, moe: bool) -> dict:
+    """The launches one training step must make: each attention kernel
+    once a layer, and in a MoE step each of the path's expert kernels
+    once a MoE layer."""
+    from repro_torch.models import stack as stk
+
+    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
+    want = {k: cfg.n_layers for k in FLASH_KERNELS}
+    want.update({k: n_moe if moe else 0 for k in kernels
+                 if k not in FLASH_KERNELS})
+    return want
+
+
+def check_step(name, tag, m, per, want) -> None:
+    """A training step's checks: finite metrics, not skipped by the
+    non-finite guard, and exactly the launches ``want`` names."""
+    if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                   m.values())):
+        fail(f"{name} {tag} step: non-finite metrics {m}")
+    if m["skipped"]:
+        fail(f"{name} {tag} step was skipped by the non-finite guard")
+    if any(per.get(k, 0) != v for k, v in want.items()):
+        fail(f"{name} {tag} step launched {per}, expected {want}")
+
+
 def train_path(cfg, device, spec, kernels):
     """Dense parent -> upcycle -> MoE, through the kernels, at full
     width, as ``spec`` (TRAIN, VIT_TRAIN) sets it out. Every kernel in
@@ -1721,7 +1808,6 @@ def train_path(cfg, device, spec, kernels):
     from repro_torch.kernels import ops
     from repro_torch.launch.train import TASK_VOCAB
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.models import stack as stk
     from repro_torch.models.param import count_params, tree_map
     from repro_torch.optim import adafactor, inverse_sqrt
     from repro_torch.training import init_train_state, make_train_step
@@ -1747,8 +1833,6 @@ def train_path(cfg, device, spec, kernels):
           f"tokens a step" + ("" if encoder else
                               f" (task vocab {task.vocab_size})"),
           flush=True)
-    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
-    moe_kernels = [k for k in kernels if k not in FLASH_KERNELS]
     rows = []
 
     def run(step_fn, st, batch, tag):
@@ -1764,15 +1848,8 @@ def train_path(cfg, device, spec, kernels):
               f"dropped={m['dropped_frac_sum']:.4f} "
               f"grad_norm={m['grad_norm']:.5f} skipped={m['skipped']:.0f} "
               f"ms={ms:.1f} launches={ran}", flush=True)
-        if not all(map(lambda x: x == x and abs(x) != float("inf"),
-                       m.values())):
-            fail(f"{tag} step: non-finite metrics {m}")
-        if m["skipped"]:
-            fail(f"{tag} step was skipped by the non-finite guard")
-        want = {k: cfg.n_layers for k in FLASH_KERNELS}
-        want.update({k: n_moe if tag == "moe" else 0 for k in moe_kernels})
-        if any(per[k] != v for k, v in want.items()):
-            fail(f"{name} {tag} step launched {per}, expected {want}")
+        check_step(name, tag, m, per,
+                   step_launches(cfg, kernels, tag == "moe"))
         rows.append((tag, ms, m))
         return st, m
 
@@ -2291,6 +2368,356 @@ def granite_static(params, cfg, device):
                       zip(rows, ("prefill", "prefill", "decode"))]
 
 
+# ---------------------------------------------------------------------------
+# checkpoints and the fault-tolerant Trainer
+# ---------------------------------------------------------------------------
+
+# The checkpoint chain at full width and depth: granite's dense parent
+# (0.164 B params) trained by the Trainer from the reference init, batch
+# 8 x 512, checkpoints every 2 steps; the same run killed after step 3
+# and resumed; restored and upcycled (--upcycle-from) into granite-moe
+# (1.335 B), which trains 2 steps through the sorted dispatch; then
+# restored and served. f32 checkpoints: ~0.66 GB dense (params and
+# Adafactor state), ~5.4 GB MoE.
+CKPT = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, dense_steps=4,
+            moe_steps=2, every=2, crash_after=3, peak_lr=0.01, warmup=100)
+# Free disk the phase needs where it writes: two dense runs of two
+# checkpoints each and the MoE's.
+CKPT_DISK_GB = 12.0
+CKPT_KERNELS = TRAIN_KERNELS + ("decode_attention", "paged_prefill")
+
+
+@contextlib.contextmanager
+def timed_checkpoint_io():
+    """Inside the block every store write and read, and every host
+    snapshot of the manager, is timed: yields a list of (op, path,
+    bytes, seconds), op in "write" (on the caller's thread: a blocking
+    save), "write-async" (the manager's writer thread), "read" and
+    "snapshot" (the host copy ``save`` takes before it returns)."""
+    import threading
+    import torch
+
+    from repro_torch.checkpoint import manager as mgr_mod
+    from repro_torch.checkpoint import store
+    from repro_torch.models.param import tree_leaves
+
+    log = []
+    save_tree, load_tree = store.save_tree, store.load_tree
+    snapshot = mgr_mod.host_snapshot
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    def timed_save(path, tree, **kw):
+        t0 = time.perf_counter()
+        save_tree(path, tree, **kw)
+        dt = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        op = ("write" if threading.current_thread() is
+              threading.main_thread() else "write-async")
+        log.append((op, path, size, dt))
+
+    def timed_load(path, like, **kw):
+        t0 = time.perf_counter()
+        out = load_tree(path, like, **kw)
+        torch.cuda.synchronize()
+        log.append(("read", path, nbytes(out), time.perf_counter() - t0))
+        return out
+
+    def timed_snapshot(tree):
+        t0 = time.perf_counter()
+        out = snapshot(tree)
+        log.append(("snapshot", "", nbytes(out), time.perf_counter() - t0))
+        return out
+
+    store.save_tree, store.load_tree = timed_save, timed_load
+    mgr_mod.host_snapshot = timed_snapshot
+    try:
+        yield log
+    finally:
+        store.save_tree, store.load_tree = save_tree, load_tree
+        mgr_mod.host_snapshot = snapshot
+
+
+def report_io(log, root) -> None:
+    for op, path, size, dt in log:
+        where = str(Path(path).relative_to(root)) if path else "host"
+        print(f"[ckpt] {op} {where}: {size} B in {dt:.3f} s = "
+              f"{size / dt / 1e9:.2f} GB/s", flush=True)
+
+
+def leaf_diff(a, b):
+    """(bit-identical?, max relative difference, its leaf path) of two
+    trees of tensors, leaf by leaf in the store's path order."""
+    import torch
+
+    from repro_torch.checkpoint.store import _flatten
+
+    worst, where = 0.0, None
+    same = True
+    for (p, x), (q, y) in zip(_flatten(a), _flatten(b)):
+        if p != q:
+            fail(f"trees differ in structure at {p} / {q}")
+        y = y.to(x.device)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            same = False
+            d = (x.double() - y.double()).abs().max() / \
+                y.double().abs().max().clamp(min=1e-30)
+            if float(d) > worst:
+                worst, where = float(d), p
+    return same, worst, where
+
+
+def checkpoint_chain(device):
+    """Phase 12: the paper's chain through the port's checkpoints, the
+    Trainer and both launchers, at full width and depth, on the card.
+    Returns the launches of the run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.configs import get_config
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params
+    from repro_torch.obs import Sink, Tracker, deterministic_rows
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.training import (
+        TrainChaosConfig,
+        TrainConfig,
+        Trainer,
+        run_chaotic,
+    )
+
+    class StepSink(Sink):
+        """Keeps each "train" row with the kernel launches made since
+        the row before it (a row follows its step's one host sync)."""
+
+        def __init__(self):
+            self.rows, self.per = [], []
+            self._last = ops.launch_counts()
+
+        def write(self, row):
+            self.rows.append(row)
+            if row["kind"] == "train":
+                now = ops.launch_counts()
+                self.per.append((row, {k: v - self._last[k]
+                                       for k, v in now.items()}))
+                self._last = now
+
+    t_phase = time.perf_counter()
+    full = get_config(CKPT["arch"])
+    dense_cfg = full.dense_parent()
+    serve_cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=float(full.moe.num_experts)))
+    opt = adafactor(inverse_sqrt(peak=CKPT["peak_lr"],
+                                 warmup_steps=CKPT["warmup"]))
+    task = ClusteredBigramTask(vocab_size=min(full.vocab_size, TASK_VOCAB))
+    tc = TrainConfig(checkpoint_every=CKPT["every"])
+
+    def trainer(cfg, d, sink, dispatch="gather", **kw):
+        it = make_iterator(cfg, global_batch=CKPT["batch"],
+                           seq_len=CKPT["seq"], task=task)
+        return Trainer(cfg, opt, it, d, ac=zoo.ApplyCfg(
+            dispatch=dispatch, moe_impl="cuda", attn_impl="cuda"), tc=tc,
+            tracker=Tracker((sink,)), device=device,
+            log_fn=lambda s: print(f"[ckpt] {s}", flush=True), **kw)
+
+    def check_rows(tag, sink, cfg, moe):
+        want = step_launches(cfg, TRAIN_KERNELS, moe)
+        for row, per in sink.per:
+            m = {k: row[k] for k in ("loss", "ce", "grad_norm", "skipped")}
+            print(f"[ckpt] {tag} step {row['t']}: loss={m['loss']!r} "
+                  f"grad_norm={m['grad_norm']!r} ms={row['step_ms']:.1f} "
+                  f"launches={ {k: v for k, v in per.items() if v} }",
+                  flush=True)
+            check_step(cfg.name, tag, m, per, want)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    root = Path(tmp.name)
+    try:
+        free = shutil.disk_usage(root).free / 1e9
+        print(f"[ckpt] writing under {root}: {free:.1f} GB free "
+              f"(needs {CKPT_DISK_GB})", flush=True)
+        if free < CKPT_DISK_GB:
+            fail(f"{free:.1f} GB free under {root}: the checkpoint phase "
+                 f"needs {CKPT_DISK_GB} GB")
+        dirs = {k: str(root / k) for k in ("dense", "resume", "moe",
+                                           "launch")}
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with timed_checkpoint_io() as io:
+            # 1. The dense parent through the Trainer, from the
+            # reference init (no conditioning), as launch/train.py runs.
+            straight = StepSink()
+            out_a = trainer(dense_cfg, dirs["dense"], straight).run(
+                CKPT["dense_steps"])
+            n = count_params(out_a["state"]["params"])
+            steps = CheckpointManager(dirs["dense"]).all_steps()
+            print(f"[ckpt] {dense_cfg.name}: {n / 1e9:.3f} B params, "
+                  f"checkpoints {steps}", flush=True)
+            check_rows("dense", straight, dense_cfg, False)
+            if len(straight.per) != CKPT["dense_steps"]:
+                fail(f"the dense run took {len(straight.per)} steps")
+
+            # 2. Killed after step 3 (before any save of it), resumed
+            # from step 2: the restored state is the one saved.
+            saved, resumed = {}, {}
+            crashed = StepSink()
+
+            def make(chaos, st):
+                tr = trainer(dense_cfg, dirs["resume"], crashed,
+                             chaos=chaos, chaos_state=st)
+                mgr = tr.manager
+                save, restore = mgr.save, mgr.restore_latest
+
+                def keep_save(step, tree, **kw):
+                    if step == CKPT["every"]:
+                        saved["state"] = host_snapshot(tree)
+                    return save(step, tree, **kw)
+
+                def keep_restore(like, **kw):
+                    out = restore(like, **kw)
+                    if out[0] is not None:  # trained in place after
+                        resumed["state"] = host_snapshot(out[0])
+                        resumed["step"] = out[1]
+                    return out
+
+                mgr.save, mgr.restore_latest = keep_save, keep_restore
+                return tr
+
+            out_b, st = run_chaotic(
+                make, CKPT["dense_steps"],
+                TrainChaosConfig(crash_steps=(CKPT["crash_after"],)))
+            if st.crashes != 1 or resumed.get("step") != CKPT["every"]:
+                fail(f"the kill-and-resume run did not resume from step "
+                     f"{CKPT['every']}: {st.summary()}, resumed {resumed}")
+            check_rows("resume", crashed, dense_cfg, False)
+            same, worst, where = leaf_diff(saved["state"], resumed["state"])
+            print(f"[ckpt] resumed state vs the state saved at step "
+                  f"{CKPT['every']}: bit-identical={same}", flush=True)
+            if not same:
+                fail(f"the state restored at resume differs from the state "
+                     f"saved: {worst:.3e} at {where}")
+            del saved, resumed
+            last = {r["t"]: r for r in deterministic_rows(crashed.rows)
+                    if r["kind"] == "train"}
+            ref = {r["t"]: r for r in deterministic_rows(straight.rows)
+                   if r["kind"] == "train"}
+            for t in range(CKPT["every"] + 1, CKPT["dense_steps"] + 1):
+                d = abs(last[t]["loss"] - ref[t]["loss"]) / abs(ref[t]["loss"])
+                print(f"[ckpt] replayed step {t}: loss {last[t]['loss']!r} "
+                      f"vs straight {ref[t]['loss']!r}, rel diff {d:.3e} "
+                      f"(limit {LOSS_RTOL})", flush=True)
+                if not d <= LOSS_RTOL:
+                    fail(f"the replayed step {t} left LOSS_RTOL")
+            same, worst, where = leaf_diff(out_b["state"], out_a["state"])
+            print(f"[ckpt] final state after kill-and-resume vs the straight "
+                  f"run: bit-identical={same}"
+                  + ("" if same else f", max rel diff {worst:.3e} at {where}"),
+                  flush=True)
+            del out_b
+
+            # 3. --upcycle-from: the full train-state checkpoint's params,
+            # upcycled with a generator seeded 7, trained 2 steps.
+            t0 = time.perf_counter()
+            dense, sparse, step = ltrain.upcycle_from(dirs["dense"], full,
+                                                      device=device)
+            print(f"[ckpt] upcycle_from step {step}: "
+                  f"{count_params(sparse) / 1e9:.3f} B params in "
+                  f"{_sync_ms(t0) / 1e3:.2f} s", flush=True)
+            same, worst, where = leaf_diff(dense, out_a["state"]["params"])
+            print(f"[ckpt] restored dense params vs the Trainer's final "
+                  f"params: bit-identical={same}", flush=True)
+            if step != CKPT["dense_steps"] or not same:
+                fail(f"--upcycle-from restored step {step}, params "
+                     f"bit-identical={same} ({worst:.3e} at {where})")
+            del dense, out_a
+            moe_sink = StepSink()
+            out_m = trainer(full, dirs["moe"], moe_sink,
+                            dispatch="sorted").run(CKPT["moe_steps"],
+                                                   init_params=sparse)
+            del sparse
+            check_rows("moe", moe_sink, full, True)
+
+            # 4. Served from the checkpoint, and from the Trainer's
+            # in-memory params: token-identical, no block leaked. Both
+            # trees are conditioned alike first (condition_attention, as
+            # phases 4-5 serve): the sorted dispatch's combine sums with
+            # atomics (scatter_add, core/moe.py), so two runs of one
+            # model differ in the last bits, and at the reference init's
+            # attention scale such bits flip greedy tokens at top-2 gaps
+            # far above TIE_GAP.
+            params, step = lserve.load_params(
+                serve_cfg, device=device,
+                manager=CheckpointManager(dirs["moe"]))
+            same, worst, where = leaf_diff(params, out_m["state"]["params"])
+            print(f"[ckpt] serve restore of step {step} vs the Trainer's "
+                  f"in-memory params: bit-identical={same}", flush=True)
+            if step != CKPT["moe_steps"] or not same:
+                fail(f"serve restored step {step}, bit-identical={same}")
+            for p in (params, out_m["state"]["params"]):
+                condition_attention(p, serve_cfg)
+            sc = ServeConfig(paged=True, **SERVE)
+            outs = {}
+            for tag, p in (("checkpoint", params),
+                           ("in-memory", out_m["state"]["params"])):
+                eng = ServeEngine(p, serve_cfg, sc, device=device)
+                outs[tag], finished, n_gen, wall = serve_once(eng, serve_cfg)
+                es = eng.last_stats
+                print(f"[ckpt] served from the {tag} params: {n_gen} tokens "
+                      f"in {wall:.3f} s, free_blocks_at_close="
+                      f"{es['free_blocks_at_close']}", flush=True)
+                if any(r["status"] != "completed" for r in finished.values()):
+                    fail(f"not every request completed: {finished}")
+            div = first_divergence(outs["checkpoint"], outs["in-memory"],
+                                   serve_cfg)
+            if div is None:
+                print("[ckpt] served tokens identical between the restored "
+                      "and the in-memory params", flush=True)
+            else:
+                rid, k = div
+                gap = top2_gap(eng, outs["checkpoint"][rid][:k])
+                print(f"[ckpt] rid {rid} diverges at token {k}: top-2 gap "
+                      f"{gap:.3e}", flush=True)
+                if gap >= TIE_GAP:
+                    fail(f"restored serving diverged at rid {rid} token {k}")
+            del params, out_m, eng
+            torch.cuda.empty_cache()
+
+            # 5. The entry points themselves, on the card by default.
+            ltrain.main(["--arch", CKPT["arch"], "--upcycle-from",
+                         dirs["dense"], "--ckpt-dir", dirs["launch"],
+                         "--steps", "1", "--batch", str(CKPT["batch"]),
+                         "--seq", str(CKPT["seq"]), "--dispatch", "sorted"])
+            lserve.main(["--arch", CKPT["arch"], "--ckpt-dir", dirs["moe"],
+                         "--paged", "--max-new", "4"])
+        launches = ops.launch_counts()
+        report_io(io, root)
+        snaps = [dt for op, _, _, dt in io if op == "snapshot"]
+        print(f"[ckpt] save_async host copies: "
+              f"{', '.join(f'{x:.3f}' for x in snaps)} s", flush=True)
+    finally:
+        tmp.cleanup()
+    print(f"[ckpt] launches: {launches}", flush=True)
+    missing = [k for k in CKPT_KERNELS if not launches[k]]
+    if missing:
+        fail(f"kernels of the checkpoint chain never launched: {missing}")
+    print(f"[ckpt] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2328,6 +2755,7 @@ def main() -> int:
     vit = get_config(VIT_TRAIN["arch"])
     records = check_kernels(cfg, device)
     train_records, grouped_at_train = check_train_kernels(full, device)
+    check_flash_large_scores(device)
     records += train_records
     vit_records, flash_at_vit = check_vit_kernels(vit, device)
     records += vit_records
@@ -2440,6 +2868,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_moe_launches, rows = rwkv_moe(device)
     shape_rows += rows
+    torch.cuda.empty_cache()
+
+    # Checkpoints and the Trainer: dense checkpoint -> --upcycle-from ->
+    # MoE checkpoint -> served, at full width and depth.
+    ckpt_launches = checkpoint_chain(device)
 
     for rec in records:
         name = rec["name"]
@@ -2448,7 +2881,8 @@ def main() -> int:
                    "granite_train": train_launches.get(name, 0),
                    "vit_train": vit_launches.get(name, 0),
                    "rwkv_static": rwkv_launches.get(name, 0),
-                   "rwkv_moe_static": rwkv_moe_launches.get(name, 0)}
+                   "rwkv_moe_static": rwkv_moe_launches.get(name, 0),
+                   "checkpoint_chain": ckpt_launches.get(name, 0)}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         at = {tag: row for k, tag, row in shape_rows if k == name}

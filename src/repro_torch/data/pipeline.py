@@ -1,10 +1,10 @@
 """Checkpointable data iteration (port of the single-process part of
-``repro/data/pipeline.py``; per-host slicing and the rollback skip
-bookkeeping come with the multi-GPU and Trainer ports).
+``repro/data/pipeline.py``; per-host slicing comes with the multi-GPU
+port).
 
 ``DataIterator`` wraps a (step -> global numpy batch) function. Its
-state is one integer step counter, so data order is exactly-once across
-restarts.
+state is the step counter and the count of batches skipped past, so data
+order is exactly-once across restarts and divergence rollbacks.
 """
 from __future__ import annotations
 
@@ -19,6 +19,11 @@ from repro_torch.data import synthetic as syn
 class DataIterator:
     batch_fn: Callable[[int], dict]  # step -> global batch (numpy)
     step: int = 0
+    # Batches fast-forwarded past without being consumed (PaLM-style
+    # divergence-rollback skips); bookkeeping only — the stream is a
+    # pure function of ``step``, so position + skip count is the whole
+    # story.
+    skipped_batches: int = 0
 
     def __iter__(self):
         return self
@@ -28,11 +33,23 @@ class DataIterator:
         self.step += 1
         return batch
 
+    def skip(self, n: int) -> None:
+        """Fast-forward ``n`` batches without materialising them — the
+        batch window a divergence rollback retires never recurs."""
+        if n < 0:
+            raise ValueError(f"cannot skip a negative count: {n}")
+        self.step += n
+        self.skipped_batches += n
+
+    # -- checkpointable state ------------------------------------------
     def state(self) -> dict:
-        return {"step": int(self.step)}
+        return {"step": int(self.step),
+                "skipped_batches": int(self.skipped_batches)}
 
     def restore(self, state: dict) -> None:
         self.step = int(state["step"])
+        # Older checkpoints predate skip bookkeeping.
+        self.skipped_batches = int(state.get("skipped_batches", 0))
 
 
 def make_iterator(

@@ -6,8 +6,9 @@
 // return_residuals=True).
 //
 // Bound on this card: the live (query, key) pairs need 4 * dh FLOPs
-// each against a few bytes, so the products bound it. float32 runs on
-// tensor cores as 3xTF32 (mma_sm90.cuh), held to max(bytes / 3.35 TB/s,
+// each against a few bytes, so the products bound it. float32 runs P V
+// on tensor cores as 3xTF32 (mma_sm90.cuh) and its scores as f32 FMAs;
+// the bound takes every product as 3xTF32, max(bytes / 3.35 TB/s,
 // 3 * FLOPs / 495 TFLOP/s): granite's training shapes (B 16, S 512, H
 // 16, Kh 8, dh 64, causal; 8.6 GFLOP, ~100 MB) 0.052 ms, 0.1285 on CUDA
 // cores at 67 TFLOP/s; the ViT's (104, 196, 12, 64), non-causal, 0.074
@@ -22,15 +23,16 @@
 // conflicts; 32-key tiles keep a block at 52 KB of shared memory in f32,
 // against 87 KB at 64 keys, so more blocks share an SM: 64-key tiles
 // timed slower on the card).
-// A warp computes its 16 x 32 scores S = Q K^T with
-// mma.sync into registers, takes the online softmax (m, l) there with
-// quad shuffles for the row max, and adds P V into its 16 x dh output
-// straight from the score registers (flash_tile.cuh's attend_tile, which
-// the paged prefill shares). Query row i sits at q_offset + i and
-// attends key t iff t < kv_len and, when causal, t <= q_offset + i;
-// q_offset and kv_len are read from device memory. The walk stops at the
-// tile's last live key, so a causal tile wholly in the future is never
-// visited, and only tiles that cross the diagonal or kv_len are masked.
+// A warp computes its 16 x 32 scores S = Q K^T into registers (bf16:
+// mma.sync; float32: f32 FMAs, see below), takes the online softmax
+// (m, l) there with quad shuffles for the row max, and adds P V into
+// its 16 x dh output straight from the score registers
+// (flash_tile.cuh's attend_tile, which the paged prefill shares).
+// Query row i sits at q_offset + i and attends key t iff t < kv_len
+// and, when causal, t <= q_offset + i; q_offset and kv_len are read
+// from device memory. The walk stops at the tile's last live key, so a
+// causal tile wholly in the future is never visited, and only tiles
+// that cross the diagonal or kv_len are masked.
 // A row with no valid key gives exact zeros and lse = +inf (so exp(s -
 // lse) = 0 in the backward).
 
@@ -57,6 +59,11 @@ __global__ void __launch_bounds__(kThreads)
                      int bq, int causal, float scale) {
   constexpr int LD = Layout<T, DH>::LD, KVT = Layout<T, DH>::KVT;
   constexpr int V = 16 / sizeof(T), NO = DH / 8;
+  // float32 scores are f32 FMAs (flash_tile.cuh): at |q|, |k| ~ 30-40,
+  // as granite's reference init gives them, the mma scores left the
+  // float32 tolerance (tests/test_torch_kernels.py::
+  // test_flash_kernels_hold_large_scores).
+  constexpr bool kFmaScores = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* kv = qs + Layout<T, DH>::QT;  // stage s: K, V at kv + (2s, 2s+1) KVT
@@ -119,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
     const T* vs = ks + KVT;
     const int kv0 = j * kBK;
 
-    attend_tile<T, T, DH, LD, LD>(
+    attend_tile<T, T, DH, LD, LD, kFmaScores>(
         qw, ks, vs, kv0, kv0 + kBK > full,
         [&](int t, int h) { return t < kvlen && (!causal || t <= pos[h]); },
         scale, m, l, acc);

@@ -12,11 +12,13 @@
 // Bound on this card: the live (query, key) pairs need 6 * dh FLOPs
 // each in dq (q k^T, dO v^T, ds k) and 8 * dh in dk/dv (q k^T, dO v^T,
 // p^T dO, ds^T q) against a few bytes, so the products bound both.
-// float32 runs on tensor cores as 3xTF32 (mma_sm90.cuh), held to
-// max(bytes / 3.35 TB/s, 3 * FLOPs / 495 TFLOP/s): at granite's
-// training shapes (B 16, S 512, H 16, Kh 8, dh 64, causal) dq 0.078 ms
-// and dk/dv 0.104 (0.193 and 0.257 on CUDA cores at 67 TFLOP/s); at the
-// ViT's (104, 196, 12, 64), non-causal, 0.112 and 0.149 (0.275, 0.366).
+// float32 runs on tensor cores as 3xTF32 (mma_sm90.cuh), its S and
+// dP as f32 FMAs (row_products); held, every product taken as 3xTF32,
+// to max(bytes / 3.35 TB/s, 3 * FLOPs / 495 TFLOP/s):
+// at granite's training shapes (B 16, S 512, H 16, Kh 8, dh 64,
+// causal) dq 0.078 ms and dk/dv 0.104 (0.193 and 0.257 on CUDA cores at
+// 67 TFLOP/s); at the ViT's (104, 196, 12, 64), non-causal, 0.112 and
+// 0.149 (0.275, 0.366).
 //
 // Rows. Both kernels see the queries of kv head kh as one run of Sq * G
 // rows (G = H / Kh), r = i * G + g: query position i of head kh * G + g.
@@ -38,8 +40,9 @@
 // registers, and K/V tiles of 32 keys stream through a 2-stage cp.async
 // ring (rows padded so that fragment reads are free of bank conflicts).
 // For each tile a warp computes S = Q K^T and dP = dO V^T (16 x 32 each,
-// mma.sync into registers), p and ds = p (dP - delta) in place, and dQ
-// += ds K with ds taken straight from the registers (warp_mma_cfrag).
+// into registers: mma.sync, float32 as f32 FMAs, row_products), p and
+// ds = p (dP - delta) in place, and dQ += ds K with ds taken
+// straight from the registers (warp_mma_cfrag).
 // The walk stops at the block's last live key; only tiles that cross
 // the diagonal or kv_len are masked.
 //
@@ -72,6 +75,25 @@
 #include "mma_sm90.cuh"
 
 namespace {
+
+// The recomputed float32 scores S, and dP = dO V^T, are f32 FMAs
+// (warp_fma), as the forward's scores are (flash_attention.cu): p =
+// exp(S * scale - lse) turns a score's error into a relative error of
+// p, and ds = p (dP - delta) cancels where a row's p is near one-hot.
+// At |q|, |k| ~ 30-40 (granite's reference init), dq and dk left the
+// float32 tolerance 7-12x with FMA scores and mma dP; with both as FMAs
+// they hold it (tests/test_torch_kernels.py::
+// test_flash_kernels_hold_large_scores). The products with ds and p
+// (dq, dk, dv) stay on tensor cores.
+template <typename T, int NI, int DH, typename FA, typename FB>
+__device__ __forceinline__ void row_products(float (&acc)[1][NI][4], FA a,
+                                             FB b) {
+  if constexpr (std::is_same<T, float>::value) {
+    warp_fma<NI, DH>(acc, a, b);
+  } else {
+    warp_mma<T, T, 1, NI, DH>(acc, a, b);
+  }
+}
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // dq: query rows a block, 16 a warp
@@ -265,10 +287,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     float s[1][kBK / 8][4] = {}, dp[1][kBK / 8][4] = {};
-    warp_mma<T, T, 1, kBK / 8, DH>(
+    row_products<T, kBK / 8, DH>(
         s, [&](int r, int c) { return to_f32(qw[r * LD + c]); },
         [&](int c, int n) { return to_f32(ks[n * LD + c]); });
-    warp_mma<T, T, 1, kBK / 8, DH>(
+    row_products<T, kBK / 8, DH>(
         dp, [&](int r, int c) { return to_f32(dow[r * LD + c]); },
         [&](int c, int n) { return to_f32(vs[n * LD + c]); });
     const bool masked = kv0 + kBK > full;
@@ -401,7 +423,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // S^T = K Q^T, then p^T in place.
     float st[1][KQ / 8][4] = {};
-    warp_mma<T, T, 1, KQ / 8, DH>(
+    row_products<T, KQ / 8, DH>(
         st, [&](int r, int c) { return to_f32(kw[r * LD + c]); },
         [&](int c, int n) { return to_f32(qt[n * LD + c]); });
 #pragma unroll
@@ -417,7 +439,7 @@ __global__ void __launch_bounds__(kThreads)
         dv_acc, st[0], [&](int r, int c) { return to_f32(dot[r * LD + c]); });
     // dP^T = V dO^T, then ds^T = p^T (dP^T - delta) in place.
     float dpt[1][KQ / 8][4] = {};
-    warp_mma<T, T, 1, KQ / 8, DH>(
+    row_products<T, KQ / 8, DH>(
         dpt, [&](int r, int c) { return to_f32(vw[r * LD + c]); },
         [&](int c, int n) { return to_f32(dot[n * LD + c]); });
 #pragma unroll

@@ -45,26 +45,12 @@ __device__ __forceinline__ void attend_tile(const TQ* qw, const TKV* ks,
       float, TKV>::type;
   const int tg = threadIdx.x & 3;
   float s[1][kBK / 8][4] = {};
-  if constexpr (kFmaScores) {  // the accumulator layout of the mma path
-    const int gr = (threadIdx.x & 31) >> 2;
-    const TQ* q0 = qw + gr * LDQ;
-    const TQ* q1 = q0 + 8 * LDQ;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      const float a0 = to_f32(q0[c]), a1 = to_f32(q1[c]);
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = to_f32(ks[(8 * n + 2 * tg + e) * LDKV + c]);
-          s[0][n][e] = fmaf(a0, b, s[0][n][e]);
-          s[0][n][2 + e] = fmaf(a1, b, s[0][n][2 + e]);
-        }
-    }
+  auto qa = [&](int r, int c) { return to_f32(qw[r * LDQ + c]); };
+  auto kb = [&](int c, int n) { return to_f32(ks[n * LDKV + c]); };
+  if constexpr (kFmaScores) {
+    warp_fma<kBK / 8, DH>(s, qa, kb);
   } else {
-    warp_mma<TQ, TKV, 1, kBK / 8, DH>(
-        s, [&](int r, int c) { return to_f32(qw[r * LDQ + c]); },
-        [&](int c, int n) { return to_f32(ks[n * LDKV + c]); });
+    warp_mma<TQ, TKV, 1, kBK / 8, DH>(s, qa, kb);
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll

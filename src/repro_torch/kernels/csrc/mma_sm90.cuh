@@ -150,6 +150,30 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4], FA a,
   }
 }
 
+// acc[0][ni] += A[16 rows, k] B[k, 8 ni ..] over k < K for one warp, in
+// warp_mma's accumulator layout, as float32 FMAs on CUDA cores: each dot
+// in order over k, rounded at every step. The attention kernels take
+// their float32 scores this way (flash_tile.cuh): exp() turns a score's
+// error into a relative error of the output, and the tensor cores' sums
+// truncate.
+template <int NI, int K, typename FA, typename FB>
+__device__ __forceinline__ void warp_fma(float (&acc)[1][NI][4], FA a,
+                                         FB b) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tg = lane & 3;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float a0 = a(gr, k), a1 = a(gr + 8, k);
+#pragma unroll
+    for (int n = 0; n < NI; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bv = b(k, 8 * n + 2 * tg + e);
+        acc[0][n][e] = fmaf(a0, bv, acc[0][n][e]);
+        acc[0][n][2 + e] = fmaf(a1, bv, acc[0][n][2 + e]);
+      }
+  }
+}
+
 // acc[ni] += P[16 rows, k] B[k, 8 ni ..] over k < K for one warp (start
 // acc at zero, as for warp_mma), where
 // P is held in registers in the accumulator layout of an earlier

@@ -9,7 +9,10 @@ O)`` computed here, outside the kernels, as the reference does.
 ``q_offset`` and ``kv_len`` are int32 scalars in device memory.
 
 All three kernels run their products on tensor cores (``csrc/mma_sm90.cuh``;
-float32 as 3xTF32) and take head dims ``HEAD_DIMS`` and 16-byte aligned
+float32 as 3xTF32) but for the float32 scores S and the backward's dP =
+dO Vᵀ, which are f32 FMAs on CUDA cores (at the score sizes of a
+randomly initialised model the tensor cores' sums left the float32
+tolerance), and take head dims ``HEAD_DIMS`` and 16-byte aligned
 inputs. A forward block holds ``FWD_ROWS`` query rows of whole GQA
 groups, so the forward takes groups of up to 64 heads. The backward
 kernels see a kv head's queries as one run of Sq * G rows (position x

@@ -1,24 +1,48 @@
-"""Serving launcher of the port: random weights from a seed, served
+"""Serving launcher of the port: weights from the newest valid
+checkpoint in ``--ckpt-dir`` (or random ones from a seed), served
 through the static-batch engine, or with ``--paged`` through the paged
 chunked engine (the static and paged chunked subsets of
 ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch rwkv6-7b|granite-moe-1b-a400m [--reduced] [--max-new 16] \\
-        [--max-batch 4] [--temperature 0.8] [--device cuda|cpu] \\
+        [--ckpt-dir DIR] [--max-batch 4] [--temperature 0.8] \\
+        [--device cuda|cpu] \\
         [--paged [--block-size 16] [--chunk-size 32] \\
          [--chunks-per-step 1] [--no-prefix-cache] [--stream]]
 
-Without ``--paged`` the prompts are served as one static batch (any
-stack the port runs: attention or rwkv6); ``--paged`` serves
-attention-only stacks with continuous batching. Runs on the card by
-default and raises without one; ``--device cpu`` runs the plain PyTorch
-path. Checkpoint loading, prefill-on-join admission, speculative
-decoding, robustness knobs and the fleet are queued in ROADMAP.md.
+``--ckpt-dir`` reads the ``params`` of a params-only checkpoint or of a
+Trainer's full train state alike (the reference's loader takes the
+first form only: ROADMAP.md queue 3). Without ``--paged`` the prompts
+are served as one static batch (any stack the port runs: attention or
+rwkv6); ``--paged`` serves attention-only stacks with continuous
+batching. Runs on the card by default and raises without one;
+``--device cpu`` runs the plain PyTorch path. Prefill-on-join admission,
+speculative decoding, robustness knobs and the fleet are queued in
+ROADMAP.md.
 """
 from __future__ import annotations
 
 import argparse
+
+
+def load_params(cfg, *, device, manager=None):
+    """The served weights: ``zoo.init_params`` from seed 0, replaced by
+    the ``params`` subtree of ``manager``'s newest valid checkpoint
+    where there is one (one manager a process, as in the reference).
+    Returns (params, the checkpoint's step or None)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    if manager is None:
+        return params, None
+    restored, step, _ = manager.restore_latest(params, key="params")
+    if restored is None:
+        return params, None
+    return restored, step
 
 
 def main(argv=None) -> None:
@@ -28,6 +52,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the params of the newest valid checkpoint "
+                         "there")
     ap.add_argument("--paged", action="store_true",
                     help="continuous batching over a paged KV cache")
     ap.add_argument("--block-size", type=int, default=16,
@@ -44,17 +71,17 @@ def main(argv=None) -> None:
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    import torch
-
     from repro_torch import resolve_device
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
-                             cfg, device=device)
+    manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    params, step = load_params(cfg, device=device, manager=manager)
+    if step is not None:
+        print(f"[serve] loaded checkpoint step {step}")
     sc = ServeConfig(max_batch=args.max_batch, max_len=256,
                      temperature=args.temperature, paged=args.paged,
                      block_size=args.block_size, chunk_size=args.chunk_size,

@@ -72,18 +72,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from repro_torch.obs.tracker import NULL
 from repro_torch.serve.paged_cache import BlockPool, _chain, blocks_needed
-
-
-class _NullTracker:
-    """Stands in for ``repro.obs`` until the port has one: the counters
-    the scheduler emits go nowhere."""
-
-    def count(self, *args, **kwargs) -> None:
-        pass
-
-
-NULL = _NullTracker()
 
 FREE = "free"
 ACTIVE = "active"

@@ -408,6 +408,46 @@ def test_flash_forward_tilings(cuda, dtype, case):
     assert bool((o[dead.transpose(1, 2)[..., None].expand_as(o)] == 0).all())
 
 
+# (B, S, H, Kh, causal): causal at granite's heads, non-causal at the
+# ViT's (196 positions, a ragged last kv tile); dh 64.
+LARGE_SCORE_CASES = [(2, 128, 16, 8, True), (2, 196, 12, 12, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LARGE_SCORE_CASES)
+def test_flash_kernels_hold_large_scores(cuda, case):
+    """q and k of the sizes granite's reference init gives them (|q| up
+    to 31, |k| up to 42), where exp() turns a score's rounding into the
+    output's, and ds = p (dP - delta) cancels where p is near one-hot:
+    the float32 forward, dq and dk/dv each hold the float32 tolerance of
+    their plain versions (S, and the backward's dP, are f32 FMAs:
+    csrc/flash_tile.cuh, csrc/flash_attention_bwd.cu)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, H, Kh, causal = case
+    rng = np.random.default_rng(S)
+    q, k, v = _flash_inputs(rng, cuda, torch.float32, B, S, S, H, Kh, 64)
+    q, k = 10 * q, 10 * k
+    qo, kl = fa.scalar_i32(0, cuda), fa.scalar_i32(S, cuda)
+    kw = dict(causal=causal, q_offset=qo, kv_len=kl)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, qo, kl, causal=causal)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, **kw)
+    assert float(q.abs().max()) > 30 and float(k.abs().max()) > 30
+    torch.testing.assert_close(o, o_ref, **_tol(torch.float32))
+    torch.testing.assert_close(lse, lse_ref, **_tol(torch.float32))
+    do = torch.tensor(rng.normal(size=o.shape), dtype=torch.float32,
+                      device=cuda)
+    delta = fa.attention_delta(o_ref, do)
+    args = (q, k, v, do, lse_ref, delta, qo, kl)
+    got = (fa.flash_attention_dq_cuda(*args, causal=causal),
+           *fa.flash_attention_dkv_cuda(*args, causal=causal))
+    want = ref.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, **_tol(torch.float32),
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
 def _ragged(rng, dev, dtype, counts, E, d):
     counts = np.asarray(counts, np.int32)
     G = counts.shape[0]

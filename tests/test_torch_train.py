@@ -360,11 +360,12 @@ def test_non_finite_guard_skips_the_update(cfgs):
         torch.testing.assert_close(p, b, equal_nan=True, atol=0, rtol=0)
 
 
-def test_launch_train_runs_on_cpu(capsys):
+def test_launch_train_runs_on_cpu(capsys, tmp_path):
     from repro_torch.launch import train
 
     train.main(["--arch", ARCH, "--reduced", "--steps", "2", "--batch", "2",
-                "--seq", "16", "--device", "cpu"])
+                "--seq", "16", "--device", "cpu",
+                "--ckpt-dir", str(tmp_path / "run")])
     out = capsys.readouterr().out
     assert "[train] kernels: moe=eager attn=eager dispatch=gather" in out
     assert "[train] finished at step 2, loss" in out

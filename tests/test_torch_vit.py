@@ -344,11 +344,11 @@ def test_dense_upcycle_moe_steps_match_jax(cfgs):
     _close_trees(ts2["params"], js2["params"], atol=1e-4, rtol=1e-3)
 
 
-def test_launch_train_vit_runs_on_cpu(capsys):
+def test_launch_train_vit_runs_on_cpu(capsys, tmp_path):
     from repro_torch.launch import train
 
     train.main(["--arch", ARCH, "--reduced", "--steps", "3", "--batch", "4",
-                "--device", "cpu"])
+                "--device", "cpu", "--ckpt-dir", str(tmp_path / "run")])
     out = capsys.readouterr().out
     assert "[train] kernels: moe=eager attn=eager dispatch=gather" in out
     last = out.strip().splitlines()[-1]
