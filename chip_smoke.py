@@ -86,7 +86,25 @@ any failure, before printing its result line. It
     and ``launch.serve.main --ckpt-dir --paged`` run once each. Every
     step's launches are counted; every save and restore is timed (bytes,
     seconds, GB/s);
-13. prints one JSON line of per-kernel numbers (all twelve kernels),
+13. trains the paper's language model, t5-base-upcycled, at full width
+    and depth (T5_TRAIN): T5 1.1 Base's dense parent (0.248 B params)
+    takes 2 Adafactor steps on the span-corruption stream (16 x 512
+    encoder and 16 x 128 decoder tokens), is upcycled with its optimizer
+    state into the 2.003 B MoE (Expert Choice in the encoder, top-2 in the
+    decoder, GEGLU experts), which takes 4 steps through the flash and
+    expert-FFN kernels (each kernel's launches a step checked: every
+    self- and cross-attention and every MoE layer of both stacks once);
+    holds and witnesses the first MoE step as in 6; decodes 8 requests
+    greedily (512 encoder tokens, 32 new) through ``zoo.prefill`` and
+    ``zoo.decode_step``, through the kernels and the plain versions,
+    token-identical, launches checked, one prefill and decode step
+    witnessed; then holds and times the flash kernels at the cross,
+    decoder-self and decode-cross shapes and the expert kernels at the
+    encoder's and the decoder's buffers;
+14. trains whisper-base (full config, frame frontend) 2 steps at 8 x
+    1500 frames through the flash kernels, the first held and witnessed,
+    and decodes 4 requests of 1500 frames, 16 new tokens, the same way;
+15. prints one JSON line of per-kernel numbers (all twelve kernels),
     then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -94,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -842,11 +861,12 @@ def train_cases(cfg, device, gen):
 
 def flash_work(a, kind, causal=True):
     """Bytes (inputs once, outputs once) and FLOPs of one flash call on
-    these inputs: the live (query, key) pairs only."""
+    these inputs: the live (query, key) pairs only (causal: Sq = Skv)."""
     B, S, H, dh = a["q"].shape
-    Kh = a["k"].shape[2]
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
-    q_b, kv_b, row_b = B * S * H * dh * 4, B * S * Kh * dh * 4, B * H * S * 4
+    Skv, Kh = a["k"].shape[1:3]
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Skv
+    q_b, kv_b, row_b = (B * S * H * dh * 4, B * Skv * Kh * dh * 4,
+                        B * H * S * 4)
     if kind == "fwd":  # q, k, v -> o, lse; QK^T and PV
         return 2 * q_b + 2 * kv_b + row_b, 4 * dh * pairs
     if kind == "dq":  # q, k, v, dO, lse, delta -> dq; QK^T, dO V^T, dS K
@@ -1154,20 +1174,23 @@ def vit_cases(cfg, device, gen):
     return a, c
 
 
-def expert_work(c, kind):
-    """Bytes (inputs once, outputs once) and FLOPs of one ungated f32
-    expert-FFN kernel call over every row of the buffer (Expert Choice
-    fills every slot)."""
+def expert_work(c, kind, gated=False):
+    """Bytes (inputs once, outputs once) and FLOPs of one f32 expert-FFN
+    kernel call over every row of the buffer (Expert Choice fills every
+    slot; the T5 rows fill every slot too); ``gated`` adds wg and its
+    products (x wg, dg, dwg)."""
     G, E, cap, d = c["xe"].shape
     f = c["wi"].shape[-1]
-    rows, wbytes = G * E * cap, 2 * E * d * f * 4
-    if kind == "fwd":  # x, wi, wo -> y: x wi, h wo
-        return 2 * rows * d * 4 + wbytes, 4 * rows * d * f
-    if kind == "dx":  # x, dy, wi, wo -> dx, da, h: a, dh, da wi^T
-        return 3 * rows * d * 4 + wbytes + 2 * rows * f * 4, \
-            6 * rows * d * f
-    # dW: x, dy, da, h -> dwi, dwo
-    return 2 * rows * d * 4 + 2 * rows * f * 4 + wbytes, 4 * rows * d * f
+    nw = 3 if gated else 2
+    rows, wbytes = G * E * cap, nw * E * d * f * 4
+    if kind == "fwd":  # x, w* -> y: x wi [, x wg], h wo
+        return 2 * rows * d * 4 + wbytes, 2 * nw * rows * d * f
+    if kind == "dx":  # x, dy, w* -> dx, da[, dg], h: a[, g], dh, dx
+        return 3 * rows * d * 4 + wbytes + (nw * rows * f * 4), \
+            (4 * nw - 2) * rows * d * f
+    # dW: x, dy, da[, dg], h -> dwi[, dwg], dwo
+    return 2 * rows * d * 4 + nw * rows * f * 4 + wbytes, \
+        2 * nw * rows * d * f
 
 
 def check_vit_kernels(cfg, device):
@@ -1501,14 +1524,18 @@ def condition_attention(params, cfg) -> None:
     float32 implementations disagree after a few layers (a 1e-6 relative
     perturbation moves the logits by ~0.1 on a 24-layer reduced-width
     model). At fan-in d the same perturbation moves them by ~5e-6, so
-    the kernels-vs-plain comparisons below can be held tight."""
+    the kernels-vs-plain comparisons below can be held tight. An
+    encoder-decoder model's encoder layers are rescaled the same way,
+    and so is each decoder layer's cross-attention (its wk and wv read
+    the encoder states, also at fan-in d)."""
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-    for seg in params["stack"]["segments"]:
-        for pos in seg.values():
-            m = pos["mixer"]
-            m["wq"] *= (H / d) ** 0.5
-            m["wk"] *= (Kh / d) ** 0.5
-            m["wv"] *= (Kh / d) ** 0.5
+    for key in ("encoder", "stack"):
+        for seg in params.get(key, {"segments": []})["segments"]:
+            for pos in seg.values():
+                for m in (pos[n] for n in ("mixer", "cross") if n in pos):
+                    m["wq"] *= (H / d) ** 0.5
+                    m["wk"] *= (Kh / d) ** 0.5
+                    m["wv"] *= (Kh / d) ** 0.5
 
 
 def condition_rwkv(params, cfg) -> None:
@@ -1769,14 +1796,25 @@ def _sync_ms(t0) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def step_launches(cfg, kernels, moe: bool) -> dict:
-    """The launches one training step must make: each attention kernel
-    once a layer, and in a MoE step each of the path's expert kernels
-    once a MoE layer."""
+def all_descs(cfg) -> list:
+    """The layer descs of every stack of ``cfg``: the decoder's (or the
+    encoder-only model's) and an encoder-decoder model's encoder's."""
     from repro_torch.models import stack as stk
 
-    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
-    want = {k: cfg.n_layers for k in FLASH_KERNELS}
+    descs = stk.layer_descs(cfg)
+    if cfg.structure == "encoder_decoder":
+        descs += stk.layer_descs(cfg, stack="encoder")
+    return descs
+
+
+def step_launches(cfg, kernels, moe: bool) -> dict:
+    """The launches one training step must make: each attention kernel
+    once an attention (self- and cross-attention of every stack), and in
+    a MoE step each of the path's expert kernels once a MoE layer."""
+    descs = all_descs(cfg)
+    n_moe = sum(d.ffn == "moe" for d in descs)
+    n_attn = len(descs) + sum(d.cross for d in descs)
+    want = {k: n_attn for k in FLASH_KERNELS}
     want.update({k: n_moe if moe else 0 for k in kernels
                  if k not in FLASH_KERNELS})
     return want
@@ -1815,6 +1853,7 @@ def train_path(cfg, device, spec, kernels):
     name = spec["arch"]
     dense_cfg = cfg.dense_parent()
     encoder = cfg.structure == "encoder_only"
+    encdec = cfg.structure == "encoder_decoder"
     opt = adafactor(inverse_sqrt(peak=spec["peak_lr"],
                                  warmup_steps=spec["warmup"]))
     task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
@@ -1828,11 +1867,18 @@ def train_path(cfg, device, spec, kernels):
                       attn_impl="cuda")
     tokens = spec["batch"] * spec["seq"]
     what = "images" if encoder else "sequences"
+    dec = ""
+    if encdec:  # make_iterator's decoder length
+        dec_len = max(spec["seq"] // 4, 8)
+        tokens += spec["batch"] * dec_len
+        what = "encoder sequences"
+        dec = f" + {spec['batch']} x {dec_len} decoder"
     print(f"[{name}] {dense_cfg.name}: {count_params(params) / 1e9:.3f} B "
-          f"params; batch {spec['batch']} {what} x {spec['seq']} = {tokens} "
-          f"tokens a step" + ("" if encoder else
-                              f" (task vocab {task.vocab_size})"),
-          flush=True)
+          f"params; batch {spec['batch']} {what} x {spec['seq']}{dec} = "
+          f"{tokens} tokens a step" + ("" if encoder else
+                                       f" (task vocab {task.vocab_size})")
+          + f"; {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated "
+          "before the run (the peak below includes it)", flush=True)
     rows = []
 
     def run(step_fn, st, batch, tag):
@@ -1901,10 +1947,11 @@ def train_path(cfg, device, spec, kernels):
 
 
 def compare_first_moe_step(cfg, device, params, batch, kernel_mets, spec,
-                           kernels):
-    """The first MoE step's loss and gradient norm through the plain
-    versions, against the kernels' (from the main path); then the same
-    step through the kernels with every kernel call witnessed."""
+                           kernels, label="first MoE step"):
+    """The first MoE step's (``label``'s) loss and gradient norm through
+    the plain versions, against the kernels' (from the main path); then
+    the same step through the kernels with every kernel call
+    witnessed."""
     import torch
 
     from repro_torch.models import model_zoo as zoo
@@ -1928,7 +1975,7 @@ def compare_first_moe_step(cfg, device, params, batch, kernel_mets, spec,
     if any(ops.launch_counts().values()):
         fail(f"the plain step launched kernels: {ops.launch_counts()}")
     loss = float(m["loss"])
-    print(f"[check] {name} first MoE step, plain versions (no kernel "
+    print(f"[check] {name} {label}, plain versions (no kernel "
           f"launched): loss={loss!r} grad_norm={gn!r}; kernels: "
           f"loss={kernel_mets['loss']!r} grad_norm="
           f"{kernel_mets['grad_norm']!r} ({plain_ms:.0f} ms, peak memory "
@@ -1936,12 +1983,12 @@ def compare_first_moe_step(cfg, device, params, batch, kernel_mets, spec,
           flush=True)
     d_loss = abs(kernel_mets["loss"] - loss) / abs(loss)
     d_gn = abs(kernel_mets["grad_norm"] - gn) / abs(gn)
-    print(f"[check] {name} first MoE step, kernels vs plain: loss rel diff "
+    print(f"[check] {name} {label}, kernels vs plain: loss rel diff "
           f"{d_loss:.3e} (limit {LOSS_RTOL}), grad_norm rel diff {d_gn:.3e} "
           f"(limit {GRAD_NORM_RTOL})", flush=True)
     if not (d_loss <= LOSS_RTOL and d_gn <= GRAD_NORM_RTOL):
-        fail(f"the {name} first MoE step through the kernels and through "
-             "the plain versions disagree")
+        fail(f"the {name} {label} through the kernels and through the "
+             "plain versions disagree")
     with witnessed_kernels() as wit:
         grads, _ = loss_and_grads(
             params, batch, cfg,
@@ -2718,6 +2765,427 @@ def checkpoint_chain(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: T5 and whisper
+# ---------------------------------------------------------------------------
+
+# The paper's language model, t5-base-upcycled at full width and depth:
+# the dense parent (T5 1.1 Base, 0.248 B params) takes 2 Adafactor steps
+# on the span-corruption stream, 16 x 512 encoder and 16 x 128 decoder
+# tokens a step (the paper's 512-token inputs; batch cut for time), is
+# upcycled (experts copied) with its Adafactor state carried over into
+# the 2.003 B MoE (32 experts in every other layer of both stacks: Expert
+# Choice in the encoder, two groups of 4096 tokens, buffer (2, 32, 256,
+# 768); top-2 in the decoder, one group of 2048 tokens, capacity 128),
+# which takes 4 steps through the gather dispatch.
+T5_TRAIN = dict(arch="t5-base-upcycled", batch=16, seq=512, dense_steps=2,
+                moe_steps=4, peak_lr=0.01, warmup=100, dispatch="gather",
+                resume_opt=True)
+# Greedy decoding of the upcycled model as the reference drives an
+# encoder-decoder model (zoo.prefill, then zoo.decode_step): 8 requests of
+# 512 encoder tokens from the stream at a step the training never reads,
+# the first 8 decoder tokens as the prompt, 32 new tokens. A decode step's
+# top-2 buffer holds 1 row an expert (routing.capacity ignores top_k).
+T5_DECODE = dict(requests=8, plen=8, new=32, data_step=1000)
+# whisper-base (the full config: dense, frame frontend, LayerNorm): 2
+# Adafactor steps at 8 x 1500 frames (decoder length 375), the first held
+# against the plain versions; then 4 requests of 1500 frames decoded
+# greedily, 16 new tokens.
+WHISPER = dict(arch="whisper-base", batch=8, seq=1500, steps=2, peak_lr=0.01,
+               warmup=100, dispatch="gather", requests=4, plen=8, new=16,
+               data_step=1000)
+
+
+def encdec_batch(cfg, n, seq, step):
+    """``n`` sequences of the arch's stream at ``step`` (the task over the
+    first TASK_VOCAB ids, as training reads it)."""
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.launch.train import TASK_VOCAB
+
+    it = make_iterator(cfg, global_batch=n, seq_len=seq,
+                       task=ClusteredBigramTask(
+                           vocab_size=min(cfg.vocab_size, TASK_VOCAB)))
+    it.step = step
+    return next(it)
+
+
+def encdec_greedy(params, cfg, batch, plen, new, impl, device):
+    """Greedy decoding: ``zoo.prefill`` encodes ``batch``'s encoder input
+    into the cache and runs its first ``plen`` decoder tokens, then
+    ``new - 1`` ``zoo.decode_step`` calls (float32 caches). Returns
+    (tokens (B, new), logits (B, new, V), prefill ms, decode ms), host
+    clock, synchronised."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training.train_loop import batch_to
+
+    b = batch_to({k: v for k, v in batch.items() if k != "targets"}, device)
+    b["dec_tokens"] = b["dec_tokens"][:, :plen]
+    enc = b["frames"] if "frames" in b else b["enc_tokens"]
+    ac = zoo.ApplyCfg(moe_impl=impl, attn_impl=impl)
+    toks, logits = [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = zoo.init_serve_cache(cfg, enc.shape[0], plen + new,
+                                     dtype=torch.float32, device=device,
+                                     enc_len=enc.shape[1])
+        cache, lg = zoo.prefill(params, b, cache, cfg, ac=ac)
+        for t in range(new):
+            logits.append(lg[:, -1])
+            toks.append(lg[:, -1].argmax(-1))
+            if t == 0:
+                pre_ms, t1 = _sync_ms(t0), time.perf_counter()
+            if t == new - 1:
+                break
+            cache, lg = zoo.decode_step(params, toks[-1][:, None], cache,
+                                        plen + t, cfg, ac=ac)
+        dec_ms = _sync_ms(t1)
+    return torch.stack(toks, 1), torch.stack(logits, 1), pre_ms, dec_ms
+
+
+def encdec_decode(name, params, cfg, device, batch, plen, new):
+    """Greedy decoding through the kernels and through the plain versions
+    (encdec_greedy): token-identical, or a divergence only where the
+    kernels' top-2 logit gap is below TIE_GAP (at the first step where
+    any row parts: MoE rows share their experts' capacity, so the rows
+    are not independent). The kernels' run must launch exactly what the
+    stacks imply (the prefill: every self- and cross-attention and MoE
+    layer once; each decode step: each cross-attention, its single query
+    through the flash forward, and each decoder MoE layer once; the
+    decoder's self-attention decodes outside any kernel, as the
+    reference's does), the plain run nothing. Then one prefill and one
+    decode step through the kernels, every call witnessed. Returns the
+    kernels' run's launches."""
+    import torch
+
+    from repro_torch.core.routing import capacity
+    from repro_torch.kernels import ops
+    from repro_torch.models import stack as stk
+
+    enc_d = stk.layer_descs(cfg, stack="encoder")
+    dec_d = stk.layer_descs(cfg)
+    n_dec_moe = sum(d.ffn == "moe" for d in dec_d)
+    expect = {"flash_attention": len(enc_d) + 2 * len(dec_d)
+              + len(dec_d) * (new - 1),
+              "expert_mlp": sum(d.ffn == "moe" for d in enc_d) + n_dec_moe
+              + n_dec_moe * (new - 1)}
+    expect = {k: v for k, v in expect.items() if v}
+    B = batch["dec_tokens"].shape[0]
+    if cfg.moe is not None:
+        print(f"[{name}-decode] the decoder's top-{cfg.moe.top_k} buffer: "
+              f"prefill (1, {cfg.moe.num_experts}, "
+              f"{capacity(B * plen, cfg.moe)}, {cfg.d_model}), decode step "
+              f"(1, {cfg.moe.num_experts}, {capacity(B, cfg.moe)}, "
+              f"{cfg.d_model})", flush=True)
+    encdec_greedy(params, cfg, batch, plen, 2, "cuda", device)  # warm-up
+    out = {}
+    for impl in ("cuda", "eager"):
+        ops.reset_launch_counts()
+        toks, logits, pre_ms, dec_ms = encdec_greedy(params, cfg, batch, plen,
+                                                     new, impl, device)
+        ran = {k: v for k, v in ops.launch_counts().items() if v}
+        key = "kernels" if impl == "cuda" else "plain"
+        print(f"[{name}-decode] {key}: {B} requests, prefill "
+              f"{tuple(batch['frames' if 'frames' in batch else 'enc_tokens'].shape)}"
+              f" encoder + {B} x {plen} decoder in {pre_ms:.1f} ms; "
+              f"{new - 1} decode steps in {dec_ms:.1f} ms "
+              f"({dec_ms / max(new - 1, 1):.2f} ms a step, "
+              f"{B * (new - 1) / dec_ms * 1e3:.1f} tokens/s); launches={ran}",
+              flush=True)
+        if impl == "cuda" and ran != expect:
+            fail(f"{name} decode: the kernels' run launched {ran}, expected "
+                 f"{expect}")
+        if impl == "eager" and ran:
+            fail(f"{name} decode: the plain run launched kernels: {ran}")
+        out[impl] = (toks, logits)
+    (tk, lk), (tp, lp) = out["cuda"], out["eager"]
+    if not torch.isfinite(lk).all():
+        fail(f"{name} decode: non-finite logits through the kernels")
+    parts = (tk != tp).any(0).nonzero()
+    n = int(parts[0]) if len(parts) else new
+    diff = float((lk[:, :n] - lp[:, :n]).abs().max()) if n else 0.0
+    print(f"[{name}-decode] kernels vs plain: logits part by at most "
+          f"{diff:.3e} over the {n} steps before any token parts (max "
+          f"|logit| {float(lp.abs().max()):.3f})", flush=True)
+    if n == new:
+        print(f"[{name}-decode] greedy outputs token-identical between the "
+              f"kernels and the plain versions ({B} rows x {new} tokens)",
+              flush=True)
+    else:
+        rows = (tk[:, n] != tp[:, n]).nonzero()[:, 0].tolist()
+        top = torch.topk(lk[rows, n], 2, dim=-1).values
+        gaps = (top[:, 0] - top[:, 1]).tolist()
+        print(f"[{name}-decode] kernels vs plain: rows {rows} part at "
+              f"generated token {n}: the kernels' top-2 logit gaps there "
+              f"{[f'{g:.3e}' for g in gaps]}", flush=True)
+        if max(gaps) >= TIE_GAP:
+            fail(f"{name} decode: greedy divergence at generated token {n} "
+                 f"with top-2 gap {max(gaps):.3e} >= {TIE_GAP}")
+    with witnessed_kernels() as wit:
+        encdec_greedy(params, cfg, batch, plen, 2, "cuda", device)
+        torch.cuda.synchronize()
+    report_witness(wit, tuple(expect))
+    return expect
+
+
+def flash_case_rows(tag, cfg, B, Sq, Skv, causal, device, *, seed,
+                    backward=True):
+    """The flash kernels where this path runs them: q (B, Sq, H, dh), k/v
+    (B, Skv, Kh, dh), dO standard normal; the forward (and dq, dk/dv)
+    held against the plain versions and timed beside SDPA's forward (its
+    backward, dq, dk and dv in one call, via autograd)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    a = dict(q=rnd(B, Sq, H, dh), k=rnd(B, Skv, Kh, dh), v=rnd(B, Skv, Kh, dh),
+             do=rnd(B, Sq, H, dh), qo=fa.scalar_i32(0, device),
+             kl=fa.scalar_i32(Skv, device))
+    kw = dict(causal=causal, q_offset=a["qo"], kv_len=a["kl"])
+    lq = a["q"].transpose(1, 2).contiguous().requires_grad_()
+    lk, lv = (a[n].transpose(1, 2).repeat_interleave(H // Kh, 1)
+              .contiguous().requires_grad_() for n in ("k", "v"))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    fwd = lambda: fa.flash_attention_fwd_cuda(  # noqa: E731
+        a["q"], a["k"], a["v"], a["qo"], a["kl"], causal=causal)
+    o, lse = fwd()
+    torch.cuda.synchronize()
+    cases = [("flash_attention", (o, lse), fwd,
+              lambda: ref.flash_attention_ref(a["q"], a["k"], a["v"], **kw),
+              sdpa_fwd, "fwd")]
+    if backward:
+        bwd_args = (a["q"], a["k"], a["v"], a["do"], lse,
+                    fa.attention_delta(o, a["do"]))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        ldo = a["do"].transpose(1, 2).contiguous()
+
+        def sdpa_bwd():
+            torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+        for kname, kern, plain, kind in (
+                ("flash_attention_dq", fa.flash_attention_dq_cuda,
+                 ref.flash_attention_dq_ref, "dq"),
+                ("flash_attention_dkv", fa.flash_attention_dkv_cuda,
+                 ref.flash_attention_dkv_ref, "dkv")):
+            call = functools.partial(kern, *bwd_args, a["qo"], a["kl"],
+                                     causal=causal)
+            cases.append((kname, call(), call,
+                          functools.partial(plain, *bwd_args, **kw), sdpa_bwd,
+                          kind))
+    rows = []
+    for kname, y, kern, plain, lib, kind in cases:
+        k, _, row = _shape_row(tag, kname, y, plain(), kern, plain, lib, 1,
+                               flash_work(a, kind, causal=causal), flush, 20)
+        row["shape"] = [B, Sq, Skv, H, Kh, dh, causal]
+        rows.append((k, tag, row))
+    return rows
+
+
+def expert_case_rows(tag, cfg, G, cap, device, *, seed):
+    """The expert-FFN forward, dx and dW where this path runs them: the
+    (G, E, cap, d) buffer with every slot a standard normal row, the
+    config's activation (T5: GEGLU) and weights at fan-in scale, held
+    against the plain versions and timed beside the float32
+    ``torch.matmul`` chain over each expert's rows (gated: forward 5
+    calls, dx 10, dW 3)."""
+    import torch
+
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import activation
+
+    E, d, f, act = cfg.moe.num_experts, cfg.d_model, cfg.d_ff, cfg.act
+    gated = cfg.gated_mlp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    c = dict(xe=rnd(G, E, cap, d), dy=rnd(G, E, cap, d),
+             wi=rnd(E, d, f) / d ** 0.5, wo=rnd(E, f, d) / f ** 0.5,
+             wg=rnd(E, d, f) / d ** 0.5 if gated else None)
+    xe, dy, wi, wg, wo = (c[k] for k in ("xe", "dy", "wi", "wg", "wo"))
+    scratch = [None if t is None else t.contiguous()
+               for t in ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act)[1:]]
+    # The yardstick's inputs: each expert's G * cap rows together (set-up).
+    per_e = lambda t: None if t is None else t.transpose(0, 1).reshape(  # noqa
+        E, G * cap, -1).contiguous()
+    xt, dyt, da_t, dg_t, h_t = (per_e(t) for t in (xe, dy, *scratch))
+    fn = activation(act)
+    grad = {"gelu": lambda g, a: torch.ops.aten.gelu_backward(
+        g, a, approximate="tanh"),
+            "silu": torch.ops.aten.silu_backward}[act]
+
+    def lib_fwd():
+        h = fn(torch.matmul(xt, wi))
+        if gated:
+            h = h * torch.matmul(xt, wg)
+        torch.matmul(h, wo)
+
+    def lib_dx():
+        at = torch.matmul(xt, wi)
+        dh = torch.matmul(dyt, wo.transpose(1, 2))
+        if gated:
+            gt = torch.matmul(xt, wg)
+            dg = dh * fn(at)
+            dh = dh * gt
+        dx = torch.matmul(grad(dh, at), wi.transpose(1, 2))
+        if gated:
+            dx = dx + torch.matmul(dg, wg.transpose(1, 2))
+
+    def lib_dw():
+        torch.matmul(xt.transpose(1, 2), da_t)
+        if gated:
+            torch.matmul(xt.transpose(1, 2), dg_t)
+        torch.matmul(h_t.transpose(1, 2), dyt)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    cases = [
+        ("expert_mlp", lambda: em.expert_ffn_cuda(xe, wi, wg, wo, act=act),
+         lambda: ref.expert_ffn_ref(xe, wi, wg, wo, act=act), lib_fwd,
+         5 if gated else 3, "fwd"),
+        ("expert_mlp_dx",
+         lambda: em.expert_ffn_dx_cuda(xe, wi, wg, wo, dy, act=act),
+         lambda: ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act), lib_dx,
+         10 if gated else 4, "dx"),
+        ("expert_mlp_dw", lambda: em.expert_ffn_dw_cuda(xe, dy, *scratch),
+         lambda: ref.expert_ffn_dw_ref(xe, dy, *scratch), lib_dw,
+         3 if gated else 2, "dw"),
+    ]
+    rows = []
+    for kname, kern, plain, lib, ncalls, kind in cases:
+        y = kern()
+        torch.cuda.synchronize()
+        k, _, row = _shape_row(tag, kname, y, plain(), kern, plain, lib,
+                               ncalls, expert_work(c, kind, gated), flush, 20)
+        del y
+        row["shape"] = [G, E, cap, d, f]
+        row["act"] = f"{act}{' gated' if gated else ''}"
+        rows.append((k, tag, row))
+    return rows
+
+
+def t5_path(device):
+    """Phase 13: t5-base-upcycled trained (T5_TRAIN) and decoded
+    (T5_DECODE) through the kernels at full width and depth, held
+    against the plain versions; then the flash and expert kernels timed
+    at the path's shapes. Returns (launches by path, timing rows)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import capacity
+
+    cfg = get_config(T5_TRAIN["arch"])
+    t0 = time.perf_counter()
+    train_launches, first_params, first_batch, first_mets = train_path(
+        cfg, device, T5_TRAIN, VIT_KERNELS)
+    compare_first_moe_step(cfg, device, first_params, first_batch, first_mets,
+                           T5_TRAIN, VIT_KERNELS)
+    del first_batch
+    torch.cuda.empty_cache()
+    batch = encdec_batch(cfg, T5_DECODE["requests"], T5_TRAIN["seq"],
+                         T5_DECODE["data_step"])
+    decode_launches = encdec_decode("t5", first_params, cfg, device, batch,
+                                    T5_DECODE["plen"], T5_DECODE["new"])
+    del first_params
+    torch.cuda.empty_cache()
+    B, S = T5_TRAIN["batch"], T5_TRAIN["seq"]
+    Sd = max(S // 4, 8)
+    moe = cfg.moe
+    rows = (flash_case_rows("t5_cross", cfg, B, Sd, S, False, device, seed=21)
+            + flash_case_rows("t5_decoder_self", cfg, B, Sd, Sd, True, device,
+                              seed=22)
+            + flash_case_rows("t5_decode_cross", cfg, T5_DECODE["requests"], 1,
+                              S, False, device, seed=23, backward=False)
+            + expert_case_rows("t5_encoder", cfg, B * S // moe.group_size,
+                               capacity(moe.group_size, moe), device, seed=24)
+            + expert_case_rows("t5_decoder", cfg, 1, capacity(B * Sd, moe),
+                               device, seed=25))
+    print(f"[t5] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"t5_train": train_launches, "t5_decode": decode_launches}, rows
+
+
+def whisper_path(device):
+    """Phase 14: whisper-base (full config, dense, frame frontend) takes
+    WHISPER's 2 steps through the flash kernels, each step's launches
+    checked (every self- and cross-attention once), the first held and
+    witnessed against the plain versions; then a greedy decode through
+    the kernels and the plain versions (encdec_decode). Returns the
+    launches by path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params, tree_map
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.training import init_train_state, make_train_step
+
+    name, spec = "whisper", WHISPER
+    cfg = get_config(spec["arch"])
+    t0 = time.perf_counter()
+    opt = adafactor(inverse_sqrt(peak=spec["peak_lr"],
+                                 warmup_steps=spec["warmup"]))
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    it = make_iterator(cfg, global_batch=spec["batch"], seq_len=spec["seq"],
+                       task=task)
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_attention(params, cfg)
+    first_params = tree_map(torch.clone, params)
+    state = init_train_state(None, cfg, opt, params=params)
+    dec_len = max(spec["seq"] // 4, 8)
+    print(f"[{name}] {cfg.name}: {count_params(params) / 1e9:.3f} B params; "
+          f"batch {spec['batch']} x {spec['seq']} frames + {spec['batch']} x "
+          f"{dec_len} decoder tokens a step (task vocab {task.vocab_size}); "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated "
+          "before the run", flush=True)
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(
+        dispatch=spec["dispatch"], moe_impl="cuda", attn_impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    want = step_launches(cfg, FLASH_KERNELS, False)
+    first_batch, first = None, None
+    for i in range(spec["steps"]):
+        batch = next(it)
+        before = ops.launch_counts()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        ms = _sync_ms(t1)
+        m = {k: float(v) for k, v in m.items()}
+        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        print(f"[{name}] step {int(state['step'])}: loss={m['loss']:.5f} "
+              f"grad_norm={m['grad_norm']:.5f} skipped={m['skipped']:.0f} "
+              f"ms={ms:.1f} ({spec['batch'] * (spec['seq'] + dec_len) / ms * 1e3:.0f}"
+              f" tokens/s) launches={ {k: v for k, v in per.items() if v} }",
+              flush=True)
+        check_step(name, "dense", m, per, want)
+        if i == 0:
+            first_batch, first = batch, m
+    train_launches = ops.launch_counts()
+    print(f"[{name}] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+          f" GiB", flush=True)
+    del state
+    compare_first_moe_step(cfg, device, first_params, first_batch, first, spec,
+                           FLASH_KERNELS, label="first step")
+    batch = encdec_batch(cfg, spec["requests"], spec["seq"], spec["data_step"])
+    decode_launches = encdec_decode(name, first_params, cfg, device, batch,
+                                    spec["plen"], spec["new"])
+    print(f"[{name}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"whisper_train": train_launches, "whisper_decode": decode_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2873,6 +3341,15 @@ def main() -> int:
     # Checkpoints and the Trainer: dense checkpoint -> --upcycle-from ->
     # MoE checkpoint -> served, at full width and depth.
     ckpt_launches = checkpoint_chain(device)
+    gc.collect()  # the chain's Trainers hold tensors in reference cycles
+    torch.cuda.empty_cache()
+
+    # The paper's language model, then whisper-base: the encoder-decoder
+    # family trained and decoded.
+    encdec_launches, rows = t5_path(device)
+    shape_rows += rows
+    torch.cuda.empty_cache()
+    encdec_launches.update(whisper_path(device))
 
     for rec in records:
         name = rec["name"]
@@ -2883,6 +3360,8 @@ def main() -> int:
                    "rwkv_static": rwkv_launches.get(name, 0),
                    "rwkv_moe_static": rwkv_moe_launches.get(name, 0),
                    "checkpoint_chain": ckpt_launches.get(name, 0)}
+        by_path.update({path: n.get(name, 0)
+                        for path, n in encdec_launches.items()})
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         at = {tag: row for k, tag, row in shape_rows if k == name}

@@ -2,7 +2,8 @@
 
 A copy of ``ArchConfig``, ``MoECfg`` and the registry; the port
 registers the architectures it runs (``granite-moe-1b-a400m``,
-``vit-b16-upcycled``, ``rwkv6-7b``).
+``vit-b16-upcycled``, ``rwkv6-7b``, ``t5-base-upcycled``,
+``whisper-base``).
 ``get_reduced`` returns the CPU-test-sized config of the same family.
 """
 from __future__ import annotations
@@ -96,7 +97,8 @@ class ArchConfig:
         )
 
 
-_MODULES = ("granite_moe_1b", "vit_upcycled", "rwkv6_7b")
+_MODULES = ("granite_moe_1b", "vit_upcycled", "rwkv6_7b", "t5_upcycled",
+            "whisper_base")
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, ArchConfig] = {}
@@ -109,8 +111,8 @@ def register(cfg: ArchConfig, reduced: ArchConfig) -> ArchConfig:
 
 
 def _load_all() -> None:
-    if _REGISTRY:
-        return
+    # Every time, not only while the registry is empty: a config module
+    # imported on its own registers its arch first (imports are cached).
     for mod in _MODULES:
         importlib.import_module(f"repro_torch.configs.{mod}")
 

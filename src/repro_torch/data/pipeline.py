@@ -60,20 +60,27 @@ def make_iterator(
     task: Optional[syn.ClusteredBigramTask] = None,
 ) -> DataIterator:
     """The arch's synthetic stream: the clustered-bigram LM stream of a
-    decoder-only model, the patch task of an encoder-only one (whose
+    decoder-only model; the patch task of an encoder-only one (whose
     sequence is its ``n_frontend_positions`` patches: ``seq_len`` is not
-    read). The encoder-decoder family's streams are queued in
-    ROADMAP.md."""
+    read); for an encoder-decoder model, span corruption (or stub frames
+    with a ``frame`` frontend) with ``seq_len`` encoder positions and
+    ``max(seq_len // 4, 8)`` decoder positions, as the reference's."""
     if cfg.structure == "encoder_only":
         return DataIterator(batch_fn=lambda step: syn.patch_batch(
             global_batch, cfg.n_frontend_positions, cfg.d_model,
             cfg.vocab_size, step))
-    if cfg.structure != "decoder_only" or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's data pipeline serves decoder-only "
-            "language models and encoder-only vision models (other "
-            "families are queued in ROADMAP.md)")
     task = task or syn.ClusteredBigramTask(vocab_size=cfg.vocab_size)
+    if cfg.structure == "encoder_decoder":
+        dec_len = max(seq_len // 4, 8)
+        if cfg.frontend == "frame":
+            return DataIterator(batch_fn=lambda step: syn.frame_batch(
+                task, global_batch, seq_len, dec_len, cfg.d_model, step))
+        return DataIterator(batch_fn=lambda step: syn.span_corruption_batch(
+            task, global_batch, seq_len, dec_len, step))
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's data pipeline has no decoder-only "
+            f"{cfg.frontend} frontend yet (queued in ROADMAP.md)")
     return DataIterator(
         batch_fn=lambda step: syn.lm_batch(task, global_batch, seq_len,
                                            step))

@@ -14,8 +14,9 @@ a full-width model trains on a task over its first few thousand ids
 (``make_iterator(task=...)``).
 
 The encoder-only (ViT) family trains on ``patch_batch``, the reference's
-synthetic vision task. The span-corruption and frame batches of the
-encoder-decoder family are queued in ROADMAP.md.
+synthetic vision task; the encoder-decoder family on
+``span_corruption_batch`` (T5) or ``frame_batch`` (whisper's stub
+frames), both drawn from the bigram stream.
 """
 from __future__ import annotations
 
@@ -86,6 +87,58 @@ def lm_batch(task: ClusteredBigramTask, batch: int, seq_len: int,
     }
 
 
+def span_corruption_batch(task: ClusteredBigramTask, batch: int,
+                          enc_len: int, dec_len: int, step: int, *,
+                          noise_density: float = 0.15, mean_span: int = 3,
+                          n_sentinels: int = 32) -> dict:
+    """T5-style span corruption over the bigram stream.
+
+    Sentinels use the top ``n_sentinels`` ids of the task's vocabulary.
+    The encoder sees the corrupted stream; the decoder predicts the
+    sentinel-delimited spans (``dec_tokens`` is ``targets`` shifted right
+    by one, from a 0 start token; -1 marks padded targets)."""
+    V = task.vocab_size
+    sentinel0 = V - n_sentinels
+    toks = task.sample(batch, enc_len, step)[:, :enc_len]
+    rng = np.random.Generator(
+        np.random.Philox(key=task.seed + 2, counter=[0, 0, 0, step]))
+    enc = np.full((batch, enc_len), 0, np.int64)
+    dec_in = np.zeros((batch, dec_len), np.int64)
+    tgt = np.full((batch, dec_len), -1, np.int64)
+    n_spans = max(1, int(enc_len * noise_density / mean_span))
+    for b in range(batch):
+        starts = np.sort(rng.choice(np.arange(1, enc_len - mean_span),
+                                    size=n_spans, replace=False))
+        mask = np.zeros(enc_len, bool)
+        for s in starts:
+            mask[s:s + mean_span] = True
+        # encoder: unmasked tokens with sentinels at span starts
+        out, di, sent = [], [], 0
+        t = 0
+        while t < enc_len:
+            if mask[t]:
+                out.append(sentinel0 + sent)
+                di.append(sentinel0 + sent)
+                while t < enc_len and mask[t]:
+                    di.append(toks[b, t])
+                    t += 1
+                sent += 1
+            else:
+                out.append(toks[b, t])
+                t += 1
+        out = out[:enc_len]
+        enc[b, :len(out)] = out
+        di = di[:dec_len]
+        dec_in[b, 1:len(di) + 1 if len(di) < dec_len else dec_len] = \
+            di[: dec_len - 1]
+        tgt[b, :len(di)] = di
+    return {
+        "enc_tokens": enc.astype(np.int32),
+        "dec_tokens": dec_in.astype(np.int32),
+        "targets": tgt.astype(np.int32),
+    }
+
+
 def patch_batch(batch: int, n_patches: int, d_model: int, n_classes: int,
                 step: int, *, seed: int = 99) -> dict:
     """Synthetic vision task: label = argmax of a fixed random linear
@@ -97,3 +150,22 @@ def patch_batch(batch: int, n_patches: int, d_model: int, n_classes: int,
     x = rng.normal(size=(batch, n_patches, d_model)).astype(np.float32)
     labels = (x.mean(1) @ w).argmax(-1).astype(np.int32)
     return {"patch_embeds": x, "labels": labels}
+
+
+def frame_batch(task: ClusteredBigramTask, batch: int, enc_len: int,
+                dec_len: int, d_model: int, step: int) -> dict:
+    """Audio stub: frames are fixed random embeddings (from the task's
+    seed) of a token stream; the decoder transcribes the stream
+    (whisper-shaped)."""
+    toks = task.sample(batch, max(enc_len, dec_len), step)
+    rng = np.random.Generator(np.random.Philox(task.seed + 3))
+    emb = rng.normal(size=(task.vocab_size, d_model)).astype(np.float32)
+    frames = emb[toks[:, :enc_len] % task.vocab_size]
+    dec = toks[:, :dec_len]
+    tgt = np.concatenate([dec[:, 1:], np.full((batch, 1), -1, np.int64)],
+                         axis=1)
+    return {
+        "frames": frames.astype(np.float32),
+        "dec_tokens": dec.astype(np.int32),
+        "targets": tgt.astype(np.int32),
+    }

@@ -3,7 +3,8 @@ static engine's prefill and decode step) with ``torch.profiler`` and
 report where its time goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-        [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled] \\
+        [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled|\\
+                         t5-base-upcycled] \\
          [--batch N] [--seq S]] \\
         [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m] \\
          [--batch 8] [--seq 512]] \\
@@ -18,8 +19,8 @@ random pools and random weights from seed 0. ``--train`` traces one MoE
 train step of ``--arch`` instead, on a fixed batch of the arch's
 synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
-images of 196 patches (its sequence; ``--seq`` is not read) through the
-gather dispatch. ``--static`` traces the static engine on ``--arch``
+images of 196 patches (its sequence; ``--seq`` is not read) and T5 at 16
+x 512 encoder and 16 x 128 decoder tokens through the gather dispatch. ``--static`` traces the static engine on ``--arch``
 instead (random weights from seed 0, dropless routing, float32 caches;
 ``rwkv6-7b-moe`` is rwkv6-7b's channel-mix MoE, ``rwkv6_7b.upcycled()``,
 at 4 layers as ``chip_smoke.py`` serves it):
@@ -68,7 +69,8 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
 # The train cells of chip_smoke.py: default batch (images for the
 # encoder-only ViT) and MoE dispatch.
 TRAIN_CELLS = {"granite-moe-1b-a400m": dict(batch=16, dispatch="sorted"),
-               "vit-b16-upcycled": dict(batch=104, dispatch="gather")}
+               "vit-b16-upcycled": dict(batch=104, dispatch="gather"),
+               "t5-base-upcycled": dict(batch=16, dispatch="gather")}
 
 
 def mixed_step_inputs(cfg, device, *, serve: dict = SERVE):

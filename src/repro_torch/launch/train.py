@@ -2,10 +2,12 @@
 single process): the fault-tolerant ``Trainer`` with checkpoints in
 ``--ckpt-dir`` (auto-resume from the newest valid one), Adafactor on an
 inverse-sqrt schedule, the arch's synthetic stream (clustered bigrams
-for a decoder-only LM, the patch task for the encoder-only ViT).
+for a decoder-only LM, span corruption for T5, stub frames for whisper,
+the patch task for the encoder-only ViT).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch granite-moe-1b-a400m|vit-b16-upcycled [--reduced] \\
+        --arch granite-moe-1b-a400m|vit-b16-upcycled|t5-base-upcycled|\\
+        whisper-base [--reduced] \\
         [--steps 100] [--batch 8] [--seq 64] [--ckpt-dir DIR] \\
         [--upcycle-from DENSE_DIR] [--impl auto|cuda|eager] \\
         [--dispatch gather|einsum|sorted] [--peak-lr 0.01] \\
@@ -21,7 +23,11 @@ trains from step 0 with fresh optimizer state, as in the reference.
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch path. The data task covers at most the first
 ``TASK_VOCAB`` token ids (its bigram tables are (K, V, V)). An
-encoder-only model's sequence is its patches: ``--seq`` is not read.
+encoder-only model's sequence is its patches: ``--seq`` is not read. An
+encoder-decoder model's ``--seq`` is its encoder length, its decoder
+length ``max(seq // 4, 8)``; ``--upcycle-from`` upcycles its encoder
+and decoder stacks (t5-base-upcycled: Expert Choice in the encoder,
+top-2 in the decoder).
 ``--grad-accum``, ``--compression``, ``--remat`` and ``--ep`` are queued
 in ROADMAP.md.
 """

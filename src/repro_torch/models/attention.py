@@ -1,14 +1,12 @@
-"""GQA attention: the dense training path, the static-cache serve path
-and the paged KV-cache serve path (port of those subsets of
-``repro/models/attention.py``).
+"""GQA attention: the dense training path, cross-attention onto encoder
+states, the static-cache serve path and the paged KV-cache serve path
+(port of those subsets of ``repro/models/attention.py``).
 
 Shapes keep the JAX layouts: ``wq (d, H, dh)``, ``wk/wv (d, Kh, dh)``,
 ``wo (H, dh, d)``; static caches ``(B, max_len, Kh, dh)``; pools
 ``(P, bs, Kh, dh)`` with block 0 the trash block dead rows write into.
 Unlike JAX, the cache writes here update the caches and pools IN PLACE
 (the JAX engine donated them to the jitted step).
-
-Cross-attention is queued in ROADMAP.md (encoder-decoder family).
 """
 from __future__ import annotations
 
@@ -75,9 +73,17 @@ def attention_apply(
     block_tables=None,
     mixed: MixedMeta | None = None,
     causal: bool = True,
+    kv_x=None,
     implementation: str = "auto",
 ):
-    """Self-attention. Returns (y, cache).
+    """Self- or cross-attention. Returns (y, cache).
+
+    ``kv_x`` set — cross-attention onto the encoder states kv_x (B, Se,
+    d): q is projected from x, k and v from kv_x; no rope, no cache,
+    never causal, always through ``ops.flash_attention`` (the flash
+    kernels, forward and backward, on "cuda"), also for the single query
+    of a decode step. As in the reference, the encoder's k/v are
+    recomputed at every call: there is no cross-KV cache.
 
     ``cache`` None — the dense training path: x (B, S, d) at positions
     0..S-1 through ``ops.flash_attention`` (the flash kernels, forward
@@ -115,6 +121,17 @@ def attention_apply(
     """
     from repro_torch.kernels import ops
 
+    if kv_x is not None:
+        if cache is not None or block_tables is not None:
+            raise ValueError("cross-attention keeps no cache")
+        q = _project(x, p["wq"])
+        k = _project(kv_x, p["wk"])
+        v = _project(kv_x, p["wv"])
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        y = ops.flash_attention(q, k, v, causal=False,
+                                implementation=implementation)
+        return _out(y, p["wo"]), None
     B, Sq, _ = x.shape
     if block_tables is not None and Sq != 1:
         raise ValueError(

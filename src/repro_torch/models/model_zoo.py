@@ -1,14 +1,19 @@
-"""Top-level model builders for decoder-only and encoder-only stacks
-(port of the training and serving subsets of
+"""Top-level model entry points for decoder-only, encoder-decoder and
+encoder-only stacks (port of the training and serving subsets of
 ``repro/models/model_zoo.py``): ``init_params``, ``forward_train``,
 ``loss_fn``, the static engine's ``init_serve_cache``, ``prefill`` and
 ``decode_step``, and the paged engine's ``init_paged_serve_cache``,
-``paged_mixed_step`` and ``paged_decode_step``.
+``paged_mixed_step`` and ``paged_decode_step`` (decoder-only, as the
+reference's).
 
 Batch formats
-  decoder_only : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
-                 marking masked-out targets;
-  encoder_only : ``{"patch_embeds": (B, P, d), "labels": (B,)}`` (ViT).
+  decoder_only    : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
+                    marking masked-out targets;
+  encoder_decoder : ``{"enc_tokens": (B, Se)`` or ``"frames": (B, Se,
+                    d), "dec_tokens": (B, Sd), "targets": (B, Sd)}``
+                    (T5, whisper);
+  encoder_only    : ``{"patch_embeds": (B, P, d), "labels": (B,)}``
+                    (ViT).
 
 The chunked cross-entropy (``ce_chunk``), remat, ``paged_prefill``
 (prefill-on-join) and the speculative verify step are queued in
@@ -35,6 +40,7 @@ from repro_torch.models.layers import (
     head_init,
     norm_apply,
     norm_init,
+    sinusoidal,
 )
 
 
@@ -64,10 +70,9 @@ class ApplyCfg:
 
 def _check_structure(cfg: ArchConfig, *ok: str) -> None:
     if cfg.structure not in ok:
-        raise NotImplementedError(
+        raise ValueError(
             f"{cfg.name} is {cfg.structure}: this entry point runs "
-            f"{' and '.join(ok)} models (the encoder-decoder family is "
-            "queued in ROADMAP.md)"
+            f"{' and '.join(ok)} models"
         )
 
 
@@ -75,8 +80,10 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     """Random parameters with the JAX key paths and layouts.
 
     ``gen`` is a ``torch.Generator`` on ``device`` or an int seed.
-    ``device`` defaults to "cuda" and raises without a card."""
-    _check_structure(cfg, "decoder_only", "encoder_only")
+    ``device`` defaults to "cuda" and raises without a card. An
+    encoder-decoder model has the reference's keys ``embed``,
+    [``frontend``], ``encoder``, ``enc_final_norm``, ``stack``,
+    ``final_norm`` and ``head``."""
     device = resolve_device(device)
     if isinstance(gen, int):
         gen = torch.Generator(device=device).manual_seed(gen)
@@ -91,12 +98,53 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
             "head": {"w": pm.dense(gen, (cfg.d_model, cfg.vocab_size),
                                    **kw)},
         }
-    return {
-        "embed": embed_init(gen, cfg, **kw),
-        "stack": stk.stack_init(gen, cfg, stk.layer_descs(cfg), **kw),
-        "final_norm": norm_init(cfg, device=device),
-        "head": head_init(gen, cfg, **kw),
-    }
+    p = {"embed": embed_init(gen, cfg, **kw)}
+    if cfg.frontend is not None:
+        p["frontend"] = frontend_init(gen, cfg, **kw)
+    if cfg.structure == "encoder_decoder":
+        p["encoder"] = stk.stack_init(
+            gen, cfg, stk.layer_descs(cfg, stack="encoder"), **kw)
+        p["enc_final_norm"] = norm_init(cfg, device=device)
+    p["stack"] = stk.stack_init(gen, cfg, stk.layer_descs(cfg), **kw)
+    p["final_norm"] = norm_init(cfg, device=device)
+    p["head"] = head_init(gen, cfg, **kw)
+    return p
+
+
+def _embed_decoder_input(params, batch, cfg: ArchConfig):
+    """The decoder's input: ``tokens`` (decoder-only) or ``dec_tokens``
+    (encoder-decoder) embedded at positions 0..S-1."""
+    tokens = (batch["tokens"] if "tokens" in batch
+              else batch["dec_tokens"]).long()
+    return embed_apply(params["embed"], tokens, cfg,
+                       positions=torch.arange(tokens.shape[1],
+                                              device=tokens.device))
+
+
+def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
+    """The encoder stack of an encoder-decoder model: the token
+    embedding with sinusoidal positions, or the ``frame`` frontend's
+    projection plus sinusoidal positions; bidirectional, its MoE layers
+    routed by ``stack_router_kind(cfg, stack="encoder")`` (Expert
+    Choice); then ``enc_final_norm``. Returns (enc (B, Se, d),
+    metrics)."""
+    if cfg.frontend == "frame":
+        x = frontend_apply(params["frontend"], batch["frames"], cfg)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)
+    else:
+        tokens = batch["enc_tokens"].long()
+        x = embed_apply(params["embed"], tokens, cfg,
+                        positions=torch.arange(tokens.shape[1],
+                                               device=tokens.device))
+    x, mets, _ = stk.stack_apply(
+        params["encoder"], x, cfg, stk.layer_descs(cfg, stack="encoder"),
+        causal=False,
+        router_kind=stk.stack_router_kind(cfg, stack="encoder"),
+        dispatch=ac.dispatch, moe_impl=ac.moe_impl, attn_impl=ac.attn_impl,
+        mixer_impl=ac.mixer_impl,
+    )
+    return norm_apply(params["enc_final_norm"], x, cfg), mets
 
 
 def forward_train(params, batch, cfg: ArchConfig, *,
@@ -106,12 +154,15 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     device. Decoder-only: causal LM over ``batch["tokens"] (B, S)`` at
     positions 0..S-1, logits (B, S, V); an rwkv6 stack runs forward
     only through the WKV kernel (it raises under autograd: pass
-    ``mixer_impl="eager"`` to differentiate). Encoder-only (ViT): the patch
+    ``mixer_impl="eager"`` to differentiate). Encoder-decoder: the
+    encoder (:func:`_encode`), then the causal decoder over
+    ``batch["dec_tokens"]`` with cross-attention onto the encoder
+    states, logits (B, Sd, V); the encoder's metrics are added to the
+    decoder's. Encoder-only (ViT): the patch
     frontend plus learned positions, the bidirectional stack (Expert
     Choice in its MoE layers), the final norm, global average pooling
     and the class head, logits (B, V). Returns (logits float32,
     metrics)."""
-    _check_structure(cfg, "decoder_only", "encoder_only")
     if cfg.structure == "encoder_only":
         pe = batch["patch_embeds"]
         ac = ac.resolve(pe.device)
@@ -126,15 +177,15 @@ def forward_train(params, batch, cfg: ArchConfig, *,
         x = norm_apply(params["final_norm"], x, cfg)
         pooled = x.mean(dim=1)  # global average pooling (paper §2.2)
         return (pooled @ params["head"]["w"]).float(), mets
-    tokens = batch["tokens"].long()
-    ac = ac.resolve(tokens.device)
-    S = tokens.shape[1]
-    x = embed_apply(params["embed"], tokens, cfg,
-                    positions=torch.arange(S, device=tokens.device))
-    x, mets, _ = _stack(params, x, cfg, ac)
-    x = norm_apply(params["final_norm"], x, cfg)
-    return head_apply(params.get("head", {}), x, params["embed"],
-                      cfg).float(), mets
+    x = _embed_decoder_input(params, batch, cfg)
+    ac = ac.resolve(x.device)
+    enc, enc_mets = None, None
+    if cfg.structure == "encoder_decoder":
+        enc, enc_mets = _encode(params, batch, cfg, ac)
+    x, mets, _ = _stack(params, x, cfg, ac, enc=enc)
+    if enc_mets is not None:
+        mets = {k: v + enc_mets[k] for k, v in mets.items()}
+    return _logits(params, x, cfg), mets
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
@@ -164,7 +215,10 @@ def init_paged_serve_cache(cfg: ArchConfig, num_blocks: int,
                            block_size: int, *, dtype=torch.bfloat16,
                            device=None):
     """Per-layer KV block pools addressed by shared per-slot block
-    tables. ``device`` defaults to "cuda" and raises without a card."""
+    tables. ``device`` defaults to "cuda" and raises without a card.
+    Decoder-only, as the reference's: an encoder-decoder model carries a
+    dense encoder cache (serve it through ``prefill`` and
+    ``decode_step``)."""
     _check_structure(cfg, "decoder_only")
     device = resolve_device(device)
     return {"stack": stk.stack_paged_cache_init(
@@ -189,49 +243,64 @@ def _logits(params, h, cfg):
 
 
 def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-                     dtype=torch.bfloat16, device=None):
+                     dtype=torch.bfloat16, device=None, enc_len: int = 0):
     """The static engine's caches: a dense (B, max_len, Kh, dh) KV cache
     per attention layer, the time-mix ``x_prev``/``wkv`` and channel-mix
-    ``x_prev`` states per rwkv6 layer (``wkv`` always float32).
-    ``device`` defaults to "cuda" and raises without a card."""
-    _check_structure(cfg, "decoder_only")
+    ``x_prev`` states per rwkv6 layer (``wkv`` always float32); an
+    encoder-decoder model adds ``enc`` (B, enc_len, d), which ``prefill``
+    replaces with the encoder's states. ``device`` defaults to "cuda"
+    and raises without a card."""
+    _check_structure(cfg, "decoder_only", "encoder_decoder")
     device = resolve_device(device)
-    return {"stack": stk.stack_cache_init(
+    cache = {"stack": stk.stack_cache_init(
         cfg, stk.layer_descs(cfg), batch, max_len, dtype=dtype,
         device=device,
     )}
+    if cfg.structure == "encoder_decoder":
+        cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                   dtype=dtype, device=device)
+    return cache
 
 
 def prefill(params, batch, cache, cfg: ArchConfig, *,
             ac: ApplyCfg = ApplyCfg()):
     """Run the full prompts ``batch["tokens"] (B, S)`` from an empty
-    cache, writing it in place. Returns (cache, logits (B, 1, V) float32
+    cache, writing it in place. An encoder-decoder model first encodes
+    ``batch["enc_tokens"]`` (or ``"frames"``) and stores the states in
+    ``cache["enc"]`` (in the cache's dtype, as the reference does; this
+    prefill's cross-attention reads them unrounded); its decoder prompt
+    is ``batch["dec_tokens"]``. Returns (cache, logits (B, 1, V) float32
     at the last position)."""
-    _check_structure(cfg, "decoder_only")
-    tokens = batch["tokens"].long()
-    ac = ac.resolve(tokens.device)
-    S = tokens.shape[1]
-    x = embed_apply(params["embed"], tokens, cfg,
-                    positions=torch.arange(S, device=tokens.device))
-    x, _, cache["stack"] = _stack(params, x, cfg, ac, cache=cache["stack"],
-                                  cache_index=0)
+    _check_structure(cfg, "decoder_only", "encoder_decoder")
+    x = _embed_decoder_input(params, batch, cfg)
+    ac = ac.resolve(x.device)
+    enc = None
+    if cfg.structure == "encoder_decoder":
+        enc, _ = _encode(params, batch, cfg, ac)
+        cache["enc"] = enc.to(cache["enc"].dtype)
+    x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
+                                  cache=cache["stack"], cache_index=0)
     return cache, _logits(params, x[:, -1:], cfg)
 
 
 def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
                 *, ac: ApplyCfg = ApplyCfg()):
     """One autoregressive step of the static engine. tokens: (B, 1) at
-    position ``cache_index`` (an int, shared by the batch). Updates the
-    cache in place; returns (cache, logits (B, 1, V) float32)."""
-    _check_structure(cfg, "decoder_only")
+    position ``cache_index`` (an int, shared by the batch); an
+    encoder-decoder model's cross-attention reads ``cache["enc"]``.
+    Updates the cache in place; returns (cache, logits (B, 1, V)
+    float32)."""
+    _check_structure(cfg, "decoder_only", "encoder_decoder")
     tokens = tokens.long()
     ac = ac.resolve(tokens.device)
     index = int(cache_index)
     x = embed_apply(params["embed"], tokens, cfg,
                     positions=torch.arange(index, index + 1,
                                            device=tokens.device))
-    x, _, cache["stack"] = _stack(params, x, cfg, ac, cache=cache["stack"],
-                                  cache_index=index)
+    enc = (cache["enc"].to(x.dtype) if cfg.structure == "encoder_decoder"
+           else None)
+    x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
+                                  cache=cache["stack"], cache_index=index)
     return cache, _logits(params, x, cfg)
 
 

@@ -11,8 +11,10 @@ RWKV states slices of ``(reps, B, ...)`` tensors, all written in place.
 Without a cache the stack runs the training forward.
 
 Mixers: attention and RWKV-6 time-mix (with its channel-mix wrapper
-``cm`` around the FFN); mamba and cross-attention are queued in
-ROADMAP.md.
+``cm`` around the FFN); mamba is queued in ROADMAP.md. A decoder layer
+of an encoder-decoder model (``desc.cross``) adds cross-attention onto
+the encoder states (``cross_norm``, ``cross``) between its mixer and
+its FFN.
 """
 from __future__ import annotations
 
@@ -92,11 +94,10 @@ def find_segments(descs: list[LayerDesc]) -> list[tuple[int, list[LayerDesc]]]:
 
 
 def _check_desc(desc: LayerDesc) -> None:
-    if desc.mixer not in ("attn", "rwkv6") or desc.cross:
+    if desc.mixer not in ("attn", "rwkv6"):
         raise NotImplementedError(
             f"layer {desc} is not ported yet: the port runs attention and "
-            "rwkv6 stacks (mamba and cross-attention are queued in "
-            "ROADMAP.md)"
+            "rwkv6 stacks (mamba is queued in ROADMAP.md)"
         )
 
 
@@ -109,6 +110,9 @@ def layer_init(gen, cfg: ArchConfig, desc: LayerDesc, *,
         p["mixer"] = attention_init(gen, cfg, **kw)
     else:
         p["mixer"] = rwkv.time_mix_init(gen, cfg, **kw)
+    if desc.cross:
+        p["cross_norm"] = norm_init(cfg, device=device)
+        p["cross"] = attention_init(gen, cfg, **kw)
     p["ffn_norm"] = norm_init(cfg, device=device)
     if desc.mixer == "rwkv6":
         p["cm"] = rwkv.channel_mix_init(gen, cfg, **kw)
@@ -138,18 +142,19 @@ def zero_metrics(device=None):
                       "moe_layer_count")}
 
 
-def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
-                cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, causal: bool = True,
+def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
+                cache=None, cache_index=None, block_tables=None,
+                token_mask=None, mixed=None, causal: bool = True,
                 router_kind: str = "top_k", dispatch: str = "gather",
                 moe_impl: str = "auto", attn_impl: str = "auto",
                 mixer_impl: str = "auto"):
     """One pre-norm layer: the training forward over (B, S, d) when
     ``cache`` is None (``causal`` False for encoders); with a cache, the
     static engine's prefill or decode step (``block_tables`` None) or
-    the paged single-token rows. An rwkv6 layer gates its FFN
-    output with the channel-mix receptance. Returns (x, metrics, cache),
-    the cache updated in place."""
+    the paged single-token rows. A ``desc.cross`` layer then attends
+    onto the encoder states ``enc`` (B, Se, d), uncached. An rwkv6
+    layer gates its FFN output with the channel-mix receptance. Returns
+    (x, metrics, cache), the cache updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
     if desc.mixer == "attn":
@@ -162,6 +167,11 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, cache=None,
         y, _ = rwkv.time_mix_apply(p["mixer"], h, cfg, cache=mix_cache,
                                    implementation=mixer_impl)
     x = x + y
+    if desc.cross:
+        hc = norm_apply(p["cross_norm"], x, cfg)
+        yc, _ = attention_apply(p["cross"], hc, cfg, kv_x=enc,
+                                implementation=attn_impl)
+        x = x + yc
     h = norm_apply(p["ffn_norm"], x, cfg)
     gate = None
     if "cm" in p:
@@ -262,16 +272,17 @@ def _per_layer(tree, reps: int) -> list:
             for r in range(reps)]
 
 
-def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
-                cache_index=None, block_tables=None, token_mask=None,
-                mixed=None, causal: bool = True,
+def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
+                cache=None, cache_index=None, block_tables=None,
+                token_mask=None, mixed=None, causal: bool = True,
                 router_kind: str = "top_k", dispatch: str = "gather",
                 moe_impl: str = "auto", attn_impl: str = "auto",
                 mixer_impl: str = "auto"):
     """Apply every layer in order: the training forward when ``cache``
     is None (bidirectional when ``causal`` is False), else the static
     engine's prefill or decode step (``block_tables`` None) or the paged
-    serve step, with the caches in ``cache`` updated in place.
+    serve step, with the caches in ``cache`` updated in place. ``enc``:
+    the encoder states a decoder stack's cross-attention reads.
     Returns (x, summed metrics, cache)."""
     totals = zero_metrics(x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
@@ -283,7 +294,7 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, cache=None,
                 layer_cache = None if cache is None else tree_map(
                     take, cache["segments"][si][f"pos{i}"])
                 x, m, _ = layer_apply(
-                    seg_params[f"pos{i}"][r], x, cfg, d,
+                    seg_params[f"pos{i}"][r], x, cfg, d, enc=enc,
                     cache=layer_cache, cache_index=cache_index,
                     block_tables=block_tables, token_mask=token_mask,
                     mixed=mixed, causal=causal,

@@ -9,7 +9,9 @@ one batch, right-pads them with token 0, runs one ``zoo.prefill`` over
 a dense cache of ``plen + max_new`` positions and then the decode loop,
 sampling every row at the padded last position (as the reference does:
 for an RWKV stack the pad tokens enter the recurrent state). It serves
-every stack the port runs, attention and rwkv6.
+every decoder-only stack the port runs, attention and rwkv6. Neither
+engine serves an encoder-decoder model (neither of the reference's
+does): they refuse it at construction.
 
 In the paged engine every tick runs ONE fixed-shape
 ``zoo.paged_mixed_step``: one decode row per slot plus
@@ -84,6 +86,15 @@ class ServeEngine:
                  sc: Optional[ServeConfig] = None, *,
                  ac: zoo.ApplyCfg = zoo.ApplyCfg(), device=None):
         sc = ServeConfig() if sc is None else sc
+        if cfg.structure == "encoder_decoder":
+            # The reference's engines cannot serve one either: its static
+            # generate never passes the encoder's input (a KeyError on
+            # "enc_tokens"), its paged cache refuses the family.
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder model: ServeEngine "
+                "(static or paged) serves decoder-only models, as the "
+                "reference's does; drive zoo.prefill and zoo.decode_step "
+                "with the encoder's input instead")
         if sc.paged:
             if sc.admission != "chunked":
                 raise _unported(f"admission={sc.admission!r}")

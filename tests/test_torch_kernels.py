@@ -303,6 +303,7 @@ FLASH_CASES = [
     (2, 70, 70, 8, 1, 64, False, 0, 51),       # non-causal, kv_len mask
     (1, 20, 40, 4, 4, 32, True, -10, 40),      # rows with no valid key
     (2, 196, 196, 12, 12, 64, False, 0, None),  # ViT-B/16: non-causal MHA
+    (2, 24, 70, 12, 12, 64, False, 0, None),   # T5's cross-attention, Sq<Skv
 ]
 
 
@@ -319,6 +320,10 @@ FLASH_FWD_CASES = [
     (1, 33, 90, 16, 16, 16, False, 0, 70),
     (2, 45, 45, 8, 4, 32, True, 0, 30),
 ]
+# T5's cross-attention at a decode step: one query row against the
+# encoder's positions, non-causal (forward only: decoding takes no
+# gradient).
+FLASH_DECODE_CROSS_CASE = (3, 1, 50, 12, 12, 64, False, 0, None)
 
 
 def _flash_inputs(rng, dev, dtype, B, Sq, Skv, H, Kh, dh):
@@ -387,7 +392,7 @@ def test_flash_autograd_cuda_matches_eager(cuda, S, H, Kh, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_FWD_CASES)
+@pytest.mark.parametrize("case", FLASH_FWD_CASES + [FLASH_DECODE_CROSS_CASE])
 def test_flash_forward_tilings(cuda, dtype, case):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -645,10 +650,11 @@ def test_grouped_autograd_cuda_matches_eager(cuda):
 # the hidden pass and of d in the out pass): cap 9 (one 16-row tile), 37
 # and 33 (64-row tiles), 70 (one 128-row tile; two of 64 gated); d and f
 # not multiples of the 128-column tile; d = 97 and f = 130, whose rows
-# are not 16-byte aligned (staged element by element).
+# are not 16-byte aligned (staged element by element); cap 1, the top-2
+# decoder's buffer at a T5 decode step (routing.capacity ignores top_k).
 EXPERT_CASES = [(2, 3, 37, 64, 96), (1, 2, 70, 200, 300),
                 (2, 2, 33, 1024, 260), (2, 3, 9, 128, 200),
-                (1, 2, 20, 97, 130)]
+                (1, 2, 20, 97, 130), (1, 5, 1, 128, 200)]
 
 
 def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):
@@ -666,7 +672,7 @@ def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
-                                       ("sqrelu", False)])
+                                       ("sqrelu", False), ("gelu", True)])
 @pytest.mark.parametrize("case", EXPERT_CASES)
 def test_expert_kernels_match_plain(cuda, dtype, act, gated, case):
     from repro_torch.kernels import expert_mlp as em
@@ -722,16 +728,16 @@ DW_CASES = [(3, 2, 37, 64, 96), (3, 2, 9, 128, 200), (5, 2, 48, 96, 160),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
+                                       ("gelu", True)])  # GEGLU: T5 1.1
 @pytest.mark.parametrize("case", DW_CASES)
-def test_expert_dw_kernel_crosses_groups(cuda, dtype, gated, case):
+def test_expert_dw_kernel_crosses_groups(cuda, dtype, act, gated, case):
     from repro_torch.kernels import expert_mlp as em
     from repro_torch.kernels import ref
 
     G, E, cap, d, f = case
     rng = np.random.default_rng(G * cap + d)
     xe, wi, wg, wo, dy = _expert_inputs(rng, cuda, dtype, *case, gated)
-    act = "silu" if gated else "gelu"
     scratch = [None if t is None else t.contiguous() for t in
                ref.expert_ffn_dx_ref(xe, wi, wg, wo, dy, act=act)[1:]]
     got = em.expert_ffn_dw_cuda(xe, dy, *scratch)
