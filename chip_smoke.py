@@ -104,7 +104,28 @@ any failure, before printing its result line. It
 14. trains whisper-base (full config, frame frontend) 2 steps at 8 x
     1500 frames through the flash kernels, the first held and witnessed,
     and decodes 4 requests of 1500 frames, 16 new tokens, the same way;
-15. prints one JSON line of per-kernel numbers (all twelve kernels),
+15. serves granite (phase 4's weights and SERVE settings, the 12
+    requests) through the rest of the serving engine: (1)
+    ``admission="prefill_on_join"`` (bucketed B = 1 prefills through the
+    flash forward, batched decode steps) through the kernels and the
+    plain versions, token-identical to each other and to phase 4's
+    chunked outputs, launches and one compile per bucket checked, one
+    prefill and one decode step witnessed, the flash forward timed at
+    the buckets; (2) speculative decoding at spec_k 4 on a fresh upcycle
+    of the dense parent (copy init, normalised combine weights): the
+    ``dense`` and ``top1`` drafts token-identical to vanilla serving
+    (vanilla and dense over interleaved rounds, top1 in the first;
+    acceptance, drafted tokens, target steps and tokens/s printed), the
+    dense draft accepting >= 0.99 at temperature 0.8, one spec tick
+    witnessed; (3) the over-subscribed trace of
+    ``examples/serve_moe.py --overload`` with the robustness knobs and
+    seeded chaos (3 seeds), every request terminal once, completed ones
+    token-identical to an unchaosed run; (4) a fleet of 3 replica
+    sessions with replica 0 killed mid-decode, every request completed
+    once, token-identical to phase 4; each with its launches held
+    against the steps it made; then times the paged prefill
+    kernel at a verify step's lanes (8 x 5 rows);
+16. prints one JSON line of per-kernel numbers (all twelve kernels),
     then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -214,6 +235,33 @@ GRANITE_STATIC = dict(prompts=4, plen=(64, 128), max_new=16)
 WKV_RTOL = {"oracle": 1e-5, "chunked": 2e-4, "bfloat16": 1e-2}
 
 SERVE_KERNELS = ("decode_attention", "paged_prefill", "grouped_mlp")
+
+# Phase 15, the rest of the serving engine on granite (the SERVE
+# settings, the 12 requests of make_requests). Speculative decoding: 4
+# drafts a verify pass on a fresh upcycle whose MoE computes what its
+# dense parent computes (copy init, normalised combine weights); greedy
+# runs in SPEC_RUNS interleaved rounds of vanilla and dense (top1, whose
+# draft steps run the experts, in the first round only); the dense
+# draft at SPEC_TEMPERATURE must accept at least SPEC_MIN_ACCEPT (draft
+# and target agree up to float32 rounding).
+SPEC_K, SPEC_RUNS, SPEC_TEMPERATURE, SPEC_MIN_ACCEPT = 4, 2, 0.8, 0.99
+# The over-subscribed trace of examples/serve_moe.py --overload (10
+# requests of 12 tokens, 8 new, two arrivals a tick, the last two at
+# priority 1, 2 slots, a pool of one request's blocks and a spare) with
+# the robustness knobs on and tests/test_serve_chaos.py's chaos, seeds
+# CHAOS_SEEDS.
+OVERLOAD = dict(n=10, plen=12, max_new=8, max_batch=2)
+CHAOS_SEEDS = (0, 1, 2)
+CHAOS = dict(evict_prob=0.15, hold_prob=0.2, hold_max_blocks=3,
+             hold_ticks=2, burst_prob=0.1, burst_size=2, burst_plen=9,
+             burst_max_new=3, storm_prob=0.05, storm_ttft=10)
+ROBUST = dict(queue_limit=3, queue_policy="shed-newest", preempt=True,
+              shed_occupancy=0.95, shed_stall_ticks=6,
+              default_ttft_deadline=60, default_deadline=120,
+              watchdog_ticks=16)
+# The fleet: 3 replica sessions of one engine, replica 0 killed at this
+# tick (request 0, admitted there at tick 0, is decoding by then).
+FLEET_KILL_TICK = 8
 FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 TRAIN_KERNELS = FLASH_KERNELS + ("grouped_mlp", "grouped_mlp_dx",
@@ -1618,15 +1666,6 @@ def serve_once(eng, cfg):
     return outs, finished, gen, wall
 
 
-def first_divergence(a: dict, b: dict, cfg):
-    for r in make_requests(cfg):
-        x, y = a[r.rid], b[r.rid]
-        for n in range(len(r.prompt), max(len(x), len(y))):
-            if n >= len(x) or n >= len(y) or x[n] != y[n]:
-                return r.rid, n
-    return None
-
-
 def top2_gap(eng, seq: list) -> float:
     """Replay ``seq`` as one prompt through ``eng`` and return the gap
     between the top-2 logits of the token that follows it."""
@@ -1644,6 +1683,29 @@ def top2_gap(eng, seq: list) -> float:
     sess.close()
     top = np.sort(row)[-2:]
     return float(top[1] - top[0])
+
+
+def check_tokens(tag, got, want, rids, gap_eng) -> None:
+    """Hold two runs' outputs token for token, request by request: a
+    divergence is accepted only at a top-2 logit gap below TIE_GAP
+    (measured by replaying the shared prefix through ``gap_eng``, a
+    chunked engine over the same weights)."""
+    diverged = 0
+    for rid in rids:
+        x, y = got[rid], want[rid]
+        if x == y:
+            continue
+        n = next(i for i in range(max(len(x), len(y)))
+                 if i >= len(x) or i >= len(y) or x[i] != y[i])
+        gap = top2_gap(gap_eng, x[:n])
+        diverged += 1
+        print(f"[check] {tag}: rid {rid} diverges at token {n}: top-2 "
+              f"logit gap {gap:.3e}", flush=True)
+        if gap >= TIE_GAP:
+            fail(f"{tag}: rid {rid} diverges at token {n} with top-2 gap "
+                 f"{gap:.3e} >= {TIE_GAP}")
+    if not diverged:
+        print(f"[check] {tag}: token-identical", flush=True)
 
 
 @contextlib.contextmanager
@@ -2726,18 +2788,9 @@ def checkpoint_chain(device):
                       f"{es['free_blocks_at_close']}", flush=True)
                 if any(r["status"] != "completed" for r in finished.values()):
                     fail(f"not every request completed: {finished}")
-            div = first_divergence(outs["checkpoint"], outs["in-memory"],
-                                   serve_cfg)
-            if div is None:
-                print("[ckpt] served tokens identical between the restored "
-                      "and the in-memory params", flush=True)
-            else:
-                rid, k = div
-                gap = top2_gap(eng, outs["checkpoint"][rid][:k])
-                print(f"[ckpt] rid {rid} diverges at token {k}: top-2 gap "
-                      f"{gap:.3e}", flush=True)
-                if gap >= TIE_GAP:
-                    fail(f"restored serving diverged at rid {rid} token {k}")
+            check_tokens("served from the restored vs the in-memory params",
+                         outs["checkpoint"], outs["in-memory"],
+                         [r.rid for r in make_requests(serve_cfg)], eng)
             del params, out_m, eng
             torch.cuda.empty_cache()
 
@@ -3186,6 +3239,465 @@ def whisper_path(device):
     return {"whisper_train": train_launches, "whisper_decode": decode_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: prefill-on-join, speculative decoding, chaos and the fleet
+# ---------------------------------------------------------------------------
+
+
+def verify_lane_row(cfg, device, *, seed):
+    """The paged prefill kernel at a verify step's verify lanes (the
+    SERVE settings at spec_k SPEC_K: 8 lanes of 5 rows, starts inside
+    blocks, lens 5 but for one 1-row lane and one idle lane, which
+    starts at 0 as the engine zeroes an idle lane; the chunk lanes
+    beside them are the call of check_kernels), against the plain
+    version and SDPA over each lane's blocks gathered dense."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref
+
+    bs, nb = SERVE["block_size"], SERVE["max_len"] // SERVE["block_size"]
+    B, K1 = SERVE["max_batch"], SPEC_K + 1
+    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa
+    P = 1 + B * nb
+    kp, vp = rnd(P, bs, Kh, dh), rnd(P, bs, Kh, dh)
+    vtab = (1 + torch.randperm(P - 1, generator=gen, device=device)
+            ).reshape(B, nb).to(torch.int32)
+    i32 = dict(dtype=torch.int32, device=device)
+    starts = torch.tensor([1, 17, 70, 131, 250, 333, 400, 0], **i32)
+    lens = torch.tensor([K1] * (B - 2) + [1, 0], **i32)
+    q = rnd(B, K1, H, dh)
+    c = dict(q_ch=q, kp=kp, ctab=vtab, starts=starts, lens=lens)
+    k = kp[vtab.long()].reshape(B, nb * bs, Kh, dh)
+    v = vp[vtab.long()].reshape(B, nb * bs, Kh, dh)
+    kd, vd = (t.transpose(1, 2).repeat_interleave(H // Kh, 1).contiguous()
+              for t in (k, v))
+    qpos = starts[:, None] + torch.arange(K1, device=device)[None]
+    mask = (torch.arange(nb * bs, device=device)[None, None]
+            <= qpos[..., None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask)
+
+    args = (q, kp, vp, vtab, starts, lens)
+    kern = lambda: pp.paged_prefill_attention_cuda(*args)  # noqa: E731
+    plain = lambda: ref.prefill_attention_ref(*args)  # noqa: E731
+    y = kern()
+    torch.cuda.synchronize()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    out = _shape_row("verify_lanes", "paged_prefill", y, plain(), kern,
+                     plain, sdpa, 1, prefill_work(c, 4), flush, 20)
+    out[2]["shape"] = [B, K1, H, Kh, dh]
+    return out
+
+
+def prefill_on_join_path(params, cfg, device, chunked, gap_eng):
+    """Phase 15.1: the 12 requests through ``admission="prefill_on_join"``
+    (one bucketed B = 1 prefill an admission, the flash forward; one
+    batched decode step a tick, the decode kernel), through the kernels
+    and the plain versions; held token for token against each other and
+    against phase 4's chunked outputs; launches and ``compile_count``
+    (one shape a bucket plus the decode step's) checked; one prefill and
+    one decode step witnessed. Returns the kernels' run's launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import ServeConfig, ServeEngine, bucket_len
+
+    L, bs = cfg.n_layers, SERVE["block_size"]
+    reqs = make_requests(cfg)
+    buckets = [bucket_len(len(r.prompt), bs) for r in reqs]
+    sc = ServeConfig(paged=True, admission="prefill_on_join", **SERVE)
+    eng = ServeEngine(params, cfg, sc, device=device)
+    ops.reset_launch_counts()
+    outs, fin, n_gen, wall = serve_once(eng, cfg)
+    launches = ops.launch_counts()
+    st = eng.last_stats
+    print(f"[pp] kernels: {n_gen} tokens in {wall:.3f} s = "
+          f"{n_gen / wall:.1f} tokens/s, decode steps={st['mixed_steps']}, "
+          f"decode_stall_ticks={st['decode_stall_ticks']}, "
+          f"compile_count={st['compile_count']} ({len(set(buckets))} "
+          f"buckets {sorted(set(buckets))} + the decode step), "
+          f"launches={launches}, "
+          f"free_blocks_at_close={st['free_blocks_at_close']}", flush=True)
+    if any(rec["status"] != "completed" for rec in fin.values()):
+        fail(f"prefill-on-join: not every request completed: {fin}")
+    if st["compile_count"] != len(set(buckets)) + 1:
+        fail(f"prefill-on-join compile_count {st['compile_count']} != "
+             f"{len(set(buckets))} buckets + 1")
+    want = {"flash_attention": L * len(reqs),
+            "decode_attention": L * st["mixed_steps"],
+            "grouped_mlp": L * (len(reqs) + st["mixed_steps"]),
+            "paged_prefill": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"prefill-on-join launches {launches}, want {want}")
+    eager = ServeEngine(params, cfg, sc, device=device,
+                        ac=zoo.ApplyCfg(moe_impl="eager", attn_impl="eager"))
+    outs_e, _, n_e, wall_e = serve_once(eager, cfg)
+    print(f"[pp] plain: {n_e} tokens in {wall_e:.3f} s = "
+          f"{n_e / wall_e:.1f} tokens/s", flush=True)
+    rids = [r.rid for r in reqs]
+    check_tokens("pp kernels vs plain", outs, outs_e, rids, gap_eng)
+    check_tokens("pp vs chunked (phase 4)", outs, chunked, rids, gap_eng)
+
+    # One B = 1 prefill and one decode step, every kernel call witnessed.
+    ac = zoo.ApplyCfg(dispatch="sorted")
+    nb = SERVE["max_len"] // bs
+    cache = zoo.init_paged_serve_cache(cfg, 1 + nb, bs, dtype=torch.float32,
+                                       device=device)
+    r = reqs[-1]
+    plen, sp = len(r.prompt), bucket_len(len(r.prompt), bs)
+    i32 = dict(dtype=torch.int32, device=device)
+    toks = torch.zeros((1, sp), **i32)
+    toks[0, :plen] = torch.tensor(r.prompt, **i32)
+    table = torch.arange(1, nb + 1, **i32)[None]
+    with witnessed_kernels() as wit:
+        cache, lg = zoo.paged_prefill(params, toks, cache, table, plen, cfg,
+                                      ac=ac)
+        torch.cuda.synchronize()
+    print(f"[witness] prefill-on-join prefill (1, {sp}) of a {plen}-token "
+          "prompt:", flush=True)
+    report_witness(wit, ("flash_attention", "grouped_mlp"))
+    B = SERVE["max_batch"]
+    tables = torch.zeros((B, nb), **i32)
+    tables[0] = table[0]
+    lengths = torch.zeros((B,), **i32)
+    lengths[0] = plen
+    cur = torch.zeros((B, 1), **i32)
+    cur[0, 0] = int(lg[0, 0].argmax())
+    with witnessed_kernels() as wit:
+        zoo.paged_decode_step(params, cur, cache, tables, lengths, cfg,
+                              ac=ac)
+        torch.cuda.synchronize()
+    print("[witness] prefill-on-join decode step:", flush=True)
+    report_witness(wit, ("decode_attention", "grouped_mlp"))
+    return launches
+
+
+def bucket_rows(cfg, device):
+    """The flash forward at prefill-on-join's smallest, middle and
+    largest bucket of the 12 requests (B = 1), with its launches in the
+    run of :func:`prefill_on_join_path`."""
+    from repro_torch.serve import bucket_len
+
+    buckets = [bucket_len(len(r.prompt), SERVE["block_size"])
+               for r in make_requests(cfg)]
+    used = sorted(set(buckets))
+    rows = []
+    for S in (used[0], used[len(used) // 2], used[-1]):
+        row = flash_shape_row(f"pp_bucket_{S}", cfg, 1, S, device, seed=S)
+        row[2]["launches"] = cfg.n_layers * buckets.count(S)
+        rows.append(row)
+    return rows
+
+
+def upcycled_granite(cfg, device):
+    """A fresh upcycle of granite's dense parent (seed 1, attention
+    conditioned as in phase 4): copy init and normalised combine weights,
+    so the MoE computes what its parent computes (the reference's
+    ``upcycled`` fixture, tests/test_speculative.py). Returns (params,
+    cfg)."""
+    import torch
+
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.models import model_zoo as zoo
+
+    scfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, expert_init="copy", normalize_combine_weights=True))
+    dcfg = scfg.dense_parent()
+    dense = zoo.init_params(torch.Generator(device=device).manual_seed(1),
+                            dcfg, device=device)
+    condition_attention(dense, dcfg)
+    return upcycle_params(dense, dcfg, scfg, 2), scfg
+
+
+def spec_path(cfg, device):
+    """Phase 15.2: speculative decoding (spec_k SPEC_K) on a fresh
+    upcycle: greedy vanilla and dense in interleaved rounds, top1 in the
+    first (the
+    drafts token-identical to vanilla by check_tokens' rule; acceptance,
+    drafted tokens, target steps and tokens/s printed), launches checked
+    against the steps each run made, the dense draft at temperature
+    accepting at least SPEC_MIN_ACCEPT, and one spec tick witnessed.
+    Returns the launches of the first round's runs."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    params, scfg = upcycled_granite(cfg, device)
+    L = scfg.n_layers
+    base = dict(paged=True, **SERVE)
+    engines = {
+        "vanilla": ServeEngine(params, scfg, ServeConfig(**base),
+                               device=device),
+        "dense": ServeEngine(params, scfg, ServeConfig(
+            **base, draft="dense", spec_k=SPEC_K), device=device),
+        "top1": ServeEngine(params, scfg, ServeConfig(
+            **base, draft="top1", spec_k=SPEC_K), device=device),
+    }
+    gap_eng = engines["vanilla"]
+    rids = [r.rid for r in make_requests(scfg)]
+    total, tps, ref_outs = {}, {k: [] for k in engines}, None
+    for rnd in range(SPEC_RUNS):
+        for key, eng in engines.items():
+            if key == "top1" and rnd:
+                continue
+            ops.reset_launch_counts()
+            outs, fin, n, wall = serve_once(eng, scfg)
+            launches = ops.launch_counts()
+            st = eng.last_stats
+            tps[key].append(n / wall)
+            line = (f"[spec] {key} round {rnd}: {n} tokens in {wall:.3f} s "
+                    f"= {n / wall:.1f} tokens/s, target steps="
+                    f"{st['mixed_steps']}")
+            if key == "vanilla":
+                if ref_outs is None:
+                    ref_outs = outs
+                want = {"decode_attention": L * st["mixed_steps"],
+                        "paged_prefill": L * st["mixed_steps"],
+                        "grouped_mlp": L * st["mixed_steps"]}
+            else:
+                sp = st["spec"]
+                line += (f", acceptance_rate={st['acceptance_rate']:.4f}, "
+                         f"spec_drafted={st['spec_drafted']}, spec_accepted="
+                         f"{st['spec_accepted']}, draft_steps="
+                         f"{sp['draft_steps']}, catch_up_steps="
+                         f"{sp['catch_up_steps']}, compile_count="
+                         f"{st['compile_count']}, draft_compile_count="
+                         f"{st['draft_compile_count']}")
+                draft_moe = L * (sp["draft_steps"] + sp["catch_up_steps"])
+                want = {"decode_attention": L * sp["draft_steps"],
+                        "paged_prefill": L * (2 * st["mixed_steps"]
+                                              + sp["catch_up_steps"]),
+                        "grouped_mlp": L * st["mixed_steps"]
+                        + (draft_moe if key == "top1" else 0)}
+                if st["compile_count"] != 1 or \
+                        st["draft_compile_count"] != 2:
+                    fail(f"spec {key}: compile_count "
+                         f"{st['compile_count']}, draft "
+                         f"{st['draft_compile_count']} (want 1, 2)")
+            print(line + f", launches={launches}", flush=True)
+            if any(launches[k] != v for k, v in want.items()):
+                fail(f"spec {key}: launches {launches}, want {want}")
+            if any(rec["status"] != "completed" for rec in fin.values()):
+                fail(f"spec {key}: not every request completed")
+            if rnd == 0:
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            check_tokens(f"spec {key} round {rnd} vs vanilla", outs,
+                         ref_outs, rids, gap_eng)
+    for key, v in tps.items():
+        print(f"[spec] {key}: tokens/s over {len(v)} rounds = "
+              f"{', '.join(f'{x:.1f}' for x in v)}", flush=True)
+
+    # Temperature: the dense draft is the MoE's parent, q == p up to
+    # float32 rounding.
+    hot = {k: ServeEngine(params, scfg, ServeConfig(
+        **base, temperature=SPEC_TEMPERATURE,
+        **({} if k == "vanilla" else dict(draft=k, spec_k=SPEC_K))),
+        device=device) for k in ("vanilla", "dense")}
+    outs_t = {}
+    for k, eng in hot.items():
+        outs_t[k] = eng.serve(make_requests(scfg), seed=7)[0]
+    st = hot["dense"].last_stats
+    differ = sum(outs_t["dense"][r] != outs_t["vanilla"][r] for r in rids)
+    print(f"[spec] dense at temperature {SPEC_TEMPERATURE}: "
+          f"acceptance_rate={st['acceptance_rate']:.4f} "
+          f"({st['spec_accepted']} of {st['spec_drafted']}), "
+          f"{differ} of {len(rids)} requests differ from vanilla",
+          flush=True)
+    if st["acceptance_rate"] < SPEC_MIN_ACCEPT:
+        fail(f"the dense draft of a fresh upcycle accepted "
+             f"{st['acceptance_rate']:.4f} < {SPEC_MIN_ACCEPT}")
+
+    # One spec tick with drafts in flight, every kernel call witnessed.
+    sess = engines["dense"].open_session()
+    for r in make_requests(scfg):
+        sess.submit(r)
+    while sess.stats["spec_drafted"] == 0:
+        sess.tick()
+    with witnessed_kernels() as wit:
+        sess.tick()
+        torch.cuda.synchronize()
+    print(f"[witness] one spec tick (verify lanes {SERVE['max_batch']} x "
+          f"{SPEC_K + 1}, chunk lanes {SERVE['chunks_per_step']} x "
+          f"{SERVE['chunk_size']}):", flush=True)
+    report_witness(wit, [k for k in SERVE_KERNELS if k in wit])
+    if not {"paged_prefill", "grouped_mlp"} <= set(wit):
+        fail(f"the witnessed spec tick called {sorted(wit)}")
+    while sess.tick():
+        pass
+    sess.close()
+    return total
+
+
+def overload_requests(cfg):
+    """examples/serve_moe.py's over-subscribed trace."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, arrival=i // 2,
+                    prompt=[int(t) for t in rng.integers(
+                        1, 250, size=OVERLOAD["plen"])],
+                    max_new=OVERLOAD["max_new"],
+                    priority=1 if i >= 8 else 0)
+            for i in range(OVERLOAD["n"])]
+
+
+def chaos_path(params, cfg, device, gap_eng):
+    """Phase 15.3: the over-subscribed trace with the robustness knobs
+    and seeded chaos. Every request (bursts included) reaches exactly
+    one terminal status (the session checks it at close, with the block
+    leak), the pool is audited every tick, and every completed request
+    is token-identical (check_tokens' rule) to its run in an unchaosed,
+    ample engine; for each of CHAOS_SEEDS. Returns the chaos runs'
+    launches."""
+    from repro_torch.serve import ServeConfig, ServeEngine, blocks_needed
+
+    bs = SERVE["block_size"]
+    base = dict(SERVE, max_batch=OVERLOAD["max_batch"], paged=True)
+    clean = ServeEngine(params, cfg, ServeConfig(**base), device=device)
+    clean_outs, _ = clean.serve(overload_requests(cfg))
+    need = blocks_needed(OVERLOAD["plen"], OVERLOAD["max_new"], bs)
+    total = {}
+    for seed in CHAOS_SEEDS:
+        launches = chaos_run(params, cfg, device, gap_eng, seed, clean_outs,
+                             dict(base, num_blocks=1 + need + 1))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def chaos_run(params, cfg, device, gap_eng, seed, clean_outs, base):
+    """One chaos seed of :func:`chaos_path`; returns its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ChaosConfig, ServeConfig, ServeEngine
+
+    eng = ServeEngine(params, cfg, ServeConfig(
+        **base, chaos=ChaosConfig(seed=seed, **CHAOS), **ROBUST),
+        device=device)
+    ops.reset_launch_counts()
+    outs, fin = eng.serve(overload_requests(cfg))
+    launches = ops.launch_counts()
+    st = eng.last_stats
+    print(f"[chaos] seed {seed}: {len(fin)} requests "
+          f"({st['chaos']['burst_reqs']} from "
+          f"bursts): status_counts={st['status_counts']}, chaos="
+          f"{st['chaos']}, preemptions={st['preemptions']}, "
+          f"watchdog_failures={st['watchdog_failures']}, mixed_steps="
+          f"{st['mixed_steps']}, audits={st['audits']}, compile_count="
+          f"{st['compile_count']}, launches={launches}", flush=True)
+    if set(outs) != set(fin) or sum(st["status_counts"].values()) != len(fin):
+        fail("chaos: a request without exactly one terminal status")
+    if any(rec["status"] not in ("completed", "shed", "timeout", "failed")
+           for rec in fin.values()):
+        fail(f"chaos: unknown terminal status in {fin}")
+    if st["audits"] <= st["mixed_steps"] or st["compile_count"] != 1:
+        fail(f"chaos: audits {st['audits']}, mixed steps "
+             f"{st['mixed_steps']}, compile_count {st['compile_count']}")
+    want = cfg.n_layers * st["mixed_steps"]
+    if any(launches[k] != want for k in SERVE_KERNELS):
+        fail(f"chaos seed {seed}: launches {launches}, want {want} of "
+             f"each of {SERVE_KERNELS}")
+    done = [rid for rid, rec in fin.items()
+            if rid < OVERLOAD["n"] and rec["status"] == "completed"]
+    print(f"[chaos] seed {seed}: {len(done)} of {OVERLOAD['n']} trace "
+          f"requests completed: {done}", flush=True)
+    check_tokens(f"chaos seed {seed} completed vs unchaosed", outs,
+                 clean_outs, done, gap_eng)
+    return launches
+
+
+def fleet_path(params, cfg, device, chunked, gap_eng):
+    """Phase 15.4: the 12 requests through a Fleet of 3 replica sessions
+    of one engine (pools audited every tick), replica 0 killed at
+    FLEET_KILL_TICK: every request completes exactly once, and the
+    outputs are token-identical (check_tokens' rule) to phase 4's solo run.
+    Returns the fleet run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (Fleet, FleetChaosConfig, FleetConfig,
+                                   ServeConfig, ServeEngine)
+
+    eng = ServeEngine(params, cfg, ServeConfig(
+        paged=True, audit_invariants=True, **SERVE), device=device)
+    fleet = Fleet(eng, FleetConfig(num_engines=3, chaos=FleetChaosConfig(
+        seed=1, kills=((FLEET_KILL_TICK, 0),))))
+    reqs = make_requests(cfg)
+    ops.reset_launch_counts()
+    outs, fin = fleet.run(reqs)
+    launches = ops.launch_counts()
+    fs = fleet.last_stats
+    moved = sorted(rid for rid, rec in fin.items() if rec["migrations"])
+    print(f"[fleet] {fs['num_engines']} replicas, {fs['ticks']} ticks, "
+          f"kills={fs['kills']}, migrations={fs['migrations']} (rids "
+          f"{moved}), status_counts={fs['status_counts']}, engines="
+          + str({e: (s["state"], s["mixed_steps"], s["audits"])
+                 for e, s in fs["engines"].items()})
+          + f", launches={launches}", flush=True)
+    if sorted(fin) != [r.rid for r in reqs] or \
+            fs["status_counts"] != {"completed": len(reqs)}:
+        fail(f"fleet: not every request completed exactly once: {fin}")
+    if fs["kills"] != 1 or not moved:
+        fail("fleet: the kill migrated no request mid-flight")
+    want = cfg.n_layers * sum(s["mixed_steps"] for s in fs["engines"].values())
+    if any(launches[k] != want for k in SERVE_KERNELS):
+        fail(f"fleet: launches {launches}, want {want} of each of "
+             f"{SERVE_KERNELS}")
+    check_tokens("fleet vs solo (phase 4)", outs, chunked,
+                 [r.rid for r in reqs], gap_eng)
+    return launches
+
+
+def serve_engine_modes(cfg, device, chunked):
+    """Phase 15: prefill-on-join, speculative decoding, robustness and
+    chaos, and the fleet, each sub-phase's seconds, launches and peak
+    memory printed. ``chunked``: phase 4's outputs (the same weights).
+    Returns (launches by path, shape rows)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_attention(params, cfg)  # phase 4's weights
+    gap_eng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
+                          device=device)
+    by_path = {}
+    for name, run in (
+            ("serve_prefill_on_join",
+             lambda: prefill_on_join_path(params, cfg, device, chunked,
+                                          gap_eng)),
+            ("serve_spec", lambda: spec_path(cfg, device)),
+            ("serve_chaos", lambda: chaos_path(params, cfg, device,
+                                               gap_eng)),
+            ("serve_fleet", lambda: fleet_path(params, cfg, device,
+                                               chunked, gap_eng))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        launches = by_path[name] = run()
+        torch.cuda.synchronize()
+        print(f"[{name}] {time.perf_counter() - t0:.1f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} "
+              "GiB", flush=True)
+    rows = bucket_rows(cfg, device) + [verify_lane_row(cfg, device, seed=3)]
+    print(f"[serve_modes] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, rows
+
+
 def main() -> int:
     import torch
 
@@ -3276,18 +3788,8 @@ def main() -> int:
     print(f"[serve] plain: {n_gen_e} tokens in {wall_e:.3f} s = "
           f"{n_gen_e / wall_e:.1f} tokens/s, launches="
           f"{ops.launch_counts()}", flush=True)
-    div = first_divergence(outs, outs_e, cfg)
-    if div is None:
-        print("[check] greedy outputs token-identical to the plain run",
-              flush=True)
-    else:
-        rid, n = div
-        gap = top2_gap(eng, outs[rid][:n])
-        print(f"[check] rid {rid} diverges at token {n}: top-2 logit gap "
-              f"{gap:.3e}", flush=True)
-        if gap >= TIE_GAP:
-            fail(f"greedy divergence at rid {rid} token {n} with top-2 gap "
-                 f"{gap:.3e} >= {TIE_GAP}")
+    check_tokens("greedy outputs vs the plain run", outs, outs_e,
+                 [r.rid for r in make_requests(cfg)], eng)
     tps = {"kernels": [n_gen / wall], "plain": [n_gen_e / wall_e]}
     for _ in range(SERVE_RUNS - 1):
         for key, e, want in (("kernels", eng, outs), ("plain", eager,
@@ -3300,6 +3802,7 @@ def main() -> int:
         print(f"[serve] {key}: tokens/s over {len(v)} runs = "
               f"{', '.join(f'{x:.1f}' for x in v)} (median "
               f"{sorted(v)[len(v) // 2]:.1f})", flush=True)
+    chunked_outs = outs
     step_err = compare_mixed_step(params, cfg, device)
     print(f"[check] one mixed step, kernels vs plain: max |logit diff| = "
           f"{step_err:.3e} (atol {STEP_ATOL})", flush=True)
@@ -3350,6 +3853,13 @@ def main() -> int:
     shape_rows += rows
     torch.cuda.empty_cache()
     encdec_launches.update(whisper_path(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The rest of the serving engine on granite: prefill-on-join,
+    # speculative decoding, robustness and chaos, the fleet.
+    modes_launches, rows = serve_engine_modes(cfg, device, chunked_outs)
+    shape_rows += rows
 
     for rec in records:
         name = rec["name"]
@@ -3362,6 +3872,8 @@ def main() -> int:
                    "checkpoint_chain": ckpt_launches.get(name, 0)}
         by_path.update({path: n.get(name, 0)
                         for path, n in encdec_launches.items()})
+        by_path.update({path: n.get(name, 0)
+                        for path, n in modes_launches.items()})
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         at = {tag: row for k, tag, row in shape_rows if k == name}

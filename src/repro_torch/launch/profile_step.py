@@ -8,6 +8,7 @@ report where its time goes.
          [--batch N] [--seq S]] \\
         [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m] \\
          [--batch 8] [--seq 512]] \\
+        [--serve-step mixed|verify|prefill|decode] \\
         [--reduced] [--steps 3] [--device cuda|cpu] \\
         [--out trace_summary.json]
 
@@ -15,7 +16,12 @@ Without ``--train`` the model is granite-moe-1b-a400m, the serve
 cell's, with dropless routing and the sorted dispatch. The step carries
 the serve shapes of ``chip_smoke.py`` (8 decode rows of ragged lengths,
 two 64-token chunk lanes, 16-token blocks, 512-token sequences) over
-random pools and random weights from seed 0. ``--train`` traces one MoE
+random pools and random weights from seed 0. ``--serve-step`` picks the
+serve step: the chunked engine's ``paged_mixed_step`` (the default), the
+speculating engine's ``paged_verify_step`` (the decode rows become
+verify lanes of 5 rows, spec_k 4, beside the same chunk lanes), or
+prefill-on-join's B = 1 ``paged_prefill`` (a 256-token bucket) and its
+batched ``paged_decode_step`` (the 8 decode rows). ``--train`` traces one MoE
 train step of ``--arch`` instead, on a fixed batch of the arch's
 synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
@@ -133,6 +139,40 @@ def mixed_step_fn(cfg, device):
     return lambda: zoo.paged_mixed_step(params, *args, cfg, ac=ac)
 
 
+SPEC_K1, PP_BUCKET = 5, 256  # verify rows a lane; prefill-on-join's bucket
+
+
+def serve_step_fn(cfg, device, kind: str):
+    """One serve-cell ``verify``, ``prefill`` (prefill-on-join) or
+    ``decode`` (its batched decode) step, as a closure, on the mixed
+    step's pools, tables and lengths."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    _, args = mixed_step_inputs(cfg, device)
+    tok, ctoks, cache, dec_tab, dec_len, ctab, cstart, clen = args
+    ac = zoo.ApplyCfg(dispatch="sorted")
+    gen = torch.Generator(device=device).manual_seed(3)
+    i32 = dict(dtype=torch.int32, device=device)
+    if kind == "verify":
+        vtoks = torch.randint(1, cfg.vocab_size, (tok.shape[0], SPEC_K1),
+                              generator=gen, **i32)
+        vlen = torch.where(dec_len > 0, SPEC_K1, 0).to(torch.int32)
+        return lambda: zoo.paged_verify_step(
+            params, vtoks, ctoks, cache, dec_tab, dec_len, vlen, ctab,
+            cstart, clen, cfg, ac=ac)
+    if kind == "prefill":
+        toks = torch.randint(1, cfg.vocab_size, (1, PP_BUCKET),
+                             generator=gen, **i32)
+        return lambda: zoo.paged_prefill(params, toks, cache, ctab[:1],
+                                         PP_BUCKET - 3, cfg, ac=ac)
+    return lambda: zoo.paged_decode_step(params, tok, cache, dec_tab,
+                                         dec_len, cfg, ac=ac)
+
+
 def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str):
     """One train-cell MoE step on a fixed batch, as a closure."""
     import torch
@@ -248,6 +288,10 @@ def main(argv=None) -> None:
                     help="--train batch (default: the arch's train cell); "
                          "--static batch (default 8)")
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--serve-step", default="mixed",
+                    choices=["mixed", "verify", "prefill", "decode"],
+                    help="the serve step to trace (without --train and "
+                         "--static)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--device", default="cuda",
@@ -300,9 +344,10 @@ def main(argv=None) -> None:
         # Dropless routing, as chip_smoke.py serves the model.
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
-        step_fn = mixed_step_fn(cfg, device)
+        step_fn = (mixed_step_fn(cfg, device) if args.serve_step == "mixed"
+                   else serve_step_fn(cfg, device, args.serve_step))
     out = profile(step_fn, cfg, device, steps=args.steps)
-    out["step"] = "train" if args.train else "mixed"
+    out["step"] = "train" if args.train else args.serve_step
     if args.train:
         out.update(batch=batch, dispatch=cell["dispatch"])
     text = json.dumps(out)

@@ -1,6 +1,8 @@
 """GQA attention: the dense training path, cross-attention onto encoder
-states, the static-cache serve path and the paged KV-cache serve path
-(port of those subsets of ``repro/models/attention.py``).
+states, the static-cache serve path and the paged KV-cache serve paths
+(prefill-on-join, decode, and the mixed decode + verify + chunked-prefill
+step), and the O(S^2) oracle :func:`reference_attention` (port of
+``repro/models/attention.py``).
 
 Shapes keep the JAX layouts: ``wq (d, H, dh)``, ``wk/wv (d, Kh, dh)``,
 ``wo (H, dh, d)``; static caches ``(B, max_len, Kh, dh)``; pools
@@ -11,6 +13,7 @@ Unlike JAX, the cache writes here update the caches and pools IN PLACE
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -28,14 +31,24 @@ class MixedMeta:
     per slot, position = tokens already cached — 0 marks a free or
     prefilling slot), the rest are ``num_chunks`` chunk lanes of
     ``chunk_tokens`` consecutive prompt tokens. ``chunk_lens`` (NC,)
-    counts the valid rows per lane (0 = idle lane). Speculative verify
-    lanes are queued in ROADMAP.md.
+    counts the valid rows per lane (0 = idle lane).
+
+    Speculative verify lanes extend the layout to ``R = num_decode +
+    num_verify * verify_tokens + num_chunks * chunk_tokens``: rows
+    ``[num_decode : num_decode + num_verify * verify_tokens]`` are
+    ``num_verify`` lanes of ``verify_tokens`` consecutive positions (a
+    slot's pending token and its drafts), attended like chunk lanes;
+    ``verify_lens`` (NV,) counts the valid rows per lane (0 = the slot
+    does not verify this tick; its rows write to the trash block).
     """
 
     num_decode: int
     num_chunks: int
     chunk_tokens: int
     chunk_lens: torch.Tensor  # (num_chunks,) int32
+    num_verify: int = 0
+    verify_tokens: int = 0
+    verify_lens: Optional[torch.Tensor] = None  # (num_verify,) int32
 
 
 def attention_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
@@ -100,20 +113,28 @@ def attention_apply(
     through the plain :func:`_decode_attention` (the reference computes
     it outside any kernel).
 
-    Otherwise paged self-attention over single-token rows x (B, 1, d):
+    Otherwise paged self-attention over the KV block pools:
 
-    ``mixed`` set — the fused decode + chunked-prefill step:
+    ``mixed`` set — the fused decode + verify + chunked-prefill step:
     ``cache_index`` carries PER-ROW absolute positions and
     ``block_tables`` per-row tables; all rows write k/v through ONE
     scatter (:func:`paged_row_write`, dead rows land in the trash block),
-    then the decode lane reads via ``ops.decode_attention`` and the chunk
-    lanes via ``ops.prefill_attention``. Later lanes of one request see
-    earlier lanes' writes of the same step, because the writes come
-    first.
+    then the decode lane reads via ``ops.decode_attention``, and the
+    verify lanes and the chunk lanes via ``ops.prefill_attention``.
+    Later lanes of one request see earlier lanes' writes of the same
+    step, because the writes come first.
 
-    ``mixed`` None — decode only: ``cache_index`` is the per-slot (B,)
-    length vector, each slot writes one token and attends over its
-    blocks (free slots, length 0, attend nothing and give zeros).
+    ``mixed`` None and Sq > 1 — prefill-on-join: ONE request (B = 1)
+    whose bucketed prompt (Sq a multiple of the block size) is written
+    into its slot's blocks (:func:`paged_prefill_write`, in place); it
+    attends over its own fresh k/v through ``ops.flash_attention``
+    (causal, positions 0..Sq-1). The padded tail's k/v land in the
+    slot's blocks and stay masked by the slot's length.
+
+    ``mixed`` None and Sq = 1 — decode only: ``cache_index`` is the
+    per-slot (B,) length vector, each slot writes one token and attends
+    over its blocks (free slots, length 0, attend nothing and give
+    zeros).
 
     ``implementation``: "auto" | "cuda" | "eager" (see kernels/ops.py).
     The paged cache dict comes back holding the same pool tensors,
@@ -133,10 +154,11 @@ def attention_apply(
                                 implementation=implementation)
         return _out(y, p["wo"]), None
     B, Sq, _ = x.shape
-    if block_tables is not None and Sq != 1:
+    if block_tables is not None and Sq != 1 and (mixed is not None
+                                                 or B != 1):
         raise ValueError(
-            "the paged path runs single-token rows; prefill-on-join into "
-            "paged blocks is queued in ROADMAP.md"
+            "paged prefill admits one request at a time (B == 1); the "
+            "mixed step runs single-token rows"
         )
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -155,6 +177,16 @@ def attention_apply(
         return _static_attention(p, q, k, v, cfg, cache, int(cache_index),
                                  causal, implementation)
     pool_k, pool_v = cache["k"], cache["v"]
+    if mixed is None and Sq > 1:
+        if cfg.pos_emb == "rope":
+            positions = torch.arange(Sq, device=x.device)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        paged_prefill_write(pool_k, k, block_tables)
+        paged_prefill_write(pool_v, v, block_tables)
+        y = ops.flash_attention(q, k, v, causal=True,
+                                implementation=implementation)
+        return _out(y, p["wo"]), cache
     if mixed is None:
         lengths = cache_index
         if cfg.pos_emb == "rope":
@@ -176,10 +208,18 @@ def attention_apply(
         q = rope(q, positions[:, None], cfg.rope_theta)
         k = rope(k, positions[:, None], cfg.rope_theta)
     B_dec, NC, C = mixed.num_decode, mixed.num_chunks, mixed.chunk_tokens
+    NV, K1 = mixed.num_verify, mixed.verify_tokens
+    v0, c0 = B_dec, B_dec + NV * K1
     parts = []
     if B_dec:
         dec_live = positions[:B_dec] > 0
         parts.append(dec_live)
+    if NV:
+        ver_live = (
+            torch.arange(K1, device=x.device)[None, :]
+            < mixed.verify_lens[:, None]
+        )
+        parts.append(ver_live.reshape(-1))
     if NC:
         chunk_live = (
             torch.arange(C, device=x.device)[None, :]
@@ -197,12 +237,24 @@ def attention_apply(
             positions[:B_dec] + dec_live.to(positions.dtype),
             implementation=implementation,
         ))
+    if NV:
+        # Verify lanes: K1 rows a slot (pending token + drafts); row j
+        # attends pool positions <= start + j, the drafts written above
+        # and everything already cached.
+        qv = q[v0:c0, 0].reshape(NV, K1, *q.shape[2:])
+        vtab = block_tables[v0:c0].reshape(NV, K1, -1)[:, 0]
+        vstart = positions[v0:c0].reshape(NV, K1)[:, 0]
+        y_v = ops.prefill_attention(
+            qv, pool_k, pool_v, vtab, vstart, mixed.verify_lens,
+            implementation=implementation,
+        )
+        ys.append(y_v.reshape(NV * K1, 1, *y_v.shape[2:]))
     if NC:
         # Chunk rows attend every pool position <= their own: prefix
         # blocks, earlier chunks and the chunk itself (written above).
-        qc = q[B_dec:, 0].reshape(NC, C, *q.shape[2:])
-        ctab = block_tables[B_dec:].reshape(NC, C, -1)[:, 0]
-        cstart = positions[B_dec:].reshape(NC, C)[:, 0]
+        qc = q[c0:, 0].reshape(NC, C, *q.shape[2:])
+        ctab = block_tables[c0:].reshape(NC, C, -1)[:, 0]
+        cstart = positions[c0:].reshape(NC, C)[:, 0]
         y_ch = ops.prefill_attention(
             qc, pool_k, pool_v, ctab, cstart, mixed.chunk_lens,
             implementation=implementation,
@@ -248,6 +300,28 @@ def _decode_attention(q, k, v, kv_len: int):
     return y.reshape(B, 1, H, dh).to(q.dtype)
 
 
+def reference_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None):
+    """O(S^2)-memory oracle for tests: q (B, Sq, H, dh), k/v (B, Skv,
+    Kh, dh); query i sits at position ``q_offset + i``, keys at
+    ``kv_len`` or later are masked. Scores and the weighted sum in
+    float32; returns (B, Sq, H, dh) in q's dtype."""
+    B, Sq, H, dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Kh, H // Kh, dh).float()
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * dh ** -0.5
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        mask = mask & (kv_pos[None, :] < kv_len)
+    if causal:
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None):
     """The static engine's dense KV cache, (B, max_len, Kh, dh) each."""
@@ -280,6 +354,25 @@ def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int, *,
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def paged_prefill_write(pool, kv, block_table):
+    """Write a full prompt's k or v into its slot's blocks, in place.
+    pool: (P, bs, Kh, dh); kv: (1, S, Kh, dh) with S a multiple of bs
+    (the engine buckets prompt lengths; the padded tail stays masked by
+    the slot's length until decode overwrites it); block_table: (1, nb),
+    nb >= S // bs."""
+    bs = pool.shape[1]
+    S = kv.shape[1]
+    if S % bs:
+        raise ValueError(
+            f"paged prefill length ({S}) must be a multiple of the "
+            f"block size ({bs}); bucket the prompt before prefill"
+        )
+    nbu = S // bs
+    pool[block_table[0, :nbu].long()] = kv[0].reshape(
+        nbu, bs, *kv.shape[2:]).to(pool.dtype)
+    return pool
 
 
 def paged_decode_write(pool, kv, block_tables, lengths):

@@ -3,8 +3,9 @@ encoder-only stacks (port of the training and serving subsets of
 ``repro/models/model_zoo.py``): ``init_params``, ``forward_train``,
 ``loss_fn``, the static engine's ``init_serve_cache``, ``prefill`` and
 ``decode_step``, and the paged engine's ``init_paged_serve_cache``,
-``paged_mixed_step`` and ``paged_decode_step`` (decoder-only, as the
-reference's).
+``paged_prefill`` (prefill-on-join), ``paged_decode_step``,
+``paged_mixed_step`` and the speculative ``paged_verify_step``
+(decoder-only, as the reference's).
 
 Batch formats
   decoder_only    : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
@@ -15,8 +16,7 @@ Batch formats
   encoder_only    : ``{"patch_embeds": (B, P, d), "labels": (B,)}``
                     (ViT).
 
-The chunked cross-entropy (``ce_chunk``), remat, ``paged_prefill``
-(prefill-on-join) and the speculative verify step are queued in
+The chunked cross-entropy (``ce_chunk``) and remat are queued in
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -304,6 +304,32 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
     return cache, _logits(params, x, cfg)
 
 
+def paged_prefill(params, tokens, cache, block_table, length,
+                  cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+    """Prefill ONE request into its freshly allocated KV blocks
+    (continuous batching's prefill-on-join).
+
+    tokens: (1, Sp) right-padded prompt, Sp a multiple of the block size
+    (the engine buckets prompt lengths: the padded tail's k/v land in
+    the slot's own blocks and stay masked by ``length`` until decode
+    overwrites them); block_table: (1, nb); length: the true prompt
+    length (an int). Attention runs over the local fresh k/v through
+    ``ops.flash_attention``. Updates the pools in place; returns (cache,
+    logits (1, 1, V)) at the TRUE last prompt position ``length - 1``,
+    not the padded one."""
+    tokens = tokens.long()
+    ac = ac.resolve(tokens.device)
+    x = _embed_decoder_input(params, {"tokens": tokens}, cfg)
+    x, _, cache["stack"] = _stack(
+        params, x, cfg, ac, cache=cache["stack"],
+        cache_index=torch.zeros((1,), dtype=torch.int32,
+                                device=tokens.device),
+        block_tables=block_table,
+    )
+    n = int(length)
+    return cache, _logits(params, x[:, n - 1:n], cfg)
+
+
 def paged_decode_step(params, tokens, cache, block_tables, lengths,
                       cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
     """One continuous-batching decode step over the slot batch.
@@ -373,4 +399,67 @@ def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
     last = torch.clamp(chunk_lens - 1, 0, C - 1).long()
     xc = x[B:, 0].reshape(NC, C, d)[torch.arange(NC, device=dev), last]
     h = torch.cat([x[:B, 0], xc])[:, None]
+    return cache, _logits(params, h, cfg)[:, 0]
+
+
+def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
+                      verify_tables, verify_starts, verify_lens,
+                      chunk_tables, chunk_starts, chunk_lens,
+                      cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+    """One fused speculative-verify + chunked-prefill step: the target
+    scores B verify lanes of K1 = k + 1 positions (a slot's pending token
+    and its k drafts) AND the pending prefill chunks in one forward.
+
+    verify_tokens: (B, K1) right-padded; verify_tables: (B, nb) (zeroed
+    for slots not verifying); verify_starts: (B,) tokens already cached
+    (the pending token's write position); verify_lens: (B,) valid rows
+    a lane, 1 + k_eff (0 = idle). chunk_*: as in
+    :func:`paged_mixed_step`. The R = B*K1 + NC*C rows share the one
+    paged k/v scatter (in place); verify rows read through the paged
+    prefill kernel (row j attends positions <= start + j), dead rows
+    write to the trash block and are masked out of routing.
+
+    Returns ``(cache, logits (B*K1 + NC, V))``: rows [:B*K1] the target
+    logits at EVERY verify position (row b*K1 + j scores the token after
+    verify_tokens[b, j]), rows [B*K1:] each chunk lane's last valid
+    row."""
+    ac = ac.resolve(verify_tokens.device)
+    dev = verify_tokens.device
+    B, K1 = verify_tokens.shape
+    NC, C = chunk_tokens.shape
+    i32 = torch.int32
+    verify_starts = verify_starts.to(i32)
+    verify_lens = verify_lens.to(i32)
+    chunk_starts = chunk_starts.to(i32)
+    chunk_lens = chunk_lens.to(i32)
+    ark = torch.arange(K1, device=dev, dtype=i32)
+    arc = torch.arange(C, device=dev, dtype=i32)
+    ver_live = ark[None, :] < verify_lens[:, None]
+    chunk_live = arc[None, :] < chunk_lens[:, None]
+    tokens = torch.cat([verify_tokens.reshape(B * K1),
+                        chunk_tokens.reshape(NC * C)])[:, None].long()
+    positions = torch.cat([
+        (verify_starts[:, None] + ark[None, :]).reshape(B * K1),
+        (chunk_starts[:, None] + arc[None, :]).reshape(NC * C),
+    ])
+    row_tables = torch.cat([
+        torch.repeat_interleave(verify_tables, K1, dim=0),
+        torch.repeat_interleave(chunk_tables, C, dim=0),
+    ]).to(i32)
+    token_mask = torch.cat([ver_live.reshape(B * K1),
+                            chunk_live.reshape(NC * C)])[:, None]
+    x = embed_apply(params["embed"], tokens, cfg,
+                    positions=positions[:, None])
+    x, _, cache["stack"] = _stack(
+        params, x, cfg, ac, cache=cache["stack"], cache_index=positions,
+        block_tables=row_tables, token_mask=token_mask,
+        mixed=MixedMeta(num_decode=0, num_chunks=NC, chunk_tokens=C,
+                        chunk_lens=chunk_lens, num_verify=B,
+                        verify_tokens=K1, verify_lens=verify_lens),
+    )
+    d = x.shape[-1]
+    last = torch.clamp(chunk_lens - 1, 0, C - 1).long()
+    xc = x[B * K1:, 0].reshape(NC, C, d)[torch.arange(NC, device=dev),
+                                         last]
+    h = torch.cat([x[:B * K1, 0], xc])[:, None]
     return cache, _logits(params, h, cfg)[:, 0]

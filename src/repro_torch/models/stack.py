@@ -151,10 +151,11 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     """One pre-norm layer: the training forward over (B, S, d) when
     ``cache`` is None (``causal`` False for encoders); with a cache, the
     static engine's prefill or decode step (``block_tables`` None) or
-    the paged single-token rows. A ``desc.cross`` layer then attends
-    onto the encoder states ``enc`` (B, Se, d), uncached. An rwkv6
-    layer gates its FFN output with the channel-mix receptance. Returns
-    (x, metrics, cache), the cache updated in place."""
+    the paged serve step (prefill-on-join or single-token rows). A
+    ``desc.cross`` layer then attends onto the encoder states ``enc``
+    (B, Se, d), uncached. An rwkv6 layer gates its FFN output with the
+    channel-mix receptance. Returns (x, metrics, cache), the cache
+    updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
     if desc.mixer == "attn":

@@ -83,6 +83,10 @@ COMPLETED = "completed"
 SHED = "shed"
 TIMEOUT = "timeout"
 FAILED = "failed"
+# Engine-LOCAL terminal only: a fleet cancelled this engine's copy of a
+# request (hedge loser, duplicate after migration). The fleet-level
+# record for the rid is whatever the winning copy reported.
+CANCELLED = "cancelled"
 
 QUEUE_POLICIES = ("block", "shed-newest", "shed-oldest")
 
@@ -670,6 +674,79 @@ class Scheduler:
             return False
         self._drop_entry(entry, now, FAILED, f"watchdog: {diagnostic}")
         return True
+
+    # -- fleet hooks (requeue ACROSS engines) ---------------------------
+    def cancel(self, rid: int, now: int, reason: str) -> bool:
+        """Terminate this engine's copy of ``rid`` (queued or active)
+        with engine-local terminal status ``cancelled``, freeing its
+        blocks. The fleet calls this on hedge losers and on duplicates
+        left behind after a migration; returns False if the rid is not
+        currently queued or active here."""
+        for e in self.queue:
+            if e.req.rid == rid:
+                self._drop_entry(e, now, CANCELLED, reason)
+                return True
+        for slot in self.active:
+            if slot.request is not None and slot.request.rid == rid:
+                self._evict(slot, now, CANCELLED, reason)
+                return True
+        return False
+
+    def forget(self, rid: int) -> None:
+        """Erase every trace of a rid that is NOT queued or active
+        (terminal record, resume state, the duplicate-rid guard) so the
+        fleet can resubmit the same request to this engine later
+        (retry-after-shed on the only surviving replica)."""
+        self._rids.discard(rid)
+        self.finished.pop(rid, None)
+        self._resume.pop(rid, None)
+
+    def resubmit(self, req: Request, resume: Optional[dict] = None
+                 ) -> None:
+        """Fleet re-admission: submit ``req`` with saved progress from
+        another engine (or a prior life on this one). ``resume`` is the
+        preempt-and-requeue record — ``{"seq": prompt + generated
+        tokens, "generated", "first_done", "first_token_at",
+        "admitted_at", "preemptions"}`` — so admission re-prefills the
+        full sequence so far and decoding continues at token index
+        ``generated`` (token-identical: sampling is keyed on (rid,
+        generated)). Deadlines are NOT reset: ``submit`` anchors them to
+        ``req.arrival``, the ORIGINAL arrival tick."""
+        self.forget(req.rid)
+        if resume is not None:
+            res = dict(resume)
+            res.setdefault("drafted", 0)
+            res.setdefault("accepted", 0)
+            self._resume[req.rid] = res
+        self.submit(req)
+
+    def extract_queue(self) -> list[tuple[Request, Optional[dict]]]:
+        """Pull every queued (unadmitted) request out of this scheduler
+        WITHOUT a terminal record — the fleet is migrating them to
+        another engine (graceful drain, engine death). Returns ``(req,
+        resume)`` pairs; ``resume`` is non-None for entries that were
+        preempted out of a slot earlier and carry saved progress. The
+        rids are forgotten here so a later resubmit to this same engine
+        stays legal."""
+        out = []
+        for e in list(self.queue):
+            self.queue.remove(e)
+            res = self._resume.pop(e.req.rid, None)
+            self._rids.discard(e.req.rid)
+            out.append((e.req, res))
+        return out
+
+    # -- chaos helper ----------------------------------------------------
+    def storm_deadlines(self, now: int, ttft: int) -> int:
+        """Clamp every visible queued entry's TTFT deadline to ``now +
+        ttft`` (fault injection: a deadline storm)."""
+        n = 0
+        for e in self._visible(now):
+            at = now + ttft
+            if e.ttft_at is None or e.ttft_at > at:
+                e.ttft_at = at
+                n += 1
+        return n
 
     # -- chunked prefill ------------------------------------------------
     def prefilling(self) -> list[Slot]:

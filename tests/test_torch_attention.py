@@ -2,8 +2,9 @@
 the row/decode cache writes, the plain decode and prefill attention
 against JAX ``ops.*`` on "xla" and "pallas" (interpret mode), the plain
 flash forward and backward against the Pallas kernels (interpret mode),
-the differentiable ``ops.flash_attention`` against ``jax.grad``, and
-``attention_apply`` in mixed, decode-only and dense training mode. All
+the differentiable ``ops.flash_attention`` against ``jax.grad``, the
+O(S^2) oracle ``reference_attention``, and ``attention_apply`` in mixed,
+decode-only and dense training mode. All
 in float32 at atol 1e-5 (bf16 pools: both sides read the same bf16
 values and accumulate in f32). The CUDA kernels are held against the plain
 versions on the card in ``test_torch_kernels.py``."""
@@ -326,6 +327,24 @@ def test_flash_forward_plain_matches_pallas(case):
         # A row with no valid key: exact zeros and lse = +inf.
         assert np.isinf(tlse.numpy()[..., :-qoff]).all()
         assert not to[:, :-qoff].any()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:3])
+def test_reference_attention_matches_jax_and_the_plain_flash(case):
+    """``attention.reference_attention``, the O(S^2) oracle, against the
+    reference's and against the plain flash version, on the cases where
+    every row has a valid key (the oracle's softmax over no key is NaN,
+    as the reference's)."""
+    from repro_torch.kernels import ref
+
+    *_, causal, qoff, kvlen = case
+    q, k, v, _ = _flash_case(case, seed=3)
+    kw = dict(causal=causal, q_offset=qoff, kv_len=kvlen)
+    got = tattn.reference_attention(_t(q), _t(k), _t(v), **kw)
+    _close(got, jattn.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), **kw))
+    plain, _ = ref.flash_attention_ref(_t(q), _t(k), _t(v), **kw)
+    torch.testing.assert_close(got, plain, atol=ATOL, rtol=ATOL)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)

@@ -181,6 +181,84 @@ def test_prefill_kernel_matches_plain(cuda, q_dtype, kv_dtype, case):
         torch.testing.assert_close(y, want, **_tol(q_dtype))
 
 
+def _verify_lanes(rng, dev, kv_dtype, offset, K1=5, NV=8, nb=32):
+    """Speculative verify lanes at the serve settings: NV lanes of K1
+    rows (spec_k 4), tables of nb 16-token blocks, every lane starting
+    ``offset`` positions into a block (a different block a lane), lens
+    0, 1 and 2..K1."""
+    kp, vp, tab = _paged(rng, dev, kv_dtype, NV, 16, 8, 64, nb)
+    starts = torch.tensor([(3 * i + 1) * BS + offset for i in range(NV)],
+                          dtype=torch.int32, device=dev)
+    lens = torch.tensor([0, 1] + [2 + i % (K1 - 1) for i in range(NV - 2)],
+                        dtype=torch.int32, device=dev)
+    return kp, vp, tab, starts, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPE_PAIRS)
+def test_prefill_kernel_at_verify_lanes(cuda, q_dtype, kv_dtype):
+    """Speculative verify lanes through the paged prefill kernel: 8
+    lanes of 5 rows (spec_k 4) beside the 64-row chunk lanes it was
+    built for, starting at every offset inside a 16-token block, lens 0
+    and 1 among them. Against the plain version at the repo's tolerance,
+    rows past a lane's length exact zeros, and each walk split as the
+    wrapper picks, unsplit and over three runs."""
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention_cuda
+
+    for offset in range(BS):
+        rng = np.random.default_rng(offset)
+        kp, vp, tab, starts, lens = _verify_lanes(rng, cuda, kv_dtype,
+                                                  offset)
+        q = torch.tensor(rng.normal(size=(8, 5, 16, 64)), dtype=q_dtype,
+                         device=cuda)
+        want = ops.prefill_attention(q, kp, vp, tab, starts, lens,
+                                     implementation="eager")
+        for splits in (None, 1, 3):
+            y = (ops.prefill_attention(q, kp, vp, tab, starts, lens,
+                                       implementation="cuda")
+                 if splits is None else paged_prefill_attention_cuda(
+                     q, kp, vp, tab, starts, lens, splits=splits))
+            torch.testing.assert_close(y, want, **_tol(q_dtype))
+            for c, n in enumerate(lens.tolist()):
+                assert torch.equal(y[c, n:], torch.zeros_like(y[c, n:]))
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_at_verify_lanes_matches_the_oracle(cuda):
+    """The verify lanes against ``attention.reference_attention`` (the
+    O(S^2) oracle) over each lane's blocks gathered into a dense cache:
+    row j of a lane sees positions <= start + j."""
+    from repro_torch.models.attention import reference_attention
+
+    rng = np.random.default_rng(99)
+    kp, vp, tab, starts, lens = _verify_lanes(rng, cuda, torch.float32, 7)
+    q = torch.tensor(rng.normal(size=(8, 5, 16, 64)), dtype=torch.float32,
+                     device=cuda)
+    y = ops.prefill_attention(q, kp, vp, tab, starts, lens,
+                              implementation="cuda")
+    for c in range(8):
+        n, st = int(lens[c]), int(starts[c])
+        if n == 0:
+            continue
+        k = kp[tab[c].long()].reshape(1, -1, 8, 64)
+        v = vp[tab[c].long()].reshape(1, -1, 8, 64)
+        want = reference_attention(q[c:c + 1, :n], k, v, causal=True,
+                                   q_offset=st)
+        torch.testing.assert_close(y[c:c + 1, :n], want, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_prefill_split_at_verify_lanes():
+    """The split walk's run count (CPU) at the verify lanes: 8 lanes x 8
+    kv heads x one q tile = 64 blocks over 512-token tables are cut into
+    3 runs for 132 SMs; beside two 64-row chunk lanes (32 blocks) the
+    chunk call keeps its 5."""
+    from repro_torch.kernels.paged_prefill import pick_splits
+
+    assert pick_splits(64, 16, 132) == 3
+    assert pick_splits(32, 16, 132) == 5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 def test_prefill_kernel_holds_large_scores(cuda, kv_dtype):

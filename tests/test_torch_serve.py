@@ -1,8 +1,10 @@
-"""Port parity for the serving slice: ``paged_mixed_step`` and
-``paged_decode_step`` logits and pools against the JAX package on the
-reduced granite model (float32, atol 1e-5), and ``ServeEngine`` outputs
-token-identical to the JAX paged engine (greedy, and temperature
-sampling given the JAX session's seed), with one step signature. Also:
+"""Port parity for the serving slice: ``paged_mixed_step``,
+``paged_decode_step`` and ``paged_prefill`` logits and pools against the
+JAX package on the reduced granite model (float32, atol 1e-5), and
+``ServeEngine`` outputs token-identical to the JAX paged engine in both
+admission modes (greedy, and temperature sampling given the JAX
+session's seed), with one step signature a shape. The engine refuses
+exactly the option combinations the reference refuses. Also:
 importing the port leaves jax and repro out, and the entry points raise
 without a card unless asked for the CPU."""
 import dataclasses
@@ -19,13 +21,14 @@ import torch
 from repro.configs import get_reduced as jax_reduced
 from repro.models import model_zoo as jzoo
 from repro.models import param as jpm
+from repro.serve import ChaosConfig as JChaosConfig
 from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_reduced
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.convert import from_jax_values, to_jax_values
-from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve import ChaosConfig, Request, ServeConfig, ServeEngine
 
 BS = 8
 ATOL = 1e-5
@@ -301,13 +304,160 @@ def test_entry_points_need_a_card_unless_cpu(granite, capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("admission", "prefill_on_join"), ("draft", "dense"),
-    ("chaos", object()),
+    ("chaos", ChaosConfig(seed=3, evict_prob=0.5, hold_prob=0.5)),
 ])
-def test_unported_engine_options_raise(granite, field, value):
+def test_engine_options_build_and_serve(granite, field, value):
+    """The options the engine refused until they were ported build an
+    engine that serves a request to completion, token-identical to the
+    default engine's greedy output."""
     _, cfg, _, tvals = granite
-    sc = ServeConfig(paged=True, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tvals, cfg, sc, device="cpu")
+    common = dict(paged=True, max_batch=2, max_len=64, block_size=BS,
+                  chunk_size=8)
+    req = lambda: [Request(rid=0, prompt=list(range(20, 33)),  # noqa: E731
+                           max_new=4)]
+    want, _ = ServeEngine(tvals, cfg, ServeConfig(**common),
+                          device="cpu").serve(req())
+    eng = ServeEngine(tvals, cfg, ServeConfig(**common, **{field: value}),
+                      device="cpu")
+    outs, fin = eng.serve(req())
+    assert fin[0]["status"] == "completed" and outs == want
+
+
+# Combinations the reference refuses, with its messages (tests/
+# test_speculative.py, tests/test_serve_chaos.py).
+REFUSED = [
+    dict(admission="prefill_on_join", draft="top1"),
+    dict(admission="prefill_on_join", preempt=True),
+    dict(admission="prefill_on_join", queue_limit=4),
+    dict(admission="prefill_on_join", chaos="chaos"),
+    dict(draft="top1", spec_k=0),
+    dict(draft="medusa"),
+    dict(admission="join"),
+    dict(chunk_size=0),
+]
+
+
+@pytest.mark.parametrize("kw", REFUSED, ids=lambda kw: "-".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_engine_refuses_where_the_reference_does(granite, kw):
+    jcfg, cfg, vals, tvals = granite
+    jkw = dict(kw)
+    if jkw.get("chaos") == "chaos":
+        jkw["chaos"], kw = JChaosConfig(), dict(kw, chaos=ChaosConfig())
+    with pytest.raises(ValueError) as want:
+        JServeEngine(vals, jcfg, JServeConfig(paged=True, **jkw))
+    with pytest.raises(ValueError) as got:
+        ServeEngine(tvals, cfg, ServeConfig(paged=True, **kw), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def _pp_case(cfg, seed):
+    """A prefill-on-join call: a 21-token prompt bucketed to 24 rows
+    (block size 8) into three blocks of a random pool."""
+    rng = np.random.default_rng(seed)
+    plen, sp = 21, 24
+    toks = np.zeros((1, sp), np.int32)
+    toks[0, :plen] = rng.integers(1, 259, plen)
+    table = np.array([[5, 2, 7, 0]], np.int32)
+    return toks, table, plen
+
+
+def _conditioned(granite):
+    """The fixture's weights with the attention projections rescaled to
+    fan-in d (``chip_smoke.condition_attention``), as numpy values for
+    the reference and tensors for the port. A prefill attends its own
+    prompt: at the reference init's near-argmax attention, f32
+    summation-order noise grows ~4x a layer there (measured 5e-4 in the
+    last layer's pool rows), which hides what the comparison holds."""
+    jcfg, cfg, vals, _ = granite
+    cvals = jax.tree.map(lambda a: np.array(a, copy=True), vals)
+    H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    for seg in cvals["stack"]["segments"]:
+        for pos in seg.values():
+            pos["mixer"]["wq"] *= (H / d) ** 0.5
+            pos["mixer"]["wk"] *= (Kh / d) ** 0.5
+            pos["mixer"]["wv"] *= (Kh / d) ** 0.5
+    return jcfg, cfg, cvals, from_jax_values(cvals)
+
+
+def test_paged_prefill_matches_jax(granite):
+    """``zoo.paged_prefill`` (prefill-on-join): logits at the true last
+    prompt position and the pool rows it wrote (the padded tail too)
+    agree with the reference's on conditioned weights; the other blocks
+    are left as they were."""
+    jcfg, cfg, vals, tvals = _conditioned(granite)
+    P = 9
+    jc, tc = _random_cache(cfg, P, seed=4)
+    before = _pools(tc)
+    toks, table, plen = _pp_case(cfg, 5)
+    jc, jl = jzoo.paged_prefill(
+        vals, jnp.asarray(toks), jc, jnp.asarray(table), plen, jcfg,
+        ac=jzoo.ApplyCfg(dispatch="sorted", sorted_block=8))
+    tc, tl = zoo.paged_prefill(tvals, _t(toks), tc, _t(table), plen, cfg,
+                               ac=zoo.ApplyCfg(dispatch="sorted"))
+    assert tl.shape == (1, 1, cfg.vocab_size)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                               rtol=ATOL)
+    written = [5, 2, 7]
+    for got, want, old in zip(_pools(tc), _pools(jc), before):
+        np.testing.assert_allclose(got[:, written], want[:, written],
+                                   atol=POOL_ATOL, rtol=ATOL)
+        rest = [b for b in range(P) if b not in written]
+        np.testing.assert_array_equal(got[:, rest], old[:, rest])
+
+
+def test_paged_prefill_logits_are_the_true_last_positions(granite):
+    """The logits come from position ``length - 1``, not the padded end:
+    they equal a decode-free forward of the unpadded prompt."""
+    _, cfg, _, tvals = granite
+    toks, table, plen = _pp_case(cfg, 6)
+    cache = zoo.init_paged_serve_cache(cfg, 9, BS, dtype=torch.float32,
+                                       device="cpu")
+    _, lg = zoo.paged_prefill(tvals, _t(toks), cache, _t(table), plen, cfg,
+                              ac=zoo.ApplyCfg(dispatch="sorted"))
+    full, _ = zoo.forward_train(tvals, {"tokens": _t(toks[:, :plen])}, cfg,
+                                ac=zoo.ApplyCfg(dispatch="sorted"))
+    np.testing.assert_allclose(lg[0, 0].numpy(), full[0, -1].numpy(),
+                               atol=ATOL, rtol=ATOL)
+
+
+PP_REQS = [
+    dict(rid=0, prompt=list(range(30, 48)), max_new=6),
+    dict(rid=1, prompt=list(range(100, 131)), max_new=5, arrival=1),
+    dict(rid=2, prompt=[5, 6], max_new=7, arrival=2),
+    dict(rid=3, prompt=[3] * 17 + [1], max_new=4, arrival=6),
+]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_prefill_on_join_engine_matches_jax(granite, temperature):
+    """``admission="prefill_on_join"``: outputs, terminal records and
+    the engine's counters equal the reference engine's (greedy, and at
+    temperature given its session seed), one compiled shape a bucket
+    plus the decode step's."""
+    kw = dict(admission="prefill_on_join", max_batch=2, temperature=temperature)
+    rng = jax.random.PRNGKey(3) if temperature else None
+    (jo, jf, js), (to, tf, ts) = _serve_both(granite, PP_REQS,
+                                             seed_rng=rng, **kw)
+    assert to == jo and tf == jf
+    for key in ("mode", "mixed_steps", "decode_stall_ticks",
+                "prompt_tokens", "compile_count"):
+        assert ts[key] == js[key], key
+    assert ts["compile_count"] == 4  # buckets 24, 32 and 8, + the decode
+
+
+def test_chunked_matches_prefill_on_join(granite):
+    """The chunked mixed step and prefill-on-join serve the same greedy
+    tokens (the reference's test_chunked_matches_prefill_on_join)."""
+    _, cfg, _, tvals = granite
+    reqs = lambda: [Request(**r) for r in PP_REQS]  # noqa: E731
+    outs = {}
+    for adm in ("chunked", "prefill_on_join"):
+        eng = ServeEngine(tvals, cfg, ServeConfig(
+            paged=True, max_batch=2, max_len=64, block_size=BS,
+            chunk_size=8, admission=adm), device="cpu")
+        outs[adm], _ = eng.serve(reqs())
+    assert outs["chunked"] == outs["prefill_on_join"]
 
 
 def test_reference_init_is_chaotic_until_attention_is_conditioned():
