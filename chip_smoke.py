@@ -125,8 +125,28 @@ any failure, before printing its result line. It
     once, token-identical to phase 4; each with its launches held
     against the steps it made; then times the paged prefill
     kernel at a verify step's lanes (8 x 5 rows);
-16. prints one JSON line of per-kernel numbers (all twelve kernels),
-    then the result line ``{"ok": true, "device": {...}}``.
+16. runs the rest of training on granite at full width (phase 6's
+    upcycled MoE and first batch, 16 x 512, sorted dispatch): first the
+    six training kernels in bfloat16 at the training shapes against
+    their plain versions, timed beside SDPA and the per-expert chain in
+    bfloat16; then one step under each remat policy (none, full, dots,
+    moe) from the same state, the loss and gradient norm held against
+    ``none``'s and the launches exact (each forward kernel twice a
+    layer under remat); ``ce_chunk=128`` against the whole logits;
+    ``grad_accum=4`` through the kernels against the plain versions;
+    a step each with bf16 and int8 gradient compression, the residual
+    equal to (g + e) - c on two leaves; 4 steps in bfloat16 compute,
+    the first held against the plain versions' bfloat16 loss; 2 AdamW
+    steps under the vision schedule; each step's ms and peak memory
+    printed (``[knobs]`` lines); then ``launch.train.main`` at 8 x 512
+    with ``--remat moe --grad-accum 2 --compression int8``, straight and
+    killed after step 2 and resumed (the restored state bit-identical
+    to the saved one, the losses held); and rwkv6-7b's dense stack at
+    full width and 4 layers, 2 steps of 4 x 256 through the Trainer
+    with the launcher's ApplyCfg (no WKV launch);
+17. prints one JSON line of per-kernel numbers (all twelve kernels,
+    with their bfloat16 numbers at the training shapes), then the
+    result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -135,6 +155,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -584,7 +605,8 @@ def grouped_library(c, kind, tag):
     dW (``kind`` "dw", over the dx's scratch ``c["da"]``, ``c["dg"]``,
     ``c["h"]``): the per-expert chain only, x^T da, x^T dg and h^T dy
     over each live segment, the groups summed by ``addmm`` (3 calls a
-    segment); it returns (dwi, dwg, dwo)."""
+    segment); it returns (dwi, dwg, dwo). In bfloat16 the chain runs on
+    bfloat16 copies of the scratch, made at set-up."""
     import torch
     import torch.nn.functional as F
 
@@ -598,9 +620,10 @@ def grouped_library(c, kind, tag):
         for e, (s, n) in enumerate(zip(so, cn)) if n > 0]
     if kind == "dw":
         E, f = wi.shape[0], wi.shape[-1]
-        dws = (torch.zeros(E, d, f, device=xs.device),
-               torch.zeros(E, d, f, device=xs.device),
-               torch.zeros(E, f, d, device=xs.device))
+        kw = dict(dtype=xs.dtype, device=xs.device)
+        dws = (torch.zeros(E, d, f, **kw), torch.zeros(E, d, f, **kw),
+               torch.zeros(E, f, d, **kw))
+        da, dg, hh = (c[k].to(xs.dtype) for k in ("da", "dg", "h"))
         seen, firsts = set(), set()  # each expert's first segment
         for g, e, _, _ in segs:
             if e not in seen:
@@ -610,9 +633,9 @@ def grouped_library(c, kind, tag):
         def dw_seg():
             for g, e, s, n in segs:
                 x, gy = xs[g, s:s + n], c["dy"][g, s:s + n]
-                for dst, a, b in ((dws[0][e], x, c["da"][g, s:s + n]),
-                                  (dws[1][e], x, c["dg"][g, s:s + n]),
-                                  (dws[2][e], c["h"][g, s:s + n], gy)):
+                for dst, a, b in ((dws[0][e], x, da[g, s:s + n]),
+                                  (dws[1][e], x, dg[g, s:s + n]),
+                                  (dws[2][e], hh[g, s:s + n], gy)):
                     if (g, e) in firsts:
                         torch.matmul(a.T, b, out=dst)
                     else:
@@ -908,12 +931,14 @@ def train_cases(cfg, device, gen):
 
 
 def flash_work(a, kind, causal=True):
-    """Bytes (inputs once, outputs once) and FLOPs of one flash call on
-    these inputs: the live (query, key) pairs only (causal: Sq = Skv)."""
+    """Bytes (inputs once, outputs once; lse and delta in float32) and
+    FLOPs of one flash call on these inputs: the live (query, key) pairs
+    only (causal: Sq = Skv)."""
     B, S, H, dh = a["q"].shape
     Skv, Kh = a["k"].shape[1:3]
+    isz = a["q"].element_size()
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Skv
-    q_b, kv_b, row_b = (B * S * H * dh * 4, B * Skv * Kh * dh * 4,
+    q_b, kv_b, row_b = (B * S * H * dh * isz, B * Skv * Kh * dh * isz,
                         B * H * S * 4)
     if kind == "fwd":  # q, k, v -> o, lse; QK^T and PV
         return 2 * q_b + 2 * kv_b + row_b, 4 * dh * pairs
@@ -925,18 +950,21 @@ def flash_work(a, kind, causal=True):
 
 def grouped_bwd_work(c, kind):
     """Bytes and FLOPs of the gated dx / dW call over the valid rows
-    (dead blocks read nothing; dx still writes their zero rows)."""
+    (dead blocks read nothing; dx still writes their zero rows). x, dy,
+    the weights and dx in the inputs' dtype; da, dg, h and the dW sums
+    in float32."""
     G, M, d = c["xs"].shape
     E, _, f = c["wi"].shape
+    isz = c["xs"].element_size()
     counts = c["counts"]
     rows = int(counts.sum())
     live = int((counts > 0).any(0).sum())
     if kind == "dx":  # x, dy, 3 weights -> dx, da, dg, h
-        nbytes = (2 * rows * d + live * 3 * d * f + G * M * d
-                  + 3 * rows * f) * 4
+        nbytes = ((2 * rows * d + live * 3 * d * f + G * M * d) * isz
+                  + 3 * rows * f * 4)
         return nbytes, 10 * rows * d * f
     # dW: x, dy, da, dg, h -> dwi, dwg, dwo summed over the groups
-    return (2 * rows * d + 3 * rows * f + 3 * E * d * f) * 4, \
+    return 2 * rows * d * isz + (3 * rows * f + 3 * E * d * f) * 4, \
         6 * rows * d * f
 
 
@@ -1019,11 +1047,13 @@ def check_flash_large_scores(device) -> None:
                  f"scores: {errs}")
 
 
-def check_train_kernels(cfg, device):
+def check_train_kernels(cfg, device, dtype="float32"):
     """The six training kernels against their plain versions at the
-    training shapes, float32, with times. Returns the JSON records of
-    all but the grouped forward, and the grouped forward's numbers at
-    these shapes (its record is the serve shape's)."""
+    training shapes, in ``dtype`` (float32, or bfloat16: the same inputs
+    rounded; the bound at the bfloat16 peak), with times. Returns the
+    JSON records of all but the grouped forward, and the grouped
+    forward's numbers at these shapes (its record is the serve
+    shape's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1034,6 +1064,13 @@ def check_train_kernels(cfg, device):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     gen = torch.Generator(device=device).manual_seed(2)
     a, c = train_cases(cfg, device, gen)
+    tag = "train-kernel" if dtype == "float32" else "bf16-train-kernel"
+    if dtype != "float32":
+        dt = getattr(torch, dtype)
+        a = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in a.items()}
+        c = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in c.items()}
     kw = dict(causal=True, q_offset=a["qo"], kv_len=a["kl"])
     o, lse = fa.flash_attention_fwd_cuda(a["q"], a["k"], a["v"], a["qo"],
                                          a["kl"], causal=True)
@@ -1042,9 +1079,9 @@ def check_train_kernels(cfg, device):
     gargs = (c["xs"], c["wi"], c["wg"], c["wo"], c["dy"], c["counts"])
     _, da, dg, hh = ref.grouped_mlp_dx_ref(*gargs, block=gm.ROW_BLOCK)
     dw_args = (c["xs"], c["dy"], da, dg, hh, c["counts"])
-    dx_lib = grouped_library(c, "dx", "[train-kernel] grouped_mlp_dx")
+    dx_lib = grouped_library(c, "dx", f"[{tag}] grouped_mlp_dx")
     dw_lib = grouped_library(dict(c, da=da, dg=dg, h=hh), "dw",
-                             "[train-kernel] grouped_mlp_dw")
+                             f"[{tag}] grouped_mlp_dw")
 
     # The library call's inputs: (B, H, S, dh) layout, GQA expanded
     # (set-up, not timed); its backward runs through autograd.
@@ -1099,7 +1136,7 @@ def check_train_kernels(cfg, device):
          "src/repro_torch/kernels/csrc/grouped_mlp_bwd.cu",
          "src/repro/kernels/grouped_mlp.py:476"),
     ]
-    atol, rtol = TOL["float32"]
+    atol, rtol = TOL[dtype]
     records = []
     for kname, kern, plain, (nbytes, flops), lib, src, replaces in cases:
         y = kern()
@@ -1112,7 +1149,7 @@ def check_train_kernels(cfg, device):
             y = (y[0], *(t * live for t in y[1:]))
             y_ref = (y_ref[0], *(t * live for t in y_ref[1:]))
         max_err, ratio = _max_err(y, y_ref, atol, rtol)
-        print(f"[train-kernel] {kname} float32: max |kernel - plain| = "
+        print(f"[{tag}] {kname} {dtype}: max |kernel - plain| = "
               f"{max_err:.3e}, max err / limit = {ratio:.3f} (atol {atol}, "
               f"rtol {rtol})", flush=True)
         if not ratio <= 1.0:
@@ -1125,9 +1162,9 @@ def check_train_kernels(cfg, device):
         lib_ms, chain = (time_library_ms(lib, flush=flush)
                          if lib is not None else (None, None))
         rec = _record(kname, src, replaces, max_err, ms, plain_ms, nbytes,
-                      flops, lib_ms)
+                      flops, lib_ms, dtype)
         if kname == "grouped_mlp_dx":
-            grouped_extras("train-kernel", "grouped_mlp_dx float32", rec,
+            grouped_extras(tag, f"grouped_mlp_dx {dtype}", rec,
                            kern, gm.DX_ROW_TILES, chain, y_ref[0], flush)
         if kname == "grouped_mlp_dw":
             # One fixed order for every sum: a second call gives the same
@@ -1137,17 +1174,17 @@ def check_train_kernels(cfg, device):
             rec["library_chain"], _, rec["library_calls"] = \
                 chain or (None,) * 3
             if chain:
-                print(f"[train-kernel] grouped_mlp_dw float32: library: the "
+                print(f"[{tag}] grouped_mlp_dw {dtype}: library: the "
                       f"{chain[0]} chain of {chain[2]} torch calls, queued, "
                       f"max |library - plain| = "
                       f"{_max_err(chain[1](), y_ref, atol, rtol)[0]:.3e}; "
                       f"two calls bit-identical", flush=True)
-        print(f"[train-kernel] {kname} float32: ms={ms:.4f} "
+        print(f"[{tag}] {kname} {dtype}: ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
               f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)", flush=True)
         records.append(rec)
-    print_flash_pair("train-kernel", "causal (16, 512, 16/8, 64)",
+    print_flash_pair(tag, "causal (16, 512, 16/8, 64)",
                      {r["name"]: r for r in records})
 
     # The grouped forward at these shapes (the training step's calls).
@@ -1156,26 +1193,26 @@ def check_train_kernels(cfg, device):
     torch.cuda.synchronize()
     y_ref = ref.grouped_mlp_ref(*fargs, block=gm.ROW_BLOCK)
     max_err, ratio = _max_err(y, y_ref, atol, rtol)
-    print(f"[train-kernel] grouped_mlp float32: max |kernel - plain| = "
+    print(f"[{tag}] grouped_mlp {dtype}: max |kernel - plain| = "
           f"{max_err:.3e}, max err / limit = {ratio:.3f} (atol {atol}, "
           f"rtol {rtol})", flush=True)
     if not ratio <= 1.0:
         fail(f"grouped_mlp at the training shapes: kernel and plain version "
              f"differ beyond atol {atol} + rtol {rtol} (ratio {ratio:.3g})")
     lib_ms, chain = time_library_ms(
-        grouped_library(c, "fwd", "[train-kernel] grouped_mlp"), flush=flush)
-    nbytes, flops = grouped_work(c, 4)
+        grouped_library(c, "fwd", f"[{tag}] grouped_mlp"), flush=flush)
+    nbytes, flops = grouped_work(c, c["xs"].element_size())
     rec = _record("grouped_mlp", "", "", max_err,
                   time_ms(lambda: gm.grouped_mlp_cuda(*fargs), flush=flush),
                   time_synced_ms(lambda: ref.grouped_mlp_ref(
                       *fargs, block=gm.ROW_BLOCK), flush=flush),
-                  nbytes, flops, lib_ms)
+                  nbytes, flops, lib_ms, dtype)
     fwd = {k: v for k, v in rec.items() if k not in (
         "name", "route", "source", "replaces")}
-    grouped_extras("train-kernel", "grouped_mlp float32", fwd,
+    grouped_extras(tag, f"grouped_mlp {dtype}", fwd,
                    lambda: gm.grouped_mlp_cuda(*fargs), gm.ROW_TILES, chain,
                    y_ref, flush)
-    print(f"[train-kernel] grouped_mlp float32: ms={fwd['ms']:.4f} "
+    print(f"[{tag}] grouped_mlp {dtype}: ms={fwd['ms']:.4f} "
           f"plain_ms={fwd['plain_ms']:.4f} library_ms="
           f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
           f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)", flush=True)
@@ -3698,6 +3735,481 @@ def serve_engine_modes(cfg, device, chunked):
     return by_path, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of training (remat, the chunked CE, gradient
+# accumulation and compression, bfloat16 compute, AdamW, the launcher)
+# ---------------------------------------------------------------------------
+
+# Granite at full width from phase 6's upcycled MoE weights (attention
+# conditioned) and its first MoE batch, 16 x 512 tokens, sorted
+# dispatch; each knob's step starts from a fresh copy of that state.
+# ce_chunk 128: 4 chunks of 16 x 128 x 49,155 float32 logits, 0.40 GB
+# each, against 1.61 GB for the whole logits.
+KNOBS = dict(arch="granite-moe-1b-a400m", peak_lr=0.01, warmup=100,
+             ce_chunk=128, grad_accum=4, bf16_steps=4, adamw_steps=2,
+             data_step=100)
+REMAT_POLICIES = ("none", "full", "dots", "moe")
+# A remat step against the step without remat, through the kernels:
+# remat repeats the forward exactly but for the float atomics of the
+# sorted dispatch's combine, so the loss (from the first forward) within
+# 1e-6 and the gradient norm (through recomputed residuals) within 1e-4.
+REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL = 1e-6, 1e-4
+# ce_chunk against the whole logits: the CE's sum in another order.
+CE_CHUNK_LOSS_RTOL = 1e-5
+# The first bfloat16 step through the kernels against the plain
+# versions' bfloat16 loss: both round each product's output once to
+# bfloat16 from float32 sums of different orders, so single outputs may
+# sit one bfloat16 rounding (2^-8) apart; through 24 layers, and with a
+# routing choice flipped where two experts tie, the CPU's two bfloat16
+# implementations of the 4-layer model part by up to 7e-5 in loss
+# (tests/test_torch_train_knobs.py). 1e-3; a wrong kernel moves the
+# loss by O(1e-1).
+BF16_STEP_LOSS_RTOL = 1e-3
+# The vision schedule for the AdamW steps (paper §A.1.2), cut to steps.
+ADAMW_SCHEDULE = dict(peak=4e-4, warmup_steps=10, timescale=100,
+                      cooldown_start=50, cooldown_steps=20)
+# launch/train.py main() on granite at 8 x 512: remat "moe", 2
+# microbatches, int8 compression; 4 steps straight, and 4 steps killed
+# (SIGTERM: a blocking save and a clean exit) after step 2 and resumed.
+# Each run upcycles (--upcycle-from) a dense parent at the package's
+# init with its attention conditioned, saved once: at the MoE's own
+# reference init the first step's gradient norm is ~5e11, and Adafactor
+# turns the zero rows of an int8-compressed embedding gradient beside
+# rows of that size into NaN updates (ROADMAP.md queue 3).
+LAUNCH = dict(batch=8, seq=512, steps=4, kill_after=2,
+              flags=("--remat", "moe", "--grad-accum", "2",
+                     "--compression", "int8", "--dispatch", "sorted"))
+# Free disk the killed run's save needs: params and residual, 10.7 GB,
+# and the dense parent's params, 0.66 GB.
+LAUNCH_DISK_GB = 12.0
+# rwkv6-7b at full width and 4 of its 32 layers through the Trainer with
+# the launcher's ApplyCfg (the eager WKV: the kernel has no backward):
+# 4 x (5 * 4096^2 + 2 * 4096 * 14336) + 2 x 65536 x 4096 ~ 1.3 B params.
+RWKV_TRAIN = dict(arch="rwkv6-7b", layers=4, batch=4, seq=256, steps=2)
+
+
+def remat_launches(cfg, policy: str) -> dict:
+    """A MoE step's launches under ``policy``: every policy but "none"
+    runs each layer body's forward again in the backward, and no policy
+    can save a kernel's output (the kernels are
+    ``torch.autograd.Function``s over pybind calls, which a selective
+    policy does not see), so the forward kernels launch twice a layer
+    and the backward kernels once."""
+    want = step_launches(cfg, TRAIN_KERNELS, True)
+    if policy != "none":
+        for k in ("flash_attention", "grouped_mlp"):
+            want[k] *= 2
+    return want
+
+
+@contextlib.contextmanager
+def launcher_probe(kill_after=None):
+    """Inside the block every ``Trainer.run`` result and every checkpoint
+    the managers save (host copies) and restore is kept: yields {"runs":
+    [...], "saved": {step: state}, "restored": [(step, state)]} (train
+    states: not the params ``--upcycle-from`` reads). With
+    ``kill_after`` the process sends itself SIGTERM once that many steps
+    of a run are done (the launcher's PreemptionSignal: a blocking save
+    of that step and a clean exit)."""
+    import os
+    import signal
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.training.train_loop import Trainer
+
+    got = {"runs": [], "saved": {}, "restored": []}
+    run, watchdog = Trainer.run, Trainer._watchdog
+    save, restore = CheckpointManager.save, CheckpointManager.restore_latest
+
+    def keep_run(self, *a, **kw):
+        out = run(self, *a, **kw)
+        got["runs"].append(out)
+        return out
+
+    def kill(self, step, dt):
+        watchdog(self, step, dt)
+        if kill_after is not None and step + 1 == kill_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def keep_save(self, step, tree, **kw):
+        got["saved"][step] = host_snapshot(tree)
+        return save(self, step, tree, **kw)
+
+    def keep_restore(self, like, **kw):
+        out = restore(self, like, **kw)
+        if out[0] is not None and kw.get("key") is None:  # a train state
+            got["restored"].append((out[1], host_snapshot(out[0])))
+        return out
+
+    Trainer.run, Trainer._watchdog = keep_run, kill
+    CheckpointManager.save = keep_save
+    CheckpointManager.restore_latest = keep_restore
+    try:
+        yield got
+    finally:
+        Trainer.run, Trainer._watchdog = run, watchdog
+        CheckpointManager.save, CheckpointManager.restore_latest = \
+            save, restore
+
+
+def residual_exact(kind, g, e, c, e_new):
+    """(the new residual equals (g + e) - c exactly, max |c + e_new - (g
+    + e)|, the leaf's shape) for one leaf of one compression: bf16's
+    difference is exact in float32; int8's residual is x - q * scale
+    rounded once (training/compression.py), recomputed here in
+    float64."""
+    import torch
+
+    x = g.float() + e
+    if kind == "bf16":
+        want = x - c
+    else:
+        scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(x / scale), -127, 127)
+        want = (x.double() - q.double() * scale.double()).float()
+    back = float((c.double() + e_new.double() - x.double()).abs().max())
+    return torch.equal(e_new, want), back, tuple(x.shape)
+
+
+def train_rows(path) -> dict:
+    """step -> loss of the "train" rows a ``--obs-jsonl`` file holds."""
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh if line.strip()]
+    return {r["t"]: r["loss"] for r in rows if r.get("kind") == "train"}
+
+
+def knobs_path(device, params, batch):
+    """Phase 16: the training knobs on granite at full width through the
+    kernels (``params``: phase 6's upcycled MoE on the host; ``batch``:
+    its first MoE batch), the launcher with them, and rwkv6-7b's dense
+    stack through the launcher's ApplyCfg. Returns (the launches of the
+    phase's steps, the bfloat16 kernel records at the training shapes,
+    the grouped forward's bfloat16 numbers there)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params, tree_leaves, tree_map
+    from repro_torch.optim import (
+        adafactor,
+        adamw,
+        inverse_sqrt,
+        rsqrt_with_cooldown,
+    )
+    from repro_torch.optim.base import global_norm
+    from repro_torch.training import (
+        TrainConfig,
+        Trainer,
+        compression,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.training.train_loop import batch_to, loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = get_config(KNOBS["arch"])
+    name = "knobs"
+    # The six training kernels in bfloat16 at the training shapes; their
+    # launches are comparisons, not the path's.
+    bf16_records, bf16_fwd = check_train_kernels(cfg, device, "bfloat16")
+    params = tree_map(lambda t: t.to(device), params)
+    batch = batch_to(batch, device)
+    tokens = batch["tokens"].numel()
+    opt = adafactor(inverse_sqrt(peak=KNOBS["peak_lr"],
+                                 warmup_steps=KNOBS["warmup"]))
+    print(f"[{name}] {cfg.name}: {count_params(params) / 1e9:.3f} B params "
+          f"(phase 6's upcycle), batch {tuple(batch['tokens'].shape)}, "
+          f"sorted dispatch", flush=True)
+
+    def kac(**kw):
+        return zoo.ApplyCfg(dispatch="sorted", moe_impl="cuda",
+                            attn_impl="cuda", **kw)
+
+    def pac(**kw):
+        return zoo.ApplyCfg(dispatch="sorted", moe_impl="eager",
+                            attn_impl="eager", **kw)
+
+    def step(tag, ac, *, tc=TrainConfig(), optimizer=opt, state=None,
+             data=None, want=None, keep=False):
+        """One step (from a fresh copy of the phase's state unless
+        ``state``): returns (the new state if ``keep``, metrics, ms, peak
+        bytes)."""
+        if state is None:
+            state = init_train_state(None, cfg, optimizer, tc=tc,
+                                     params=tree_map(torch.clone, params))
+        fn = make_train_step(cfg, optimizer, ac=ac, tc=tc)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch if data is None else data)
+        ms = _sync_ms(t0)
+        peak = torch.cuda.max_memory_allocated()
+        m = {k: float(v) for k, v in m.items()}
+        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        print(f"[{name}] {tag}: loss={m['loss']!r} grad_norm="
+              f"{m['grad_norm']!r} skipped={m['skipped']:.0f} ms={ms:.1f} "
+              f"({tokens / ms * 1e3:.0f} tokens/s) peak {peak / 2 ** 30:.2f} "
+              f"GiB ({peak} B; {resident / 2 ** 30:.2f} GiB resident before "
+              f"the step) launches={ {k: v for k, v in per.items() if v} }",
+              flush=True)
+        check_step(cfg.name, tag, m, per,
+                   step_launches(cfg, TRAIN_KERNELS, True) if want is None
+                   else want)
+        return (state if keep else None), m, ms, peak
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    ops.reset_launch_counts()
+    # 1. Remat: one step under each policy from the same state and batch,
+    # after one untimed step of it (the policy's first pass pays one-off
+    # costs).
+    remat = {}
+    for policy in REMAT_POLICIES:
+        for tag in (f"remat={policy} (warm-up)", f"remat={policy}"):
+            _, m, ms, peak = step(tag, kac(remat=policy),
+                                  want=remat_launches(cfg, policy))
+        remat[policy] = (m, ms, peak)
+    m0, ms0, peak0 = remat["none"]
+    for policy in REMAT_POLICIES[1:]:
+        m, ms, peak = remat[policy]
+        dl, dg = rel(m["loss"], m0["loss"]), rel(m["grad_norm"],
+                                                 m0["grad_norm"])
+        print(f"[{name}] remat={policy} vs none: loss rel diff {dl:.3e} "
+              f"(limit {REMAT_LOSS_RTOL}), grad_norm rel diff {dg:.3e} "
+              f"(limit {REMAT_GRAD_NORM_RTOL}); step {ms / ms0:.3f}x none's, "
+              f"peak {peak / 2 ** 30:.2f} against {peak0 / 2 ** 30:.2f} GiB",
+              flush=True)
+        if not (dl <= REMAT_LOSS_RTOL and dg <= REMAT_GRAD_NORM_RTOL):
+            fail(f"remat={policy}'s step parts from the step without remat")
+
+    # 2. The chunked CE against the whole logits.
+    _, m, ms, peak = step(f"ce_chunk={KNOBS['ce_chunk']}",
+                          kac(ce_chunk=KNOBS["ce_chunk"]))
+    dl = rel(m["loss"], m0["loss"])
+    print(f"[{name}] ce_chunk={KNOBS['ce_chunk']} vs 0: loss rel diff "
+          f"{dl:.3e} (limit {CE_CHUNK_LOSS_RTOL}); peak {peak / 2 ** 30:.2f} "
+          f"against {peak0 / 2 ** 30:.2f} GiB", flush=True)
+    if not dl <= CE_CHUNK_LOSS_RTOL:
+        fail("the chunked CE's loss parts from the whole logits'")
+
+    # 3. Gradient accumulation through the kernels and the plain versions.
+    A = KNOBS["grad_accum"]
+    tca = TrainConfig(grad_accum=A)
+    _, mk, _, _ = step(f"grad_accum={A}", kac(), tc=tca, want={
+        k: A * v for k, v in step_launches(cfg, TRAIN_KERNELS, True).items()})
+    _, mp, _, _ = step(f"grad_accum={A}, plain versions", pac(), tc=tca,
+                       want={k: 0 for k in ops.launch_counts()})
+    dl, dg = rel(mk["loss"], mp["loss"]), rel(mk["grad_norm"],
+                                              mp["grad_norm"])
+    print(f"[{name}] grad_accum={A}, kernels vs plain: loss rel diff "
+          f"{dl:.3e} (limit {LOSS_RTOL}), grad_norm rel diff {dg:.3e} "
+          f"(limit {GRAD_NORM_RTOL})", flush=True)
+    if not (dl <= LOSS_RTOL and dg <= GRAD_NORM_RTOL):
+        fail(f"grad_accum={A} through the kernels and the plain versions "
+             "disagree")
+
+    # 4. Compression: a step each; then the error feedback's invariant on
+    # two leaves for fresh gradients at the step's params.
+    leaves = (("router", lambda p: p["stack"]["segments"][0]["pos0"]["ffn"]
+               ["router"]["w"]),
+              ("experts.wi", lambda p: p["stack"]["segments"][0]["pos0"]
+               ["ffn"]["experts"]["wi"]))
+    for kind in ("bf16", "int8"):
+        tc = TrainConfig(compression=kind)
+        st, _, _, _ = step(f"compression={kind}", kac(), tc=tc, keep=True)
+        g, _ = loss_and_grads(st["params"], batch, cfg, ac=kac())
+        c, e = compression.compress(g, st["residual"], kind)
+        for label, leaf in leaves:
+            same, back, shape = residual_exact(
+                kind, leaf(g), leaf(st["residual"]), leaf(c), leaf(e))
+            print(f"[{name}] compression={kind} {label} {shape}: residual "
+                  f"== (g + e) - c exactly: {same}; max |c + e' - (g + e)| "
+                  f"= {back:.3e}", flush=True)
+            if not same:
+                fail(f"compression={kind}: the residual of {label} is not "
+                     "(g + e) - c")
+        del st, g, c, e
+
+    # 5. bfloat16 compute: 4 steps through the kernels, the first held
+    # against the plain versions' bfloat16 loss.
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    it = make_iterator(cfg, global_batch=batch["tokens"].shape[0],
+                       seq_len=batch["tokens"].shape[1], task=task)
+    it.restore({"step": KNOBS["data_step"]})
+    grads, plain = loss_and_grads(params, batch, cfg,
+                                  ac=pac(compute_dtype="bfloat16"))
+    plain = float(plain["loss"])
+    del grads
+    st, bf_ms = None, []
+    for i in range(KNOBS["bf16_steps"]):
+        st, m, ms, peak = step(f"bfloat16 step {i + 1}",
+                               kac(compute_dtype="bfloat16"), state=st,
+                               data=None if i == 0 else batch_to(next(it),
+                                                                 device),
+                               keep=True)
+        bf_ms.append(ms)
+        if i == 0:
+            dl = rel(m["loss"], plain)
+            print(f"[{name}] bfloat16 first step, kernels vs plain: loss "
+                  f"{m['loss']!r} vs {plain!r}, rel diff {dl:.3e} (limit "
+                  f"{BF16_STEP_LOSS_RTOL}); float32 loss {m0['loss']!r}",
+                  flush=True)
+            if not dl <= BF16_STEP_LOSS_RTOL:
+                fail("the bfloat16 step through the kernels parts from the "
+                     "plain versions'")
+    later = sum(bf_ms[1:]) / len(bf_ms[1:])
+    print(f"[{name}] bfloat16 steps {', '.join(f'{x:.1f}' for x in bf_ms)} "
+          f"ms (after the first {later:.1f}, {tokens / later * 1e3:.0f} "
+          f"tokens/s) against float32's {ms0:.1f} ms; peak "
+          f"{peak / 2 ** 30:.2f} GiB against {peak0 / 2 ** 30:.2f}", flush=True)
+    del st
+
+    # 6. AdamW under the vision schedule.
+    aopt = adamw(rsqrt_with_cooldown(**ADAMW_SCHEDULE))
+    st = init_train_state(None, cfg, aopt,
+                          params=tree_map(torch.clone, params))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(st["opt_state"]))
+    print(f"[{name}] AdamW state {nbytes} B ({nbytes / 2 ** 30:.2f} GiB; "
+          f"Adafactor's: {sum(t.numel() * t.element_size() for t in tree_leaves(opt.init(params))) / 2 ** 30:.3f} GiB)", flush=True)
+    for i in range(KNOBS["adamw_steps"]):
+        st, _, _, _ = step(f"adamw step {i + 1}", kac(), optimizer=aopt,
+                           state=st, keep=True)
+    del st, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. The launcher: straight, and killed after step 2 and resumed.
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_knobs_")
+    root = Path(tmp.name)
+    try:
+        free = shutil.disk_usage(root).free / 1e9
+        if free < LAUNCH_DISK_GB:
+            fail(f"{free:.1f} GB free under {root}: the launcher runs need "
+                 f"{LAUNCH_DISK_GB} GB")
+
+        t0 = time.perf_counter()
+        dense_cfg = cfg.dense_parent()
+        dense = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                                dense_cfg, device=device)
+        condition_attention(dense, dense_cfg)
+        CheckpointManager(str(root / "dense")).save(0, {"params": dense})
+        del dense
+
+        def main_args(d, obs):
+            return ["--arch", KNOBS["arch"], "--steps", str(LAUNCH["steps"]),
+                    "--batch", str(LAUNCH["batch"]), "--seq",
+                    str(LAUNCH["seq"]), "--ckpt-dir", str(root / d),
+                    "--obs-jsonl", str(root / obs), "--upcycle-from",
+                    str(root / "dense"), *LAUNCH["flags"]]
+
+        with launcher_probe() as straight:
+            ltrain.main(main_args("straight", "straight.jsonl"))
+        with launcher_probe(kill_after=LAUNCH["kill_after"]) as killed:
+            ltrain.main(main_args("resumed", "killed.jsonl"))
+        killed["runs"].clear()  # the killed run's state, on the card
+        with launcher_probe() as resumed:
+            ltrain.main(main_args("resumed", "resumed.jsonl"))
+        k = LAUNCH["kill_after"]
+        if list(killed["saved"]) != [k] or [s for s, _ in
+                                            resumed["restored"]] != [k]:
+            fail(f"the killed run saved {list(killed['saved'])} and the "
+                 f"resumed run restored "
+                 f"{[s for s, _ in resumed['restored']]}, not step {k}")
+        same, worst, where = leaf_diff(killed["saved"][k],
+                                       resumed["restored"][0][1])
+        print(f"[{name}] launcher: the state restored at resume (params, "
+              f"optimizer, residual: "
+              f"{sorted(killed['saved'][k])}) vs the state saved at step "
+              f"{k}: bit-identical={same}", flush=True)
+        if not same:
+            fail(f"the launcher's resumed state differs from the state "
+                 f"saved: {worst:.3e} at {where}")
+        a = train_rows(root / "straight.jsonl")
+        b = {**train_rows(root / "killed.jsonl"),
+             **train_rows(root / "resumed.jsonl")}
+        for t in range(1, LAUNCH["steps"] + 1):
+            d = rel(b[t], a[t])
+            print(f"[{name}] launcher step {t}: loss {b[t]!r} vs straight "
+                  f"{a[t]!r}, rel diff {d:.3e} (limit {LOSS_RTOL})",
+                  flush=True)
+            if not (math.isfinite(b[t]) and d <= LOSS_RTOL):
+                fail(f"the launcher's resumed step {t} parts from the "
+                     "straight run")
+        fin_a = straight["runs"][-1]["state"]
+        fin_b = resumed["runs"][-1]["state"]
+        for part in ("params", "residual"):
+            same, worst, where = leaf_diff(fin_b[part], fin_a[part])
+            print(f"[{name}] launcher final {part} after kill-and-resume vs "
+                  f"the straight run: bit-identical={same}"
+                  + ("" if same else f", max rel diff {worst:.3e} at "
+                     f"{where}"), flush=True)
+        del straight, killed, resumed, fin_a, fin_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{name}] launcher runs {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # 8. rwkv6-7b's dense stack, 4 layers, conditioned, through the
+        # launcher's ApplyCfg.
+        rcfg = dataclasses.replace(get_config(RWKV_TRAIN["arch"]),
+                                   n_layers=RWKV_TRAIN["layers"])
+        rac = ltrain.apply_cfg(ltrain.parse_args(
+            ["--arch", RWKV_TRAIN["arch"]]), device)
+        rtask = ClusteredBigramTask(vocab_size=min(rcfg.vocab_size,
+                                                   TASK_VOCAB))
+        rit = make_iterator(rcfg, global_batch=RWKV_TRAIN["batch"],
+                            seq_len=RWKV_TRAIN["seq"], task=rtask)
+        before = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rparams = zoo.init_params(
+            torch.Generator(device=device).manual_seed(0), rcfg,
+            device=device)
+        condition_rwkv(rparams, rcfg)  # as phases 10-11 serve it
+        out = Trainer(rcfg, opt, rit, str(root / "rwkv"), ac=rac,
+                      device=device, log_fn=lambda s: None).run(
+            RWKV_TRAIN["steps"], init_params=rparams)
+        del rparams
+        ms = _sync_ms(t0)
+        rl = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        loss = out["metrics"]["loss"]
+        n = count_params(out["state"]["params"])
+        print(f"[{name}] {rcfg.name} at {rcfg.n_layers} of 32 layers: "
+              f"{n / 1e9:.3f} B params, ApplyCfg moe={rac.moe_impl} "
+              f"attn={rac.attn_impl} mixer={rac.mixer_impl}; "
+              f"{RWKV_TRAIN['steps']} steps of {RWKV_TRAIN['batch']} x "
+              f"{RWKV_TRAIN['seq']} in {ms:.0f} ms (init included), loss "
+              f"{loss!r}, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+              f" GiB, launches={ {k: v for k, v in rl.items() if v} }",
+              flush=True)
+        if rac.mixer_impl != "eager" or rl["rwkv6"] or not math.isfinite(loss) \
+                or int(out["state"]["step"]) != RWKV_TRAIN["steps"]:
+            fail(f"rwkv through the launcher's ApplyCfg: mixer "
+                 f"{rac.mixer_impl}, {rl['rwkv6']} WKV launches, loss {loss}")
+        del out
+    finally:
+        tmp.cleanup()
+    launches = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{name}] launches: {launches}", flush=True)
+    print(f"[{name}] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, bf16_records, bf16_fwd
+
+
 def main() -> int:
     import torch
 
@@ -3709,7 +4221,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.build import build_all
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.models.param import count_params
+    from repro_torch.models.param import count_params, tree_map
     from repro_torch.serve import ServeConfig, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3820,6 +4332,10 @@ def main() -> int:
         full, device, TRAIN, TRAIN_KERNELS)
     compare_first_moe_step(full, device, first_params, first_batch,
                            first_mets, TRAIN, TRAIN_KERNELS)
+    # Phase 16 starts from this upcycled MoE and batch (on the host
+    # until then).
+    knob_params = tree_map(lambda t: t.cpu(), first_params)
+    knob_batch = first_batch
     del first_params, first_batch
     torch.cuda.empty_cache()
 
@@ -3860,6 +4376,17 @@ def main() -> int:
     # speculative decoding, robustness and chaos, the fleet.
     modes_launches, rows = serve_engine_modes(cfg, device, chunked_outs)
     shape_rows += rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The rest of training: remat, the chunked CE, gradient accumulation
+    # and compression, bfloat16 compute, AdamW, the launcher with them.
+    knob_launches, bf16_records, bf16_fwd = knobs_path(device, knob_params,
+                                                       knob_batch)
+    del knob_params
+    bf16_at = {r["name"]: {k: v for k, v in r.items() if k not in (
+        "name", "route", "source", "replaces")} for r in bf16_records}
+    bf16_at["grouped_mlp"] = bf16_fwd
 
     for rec in records:
         name = rec["name"]
@@ -3874,7 +4401,10 @@ def main() -> int:
                         for path, n in encdec_launches.items()})
         by_path.update({path: n.get(name, 0)
                         for path, n in modes_launches.items()})
+        by_path["training_knobs"] = knob_launches.get(name, 0)
         rec["launches"] = sum(by_path.values())
+        if name in bf16_at:
+            rec["bf16_at_train_shapes"] = bf16_at[name]
         rec["launches_by_path"] = by_path
         at = {tag: row for k, tag, row in shape_rows if k == name}
         if at:

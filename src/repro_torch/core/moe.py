@@ -12,6 +12,11 @@
   into a block-aligned ragged buffer ``(G, M, d)`` (M independent of
   the capacity factor) through ``kernels.ops.grouped_mlp``.
 
+The combined output can be tagged with the identity op
+``repro_torch::moe_block`` (:func:`moe_block`), the remat boundary that
+``stack_apply(remat="moe")``'s policy saves and nothing else (the
+reference's ``checkpoint_name(y, "moe_block")``).
+
 Expert parallelism needs a device mesh and is queued in ROADMAP.md.
 """
 from __future__ import annotations
@@ -26,6 +31,23 @@ from repro_torch.core import routing as R
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
 from repro_torch.models import param as pm
+
+
+@torch.library.custom_op("repro_torch::moe_block", mutates_args=())
+def moe_block(y: torch.Tensor) -> torch.Tensor:
+    """The remat tag on a MoE layer's combined output: an identity
+    dispatcher op, so a selective-checkpoint policy can name it
+    (``models/stack.py``). A custom op's output may not alias its input,
+    so it copies ``y``: ``moe_apply`` tags only when asked."""
+    return y.clone()
+
+
+@moe_block.register_fake
+def _(y):
+    return torch.empty_like(y)
+
+
+moe_block.register_autograd(lambda ctx, dy: dy)
 
 
 def moe_init(gen, cfg: ArchConfig, moe: MoECfg, *, dtype=torch.float32,
@@ -146,6 +168,7 @@ def moe_apply(
     dispatch: str = "gather",
     implementation: str = "auto",
     token_mask=None,
+    tag: bool = False,
 ):
     """x: (B, S, d) or (N, d). Returns (y, metrics dict).
 
@@ -156,7 +179,10 @@ def moe_apply(
     ``token_mask``: None, or a bool tensor broadcastable to x's token
     dims — False marks dead tokens (free decode slots, idle chunk
     lanes): they claim no experts, no capacity and no ragged rows, and
-    their outputs are zero."""
+    their outputs are zero.
+
+    ``tag``: pass y through :func:`moe_block`, the boundary that
+    ``remat="moe"`` saves (off by default: the tag copies y)."""
     dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
                   "sorted": _sorted_dispatch}
     if dispatch not in dispatches:
@@ -183,6 +209,8 @@ def moe_apply(
     if pad:
         y = y[:n]
     y = y.reshape(orig_shape).to(x.dtype)
+    if tag:
+        y = moe_block(y)
     metrics = {
         "aux_loss": r.aux_loss * moe.aux_loss_weight,
         "z_loss": r.z_loss * moe.z_loss_weight,

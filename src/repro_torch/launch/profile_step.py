@@ -5,7 +5,8 @@ report where its time goes.
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled|\\
                          t5-base-upcycled] \\
-         [--batch N] [--seq S]] \\
+         [--batch N] [--seq S] [--remat none|full|dots|moe] \\
+         [--compute-dtype float32|bfloat16]] \\
         [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m] \\
          [--batch 8] [--seq 512]] \\
         [--serve-step mixed|verify|prefill|decode] \\
@@ -26,7 +27,10 @@ train step of ``--arch`` instead, on a fixed batch of the arch's
 synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
 images of 196 patches (its sequence; ``--seq`` is not read) and T5 at 16
-x 512 encoder and 16 x 128 decoder tokens through the gather dispatch. ``--static`` traces the static engine on ``--arch``
+x 512 encoder and 16 x 128 decoder tokens through the gather dispatch,
+under ``--remat`` and in ``--compute-dtype`` (the step's ``ApplyCfg``;
+the train output adds ``peak_memory_bytes``, the untraced steps' peak
+on the card). ``--static`` traces the static engine on ``--arch``
 instead (random weights from seed 0, dropless routing, float32 caches;
 ``rwkv6-7b-moe`` is rwkv6-7b's channel-mix MoE, ``rwkv6_7b.upcycled()``,
 at 4 layers as ``chip_smoke.py`` serves it):
@@ -173,7 +177,8 @@ def serve_step_fn(cfg, device, kind: str):
                                          dec_len, cfg, ac=ac)
 
 
-def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str):
+def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str,
+                  remat: str = "none", compute_dtype: str = "float32"):
     """One train-cell MoE step on a fixed batch, as a closure."""
     import torch
 
@@ -189,7 +194,8 @@ def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str):
     task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
     data = next(make_iterator(cfg, global_batch=batch, seq_len=seq,
                               task=task))
-    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(dispatch=dispatch))
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(
+        dispatch=dispatch, remat=remat, compute_dtype=compute_dtype))
     return lambda: step(state, data)
 
 
@@ -229,11 +235,14 @@ def profile(step_fn, cfg, device, *, steps: int) -> dict:
     for _ in range(2):  # warm-up: allocator, cuBLAS, kernel builds
         step_fn()
     sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         step_fn()
     sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated() if on_card else None
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_card else [])
     with torch.profiler.profile(activities=acts) as prof:
@@ -255,7 +264,7 @@ def profile(step_fn, cfg, device, *, steps: int) -> dict:
         "host_ops": len(host) / steps,
         "host_ops_per_layer": len(host) / steps / cfg.n_layers,
         "device_kernels": None, "device_busy_ms": None, "idle_share": None,
-        "kernels": None, "top": None,
+        "kernels": None, "top": None, "peak_memory_bytes": peak,
     }
     if dev:
         busy = _union_ms((e.time_range.start, e.time_range.end)
@@ -288,6 +297,12 @@ def main(argv=None) -> None:
                     help="--train batch (default: the arch's train cell); "
                          "--static batch (default 8)")
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "full", "dots", "moe"],
+                    help="--train: the step's remat policy")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="--train: the step's compute dtype")
     ap.add_argument("--serve-step", default="mixed",
                     choices=["mixed", "verify", "prefill", "decode"],
                     help="the serve step to trace (without --train and "
@@ -339,7 +354,8 @@ def main(argv=None) -> None:
         cell = TRAIN_CELLS[arch]
         batch = args.batch or cell["batch"]
         step_fn = train_step_fn(cfg, device, batch=batch, seq=args.seq,
-                                dispatch=cell["dispatch"])
+                                dispatch=cell["dispatch"], remat=args.remat,
+                                compute_dtype=args.compute_dtype)
     else:
         # Dropless routing, as chip_smoke.py serves the model.
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -349,7 +365,8 @@ def main(argv=None) -> None:
     out = profile(step_fn, cfg, device, steps=args.steps)
     out["step"] = "train" if args.train else args.serve_step
     if args.train:
-        out.update(batch=batch, dispatch=cell["dispatch"])
+        out.update(batch=batch, dispatch=cell["dispatch"],
+                   remat=args.remat, compute_dtype=args.compute_dtype)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

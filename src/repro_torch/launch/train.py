@@ -10,9 +10,10 @@ the patch task for the encoder-only ViT).
         whisper-base [--reduced] \\
         [--steps 100] [--batch 8] [--seq 64] [--ckpt-dir DIR] \\
         [--upcycle-from DENSE_DIR] [--impl auto|cuda|eager] \\
-        [--dispatch gather|einsum|sorted] [--peak-lr 0.01] \\
-        [--warmup 100] [--obs-jsonl PATH] [--spike-threshold X ...] \\
-        [--train-chaos SEED] [--device cuda|cpu]
+        [--dispatch gather|einsum|sorted] [--grad-accum 1] \\
+        [--compression none|bf16|int8] [--remat none|full|dots|moe] \\
+        [--ep none] [--peak-lr 0.01] [--warmup 100] [--obs-jsonl PATH] \\
+        [--spike-threshold X ...] [--train-chaos SEED] [--device cuda|cpu]
 
 ``--upcycle-from`` restores the dense parent's params from the newest
 valid checkpoint there — a params-only checkpoint or a Trainer's full
@@ -28,8 +29,17 @@ encoder-decoder model's ``--seq`` is its encoder length, its decoder
 length ``max(seq // 4, 8)``; ``--upcycle-from`` upcycles its encoder
 and decoder stacks (t5-base-upcycled: Expert Choice in the encoder,
 top-2 in the decoder).
-``--grad-accum``, ``--compression``, ``--remat`` and ``--ep`` are queued
-in ROADMAP.md.
+
+``--grad-accum A`` sums the gradients of A microbatches of ``--batch /
+A`` rows a step; ``--compression`` compresses them with error feedback
+(the residual rides in every checkpoint); ``--remat`` recomputes each
+layer body's activations in the backward, saving what the policy names
+(``moe``: the MoE layers' outputs only). The stack's mixer runs the
+reference launcher's path: an rwkv6 stack trains through autograd of
+the plain chunked WKV (``mixer_impl="eager"``, printed on the kernels
+line), since the WKV kernel is forward-only. ``--ep a2a`` (expert
+parallelism) needs the multi-GPU port and exits (ROADMAP.md queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -68,7 +78,20 @@ def upcycle_from(directory: str, cfg, *, device):
     return dense, sparse, step
 
 
-def main(argv=None) -> None:
+def apply_cfg(args, device):
+    """The ``ApplyCfg`` the launcher trains with: ``--impl`` for
+    attention and the experts, ``--dispatch``, ``--remat``, and the
+    mixer on the reference launcher's path, "eager" (the chunked WKV
+    under autograd; the WKV kernel has no backward), resolved for
+    ``device``."""
+    from repro_torch.models import model_zoo as zoo
+
+    return zoo.ApplyCfg(dispatch=args.dispatch, moe_impl=args.impl,
+                        attn_impl=args.impl, mixer_impl="eager",
+                        remat=args.remat).resolve(device)
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -88,13 +111,31 @@ def main(argv=None) -> None:
                          "capacity buffer (the expert-FFN kernels), "
                          "'sorted' the ragged buffer (the grouped-GEMM "
                          "kernels)")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches a step (--batch must be a multiple)")
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8"],
+                    help="gradient compression with error feedback")
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "full", "dots", "moe"],
+                    help="recompute each layer body in the backward: "
+                         "'full' saves nothing inside it, 'dots' the dense "
+                         "matmuls' outputs, 'moe' the MoE layers' outputs "
+                         "only")
+    ap.add_argument("--ep", default="none", choices=["none", "a2a"],
+                    help="expert parallelism for --dispatch sorted; 'a2a' "
+                         "needs the multi-GPU port (ROADMAP.md queue 1 "
+                         "item 8)")
+    ap.add_argument("--ep-budget-factor", type=float, default=2.0,
+                    help="EP a2a send-buffer row budget as a multiple of "
+                         "the balanced per-peer share")
     ap.add_argument("--upcycle-from", default="",
                     help="dense checkpoint dir to sparse-upcycle from")
     ap.add_argument("--peak-lr", type=float, default=0.01)
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--obs-jsonl", default="", metavar="PATH",
                     help="stream per-step train rows + checkpoint "
-                         "counters as JSONL (src/repro/obs/README.md)")
+                         "counters as JSONL (src/repro_torch/obs/README.md)")
     ap.add_argument("--spike-threshold", type=float, default=0.0,
                     help="divergence detector: roll back when a finite "
                          "loss exceeds this multiple of the trailing "
@@ -126,11 +167,19 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
+    if args.ep != "none":
+        raise SystemExit(
+            f"--ep {args.ep}: expert parallelism needs a device mesh, which "
+            "the port does not have yet (ROADMAP.md queue 1 item 8)")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data import ClusteredBigramTask, make_iterator
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.obs import JsonlSink, Tracker
     from repro_torch.optim import adafactor, inverse_sqrt
     from repro_torch.training import (
@@ -144,7 +193,9 @@ def main(argv=None) -> None:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     opt = adafactor(inverse_sqrt(peak=args.peak_lr,
                                  warmup_steps=args.warmup))
-    tc = TrainConfig(spike_threshold=args.spike_threshold,
+    tc = TrainConfig(grad_accum=args.grad_accum,
+                     compression=args.compression,
+                     spike_threshold=args.spike_threshold,
                      spike_window=args.spike_window,
                      spike_mode=args.spike_mode,
                      max_rollbacks=args.max_rollbacks,
@@ -168,10 +219,10 @@ def main(argv=None) -> None:
     # the process had comes back after it.
     term = signal.getsignal(signal.SIGTERM)
     sig = PreemptionSignal().install()
-    ac = zoo.ApplyCfg(dispatch=args.dispatch, moe_impl=args.impl,
-                      attn_impl=args.impl).resolve(device)
+    ac = apply_cfg(args, device)
     print(f"[train] kernels: moe={ac.moe_impl} attn={ac.attn_impl} "
-          f"dispatch={ac.dispatch} device={device}", flush=True)
+          f"dispatch={ac.dispatch} mixer={ac.mixer_impl} remat={ac.remat} "
+          f"device={device}", flush=True)
     tracker = Tracker((JsonlSink(args.obs_jsonl),)) \
         if args.obs_jsonl else None
     chaos = None

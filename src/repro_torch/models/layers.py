@@ -137,6 +137,10 @@ def frontend_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
 
 
 def frontend_apply(p, embeds, cfg: ArchConfig):
+    """The stub embeddings (float32 from the data) times the projection,
+    in the promoted dtype as the reference's einsum computes it: float32
+    with a bfloat16 compute copy of the weight."""
     if cfg.frontend is None:
         return embeds
-    return embeds @ p["proj"]
+    dtype = torch.promote_types(embeds.dtype, p["proj"].dtype)
+    return embeds.to(dtype) @ p["proj"].to(dtype)

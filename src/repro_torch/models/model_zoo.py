@@ -16,14 +16,21 @@ Batch formats
   encoder_only    : ``{"patch_embeds": (B, P, d), "labels": (B,)}``
                     (ViT).
 
-The chunked cross-entropy (``ce_chunk``) and remat are queued in
-ROADMAP.md.
+``ApplyCfg`` carries the reference's training knobs: remat of the
+stack (``models/stack.py``), the chunked cross-entropy (``ce_chunk``)
+and the compute dtype (``compute_dtype="bfloat16"``: every entry point
+computes with a bfloat16 copy of the floating parameters, gradients
+reaching the float32 masters through the cast, as the reference's
+``_cast_params``). Tensor-parallel head padding (``pad_heads_multiple``)
+comes with the multi-GPU port (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
@@ -44,18 +51,36 @@ from repro_torch.models.layers import (
 )
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class ApplyCfg:
     """Runtime knobs. ``moe_impl``/``attn_impl``/``mixer_impl`` (the
     RWKV WKV) in ``auto|cuda|eager``: ``resolve(device)`` pins "auto" to
     the CUDA kernels on a CUDA device and to the plain PyTorch versions
     elsewhere. The reference's "pallas" is the port's "cuda"; its "xla"
-    and "ref" are the port's "eager"."""
+    and "ref" are the port's "eager".
+
+    ``remat``: none | full | dots | moe (``stack.stack_apply``).
+    ``compute_dtype``: float32 | bfloat16, the dtype of the parameters'
+    compute copy and of the activations (``cdtype``); logits and losses
+    stay float32. ``ce_chunk``: 0 computes the whole (B, S, V) logits;
+    n > 0 the cross-entropy over sequence chunks of n (``_chunked_ce``),
+    whose logits the backward recomputes."""
 
     dispatch: str = "gather"  # moe dispatch: gather | einsum | sorted
     moe_impl: str = "auto"
     attn_impl: str = "auto"
     mixer_impl: str = "auto"
+    remat: str = "none"
+    compute_dtype: str = "float32"
+    ce_chunk: int = 0
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
 
     def resolve(self, device) -> "ApplyCfg":
         impls = ("moe_impl", "attn_impl", "mixer_impl")
@@ -63,6 +88,9 @@ class ApplyCfg:
             if getattr(self, name) not in IMPLEMENTATIONS:
                 raise ValueError(f"unknown implementation "
                                  f"{getattr(self, name)!r} {IMPLEMENTATIONS}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype "
+                             f"{self.compute_dtype!r} {COMPUTE_DTYPES}")
         pin = "cuda" if torch.device(device).type == "cuda" else "eager"
         return dataclasses.replace(self, **{
             name: pin for name in impls if getattr(self, name) == "auto"})
@@ -111,14 +139,24 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     return p
 
 
-def _embed_decoder_input(params, batch, cfg: ArchConfig):
+def _cast_params(params, dtype):
+    """Mixed precision: compute with a ``dtype`` copy of the floating
+    leaves (autograd carries the gradients through the cast back to the
+    masters). A leaf already in ``dtype`` is used as it is, uncopied."""
+    return pm.tree_map(
+        lambda p: p.to(dtype) if p.is_floating_point() else p, params)
+
+
+def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg):
     """The decoder's input: ``tokens`` (decoder-only) or ``dec_tokens``
-    (encoder-decoder) embedded at positions 0..S-1."""
+    (encoder-decoder) embedded at positions 0..S-1, in the compute
+    dtype."""
     tokens = (batch["tokens"] if "tokens" in batch
               else batch["dec_tokens"]).long()
     return embed_apply(params["embed"], tokens, cfg,
                        positions=torch.arange(tokens.shape[1],
-                                              device=tokens.device))
+                                              device=tokens.device)
+                       ).to(ac.cdtype)
 
 
 def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
@@ -138,60 +176,80 @@ def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
                         positions=torch.arange(tokens.shape[1],
                                                device=tokens.device))
     x, mets, _ = stk.stack_apply(
-        params["encoder"], x, cfg, stk.layer_descs(cfg, stack="encoder"),
-        causal=False,
+        params["encoder"], x.to(ac.cdtype), cfg,
+        stk.layer_descs(cfg, stack="encoder"), causal=False,
         router_kind=stk.stack_router_kind(cfg, stack="encoder"),
         dispatch=ac.dispatch, moe_impl=ac.moe_impl, attn_impl=ac.attn_impl,
-        mixer_impl=ac.mixer_impl,
+        mixer_impl=ac.mixer_impl, remat=ac.remat,
     )
     return norm_apply(params["enc_final_norm"], x, cfg), mets
 
 
 def forward_train(params, batch, cfg: ArchConfig, *,
-                  ac: ApplyCfg = ApplyCfg()):
+                  ac: ApplyCfg = ApplyCfg(), return_hidden: bool = False):
     """The training forward, through the flash-attention and expert-FFN
     kernels (and their backward kernels under autograd) on a CUDA
-    device. Decoder-only: causal LM over ``batch["tokens"] (B, S)`` at
-    positions 0..S-1, logits (B, S, V); an rwkv6 stack runs forward
-    only through the WKV kernel (it raises under autograd: pass
-    ``mixer_impl="eager"`` to differentiate). Encoder-decoder: the
-    encoder (:func:`_encode`), then the causal decoder over
-    ``batch["dec_tokens"]`` with cross-attention onto the encoder
-    states, logits (B, Sd, V); the encoder's metrics are added to the
-    decoder's. Encoder-only (ViT): the patch
-    frontend plus learned positions, the bidirectional stack (Expert
-    Choice in its MoE layers), the final norm, global average pooling
-    and the class head, logits (B, V). Returns (logits float32,
-    metrics)."""
+    device, in ``ac.compute_dtype`` under ``ac.remat``. Decoder-only:
+    causal LM over ``batch["tokens"] (B, S)`` at positions 0..S-1,
+    logits (B, S, V); an rwkv6 stack runs forward only through the WKV
+    kernel (it raises under autograd: pass ``mixer_impl="eager"`` to
+    differentiate). Encoder-decoder: the encoder (:func:`_encode`), then
+    the causal decoder over ``batch["dec_tokens"]`` with
+    cross-attention onto the encoder states, logits (B, Sd, V); the
+    encoder's metrics are added to the decoder's. Encoder-only (ViT):
+    the patch frontend plus learned positions, the bidirectional stack
+    (Expert Choice in its MoE layers), the final norm, global average
+    pooling and the class head, logits (B, V). Returns (logits float32,
+    metrics); with ``return_hidden`` (not encoder-only) the final-norm
+    hidden states (B, S, d) in the compute dtype instead of the
+    logits."""
+    params = _cast_params(params, ac.cdtype)
     if cfg.structure == "encoder_only":
         pe = batch["patch_embeds"]
         ac = ac.resolve(pe.device)
         x = frontend_apply(params["frontend"], pe, cfg)
-        x = x + params["pos"][None]
+        x = (x + params["pos"][None]).to(ac.cdtype)
         x, mets, _ = stk.stack_apply(
             params["stack"], x, cfg, stk.layer_descs(cfg), causal=False,
             router_kind=stk.stack_router_kind(cfg, stack="encoder"),
             dispatch=ac.dispatch, moe_impl=ac.moe_impl,
-            attn_impl=ac.attn_impl,
+            attn_impl=ac.attn_impl, remat=ac.remat,
         )
         x = norm_apply(params["final_norm"], x, cfg)
         pooled = x.mean(dim=1)  # global average pooling (paper §2.2)
         return (pooled @ params["head"]["w"]).float(), mets
-    x = _embed_decoder_input(params, batch, cfg)
+    x = _embed_decoder_input(params, batch, cfg, ac)
     ac = ac.resolve(x.device)
     enc, enc_mets = None, None
     if cfg.structure == "encoder_decoder":
         enc, enc_mets = _encode(params, batch, cfg, ac)
-    x, mets, _ = _stack(params, x, cfg, ac, enc=enc)
+    x, mets, _ = _stack(params, x, cfg, ac, enc=enc, remat=ac.remat)
     if enc_mets is not None:
         mets = {k: v + enc_mets[k] for k, v in mets.items()}
-    return _logits(params, x, cfg), mets
+    x = norm_apply(params["final_norm"], x, cfg)
+    if return_hidden:
+        return x, mets
+    return head_apply(params.get("head", {}), x, params["embed"],
+                      cfg).float(), mets
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
     """Returns (loss, metrics): mean cross-entropy over the valid
     targets (``targets >= 0``), or over the images' ``labels`` for an
-    encoder-only model, plus the weighted MoE aux and z losses."""
+    encoder-only model, plus the weighted MoE aux and z losses. With
+    ``ac.ce_chunk`` (not encoder-only) the cross-entropy runs over
+    sequence chunks (:func:`_chunked_ce`) and the whole logits are
+    never held."""
+    if cfg.structure != "encoder_only" and ac.ce_chunk:
+        hidden, mets = forward_train(params, batch, cfg, ac=ac,
+                                     return_hidden=True)
+        w = (params["embed"]["tokens"].T if cfg.tie_embeddings
+             else params["head"]["w"]).to(ac.cdtype)
+        ce = _chunked_ce(hidden, w, batch["targets"].long(), ac.ce_chunk)
+        loss = ce + mets["aux_loss"] + mets["z_loss"]
+        out = dict(mets)
+        out.update(loss=loss, ce=ce)
+        return loss, out
     logits, mets = forward_train(params, batch, cfg, ac=ac)
     logp = torch.log_softmax(logits, dim=-1)
     if cfg.structure == "encoder_only":
@@ -209,6 +267,40 @@ def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
     out = dict(mets)
     out.update(loss=loss, ce=ce)
     return loss, out
+
+
+def _ce_chunk(x, w, targets):
+    """(summed CE, valid count) of one chunk: logits (B, c, V) in float32
+    from x and w's values (bfloat16 products are exact in float32)."""
+    logp = torch.log_softmax(x.float() @ w.float(), dim=-1)
+    valid = targets >= 0
+    ce_tok = -torch.gather(logp, -1, targets.clamp(min=0)[..., None])[..., 0]
+    return (torch.where(valid, ce_tok, torch.zeros_like(ce_tok)).sum(),
+            valid.sum())
+
+
+def _chunked_ce(hidden, w, targets, chunk: int):
+    """Cross-entropy over sequence chunks (port of the reference's
+    ``_chunked_ce``). hidden: (B, S, d); w: (d, V); targets (B, S) with
+    -1 = masked. The sequence is padded to a multiple of
+    ``min(chunk, S)`` with masked targets; each chunk computes its
+    logits and reduces them to a summed CE under
+    ``torch.utils.checkpoint``, so the backward recomputes a chunk's
+    logits and the (B, S, V) logits are never held."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    ce_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for lo in range(0, S + pad, chunk):
+        s, k = checkpoint(_ce_chunk, hidden[:, lo:lo + chunk], w,
+                          targets[:, lo:lo + chunk], use_reentrant=False)
+        ce_sum = ce_sum + s
+        n = n + k
+    return ce_sum / torch.clamp(n, min=1)
 
 
 def init_paged_serve_cache(cfg: ArchConfig, num_blocks: int,
@@ -272,7 +364,8 @@ def prefill(params, batch, cache, cfg: ArchConfig, *,
     is ``batch["dec_tokens"]``. Returns (cache, logits (B, 1, V) float32
     at the last position)."""
     _check_structure(cfg, "decoder_only", "encoder_decoder")
-    x = _embed_decoder_input(params, batch, cfg)
+    params = _cast_params(params, ac.cdtype)
+    x = _embed_decoder_input(params, batch, cfg, ac)
     ac = ac.resolve(x.device)
     enc = None
     if cfg.structure == "encoder_decoder":
@@ -293,10 +386,12 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
     _check_structure(cfg, "decoder_only", "encoder_decoder")
     tokens = tokens.long()
     ac = ac.resolve(tokens.device)
+    params = _cast_params(params, ac.cdtype)
     index = int(cache_index)
     x = embed_apply(params["embed"], tokens, cfg,
                     positions=torch.arange(index, index + 1,
-                                           device=tokens.device))
+                                           device=tokens.device)
+                    ).to(ac.cdtype)
     enc = (cache["enc"].to(x.dtype) if cfg.structure == "encoder_decoder"
            else None)
     x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
@@ -319,7 +414,8 @@ def paged_prefill(params, tokens, cache, block_table, length,
     not the padded one."""
     tokens = tokens.long()
     ac = ac.resolve(tokens.device)
-    x = _embed_decoder_input(params, {"tokens": tokens}, cfg)
+    params = _cast_params(params, ac.cdtype)
+    x = _embed_decoder_input(params, {"tokens": tokens}, cfg, ac)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"],
         cache_index=torch.zeros((1,), dtype=torch.int32,
@@ -339,9 +435,10 @@ def paged_decode_step(params, tokens, cache, block_tables, lengths,
     trash block). Updates the pools in place; returns (cache, logits
     (B, 1, V))."""
     ac = ac.resolve(tokens.device)
+    params = _cast_params(params, ac.cdtype)
     live = lengths > 0
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=lengths[:, None])
+                    positions=lengths[:, None]).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=lengths,
         block_tables=block_tables, token_mask=live[:, None],
@@ -368,6 +465,7 @@ def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
     slots' next-token logits, rows [B:] each chunk lane's logits at its
     last valid row."""
     ac = ac.resolve(dec_tokens.device)
+    params = _cast_params(params, ac.cdtype)
     dev = dec_tokens.device
     B = dec_tokens.shape[0]
     NC, C = chunk_tokens.shape
@@ -388,7 +486,7 @@ def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
     token_mask = torch.cat([dec_lengths > 0,
                             chunk_live.reshape(NC * C)])[:, None]
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=positions[:, None])
+                    positions=positions[:, None]).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=positions,
         block_tables=row_tables, token_mask=token_mask,
@@ -424,6 +522,7 @@ def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
     verify_tokens[b, j]), rows [B*K1:] each chunk lane's last valid
     row."""
     ac = ac.resolve(verify_tokens.device)
+    params = _cast_params(params, ac.cdtype)
     dev = verify_tokens.device
     B, K1 = verify_tokens.shape
     NC, C = chunk_tokens.shape
@@ -449,7 +548,7 @@ def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
     token_mask = torch.cat([ver_live.reshape(B * K1),
                             chunk_live.reshape(NC * C)])[:, None]
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=positions[:, None])
+                    positions=positions[:, None]).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=positions,
         block_tables=row_tables, token_mask=token_mask,

@@ -8,7 +8,11 @@ per-layer views (gradients flow back into the stacked leaves). Caches
 are stacked the same way: per-layer KV pools are slices of one ``(reps,
 P, bs, Kh, dh)`` tensor per position, the static engine's KV caches and
 RWKV states slices of ``(reps, B, ...)`` tensors, all written in place.
-Without a cache the stack runs the training forward.
+Without a cache the stack runs the training forward, optionally under
+remat (``remat="full"|"dots"|"moe"``): each repeat of a segment's layer
+pattern — the reference's scan body — runs under
+``torch.utils.checkpoint``, saving what the policy names and recomputing
+the rest in the backward.
 
 Mixers: attention and RWKV-6 time-mix (with its channel-mix wrapper
 ``cm`` around the FFN); mamba is queued in ROADMAP.md. A decoder layer
@@ -19,8 +23,14 @@ its FFN.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.moe import moe_apply, moe_init
@@ -147,14 +157,15 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
                 token_mask=None, mixed=None, causal: bool = True,
                 router_kind: str = "top_k", dispatch: str = "gather",
                 moe_impl: str = "auto", attn_impl: str = "auto",
-                mixer_impl: str = "auto"):
+                mixer_impl: str = "auto", tag_moe: bool = False):
     """One pre-norm layer: the training forward over (B, S, d) when
     ``cache`` is None (``causal`` False for encoders); with a cache, the
     static engine's prefill or decode step (``block_tables`` None) or
     the paged serve step (prefill-on-join or single-token rows). A
     ``desc.cross`` layer then attends onto the encoder states ``enc``
     (B, Se, d), uncached. An rwkv6 layer gates its FFN output with the
-    channel-mix receptance. Returns (x, metrics, cache), the cache
+    channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
+    the ``remat="moe"`` boundary. Returns (x, metrics, cache), the cache
     updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
@@ -183,7 +194,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         y, m = moe_apply(
             p["ffn"], h, cfg, cfg.moe, router_kind=router_kind,
             dispatch=dispatch, implementation=moe_impl,
-            token_mask=token_mask,
+            token_mask=token_mask, tag=tag_moe,
         )
         metrics = {"aux_loss": m["aux_loss"], "z_loss": m["z_loss"],
                    "dropped_frac_sum": m["dropped_frac"],
@@ -273,36 +284,86 @@ def _per_layer(tree, reps: int) -> list:
             for r in range(reps)]
 
 
+REMAT = ("none", "full", "dots", "moe")
+
+
+def _policy(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(remat: str):
+    """The checkpoint's ``context_fn`` for a policy: "full" saves nothing
+    inside the body; "dots" the outputs of the dense matmuls without
+    batch dimensions (``aten.mm``, ``aten.addmm``: the reference's
+    ``dots_with_no_batch_dims_saveable``); "moe" only the tagged MoE
+    output. The CUDA kernels sit behind ``torch.autograd.Function``s over
+    pybind calls, not dispatcher ops, so no policy can save their
+    outputs: every policy recomputes them."""
+    if remat == "full":
+        return None
+    saved = ({torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+             if remat == "dots"
+             else {torch.ops.repro_torch.moe_block.default})
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_policy, saved))
+
+
 def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
                 cache=None, cache_index=None, block_tables=None,
                 token_mask=None, mixed=None, causal: bool = True,
                 router_kind: str = "top_k", dispatch: str = "gather",
                 moe_impl: str = "auto", attn_impl: str = "auto",
-                mixer_impl: str = "auto"):
+                mixer_impl: str = "auto", remat: str = "none"):
     """Apply every layer in order: the training forward when ``cache``
     is None (bidirectional when ``causal`` is False), else the static
     engine's prefill or decode step (``block_tables`` None) or the paged
     serve step, with the caches in ``cache`` updated in place. ``enc``:
     the encoder states a decoder stack's cross-attention reads.
+
+    ``remat`` in none|full|dots|moe (the training forward under
+    autograd only): one repeat of a segment's layer pattern at a time
+    runs under ``torch.utils.checkpoint`` (non-reentrant) with the
+    policy of :func:`_remat_context`. ``find_segments`` makes the ViT's
+    6 dense + 6 MoE layers one 12-layer body, as in the reference. The
+    layers' metrics come out of the body as they would without it.
+
     Returns (x, summed metrics, cache)."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r} {REMAT}")
+    remat = (remat if cache is None and torch.is_grad_enabled()
+             else "none")
     totals = zero_metrics(x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
         seg_params = {k: _per_layer(v, reps)
                       for k, v in params["segments"][si].items()}
         for r in range(reps):
-            for i, d in enumerate(pdescs):
-                take = lambda t: t[r]  # noqa: E731
-                layer_cache = None if cache is None else tree_map(
-                    take, cache["segments"][si][f"pos{i}"])
-                x, m, _ = layer_apply(
-                    seg_params[f"pos{i}"][r], x, cfg, d, enc=enc,
-                    cache=layer_cache, cache_index=cache_index,
-                    block_tables=block_tables, token_mask=token_mask,
-                    mixed=mixed, causal=causal,
-                    router_kind=router_kind, dispatch=dispatch,
-                    moe_impl=moe_impl, attn_impl=attn_impl,
-                    mixer_impl=mixer_impl,
-                )
+            def body(h, r=r, si=si, pdescs=pdescs, seg_params=seg_params):
+                ms = []
+                for i, d in enumerate(pdescs):
+                    take = lambda t: t[r]  # noqa: E731
+                    layer_cache = None if cache is None else tree_map(
+                        take, cache["segments"][si][f"pos{i}"])
+                    h, m, _ = layer_apply(
+                        seg_params[f"pos{i}"][r], h, cfg, d, enc=enc,
+                        cache=layer_cache, cache_index=cache_index,
+                        block_tables=block_tables, token_mask=token_mask,
+                        mixed=mixed, causal=causal,
+                        router_kind=router_kind, dispatch=dispatch,
+                        moe_impl=moe_impl, attn_impl=attn_impl,
+                        mixer_impl=mixer_impl, tag_moe=remat == "moe",
+                    )
+                    ms.append(m)
+                return h, ms
+
+            if remat == "none":
+                x, ms = body(x)
+            else:
+                context = _remat_context(remat)
+                x, ms = checkpoint(
+                    body, x, use_reentrant=False,
+                    **({} if context is None else {"context_fn": context}))
+            for m in ms:
                 for k, v in m.items():
                     totals[k] = totals[k] + v
     return x, totals, cache

@@ -1,6 +1,8 @@
-"""Training (port of ``repro/training``): the train step and state, the
-self-healing Trainer, the divergence detector and seeded fault
-injection.
+"""Training (port of ``repro/training``): the train step and state
+(gradient accumulation, gradient compression with error feedback in
+``compression``), the self-healing Trainer, the divergence detector and
+seeded fault injection. ``training.serve`` re-exports the serving
+engine, as the reference's shim does.
 
 Failure modes the train path survives (and how):
 

@@ -4,12 +4,15 @@ of ``make_train_step``, ``init_train_state``, ``TrainConfig``,
 
 ``make_train_step`` builds ``train_step(state, batch[, lr_scale]) ->
 (state, metrics)``: loss and gradients through autograd (the flash and
-grouped-GEMM backward kernels on a CUDA device), the optimizer update,
-the non-finite guard and the optional LR scale, with no host sync — the
-metrics stay on the device until the caller reads them. Where the JAX
-step is functional and donates its input state, this one updates the
-parameter tensors IN PLACE and returns the new state dict; the caller
-drops the old one, as it would have dropped the donated JAX state.
+grouped-GEMM backward kernels on a CUDA device; remat, the chunked
+cross-entropy and the compute dtype as ``ApplyCfg`` sets them), summed
+over ``grad_accum`` microbatches, compressed with error feedback, the
+optimizer update, the non-finite guard and the optional LR scale, with
+no host sync — the metrics stay on the device until the caller reads
+them. Where the JAX step is functional and donates its input state, this
+one updates the parameter tensors IN PLACE and returns the new state
+dict; the caller drops the old one, as it would have dropped the donated
+JAX state.
 
 ``Trainer`` is the fault-tolerant driver. Failure modes it survives:
 
@@ -34,8 +37,7 @@ drops the old one, as it would have dropped the donated JAX state.
 
 Fault injection for all of the above lives in
 ``repro_torch.training.chaos`` (:class:`TrainChaosConfig` +
-``run_chaotic``). Gradient accumulation, gradient compression and remat
-are queued in ROADMAP.md (queue 1 item 5).
+``run_chaotic``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from repro_torch.models.param import (
 )
 from repro_torch.obs.tracker import NULL, Tracker
 from repro_torch.optim.base import Optimizer, global_norm
+from repro_torch.training import compression
 from repro_torch.training.chaos import (
     ChaosState,
     SimulatedCrash,
@@ -69,21 +72,19 @@ from repro_torch.training.health import SpikeDetector
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig``. The port's step runs
-    ``grad_accum=1`` and ``compression="none"``; other values raise
-    (ROADMAP.md queue 1 item 5)."""
+    """The reference's ``TrainConfig``."""
 
     grad_accum: int = 1
-    compression: str = "none"
+    compression: str = "none"  # none | bf16 | int8
     checkpoint_every: int = 100
     log_every: int = 10
     max_to_keep: int = 3
     # straggler watchdog: warn when a step takes > factor * median
     straggler_factor: float = 3.0
     # Non-finite loss guard: a NaN/inf loss or grad norm skips the
-    # optimizer update (params and opt state keep their old values, the
-    # step counter still advances); the Trainer aborts after this many
-    # CONSECUTIVE skips. 0 disables the guard.
+    # optimizer update (params, opt state and residual keep their old
+    # values, the step counter still advances); the Trainer aborts after
+    # this many CONSECUTIVE skips. 0 disables the guard.
     max_consecutive_skips: int = 10
     # Divergence (FINITE loss spike) detection + rollback. A loss >
     # spike_threshold × trailing baseline (median of the last
@@ -102,14 +103,6 @@ class TrainConfig:
     rollback_skip: int = 8
     rollback_lr_decay: float = 1.0
     rollback_cooldown: int = 0
-
-    def __post_init__(self):
-        if self.grad_accum != 1 or self.compression != "none":
-            raise NotImplementedError(
-                f"grad_accum={self.grad_accum}, compression="
-                f"{self.compression!r}: the port's step runs grad_accum=1 "
-                "and compression='none' (the rest is queued in ROADMAP.md "
-                "queue 1 item 5)")
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -139,20 +132,52 @@ def loss_and_grads(params, batch, cfg: ArchConfig, *,
             {k: v.detach() for k, v in mets.items()})
 
 
+def _microbatches(batch: dict, n: int) -> list:
+    """Each leaf (B, ...) reshaped to (n, B / n, ...) and taken in
+    microbatch order; a batch that n does not divide raises, as the
+    reference's reshape does."""
+    split = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
                     ac: zoo.ApplyCfg = zoo.ApplyCfg(),
                     tc: TrainConfig = TrainConfig()):
     """Returns ``train_step(state, batch, lr_scale=None) -> (state,
     metrics)``. ``ac``'s "auto" implementations resolve by the params'
     device when the step runs. ``lr_scale`` (optional scalar tensor)
-    multiplies the optimizer updates."""
+    multiplies the optimizer updates.
+
+    ``tc.grad_accum`` > 1 runs the reference's scan: each batch leaf is
+    reshaped to (A, B / A, ...), the float32 gradients and the metrics
+    of the microbatches are summed in order and divided by A (Expert
+    Choice groups form per microbatch, as in the reference). Then the
+    gradients are compressed with error feedback (``tc.compression``,
+    ``state["residual"]``) before the optimizer sees them."""
 
     @torch.no_grad()
     def train_step(state, batch, lr_scale=None):
         params = state["params"]
         device = tree_leaves(params)[0].device
-        grads, mets = loss_and_grads(params, batch_to(batch, device), cfg,
-                                     ac=ac)
+        batch = batch_to(batch, device)
+        if tc.grad_accum > 1:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=device), params)
+            mets = None
+            for mb in _microbatches(batch, tc.grad_accum):
+                g, m = loss_and_grads(params, mb, cfg, ac=ac)
+                grads = tree_zip_map(torch.add, grads, g)
+                mets = m if mets is None else {
+                    k: mets[k] + v for k, v in m.items()}
+            grads = tree_map(lambda g: g / tc.grad_accum, grads)
+            mets = {k: v / tc.grad_accum for k, v in mets.items()}
+        else:
+            grads, mets = loss_and_grads(params, batch, cfg, ac=ac)
+        residual = state.get("residual")
+        if tc.compression != "none":
+            grads, residual = compression.compress(
+                grads, residual, tc.compression)
         updates, opt_state = optimizer.update(
             grads, state["opt_state"], params)
         grad_norm = global_norm(grads)
@@ -170,28 +195,41 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             p.copy_(torch.where(ok, (p + u).to(p.dtype), p))
 
         tree_zip_map(apply, params, updates)
-        # The guard keeps the old optimizer state (its step included).
-        opt_state = tree_zip_map(lambda new, old: torch.where(ok, new, old),
-                                 opt_state, state["opt_state"])
+
+        def keep(new, old):
+            return tree_zip_map(lambda a, b: torch.where(ok, a, b), new, old)
+
+        # The guard keeps the old optimizer state (its step included)
+        # and the old residual.
         new_state = dict(state)
-        new_state.update(opt_state=opt_state, step=state["step"] + 1)
+        new_state.update(opt_state=keep(opt_state, state["opt_state"]),
+                         step=state["step"] + 1)
+        if residual is not None:
+            new_state["residual"] = (keep(residual, state["residual"])
+                                     if "residual" in state else residual)
         return new_state, mets
 
     return train_step
 
 
 def init_train_state(gen, cfg: ArchConfig, optimizer: Optimizer, *,
-                     dtype=torch.float32, params: Any = None, device=None):
+                     dtype=torch.float32, params: Any = None, device=None,
+                     tc: TrainConfig = TrainConfig()):
     """``params``: optional pre-built values tree (e.g. upcycled), used
-    as it is; otherwise ``zoo.init_params(gen, cfg)``."""
+    as it is; otherwise ``zoo.init_params(gen, cfg)``. With compression
+    on, the state holds the error-feedback residual (float32 zeros in the
+    params' key paths) under ``"residual"``."""
     if params is None:
         params = zoo.init_params(gen, cfg, dtype=dtype, device=device)
     device = tree_leaves(params)[0].device
-    return {
+    state = {
         "params": params,
         "opt_state": optimizer.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if tc.compression != "none":
+        state["residual"] = compression.init_residual(params)
+    return state
 
 
 class PreemptionSignal:
@@ -412,7 +450,8 @@ class Trainer:
         gen = torch.Generator(device=device).manual_seed(0) \
             if gen is None else gen
         state = init_train_state(gen, self.cfg, self.optimizer,
-                                 params=init_params, device=device)
+                                 params=init_params, device=device,
+                                 tc=self.tc)
         # ---- auto-resume -------------------------------------------------
         restored, step0, meta = self.manager.restore_latest(state)
         if restored is not None:

@@ -719,6 +719,81 @@ def test_grouped_autograd_cuda_matches_eager(cuda):
         torch.testing.assert_close(a, b, **_tol(torch.float32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,Kh,causal", [(48, 16, 8, True),     # granite
+                                           (196, 12, 12, False)])  # ViT
+def test_flash_autograd_bf16_matches_eager(cuda, S, H, Kh, causal):
+    """The bfloat16 training path's flash forward, dq and dk/dv through
+    autograd against the plain versions in bfloat16."""
+    rng = np.random.default_rng(8)
+    q, k, v = _flash_inputs(rng, cuda, torch.bfloat16, 2, S, S, H, Kh, 64)
+    do = torch.tensor(rng.normal(size=q.shape), dtype=torch.bfloat16,
+                      device=cuda)
+    outs = {}
+    for impl in ("cuda", "eager"):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*xs, causal=causal, implementation=impl)
+        outs[impl] = (o, *torch.autograd.grad(o, xs, do))
+    for a, b in zip(outs["cuda"], outs["eager"]):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_grouped_autograd_bf16_matches_eager(cuda):
+    """The bfloat16 training path's grouped forward, dx and dW through
+    autograd against the plain versions in bfloat16."""
+    rng = np.random.default_rng(12)
+    E, d, f = 4, 64, 32
+    xs, dy, counts = _ragged(rng, cuda, torch.bfloat16,
+                             [[20, 0, 5, 31], [16, 2, 0, 0]], E, d)
+    w = lambda *s: torch.tensor(rng.normal(size=s) * 0.1,  # noqa: E731
+                                dtype=torch.bfloat16, device=cuda)
+    wi, wg, wo = w(E, d, f), w(E, d, f), w(E, f, d)
+    outs = {}
+    for impl in ("cuda", "eager"):
+        ps = [p.clone().requires_grad_() for p in (xs, wi, wg, wo)]
+        y = ops.grouped_mlp(*ps, counts, implementation=impl)
+        outs[impl] = (y, *torch.autograd.grad(y, ps, dy))
+    for a, b in zip(outs["cuda"], outs["eager"]):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "moe"])
+def test_remat_step_launches(cuda, remat):
+    """A reduced granite MoE step through the kernels, sorted dispatch:
+    without remat each kernel launches once a layer; under remat "moe"
+    the forward kernels (flash, grouped) launch twice a layer (the body
+    is recomputed; no policy can save a kernel's output) and the
+    backward kernels once. The metrics are finite."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_iterator
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adafactor, constant
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = get_reduced("granite-moe-1b-a400m")
+    opt = adafactor(constant(0.01))
+    state = init_train_state(0, cfg, opt, device=cuda)
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(
+        dispatch="sorted", moe_impl="cuda", attn_impl="cuda", remat=remat))
+    batch = next(make_iterator(cfg, global_batch=4, seq_len=32))
+    ops.reset_launch_counts()
+    state, mets = step(state, batch)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    L, twice = cfg.n_layers, 1 if remat == "none" else 2
+    assert {k: n[k] for k in ("flash_attention", "grouped_mlp",
+                              "flash_attention_dq", "flash_attention_dkv",
+                              "grouped_mlp_dx", "grouped_mlp_dw")} == {
+        "flash_attention": twice * L, "grouped_mlp": twice * L,
+        "flash_attention_dq": L, "flash_attention_dkv": L,
+        "grouped_mlp_dx": L, "grouped_mlp_dw": L}
+    assert all(bool(torch.isfinite(v)) for v in mets.values())
+
+
 # ---------------------------------------------------------------------------
 # expert FFN kernels over the padded capacity buffer
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models.convert import from_jax_values
 from repro_torch.obs import MemorySink, Tracker, deterministic_rows
 from repro_torch.optim import adafactor, schedules
+from repro_torch.training import train_loop as tl
 from repro_torch.training import (
     ChaosState,
     PreemptionSignal,
@@ -176,10 +177,21 @@ def test_trainer_matches_reference(cfgs, init_vals, tmp_path, scenario):
 
 
 def test_trainer_config_refuses_what_the_step_lacks():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TrainConfig(grad_accum=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TrainConfig(compression="bf16")
+    """As in the reference: an unknown compression kind raises
+    ValueError when the step compresses, and a batch that grad_accum
+    does not divide raises in the microbatch reshape."""
+    cfg = get_reduced(ARCH).dense_parent()
+    opt = adafactor(schedules.constant(0.01))
+    batch = next(make_iterator(cfg, global_batch=3, seq_len=8))
+    state = tl.init_train_state(0, cfg, opt, device="cpu",
+                                tc=TrainConfig(compression="int4"))
+    step = tl.make_train_step(cfg, opt, tc=TrainConfig(compression="int4"))
+    with pytest.raises(ValueError, match="unknown compression 'int4'"):
+        step(state, batch)
+    state = tl.init_train_state(0, cfg, opt, device="cpu")
+    step = tl.make_train_step(cfg, opt, tc=TrainConfig(grad_accum=2))
+    with pytest.raises(RuntimeError, match="invalid for input of size"):
+        step(state, batch)
 
 
 # ---------------------------------------------------------------------------
