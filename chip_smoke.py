@@ -144,7 +144,30 @@ any failure, before printing its result line. It
     to the saved one, the losses held); and rwkv6-7b's dense stack at
     full width and 4 layers, 2 steps of 4 x 256 through the Trainer
     with the launcher's ApplyCfg (no WKV launch);
-17. prints one JSON line of per-kernel numbers (all twelve kernels,
+17. runs the other families at full width: (a) jamba-1.5-large-398b's
+    dense parent at 5 of 72 layers (mamba at 0-3, attention at 4; 5.93 B
+    params, float32) takes one Adafactor step at 1 x 256 through the
+    kernels, held against the plain versions and every flash call
+    witnessed; (b) cast to bfloat16 and upcycled into the dropless MoE
+    (16 experts top-2 in layers 1 and 3, 24.05 B params), it serves 4
+    prompts of 128..256 tokens, 16 new, through the static engine in
+    bfloat16, kernels against plain versions (JAMBA_TIE_GAP), launches
+    exact, one prefill and decode step witnessed, the mamba layers'
+    share of a decode step printed; (c) pixtral-12b at 4 of 40 layers
+    takes 2 steps at 4 x 1,152 positions of its patch stream (1,024
+    patches), the first held and witnessed, and decodes 4 requests of
+    1,024 patches and 128 tokens, 16 new, kernels against plain
+    versions; (d) qwen1.5-0.5b at full depth, upcycled into its 32-expert
+    MoE, serves phase 4's requests through the paged chunked engine as
+    phase 4 serves granite, launches exact, one mixed step witnessed;
+    (e) qwen2.5-14b and yi-9b at 2 layers, grok-1-314b at 1 and
+    tinyllama-1.1b at all 22 serve 4 prompts through the static engine,
+    kernels against plain versions; then holds and times the flash
+    kernels at (a)'s and (c)'s training shapes (head dim 128), the flash
+    forward at the GQA groups 5, 6 and 8 of (e), the expert FFN in
+    bfloat16 at (b)'s buffers with jamba's expert weights and the
+    grouped forward at (d)'s mixed step;
+18. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -1477,13 +1500,13 @@ def _bounds_text(rec):
 
 
 def _shape_row(tag, kname, y, y_ref, kern, plain, lib, ncalls, work, flush,
-               iters):
-    """Hold one float32 kernel call against its plain version on the
-    same inputs (TOL["float32"]), time the kernel, the plain version and
+               iters, dtype="float32"):
+    """Hold one kernel call in ``dtype`` against its plain version on
+    the same inputs (TOL[dtype]), time the kernel, the plain version and
     the library yardstick, and print and return the numbers as one row
     of the kernel's JSON record (``at_shapes``)."""
-    err, ratio = _max_err(y, y_ref, *TOL["float32"])
-    print(f"[{tag}] {kname} float32: max |kernel - plain| = {err:.3e}, max "
+    err, ratio = _max_err(y, y_ref, *TOL[dtype])
+    print(f"[{tag}] {kname} {dtype}: max |kernel - plain| = {err:.3e}, max "
           f"err / limit = {ratio:.3f}", flush=True)
     if not ratio <= 1.0:
         fail(f"{tag} {kname}: kernel and plain version differ beyond their "
@@ -1491,11 +1514,13 @@ def _shape_row(tag, kname, y, y_ref, kern, plain, lib, ncalls, work, flush,
     nbytes, flops = work
     ms, plain_ms, lib_ms = (time_ms(fn, flush=flush, iters=iters)
                             for fn in (kern, plain, lib))
-    rec = _record(kname, "", "", err, ms, plain_ms, nbytes, flops, lib_ms)
+    rec = _record(kname, "", "", err, ms, plain_ms, nbytes, flops, lib_ms,
+                  dtype=dtype)
     row = {k: v for k, v in rec.items() if k not in (
         "name", "route", "source", "replaces")}
     row["library_calls"] = ncalls
-    print(f"[{tag}] {kname} float32: ms={row['ms']:.4f} plain_ms="
+    row["dtype"] = dtype
+    print(f"[{tag}] {kname} {dtype}: ms={row['ms']:.4f} plain_ms="
           f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
           f"({ncalls} torch calls) {_bounds_text(rec)} ({nbytes} B, "
           f"{flops} FLOP)", flush=True)
@@ -1517,12 +1542,14 @@ def model_experts(params):
     raise ValueError("no MoE layer in the parameters")
 
 
-def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20):
+def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20,
+                     dtype="float32"):
     """The expert-FFN kernel where a static engine's step runs it: the
     (G, E, cap, d) buffer of ``tokens`` tokens (dropless, every slot
-    filled with a standard normal row) through the served model's own
+    filled with a standard normal row, in ``dtype``: the served model's
+    compute dtype, that of its weights) through the served model's own
     expert weights of one MoE layer, against the plain version and the
-    float32 ``torch.matmul`` chain over each expert's rows."""
+    ``torch.matmul`` chain over each expert's rows in that dtype."""
     import torch
 
     from repro_torch.core.routing import capacity
@@ -1535,7 +1562,8 @@ def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20):
     g = min(cfg.moe.group_size, tokens)
     G, cap = -(-tokens // g), capacity(g, cfg.moe)
     gen = torch.Generator(device=device).manual_seed(seed)
-    xe = torch.randn(G, E, cap, d, generator=gen, device=device)
+    xe = torch.randn(G, E, cap, d, generator=gen, device=device).to(
+        getattr(torch, dtype))
     xt = xe.transpose(0, 1).reshape(E, G * cap, d).contiguous()
     act = activation(cfg.act)
 
@@ -1550,11 +1578,12 @@ def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20):
     y = kern()
     torch.cuda.synchronize()
     rows, nw = G * E * cap, 3 if wg is not None else 2
-    work = ((2 * rows * d + nw * E * d * f) * 4,
+    work = ((2 * rows * d + nw * E * d * f) * xe.element_size(),
             (2 * nw) * rows * d * f)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     out = _shape_row(tag, "expert_mlp", y, plain(), kern, plain, lib,
-                     nw + 1 + (wg is not None), work, flush, iters)
+                     nw + 1 + (wg is not None), work, flush, iters,
+                     dtype=dtype)
     out[2]["shape"] = [G, E, cap, d, f]
     return out
 
@@ -1612,12 +1641,14 @@ def condition_attention(params, cfg) -> None:
     the kernels-vs-plain comparisons below can be held tight. An
     encoder-decoder model's encoder layers are rescaled the same way,
     and so is each decoder layer's cross-attention (its wk and wv read
-    the encoder states, also at fan-in d)."""
+    the encoder states, also at fan-in d); a hybrid stack's mamba
+    mixers are left as they are."""
     H, Kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     for key in ("encoder", "stack"):
         for seg in params.get(key, {"segments": []})["segments"]:
             for pos in seg.values():
-                for m in (pos[n] for n in ("mixer", "cross") if n in pos):
+                for m in (pos[n] for n in ("mixer", "cross")
+                          if n in pos and "wq" in pos[n]):  # not mamba
                     m["wq"] *= (H / d) ** 0.5
                     m["wk"] *= (Kh / d) ** 0.5
                     m["wv"] *= (Kh / d) ** 0.5
@@ -1750,9 +1781,9 @@ def witnessed_kernels():
     """Hold every kernel call made inside the block against its plain
     version on that call's own inputs (for the serve step: the pools as
     the step has just written them). Yields ``{kernel: [calls, max |err|,
-    max err/limit]}`` with the float32 limit ``atol + rtol * |plain|``
-    of :data:`TOL` (the WKV kernel: :data:`WKV_RTOL` against its chunked
-    plain version)."""
+    max err/limit]}`` with the limit ``atol + rtol * |plain|`` of
+    :data:`TOL` for the output's dtype (float32 or bfloat16; the WKV
+    kernel: :data:`WKV_RTOL` against its chunked plain version)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -1777,7 +1808,6 @@ def witnessed_kernels():
         dx, da_, dg, h = ref.grouped_mlp_dx_ref(*args, act=act, block=block)
         return dx, da_, dg, h
 
-    atol, rtol = TOL["float32"]
     stats = {}
     wrapped = [
         (da, "paged_decode_attention_cuda", "decode_attention",
@@ -1821,7 +1851,9 @@ def witnessed_kernels():
             if name == "rwkv6":  # against the chunked plain version
                 err, ratio = wkv_err(y_cmp, ref_cmp, WKV_RTOL["chunked"])
             else:
-                err, ratio = _max_err(y_cmp, ref_cmp, atol, rtol)
+                err, ratio = _max_err(y_cmp, ref_cmp, *TOL[
+                    "bfloat16" if first.dtype == torch.bfloat16
+                    else "float32"])
             st = stats.setdefault(name, [0, 0.0, 0.0])
             st[0] += 1
             st[1] = max(st[1], err)
@@ -1908,11 +1940,13 @@ def all_descs(cfg) -> list:
 
 def step_launches(cfg, kernels, moe: bool) -> dict:
     """The launches one training step must make: each attention kernel
-    once an attention (self- and cross-attention of every stack), and in
-    a MoE step each of the path's expert kernels once a MoE layer."""
+    once an attention (self- and cross-attention of every stack; a
+    hybrid stack's mamba layers launch none), and in a MoE step each of
+    the path's expert kernels once a MoE layer."""
     descs = all_descs(cfg)
     n_moe = sum(d.ffn == "moe" for d in descs)
-    n_attn = len(descs) + sum(d.cross for d in descs)
+    n_attn = sum(d.mixer == "attn" for d in descs) + sum(d.cross
+                                                         for d in descs)
     want = {k: n_attn for k in FLASH_KERNELS}
     want.update({k: n_moe if moe else 0 for k in kernels
                  if k not in FLASH_KERNELS})
@@ -2275,12 +2309,15 @@ def first_static_divergence(prompts, a, b):
     return None
 
 
-def serve_static(tag, params, cfg, device, prompts, max_new, runs, expect):
-    """Serve ``prompts`` through ``ServeEngine(paged=False)``, through the
-    kernels and through the plain versions, ``runs`` times each,
+def serve_static(tag, params, cfg, device, prompts, max_new, runs, expect,
+                 *, ac=None, serve=RWKV_SERVE, tie=None):
+    """Serve ``prompts`` through ``ServeEngine(paged=False)`` (``serve``'s
+    settings, ``ac``'s compute dtype), through the kernels and through
+    the plain versions, ``runs`` times each,
     interleaved (kernels, plain, kernels, plain, ...), after one warm-up
     of each. Greedy outputs must be token-identical (a divergence only at
-    a top-2 logit gap below TIE_GAP, RWKV_TIE_GAP for an rwkv stack, and
+    a top-2 logit gap below ``tie``: by default TIE_GAP, RWKV_TIE_GAP for
+    an rwkv stack, and
     then only if the paths' logits, fed the same tokens, part by no more
     than that), every kernel run must launch exactly ``expect``
     ({kernel: count}) and the plain runs none. For an rwkv stack the
@@ -2293,10 +2330,11 @@ def serve_static(tag, params, cfg, device, prompts, max_new, runs, expect):
     from repro_torch.models import model_zoo as zoo
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    sc = ServeConfig(**RWKV_SERVE)
-    eng_k = ServeEngine(params, cfg, sc, device=device)
-    eng_p = ServeEngine(params, cfg, sc, device=device, ac=zoo.ApplyCfg(
-        moe_impl="eager", attn_impl="eager", mixer_impl="eager"))
+    sc = ServeConfig(**serve)
+    ac = zoo.ApplyCfg() if ac is None else ac
+    eng_k = ServeEngine(params, cfg, sc, device=device, ac=ac)
+    eng_p = ServeEngine(params, cfg, sc, device=device, ac=dataclasses.replace(
+        ac, moe_impl="eager", attn_impl="eager", mixer_impl="eager"))
     rwkv = cfg.attn_pattern == "none"
     for eng in (eng_k, eng_p):  # warm-up: cuBLAS, the allocator
         eng.generate([prompts[0][:16]], max_new=2)
@@ -2339,7 +2377,8 @@ def serve_static(tag, params, cfg, device, prompts, max_new, runs, expect):
         print(f"[{tag}] fed the kernels' tokens, the {key} path's logits "
               f"part from the kernels' by at most {diffs[key]:.3e} over "
               f"{gaps.shape[0]} steps", flush=True)
-    tie = RWKV_TIE_GAP if rwkv else TIE_GAP
+    if tie is None:
+        tie = RWKV_TIE_GAP if rwkv else TIE_GAP
     if diffs["plain"] > tie:
         fail(f"{tag}: fed the same tokens, the kernels' and the plain "
              f"path's logits part by {diffs['plain']:.3e} > {tie}")
@@ -2899,28 +2938,32 @@ def encdec_batch(cfg, n, seq, step):
     return next(it)
 
 
-def encdec_greedy(params, cfg, batch, plen, new, impl, device):
-    """Greedy decoding: ``zoo.prefill`` encodes ``batch``'s encoder input
-    into the cache and runs its first ``plen`` decoder tokens, then
-    ``new - 1`` ``zoo.decode_step`` calls (float32 caches). Returns
-    (tokens (B, new), logits (B, new, V), prefill ms, decode ms), host
-    clock, synchronised."""
+def greedy(params, cfg, batch, plen, new, impl, device):
+    """Greedy decoding: ``zoo.prefill`` over ``batch``'s first ``plen``
+    prompt tokens (an encoder-decoder model's ``dec_tokens``, encoding
+    its encoder input into the cache; a decoder's ``tokens`` with its
+    ``patch_embeds`` over the first positions), then ``new - 1``
+    ``zoo.decode_step`` calls (float32 caches). Returns (tokens (B,
+    new), logits (B, new, V), prefill ms, decode ms), host clock,
+    synchronised."""
     import torch
 
     from repro_torch.models import model_zoo as zoo
     from repro_torch.training.train_loop import batch_to
 
     b = batch_to({k: v for k, v in batch.items() if k != "targets"}, device)
-    b["dec_tokens"] = b["dec_tokens"][:, :plen]
-    enc = b["frames"] if "frames" in b else b["enc_tokens"]
+    key = "dec_tokens" if "dec_tokens" in b else "tokens"
+    b[key] = b[key][:, :plen]
+    enc = b.get("frames", b.get("enc_tokens"))
     ac = zoo.ApplyCfg(moe_impl=impl, attn_impl=impl)
     toks, logits = [], []
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache = zoo.init_serve_cache(cfg, enc.shape[0], plen + new,
+        cache = zoo.init_serve_cache(cfg, b[key].shape[0], plen + new,
                                      dtype=torch.float32, device=device,
-                                     enc_len=enc.shape[1])
+                                     enc_len=0 if enc is None else
+                                     enc.shape[1])
         cache, lg = zoo.prefill(params, b, cache, cfg, ac=ac)
         for t in range(new):
             logits.append(lg[:, -1])
@@ -2936,22 +2979,15 @@ def encdec_greedy(params, cfg, batch, plen, new, impl, device):
 
 
 def encdec_decode(name, params, cfg, device, batch, plen, new):
-    """Greedy decoding through the kernels and through the plain versions
-    (encdec_greedy): token-identical, or a divergence only where the
-    kernels' top-2 logit gap is below TIE_GAP (at the first step where
-    any row parts: MoE rows share their experts' capacity, so the rows
-    are not independent). The kernels' run must launch exactly what the
-    stacks imply (the prefill: every self- and cross-attention and MoE
-    layer once; each decode step: each cross-attention, its single query
-    through the flash forward, and each decoder MoE layer once; the
-    decoder's self-attention decodes outside any kernel, as the
-    reference's does), the plain run nothing. Then one prefill and one
-    decode step through the kernels, every call witnessed. Returns the
-    kernels' run's launches."""
-    import torch
-
+    """Greedy decoding of an encoder-decoder model through the kernels
+    and through the plain versions (hold_greedy). The kernels' run must
+    launch exactly what the stacks imply: the prefill, every self- and
+    cross-attention and MoE layer once; each decode step, each
+    cross-attention (its single query through the flash forward) and
+    each decoder MoE layer once; the decoder's self-attention decodes
+    outside any kernel, as the reference's does. Returns the kernels'
+    run's launches."""
     from repro_torch.core.routing import capacity
-    from repro_torch.kernels import ops
     from repro_torch.models import stack as stk
 
     enc_d = stk.layer_descs(cfg, stack="encoder")
@@ -2969,18 +3005,35 @@ def encdec_decode(name, params, cfg, device, batch, plen, new):
               f"{capacity(B * plen, cfg.moe)}, {cfg.d_model}), decode step "
               f"(1, {cfg.moe.num_experts}, {capacity(B, cfg.moe)}, "
               f"{cfg.d_model})", flush=True)
-    encdec_greedy(params, cfg, batch, plen, 2, "cuda", device)  # warm-up
+    enc = batch["frames" if "frames" in batch else "enc_tokens"]
+    return hold_greedy(name, params, cfg, device, batch, plen, new, expect,
+                       f"{tuple(enc.shape)} encoder + {B} x {plen} decoder")
+
+
+def hold_greedy(name, params, cfg, device, batch, plen, new, expect, what):
+    """Greedy decoding (:func:`greedy`) through the kernels and through
+    the plain versions: token-identical, or a divergence only where the
+    kernels' top-2 logit gap is below TIE_GAP (at the first step where
+    any row parts: MoE rows share their experts' capacity, so the rows
+    are not independent). The kernels' run must launch exactly
+    ``expect``, the plain run nothing. Then one prefill and one decode
+    step through the kernels, every call witnessed. ``what`` describes
+    the prefill. Returns ``expect``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B = next(iter(batch.values())).shape[0]
+    greedy(params, cfg, batch, plen, 2, "cuda", device)  # warm-up
     out = {}
     for impl in ("cuda", "eager"):
         ops.reset_launch_counts()
-        toks, logits, pre_ms, dec_ms = encdec_greedy(params, cfg, batch, plen,
-                                                     new, impl, device)
+        toks, logits, pre_ms, dec_ms = greedy(params, cfg, batch, plen, new,
+                                              impl, device)
         ran = {k: v for k, v in ops.launch_counts().items() if v}
         key = "kernels" if impl == "cuda" else "plain"
-        print(f"[{name}-decode] {key}: {B} requests, prefill "
-              f"{tuple(batch['frames' if 'frames' in batch else 'enc_tokens'].shape)}"
-              f" encoder + {B} x {plen} decoder in {pre_ms:.1f} ms; "
-              f"{new - 1} decode steps in {dec_ms:.1f} ms "
+        print(f"[{name}-decode] {key}: {B} requests, prefill {what} in "
+              f"{pre_ms:.1f} ms; {new - 1} decode steps in {dec_ms:.1f} ms "
               f"({dec_ms / max(new - 1, 1):.2f} ms a step, "
               f"{B * (new - 1) / dec_ms * 1e3:.1f} tokens/s); launches={ran}",
               flush=True)
@@ -3014,7 +3067,7 @@ def encdec_decode(name, params, cfg, device, batch, plen, new):
             fail(f"{name} decode: greedy divergence at generated token {n} "
                  f"with top-2 gap {max(gaps):.3e} >= {TIE_GAP}")
     with witnessed_kernels() as wit:
-        encdec_greedy(params, cfg, batch, plen, 2, "cuda", device)
+        greedy(params, cfg, batch, plen, 2, "cuda", device)
         torch.cuda.synchronize()
     report_witness(wit, tuple(expect))
     return expect
@@ -4210,6 +4263,545 @@ def knobs_path(device, params, batch):
     return launches, bf16_records, bf16_fwd
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the other families — jamba's mamba + attention + MoE hybrid,
+# pixtral's patch frontend, the config-only decoders
+# ---------------------------------------------------------------------------
+
+# jamba-1.5-large-398b at full width and 5 of its 72 layers: mamba at
+# 0-3, attention at 4 (the fewest layers that hold its attention layer),
+# MoE at 1 and 3. The dense parent (5.93 B params, 23.7 GB in float32)
+# takes one Adafactor step at 1 x 256 tokens; cast to bfloat16 and
+# upcycled (copy) into the dropless MoE (24.05 B params, 48.1 GB), it is
+# served in bfloat16 (weights, activations, caches; the SSM state stays
+# float32) through the static engine: 4 prompts of 128..256 tokens, 16
+# new each.
+JAMBA = dict(arch="jamba-1.5-large-398b", layers=5, batch=1, seq=256,
+             peak_lr=0.01, warmup=100, dispatch="gather", prompts=4,
+             plen=(128, 256), new=16)
+# The near-tie bound of jamba's bfloat16 serve (serve_static's rule: a
+# divergence only at a top-2 gap below it, and only if the two paths'
+# logits, fed the same tokens, part by no more). The logits come out of
+# a bfloat16 head: one bf16 ulp is 2^-5 = 0.031 for a logit in [4, 8),
+# and two such logits tie exactly (gap 0) often. Fed the same tokens the
+# kernels' and the plain path part by one ulp (3.125e-2 over 16 steps;
+# the prefill logits too), and a greedy row parts at a gap of 0
+# (measured on an NVIDIA H100 80GB HBM3 at 700 W). The bound allows four
+# ulps, for the run-to-run order of the combine's float atomics; a
+# wrong kernel moves the logits by O(1).
+JAMBA_TIE_GAP = 0.125
+# pixtral-12b at full width and 4 of 40 layers (2.46 B params, 9.8 GB in
+# float32): 2 Adafactor steps at 4 x 1,152 positions of the port's patch
+# stream (1,024 patches, 128 tokens), the first held and witnessed; then
+# 4 requests decoded greedily, each a prefill of 1,024 patches and 128
+# tokens, then 16 new tokens.
+PIXTRAL = dict(arch="pixtral-12b", layers=4, batch=4, seq=1152, steps=2,
+               peak_lr=0.01, warmup=100, dispatch="gather", new=16,
+               data_step=1000)
+# The config-only decoders through the static engine, float32 (arch,
+# layers kept: None = all), 4 prompts of 64..128 tokens, 8 new each.
+DECODERS = (("qwen2.5-14b", 2), ("yi-9b", 2), ("grok-1-314b", 1),
+            ("tinyllama-1.1b", None))
+DECODER_STATIC = dict(prompts=4, plen=(64, 128), new=8)
+
+
+def _dropless(cfg):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
+def mamba_decode_share(eng, prompts, steps: int = 3) -> float:
+    """The mamba layers' share of a static decode step through ``eng``:
+    each ``ssm.mamba_apply`` call timed on the host between two
+    synchronisations, over ``steps`` decode steps after a prefill, and
+    divided by those steps' time (synchronised the same way)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import ssm
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    toks = torch.zeros(B, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    spent = [0.0]
+    real = ssm.mamba_apply
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    with torch.no_grad():
+        cache = zoo.init_serve_cache(eng.cfg, B, plen + steps,
+                                     dtype=eng.cache_dtype, device=eng.device)
+        cache, lg = zoo.prefill(eng.params, {"tokens": toks.to(eng.device)},
+                                cache, eng.cfg, ac=eng.ac)
+        cur = lg[:, -1].argmax(-1)[:, None]
+        ssm.mamba_apply = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(steps):
+                cache, lg = zoo.decode_step(eng.params, cur, cache, plen + s,
+                                            eng.cfg, ac=eng.ac)
+                cur = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            ssm.mamba_apply = real
+    print(f"[jamba] mamba layers in a decode step: {spent[0] / steps * 1e3:.2f}"
+          f" of {total / steps * 1e3:.2f} ms (share {spent[0] / total:.3f}; "
+          f"each mamba call and the step synchronised)", flush=True)
+    return spent[0] / total
+
+
+def jamba_path(device):
+    """Phase 17 (a) and (b). (a) jamba's dense parent (float32, attention
+    conditioned) takes one Adafactor step through the kernels, held
+    against the same step through the plain versions (LOSS_RTOL,
+    GRAD_NORM_RTOL), every flash call of it witnessed; (b) cast to
+    bfloat16, upcycled and served (serve_static with JAMBA_TIE_GAP),
+    launches exact, one prefill and decode step witnessed, the mamba
+    layers' share of a decode step printed. Returns (launches by path,
+    the expert FFN's timing rows at the serve buffers, the MoE
+    config)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
+    from repro_torch.models.param import count_params, tree_map
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.optim.base import global_norm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_loop import batch_to, loss_and_grads
+
+    spec, name = JAMBA, "jamba"
+    t0 = time.perf_counter()
+    cfg = _dropless(dataclasses.replace(get_config(spec["arch"]),
+                                        n_layers=spec["layers"]))
+    dense_cfg = cfg.dense_parent()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = zoo.init_params(gen, dense_cfg, device=device)
+    condition_attention(params, dense_cfg)
+    opt = adafactor(inverse_sqrt(peak=spec["peak_lr"],
+                                 warmup_steps=spec["warmup"]))
+    state = init_train_state(None, dense_cfg, opt, params=params)
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    batch = batch_to(next(make_iterator(
+        dense_cfg, global_batch=spec["batch"], seq_len=spec["seq"],
+        task=task)), device)
+    torch.cuda.synchronize()
+    print(f"[{name}] {dense_cfg.name} at {cfg.n_layers} of 72 layers "
+          f"{[(d.mixer, d.ffn) for d in stk.layer_descs(cfg)]}: "
+          f"{count_params(params) / 1e9:.3f} B params (float32), init "
+          f"{time.perf_counter() - t0:.1f} s; batch {spec['batch']} x "
+          f"{spec['seq']}", flush=True)
+    kern_ac = zoo.ApplyCfg(moe_impl="cuda", attn_impl="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    grads, m = loss_and_grads(params, batch, dense_cfg, ac=zoo.ApplyCfg(
+        moe_impl="eager", attn_impl="eager"))
+    gn, loss = float(global_norm(grads)), float(m["loss"])
+    del grads
+    plain_ms = _sync_ms(t1)
+    if any(ops.launch_counts().values()):
+        fail(f"jamba's plain step launched kernels: {ops.launch_counts()}")
+    with witnessed_kernels() as wit:
+        grads, _ = loss_and_grads(params, batch, dense_cfg, ac=kern_ac)
+        torch.cuda.synchronize()
+    del grads
+    report_witness(wit, FLASH_KERNELS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, km = make_train_step(dense_cfg, opt, ac=kern_ac)(state, batch)
+    ms = _sync_ms(t1)
+    per = ops.launch_counts()
+    km = {k: float(v) for k, v in km.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{name}] dense step through the kernels: loss={km['loss']!r} "
+          f"grad_norm={km['grad_norm']!r} ms={ms:.1f} peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} B); plain versions: "
+          f"loss={loss!r} grad_norm={gn!r} ({plain_ms:.0f} ms); launches="
+          f"{ {k: v for k, v in per.items() if v} }", flush=True)
+    check_step(name, "dense", km, per,
+               step_launches(dense_cfg, FLASH_KERNELS, False))
+    d_loss, d_gn = abs(km["loss"] - loss) / abs(loss), abs(
+        km["grad_norm"] - gn) / abs(gn)
+    print(f"[check] {name} dense step, kernels vs plain: loss rel diff "
+          f"{d_loss:.3e} (limit {LOSS_RTOL}), grad_norm rel diff {d_gn:.3e} "
+          f"(limit {GRAD_NORM_RTOL})", flush=True)
+    if not (d_loss <= LOSS_RTOL and d_gn <= GRAD_NORM_RTOL):
+        fail("jamba's dense step through the kernels and through the plain "
+             "versions disagree")
+    train_launches = {k: v for k, v in per.items() if v}
+
+    # (b) bfloat16: the trained parent cast, the float32 copy freed, then
+    # upcycled.
+    parent = tree_map(lambda t: t.to(torch.bfloat16), state["params"])
+    del state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    sparse = upcycle_params(parent, dense_cfg, cfg, gen)
+    del parent
+    torch.cuda.empty_cache()
+    n_moe = sum(d.ffn == "moe" for d in stk.layer_descs(cfg))
+    print(f"[{name}] upcycled ({cfg.moe.expert_init}, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k} in {n_moe} layers, capacity factor "
+          f"{cfg.moe.capacity_factor}) in bfloat16: "
+          f"{count_params(sparse) / 1e9:.3f} B params in "
+          f"{_sync_ms(t1):.0f} ms; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated",
+          flush=True)
+    prompts = static_prompts(cfg, spec["prompts"], spec["plen"], seed=17)
+    new = spec["new"]
+    ac = zoo.ApplyCfg(compute_dtype="bfloat16")
+    expect = {"flash_attention": 1, "expert_mlp": n_moe * new}
+    torch.cuda.reset_peak_memory_stats()
+    launches, eng = serve_static(
+        name, sparse, cfg, device, prompts, new, 1, expect, ac=ac,
+        serve=dict(RWKV_SERVE, cache_dtype="bfloat16"), tie=JAMBA_TIE_GAP)
+    witness_static_step(name, eng, prompts, tuple(expect))
+    mamba_decode_share(eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+    experts = model_experts(sparse)
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    rows = [expert_shape_row(name, cfg, experts, n, device, seed=s,
+                             iters=it, dtype="bfloat16")
+            for n, s, it in ((B * plen, 31, 5), (B, 32, 20))]
+    del sparse, experts
+    print(f"[{name}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"jamba_train": train_launches, "jamba_static": launches},
+            [(k, f"jamba_static_{ph}", r)
+             for (k, _, r), ph in zip(rows, ("prefill", "decode"))], cfg)
+
+
+def pixtral_path(device):
+    """Phase 17 (c): pixtral-12b at full width and 4 layers (float32,
+    attention conditioned) takes PIXTRAL's 2 steps on its patch stream
+    through the flash kernels, each step's launches checked, the first
+    held and witnessed against the plain versions; then greedy decoding
+    of 4 requests (1,024 patches and 128 tokens a prompt) through the
+    kernels and the plain versions: token-identical (a divergence only
+    at a top-2 gap below TIE_GAP), the kernels' launches exact (the
+    prefill's flash forward once a layer; the decode steps attend over
+    the dense cache outside any kernel), one prefill and decode step
+    witnessed. Returns (launches by path, the config)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params, tree_map
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.training import init_train_state, make_train_step
+
+    spec, name = PIXTRAL, "pixtral"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    opt = adafactor(inverse_sqrt(peak=spec["peak_lr"],
+                                 warmup_steps=spec["warmup"]))
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    it = make_iterator(cfg, global_batch=spec["batch"], seq_len=spec["seq"],
+                       task=task)
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_attention(params, cfg)
+    first_params = tree_map(torch.clone, params)
+    state = init_train_state(None, cfg, opt, params=params)
+    n_patch = min(cfg.n_frontend_positions, spec["seq"])
+    print(f"[{name}] {cfg.name} at {cfg.n_layers} of 40 layers: "
+          f"{count_params(params) / 1e9:.3f} B params; batch {spec['batch']} "
+          f"x {spec['seq']} positions ({n_patch} patches, "
+          f"{spec['seq'] - n_patch} tokens; task vocab {task.vocab_size})",
+          flush=True)
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(
+        dispatch=spec["dispatch"], moe_impl="cuda", attn_impl="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    want = step_launches(cfg, FLASH_KERNELS, False)
+    first_batch, first = None, None
+    for i in range(spec["steps"]):
+        batch = next(it)
+        if batch["patch_embeds"].shape != (spec["batch"], n_patch,
+                                           cfg.d_model):
+            fail(f"pixtral's stream gave patches "
+                 f"{batch['patch_embeds'].shape}")
+        before = ops.launch_counts()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        ms = _sync_ms(t1)
+        m = {k: float(v) for k, v in m.items()}
+        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        print(f"[{name}] step {int(state['step'])}: loss={m['loss']:.5f} "
+              f"grad_norm={m['grad_norm']:.5f} skipped={m['skipped']:.0f} "
+              f"ms={ms:.1f} ({spec['batch'] * spec['seq'] / ms * 1e3:.0f} "
+              f"positions/s) launches={ {k: v for k, v in per.items() if v} }",
+              flush=True)
+        check_step(name, "dense", m, per, want)
+        if i == 0:
+            first_batch, first = batch, m
+    train_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"[{name}] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+          f" GiB", flush=True)
+    del state
+    compare_first_moe_step(cfg, device, first_params, first_batch, first, spec,
+                           FLASH_KERNELS, label="first step")
+    it.step = spec["data_step"]
+    batch = next(it)
+    # The prefill's flash forward once a layer; the decode steps attend
+    # over the dense cache outside any kernel.
+    expect = hold_greedy(name, first_params, cfg, device, batch,
+                         spec["seq"], spec["new"],
+                         {"flash_attention": cfg.n_layers},
+                         f"{spec['batch']} x {spec['seq']} ({n_patch} "
+                         "patches)")
+    del first_params
+    print(f"[{name}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"pixtral_train": train_launches, "pixtral_decode": expect}, cfg
+
+
+def grouped_shape_row(tag, cfg, experts, device, *, seed):
+    """The grouped forward where the paged mixed step runs it: the
+    ragged buffer of grouped_case at ``cfg``'s top-k and expert count
+    (136 rows, skewed, two experts empty), through the served model's
+    own expert weights of one MoE layer, float32, held against the plain
+    version (TOL["float32"]), timed beside it (synchronised per call:
+    it reads the sizes on the host) and the library chain."""
+    import torch
+
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+
+    g = grouped_case(cfg, torch.float32, device,
+                     torch.Generator(device=device).manual_seed(seed))
+    g.update(wi=experts["wi"], wg=experts["wg"], wo=experts["wo"])
+    args = (g["xs"], g["wi"], g["wg"], g["wo"], g["counts"])
+    kern = lambda: gm.grouped_mlp_cuda(*args)  # noqa: E731
+    plain = lambda: ref.grouped_mlp_ref(*args, block=gm.ROW_BLOCK)  # noqa
+    y, y_ref = kern(), plain()
+    torch.cuda.synchronize()
+    err, ratio = _max_err(y, y_ref, *TOL["float32"])
+    print(f"[{tag}] grouped_mlp float32: max |kernel - plain| = {err:.3e}, "
+          f"max err / limit = {ratio:.3f}", flush=True)
+    if not ratio <= 1.0:
+        fail(f"{tag} grouped_mlp: kernel and plain version differ beyond "
+             f"their tolerance (ratio {ratio:.3g})")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    nbytes, flops = grouped_work(g, 4)
+    lib_ms, chain = time_library_ms(grouped_library(g, "fwd", f"[{tag}]"),
+                                    flush=flush)
+    rec = _record("grouped_mlp", "", "", err, time_ms(kern, flush=flush),
+                  time_synced_ms(plain, flush=flush), nbytes, flops, lib_ms)
+    row = {k: v for k, v in rec.items() if k not in (
+        "name", "route", "source", "replaces")}
+    row.update(library_chain=chain[0] if chain else None, dtype="float32",
+               shape=[int(g["counts"].sum()), *g["wi"].shape])
+    print(f"[{tag}] grouped_mlp float32: ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} library_ms={lib_ms} "
+          f"{_bounds_text(rec)} ({nbytes} B, {flops} FLOP)", flush=True)
+    return "grouped_mlp", tag, row
+
+
+def qwen_paged_path(device):
+    """Phase 17 (d): qwen1.5-0.5b (tied embeddings, QKV bias) at full
+    width and depth, its dense parent (attention conditioned) upcycled
+    into qwen1_5_0_5b.upcycled() (32 experts top-2, every other layer),
+    dropless, serving phase 4's 12 requests with phase 4's settings
+    through the paged chunked engine, through the kernels and the plain
+    versions: token-identical (check_tokens), one step signature, no
+    block leaked, the decode and paged prefill kernels launched once an
+    attention layer and the grouped forward once a MoE layer every mixed
+    step; one mixed step witnessed (compare_mixed_step). Returns
+    (launches by path, the timing row of the grouped forward)."""
+    import torch
+
+    from repro_torch.configs import qwen1_5_0_5b
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
+    from repro_torch.models.param import count_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    name = "qwen1.5"
+    t0 = time.perf_counter()
+    cfg = _dropless(qwen1_5_0_5b.upcycled())
+    dense_cfg = cfg.dense_parent()
+    gen = torch.Generator(device=device).manual_seed(0)
+    parent = zoo.init_params(gen, dense_cfg, device=device)
+    condition_attention(parent, dense_cfg)
+    n_dense = count_params(parent)
+    params = upcycle_params(parent, dense_cfg, cfg, gen)
+    del parent
+    descs = stk.layer_descs(cfg)
+    L, n_moe = len(descs), sum(d.ffn == "moe" for d in descs)
+    print(f"[{name}] {dense_cfg.name}: {n_dense / 1e9:.3f} B params -> "
+          f"upcycled ({cfg.moe.num_experts} experts top-{cfg.moe.top_k} in "
+          f"{n_moe} of {L} layers, dropless): {count_params(params) / 1e9:.3f}"
+          f" B params; tied head {'head' not in params or not params['head']}",
+          flush=True)
+    sc = ServeConfig(paged=True, **SERVE)
+    eng = ServeEngine(params, cfg, sc, device=device)
+    eng.serve(make_requests(cfg)[:1])  # warm-up
+    outs, launches = {}, None
+    rids = [r.rid for r in make_requests(cfg)]
+    for key, e in (("kernels", eng), ("plain", ServeEngine(
+            params, cfg, sc, device=device,
+            ac=zoo.ApplyCfg(moe_impl="eager", attn_impl="eager")))):
+        ops.reset_launch_counts()
+        outs[key], finished, n_gen, wall = serve_once(e, cfg)
+        ran = {k: v for k, v in ops.launch_counts().items() if v}
+        st = e.last_stats
+        print(f"[{name}] {key}: {n_gen} tokens in {wall:.3f} s = "
+              f"{n_gen / wall:.1f} tokens/s, mixed_steps={st['mixed_steps']}, "
+              f"prefix_hit_frac={st['prefix_hit_frac']:.3f}, compile_count="
+              f"{st['compile_count']}, free_blocks_at_close="
+              f"{st['free_blocks_at_close']}, launches={ran}", flush=True)
+        want_free = sc.max_batch * -(-sc.max_len // sc.block_size)
+        if st["compile_count"] != 1 or st["free_blocks_at_close"] != want_free:
+            fail(f"{name} {key}: compile_count {st['compile_count']}, "
+                 f"{st['free_blocks_at_close']} blocks free at close, not "
+                 f"{want_free}")
+        if any(rec["status"] != "completed" for rec in finished.values()):
+            fail(f"{name} {key}: not every request completed")
+        want = ({"decode_attention": L * st["mixed_steps"],
+                 "paged_prefill": L * st["mixed_steps"],
+                 "grouped_mlp": n_moe * st["mixed_steps"]}
+                if key == "kernels" else {})
+        if ran != want:
+            fail(f"{name} {key}: launched {ran}, expected {want}")
+        if key == "kernels":
+            launches = ran
+    check_tokens(f"{name} greedy outputs vs the plain run", outs["kernels"],
+                 outs["plain"], rids, eng)
+    del eng, e
+    step_err = compare_mixed_step(params, cfg, device)
+    print(f"[check] {name} one mixed step, kernels vs plain: max |logit "
+          f"diff| = {step_err:.3e} (atol {STEP_ATOL})", flush=True)
+    if not step_err <= STEP_ATOL:
+        fail(f"{name} mixed step logits differ by {step_err:.3e}")
+    row = grouped_shape_row(f"{name}_mixed", cfg, model_experts(params),
+                            device, seed=41)
+    del params
+    print(f"[{name}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"qwen15_paged": launches}, row
+
+
+def decoders_path(device):
+    """Phase 17 (e): each of DECODERS at full width and its cut depth
+    (float32, attention conditioned, dropless), served through the
+    static engine (serve_static) through the kernels and the plain
+    versions, launches exact (the flash forward once an attention layer
+    at the prefill; the expert FFN once a MoE layer a step), one prefill
+    and decode step witnessed, each model freed before the next; the
+    flash forward timed at the prefills of the GQA groups 5, 6 and 8.
+    Returns (launches by path, timing rows)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
+    from repro_torch.models.param import count_params
+
+    launches, rows, groups = {}, [], set()
+    spec = DECODER_STATIC
+    for i, (arch, layers) in enumerate(DECODERS):
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = _dropless(dataclasses.replace(
+            full, n_layers=layers or full.n_layers))
+        params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                                 cfg, device=device)
+        condition_attention(params, cfg)
+        descs = stk.layer_descs(cfg)
+        n_moe = sum(d.ffn == "moe" for d in descs)
+        group = cfg.n_heads // cfg.n_kv_heads
+        print(f"[{arch}] {cfg.n_layers} of {full.n_layers} layers: "
+              f"{count_params(params) / 1e9:.3f} B params (float32), heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim} (group "
+              f"{group}), qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}"
+              + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} in "
+                 f"{n_moe} layers (dropless)" if n_moe else ""), flush=True)
+        prompts = static_prompts(cfg, spec["prompts"], spec["plen"],
+                                 seed=40 + i)
+        expect = {"flash_attention": len(descs)}
+        if n_moe:
+            expect["expert_mlp"] = n_moe * spec["new"]
+        ran, eng = serve_static(arch, params, cfg, device, prompts,
+                                spec["new"], 1, expect)
+        witness_static_step(arch, eng, prompts, tuple(expect))
+        launches[f"{arch}_static"] = ran
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if group in (5, 6, 8) and group not in groups:
+            groups.add(group)
+            B, plen = len(prompts), max(len(p) for p in prompts)
+            k, _, row = flash_shape_row(arch, cfg, B, plen, device,
+                                        seed=50 + i)
+            rows.append((k, f"{arch}_prefill_group{group}", row))
+        print(f"[{arch}] {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, rows
+
+
+def other_families(device):
+    """Phase 17: jamba (a, b), pixtral (c), qwen1.5's upcycled MoE paged
+    (d), the config-only decoders (e); then the flash kernels held and
+    timed at jamba's and pixtral's training shapes (dh 128, groups 8
+    and 4). Returns (launches by path, timing rows)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[other-families] {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          "GiB allocated at the start (jamba's dense step needs ~71 GiB at "
+          "its peak)", flush=True)
+    launches, rows, jcfg = jamba_path(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, pcfg = pixtral_path(device)
+    launches.update(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, row = qwen_paged_path(device)
+    launches.update(got)
+    rows.append(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, more = decoders_path(device)
+    launches.update(got)
+    rows += more
+    rows += [(k, "jamba_train", r) for k, _, r in flash_case_rows(
+        "jamba_train", jcfg, JAMBA["batch"], JAMBA["seq"], JAMBA["seq"],
+        True, device, seed=61)]
+    rows += [(k, "pixtral_train", r) for k, _, r in flash_case_rows(
+        "pixtral_train", pcfg, PIXTRAL["batch"], PIXTRAL["seq"],
+        PIXTRAL["seq"], True, device, seed=62)]
+    print(f"[other-families] phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -4304,9 +4896,9 @@ def main() -> int:
                  [r.rid for r in make_requests(cfg)], eng)
     tps = {"kernels": [n_gen / wall], "plain": [n_gen_e / wall_e]}
     for _ in range(SERVE_RUNS - 1):
-        for key, e, want in (("kernels", eng, outs), ("plain", eager,
-                                                       outs_e)):
-            got, _, n, w = serve_once(e, cfg)
+        for key, want in (("kernels", outs), ("plain", outs_e)):
+            got, _, n, w = serve_once(eng if key == "kernels" else eager,
+                                      cfg)
             if got != want:
                 fail(f"a repeated {key} serve run changed its outputs")
             tps[key].append(n / w)
@@ -4387,6 +4979,14 @@ def main() -> int:
     bf16_at = {r["name"]: {k: v for k, v in r.items() if k not in (
         "name", "route", "source", "replaces")} for r in bf16_records}
     bf16_at["grouped_mlp"] = bf16_fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The other families: jamba's hybrid trained, upcycled and served,
+    # pixtral trained and decoded with patches, the config-only decoders
+    # served through the kernels.
+    family_launches, rows = other_families(device)
+    shape_rows += rows
 
     for rec in records:
         name = rec["name"]
@@ -4402,6 +5002,8 @@ def main() -> int:
         by_path.update({path: n.get(name, 0)
                         for path, n in modes_launches.items()})
         by_path["training_knobs"] = knob_launches.get(name, 0)
+        by_path.update({path: n.get(name, 0)
+                        for path, n in family_launches.items()})
         rec["launches"] = sum(by_path.values())
         if name in bf16_at:
             rec["bf16_at_train_shapes"] = bf16_at[name]

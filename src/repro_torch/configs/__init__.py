@@ -1,10 +1,10 @@
 """Architecture configuration (port of ``repro/configs/__init__.py``).
 
-A copy of ``ArchConfig``, ``MoECfg`` and the registry; the port
-registers the architectures it runs (``granite-moe-1b-a400m``,
-``vit-b16-upcycled``, ``rwkv6-7b``, ``t5-base-upcycled``,
-``whisper-base``).
-``get_reduced`` returns the CPU-test-sized config of the same family.
+A copy of ``ArchConfig``, ``MoECfg``, the shape grid and the registry;
+the port registers every architecture of the reference: its ten
+assigned ones (``assigned_archs``) and the paper's ``t5-base-upcycled``
+and ``vit-b16-upcycled``. ``get_reduced`` returns the CPU-test-sized
+config of the same family.
 """
 from __future__ import annotations
 
@@ -87,6 +87,15 @@ class ArchConfig:
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.attn_pattern == "none"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if long-context (500k) decode is supported (SSM/hybrid)."""
+        return self.attn_pattern in ("none", "jamba")
+
     def with_moe(self, moe: Optional[MoECfg]) -> "ArchConfig":
         return dataclasses.replace(self, moe=moe)
 
@@ -97,8 +106,56 @@ class ArchConfig:
         )
 
 
-_MODULES = ("granite_moe_1b", "vit_upcycled", "rwkv6_7b", "t5_upcycled",
-            "whisper_base")
+# ---------------------------------------------------------------------------
+# Shape grid (the 4 shapes shared by the 10 assigned LM-family archs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Mapping[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell is runnable; else (False, reason)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "pure full-attention arch: no sub-quadratic 500k path"
+    if arch.structure == "encoder_only" and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+# Module name -> arch id of the assigned architectures, in assignment
+# order.
+_ASSIGNED = {
+    "pixtral_12b": "pixtral-12b",
+    "qwen2_5_14b": "qwen2.5-14b",
+    "tinyllama_1_1b": "tinyllama-1.1b",
+    "qwen1_5_0_5b": "qwen1.5-0.5b",
+    "yi_9b": "yi-9b",
+    "grok_1_314b": "grok-1-314b",
+    "granite_moe_1b": "granite-moe-1b-a400m",
+    "whisper_base": "whisper-base",
+    "rwkv6_7b": "rwkv6-7b",
+    "jamba_1_5_large": "jamba-1.5-large-398b",
+}
+_PAPER = ("t5_upcycled", "vit_upcycled")
+_MODULES = (*_ASSIGNED, *_PAPER)
 
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, ArchConfig] = {}
@@ -112,7 +169,8 @@ def register(cfg: ArchConfig, reduced: ArchConfig) -> ArchConfig:
 
 def _load_all() -> None:
     # Every time, not only while the registry is empty: a config module
-    # imported on its own registers its arch first (imports are cached).
+    # imported on its own registers its arch first. The imports after
+    # the first are lookups in sys.modules.
     for mod in _MODULES:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
@@ -120,13 +178,21 @@ def _load_all() -> None:
 def get_config(name: str) -> ArchConfig:
     _load_all()
     if name not in _REGISTRY:
-        raise KeyError(
-            f"unknown arch {name!r}; the port has {sorted(_REGISTRY)} "
-            "(other architectures are queued in ROADMAP.md)"
-        )
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def get_reduced(name: str) -> ArchConfig:
     get_config(name)
     return _REDUCED[name]
+
+
+def list_configs() -> list[str]:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
+def assigned_archs() -> list[str]:
+    """The 10 assigned architecture ids, in assignment order."""
+    _load_all()
+    return list(_ASSIGNED.values())

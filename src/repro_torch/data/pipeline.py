@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
+
 from repro_torch.configs import ArchConfig
 from repro_torch.data import synthetic as syn
 
@@ -71,7 +73,10 @@ def make_iterator(
     host_count: Optional[int] = None,
 ) -> DataIterator:
     """The arch's synthetic stream: the clustered-bigram LM stream of a
-    decoder-only model; the patch task of an encoder-only one (whose
+    decoder-only model (with a ``patch`` frontend, plus ``patch_embeds``
+    (B, min(n_frontend_positions, seq_len), d): standard normals from
+    ``Philox(key=task.seed + 7, counter=[0, 0, 0, step])``, float32, as
+    the reference draws them); the patch task of an encoder-only one (whose
     sequence is its ``n_frontend_positions`` patches: ``seq_len`` is not
     read); for an encoder-decoder model, span corruption (or stub frames
     with a ``frame`` frontend) with ``seq_len`` encoder positions and
@@ -98,13 +103,18 @@ def make_iterator(
                 **hosts)
         return DataIterator(batch_fn=lambda step: syn.span_corruption_batch(
             task, global_batch, seq_len, dec_len, step), **hosts)
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's data pipeline has no decoder-only "
-            f"{cfg.frontend} frontend yet (queued in ROADMAP.md)")
-    return DataIterator(
-        batch_fn=lambda step: syn.lm_batch(task, global_batch, seq_len,
-                                           step), **hosts)
+
+    def lm(step):
+        b = syn.lm_batch(task, global_batch, seq_len, step)
+        if cfg.frontend == "patch":
+            rng = np.random.Generator(np.random.Philox(
+                key=task.seed + 7, counter=[0, 0, 0, step]))
+            n = min(cfg.n_frontend_positions, seq_len)
+            b["patch_embeds"] = rng.normal(
+                size=(global_batch, n, cfg.d_model)).astype(np.float32)
+        return b
+
+    return DataIterator(batch_fn=lm, **hosts)
 
 
 def _process_topology() -> tuple[int, int]:

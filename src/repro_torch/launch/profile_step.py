@@ -4,10 +4,11 @@ report where its time goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \\
         [--train [--arch granite-moe-1b-a400m|vit-b16-upcycled|\\
-                         t5-base-upcycled] \\
+                         t5-base-upcycled|pixtral-12b] \\
          [--batch N] [--seq S] [--remat none|full|dots|moe] \\
          [--compute-dtype float32|bfloat16]] \\
-        [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m] \\
+        [--static [--arch rwkv6-7b|rwkv6-7b-moe|granite-moe-1b-a400m|\\
+                          jamba-1.5-large-398b] \\
          [--batch 8] [--seq 512]] \\
         [--serve-step mixed|verify|prefill|decode] \\
         [--reduced] [--steps 3] [--device cuda|cpu] \\
@@ -28,12 +29,18 @@ synthetic stream, as its train cell in ``chip_smoke.py`` runs it:
 granite at 16 x 512 tokens through the sorted dispatch, the ViT at 104
 images of 196 patches (its sequence; ``--seq`` is not read) and T5 at 16
 x 512 encoder and 16 x 128 decoder tokens through the gather dispatch,
-under ``--remat`` and in ``--compute-dtype`` (the step's ``ApplyCfg``;
+pixtral-12b at 4 of its 40 layers (as ``chip_smoke.py`` trains it) at 4
+x 1,152 positions (``--seq`` defaults to 1,152 there), the first 1,024
+of them stub patches, under ``--remat`` and in ``--compute-dtype`` (the
+step's ``ApplyCfg``;
 the train output adds ``peak_memory_bytes``, the untraced steps' peak
 on the card). ``--static`` traces the static engine on ``--arch``
 instead (random weights from seed 0, dropless routing, float32 caches;
 ``rwkv6-7b-moe`` is rwkv6-7b's channel-mix MoE, ``rwkv6_7b.upcycled()``,
-at 4 layers as ``chip_smoke.py`` serves it):
+at 4 layers as ``chip_smoke.py`` serves it; ``jamba-1.5-large-398b`` at 5
+of its 72 layers, the fewest that hold its attention layer, with
+bfloat16 weights, activations and caches, as ``chip_smoke.py`` serves
+its upcycled MoE):
 one prefill of ``--batch`` x ``--seq`` random tokens from an empty cache
 (the cache's allocation included, as ``generate`` does it), and one
 decode step of the batch at position ``--seq``; each phase gets the
@@ -80,7 +87,13 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
 # encoder-only ViT) and MoE dispatch.
 TRAIN_CELLS = {"granite-moe-1b-a400m": dict(batch=16, dispatch="sorted"),
                "vit-b16-upcycled": dict(batch=104, dispatch="gather"),
-               "t5-base-upcycled": dict(batch=16, dispatch="gather")}
+               "t5-base-upcycled": dict(batch=16, dispatch="gather"),
+               "pixtral-12b": dict(batch=4, dispatch="gather", seq=1152)}
+JAMBA = "jamba-1.5-large-398b"
+# Full-width models cut in depth, as chip_smoke.py runs them.
+DEPTH = {JAMBA: 5, "pixtral-12b": 4}
+# Served with bfloat16 weights (the 5-layer jamba MoE is 48 GB so).
+STATIC_BF16 = (JAMBA,)
 
 
 def mixed_step_inputs(cfg, device, *, serve: dict = SERVE):
@@ -199,30 +212,34 @@ def train_step_fn(cfg, device, *, batch: int, seq: int, dispatch: str,
     return lambda: step(state, data)
 
 
-def static_step_fns(cfg, device, *, batch: int, seq: int):
+def static_step_fns(cfg, device, *, batch: int, seq: int,
+                    dtype: str = "float32"):
     """The static engine's prefill (from a fresh cache) and one decode
-    step at position ``seq``, as closures."""
+    step at position ``seq``, as closures; weights, activations and
+    caches in ``dtype``."""
     import torch
 
     from repro_torch.models import model_zoo as zoo
 
+    dt = getattr(torch, dtype)
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
-                             cfg, device=device)
+                             cfg, dtype=dt, device=device)
+    ac = zoo.ApplyCfg(compute_dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
                          device=device)
 
     def fresh_cache():
-        return zoo.init_serve_cache(cfg, batch, seq + 1, dtype=torch.float32,
+        return zoo.init_serve_cache(cfg, batch, seq + 1, dtype=dt,
                                     device=device)
 
     def prefill():
         return zoo.prefill(params, {"tokens": toks[:, :seq]}, fresh_cache(),
-                           cfg)
+                           cfg, ac=ac)
 
     cache, _ = prefill()
     return prefill, lambda: zoo.decode_step(params, toks[:, seq:], cache,
-                                            seq, cfg)
+                                            seq, cfg, ac=ac)
 
 
 def profile(step_fn, cfg, device, *, steps: int) -> dict:
@@ -291,12 +308,15 @@ def main(argv=None) -> None:
                     help="trace the static engine's prefill and decode "
                          "step instead of a mixed step")
     ap.add_argument("--arch", default=ARCH,
-                    choices=sorted({*TRAIN_CELLS, "rwkv6-7b", RWKV_MOE}),
+                    choices=sorted({*TRAIN_CELLS, "rwkv6-7b", RWKV_MOE,
+                                    JAMBA}),
                     help="the model of --train or --static")
     ap.add_argument("--batch", type=int, default=None,
                     help="--train batch (default: the arch's train cell); "
                          "--static batch (default 8)")
-    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (default 512; pixtral's train "
+                         "cell 1,152)")
     ap.add_argument("--remat", default="none",
                     choices=["none", "full", "dots", "moe"],
                     help="--train: the step's remat policy")
@@ -331,16 +351,22 @@ def main(argv=None) -> None:
                                   name=RWKV_MOE)
     else:
         cfg = get_reduced(arch) if args.reduced else get_config(arch)
+        if not args.reduced and arch in DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    cell = TRAIN_CELLS.get(arch, {})
+    seq = args.seq or cell.get("seq", 512)
     if args.static:
         if cfg.moe is not None:  # dropless, as chip_smoke.py serves it
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
         batch = args.batch or 8
+        dtype = "bfloat16" if arch in STATIC_BF16 else "float32"
         with torch.no_grad():
-            fns = static_step_fns(cfg, device, batch=batch, seq=args.seq)
+            fns = static_step_fns(cfg, device, batch=batch, seq=seq,
+                                  dtype=dtype)
             out = {"arch": cfg.name, "layers": cfg.n_layers,
                    "device": str(device), "step": "static", "batch": batch,
-                   "seq": args.seq}
+                   "seq": seq, "dtype": dtype}
             for phase, fn in zip(("prefill", "decode"), fns):
                 out[phase] = profile(fn, cfg, device, steps=args.steps)
         out["card"] = out["prefill"]["card"]
@@ -351,9 +377,8 @@ def main(argv=None) -> None:
                 fh.write(text + "\n")
         return
     if args.train:
-        cell = TRAIN_CELLS[arch]
         batch = args.batch or cell["batch"]
-        step_fn = train_step_fn(cfg, device, batch=batch, seq=args.seq,
+        step_fn = train_step_fn(cfg, device, batch=batch, seq=seq,
                                 dispatch=cell["dispatch"], remat=args.remat,
                                 compute_dtype=args.compute_dtype)
     else:
@@ -365,7 +390,7 @@ def main(argv=None) -> None:
     out = profile(step_fn, cfg, device, steps=args.steps)
     out["step"] = "train" if args.train else args.serve_step
     if args.train:
-        out.update(batch=batch, dispatch=cell["dispatch"],
+        out.update(batch=batch, seq=seq, dispatch=cell["dispatch"],
                    remat=args.remat, compute_dtype=args.compute_dtype)
     text = json.dumps(out)
     print(text, flush=True)

@@ -4,7 +4,7 @@ ones from a seed), served through the static-batch engine, or with
 ``--paged`` through the paged engine, solo or as a replica fleet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch rwkv6-7b|granite-moe-1b-a400m [--reduced] [--max-new 16] \\
+        --arch ARCH [--reduced] [--max-new 16] \\
         [--ckpt-dir DIR] [--max-batch 4] [--temperature 0.8] \\
         [--device cuda|cpu] [--obs-jsonl PATH] \\
         [--paged [--block-size 16] [--admission chunked|prefill_on_join] \\
@@ -12,10 +12,14 @@ ones from a seed), served through the static-batch engine, or with
          [--draft none|dense|top1 [--spec-k 4]] [--stream] \\
          [robustness flags] [--chaos SEED] [fleet flags]]
 
-``--ckpt-dir`` reads the ``params`` of a params-only checkpoint or of a
-Trainer's full train state alike (the reference's loader takes the
-first form only: ROADMAP.md queue 3). Without ``--paged`` the prompts
-are served as one static batch (any stack the port runs: attention or
+``--arch`` is any registered decoder-only arch (pixtral-12b,
+qwen2.5-14b, tinyllama-1.1b, qwen1.5-0.5b, yi-9b, grok-1-314b,
+granite-moe-1b-a400m, rwkv6-7b, jamba-1.5-large-398b; pixtral is served
+on text prompts, without patches). ``--ckpt-dir`` reads the ``params``
+of a params-only checkpoint or of a Trainer's full train state alike
+(the reference's loader takes the first form only: ROADMAP.md queue 3).
+Without ``--paged`` the prompts are served as one static batch (any
+stack the port runs: attention, jamba's mamba and attention hybrid,
 rwkv6); ``--paged`` serves attention-only stacks with continuous
 batching. ``--admission prefill_on_join`` selects the pre-chunking
 per-admission prefill. ``--draft dense`` (or ``top1``) turns on

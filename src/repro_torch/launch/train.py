@@ -6,8 +6,7 @@ for a decoder-only LM, span corruption for T5, stub frames for whisper,
 the patch task for the encoder-only ViT).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch granite-moe-1b-a400m|vit-b16-upcycled|t5-base-upcycled|\\
-        whisper-base [--reduced] \\
+        --arch ARCH [--reduced] \\
         [--steps 100] [--batch 8] [--seq 64] [--ckpt-dir DIR] \\
         [--upcycle-from DENSE_DIR] [--impl auto|cuda|eager] \\
         [--dispatch gather|einsum|sorted] [--grad-accum 1] \\
@@ -20,6 +19,13 @@ valid checkpoint there — a params-only checkpoint or a Trainer's full
 train state — and upcycles them into ``--arch`` (routers from a
 generator seeded 7, as the reference's ``PRNGKey(7)``); the MoE then
 trains from step 0 with fresh optimizer state, as in the reference.
+
+``--arch`` is any registered arch (``repro_torch.configs.list_configs``):
+the ten assigned ones (pixtral-12b, qwen2.5-14b, tinyllama-1.1b,
+qwen1.5-0.5b, yi-9b, grok-1-314b, granite-moe-1b-a400m, whisper-base,
+rwkv6-7b, jamba-1.5-large-398b) and the paper's t5-base-upcycled and
+vit-b16-upcycled. pixtral-12b's stream adds stub patch embeddings over
+its first positions.
 
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch path. The data task covers at most the first
@@ -37,7 +43,9 @@ layer body's activations in the backward, saving what the policy names
 (``moe``: the MoE layers' outputs only). The stack's mixer runs the
 reference launcher's path: an rwkv6 stack trains through autograd of
 the plain chunked WKV (``mixer_impl="eager"``, printed on the kernels
-line), since the WKV kernel is forward-only. ``--ep a2a`` (expert
+line), since the WKV kernel is forward-only; jamba's mamba layers run
+the reference's recurrence as plain PyTorch ops, no kernel
+(``mamba=scan`` on the kernels line). ``--ep a2a`` (expert
 parallelism) needs the multi-GPU port and exits (ROADMAP.md queue 1
 item 8).
 """
@@ -180,6 +188,7 @@ def main(argv=None) -> None:
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.models.stack import layer_descs
     from repro_torch.obs import JsonlSink, Tracker
     from repro_torch.optim import adafactor, inverse_sqrt
     from repro_torch.training import (
@@ -220,9 +229,11 @@ def main(argv=None) -> None:
     term = signal.getsignal(signal.SIGTERM)
     sig = PreemptionSignal().install()
     ac = apply_cfg(args, device)
+    mamba = any(d.mixer == "mamba" for d in layer_descs(cfg))
     print(f"[train] kernels: moe={ac.moe_impl} attn={ac.attn_impl} "
           f"dispatch={ac.dispatch} mixer={ac.mixer_impl} remat={ac.remat} "
-          f"device={device}", flush=True)
+          f"device={device}" + (" mamba=scan (plain ops, no kernel)"
+                                if mamba else ""), flush=True)
     tracker = Tracker((JsonlSink(args.obs_jsonl),)) \
         if args.obs_jsonl else None
     chaos = None

@@ -9,7 +9,9 @@ encoder-only stacks (port of the training and serving subsets of
 
 Batch formats
   decoder_only    : ``{"tokens": (B, S), "targets": (B, S)}`` with -1
-                    marking masked-out targets;
+                    marking masked-out targets; a ``patch`` frontend
+                    (pixtral) adds ``"patch_embeds": (B, P, d)``, which
+                    replace the embeddings of the first P positions;
   encoder_decoder : ``{"enc_tokens": (B, Se)`` or ``"frames": (B, Se,
                     d), "dec_tokens": (B, Sd), "targets": (B, Sd)}``
                     (T5, whisper);
@@ -150,13 +152,19 @@ def _cast_params(params, dtype):
 def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg):
     """The decoder's input: ``tokens`` (decoder-only) or ``dec_tokens``
     (encoder-decoder) embedded at positions 0..S-1, in the compute
-    dtype."""
+    dtype. A decoder with a frontend whose batch carries
+    ``patch_embeds`` (B, P, d) takes the frontend's projection of them
+    in place of the first P embeddings."""
     tokens = (batch["tokens"] if "tokens" in batch
               else batch["dec_tokens"]).long()
-    return embed_apply(params["embed"], tokens, cfg,
-                       positions=torch.arange(tokens.shape[1],
-                                              device=tokens.device)
-                       ).to(ac.cdtype)
+    x = embed_apply(params["embed"], tokens, cfg,
+                    positions=torch.arange(tokens.shape[1],
+                                           device=tokens.device))
+    if cfg.frontend is not None and "patch_embeds" in batch:
+        front = frontend_apply(params["frontend"], batch["patch_embeds"],
+                               cfg).to(x.dtype)
+        x = torch.cat([front, x[:, front.shape[1]:]], dim=1)
+    return x.to(ac.cdtype)
 
 
 def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
@@ -308,14 +316,22 @@ def init_paged_serve_cache(cfg: ArchConfig, num_blocks: int,
                            device=None):
     """Per-layer KV block pools addressed by shared per-slot block
     tables. ``device`` defaults to "cuda" and raises without a card.
-    Decoder-only, as the reference's: an encoder-decoder model carries a
-    dense encoder cache (serve it through ``prefill`` and
-    ``decode_step``)."""
+    Decoder-only and attention-only, as the reference's: an
+    encoder-decoder model carries a dense encoder cache (serve it
+    through ``prefill`` and ``decode_step``), mamba and rwkv6 layers
+    keep per-slot states with no sequence axis to page (serve them
+    through the static engine)."""
     _check_structure(cfg, "decoder_only")
+    descs = stk.layer_descs(cfg)
+    if any(d.mixer != "attn" for d in descs):
+        raise ValueError(
+            "paged serving requires an attention-only decoder stack "
+            f"(got {sorted({d.mixer for d in descs})} in {cfg.name}): it "
+            "supports attention mixers only; serve it through the static "
+            "engine, ServeConfig(paged=False)")
     device = resolve_device(device)
     return {"stack": stk.stack_paged_cache_init(
-        cfg, stk.layer_descs(cfg), num_blocks, block_size, dtype=dtype,
-        device=device,
+        cfg, descs, num_blocks, block_size, dtype=dtype, device=device,
     )}
 
 
@@ -337,8 +353,10 @@ def _logits(params, h, cfg):
 def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                      dtype=torch.bfloat16, device=None, enc_len: int = 0):
     """The static engine's caches: a dense (B, max_len, Kh, dh) KV cache
-    per attention layer, the time-mix ``x_prev``/``wkv`` and channel-mix
-    ``x_prev`` states per rwkv6 layer (``wkv`` always float32); an
+    per attention layer, the ``conv`` window and ``ssm`` state per mamba
+    layer (``ssm`` always float32), the time-mix ``x_prev``/``wkv`` and
+    channel-mix ``x_prev`` states per rwkv6 layer (``wkv`` always
+    float32); an
     encoder-decoder model adds ``enc`` (B, enc_len, d), which ``prefill``
     replaces with the encoder's states. ``device`` defaults to "cuda"
     and raises without a card."""
@@ -361,8 +379,10 @@ def prefill(params, batch, cache, cfg: ArchConfig, *,
     ``batch["enc_tokens"]`` (or ``"frames"``) and stores the states in
     ``cache["enc"]`` (in the cache's dtype, as the reference does; this
     prefill's cross-attention reads them unrounded); its decoder prompt
-    is ``batch["dec_tokens"]``. Returns (cache, logits (B, 1, V) float32
-    at the last position)."""
+    is ``batch["dec_tokens"]``. A ``patch`` frontend's
+    ``batch["patch_embeds"]`` replace the first positions' embeddings,
+    as in training. Returns (cache, logits (B, 1, V) float32 at the last
+    position)."""
     _check_structure(cfg, "decoder_only", "encoder_decoder")
     params = _cast_params(params, ac.cdtype)
     x = _embed_decoder_input(params, batch, cfg, ac)
@@ -372,7 +392,8 @@ def prefill(params, batch, cache, cfg: ArchConfig, *,
         enc, _ = _encode(params, batch, cfg, ac)
         cache["enc"] = enc.to(cache["enc"].dtype)
     x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
-                                  cache=cache["stack"], cache_index=0)
+                                  cache=cache["stack"], cache_index=0,
+                                  mode="prefill")
     return cache, _logits(params, x[:, -1:], cfg)
 
 
@@ -395,7 +416,8 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
     enc = (cache["enc"].to(x.dtype) if cfg.structure == "encoder_decoder"
            else None)
     x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
-                                  cache=cache["stack"], cache_index=index)
+                                  cache=cache["stack"], cache_index=index,
+                                  mode="decode")
     return cache, _logits(params, x, cfg)
 
 

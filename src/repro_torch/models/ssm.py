@@ -1,0 +1,146 @@
+"""Mamba-1 selective SSM layer, jamba's mixer (arXiv:2312.00752; port of
+``repro/models/ssm.py``).
+
+Train and prefill walk the discretized recurrence one position at a
+time, a Python loop where the reference runs ``lax.scan``: each step
+forms its own decay ``exp(dt_t A)`` (B, d_in, d_state), so the (B, T,
+d_in, d_state) tensor is never materialised. Decode is one step from
+the cache's conv window and SSM state. The recurrence is plain PyTorch
+on the card too: the reference computes it outside any Pallas kernel.
+
+Leaves keep the reference's layouts and key names (``in_proj (d,
+2 d_in)``, ``conv_w (d_conv, d_in)``, ``x_proj (d_in, dt_rank + 2
+d_state)``, ``dt_w (dt_rank, d_in)``, ``A_log (d_in, d_state)``, ...),
+so ``models/convert.py`` carries them across unchanged.
+
+Caches (the static serve engine): ``conv`` (B, d_conv - 1, d_in), the
+last inputs of the conv window, in the cache dtype; ``ssm`` (B, d_in,
+d_state), always float32. The step overwrites them in place after it
+has read them (the reference returns new arrays).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import param as pm
+
+MODES = ("train", "prefill", "decode")
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    dt_rank = max(1, math.ceil(cfg.d_model / 16))
+    return s, d_in, dt_rank
+
+
+def mamba_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
+    s, d_in, dt_rank = _dims(cfg)
+    d = cfg.d_model
+    kw = dict(dtype=dtype, device=device)
+    in_proj = pm.dense(gen, (d, 2 * d_in), **kw)
+    conv_w = pm.normal(gen, (s.d_conv, d_in), std=0.02, **kw)
+    x_proj = pm.dense(gen, (d_in, dt_rank + 2 * s.d_state), **kw)
+    dt_w = pm.dense(gen, (dt_rank, d_in), **kw)
+    # softplus(dt_b) spread log-uniform in [1e-3, 1e-1] (mamba init).
+    u = torch.rand((d_in,), generator=gen, dtype=torch.float32,
+                   device=device)
+    dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+    A = torch.arange(1, s.d_state + 1, dtype=torch.float32,
+                     device=device).expand(d_in, s.d_state)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": pm.zeros((d_in,), **kw),
+        "x_proj": x_proj,
+        "dt_w": dt_w,
+        "dt_b": dt_bias.to(dtype),
+        "A_log": torch.log(A).to(dtype),
+        "D": pm.ones((d_in,), **kw),
+        "out_proj": pm.dense(gen, (d_in, d), **kw),
+    }
+
+
+def mamba_cache_init(cfg: ArchConfig, batch: int, *, dtype=torch.float32,
+                     device=None):
+    s, d_in, _ = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, d_in, s.d_state), dtype=torch.float32,
+                           device=device),
+    }
+
+
+MAMBA_CACHE_AXES = {"conv": "batch conv mlp", "ssm": "batch mlp state"}
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (B, T, d_in); w: (d_conv, d_in). A
+    cross-correlation over the left-padded input (tap j reads position
+    t - (d_conv - 1) + j), as ``conv_general_dilated`` computes it."""
+    d_conv, d_in = w.shape
+    xp = F.pad(x.transpose(1, 2), (d_conv - 1, 0))  # (B, d_in, T + W - 1)
+    out = F.conv1d(xp, w.t()[:, None, :].to(x.dtype), groups=d_in)
+    return out.transpose(1, 2) + b
+
+
+def mamba_apply(p, x, cfg: ArchConfig, *, cache=None, mode: str = "train"):
+    """x: (B, T, d) -> (y, cache). ``mode``: "train" (no cache; starts
+    from a zero state), "prefill" (the prompt from an empty cache: the
+    conv reads zeros before position 0, the state starts from
+    ``cache["ssm"]``) or "decode" (T = 1, the conv window rolled). With a
+    cache the new window and state are written into it in place."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mamba mode {mode!r} {MODES}")
+    if (cache is None) != (mode == "train"):
+        raise ValueError(f"mamba mode {mode!r} "
+                         f"{'needs' if cache is None else 'takes no'} cache")
+    s, d_in, dt_rank = _dims(cfg)
+    B, T, _ = x.shape
+    x_in, z = (x @ p["in_proj"]).split(d_in, dim=-1)
+
+    if mode == "decode":
+        if T != 1:
+            raise ValueError(f"mamba decode takes one position, got {T}")
+        window = torch.cat([cache["conv"].to(x_in.dtype), x_in], dim=1)
+        new_conv = window[:, 1:]
+        xc = (window * p["conv_w"]).sum(1) + p["conv_b"]
+        xc = F.silu(xc)[:, None]  # (B, 1, d_in)
+    else:
+        xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
+        if mode == "prefill":
+            win = s.d_conv - 1
+            tail = F.pad(x_in, (0, 0, max(win - T, 0), 0))
+            new_conv = tail[:, tail.shape[1] - win:]
+
+    xdb = xc @ p["x_proj"]
+    dt_r = xdb[..., :dt_rank]
+    Bm = xdb[..., dt_rank:dt_rank + s.d_state].float()
+    Cm = xdb[..., dt_rank + s.d_state:].float()
+    dt = F.softplus(dt_r @ p["dt_w"] + p["dt_b"]).float()  # (B, T, d_in)
+    A = -torch.exp(p["A_log"].float())  # (d_in, d_state)
+
+    h = (cache["ssm"] if cache is not None else
+         torch.zeros((B, d_in, s.d_state), dtype=torch.float32,
+                     device=x.device))
+    ys = []
+    for t in range(T):
+        dt_t = dt[:, t]
+        dA = torch.exp(dt_t[..., None] * A)  # (B, d_in, d_state)
+        dBx = (dt_t * xc[:, t])[..., None] * Bm[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.bmm(h, Cm[:, t, :, None])[..., 0])
+    y = torch.stack(ys, dim=1).to(x.dtype)  # (B, T, d_in)
+    y = y + p["D"] * xc
+    y = y * F.silu(z)
+    out = y @ p["out_proj"]
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(h)
+    return out, cache

@@ -14,8 +14,12 @@ pattern — the reference's scan body — runs under
 ``torch.utils.checkpoint``, saving what the policy names and recomputing
 the rest in the backward.
 
-Mixers: attention and RWKV-6 time-mix (with its channel-mix wrapper
-``cm`` around the FFN); mamba is queued in ROADMAP.md. A decoder layer
+Mixers: attention, mamba (``models/ssm.py``: jamba's layers) and
+RWKV-6 time-mix (with its channel-mix wrapper ``cm`` around the FFN). A
+mamba layer's recurrence is a Python loop over positions inside the
+layer, so under remat it runs inside the checkpointed body; its per-step
+``bmm`` products are batched, so ``"dots"`` recomputes them (as the
+reference's ``dots_with_no_batch_dims_saveable``). A decoder layer
 of an encoder-decoder model (``desc.cross``) adds cross-attention onto
 the encoder states (``cross_norm``, ``cross``) between its mixer and
 its FFN.
@@ -34,7 +38,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.moe import moe_apply, moe_init
-from repro_torch.models import rwkv
+from repro_torch.models import rwkv, ssm
 from repro_torch.models.attention import (
     attention_apply,
     attention_init,
@@ -103,23 +107,18 @@ def find_segments(descs: list[LayerDesc]) -> list[tuple[int, list[LayerDesc]]]:
     return find_segments(descs[:half]) + find_segments(descs[half:])
 
 
-def _check_desc(desc: LayerDesc) -> None:
-    if desc.mixer not in ("attn", "rwkv6"):
-        raise NotImplementedError(
-            f"layer {desc} is not ported yet: the port runs attention and "
-            "rwkv6 stacks (mamba is queued in ROADMAP.md)"
-        )
-
-
 def layer_init(gen, cfg: ArchConfig, desc: LayerDesc, *,
                dtype=torch.float32, device=None):
-    _check_desc(desc)
     kw = dict(dtype=dtype, device=device)
     p = {"pre_norm": norm_init(cfg, device=device)}
     if desc.mixer == "attn":
         p["mixer"] = attention_init(gen, cfg, **kw)
-    else:
+    elif desc.mixer == "mamba":
+        p["mixer"] = ssm.mamba_init(gen, cfg, **kw)
+    elif desc.mixer == "rwkv6":
         p["mixer"] = rwkv.time_mix_init(gen, cfg, **kw)
+    else:
+        raise ValueError(desc.mixer)
     if desc.cross:
         p["cross_norm"] = norm_init(cfg, device=device)
         p["cross"] = attention_init(gen, cfg, **kw)
@@ -136,12 +135,13 @@ def layer_init(gen, cfg: ArchConfig, desc: LayerDesc, *,
 def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int,
                      max_len: int, *, dtype=torch.bfloat16, device=None):
     """The static engine's cache of one layer: the dense KV cache of an
-    attention layer, the time-mix and channel-mix states of an rwkv6
-    layer."""
-    _check_desc(desc)
+    attention layer, the conv window and SSM state of a mamba layer, the
+    time-mix and channel-mix states of an rwkv6 layer."""
     kw = dict(dtype=dtype, device=device)
     if desc.mixer == "attn":
         return {"mixer": attn_cache_init(cfg, batch, max_len, **kw)}
+    if desc.mixer == "mamba":
+        return {"mixer": ssm.mamba_cache_init(cfg, batch, **kw)}
     return {"mixer": rwkv.time_mix_cache_init(cfg, batch, **kw),
             "cm": rwkv.channel_mix_cache_init(cfg, batch, **kw)}
 
@@ -155,13 +155,16 @@ def zero_metrics(device=None):
 def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
                 cache=None, cache_index=None, block_tables=None,
                 token_mask=None, mixed=None, causal: bool = True,
-                router_kind: str = "top_k", dispatch: str = "gather",
-                moe_impl: str = "auto", attn_impl: str = "auto",
-                mixer_impl: str = "auto", tag_moe: bool = False):
+                mode: str = "train", router_kind: str = "top_k",
+                dispatch: str = "gather", moe_impl: str = "auto",
+                attn_impl: str = "auto", mixer_impl: str = "auto",
+                tag_moe: bool = False):
     """One pre-norm layer: the training forward over (B, S, d) when
     ``cache`` is None (``causal`` False for encoders); with a cache, the
     static engine's prefill or decode step (``block_tables`` None) or
-    the paged serve step (prefill-on-join or single-token rows). A
+    the paged serve step (prefill-on-join or single-token rows).
+    ``mode`` (train | prefill | decode, as the reference's) is read by
+    a mamba mixer only, whose prefill and decode steps differ. A
     ``desc.cross`` layer then attends onto the encoder states ``enc``
     (B, Se, d), uncached. An rwkv6 layer gates its FFN output with the
     channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
@@ -175,6 +178,9 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
             block_tables=block_tables, mixed=mixed, causal=causal,
             implementation=attn_impl,
         )
+    elif desc.mixer == "mamba":
+        y, _ = ssm.mamba_apply(p["mixer"], h, cfg, cache=mix_cache,
+                               mode=mode)
     else:
         y, _ = rwkv.time_mix_apply(p["mixer"], h, cfg, cache=mix_cache,
                                    implementation=mixer_impl)
@@ -312,12 +318,14 @@ def _remat_context(remat: str):
 def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
                 cache=None, cache_index=None, block_tables=None,
                 token_mask=None, mixed=None, causal: bool = True,
-                router_kind: str = "top_k", dispatch: str = "gather",
-                moe_impl: str = "auto", attn_impl: str = "auto",
-                mixer_impl: str = "auto", remat: str = "none"):
+                mode: str = "train", router_kind: str = "top_k",
+                dispatch: str = "gather", moe_impl: str = "auto",
+                attn_impl: str = "auto", mixer_impl: str = "auto",
+                remat: str = "none"):
     """Apply every layer in order: the training forward when ``cache``
     is None (bidirectional when ``causal`` is False), else the static
-    engine's prefill or decode step (``block_tables`` None) or the paged
+    engine's prefill or decode step (``block_tables`` None; ``mode``
+    "prefill" or "decode", which a mamba layer reads) or the paged
     serve step, with the caches in ``cache`` updated in place. ``enc``:
     the encoder states a decoder stack's cross-attention reads.
 
@@ -348,7 +356,7 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
                         seg_params[f"pos{i}"][r], h, cfg, d, enc=enc,
                         cache=layer_cache, cache_index=cache_index,
                         block_tables=block_tables, token_mask=token_mask,
-                        mixed=mixed, causal=causal,
+                        mixed=mixed, causal=causal, mode=mode,
                         router_kind=router_kind, dispatch=dispatch,
                         moe_impl=moe_impl, attn_impl=attn_impl,
                         mixer_impl=mixer_impl, tag_moe=remat == "moe",

@@ -7,13 +7,16 @@ The static engine's ``generate`` packs up to ``max_batch`` prompts into
 one batch, right-pads them with token 0, runs one ``zoo.prefill`` over
 a dense cache of ``plen + max_new`` positions and then the decode loop,
 sampling every row at the padded last position (as the reference does:
-for an RWKV stack the pad tokens enter the recurrent state). It serves
-every decoder-only stack the port runs, attention and rwkv6. Neither
+for an RWKV or mamba stack the pad tokens enter the recurrent state and
+a mamba layer's conv window). It serves every decoder-only stack the
+port runs: attention, jamba's mamba and attention hybrid, and rwkv6.
+Neither
 engine serves an encoder-decoder model (neither of the reference's
 does): they refuse it at construction.
 
 The paged engine serves attention-only stacks over a refcounted block
-pool:
+pool (``ServeConfig(paged=True)`` on a mamba or rwkv6 stack raises at
+construction, naming the static engine):
 
 * ``admission="chunked"`` (the default): every tick runs ONE fixed-shape
   ``zoo.paged_mixed_step``: one decode row per slot plus

@@ -382,6 +382,15 @@ FLASH_CASES = [
     (1, 20, 40, 4, 4, 32, True, -10, 40),      # rows with no valid key
     (2, 196, 196, 12, 12, 64, False, 0, None),  # ViT-B/16: non-causal MHA
     (2, 24, 70, 12, 12, 64, False, 0, None),   # T5's cross-attention, Sq<Skv
+    # Head dim 128 at the GQA groups of the decoders with 128-wide heads:
+    # 5 (qwen2.5-14b: 12 positions, 60 of a forward block's 64 rows), 6
+    # (grok-1-314b: 10 positions, 60 rows) and 8 (jamba, yi-9b, pixtral).
+    (1, 70, 70, 40, 8, 128, True, 0, None),
+    (2, 37, 53, 40, 8, 128, False, 0, 45),
+    (1, 50, 50, 48, 8, 128, True, 0, None),
+    (1, 29, 61, 48, 8, 128, False, 0, None),
+    (2, 64, 64, 64, 8, 128, True, 0, None),
+    (1, 45, 45, 32, 4, 128, False, 0, 40),
 ]
 
 
@@ -808,6 +817,25 @@ def test_remat_step_launches(cuda, remat):
 EXPERT_CASES = [(2, 3, 37, 64, 96), (1, 2, 70, 200, 300),
                 (2, 2, 33, 1024, 260), (2, 3, 9, 128, 200),
                 (1, 2, 20, 97, 130), (1, 5, 1, 128, 200)]
+
+
+@pytest.mark.cuda
+def test_expert_forward_at_jamba_width(cuda):
+    """The expert FFN forward at jamba's d_model 8192 in bfloat16 (its
+    upcycled MoE is served so), gated SiLU, two experts of a ragged
+    capacity, f a multiple of the 128-column tile but not of 1024."""
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import ref
+
+    G, E, cap, d, f = 1, 2, 21, 8192, 640
+    rng = np.random.default_rng(8192)
+    xe, wi, wg, wo, _ = _expert_inputs(rng, cuda, torch.bfloat16, G, E, cap,
+                                       d, f, True)
+    y = em.expert_ffn_cuda(xe, wi, wg, wo, act="silu")
+    torch.testing.assert_close(y, ref.expert_ffn_ref(xe, wi, wg, wo,
+                                                     act="silu"),
+                               **_tol(torch.bfloat16))
+    assert bool((y[0, 0, -3:] == 0).all())
 
 
 def _expert_inputs(rng, dev, dtype, G, E, cap, d, f, gated):

@@ -22,11 +22,10 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
 from repro.checkpoint import store as jstore
 from repro.configs import get_config as jax_config
 from repro.configs import get_reduced as jax_reduced
-from repro.configs import t5_upcycled as jt5
-from repro.configs import whisper_base as jwhisper
 from repro.core import upcycle as jup
 from repro.data import make_iterator as jmake_iterator
 from repro.data import synthetic as jsyn
@@ -50,6 +49,14 @@ from repro_torch.models.param import count_params
 from repro_torch.optim import adafactor, schedules
 from repro_torch.training import init_train_state, make_train_step
 from repro_torch.training.train_loop import batch_to, loss_and_grads
+
+# The reference's registry loads its config modules only while it is
+# empty: importing one module by name first would leave every other
+# arch unregistered for the rest of the process. Fill it through the
+# registry, then take the modules.
+jconfigs.list_configs()
+jt5 = sys.modules["repro.configs.t5_upcycled"]
+jwhisper = sys.modules["repro.configs.whisper_base"]
 
 T5, WHISPER = "t5-base-upcycled", "whisper-base"
 # The reference's default dispatch on its CPU ("xla") paths; the port
