@@ -167,7 +167,32 @@ any failure, before printing its result line. It
     forward at the GQA groups 5, 6 and 8 of (e), the expert FFN in
     bfloat16 at (b)'s buffers with jamba's expert weights and the
     grouped forward at (d)'s mixed step;
-18. prints one JSON line of per-kernel numbers (all twelve kernels,
+18. multi-GPU (``[determinism]``, ``[multi]``, ``[multi rank R]`` and
+    ``[pad]`` lines): (a) one granite MoE layer at full width gives
+    identical bits over two calls, forward and backward, through the
+    gather and sorted dispatches at the training shape and the serve
+    step's rows (the combine adds in a fixed order); the sorted
+    dispatch's data movement is timed against the atomic scatter/gather
+    it replaced; phase 4's MoE serve at the reference init repeats token
+    for token; (b) in a world of one NCCL rank ``launch.train.main`` with
+    ``--ep a2a`` trains granite 2 steps at 8 x 512 to the same bits as
+    ``--ep none`` (no mesh can host expert parallelism: the fallback);
+    (c) granite upcycled from a conditioned dense init takes 2
+    expert-parallel steps at a global 8 x 512 on 2 spawned ranks sharing
+    the card (gloo, which stages CUDA tensors through host memory; mesh
+    (data=1, model=2), 16 of the 32 experts a rank, routing groups of
+    2,048), each rank's grouped and flash launches exact (24 a kernel a
+    step) and its first step witnessed, held against the single-process
+    sorted steps (run first, on the same weights and batches, in 2
+    microbatches of the ranks' rows: the same shapes route alike): the
+    losses of both steps and every leaf after the first at the
+    reference's distributed-step tolerances, ``ep_overflow_frac`` 0;
+    then a starved budget (factor 0.25, capacity factor 4.0) reports
+    overflow with a finite loss; step times, peak memory and the
+    all-to-alls' bytes and host seconds printed; (d) qwen2.5-14b at 2
+    layers with its 40/8 query heads padded to 48/8 gives the unpadded
+    logits through the flash kernels, witnessed;
+19. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -3803,9 +3828,9 @@ KNOBS = dict(arch="granite-moe-1b-a400m", peak_lr=0.01, warmup=100,
              data_step=100)
 REMAT_POLICIES = ("none", "full", "dots", "moe")
 # A remat step against the step without remat, through the kernels:
-# remat repeats the forward exactly but for the float atomics of the
-# sorted dispatch's combine, so the loss (from the first forward) within
-# 1e-6 and the gradient norm (through recomputed residuals) within 1e-4.
+# remat repeats the forward (the MoE combine adds in a fixed order), so
+# the loss (from the first forward) within 1e-6 and the gradient norm
+# (through recomputed residuals) within 1e-4.
 REMAT_LOSS_RTOL, REMAT_GRAD_NORM_RTOL = 1e-6, 1e-4
 # ce_chunk against the whole logits: the CE's sum in another order.
 CE_CHUNK_LOSS_RTOL = 1e-5
@@ -4802,6 +4827,562 @@ def other_families(device):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-GPU — the deterministic MoE combine, the launcher's
+# --ep a2a in one process, expert parallelism over two ranks sharing the
+# card, query-head padding through the flash kernels
+# ---------------------------------------------------------------------------
+
+# Granite at full width, 2 MoE steps at a global 8 x 512 (phase 12's
+# batch) over 2 ranks of mesh (data=1, model=2): 16 of the 32 experts a
+# rank, budget factor 2.0 (= ep: no EP drops), then one forward at a
+# starved factor. The ranks share the one card: NCCL refuses two ranks
+# on one device, so they talk through gloo, which stages CUDA tensors
+# through host memory — the all-to-all numbers below measure that host
+# transport on one card, not NCCL.
+# Routing groups of 2,048 tokens, one a rank: at the config's 4,096 the
+# 8 x 512 batch is one group, which no mesh of 2 ranks can split (the
+# reference raises the same divisibility error). The starved forward
+# also raises the capacity factor to 4.0, as the reference's overflow
+# test does: at 2.0 a group keeps at most 32 x 128 assignments, 2,048 a
+# peer, which a budget of 0.25 x 16,384 / 2 = 2,048 rows still holds.
+MULTI = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, steps=2,
+             ranks=2, factor=2.0, starved=0.25, starved_capacity=4.0,
+             group=2048, peak_lr=0.01, warmup=100)
+# The 2-rank steps against the single-process steps: the tolerances of
+# the reference's distributed step (tests/test_system.py), on every leaf.
+MULTI_LOSS_RTOL, MULTI_PARAM_ATOL, MULTI_PARAM_RTOL = 2e-4, 2e-4, 2e-3
+# Query-head padding through the flash kernels: qwen2.5-14b at 2 layers,
+# 40/8 heads padded to 48/8 at multiple 16, logits held at STEP_ATOL.
+PAD = dict(arch="qwen2.5-14b", layers=2, multiple=16, batch=2, seq=256)
+# The scatter/gather device time of granite's train step before the
+# fixed-order combine (PERF.md §5: f32, bf16).
+ATOMIC_MS = {"float32": 28.1, "bfloat16": 53.2}
+
+
+def combine_determinism(device):
+    """Phase 18 (a): two calls of one MoE layer at granite's full width
+    give identical bits — forward, and forward + backward — for the
+    gather and sorted dispatches at the training shape (16 x 512) and
+    the serve step's rows; the combine's device time; and phase 4's MoE
+    serve at the reference init, run twice, token for token."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing as R
+    from repro_torch.core.moe import moe_apply, moe_init
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    full = get_config(MULTI["arch"])
+    dropless = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=float(full.moe.num_experts)))
+    d = full.d_model
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = moe_init(gen, full, full.moe, device=device)
+    serve_rows = SERVE["max_batch"] + SERVE["chunks_per_step"] * \
+        SERVE["chunk_size"]
+    for tag, cfg, shape in (
+            ("train", full, (TRAIN["batch"], TRAIN["seq"], d)),
+            ("serve", dropless, (serve_rows, d))):
+        x = torch.randn(shape, generator=gen, device=device)
+        for dispatch in ("gather", "sorted"):
+            outs = []
+            for _ in range(2):
+                leaves = [x, *tree_leaves(p)]
+                for t in leaves:
+                    t.requires_grad_(True)
+                y, _ = moe_apply(p, x, cfg, cfg.moe, dispatch=dispatch,
+                                 implementation="cuda")
+                g = torch.autograd.grad((y.float() ** 2).sum(), leaves)
+                for t in leaves:
+                    t.requires_grad_(False)
+                outs.append((y.detach(), g))
+            same_y = torch.equal(outs[0][0], outs[1][0])
+            same_g = all(torch.equal(a, b) for a, b in zip(outs[0][1],
+                                                           outs[1][1]))
+            print(f"[determinism] {tag} {tuple(shape)} {dispatch}: two "
+                  f"calls bit-identical: forward={same_y} "
+                  f"gradients={same_g}", flush=True)
+            if not (same_y and same_g):
+                fail(f"the {dispatch} MoE layer at the {tag} shape does "
+                     "not repeat bit for bit")
+        del x, outs, y, g
+
+    # The sorted dispatch's data movement at the training shape, forward
+    # and backward (take each ragged row from its token, weight the
+    # rows, combine them into their tokens), per layer and for granite's
+    # 24 MoE layers, on one routing: the fixed-order row maps
+    # (``R.take_rows`` / ``R.sum_rows``) against the atomic forms they
+    # replaced (an expanded-index gather, ``scatter_add``), each timed
+    # the same way in this run.
+    from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    E = full.moe.num_experts
+    xt = torch.randn((TRAIN["batch"] * TRAIN["seq"], d), generator=gen,
+                     device=device)
+    g = full.moe.group_size
+    G = xt.shape[0] // g
+    r = R.route((xt @ p["router"]["w"]).reshape(G, g, E), full.moe,
+                "top_k", slot_tables=False)
+    tok, eid, w = R.assignment_stream(r, E, g)
+    key = torch.where(eid < E, eid, torch.full_like(eid, E)).to(torch.int32)
+    perm, key_s, _, dest, M = ragged_destinations(key, E, ROW_BLOCK)
+    row_of = torch.empty_like(dest, dtype=torch.int64).scatter_(
+        1, perm.long(), dest.long())
+    gi = torch.arange(G, device=device)[:, None]
+    row_of = torch.where(row_of < M, gi * M + row_of, G * M)
+    m = R.row_map(row_of.reshape(G * g, -1), G * M)
+    wv = torch.where(eid < E, w, torch.zeros_like(w))
+    wr = wv.new_zeros(G * M + 1).index_copy(0, row_of.reshape(-1),
+                                            wv.reshape(-1))[:G * M]
+    src = m.src.reshape(G, M) - gi * g  # group-local; g or more: none
+    src = torch.clamp(src, max=g)
+    del xt, r, key, perm, key_s, dest
+    for dtype in (torch.float32, torch.bfloat16):
+        xg = torch.randn((G, g, d), generator=gen, device=device,
+                         dtype=dtype, requires_grad=True)
+        ys = torch.randn((G, M, d), generator=gen, device=device,
+                         dtype=dtype, requires_grad=True)
+
+        def fixed():
+            xs = R.take_rows(xg.reshape(G * g, d), m)
+            yw = (ys.reshape(G * M, d) * wr[:, None]).to(dtype)
+            y = R.sum_rows(yw, m)
+            torch.autograd.backward([xs, y], [torch.ones_like(xs),
+                                              torch.ones_like(y)])
+
+        def atomic():
+            idx = torch.clamp(src, max=g - 1)[..., None].expand(G, M, d)
+            xs = torch.gather(xg, 1, idx) * (src < g)[..., None].to(dtype)
+            yw = (ys * wr.reshape(G, M)[..., None]).to(dtype)
+            y = torch.zeros((G, g + 1, d), dtype=dtype, device=device)
+            y = y.scatter_add(1, src[..., None].expand(G, M, d), yw)[:, :g]
+            torch.autograd.backward([xs, y], [torch.ones_like(xs),
+                                              torch.ones_like(y)])
+
+        ms = time_ms(fixed, flush=flush, iters=5)
+        ms_atomic = time_ms(atomic, flush=flush, iters=5)
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        print(f"[determinism] sorted dispatch's data movement (take, "
+              f"weight, combine), forward and backward, {name}, G={G} "
+              f"g={g} k={full.moe.top_k} d={d}: fixed order {ms:.3f} ms a "
+              f"layer ({24 * ms:.1f} ms for 24 layers), atomic "
+              f"{ms_atomic:.3f} ms ({24 * ms_atomic:.1f}); granite's step "
+              f"traced {ATOMIC_MS[name]} ms of atomic scatter/gather "
+              f"(PERF.md §5); {card_line()}", flush=True)
+        del xg, ys
+    del p, flush, m, wr, src, row_of
+    torch.cuda.empty_cache()
+
+    # Phase 4's serve at the package's own init (not conditioned), twice.
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             dropless, device=device)
+    eng = ServeEngine(params, dropless, ServeConfig(paged=True, **SERVE),
+                      device=device)
+    before = ops.launch_counts()
+    runs = [serve_once(eng, dropless)[0] for _ in range(2)]
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    same = runs[0] == runs[1]
+    print(f"[determinism] phase 4's MoE serve at the reference init, run "
+          f"twice: token-identical={same} ({len(runs[0])} requests)",
+          flush=True)
+    if not same:
+        fail("the MoE serve at the reference init does not repeat token "
+             "for token")
+    del eng, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[determinism] phase 18 (a) {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launcher_ep_world1(device, root):
+    """Phase 18 (b): ``launch.train.main`` in a world of one NCCL rank,
+    ``--ep a2a`` against ``--ep none`` at granite's full width (2 steps
+    at 8 x 512, sorted dispatch): no mesh can host expert parallelism,
+    so --ep a2a runs the single-device path — the same bits."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ltrain
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    before = ops.launch_counts()
+    try:
+        outs = {}
+        for ep in ("a2a", "none"):
+            outs[ep] = ltrain.main([
+                "--arch", MULTI["arch"], "--steps", str(MULTI["steps"]),
+                "--batch", str(MULTI["batch"]), "--seq", str(MULTI["seq"]),
+                "--dispatch", "sorted", "--ep", ep, "--ckpt-dir",
+                str(root / f"launch_{ep}")])
+            outs[ep] = {"state": host_snapshot(outs[ep]["state"]),
+                        "metrics": outs[ep]["metrics"]}
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    same, worst, where = leaf_diff(outs["a2a"]["state"],
+                                   outs["none"]["state"])
+    print(f"[multi] launcher, 1 NCCL rank: --ep a2a vs --ep none after "
+          f"{MULTI['steps']} steps: state bit-identical={same}, losses "
+          f"{outs['a2a']['metrics']['loss']!r} / "
+          f"{outs['none']['metrics']['loss']!r}; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not same:
+        fail(f"--ep a2a in one process parts from --ep none: {worst:.3e} "
+             f"at {where}")
+    return launches
+
+
+def multi_setup(device):
+    """(cfg, upcycled params on ``device``, the data iterator): granite
+    at full width with ep="a2a", upcycled (copy init, routers from seed
+    7) from the package's dense init with its attention conditioned —
+    the same bits in every process."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+
+    full = get_config(MULTI["arch"])
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, ep="a2a", ep_budget_factor=MULTI["factor"],
+        group_size=MULTI["group"]))
+    dense_cfg = cfg.dense_parent()
+    dense = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                            dense_cfg, device=device)
+    condition_attention(dense, dense_cfg)
+    params = upcycle_params(dense, dense_cfg, cfg,
+                            torch.Generator(device=device).manual_seed(7))
+    del dense
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    it = make_iterator(cfg, global_batch=MULTI["batch"],
+                       seq_len=MULTI["seq"], task=task)
+    return cfg, params, it
+
+
+def multi_step_fns(cfg, **kw):
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.training import make_train_step
+
+    opt = adafactor(inverse_sqrt(peak=MULTI["peak_lr"],
+                                 warmup_steps=MULTI["warmup"]))
+    ac = zoo.ApplyCfg(dispatch="sorted", moe_impl="cuda", attn_impl="cuda")
+    return opt, ac, make_train_step(cfg, opt, ac=ac, **kw)
+
+
+def ep_rank(rank, world, root):
+    """One rank of phase 18 (c), in a process of its own on cuda:0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.core import ep as ep_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import build_all
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params
+    from repro_torch.sharding import ShardCtx, train_layout
+    from repro_torch.training import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            rank=rank, world_size=world)
+    build_all(ops.KERNELS)  # built by the parent: binds only
+    # The mesh names the ranks (its device type only matters to DTensor,
+    # which the port does not use); the tensors live on cuda:0.
+    ctx = ShardCtx.for_mesh(make_mesh((1, world), ("data", "model"),
+                                      device_type="cpu"))
+    tag = f"[multi rank {rank}]"
+    cfg, params, it = multi_setup(device)
+    opt, ac, _ = multi_step_fns(cfg)
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    layout = train_layout(ctx, cfg, ac.dispatch, state)
+    state = layout.shard(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, step = multi_step_fns(cfg, layout=layout)
+    print(f"{tag} {count_params(state['params']) / 1e9:.3f} B params held "
+          f"({cfg.moe.num_experts // world} of {cfg.moe.num_experts} "
+          f"experts), {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB "
+          "allocated", flush=True)
+
+    # The all-to-alls of the dispatch (forward): bytes and host seconds
+    # of the gloo exchange, synchronised around each call.
+    a2a = {"calls": 0, "bytes": 0, "s": 0.0}
+    real = ep_mod._all_to_all
+
+    def timed(x, group, budget, ep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(x, group, budget, ep)
+        out = out + 0 if out.is_floating_point() else out  # wait for it
+        torch.cuda.synchronize()
+        a2a["calls"] += 1
+        a2a["bytes"] += x.numel() * x.element_size()
+        a2a["s"] += time.perf_counter() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    want = step_launches(cfg, TRAIN_KERNELS, True)
+    losses, times, mets = [], [], []
+    for i in range(MULTI["steps"]):
+        batch = next(it)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        if i == 0:
+            ep_mod._all_to_all = timed
+            with witnessed_kernels() as wit:
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+            ep_mod._all_to_all = real
+        else:
+            state, m = step(state, batch)
+        ms = _sync_ms(t0)
+        m = {k: float(v) for k, v in m.items()}
+        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ran = {k: v for k, v in per.items() if v}
+        print(f"{tag} step {i + 1}: loss={m['loss']!r} "
+              f"grad_norm={m['grad_norm']!r} ep_overflow_frac_sum="
+              f"{m['ep_overflow_frac_sum']!r} ms={ms:.1f}"
+              + (" (witnessed, all-to-alls synchronised)" if i == 0
+                 else "") + f" launches={ran}", flush=True)
+        check_step("multi", f"rank {rank}", m, per, want)
+        if i == 0:
+            report_witness(wit, TRAIN_KERNELS)
+            first = layout.gather(state)["params"]
+            if rank == 0:
+                torch.save(host_snapshot(first), f"{root}/ep_params.pt")
+            del first
+        losses.append(m["loss"])
+        times.append(ms)
+        mets.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+
+    # The starved budget: one forward at factor 0.25, capacity 4.0.
+    starved = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_budget_factor=MULTI["starved"],
+        capacity_factor=MULTI["starved_capacity"]))
+    from repro_torch.training.train_loop import batch_to
+
+    with torch.no_grad():
+        local = batch_to(next(it), device)
+        loss, sm = zoo.loss_fn(state["params"], local, starved,
+                               ac=ac.resolve(device), ctx=ctx)
+    over = float(sm["ep_overflow_frac_sum"]) / float(sm["moe_layer_count"])
+    print(f"{tag} starved budget (factor {MULTI['starved']}, capacity "
+          f"{MULTI['starved_capacity']}): mean "
+          f"ep_overflow_frac {over!r} over the MoE layers, loss "
+          f"{float(loss)!r}", flush=True)
+    if not (over > 0 and math.isfinite(float(loss))):
+        fail(f"{tag} the starved budget dropped nothing or gave a "
+             "non-finite loss")
+    with open(f"{root}/ep_rank{rank}.json", "w") as fh:
+        json.dump({"losses": losses, "ms": times, "peak": peak,
+                   "launches": launches, "a2a": a2a,
+                   "overflow": [m["ep_overflow_frac_sum"] for m in mets],
+                   "starved": over}, fh)
+    dist.destroy_process_group()
+
+
+def ep_two_ranks(device, root):
+    """Phase 18 (c): granite at full width over 2 ranks sharing the
+    card, expert-parallel, held against the single-process sorted
+    steps on the same weights and batches. Returns the ranks' launches
+    ({"multi_rank0": ..., "multi_rank1": ...})."""
+    import torch
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.kernels import ops
+    from repro_torch.training import TrainConfig, init_train_state
+
+    t_phase = time.perf_counter()
+    # The single-process reference first; what the comparison needs goes
+    # to the host and the card is freed before the ranks start.
+    cfg, params, it = multi_setup(device)
+    # Each step in MULTI["ranks"] microbatches of the ranks' rows: every
+    # microbatch's forward has a rank's shapes, so the two runs route
+    # alike (on different shapes cuBLAS may round the replicated
+    # projections otherwise, and a routing choice at a near-tie flips).
+    opt, ac, step = multi_step_fns(
+        cfg, tc=TrainConfig(grad_accum=MULTI["ranks"]))
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    ref_losses, ref_ms = [], []
+    before = ops.launch_counts()
+    for i in range(MULTI["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, next(it))
+        ref_ms.append(_sync_ms(t0))
+        ref_losses.append(float(m["loss"]))
+        if i == 0:
+            ref_params = host_snapshot(state["params"])
+    ref_launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    del state, m, step, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[multi] single process, {MULTI['batch']} x {MULTI['seq']} in "
+          f"{MULTI['ranks']} microbatches: "
+          f"losses {ref_losses!r}, step ms "
+          f"{', '.join(f'{x:.1f}' for x in ref_ms)}; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB left "
+          "allocated before the ranks start", flush=True)
+
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        ep_rank, args=(MULTI["ranks"], str(root)), nprocs=MULTI["ranks"],
+        start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MULTI["ranks"]):
+        with open(root / f"ep_rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    for r, info in enumerate(ranks):
+        a = info["a2a"]
+        print(f"[multi rank {r}] steps ms {info['ms']}; peak memory "
+              f"{info['peak'] / 2 ** 30:.2f} GiB ({info['peak']} B); "
+              f"forward all-to-alls of the witnessed step: {a['calls']} "
+              f"calls, {a['bytes'] / 1e9:.3f} GB sent, {a['s']:.3f} s on "
+              "the host (gloo over host memory on one card, not NCCL; "
+              "the backward's exchanges move the rows' bytes again); "
+              f"{card_line()}", flush=True)
+    got = torch.load(root / "ep_params.pt")
+    n_leaves, worst, bad = 0, 0.0, []
+    for (p, x), (q, y) in zip(_flatten(ref_params), _flatten(got)):
+        if p != q:
+            fail(f"the ranks' params differ in structure at {p} / {q}")
+        gap = (y.double() - x.double()).abs()
+        off = gap > MULTI_PARAM_ATOL + MULTI_PARAM_RTOL * x.double().abs()
+        n_leaves += 1
+        worst = max(worst, float(gap.max()))
+        if off.any():
+            bad.append(p)
+            print(f"[multi] params {p}: {int(off.sum())} of {x.numel()} "
+                  f"elements outside atol {MULTI_PARAM_ATOL} + rtol "
+                  f"{MULTI_PARAM_RTOL}, max |diff| {float(gap.max()):.3e}",
+                  flush=True)
+    loss_d = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                     ref_losses))
+    over = max(max(info["overflow"]) for info in ranks)
+    print(f"[multi] 2 ranks vs single process ({MULTI['ranks']} "
+          f"microbatches) over {MULTI['steps']} steps: losses "
+          f"{ranks[0]['losses']!r} vs {ref_losses!r}, max rel diff "
+          f"{loss_d:.3e} (limit {MULTI_LOSS_RTOL}); the first step's "
+          f"params: {n_leaves - len(bad)} of {n_leaves} leaves within atol "
+          f"{MULTI_PARAM_ATOL} + rtol {MULTI_PARAM_RTOL}, max |diff| "
+          f"{worst:.3e}; ep_overflow_frac {over!r}; spawn + ranks "
+          f"{spawn_s:.1f} s, phase (c) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not (loss_d <= MULTI_LOSS_RTOL and not bad and over == 0.0):
+        fail("the 2-rank expert-parallel steps part from the "
+             "single-process steps")
+    out = {f"multi_rank{r}": info["launches"] for r, info in
+           enumerate(ranks)}
+    out["multi_reference"] = ref_launches
+    return out
+
+
+def head_padding(device):
+    """Phase 18 (d): qwen2.5-14b at 2 layers, its 40/8 query heads
+    padded to 48/8 (multiple 16), the same logits as unpadded through
+    the flash kernels; the padded forward witnessed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = dataclasses.replace(get_config(PAD["arch"]),
+                              n_layers=PAD["layers"])
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_attention(params, cfg)
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (PAD["batch"], PAD["seq"]),
+                         generator=gen, device=device)
+    batch = {"tokens": toks, "targets": toks}
+    before = ops.launch_counts()
+    with torch.no_grad():
+        y0, _ = zoo.forward_train(params, batch, cfg,
+                                  ac=zoo.ApplyCfg(attn_impl="cuda"))
+        with witnessed_kernels() as wit:
+            y1, _ = zoo.forward_train(
+                params, batch, cfg, ac=zoo.ApplyCfg(
+                    attn_impl="cuda",
+                    pad_heads_multiple=PAD["multiple"]))
+            torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    report_witness(wit, ("flash_attention",))
+    err = float((y1 - y0).abs().max())
+    print(f"[pad] {cfg.name} at {cfg.n_layers} layers: {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads padded to multiple {PAD['multiple']}, "
+          f"batch {PAD['batch']} x {PAD['seq']}: max |logit diff| padded vs "
+          f"unpadded through the kernels = {err:.3e} (atol {STEP_ATOL}); "
+          f"launches {launches}", flush=True)
+    if not err <= STEP_ATOL:
+        fail(f"head padding changed the logits by {err:.3e}")
+    del params, y0, y1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def multi_gpu(device):
+    """Phase 18. Returns {path: launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    print(f"[multi] phase 18 starts with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+          f"{card_line()}", flush=True)
+    out = {"multi_determinism": combine_determinism(device)}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_multi_"))
+    try:
+        out["multi_launcher"] = launcher_ep_world1(device, root)
+        out.update(ep_two_ranks(device, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["multi_head_padding"] = head_padding(device)
+    print(f"[multi] phase 18 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4987,6 +5568,13 @@ def main() -> int:
     # served through the kernels.
     family_launches, rows = other_families(device)
     shape_rows += rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Multi-GPU: the fixed-order MoE combine, --ep a2a in the launcher,
+    # granite expert-parallel over 2 ranks sharing the card, query-head
+    # padding through the flash kernels.
+    multi_launches = multi_gpu(device)
 
     for rec in records:
         name = rec["name"]
@@ -5004,6 +5592,8 @@ def main() -> int:
         by_path["training_knobs"] = knob_launches.get(name, 0)
         by_path.update({path: n.get(name, 0)
                         for path, n in family_launches.items()})
+        by_path.update({path: n.get(name, 0)
+                        for path, n in multi_launches.items()})
         rec["launches"] = sum(by_path.values())
         if name in bf16_at:
             rec["bf16_at_train_shapes"] = bf16_at[name]

@@ -17,7 +17,14 @@ Fault-tolerance contract:
     leaf into memory of its own (a CPU tensor's numpy view would alias
     it, and the thread would write later steps' values);
   * rotation keeps ``max_to_keep`` newest plus every multiple of
-    ``keep_period`` (archival).
+    ``keep_period`` (archival);
+  * under a mesh (``layout=``, a ``sharding.TreeLayout``) the files hold
+    the global tree, in the single-process format: a save gathers the
+    expert shards over ``model`` (collective: every rank calls it), rank
+    0 writes and the others wait at a barrier; a restore reads the
+    global tree on every rank and keeps the rank's slice. A checkpoint
+    written by one world size restores on another (the counterpart of
+    the reference's ``restore(..., shardings=...)``).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.checkpoint import store
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.obs.tracker import NULL, Tracker
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
@@ -47,6 +54,15 @@ def host_snapshot(tree):
         return x
 
     return tree_map(copy, tree)
+
+
+def _global_like(like, device, layout):
+    """(the global tree's structure on the meta device, the device the
+    restore reads it to: ``device`` or the rank's leaves')."""
+    if device is None:
+        device = next(t.device for t in tree_leaves(like)
+                      if isinstance(t, torch.Tensor))
+    return layout.global_like(like), device
 
 
 class CheckpointManager:
@@ -150,8 +166,16 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------
     def save(self, step: int, tree: Any, *, metadata: Optional[dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, layout=None) -> None:
         self.wait()
+        if layout is not None:
+            # Every rank gathers; rank 0 writes (blocking) while the
+            # others wait at the barrier.
+            tree = layout.gather(tree)
+            if layout.writer:
+                self.save(step, tree, metadata=metadata, blocking=True)
+            layout.barrier()
+            return
         # Snapshot to host memory synchronously: the caller updates its
         # tensors in place right after.
         host_tree = host_snapshot(tree)
@@ -191,14 +215,19 @@ class CheckpointManager:
 
     # -- restore ---------------------------------------------------------
     def restore(self, step: int, like: Any, *, device=None,
-                key: Optional[str] = None):
+                key: Optional[str] = None, layout=None):
         """The checkpoint of ``step`` shaped like ``like`` (``key``: only
-        that top-level subtree, see ``store.load_tree``)."""
+        that top-level subtree, see ``store.load_tree``; ``layout``: this
+        rank's slice of it, ``like`` being the rank's tree)."""
+        if layout is not None:
+            glike, device = _global_like(like, device, layout)
+            return layout.shard(self.restore(step, glike, device=device,
+                                             key=key))
         return self._with_retries("restore", lambda: store.load_tree(
             self.step_path(step), like, device=device, key=key))
 
     def restore_latest(self, like: Any, *, device=None,
-                       key: Optional[str] = None):
+                       key: Optional[str] = None, layout=None):
         """Returns (tree, step, metadata) or (None, None, None).
 
         Falls back to the last-known-good step: if the newest COMMITted
@@ -211,8 +240,14 @@ class CheckpointManager:
         silently resuming an older incompatible state would hide it.
         ``key`` restores only that top-level subtree (``like`` is its
         structure), e.g. ``key="params"`` of a params-only checkpoint
-        or of a Trainer's full train state.
+        or of a Trainer's full train state. ``layout``: as
+        :meth:`restore`.
         """
+        if layout is not None:
+            glike, device = _global_like(like, device, layout)
+            tree, step, meta = self.restore_latest(glike, device=device,
+                                                   key=key)
+            return (None if tree is None else layout.shard(tree)), step, meta
         last_err = None
         for step in reversed(self.all_steps()):
             path = self.step_path(step)

@@ -36,8 +36,9 @@ class MoECfg:
     expert_init: str = "copy"
     init_noise_std: float = 0.0
     router_init_std: float = 0.02
-    # Expert parallelism ("a2a") needs a device mesh; the single-device
-    # port runs the "none" layout, as the reference does without a mesh.
+    # Expert parallelism ("a2a", core/ep.py) runs on a mesh with a
+    # ``model`` axis that divides the experts (a ShardCtx); without one
+    # the sorted dispatch runs the "none" layout, as in the reference.
     ep: str = "none"
     ep_budget_factor: float = 2.0
 

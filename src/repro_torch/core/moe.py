@@ -3,21 +3,25 @@
 
 * ``"gather"`` (the default) — the padded capacity buffer ``xe (G, E,
   cap, d)`` gathered from the routers' slot tables, through
-  ``kernels.ops.expert_ffn`` (the expert-FFN kernels on the card), and
-  an ``index_add`` combine into ``(G, g + 1, d)`` (row g takes the
-  unfilled slots);
+  ``kernels.ops.expert_ffn`` (the expert-FFN kernels on the card);
 * ``"einsum"`` — the same buffer and FFN through one-hot dispatch and
   combine einsums (the GShard-era path);
 * ``"sorted"`` — the flat assignment stream stable-sorted by expert
   into a block-aligned ragged buffer ``(G, M, d)`` (M independent of
-  the capacity factor) through ``kernels.ops.grouped_mlp``.
+  the capacity factor) through ``kernels.ops.grouped_mlp``; with
+  ``moe.ep == "a2a"`` and a ``ShardCtx`` whose mesh can host it
+  (``sharding.expert_parallel_layout``), expert-parallel over the
+  mesh's ``model`` ranks (``core/ep.py``), else on this device alone
+  with the same results.
+
+Every combine adds each token's rows in a fixed order
+(``routing.sum_rows``, ``routing.combine_stream``): no atomic adds, so a
+call repeats bit for bit on the card.
 
 The combined output can be tagged with the identity op
 ``repro_torch::moe_block`` (:func:`moe_block`), the remat boundary that
 ``stack_apply(remat="moe")``'s policy saves and nothing else (the
 reference's ``checkpoint_name(y, "moe_block")``).
-
-Expert parallelism needs a device mesh and is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -55,11 +59,13 @@ def moe_init(gen, cfg: ArchConfig, moe: MoECfg, *, dtype=torch.float32,
     d, f, E = cfg.d_model, cfg.d_ff, moe.num_experts
     kw = dict(dtype=dtype, device=device)
     experts = {
-        "wi": pm.dense(gen, (E, d, f), **kw),
-        "wo": pm.dense(gen, (E, f, d), fan_in=f, **kw),
+        "wi": pm.dense(gen, (E, d, f), "expert embed mlp", **kw),
+        "wo": pm.dense(gen, (E, f, d), "expert mlp embed", fan_in=f,
+                       **kw),
     }
     if cfg.gated_mlp:
-        experts["wg"] = pm.dense(gen, (E, d, f), **kw)
+        experts["wg"] = pm.dense(gen, (E, d, f), "expert embed mlp",
+                                 **kw)
     # The router stays float32, as in the reference.
     return {"router": R.router_init(gen, d, moe, device=device),
             "experts": experts}
@@ -72,27 +78,41 @@ def expert_ffn(experts, xe, cfg: ArchConfig, *, implementation="auto"):
                           implementation=implementation)
 
 
+def _token_major(r: R.Routing) -> bool:
+    return r.token_expert is not None
+
+
 def _gather_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
                      implementation: str):
     """Padded gather dispatch: xe[g, e, c] = xg[g, token_idx[g, e, c]]
-    (unfilled slots zeroed), the expert FFN, then the weighted rows
-    added back per token with ``index_add`` (unfilled slots land in the
-    trash row g). On the card the adds run in no fixed order: f32 sums
-    of a token's slots may differ in the last bits from run to run.
-    Returns y (G, g, d)."""
+    (unfilled slots zero), the expert FFN, then each token's weighted
+    rows summed in a fixed order. Token-choice: the slots a row map
+    (``R.take_rows`` / ``R.sum_rows``, each token's k slots in the
+    order of its choices); Expert Choice: the slot table taken and
+    combined expert by expert (``R.take_stream`` / ``R.combine_stream``).
+    The backward of each is the other. Returns y (G, g, d)."""
     G, g, d = xg.shape
-    idx = r.token_idx  # (G, E, cap)
-    safe = torch.clamp(idx, max=g - 1).reshape(G, -1, 1).expand(-1, -1, d)
-    valid = (idx < g)[..., None].to(xg.dtype)
-    xe = torch.gather(xg, 1, safe).reshape(*idx.shape, d) * valid
+    E, cap = r.token_idx.shape[1:]
+    valid = (r.token_idx < g)[..., None]
+    w = (r.combine[..., None] * valid)
+    if _token_major(r):
+        gi = torch.arange(G, device=xg.device)
+        slot = torch.where(
+            r.token_expert < E,
+            (gi[:, None, None] * E + r.token_expert.long()) * cap
+            + r.token_slot, G * E * cap)
+        m = R.row_map(slot.reshape(G * g, -1), G * E * cap)
+        xe = R.take_rows(xg.reshape(G * g, d), m).reshape(G, E, cap, d)
+        ye = expert_ffn(params["experts"], xe, cfg,
+                        implementation=implementation)
+        yw = (ye * w.to(ye.dtype)).to(xg.dtype).reshape(G * E * cap, d)
+        return R.sum_rows(yw, m).reshape(G, g, d)
+    tok = r.token_idx.reshape(G, E * cap)
+    xe = R.take_stream(xg, tok, E).reshape(G, E, cap, d)
     ye = expert_ffn(params["experts"], xe, cfg,
                     implementation=implementation)
-    w = (r.combine[..., None] * valid).to(ye.dtype)
-    yw = (ye * w).to(xg.dtype).reshape(-1, d)
-    rows = (torch.arange(G, device=xg.device)[:, None] * (g + 1)
-            + idx.reshape(G, -1)).reshape(-1)
-    y = xg.new_zeros((G * (g + 1), d)).index_add(0, rows, yw)
-    return y.reshape(G, g + 1, d)[:, :g]
+    yw = (ye * w.to(ye.dtype)).to(xg.dtype).reshape(G, E * cap, d)
+    return R.combine_stream(yw, tok, g, experts=E)
 
 
 def _einsum_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
@@ -112,41 +132,45 @@ def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
                      implementation: str):
     """Sort the flat assignment stream by expert into a ragged buffer
     aligned to the ragged layout's block (:data:`ROW_BLOCK`; results do
-    not depend on it), run it through the grouped FFN, unsort through
-    a scatter-add combine (one row per surviving assignment, accumulated
-    per token). Returns y (G, g, d)."""
+    not depend on it): each ragged row taken from its token (a row map
+    of the stream's units, ``R.stream_units``), the grouped FFN, each
+    row weighted by its assignment's weight and each unit's rows summed
+    in stream order (``R.sum_rows``). Returns y (G, g, d)."""
     G, g, d = xg.shape
     E = r.probs.shape[-1]
+    experts = None if _token_major(r) else E
     tok, eid, w = R.assignment_stream(r, E, g)
-    N = tok.shape[1]
     valid = (eid < E) & (tok < g)
     key = torch.where(valid, eid, torch.full_like(eid, E)).to(torch.int32)
-    perm, key_s, counts, dest, M = ragged_destinations(key, E, ROW_BLOCK)
-    tok_s = torch.gather(tok, 1, perm)
-    w_s = torch.gather(w, 1, perm)
-    valid_s = key_s < E
-    dest = dest.long()
-    # src: ragged row -> group-local token (g = pad row); wr: combine
-    # weight (0 on pad rows). Row M is the trash row for dropped
-    # assignments.
-    src = torch.full((G, M + 1), g, dtype=torch.int64, device=xg.device)
-    src = src.scatter(1, dest, tok_s.long())[:, :M]
-    wr = torch.zeros((G, M + 1), dtype=w.dtype, device=xg.device)
-    wr = wr.scatter(1, dest, torch.where(valid_s, w_s,
-                                         torch.zeros_like(w_s)))[:, :M]
-    pad_row = src >= g
-    xs = torch.gather(xg, 1, torch.clamp(src, max=g - 1)[..., None]
-                      .expand(G, M, d))
-    xs = xs * (1.0 - pad_row[..., None].to(xg.dtype))
+    perm, _, counts, dest, M = ragged_destinations(key, E, ROW_BLOCK)
+    # Each assignment's ragged row (global over the groups), in stream
+    # order; G * M where dropped.
+    row_of = torch.empty_like(dest, dtype=torch.int64).scatter_(
+        1, perm.long(), dest.long())
+    gi = torch.arange(G, device=xg.device)[:, None]
+    row_of = torch.where(row_of < M, gi * M + row_of, G * M)
+    units, A = R.stream_units(xg, tok, experts)
+    m = R.row_map(row_of.reshape(-1, A), G * M)
+    wr = w.new_zeros(G * M + 1).index_copy(
+        0, row_of.reshape(-1), torch.where(valid, w, torch.zeros_like(w))
+        .reshape(-1))[:G * M]
+    xs = R.take_rows(units, m).reshape(G, M, d)
     ex = params["experts"]
     ys = ops.grouped_mlp(
         xs, ex["wi"], ex.get("wg"), ex["wo"], counts,
         act=cfg.act, block=ROW_BLOCK, implementation=implementation,
     )
-    yw = (ys * wr[..., None]).to(xg.dtype)
-    y = torch.zeros((G, g + 1, d), dtype=xg.dtype, device=xg.device)
-    y = y.scatter_add(1, src[..., None].expand(G, M, d), yw)
-    return y[:, :g]
+    yw = (ys.reshape(G * M, d) * wr[:, None]).to(xg.dtype)
+    return R.units_to_tokens(R.sum_rows(yw, m), tok, g, experts)
+
+
+def ep_active(ctx, moe: MoECfg) -> bool:
+    """Whether the sorted dispatch runs expert-parallel under ``ctx``."""
+    from repro_torch.sharding import expert_parallel_layout
+
+    return (ctx is not None and moe.ep == "a2a"
+            and expert_parallel_layout(ctx.mesh, moe.num_experts)
+            is not None)
 
 
 def _group(x2d, group_size: int):
@@ -169,6 +193,7 @@ def moe_apply(
     implementation: str = "auto",
     token_mask=None,
     tag: bool = False,
+    ctx=None,
 ):
     """x: (B, S, d) or (N, d). Returns (y, metrics dict).
 
@@ -182,7 +207,15 @@ def moe_apply(
     their outputs are zero.
 
     ``tag``: pass y through :func:`moe_block`, the boundary that
-    ``remat="moe"`` saves (off by default: the tag copies y)."""
+    ``remat="moe"`` saves (off by default: the tag copies y).
+
+    ``ctx``: a ``ShardCtx``. With ``dispatch="sorted"``, ``moe.ep ==
+    "a2a"`` and a mesh that can host expert parallelism, x holds this
+    rank's tokens, ``params["experts"]`` this rank's ``E / ep`` experts,
+    and the layer runs ``core/ep.sorted_dispatch_ep``; otherwise (no
+    ctx, no ``model`` axis, size 1, E not divisible) the single-device
+    path. The metrics always hold ``ep_overflow_frac``, 0 outside the
+    expert-parallel path."""
     dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
                   "sorted": _sorted_dispatch}
     if dispatch not in dispatches:
@@ -203,8 +236,23 @@ def moe_apply(
     logits = xg.float() @ params["router"]["w"].float()
     r = R.route(logits, moe, router_kind, token_mask=mg,
                 slot_tables=dispatch != "sorted")
-    y = dispatches[dispatch](params, xg, r, cfg,
-                             implementation=implementation)
+    ep_overflow = logits.new_zeros(())
+    if dispatch == "sorted" and ep_active(ctx, moe):
+        from repro_torch.core.ep import sorted_dispatch_ep
+
+        if pad or g != moe.group_size:
+            raise ValueError(
+                f"moe.ep='a2a' shards routing groups over all "
+                f"{ctx.size(ctx.token_axes)} mesh ranks, but this rank's "
+                f"{n} tokens are not divisible into groups of "
+                f"{moe.group_size} — pick batch*seq and group_size so "
+                f"that G is divisible by the rank count")
+        y, ep_overflow = sorted_dispatch_ep(
+            params, xg, r, cfg, moe, ctx=ctx,
+            implementation=implementation)
+    else:
+        y = dispatches[dispatch](params, xg, r, cfg,
+                                 implementation=implementation)
     y = y.reshape(-1, d)
     if pad:
         y = y[:n]
@@ -216,5 +264,8 @@ def moe_apply(
         "z_loss": r.z_loss * moe.z_loss_weight,
         "dropped_frac": r.dropped_frac,
         "router_prob_mean_max": r.probs.max(-1).values.mean(),
+        # Assignments dropped by the expert-parallel send budget (0
+        # outside that path and whenever the budget holds).
+        "ep_overflow_frac": ep_overflow,
     }
     return y, metrics

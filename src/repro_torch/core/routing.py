@@ -36,10 +36,14 @@ class Routing(NamedTuple):
     # exactly the reference's.
     token_expert: Optional[torch.Tensor] = None
     token_weight: Optional[torch.Tensor] = None
+    # Token-choice routers only: (G, g, k) int32 slot of each assignment
+    # in its expert's capacity buffer, cap where dropped (the gather
+    # dispatch's token-major combine reads it).
+    token_slot: Optional[torch.Tensor] = None
 
 
 def router_init(gen, d_model: int, moe: MoECfg, *, device=None):
-    return {"w": pm.normal(gen, (d_model, moe.num_experts),
+    return {"w": pm.normal(gen, (d_model, moe.num_experts), "embed expert",
                            std=moe.router_init_std, device=device)}
 
 
@@ -64,12 +68,14 @@ def _scatter_add_groups(tbl, idx, val):
 
 def _normalize_per_token(token_idx, combine, g: int):
     """Paper §B.7: renormalize each token's combine weights to sum to 1.
-    Tokens selected by no expert keep weight 0 (residual passthrough)."""
-    G = combine.shape[0]
-    denom = combine.new_zeros((G, g + 1))
-    denom = torch.clamp(_scatter_add_groups(denom, token_idx, combine),
-                        min=1e-9)
-    per_slot = torch.gather(denom, 1, token_idx.reshape(G, -1))
+    Tokens selected by no expert keep weight 0 (residual passthrough).
+    Each token's sum, and its gradient, adds in a fixed order
+    (:func:`combine_stream`)."""
+    G, E, cap = combine.shape
+    tok = token_idx.reshape(G, E * cap)
+    denom = combine_stream(combine.reshape(G, E * cap, 1), tok, g,
+                           experts=E)
+    per_slot = take_stream(torch.clamp(denom, min=1e-9), tok, experts=E)
     return combine / per_slot.reshape(combine.shape)
 
 
@@ -200,6 +206,8 @@ def route_top_k(
         dropped_frac=dropped,
         token_expert=torch.where(keep, top_e, torch.full_like(top_e, E)),
         token_weight=w,
+        token_slot=torch.where(keep, pos.to(torch.int32),
+                               torch.full_like(top_e, cap)),
     )
 
 
@@ -219,6 +227,189 @@ def route(logits, moe: MoECfg, router_kind: str, *,
     if router_kind == "switch":
         return route_top_k(logits, moe, k=1, **kw)
     raise ValueError(f"unknown router {router_kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# moving rows between tokens and an assignment stream in a fixed order
+# ---------------------------------------------------------------------------
+
+
+def _expert_major_sum(rows, tok, g: int, experts: int):
+    """Expert by expert, in order, one ``index_add_`` of the expert's
+    rows into their tokens' rows (row g takes the unfilled slots and is
+    cut off). No token appears twice among one expert's rows, so every
+    launch adds at most one row into each token's: the order of addition
+    is fixed, with no atomic races. rows (G, E * cap, d) -> (G, g, d)."""
+    G, N, d = rows.shape
+    cap = N // experts
+    ids = (torch.arange(G, device=rows.device)[:, None] * (g + 1)
+           + torch.clamp(tok.long(), max=g)).reshape(G, experts, cap)
+    rows = rows.reshape(G, experts, cap, d)
+    y = rows.new_zeros((G * (g + 1), d))
+    for e in range(experts):
+        y.index_add_(0, ids[:, e].reshape(-1), rows[:, e].reshape(-1, d))
+    return y.reshape(G, g + 1, d)[:, :g]
+
+
+def _take_rows(xg, tok):
+    """rows[G, i] = xg[G, tok[G, i]], zero where tok >= g (one row
+    gather)."""
+    G, g, d = xg.shape
+    xp = torch.cat([xg, xg.new_zeros((G, 1, d))], 1).reshape(-1, d)
+    idx = (torch.arange(G, device=xg.device)[:, None] * (g + 1)
+           + torch.clamp(tok.long(), max=g))
+    return xp.index_select(0, idx.reshape(-1)).reshape(G, -1, d)
+
+
+class _ExpertMajorCombine(torch.autograd.Function):
+    """:func:`_expert_major_sum` forward, a gather of each row's token
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, rows, tok, g, experts):
+        ctx.save_for_backward(tok)
+        return _expert_major_sum(rows, tok, g, experts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (tok,) = ctx.saved_tensors
+        return _take_rows(dy, tok), None, None, None
+
+
+class _ExpertMajorTake(torch.autograd.Function):
+    """:func:`_take_rows` forward, :func:`_expert_major_sum` backward
+    (the transpose of the combine: a token's gradient sums its slots'
+    in a fixed order)."""
+
+    @staticmethod
+    def forward(ctx, xg, tok, experts):
+        ctx.save_for_backward(tok)
+        ctx.g, ctx.experts = xg.shape[1], experts
+        return _take_rows(xg, tok)
+
+    @staticmethod
+    def backward(ctx, drows):
+        (tok,) = ctx.saved_tensors
+        return _expert_major_sum(drows, tok, ctx.g, ctx.experts), None, None
+
+
+def combine_stream(rows, tok, g: int, experts: int):
+    """Expert Choice's combine: each token's rows of the expert-major
+    slot stream (``rows (G, E * cap, d)``, each slot's weighted output;
+    ``tok (G, E * cap)`` its group-local token, g or more: none; no
+    token twice among one expert's rows) summed in expert order, so a
+    call repeats bit for bit on the card (no atomic adds, forward or
+    backward), never through a ``(G, g, E, d)`` buffer. Returns (G, g,
+    d)."""
+    return _ExpertMajorCombine.apply(rows, tok, g, experts)
+
+
+def take_stream(xg, tok, experts: int):
+    """The transpose of :func:`combine_stream`: each slot's token row,
+    ``(G, E * cap, d)`` from ``xg (G, g, d)`` (zero where ``tok >=
+    g``), whose backward sums each token's gradients in expert order."""
+    return _ExpertMajorTake.apply(xg, tok, experts)
+
+
+class RowMap(NamedTuple):
+    """Which rows of a buffer of R rows (the experts' slots, the ragged
+    rows, a send buffer) each of T units (tokens; for Expert Choice's
+    stream, its entries) owns, each unit at most A rows and each row at
+    most one unit. ``src (R,)``: each row's unit, T where none;
+    ``table (T, A)``: each unit's rows in a fixed order (slot order), R
+    where none. :func:`take_rows` and :func:`sum_rows` are each other's
+    transposes."""
+
+    src: torch.Tensor
+    table: torch.Tensor
+
+
+def row_map(table: torch.Tensor, n_rows: int) -> RowMap:
+    """The :class:`RowMap` of ``table (T, A)`` (``n_rows`` where none)."""
+    T, A = table.shape
+    table = table.long()
+    unit = torch.arange(T, device=table.device).repeat_interleave(A)
+    # Entries of no row all land on the cut-off row n_rows.
+    src = torch.full((n_rows + 1,), T, dtype=torch.int64,
+                     device=table.device)
+    src = src.index_copy(0, table.reshape(-1), unit)[:n_rows]
+    return RowMap(src, table)
+
+
+def _gather_rows(x, src):
+    """out[i] = x[src[i]], zero where src[i] == len(x)."""
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    return xp.index_select(0, src)
+
+
+def _sum_rows(rows, table):
+    """y[t] = the sum over a, in order, of rows[table[t, a]] (none where
+    table >= R)."""
+    T, A = table.shape
+    R, d = rows.shape
+    got = rows.index_select(0, torch.clamp(table, max=max(R - 1, 0))
+                            .reshape(-1)).reshape(T, A, d)
+    got.masked_fill_((table >= R)[..., None], 0)
+    return got.sum(1)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, table):
+        ctx.save_for_backward(table)
+        return _gather_rows(x, src)
+
+    @staticmethod
+    def backward(ctx, drows):
+        (table,) = ctx.saved_tensors
+        return _sum_rows(drows, table), None, None
+
+
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, src, table):
+        ctx.save_for_backward(src)
+        return _sum_rows(rows, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (src,) = ctx.saved_tensors
+        return _gather_rows(dy, src), None, None
+
+
+def take_rows(x: torch.Tensor, m: RowMap) -> torch.Tensor:
+    """The MoE dispatch: ``(R, d)`` rows, each its unit's row of ``x
+    (T, d)`` (zero where a row has none), one row gather; its backward
+    sums each unit's row gradients in table order (no atomic adds)."""
+    return _TakeRows.apply(x, m.src, m.table)
+
+
+def sum_rows(rows: torch.Tensor, m: RowMap) -> torch.Tensor:
+    """The MoE combine: ``(T, d)``, each unit's rows of ``rows (R, d)``
+    summed in table order, so a call repeats bit for bit on the card;
+    its backward gives each row its unit's gradient (a row gather)."""
+    return _SumRows.apply(rows, m.src, m.table)
+
+
+def stream_units(xg, tok, experts: Optional[int]):
+    """The units an assignment stream's rows are taken from, and the
+    count of stream entries each owns: the tokens, ``(G * g, d)``, for a
+    token-major stream (``experts`` None, A = N / g); for Expert
+    Choice's expert-major stream each entry's own copy of its token's
+    row (:func:`take_stream`), A = 1. :func:`units_to_tokens` is the
+    way back."""
+    G, g, d = xg.shape
+    if experts is None:
+        return xg.reshape(G * g, d), tok.shape[1] // g
+    return take_stream(xg, tok, experts).reshape(-1, d), 1
+
+
+def units_to_tokens(y_units, tok, g: int, experts: Optional[int]):
+    """(G, g, d) from the units' combined rows (:func:`stream_units`)."""
+    G, d = tok.shape[0], y_units.shape[-1]
+    if experts is None:
+        return y_units.reshape(G, g, d)
+    return combine_stream(y_units.reshape(G, -1, d), tok, g, experts)
 
 
 def assignment_stream(r: Routing, num_experts: int, group: int):

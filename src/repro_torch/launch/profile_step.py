@@ -57,7 +57,10 @@ object per run:
   clock, so the profiler's host overhead does not enter them); ``null``
   where the profiler saw no device activity (always on the CPU);
 * ``kernels``: device ms per step of each of the port's CUDA kernels;
-* ``top``: the eight device kernels that took the most time.
+* ``top``: the eight device kernels that took the most time;
+* ``movement_ms``: device ms per step of PyTorch's row-moving kernels
+  (names holding ``index``, ``gather`` or ``scatter``: the MoE's
+  dispatch and combine, embedding lookups, the routers' tables).
 """
 from __future__ import annotations
 
@@ -83,6 +86,8 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "expert_mlp_dx": "expert_dx_",
                 "expert_mlp_dw": "expert_dw_kernel",
                 "rwkv6": "wkv6_kernel"}
+# Name fragments of PyTorch's row-moving kernels (``movement_ms``).
+MOVEMENT = ("index", "gather", "scatter")
 # The train cells of chip_smoke.py: default batch (images for the
 # encoder-only ViT) and MoE dispatch.
 TRAIN_CELLS = {"granite-moe-1b-a400m": dict(batch=16, dispatch="sorted"),
@@ -281,7 +286,8 @@ def profile(step_fn, cfg, device, *, steps: int) -> dict:
         "host_ops": len(host) / steps,
         "host_ops_per_layer": len(host) / steps / cfg.n_layers,
         "device_kernels": None, "device_busy_ms": None, "idle_share": None,
-        "kernels": None, "top": None, "peak_memory_bytes": peak,
+        "kernels": None, "top": None, "movement_ms": None,
+        "peak_memory_bytes": peak,
     }
     if dev:
         busy = _union_ms((e.time_range.start, e.time_range.end)
@@ -296,6 +302,8 @@ def profile(step_fn, cfg, device, *, steps: int) -> dict:
             kernels={k: sum(v for n, v in by_name.items() if sym in n)
                      for k, sym in PORT_KERNELS.items()},
             top=sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
+            movement_ms=sum(v for n, v in by_name.items()
+                            if any(w in n.lower() for w in MOVEMENT)),
         )
     return out
 

@@ -1,5 +1,5 @@
-"""Training launcher of the port (port of ``repro/launch/train.py``,
-single process): the fault-tolerant ``Trainer`` with checkpoints in
+"""Training launcher of the port (port of ``repro/launch/train.py``):
+the fault-tolerant ``Trainer`` with checkpoints in
 ``--ckpt-dir`` (auto-resume from the newest valid one), Adafactor on an
 inverse-sqrt schedule, the arch's synthetic stream (clustered bigrams
 for a decoder-only LM, span corruption for T5, stub frames for whisper,
@@ -11,7 +11,8 @@ the patch task for the encoder-only ViT).
         [--upcycle-from DENSE_DIR] [--impl auto|cuda|eager] \\
         [--dispatch gather|einsum|sorted] [--grad-accum 1] \\
         [--compression none|bf16|int8] [--remat none|full|dots|moe] \\
-        [--ep none] [--peak-lr 0.01] [--warmup 100] [--obs-jsonl PATH] \\
+        [--ep none|a2a] [--ep-budget-factor 2.0] [--peak-lr 0.01] \\
+        [--warmup 100] [--obs-jsonl PATH] \\
         [--spike-threshold X ...] [--train-chaos SEED] [--device cuda|cpu]
 
 ``--upcycle-from`` restores the dense parent's params from the newest
@@ -45,13 +46,29 @@ reference launcher's path: an rwkv6 stack trains through autograd of
 the plain chunked WKV (``mixer_impl="eager"``, printed on the kernels
 line), since the WKV kernel is forward-only; jamba's mamba layers run
 the reference's recurrence as plain PyTorch ops, no kernel
-(``mamba=scan`` on the kernels line). ``--ep a2a`` (expert
-parallelism) needs the multi-GPU port and exits (ROADMAP.md queue 1
-item 8).
+(``mamba=scan`` on the kernels line).
+
+One process, or one per rank under ``torchrun`` (``WORLD_SIZE`` > 1):
+the launcher then initialises the process group from the environment
+(``nccl`` on CUDA, each rank on ``cuda:LOCAL_RANK``; ``gloo`` with
+``--device cpu``), builds the mesh — ``(data=1, model=world)`` under
+``--ep a2a``, ``(data=world,)`` otherwise — and trains with that
+``ShardCtx``: each rank takes its rows of every batch, the MoE layers
+run expert-parallel (``--dispatch sorted --ep a2a``: each rank holds
+``E / world`` experts, tokens cross ranks by all-to-all, budget
+``--ep-budget-factor``), gradients are reduced over the ranks, and
+checkpoints hold the global state (written by rank 0). In one process
+``--ep a2a`` falls back to the single-device sorted path, as the
+reference's launcher does without a mesh:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --reduced --steps 3 --batch 4 \\
+        --seq 16 --dispatch sorted --ep a2a --device cpu --ckpt-dir DIR
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 
 TASK_VOCAB = 2048
@@ -131,9 +148,9 @@ def parse_args(argv=None):
                          "matmuls' outputs, 'moe' the MoE layers' outputs "
                          "only")
     ap.add_argument("--ep", default="none", choices=["none", "a2a"],
-                    help="expert parallelism for --dispatch sorted; 'a2a' "
-                         "needs the multi-GPU port (ROADMAP.md queue 1 "
-                         "item 8)")
+                    help="expert parallelism for --dispatch sorted over "
+                         "the ranks of a torchrun job (one process: the "
+                         "single-device path)")
     ap.add_argument("--ep-budget-factor", type=float, default=2.0,
                     help="EP a2a send-buffer row budget as a multiple of "
                          "the balanced per-peer share")
@@ -174,16 +191,36 @@ def parse_args(argv=None):
                          "rollback + resume machinery end to end)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
-    if args.ep != "none":
-        raise SystemExit(
-            f"--ep {args.ep}: expert parallelism needs a device mesh, which "
-            "the port does not have yet (ROADMAP.md queue 1 item 8)")
-    return args
+    return ap.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def init_distributed(device):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): initialise the process
+    group from the environment and return (this rank's device, world
+    size); else (``device``, 1)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return device, 1
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+    return device, world
+
+
+def main(argv=None) -> dict:
+    """Run the launcher; returns the Trainer's result (``state``,
+    ``metrics``, ``stats``)."""
     args = parse_args(argv)
+
+    import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_reduced
@@ -198,8 +235,22 @@ def main(argv=None) -> None:
         Trainer,
     )
 
-    device = resolve_device(args.device)
+    device, world = init_distributed(resolve_device(args.device))
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.moe is not None and args.ep != "none":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, ep=args.ep, ep_budget_factor=args.ep_budget_factor))
+    ctx = None
+    if world > 1:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.sharding import ShardCtx
+
+        shape, axes = (((1, world), ("data", "model")) if args.ep == "a2a"
+                       else ((world,), ("data",)))
+        ctx = ShardCtx.for_mesh(
+            make_mesh(shape, axes, device_type=device.type), cfg=cfg)
+    say = print if ctx is None or torch.distributed.get_rank() == 0 \
+        else (lambda *a, **k: None)
     opt = adafactor(inverse_sqrt(peak=args.peak_lr,
                                  warmup_steps=args.warmup))
     tc = TrainConfig(grad_accum=args.grad_accum,
@@ -222,7 +273,7 @@ def main(argv=None) -> None:
                                                 device=device)
         except (ValueError, FileNotFoundError) as e:
             raise SystemExit(str(e))
-        print(f"[train] upcycled from {args.upcycle_from} @ step {step}")
+        say(f"[train] upcycled from {args.upcycle_from} @ step {step}")
 
     # SIGTERM saves and exits cleanly while the run lasts; the handler
     # the process had comes back after it.
@@ -230,10 +281,12 @@ def main(argv=None) -> None:
     sig = PreemptionSignal().install()
     ac = apply_cfg(args, device)
     mamba = any(d.mixer == "mamba" for d in layer_descs(cfg))
-    print(f"[train] kernels: moe={ac.moe_impl} attn={ac.attn_impl} "
-          f"dispatch={ac.dispatch} mixer={ac.mixer_impl} remat={ac.remat} "
-          f"device={device}" + (" mamba=scan (plain ops, no kernel)"
-                                if mamba else ""), flush=True)
+    say(f"[train] kernels: moe={ac.moe_impl} attn={ac.attn_impl} "
+        f"dispatch={ac.dispatch} mixer={ac.mixer_impl} remat={ac.remat} "
+        f"device={device}" + (" mamba=scan (plain ops, no kernel)"
+                              if mamba else "")
+        + (f" ranks={world} mesh={ctx.shape}" if ctx is not None else ""),
+        flush=True)
     tracker = Tracker((JsonlSink(args.obs_jsonl),)) \
         if args.obs_jsonl else None
     chaos = None
@@ -243,7 +296,8 @@ def main(argv=None) -> None:
             io_fault_prob=0.2, preempt_prob=0.0,
         )
     tr = Trainer(cfg, opt, it, args.ckpt_dir, ac=ac, tc=tc, preemption=sig,
-                 tracker=tracker, chaos=chaos, device=device)
+                 tracker=tracker, chaos=chaos, device=device, ctx=ctx,
+                 log_fn=say)
     try:
         out = tr.run(args.steps, init_params=init_params)
     finally:
@@ -251,11 +305,12 @@ def main(argv=None) -> None:
         if tracker is not None:
             tracker.close()
     if tr.stats.get("rollbacks"):
-        print(f"[train] survived {len(tr.stats['rollbacks'])} "
-              "divergence rollback(s)")
+        say(f"[train] survived {len(tr.stats['rollbacks'])} "
+            "divergence rollback(s)")
     loss = out["metrics"].get("loss", float("nan"))
-    print(f"[train] finished at step {int(out['state']['step'])}, "
-          f"loss {loss:.4f}")
+    say(f"[train] finished at step {int(out['state']['step'])}, "
+        f"loss {loss:.4f}")
+    return out
 
 
 if __name__ == "__main__":

@@ -56,16 +56,45 @@ def attention_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
     p = {
-        "wq": pm.dense(gen, (d, h, dh), **kw),
-        "wk": pm.dense(gen, (d, kh, dh), **kw),
-        "wv": pm.dense(gen, (d, kh, dh), **kw),
-        "wo": pm.dense(gen, (h, dh, d), fan_in=h * dh, **kw),
+        "wq": pm.dense(gen, (d, h, dh), "embed heads head_dim", **kw),
+        "wk": pm.dense(gen, (d, kh, dh), "embed kv_heads head_dim", **kw),
+        "wv": pm.dense(gen, (d, kh, dh), "embed kv_heads head_dim", **kw),
+        "wo": pm.dense(gen, (h, dh, d), "heads head_dim embed",
+                       fan_in=h * dh, **kw),
     }
     if cfg.qkv_bias:
-        p["bq"] = pm.zeros((h, dh), **kw)
-        p["bk"] = pm.zeros((kh, dh), **kw)
-        p["bv"] = pm.zeros((kh, dh), **kw)
+        p["bq"] = pm.zeros((h, dh), "heads head_dim", **kw)
+        p["bk"] = pm.zeros((kh, dh), "kv_heads head_dim", **kw)
+        p["bv"] = pm.zeros((kh, dh), "kv_heads head_dim", **kw)
     return p
+
+
+def pad_heads(p, multiple: int):
+    """Zero query heads inserted PER KV GROUP up to a multiple of
+    ``multiple`` (the reference's ``pad_heads_multiple``): ``wq``'s head
+    dim and ``bq`` gain zero heads after each group's own, ``wo`` zero
+    rows, so each original head keeps its kv group under the (Kh, G)
+    grouping of the attention kernels. The padded heads' attention
+    meets zero ``wo`` rows: the output is exactly preserved. Returns
+    ``p`` itself when the head count already divides."""
+    H, Kh = p["wq"].shape[1], p["wk"].shape[1]
+    if not multiple or H % multiple == 0:
+        return p
+    g0 = g1 = H // Kh
+    while (Kh * g1) % multiple:
+        g1 += 1
+
+    def grouped(w, axis):
+        w = w.movedim(axis, 0)
+        rest = w.shape[1:]
+        w = w.reshape(Kh, g0, *rest)
+        w = torch.cat([w, w.new_zeros((Kh, g1 - g0, *rest))], dim=1)
+        return w.reshape(Kh * g1, *rest).movedim(0, axis)
+
+    out = dict(p, wq=grouped(p["wq"], 1), wo=grouped(p["wo"], 0))
+    if "bq" in p:
+        out["bq"] = grouped(p["bq"], 0)
+    return out
 
 
 def _project(x, w):
@@ -88,8 +117,13 @@ def attention_apply(
     causal: bool = True,
     kv_x=None,
     implementation: str = "auto",
+    pad_heads_multiple: int = 0,
 ):
     """Self- or cross-attention. Returns (y, cache).
+
+    ``pad_heads_multiple``: zero query heads padded up to a multiple of
+    this (:func:`pad_heads`; e.g. qwen2.5's 40/8 heads become 48/8 at
+    16), through every path below; the output is exactly preserved.
 
     ``kv_x`` set — cross-attention onto the encoder states kv_x (B, Se,
     d): q is projected from x, k and v from kv_x; no rope, no cache,
@@ -142,6 +176,7 @@ def attention_apply(
     """
     from repro_torch.kernels import ops
 
+    p = pad_heads(p, pad_heads_multiple)
     if kv_x is not None:
         if cache is not None or block_tables is not None:
             raise ValueError("cross-attention keeps no cache")

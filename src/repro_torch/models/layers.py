@@ -31,9 +31,9 @@ def activation(name: str):
 def norm_init(cfg: ArchConfig, *, device=None):
     d = cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": pm.ones((d,), device=device)}
-    return {"scale": pm.ones((d,), device=device),
-            "bias": pm.zeros((d,), device=device)}
+        return {"scale": pm.ones((d,), "_", device=device)}
+    return {"scale": pm.ones((d,), "_", device=device),
+            "bias": pm.zeros((d,), "_", device=device)}
 
 
 def norm_apply(p, x, cfg: ArchConfig, *, eps: float = 1e-6):
@@ -54,10 +54,10 @@ def norm_apply(p, x, cfg: ArchConfig, *, eps: float = 1e-6):
 def mlp_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     d, f = cfg.d_model, cfg.d_ff
     kw = dict(dtype=dtype, device=device)
-    p = {"wi": pm.dense(gen, (d, f), **kw)}
+    p = {"wi": pm.dense(gen, (d, f), "embed mlp", **kw)}
     if cfg.gated_mlp:
-        p["wg"] = pm.dense(gen, (d, f), **kw)
-    p["wo"] = pm.dense(gen, (f, d), **kw)
+        p["wg"] = pm.dense(gen, (d, f), "embed mlp", **kw)
+    p["wo"] = pm.dense(gen, (f, d), "mlp embed", **kw)
     return p
 
 
@@ -74,11 +74,11 @@ def mlp_apply(p, x, cfg: ArchConfig):
 
 def embed_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     p = {"tokens": pm.normal(gen, (cfg.vocab_size, cfg.d_model),
-                             dtype=dtype, device=device)}
+                             "vocab embed", dtype=dtype, device=device)}
     if cfg.pos_emb == "learned":
         p["pos"] = pm.normal(
             gen, (max(cfg.n_frontend_positions, 1) + 8, cfg.d_model),
-            dtype=dtype, device=device,
+            "pos embed", dtype=dtype, device=device,
         )
     return p
 
@@ -95,8 +95,8 @@ def embed_apply(p, tokens, cfg: ArchConfig, *, positions=None):
 def head_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     if cfg.tie_embeddings:
         return {}
-    return {"w": pm.dense(gen, (cfg.d_model, cfg.vocab_size), dtype=dtype,
-                          device=device)}
+    return {"w": pm.dense(gen, (cfg.d_model, cfg.vocab_size), "embed vocab",
+                          dtype=dtype, device=device)}
 
 
 def head_apply(p, x, embed_params, cfg: ArchConfig):
@@ -132,8 +132,8 @@ def frontend_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     """Projection from the stub patch embeddings into the backbone."""
     if cfg.frontend is None:
         return {}
-    return {"proj": pm.dense(gen, (cfg.d_model, cfg.d_model), dtype=dtype,
-                             device=device)}
+    return {"proj": pm.dense(gen, (cfg.d_model, cfg.d_model), "embed embed",
+                             dtype=dtype, device=device)}
 
 
 def frontend_apply(p, embeds, cfg: ArchConfig):

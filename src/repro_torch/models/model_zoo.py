@@ -23,8 +23,10 @@ stack (``models/stack.py``), the chunked cross-entropy (``ce_chunk``)
 and the compute dtype (``compute_dtype="bfloat16"``: every entry point
 computes with a bfloat16 copy of the floating parameters, gradients
 reaching the float32 masters through the cast, as the reference's
-``_cast_params``). Tensor-parallel head padding (``pad_heads_multiple``)
-comes with the multi-GPU port (ROADMAP.md queue 1 item 8).
+``_cast_params``), and the query-head padding ``pad_heads_multiple``
+(``attention.pad_heads``; output exactly preserved). The training entry
+points take a ``ShardCtx`` (``ctx``), which reaches the MoE layers
+(expert parallelism, ``core/ep.py``).
 """
 from __future__ import annotations
 
@@ -69,7 +71,9 @@ class ApplyCfg:
     compute copy and of the activations (``cdtype``); logits and losses
     stay float32. ``ce_chunk``: 0 computes the whole (B, S, V) logits;
     n > 0 the cross-entropy over sequence chunks of n (``_chunked_ce``),
-    whose logits the backward recomputes."""
+    whose logits the backward recomputes. ``pad_heads_multiple``: zero
+    query heads padded up to a multiple of this in every attention
+    layer (0: none)."""
 
     dispatch: str = "gather"  # moe dispatch: gather | einsum | sorted
     moe_impl: str = "auto"
@@ -78,6 +82,7 @@ class ApplyCfg:
     remat: str = "none"
     compute_dtype: str = "float32"
     ce_chunk: int = 0
+    pad_heads_multiple: int = 0
 
     @property
     def cdtype(self) -> torch.dtype:
@@ -122,11 +127,11 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
         return {
             "frontend": frontend_init(gen, cfg, **kw),
             "pos": pm.normal(gen, (cfg.n_frontend_positions, cfg.d_model),
-                             **kw),
+                             "pos embed", **kw),
             "stack": stk.stack_init(gen, cfg, stk.layer_descs(cfg), **kw),
             "final_norm": norm_init(cfg, device=device),
             "head": {"w": pm.dense(gen, (cfg.d_model, cfg.vocab_size),
-                                   **kw)},
+                                   "embed vocab", **kw)},
         }
     p = {"embed": embed_init(gen, cfg, **kw)}
     if cfg.frontend is not None:
@@ -139,6 +144,14 @@ def init_params(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     p["final_norm"] = norm_init(cfg, device=device)
     p["head"] = head_init(gen, cfg, **kw)
     return p
+
+
+def param_axes(cfg: ArchConfig):
+    """The logical-axes tree of ``init_params(cfg)`` (the reference's
+    ``pm.split(...)[1]``): the parameters built on the meta device, each
+    leaf's recorded axes read off."""
+    params = init_params(None, cfg, device="meta")
+    return pm.tree_map(pm.axes_of, params)
 
 
 def _cast_params(params, dtype):
@@ -167,7 +180,7 @@ def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg):
     return x.to(ac.cdtype)
 
 
-def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
+def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg, ctx=None):
     """The encoder stack of an encoder-decoder model: the token
     embedding with sinusoidal positions, or the ``frame`` frontend's
     projection plus sinusoidal positions; bidirectional, its MoE layers
@@ -189,12 +202,14 @@ def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg):
         router_kind=stk.stack_router_kind(cfg, stack="encoder"),
         dispatch=ac.dispatch, moe_impl=ac.moe_impl, attn_impl=ac.attn_impl,
         mixer_impl=ac.mixer_impl, remat=ac.remat,
+        pad_heads_multiple=ac.pad_heads_multiple, ctx=ctx,
     )
     return norm_apply(params["enc_final_norm"], x, cfg), mets
 
 
 def forward_train(params, batch, cfg: ArchConfig, *,
-                  ac: ApplyCfg = ApplyCfg(), return_hidden: bool = False):
+                  ac: ApplyCfg = ApplyCfg(), return_hidden: bool = False,
+                  ctx=None):
     """The training forward, through the flash-attention and expert-FFN
     kernels (and their backward kernels under autograd) on a CUDA
     device, in ``ac.compute_dtype`` under ``ac.remat``. Decoder-only:
@@ -210,7 +225,8 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     pooling and the class head, logits (B, V). Returns (logits float32,
     metrics); with ``return_hidden`` (not encoder-only) the final-norm
     hidden states (B, S, d) in the compute dtype instead of the
-    logits."""
+    logits. ``ctx``: a ``ShardCtx`` for the MoE layers (the batch holds
+    this rank's rows; expert leaves hold this rank's experts)."""
     params = _cast_params(params, ac.cdtype)
     if cfg.structure == "encoder_only":
         pe = batch["patch_embeds"]
@@ -222,6 +238,7 @@ def forward_train(params, batch, cfg: ArchConfig, *,
             router_kind=stk.stack_router_kind(cfg, stack="encoder"),
             dispatch=ac.dispatch, moe_impl=ac.moe_impl,
             attn_impl=ac.attn_impl, remat=ac.remat,
+            pad_heads_multiple=ac.pad_heads_multiple, ctx=ctx,
         )
         x = norm_apply(params["final_norm"], x, cfg)
         pooled = x.mean(dim=1)  # global average pooling (paper §2.2)
@@ -230,8 +247,9 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     ac = ac.resolve(x.device)
     enc, enc_mets = None, None
     if cfg.structure == "encoder_decoder":
-        enc, enc_mets = _encode(params, batch, cfg, ac)
-    x, mets, _ = _stack(params, x, cfg, ac, enc=enc, remat=ac.remat)
+        enc, enc_mets = _encode(params, batch, cfg, ac, ctx)
+    x, mets, _ = _stack(params, x, cfg, ac, enc=enc, remat=ac.remat,
+                        ctx=ctx)
     if enc_mets is not None:
         mets = {k: v + enc_mets[k] for k, v in mets.items()}
     x = norm_apply(params["final_norm"], x, cfg)
@@ -241,7 +259,8 @@ def forward_train(params, batch, cfg: ArchConfig, *,
                       cfg).float(), mets
 
 
-def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
+            ctx=None):
     """Returns (loss, metrics): mean cross-entropy over the valid
     targets (``targets >= 0``), or over the images' ``labels`` for an
     encoder-only model, plus the weighted MoE aux and z losses. With
@@ -250,7 +269,7 @@ def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
     never held."""
     if cfg.structure != "encoder_only" and ac.ce_chunk:
         hidden, mets = forward_train(params, batch, cfg, ac=ac,
-                                     return_hidden=True)
+                                     return_hidden=True, ctx=ctx)
         w = (params["embed"]["tokens"].T if cfg.tie_embeddings
              else params["head"]["w"]).to(ac.cdtype)
         ce = _chunked_ce(hidden, w, batch["targets"].long(), ac.ce_chunk)
@@ -258,7 +277,7 @@ def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
         out = dict(mets)
         out.update(loss=loss, ce=ce)
         return loss, out
-    logits, mets = forward_train(params, batch, cfg, ac=ac)
+    logits, mets = forward_train(params, batch, cfg, ac=ac, ctx=ctx)
     logp = torch.log_softmax(logits, dim=-1)
     if cfg.structure == "encoder_only":
         labels = batch["labels"].long()
@@ -340,7 +359,8 @@ def _stack(params, x, cfg, ac: ApplyCfg, **kw):
         params["stack"], x, cfg, stk.layer_descs(cfg),
         router_kind=stk.stack_router_kind(cfg, stack="decoder"),
         dispatch=ac.dispatch, moe_impl=ac.moe_impl, attn_impl=ac.attn_impl,
-        mixer_impl=ac.mixer_impl, **kw,
+        mixer_impl=ac.mixer_impl, pad_heads_multiple=ac.pad_heads_multiple,
+        **kw,
     )
 
 

@@ -3,8 +3,11 @@
 
 Parameter trees are plain nested dicts (and lists, for layer-stack
 segments) of tensors with the JAX key paths. There is no ``Param``
-wrapper: the logical-axes tree feeds the JAX sharding engine only, and
-the single-device port has none.
+wrapper: each initializer takes the leaf's logical axes (the
+reference's space-joined names, one a dim) and records them on the
+tensor it returns (:func:`tag`), so ``model_zoo.param_axes`` reads the
+axes tree off a parameter tree built on the meta device. The axes feed
+the sharding rules (``repro_torch/sharding``).
 """
 from __future__ import annotations
 
@@ -13,7 +16,20 @@ import math
 import torch
 
 
-def dense(gen: torch.Generator, shape, *, dtype=torch.float32,
+def tag(t: torch.Tensor, axes: str) -> torch.Tensor:
+    """Record ``axes`` (space-joined logical names, one a dim) on ``t``
+    and return it."""
+    if len(axes.split()) != t.dim():
+        raise ValueError(f"axes {axes!r} rank != tensor rank {tuple(t.shape)}")
+    t.logical_axes = axes
+    return t
+
+
+def axes_of(t: torch.Tensor) -> str:
+    return t.logical_axes
+
+
+def dense(gen: torch.Generator, shape, axes: str, *, dtype=torch.float32,
           device=None, fan_in: int | None = None) -> torch.Tensor:
     """Truncated-normal fan-in init (lecun_normal-style): a standard
     normal truncated to [-2, 2], scaled by ``1 / sqrt(fan_in)``."""
@@ -22,22 +38,29 @@ def dense(gen: torch.Generator, shape, *, dtype=torch.float32,
     std = 1.0 / math.sqrt(max(fan_in, 1))
     v = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (v * std).to(dtype)
+    return tag((v * std).to(dtype), axes)
 
 
-def normal(gen: torch.Generator, shape, *, std=0.02, dtype=torch.float32,
-           device=None) -> torch.Tensor:
+def normal(gen: torch.Generator, shape, axes: str, *, std=0.02,
+           dtype=torch.float32, device=None) -> torch.Tensor:
     v = torch.empty(shape, dtype=torch.float32, device=device)
     v.normal_(0.0, 1.0, generator=gen)
-    return (v * std).to(dtype)
+    return tag((v * std).to(dtype), axes)
 
 
-def ones(shape, *, dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype, device=device)
+def full(shape, value: float, axes: str, *, dtype=torch.float32,
+         device=None) -> torch.Tensor:
+    return tag(torch.full(shape, value, dtype=dtype, device=device), axes)
 
 
-def zeros(shape, *, dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+def ones(shape, axes: str, *, dtype=torch.float32,
+         device=None) -> torch.Tensor:
+    return full(shape, 1.0, axes, dtype=dtype, device=device)
+
+
+def zeros(shape, axes: str, *, dtype=torch.float32,
+          device=None) -> torch.Tensor:
+    return full(shape, 0.0, axes, dtype=dtype, device=device)
 
 
 def tree_map(fn, tree):

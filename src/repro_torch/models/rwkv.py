@@ -41,17 +41,20 @@ def time_mix_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     w0 = -5.0 + 8.0 * (torch.arange(d, dtype=torch.float32, device=device)
                        / max(d - 1, 1)) ** 0.7
     return {
-        "mu": 0.5 * pm.ones((5, d), **kw),  # lerp for w, k, v, r, g
-        "w0": w0.to(dtype),
-        "w_lora_a": pm.normal(gen, (d, LORA_DIM), std=0.02, **kw),
-        "w_lora_b": pm.zeros((LORA_DIM, d), **kw),
-        "wr": pm.dense(gen, (d, H, K), **kw),
-        "wk": pm.dense(gen, (d, H, K), **kw),
-        "wv": pm.dense(gen, (d, H, K), **kw),
-        "wg": pm.dense(gen, (d, H, K), **kw),
-        "u": pm.normal(gen, (H, K), std=0.02, **kw),
-        "wo": pm.dense(gen, (H, K, d), fan_in=H * K, **kw),
-        "ln_x": {"scale": pm.ones((d,), **kw), "bias": pm.zeros((d,), **kw)},
+        "mu": pm.full((5, d), 0.5, "_ embed", **kw),  # lerp for w, k, v, r, g
+        "w0": pm.tag(w0.to(dtype), "embed"),
+        "w_lora_a": pm.normal(gen, (d, LORA_DIM), "embed _", std=0.02,
+                              **kw),
+        "w_lora_b": pm.zeros((LORA_DIM, d), "_ embed", **kw),
+        "wr": pm.dense(gen, (d, H, K), "embed heads head_dim", **kw),
+        "wk": pm.dense(gen, (d, H, K), "embed heads head_dim", **kw),
+        "wv": pm.dense(gen, (d, H, K), "embed heads head_dim", **kw),
+        "wg": pm.dense(gen, (d, H, K), "embed heads head_dim", **kw),
+        "u": pm.normal(gen, (H, K), "heads head_dim", std=0.02, **kw),
+        "wo": pm.dense(gen, (H, K, d), "heads head_dim embed",
+                       fan_in=H * K, **kw),
+        "ln_x": {"scale": pm.ones((d,), "embed", **kw),
+                 "bias": pm.zeros((d,), "embed", **kw)},
     }
 
 
@@ -137,9 +140,9 @@ def channel_mix_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device)
     return {
-        "mu_k": 0.5 * pm.ones((d,), **kw),
-        "mu_r": 0.5 * pm.ones((d,), **kw),
-        "wr": pm.dense(gen, (d, d), **kw),
+        "mu_k": pm.full((d,), 0.5, "embed", **kw),
+        "mu_r": pm.full((d,), 0.5, "embed", **kw),
+        "wr": pm.dense(gen, (d, d), "embed embed", **kw),
     }
 
 

@@ -42,10 +42,12 @@ def mamba_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     s, d_in, dt_rank = _dims(cfg)
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device)
-    in_proj = pm.dense(gen, (d, 2 * d_in), **kw)
-    conv_w = pm.normal(gen, (s.d_conv, d_in), std=0.02, **kw)
-    x_proj = pm.dense(gen, (d_in, dt_rank + 2 * s.d_state), **kw)
-    dt_w = pm.dense(gen, (dt_rank, d_in), **kw)
+    in_proj = pm.dense(gen, (d, 2 * d_in), "embed mlp", **kw)
+    conv_w = pm.normal(gen, (s.d_conv, d_in), "conv mlp", std=0.02,
+                       **kw)
+    x_proj = pm.dense(gen, (d_in, dt_rank + 2 * s.d_state), "mlp _",
+                      **kw)
+    dt_w = pm.dense(gen, (dt_rank, d_in), "_ mlp", **kw)
     # softplus(dt_b) spread log-uniform in [1e-3, 1e-1] (mamba init).
     u = torch.rand((d_in,), generator=gen, dtype=torch.float32,
                    device=device)
@@ -56,13 +58,13 @@ def mamba_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": pm.zeros((d_in,), **kw),
+        "conv_b": pm.zeros((d_in,), "mlp", **kw),
         "x_proj": x_proj,
         "dt_w": dt_w,
-        "dt_b": dt_bias.to(dtype),
-        "A_log": torch.log(A).to(dtype),
-        "D": pm.ones((d_in,), **kw),
-        "out_proj": pm.dense(gen, (d_in, d), **kw),
+        "dt_b": pm.tag(dt_bias.to(dtype), "mlp"),
+        "A_log": pm.tag(torch.log(A).to(dtype), "mlp state"),
+        "D": pm.ones((d_in,), "mlp", **kw),
+        "out_proj": pm.dense(gen, (d_in, d), "mlp embed", **kw),
     }
 
 

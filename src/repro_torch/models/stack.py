@@ -46,7 +46,13 @@ from repro_torch.models.attention import (
     init_paged_cache,
 )
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
-from repro_torch.models.param import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.param import (
+    axes_of,
+    tag,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +164,8 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
                 mode: str = "train", router_kind: str = "top_k",
                 dispatch: str = "gather", moe_impl: str = "auto",
                 attn_impl: str = "auto", mixer_impl: str = "auto",
-                tag_moe: bool = False):
+                tag_moe: bool = False, pad_heads_multiple: int = 0,
+                ctx=None):
     """One pre-norm layer: the training forward over (B, S, d) when
     ``cache`` is None (``causal`` False for encoders); with a cache, the
     static engine's prefill or decode step (``block_tables`` None) or
@@ -168,7 +175,10 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     ``desc.cross`` layer then attends onto the encoder states ``enc``
     (B, Se, d), uncached. An rwkv6 layer gates its FFN output with the
     channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
-    the ``remat="moe"`` boundary. Returns (x, metrics, cache), the cache
+    the ``remat="moe"`` boundary. ``pad_heads_multiple`` pads the
+    attention's query heads (``attention.pad_heads``); ``ctx`` (a
+    ``ShardCtx``) reaches the MoE layer, which runs expert-parallel on
+    a mesh that can host it. Returns (x, metrics, cache), the cache
     updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
@@ -176,7 +186,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         y, _ = attention_apply(
             p["mixer"], h, cfg, cache=mix_cache, cache_index=cache_index,
             block_tables=block_tables, mixed=mixed, causal=causal,
-            implementation=attn_impl,
+            implementation=attn_impl, pad_heads_multiple=pad_heads_multiple,
         )
     elif desc.mixer == "mamba":
         y, _ = ssm.mamba_apply(p["mixer"], h, cfg, cache=mix_cache,
@@ -188,7 +198,8 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     if desc.cross:
         hc = norm_apply(p["cross_norm"], x, cfg)
         yc, _ = attention_apply(p["cross"], hc, cfg, kv_x=enc,
-                                implementation=attn_impl)
+                                implementation=attn_impl,
+                                pad_heads_multiple=pad_heads_multiple)
         x = x + yc
     h = norm_apply(p["ffn_norm"], x, cfg)
     gate = None
@@ -200,11 +211,13 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         y, m = moe_apply(
             p["ffn"], h, cfg, cfg.moe, router_kind=router_kind,
             dispatch=dispatch, implementation=moe_impl,
-            token_mask=token_mask, tag=tag_moe,
+            token_mask=token_mask, tag=tag_moe, ctx=ctx,
         )
         metrics = {"aux_loss": m["aux_loss"], "z_loss": m["z_loss"],
                    "dropped_frac_sum": m["dropped_frac"],
                    "moe_layer_count": torch.ones_like(m["aux_loss"])}
+        if ctx is not None:
+            metrics["ep_overflow_frac_sum"] = m["ep_overflow_frac"]
     else:
         y = mlp_apply(p["ffn"], h, cfg)
     if gate is not None:
@@ -224,7 +237,7 @@ def stack_init(gen, cfg: ArchConfig, descs, *, dtype=torch.float32,
     """Layer params stacked over each segment's repeats. Each layer is
     drawn in order and copied into its slot of the stacked leaves, so
     the stack never holds a second copy of itself (rwkv6-7b is 30 GB in
-    float32)."""
+    float32). A stacked leaf's logical axes lead with ``layer``."""
     out = []
     for reps, pdescs in find_segments(descs):
         seg = {}
@@ -233,7 +246,8 @@ def stack_init(gen, cfg: ArchConfig, descs, *, dtype=torch.float32,
                 layer = layer_init(gen, cfg, d, dtype=dtype, device=device)
                 if r == 0:
                     seg[f"pos{i}"] = tree_map(
-                        lambda t: t.new_empty((reps, *t.shape)), layer)
+                        lambda t: tag(t.new_empty((reps, *t.shape)),
+                                      "layer " + axes_of(t)), layer)
                 for dst, src in zip(tree_leaves(seg[f"pos{i}"]),
                                     tree_leaves(layer)):
                     dst[r].copy_(src)
@@ -321,7 +335,8 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
                 mode: str = "train", router_kind: str = "top_k",
                 dispatch: str = "gather", moe_impl: str = "auto",
                 attn_impl: str = "auto", mixer_impl: str = "auto",
-                remat: str = "none"):
+                remat: str = "none", pad_heads_multiple: int = 0,
+                ctx=None):
     """Apply every layer in order: the training forward when ``cache``
     is None (bidirectional when ``causal`` is False), else the static
     engine's prefill or decode step (``block_tables`` None; ``mode``
@@ -335,6 +350,9 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
     policy of :func:`_remat_context`. ``find_segments`` makes the ViT's
     6 dense + 6 MoE layers one 12-layer body, as in the reference. The
     layers' metrics come out of the body as they would without it.
+    ``pad_heads_multiple`` and ``ctx`` go to every layer
+    (:func:`layer_apply`); with a ``ctx`` the metrics add
+    ``ep_overflow_frac_sum`` over the MoE layers.
 
     Returns (x, summed metrics, cache)."""
     if remat not in REMAT:
@@ -342,6 +360,8 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
     remat = (remat if cache is None and torch.is_grad_enabled()
              else "none")
     totals = zero_metrics(x.device)
+    if ctx is not None:
+        totals["ep_overflow_frac_sum"] = torch.zeros((), device=x.device)
     for si, (reps, pdescs) in enumerate(find_segments(descs)):
         seg_params = {k: _per_layer(v, reps)
                       for k, v in params["segments"][si].items()}
@@ -360,6 +380,7 @@ def stack_apply(params, x, cfg: ArchConfig, descs, *, enc=None,
                         router_kind=router_kind, dispatch=dispatch,
                         moe_impl=moe_impl, attn_impl=attn_impl,
                         mixer_impl=mixer_impl, tag_moe=remat == "moe",
+                        pad_heads_multiple=pad_heads_multiple, ctx=ctx,
                     )
                     ms.append(m)
                 return h, ms

@@ -8,7 +8,8 @@
     a broadcast;
   * decay beta2_t = 1 - t^-0.8;
   * update clipped to RMS threshold 1.0, the RMS taken over the whole
-    (stacked) leaf;
+    (stacked) leaf — over every rank's slice of a sharded one
+    (``groups``, ``optim/base.py``);
   * optional multiply-by-parameter-scale, the parameter RMS also over
     the whole stacked leaf (T5 pretraining default);
   * optional momentum (off by default — sublinear memory);
@@ -21,7 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models.param import tree_leaves, tree_map, tree_zip_map
-from repro_torch.optim.base import Optimizer
+from repro_torch.optim.base import Optimizer, leaf_mean
 
 
 def _factored(shape, min_size: int = 128) -> bool:
@@ -63,12 +64,14 @@ def adafactor(
         return {"step": torch.zeros((), dtype=torch.int32, device=device),
                 "slots": tree_map(slot, params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, groups=None):
         step = state["step"] + 1
         beta2 = 1.0 - torch.pow(step.to(f32), -decay_exponent)
         lr_t = lr(step)
+        if groups is None:
+            groups = tree_map(lambda _: None, params)
 
-        def upd(g, s, p):
+        def upd(g, s, p, group):
             g = g.to(f32)
             g2 = torch.square(g) + eps1
             new_s = dict(s)
@@ -86,7 +89,7 @@ def adafactor(
                 v = beta2 * s["v"] + (1 - beta2) * g2
                 new_s["v"] = v
                 u = g * torch.rsqrt(v)
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms_u = torch.sqrt(leaf_mean(torch.square(u), group) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             if beta1 is not None:
                 m = beta1 * s["m"] + (1 - beta1) * u
@@ -94,7 +97,8 @@ def adafactor(
                 u = m
             scale = lr_t
             if multiply_by_parameter_scale:
-                p_rms = torch.sqrt(torch.mean(torch.square(p.to(f32))))
+                p_rms = torch.sqrt(leaf_mean(torch.square(p.to(f32)),
+                                             group))
                 scale = scale * torch.clamp(p_rms, min=eps2)
             delta = -scale * u
             if weight_decay:
@@ -103,7 +107,7 @@ def adafactor(
 
         # Leaves of `both` are (update, slot dict) pairs at param
         # positions; split them.
-        both = tree_zip_map(upd, grads, state["slots"], params)
+        both = tree_zip_map(upd, grads, state["slots"], params, groups)
         return _pick(both, 0), {"step": step, "slots": _pick(both, 1)}
 
     return Optimizer(init, update)

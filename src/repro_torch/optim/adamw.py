@@ -1,7 +1,8 @@
 """AdamW and SGD with momentum (port of ``repro/optim/adamw.py``; the
 modern options beside Adafactor, the paper's optimizer).
 
-Their state has the reference's key paths — ``{"step", "slots": <per
+Their updates are element-wise (``groups`` is taken and not read: no
+statistic spans a leaf). Their state has the reference's key paths — ``{"step", "slots": <per
 leaf {"m", "v"} or {"m"}>}`` — so a train state checkpointed by either
 package restores in the other.
 """
@@ -38,7 +39,7 @@ def adamw(
     def init(params):
         return _init(params, ("m", "v"))
 
-    def update(grads, state, params):
+    def update(grads, state, params, groups=None):
         step = state["step"] + 1
         lr_t = lr(step)
         t = step.to(torch.float32)
@@ -65,7 +66,7 @@ def sgd(lr: Callable, *, momentum: float = 0.9) -> Optimizer:
     def init(params):
         return _init(params, ("m",))
 
-    def update(grads, state, params):
+    def update(grads, state, params, groups=None):
         step = state["step"] + 1
         lr_t = lr(step)
 

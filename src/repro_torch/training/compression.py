@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.param import tree_map, tree_zip_map
 from repro_torch.optim.adafactor import _pick
+from repro_torch.optim.base import leaf_max
 
 KINDS = ("none", "bf16", "int8")
 
@@ -26,17 +27,22 @@ def init_residual(params):
                                           device=p.device), params)
 
 
-def compress(grads, residual, kind: str):
-    """Returns (compressed-then-decompressed grads, new residual)."""
+def compress(grads, residual, kind: str, groups=None):
+    """Returns (compressed-then-decompressed grads, new residual).
+    ``groups``: the process group each leaf's slices lie over, as the
+    optimizers take it (int8's scale is the whole leaf's largest
+    magnitude)."""
     if kind == "none":
         return grads, residual
+    if groups is None:
+        groups = tree_map(lambda _: None, grads)
 
-    def one(g, e):
+    def one(g, e, group):
         x = g.to(torch.float32) + e
         if kind == "bf16":
             c = x.to(torch.bfloat16).to(torch.float32)
         elif kind == "int8":
-            scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+            scale = torch.clamp(leaf_max(x.abs(), group), min=1e-12) / 127.0
             q = torch.clamp(torch.round(x / scale), -127, 127)
             c = q * scale
             # The residual x - q * scale rounded once, as XLA contracts
@@ -49,5 +55,5 @@ def compress(grads, residual, kind: str):
             raise ValueError(f"unknown compression {kind!r}")
         return c.to(g.dtype), x - c
 
-    both = tree_zip_map(one, grads, residual)
+    both = tree_zip_map(one, grads, residual, groups)
     return _pick(both, 0), _pick(both, 1)

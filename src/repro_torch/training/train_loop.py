@@ -54,6 +54,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.data.pipeline import DataIterator
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.param import (
+    axes_of,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -112,16 +113,19 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def loss_and_grads(params, batch, cfg: ArchConfig, *,
-                   ac: zoo.ApplyCfg = zoo.ApplyCfg()):
+                   ac: zoo.ApplyCfg = zoo.ApplyCfg(), ctx=None):
     """(grads tree, metrics) of ``zoo.loss_fn`` at ``params`` — the
     port of ``jax.value_and_grad(loss_fn, has_aux=True)``; the metrics
-    include ``loss`` and ``ce``. ``params`` is left as it was."""
+    include ``loss`` and ``ce``. ``params`` is left as it was. Under a
+    ``ctx`` these are this rank's: its batch rows' loss, and gradients
+    of its leaves from that loss (an expert leaf's also from the other
+    ``model`` ranks' tokens its experts served)."""
     leaves = tree_leaves(params)
     with torch.enable_grad():
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, mets = zoo.loss_fn(params, batch, cfg, ac=ac)
+            loss, mets = zoo.loss_fn(params, batch, cfg, ac=ac, ctx=ctx)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
@@ -141,9 +145,51 @@ def _microbatches(batch: dict, n: int) -> list:
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
+def _all_reduce_mean(tensors: list, group, world: int) -> list:
+    """Each tensor summed over ``group`` (one flat float32 buffer, one
+    collective) and divided by ``world``; with no group (the rank holds
+    the only copy) each is divided in place."""
+    from repro_torch.sharding import all_reduce
+
+    if group is None:
+        return [t.div_(world) if t.is_contiguous() else t / world
+                for t in tensors]
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    flat = all_reduce(flat, group) / world
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def reduce_grads(grads, dims, ctx):
+    """The global gradients from each rank's (``make_train_step`` under
+    a ctx): every rank's loss is its rows' mean, so the global loss is
+    the mean over the ``W`` ranks, and each gradient is a sum over ranks
+    divided by W — a replicated leaf's over the whole mesh, an expert
+    leaf's over the axes its shard is replicated on (its ``model``
+    peers' tokens already reached it through the all-to-all; the
+    reference's psum transpose)."""
+    world = ctx.size(ctx.token_axes)
+    leaves = tree_leaves(grads)
+    ds = tree_leaves(dims)
+    rep = [i for i, d in enumerate(ds) if d is None]
+    exp = [i for i, d in enumerate(ds) if d is not None]
+    out = list(leaves)
+    for idx, group in ((rep, ctx.group(ctx.token_axes)),
+                       (exp, ctx.group(ctx.replica_axes))):
+        for i, t in zip(idx, _all_reduce_mean([leaves[i] for i in idx],
+                                              group, world)):
+            out[i] = t
+    return tree_unflatten(grads, out)
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
                     ac: zoo.ApplyCfg = zoo.ApplyCfg(),
-                    tc: TrainConfig = TrainConfig()):
+                    tc: TrainConfig = TrainConfig(), layout=None):
     """Returns ``train_step(state, batch, lr_scale=None) -> (state,
     metrics)``. ``ac``'s "auto" implementations resolve by the params'
     device when the step runs. ``lr_scale`` (optional scalar tensor)
@@ -154,7 +200,21 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     of the microbatches are summed in order and divided by A (Expert
     Choice groups form per microbatch, as in the reference). Then the
     gradients are compressed with error feedback (``tc.compression``,
-    ``state["residual"]``) before the optimizer sees them."""
+    ``state["residual"]``) before the optimizer sees them.
+
+    ``layout`` (the state's ``TreeLayout`` over a mesh,
+    ``sharding.train_layout``; its ``ctx`` the ``ShardCtx``): the batch
+    holds this rank's rows and the state this rank's leaves; the
+    gradients are reduced to the global ones (:func:`reduce_grads`)
+    before compression, every statistic over a whole sharded leaf
+    reduces over ``model``, and the metrics are the means over the
+    ranks. ``layout`` None is the single-process step."""
+    ctx = layout.ctx if layout is not None else None
+    dims = layout.dims["params"] if layout is not None else None
+    groups = None
+    if dims is not None:
+        ep_group = ctx.group(("model",))
+        groups = tree_map(lambda d: None if d is None else ep_group, dims)
 
     @torch.no_grad()
     def train_step(state, batch, lr_scale=None):
@@ -166,21 +226,28 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
                 p.shape, dtype=torch.float32, device=device), params)
             mets = None
             for mb in _microbatches(batch, tc.grad_accum):
-                g, m = loss_and_grads(params, mb, cfg, ac=ac)
+                g, m = loss_and_grads(params, mb, cfg, ac=ac, ctx=ctx)
                 grads = tree_zip_map(torch.add, grads, g)
                 mets = m if mets is None else {
                     k: mets[k] + v for k, v in m.items()}
             grads = tree_map(lambda g: g / tc.grad_accum, grads)
             mets = {k: v / tc.grad_accum for k, v in mets.items()}
         else:
-            grads, mets = loss_and_grads(params, batch, cfg, ac=ac)
+            grads, mets = loss_and_grads(params, batch, cfg, ac=ac,
+                                         ctx=ctx)
+        if dims is not None:
+            grads = reduce_grads(grads, dims, ctx)
+            names = list(mets)
+            mets = dict(zip(names, _all_reduce_mean(
+                [mets[k] for k in names], ctx.group(ctx.token_axes),
+                ctx.size(ctx.token_axes))))
         residual = state.get("residual")
         if tc.compression != "none":
             grads, residual = compression.compress(
-                grads, residual, tc.compression)
+                grads, residual, tc.compression, groups)
         updates, opt_state = optimizer.update(
-            grads, state["opt_state"], params)
-        grad_norm = global_norm(grads)
+            grads, state["opt_state"], params, groups=groups)
+        grad_norm = global_norm(grads, groups)
         mets["grad_norm"] = grad_norm
         if tc.max_consecutive_skips > 0:
             ok = torch.isfinite(mets["loss"]) & torch.isfinite(grad_norm)
@@ -230,6 +297,36 @@ def init_train_state(gen, cfg: ArchConfig, optimizer: Optimizer, *,
     if tc.compression != "none":
         state["residual"] = compression.init_residual(params)
     return state
+
+
+def state_axes(cfg: ArchConfig, *, dtype=torch.float32,
+               tc: TrainConfig = TrainConfig()):
+    """Logical-axes tree matching ``init_train_state``'s structure with
+    the default Adafactor (the reference's ``state_axes``)."""
+    params = zoo.init_params(None, cfg, dtype=dtype, device="meta")
+    axes = tree_map(axes_of, params)
+    out = {"params": axes,
+           "opt_state": {"step": "",
+                         "slots": _adafactor_slot_axes(axes, params)},
+           "step": ""}
+    if tc.compression != "none":
+        out["residual"] = axes
+    return out
+
+
+def _adafactor_slot_axes(axes_tree, shapes_tree):
+    """Map param logical axes -> Adafactor slot axes ({v_row, v_col} or
+    {v}); mirrors ``optim/adafactor._factored`` exactly."""
+    from repro_torch.optim.adafactor import _factored
+
+    def one(a: str, shaped):
+        names = a.split() if a else []
+        if _factored(tuple(shaped.shape)):
+            return {"v_row": " ".join(names[:-1]),
+                    "v_col": " ".join(names[:-2] + names[-1:])}
+        return {"v": a}
+
+    return tree_zip_map(one, axes_tree, shapes_tree)
 
 
 class PreemptionSignal:
@@ -291,6 +388,11 @@ class Trainer:
     chaos: Optional[TrainChaosConfig] = None
     chaos_state: Optional[ChaosState] = None
     device: Any = None
+    # A ShardCtx: this process is one rank of a mesh. ``data`` must
+    # yield the rank's rows (make_iterator's defaults do); the state
+    # holds the rank's leaves (sharding.train_layout) and checkpoints
+    # hold the global tree.
+    ctx: Any = None
 
     def __post_init__(self):
         self.trk = self.tracker if self.tracker is not None else NULL
@@ -313,6 +415,7 @@ class Trainer:
         self._rollbacks: list[dict] = []
         self._cooldown_left = 0
         self.stats: dict = {}
+        self.layout = None  # the state's TreeLayout under a ctx
 
     # -- resume-relevant trainer state ----------------------------------
     # Everything the loop needs beyond the param/opt tree rides in
@@ -344,7 +447,7 @@ class Trainer:
             metadata={"data": self.data.state(),
                       "arch": self.cfg.name,
                       "trainer": self._trainer_meta()},
-            blocking=blocking,
+            blocking=blocking, layout=self.layout,
         )
 
     # -- divergence rollback --------------------------------------------
@@ -356,7 +459,8 @@ class Trainer:
         restored state tree and its step."""
         base = self.detector.baseline()
         self.manager.wait()  # an async save may still be writing
-        restored, gstep, meta = self.manager.restore_latest(like)
+        restored, gstep, meta = self.manager.restore_latest(
+            like, layout=self.layout)
         if restored is None:
             raise RuntimeError(
                 f"training diverged at step {bad_step} "
@@ -452,15 +556,23 @@ class Trainer:
         state = init_train_state(gen, self.cfg, self.optimizer,
                                  params=init_params, device=device,
                                  tc=self.tc)
+        from repro_torch.sharding import train_layout
+
+        self.layout = train_layout(self.ctx, self.cfg, self.ac.dispatch,
+                                   state)
+        if self.layout is not None:
+            state = self.layout.shard(state)
         # ---- auto-resume -------------------------------------------------
-        restored, step0, meta = self.manager.restore_latest(state)
+        restored, step0, meta = self.manager.restore_latest(
+            state, layout=self.layout)
         if restored is not None:
             state = restored
             self.data.restore(meta.get("data", {"step": step0}))
             self._restore_trainer_meta(meta)
             self.log_fn(f"[trainer] resumed from step {step0}")
-        train_step = make_train_step(self.cfg, self.optimizer, ac=self.ac,
-                                     tc=self.tc)
+        train_step = make_train_step(
+            self.cfg, self.optimizer, ac=self.ac, tc=self.tc,
+            layout=self.layout)
         # Rollback anchor: divergence before the first periodic save
         # still needs a known-good restore target.
         if self.detector.enabled and self.manager.latest_step() is None:

@@ -322,12 +322,23 @@ def test_launch_train_takes_the_training_flags(capsys, tmp_path, arch,
     assert "nan" not in out.split("[train] finished")[1]
 
 
-def test_launch_train_refuses_expert_parallelism():
+def test_launch_train_refuses_expert_parallelism(capsys, tmp_path):
+    """The launcher refuses an expert-parallel layout it does not know;
+    ``--ep a2a`` in one process has no mesh to run over and trains the
+    single-device path (the multi-process runs:
+    tests/test_torch_dist_train.py, tests/test_torch_dist_ckpt.py)."""
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
-        train.main(["--arch", GRANITE, "--reduced", "--device", "cpu",
-                    "--ep", "a2a"])
+    with pytest.raises(SystemExit):
+        train.parse_args(["--arch", GRANITE, "--ep", "all2all"])
+    assert "invalid choice" in capsys.readouterr().err
+    train.main(["--arch", GRANITE, "--reduced", "--device", "cpu",
+                "--steps", "1", "--batch", "2", "--seq", "8",
+                "--dispatch", "sorted", "--ep", "a2a",
+                "--ckpt-dir", str(tmp_path / "run")])
+    out = capsys.readouterr().out
+    assert "ranks=" not in out
+    assert "[train] finished at step 1, loss" in out
 
 
 def test_launcher_apply_cfg_pins_the_eager_mixer():
