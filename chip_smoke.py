@@ -189,10 +189,28 @@ any failure, before printing its result line. It
     reference's distributed-step tolerances, ``ep_overflow_frac`` 0;
     then a starved budget (factor 0.25, capacity factor 4.0) reports
     overflow with a finite loss; step times, peak memory and the
-    all-to-alls' bytes and host seconds printed; (d) qwen2.5-14b at 2
-    layers with its 40/8 query heads padded to 48/8 gives the unpadded
-    logits through the flash kernels, witnessed;
-19. prints one JSON line of per-kernel numbers (all twelve kernels,
+    all-to-alls' bytes and host seconds printed, the forward's bytes a
+    rank a step equal to the dry run's model of them
+    (``launch/dryrun.collective_bytes``); (d) qwen2.5-14b at 2 layers
+    with its 40/8 query heads padded to 48/8 gives the unpadded logits
+    through the flash kernels, witnessed;
+19. a step's counted cost against the dry run, from a clean card
+    (``[dryrun]`` and ``[mfu]`` lines): (a) the dry run of the train
+    cell (granite, 16 x 512 on a mesh of one, sorted dispatch, float32,
+    no remat; ``launch/dryrun.run_cell`` on the meta device) predicts
+    the argument bytes, equal to the train state's and batch's summed
+    leaf bytes on the card after ``init_train_state``; (b) one granite
+    MoE train step through the kernels under ``launch/flops.step_cost``:
+    its aten FLOPs and the flash kernels' FLOPs equal the dry run's, the
+    grouped kernels' at most its capacity-full figures (the ratio
+    printed), its launches exactly one a kernel a layer; (c) the same
+    step from the same state with and without the count gives the same
+    bits and launches; then the ViT's MoE step (104 images, gather)
+    against the dry run of its meta twin the same way; each with ``mfu``
+    and ``hardware_flops_util`` from synchronised steps timed outside
+    the count; (d) the serve mixed step at phase 4's shapes: counted
+    FLOPs, the kernels' bytes and their share of the HBM rate;
+20. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -212,17 +230,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_TF32_S = 495e12
-# Kernels whose float32 products run on tensor cores as three TF32
-# products (csrc/mma_sm90.cuh): their bound is 3 x FLOPs over the TF32
-# rate (or the bytes), with the CUDA-core bound recorded beside it.
-TF32X3_KERNELS = ("flash_attention", "flash_attention_dq",
-                  "flash_attention_dkv", "expert_mlp", "expert_mlp_dx",
-                  "expert_mlp_dw", "paged_prefill", "grouped_mlp",
-                  "grouped_mlp_dx", "grouped_mlp_dw")
+# The card's peaks (H100 SXM data sheet) live in
+# repro_torch/launch/mesh.py; the kernels' work models and the bound
+# rule of the per-kernel line (bytes over the HBM rate against FLOPs
+# over the dtype's peak, 3 x FLOPs over the TF32 rate for the 3xTF32
+# kernels in float32) in repro_torch/kernels/tiling.py.
 
 # Serve settings (the cell): max_batch 8, 16-token blocks, two 64-token
 # chunk lanes per mixed step, 512-token sequences.
@@ -588,49 +600,45 @@ def grouped_case(cfg, dtype, device, gen):
                 wo=mk(E, f, d, fan=f).to(dtype), counts=counts[None])
 
 
-def decode_work(c, itemsize):
-    """Bytes (inputs read once, output written once: each slot's keys
-    and values below its length, the lengths and the live blocks' table
-    entries) and FLOPs of the decode call on these inputs."""
-    B, H, dh = c["q_dec"].shape
-    bs, Kh = c["kp"].shape[1], c["kp"].shape[2]
-    lens = [int(x) for x in c["lengths"]]
-    blocks = sum(-(-n // bs) for n in lens)
-    kv = 2 * sum(lens) * Kh * dh * itemsize
-    nbytes = 2 * B * H * dh * itemsize + kv + 4 * (B + blocks)
-    flops = sum(4 * H * dh * n for n in lens)
-    return nbytes, flops
+def host_work(work):
+    """A work model's (bytes, FLOPs) as Python ints (read from the card
+    where the model took device tensors)."""
+    return tuple(int(x) for x in work)
 
 
-def prefill_work(c, itemsize):
-    """Bytes (as decode_work's: the keys and values of each pool block
-    up to the last position a lane reads in it, a block shared by lanes
-    once) and FLOPs of the prefill call on these inputs."""
+def decode_case_work(a, itemsize):
+    """``tiling.decode_work`` of the decode call on attention_case's
+    inputs."""
+    from repro_torch.kernels import tiling
+
+    B, H, dh = a["q_dec"].shape
+    bs, Kh = a["kp"].shape[1], a["kp"].shape[2]
+    return host_work(tiling.decode_work(B, H, Kh, dh, bs, a["lengths"],
+                                        itemsize=itemsize))
+
+
+def prefill_case_work(c, itemsize):
+    """``tiling.prefill_work`` of the prefill call on these inputs
+    (attention_case's chunk lanes, or verify_lane_row's lanes)."""
+    from repro_torch.kernels import tiling
+
     NC, C, H, dh = c["q_ch"].shape
-    bs, Kh = c["kp"].shape[1], c["kp"].shape[2]
-    keys, flops = {}, 0
-    for lane in range(NC):
-        st, ln = int(c["starts"][lane]), int(c["lens"][lane])
-        for b in range(-(-(st + ln) // bs)):
-            blk = int(c["ctab"][lane, b])
-            keys[blk] = max(keys.get(blk, 0), min(bs, st + ln - b * bs))
-        flops += sum(4 * H * dh * (st + i + 1) for i in range(ln))
-    kv = 2 * sum(keys.values()) * Kh * dh * itemsize
-    nbytes = 2 * NC * C * H * dh * itemsize + kv + 4 * (len(keys) + 2 * NC)
-    return nbytes, flops
+    P, bs, Kh = c["kp"].shape[:3]
+    return host_work(tiling.prefill_work(
+        NC, C, H, Kh, dh, bs, P, c["ctab"], c["starts"], c["lens"],
+        itemsize=itemsize))
 
 
-def grouped_work(c, itemsize):
-    """Bytes (the valid rows and the live experts' weights read once,
-    every output row written, the sizes) and FLOPs (gated: 6 d f a valid
-    row) of the grouped forward on these inputs."""
+def grouped_case_work(c, kind):
+    """``tiling.grouped_work`` of a gated grouped call (``kind`` fwd, dx
+    or dw) on a grouped case's buffer and group sizes."""
+    from repro_torch.kernels import tiling
+
     G, M, d = c["xs"].shape
     E, _, f = c["wi"].shape
-    counts = c["counts"]
-    rows = int(counts.sum())
-    live = int((counts > 0).any(0).sum())
-    nbytes = (rows * d + live * 3 * d * f + G * M * d) * itemsize + 4 * G * E
-    return nbytes, 6 * rows * d * f
+    return host_work(tiling.grouped_work(
+        kind, G, M, d, f, E, *tiling.grouped_rows(c["counts"]), gated=True,
+        itemsize=c["xs"].element_size()))
 
 
 def grouped_library(c, kind, tag):
@@ -756,24 +764,22 @@ def grouped_library(c, kind, tag):
 
 def _record(kname, src, replaces, max_err, ms, plain_ms, nbytes, flops,
             lib_ms, dtype="float32"):
-    """One kernel's JSON record; its bound is the larger of the bytes
-    over the memory rate and the FLOPs over the dtype's peak: for a
-    float32 call of a kernel in TF32X3_KERNELS, 3 x FLOPs over the TF32
-    tensor-core rate, with the CUDA-core bound as ``cuda_core_bound_ms``."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    """One kernel's JSON record; its bound is ``tiling.bound_ms``'s: the
+    larger of the bytes over the memory rate and the FLOPs over the
+    dtype's peak; for a float32 call of a kernel in
+    ``tiling.TF32X3_KERNELS``, 3 x FLOPs over the TF32 tensor-core rate,
+    with the CUDA-core bound as ``cuda_core_bound_ms``."""
+    from repro_torch.kernels import tiling
+
+    bound, by, cc = tiling.bound_ms(kname, nbytes, flops, dtype)
     rec = {
         "name": kname, "route": "cuda", "source": src,
         "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": lib_ms,
     }
-    if kname in TF32X3_KERNELS and dtype == "float32":
-        t_tc = 3 * flops / PEAK_TF32_S * 1e3
-        rec.update(bound_ms=max(t_bytes, t_tc),
-                   bound_by="bytes" if t_bytes >= t_tc else "operations",
-                   cuda_core_bound_ms=max(t_bytes, t_ops))
+    if cc is not None:
+        rec["cuda_core_bound_ms"] = cc
     return rec
 
 
@@ -867,7 +873,7 @@ def check_kernels(cfg, device):
             ("decode_attention", da.paged_decode_attention_cuda,
              ref.decode_attention_ref,
              (a["q_dec"], a["kp"], a["vp"], a["tables"], i32(a["lengths"])),
-             decode_work(a, item),
+             decode_case_work(a, item),
              lambda: F.scaled_dot_product_attention(
                  qd, kd, vd, attn_mask=dmask),
              "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -876,7 +882,7 @@ def check_kernels(cfg, device):
              ref.prefill_attention_ref,
              (a["q_ch"], a["kp"], a["vp"], a["ctab"], a["starts"],
               a["lens"]),
-             prefill_work(a, item),
+             prefill_case_work(a, item),
              lambda: F.scaled_dot_product_attention(
                  qc, kc, vc, attn_mask=cmask),
              "src/repro_torch/kernels/csrc/paged_prefill.cu",
@@ -884,7 +890,7 @@ def check_kernels(cfg, device):
             ("grouped_mlp", gm.grouped_mlp_cuda,
              lambda *x: ref.grouped_mlp_ref(*x, block=gm.ROW_BLOCK),
              (g["xs"], g["wi"], g["wg"], g["wo"], g["counts"]),
-             grouped_work(g, item), grouped_lib,
+             grouped_case_work(g, "fwd"), grouped_lib,
              "src/repro_torch/kernels/csrc/grouped_mlp.cu",
              "src/repro/kernels/grouped_mlp.py:225"),
         ]
@@ -978,42 +984,15 @@ def train_cases(cfg, device, gen):
                  wo=mk(E, f, d, fan=f), counts=counts))
 
 
-def flash_work(a, kind, causal=True):
-    """Bytes (inputs once, outputs once; lse and delta in float32) and
-    FLOPs of one flash call on these inputs: the live (query, key) pairs
-    only (causal: Sq = Skv)."""
+def flash_case_work(a, kind, causal=True):
+    """``tiling.flash_work`` of one flash call on a case's q, k and v,
+    from position 0 over every key."""
+    from repro_torch.kernels import tiling
+
     B, S, H, dh = a["q"].shape
     Skv, Kh = a["k"].shape[1:3]
-    isz = a["q"].element_size()
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * Skv
-    q_b, kv_b, row_b = (B * S * H * dh * isz, B * Skv * Kh * dh * isz,
-                        B * H * S * 4)
-    if kind == "fwd":  # q, k, v -> o, lse; QK^T and PV
-        return 2 * q_b + 2 * kv_b + row_b, 4 * dh * pairs
-    if kind == "dq":  # q, k, v, dO, lse, delta -> dq; QK^T, dO V^T, dS K
-        return 3 * q_b + 2 * kv_b + 2 * row_b, 6 * dh * pairs
-    # dk/dv: + dS^T Q and P^T dO, writes dk and dv
-    return 2 * q_b + 4 * kv_b + 2 * row_b, 8 * dh * pairs
-
-
-def grouped_bwd_work(c, kind):
-    """Bytes and FLOPs of the gated dx / dW call over the valid rows
-    (dead blocks read nothing; dx still writes their zero rows). x, dy,
-    the weights and dx in the inputs' dtype; da, dg, h and the dW sums
-    in float32."""
-    G, M, d = c["xs"].shape
-    E, _, f = c["wi"].shape
-    isz = c["xs"].element_size()
-    counts = c["counts"]
-    rows = int(counts.sum())
-    live = int((counts > 0).any(0).sum())
-    if kind == "dx":  # x, dy, 3 weights -> dx, da, dg, h
-        nbytes = ((2 * rows * d + live * 3 * d * f + G * M * d) * isz
-                  + 3 * rows * f * 4)
-        return nbytes, 10 * rows * d * f
-    # dW: x, dy, da, dg, h -> dwi, dwg, dwo summed over the groups
-    return 2 * rows * d * isz + (3 * rows * f + 3 * E * d * f) * 4, \
-        6 * rows * d * f
+    return tiling.flash_work(kind, B, S, Skv, H, Kh, dh, causal=causal,
+                             itemsize=a["q"].element_size())
 
 
 def _max_err(y, y_ref, atol, rtol):
@@ -1154,33 +1133,33 @@ def check_train_kernels(cfg, device, dtype="float32"):
          lambda: fa.flash_attention_fwd_cuda(a["q"], a["k"], a["v"], a["qo"],
                                              a["kl"], causal=True),
          lambda: ref.flash_attention_ref(a["q"], a["k"], a["v"], **kw),
-         flash_work(a, "fwd"), sdpa_fwd,
+         flash_case_work(a, "fwd"), sdpa_fwd,
          "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:94"),
         ("flash_attention_dq",
          lambda: fa.flash_attention_dq_cuda(*bwd_args, a["qo"], a["kl"],
                                             causal=True),
          lambda: ref.flash_attention_dq_ref(*bwd_args, **kw),
-         flash_work(a, "dq"), sdpa_bwd,
+         flash_case_work(a, "dq"), sdpa_bwd,
          "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "src/repro/kernels/flash_attention.py:256"),
         ("flash_attention_dkv",
          lambda: fa.flash_attention_dkv_cuda(*bwd_args, a["qo"], a["kl"],
                                              causal=True),
          lambda: ref.flash_attention_dkv_ref(*bwd_args, **kw),
-         flash_work(a, "dkv"), sdpa_bwd,
+         flash_case_work(a, "dkv"), sdpa_bwd,
          "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "src/repro/kernels/flash_attention.py:285"),
         ("grouped_mlp_dx",
          lambda: gm.grouped_mlp_dx_cuda(*gargs),
          lambda: ref.grouped_mlp_dx_ref(*gargs, block=gm.ROW_BLOCK),
-         grouped_bwd_work(c, "dx"), dx_lib,
+         grouped_case_work(c, "dx"), dx_lib,
          "src/repro_torch/kernels/csrc/grouped_mlp_bwd.cu",
          "src/repro/kernels/grouped_mlp.py:406"),
         ("grouped_mlp_dw",
          lambda: gm.grouped_mlp_dw_cuda(*dw_args),
          lambda: ref.grouped_mlp_dw_ref(*dw_args, block=gm.ROW_BLOCK),
-         grouped_bwd_work(c, "dw"), dw_lib,
+         grouped_case_work(c, "dw"), dw_lib,
          "src/repro_torch/kernels/csrc/grouped_mlp_bwd.cu",
          "src/repro/kernels/grouped_mlp.py:476"),
     ]
@@ -1249,7 +1228,7 @@ def check_train_kernels(cfg, device, dtype="float32"):
              f"differ beyond atol {atol} + rtol {rtol} (ratio {ratio:.3g})")
     lib_ms, chain = time_library_ms(
         grouped_library(c, "fwd", f"[{tag}] grouped_mlp"), flush=flush)
-    nbytes, flops = grouped_work(c, c["xs"].element_size())
+    nbytes, flops = grouped_case_work(c, "fwd")
     rec = _record("grouped_mlp", "", "", max_err,
                   time_ms(lambda: gm.grouped_mlp_cuda(*fargs), flush=flush),
                   time_synced_ms(lambda: ref.grouped_mlp_ref(
@@ -1307,23 +1286,14 @@ def vit_cases(cfg, device, gen):
     return a, c
 
 
-def expert_work(c, kind, gated=False):
-    """Bytes (inputs once, outputs once) and FLOPs of one f32 expert-FFN
-    kernel call over every row of the buffer (Expert Choice fills every
-    slot; the T5 rows fill every slot too); ``gated`` adds wg and its
-    products (x wg, dg, dwg)."""
+def expert_case_work(c, kind, gated=False):
+    """``tiling.expert_work`` of one expert-FFN call over every row of a
+    case's buffer ``c["xe"]``."""
+    from repro_torch.kernels import tiling
+
     G, E, cap, d = c["xe"].shape
-    f = c["wi"].shape[-1]
-    nw = 3 if gated else 2
-    rows, wbytes = G * E * cap, nw * E * d * f * 4
-    if kind == "fwd":  # x, w* -> y: x wi [, x wg], h wo
-        return 2 * rows * d * 4 + wbytes, 2 * nw * rows * d * f
-    if kind == "dx":  # x, dy, w* -> dx, da[, dg], h: a[, g], dh, dx
-        return 3 * rows * d * 4 + wbytes + (nw * rows * f * 4), \
-            (4 * nw - 2) * rows * d * f
-    # dW: x, dy, da[, dg], h -> dwi[, dwg], dwo
-    return 2 * rows * d * 4 + nw * rows * f * 4 + wbytes, \
-        2 * nw * rows * d * f
+    return tiling.expert_work(kind, G, E, cap, d, c["wi"].shape[-1],
+                              gated=gated, itemsize=c["xe"].element_size())
 
 
 def check_vit_kernels(cfg, device):
@@ -1406,18 +1376,18 @@ def check_vit_kernels(cfg, device):
         ("expert_mlp", lambda: em.expert_ffn_cuda(xe, wi, None, wo,
                                                   act="gelu"),
          lambda: ref.expert_ffn_ref(xe, wi, None, wo, act="gelu"),
-         expert_work(c, "fwd"), lib_fwd, 3,
+         expert_case_work(c, "fwd"), lib_fwd, 3,
          "src/repro_torch/kernels/csrc/expert_mlp.cu",
          "src/repro/kernels/expert_mlp.py:79"),
         ("expert_mlp_dx", lambda: em.expert_ffn_dx_cuda(xe, wi, None, wo, dy,
                                                         act="gelu"),
          lambda: ref.expert_ffn_dx_ref(xe, wi, None, wo, dy, act="gelu"),
-         expert_work(c, "dx"), lib_dx, 4,
+         expert_case_work(c, "dx"), lib_dx, 4,
          "src/repro_torch/kernels/csrc/expert_mlp_bwd.cu",
          "src/repro/kernels/expert_mlp.py:227"),
         ("expert_mlp_dw", lambda: em.expert_ffn_dw_cuda(xe, dy, *scratch),
          lambda: ref.expert_ffn_dw_ref(xe, dy, *scratch),
-         expert_work(c, "dw"), lib_dw, 2,
+         expert_case_work(c, "dw"), lib_dw, 2,
          "src/repro_torch/kernels/csrc/expert_mlp_bwd.cu",
          "src/repro/kernels/expert_mlp.py:299"),
     ]
@@ -1502,7 +1472,7 @@ def check_vit_kernels(cfg, device):
         y = kern()
         torch.cuda.synchronize()
         err = held(f"{kname} non-causal float32", y, plain())
-        nbytes, flops = flash_work(a, kind, causal=False)
+        nbytes, flops = flash_case_work(a, kind, causal=False)
         rec = _record(kname, "", "", err, time_ms(kern, flush=flush),
                       time_ms(plain, flush=flush), nbytes, flops,
                       time_ms(lib, flush=flush))
@@ -1579,7 +1549,7 @@ def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20,
 
     from repro_torch.core.routing import capacity
     from repro_torch.kernels import expert_mlp as em
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, tiling
     from repro_torch.models.layers import activation
 
     wi, wg, wo = experts["wi"], experts.get("wg"), experts["wo"]
@@ -1602,9 +1572,9 @@ def expert_shape_row(tag, cfg, experts, tokens, device, *, seed, iters=20,
     plain = lambda: ref.expert_ffn_ref(xe, wi, wg, wo, act=cfg.act)  # noqa
     y = kern()
     torch.cuda.synchronize()
-    rows, nw = G * E * cap, 3 if wg is not None else 2
-    work = ((2 * rows * d + nw * E * d * f) * xe.element_size(),
-            (2 * nw) * rows * d * f)
+    nw = 3 if wg is not None else 2
+    work = tiling.expert_work("fwd", G, E, cap, d, f, gated=wg is not None,
+                              itemsize=xe.element_size())
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     out = _shape_row(tag, "expert_mlp", y, plain(), kern, plain, lib,
                      nw + 1 + (wg is not None), work, flush, iters,
@@ -1643,7 +1613,7 @@ def flash_shape_row(tag, cfg, B, S, device, *, seed):
     torch.cuda.synchronize()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     out = _shape_row(tag, "flash_attention", y, plain(), kern, plain, sdpa,
-                     1, flash_work(a, "fwd"), flush, 20)
+                     1, flash_case_work(a, "fwd"), flush, 20)
     out[2]["shape"] = [B, S, H, Kh, dh]
     return out
 
@@ -2180,17 +2150,13 @@ def wkv_case(cfg, T, device, gen, *, state: bool):
                 w=w, u=0.3 * rnd(H, K), s0=rnd(B, H, K, K) if state else None)
 
 
-def wkv_work(c, itemsize):
-    """Bytes (r, k, v in the inputs' dtype, w in f32, each read once; s0
-    read if given; o written in v's dtype and the f32 state written once)
-    and FLOPs (about 4 K V a (b, t, h): r^T S and the state update) of
-    one WKV call on these inputs."""
+def wkv_case_work(c, itemsize):
+    """``tiling.wkv_work`` of one WKV call on wkv_case's inputs."""
+    from repro_torch.kernels import tiling
+
     B, T, H, K = c["r"].shape
-    V = c["v"].shape[-1]
-    state = B * H * K * V * 4
-    nbytes = (B * T * H * ((2 * K + 2 * V) * itemsize + 4 * K)
-              + state * (2 if c["s0"] is not None else 1) + H * K * 4)
-    return nbytes, 4 * B * T * H * K * V
+    return tiling.wkv_work(B, T, H, K, c["v"].shape[-1], itemsize=itemsize,
+                           state_in=c["s0"] is not None)
 
 
 def check_rwkv_kernel(cfg, device):
@@ -2242,7 +2208,7 @@ def check_rwkv_kernel(cfg, device):
                      f"differ beyond their tolerance (ratio {ratio:.3g})")
         if dtype != torch.float32:
             continue
-        nbytes, flops = wkv_work(c, 4)
+        nbytes, flops = wkv_case_work(c, 4)
         ms = time_ms(lambda: wkv.rwkv6_cuda(*args), flush=flush)
         # The chunked version launches ~25 kernels a chunk: 20 queued
         # calls would overrun the launch queue, so it is timed per call.
@@ -3155,7 +3121,8 @@ def flash_case_rows(tag, cfg, B, Sq, Skv, causal, device, *, seed,
     rows = []
     for kname, y, kern, plain, lib, kind in cases:
         k, _, row = _shape_row(tag, kname, y, plain(), kern, plain, lib, 1,
-                               flash_work(a, kind, causal=causal), flush, 20)
+                               flash_case_work(a, kind, causal=causal),
+                               flush, 20)
         row["shape"] = [B, Sq, Skv, H, Kh, dh, causal]
         rows.append((k, tag, row))
     return rows
@@ -3234,7 +3201,8 @@ def expert_case_rows(tag, cfg, G, cap, device, *, seed):
         y = kern()
         torch.cuda.synchronize()
         k, _, row = _shape_row(tag, kname, y, plain(), kern, plain, lib,
-                               ncalls, expert_work(c, kind, gated), flush, 20)
+                               ncalls, expert_case_work(c, kind, gated),
+                               flush, 20)
         del y
         row["shape"] = [G, E, cap, d, f]
         row["act"] = f"{act}{' gated' if gated else ''}"
@@ -3405,7 +3373,7 @@ def verify_lane_row(cfg, device, *, seed):
     torch.cuda.synchronize()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     out = _shape_row("verify_lanes", "paged_prefill", y, plain(), kern,
-                     plain, sdpa, 1, prefill_work(c, 4), flush, 20)
+                     plain, sdpa, 1, prefill_case_work(c, 4), flush, 20)
     out[2]["shape"] = [B, K1, H, Kh, dh]
     return out
 
@@ -4631,7 +4599,7 @@ def grouped_shape_row(tag, cfg, experts, device, *, seed):
         fail(f"{tag} grouped_mlp: kernel and plain version differ beyond "
              f"their tolerance (ratio {ratio:.3g})")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
-    nbytes, flops = grouped_work(g, 4)
+    nbytes, flops = grouped_case_work(g, "fwd")
     lib_ms, chain = time_library_ms(grouped_library(g, "fwd", f"[{tag}]"),
                                     flush=flush)
     rec = _record("grouped_mlp", "", "", err, time_ms(kern, flush=flush),
@@ -5294,6 +5262,24 @@ def ep_two_ranks(device, root):
                   f"elements outside atol {MULTI_PARAM_ATOL} + rtol "
                   f"{MULTI_PARAM_RTOL}, max |diff| {float(gap.max()):.3e}",
                   flush=True)
+    # The dry run's model of the same exchange (launch/dryrun.py): the
+    # static budgets make the forward's bytes a rank a step exact.
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.models import model_zoo as zoo
+
+    pred = collective_bytes(
+        cfg, kind="train", params=zoo.init_params(None, cfg, device="meta"),
+        dispatch="sorted", remat="none",
+        mesh={"data": 1, "model": MULTI["ranks"]},
+        tokens=MULTI["batch"] * MULTI["seq"], itemsize=4)
+    counted = [info["a2a"]["bytes"] for info in ranks]
+    print(f"[multi] the dry run's all-to-all bytes a rank a step: forward "
+          f"{pred['a2a_forward']} (counted by each rank: {counted}), "
+          f"backward {pred['a2a_backward']}; the gradient all-reduce "
+          f"{pred['grad_all_reduce']} B a rank", flush=True)
+    if any(b != pred["a2a_forward"] for b in counted):
+        fail(f"the dry run predicts {pred['a2a_forward']} B of forward "
+             f"all-to-alls a rank a step; the ranks sent {counted}")
     loss_d = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
                                                      ref_losses))
     over = max(max(info["overflow"]) for info in ranks)
@@ -5381,6 +5367,239 @@ def multi_gpu(device):
     print(f"[multi] phase 18 {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: a step's counted cost against the dry run, and its mfu
+# ---------------------------------------------------------------------------
+
+# Synchronised steps timed for the mfu (after the counted ones, outside
+# step_cost, whose dispatch modes add host work to the step they count).
+COST_STEPS = 3
+
+
+def meta_twin(tree):
+    """The tree's tensors as empty tensors of their shapes and dtypes on
+    the meta device (a dry run of the same step)."""
+    import torch
+
+    from repro_torch.models.param import tree_map
+
+    return tree_map(lambda t: torch.empty_like(t, device="meta")
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _timed_ms(fn, steps: int) -> list:
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        out.append(_sync_ms(t0))
+    return out
+
+
+def _held_cost(tag, cost, dry, launches, want, capacity_full) -> None:
+    """Phase 19's checks of a counted step against its dry run: the aten
+    FLOPs and the flash kernels' FLOPs equal, the kernels in
+    ``capacity_full`` at most the dry run's (the ratio printed), the
+    launches and the counted calls exactly ``want``."""
+    ratios = {k: cost["kernel_flops"].get(k, 0) / dry["kernel_flops"][k]
+              for k in capacity_full}
+    print(f"[mfu] {tag}: counted aten FLOPs {cost['aten_flops']} (dry run "
+          f"{dry['aten_flops']}); flash FLOPs "
+          + ", ".join(f"{k} {cost['kernel_flops'].get(k)} (dry run "
+                      f"{dry['kernel_flops'].get(k)})"
+                      for k in FLASH_KERNELS)
+          + "; counted / capacity-full FLOPs "
+          + ", ".join(f"{k} {r:.4f}" for k, r in ratios.items()),
+          flush=True)
+    if cost["aten_flops"] != dry["aten_flops"]:
+        fail(f"{tag}: the counted aten FLOPs differ from the dry run's")
+    if any(cost["kernel_flops"].get(k) != dry["kernel_flops"].get(k)
+           for k in FLASH_KERNELS):
+        fail(f"{tag}: the flash kernels' counted FLOPs differ from the "
+             "dry run's")
+    if not all(0 < r <= 1 for r in ratios.values()):
+        fail(f"{tag}: counted FLOPs above the dry run's capacity-full "
+             f"bound: {ratios}")
+    ran = {k: v for k, v in launches.items() if v}
+    if ran != want or cost["kernel_calls"] != want:
+        fail(f"{tag}: launched {ran}, counted {cost['kernel_calls']}, "
+             f"expected {want}")
+
+
+def _mfu_line(tag, cfg, tokens, cost, ms) -> None:
+    from repro_torch.launch.flops import model_flops, utilization
+
+    model = model_flops(cfg, "train", tokens)
+    ms_med = sorted(ms)[len(ms) // 2]
+    u = utilization(model, cost["total_flops"], ms_med / 1e3)
+    print(f"[mfu] {tag}: {tokens} tokens a step, model FLOPs {model} (6 N "
+          f"D), counted {cost['total_flops']} (aten {cost['aten_flops']}, "
+          f"kernels {sum(cost['kernel_flops'].values())}), "
+          f"useful_flops_ratio={u['useful_flops_ratio']:.4f}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (median {ms_med:.1f}, "
+          f"synchronised, uncounted): mfu={u['mfu']:.4f} "
+          f"hardware_flops_util={u['hardware_flops_util']:.4f} against "
+          f"989 TFLOP/s; {card_line()}", flush=True)
+    if not 0 < u["mfu"] <= 1:
+        fail(f"{tag}: mfu {u['mfu']} outside (0, 1]")
+
+
+def step_costs(device):
+    """Phase 19 (``[dryrun]`` and ``[mfu]`` lines). Returns its
+    launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.flops import step_cost
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.profile_step import mixed_step_fn
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_loop import batch_to
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mfu] phase 19 starts with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+          f"{card_line()}", flush=True)
+    ops.reset_launch_counts()
+    cfg = get_config(TRAIN["arch"])
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    # (a) the dry run of the train cell: granite at 16 x 512 on a mesh of
+    # one, with phase 6's ApplyCfg.
+    ac = dict(dispatch=TRAIN["dispatch"], compute_dtype="float32",
+              remat="none", ce_chunk=0, pad_heads_multiple=0)
+    with tempfile.TemporaryDirectory() as out_dir:
+        dry = dryrun.run_cell(cfg.name, ShapeCfg("smoke_train", S, B,
+                                                 "train"),
+                              "one", "baseline", out_dir, extra_ac=ac,
+                              mesh={"data": 1, "model": 1})
+    opt = adafactor(inverse_sqrt(peak=TRAIN["peak_lr"],
+                                 warmup_steps=TRAIN["warmup"]))
+    state = init_train_state(torch.Generator(device=device).manual_seed(0),
+                             cfg, opt, device=device)
+    task = ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB))
+    batch = batch_to(next(make_iterator(cfg, global_batch=B, seq_len=S,
+                                        task=task)), device)
+    torch.cuda.synchronize()
+    held = {"state": sum(t.nbytes for t in tree_leaves(state)),
+            "batch": sum(t.nbytes for t in batch.values())}
+    held["total"] = held["state"] + held["batch"]
+    mem = dry["memory"]["argument_bytes_by_input"]
+    print(f"[dryrun] {cfg.name} {B} x {S} on one card: argument_bytes "
+          f"{dry['memory']['argument_bytes']} predicted ({mem}); the card's "
+          f"train state and batch after init_train_state: {held} B "
+          f"(torch.cuda.memory_allocated {torch.cuda.memory_allocated()} "
+          f"B: the caching allocator rounds each leaf up to 512 B)",
+          flush=True)
+    if held != mem:
+        fail(f"the dry run predicts {mem} argument bytes, the card holds "
+             f"{held}")
+
+    # (b), (c): one step counted and one not, from the same state.
+    step = make_train_step(cfg, opt, ac=zoo.ApplyCfg(
+        dispatch=TRAIN["dispatch"]))
+    want = step_launches(cfg, TRAIN_KERNELS, True)
+    clone = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+    runs = {}
+    for counted in (False, True):
+        st = clone(state)
+        before = ops.launch_counts()
+        if counted:
+            (st, m), cost = step_cost(step, st, batch)
+        else:
+            st, m = step(st, batch)
+        torch.cuda.synchronize()
+        runs[counted] = (st, m, {k: v - before[k] for k, v in
+                                 ops.launch_counts().items()})
+    del state
+    (s0, m0, l0), (s1, m1, l1) = runs[False], runs[True]
+    same = (torch.equal(m0["loss"], m1["loss"]) and l0 == l1 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(s0),
+                                          tree_leaves(s1))))
+    print(f"[mfu] {cfg.name}: the step with and without count_work(): "
+          f"loss {float(m0['loss'])!r} / {float(m1['loss'])!r}, "
+          f"{len(tree_leaves(s0))} state leaves "
+          f"{'bit-identical' if same else 'DIFFERENT'}, launches equal: "
+          f"{l0 == l1}", flush=True)
+    if not same:
+        fail("counting the step's work changed its result or launches")
+    _held_cost(f"{cfg.name} train", cost, dry, l1, want,
+               ("grouped_mlp", "grouped_mlp_dx", "grouped_mlp_dw"))
+    del s1, runs
+    ms = _timed_ms(lambda: step(s0, batch), COST_STEPS)
+    _mfu_line(f"{cfg.name} train", cfg, B * S, cost, ms)
+    del s0, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The ViT's MoE step (Expert Choice, gather, 104 images), its dry
+    # run on the meta twin of its state and batch.
+    vit = get_config(VIT_TRAIN["arch"])
+    vstate = init_train_state(torch.Generator(device=device).manual_seed(0),
+                              vit, opt, device=device)
+    vbatch = batch_to(next(make_iterator(
+        vit, global_batch=VIT_TRAIN["batch"], seq_len=VIT_TRAIN["seq"],
+        task=task)), device)
+    vstep = make_train_step(vit, opt, ac=zoo.ApplyCfg(
+        dispatch=VIT_TRAIN["dispatch"]))
+    _, vdry = step_cost(vstep, meta_twin(vstate), meta_twin(vbatch))
+    print(f"[dryrun] {vit.name} {VIT_TRAIN['batch']} images on the meta "
+          f"device: aten FLOPs {vdry['aten_flops']}, kernel FLOPs "
+          f"{vdry['kernel_flops']}", flush=True)
+    before = ops.launch_counts()
+    (vstate, _), vcost = step_cost(vstep, vstate, vbatch)
+    torch.cuda.synchronize()
+    _held_cost(f"{vit.name} train", vcost, vdry,
+               {k: v - before[k] for k, v in ops.launch_counts().items()},
+               step_launches(vit, VIT_KERNELS, True), EXPERT_KERNELS)
+    ms = _timed_ms(lambda: vstep(vstate, vbatch), COST_STEPS)
+    _mfu_line(f"{vit.name} train", vit, VIT_TRAIN["batch"]
+              * vit.n_frontend_positions, vcost, ms)
+    del vstate, vbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the serve mixed step at phase 4's shapes.
+    scfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    fn = mixed_step_fn(scfg, device)
+    fn()
+    ms = _timed_ms(fn, 2 * COST_STEPS)
+    _, scost = step_cost(fn)
+    kbytes = sum(scost["kernel_bytes"].values())
+    ms_med = sorted(ms)[len(ms) // 2]
+    swant = {k: scfg.n_layers for k in SERVE_KERNELS}
+    print(f"[mfu] {scfg.name} mixed step (phase 4's shapes): counted FLOPs "
+          f"{scost['total_flops']} (aten {scost['aten_flops']}, kernels "
+          f"{scost['kernel_flops']}), kernel bytes {scost['kernel_bytes']} "
+          f"(sum {kbytes}); step ms {', '.join(f'{x:.2f}' for x in ms)} "
+          f"(median {ms_med:.2f}, synchronised, uncounted): HBM share of "
+          f"the kernels' bytes {kbytes / (ms_med / 1e3 * HBM_BW):.6f}, "
+          f"hardware_flops_util "
+          f"{scost['total_flops'] / (ms_med / 1e3 * PEAK_FLOPS_BF16):.6f}; "
+          f"{card_line()}", flush=True)
+    if scost["kernel_calls"] != swant:
+        fail(f"the counted mixed step called {scost['kernel_calls']}, not "
+             f"{swant}")
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    print(f"[mfu] phase 19 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -5576,6 +5795,10 @@ def main() -> int:
     # padding through the flash kernels.
     multi_launches = multi_gpu(device)
 
+    # A step's counted FLOPs and bytes against the dry run on the meta
+    # device, and the steps' mfu.
+    cost_launches = step_costs(device)
+
     for rec in records:
         name = rec["name"]
         by_path = {"serve": launches.get(name, 0),
@@ -5594,6 +5817,7 @@ def main() -> int:
                         for path, n in family_launches.items()})
         by_path.update({path: n.get(name, 0)
                         for path, n in multi_launches.items()})
+        by_path["step_cost"] = cost_launches.get(name, 0)
         rec["launches"] = sum(by_path.values())
         if name in bf16_at:
             rec["bf16_at_train_shapes"] = bf16_at[name]

@@ -134,9 +134,12 @@ def sorted_dispatch_ep(params, xg, r: R.Routing, cfg: ArchConfig,
     xs = recv_x.new_zeros((M + 1, d)).index_copy(
         0, dest, recv_x[perm])[:M]
     ex = params["experts"]
+    # A local expert takes at most ``cap`` rows of each of the model
+    # group's Gl * ep routing groups (the meta route's bound).
     ys = ops.grouped_mlp(
         xs[None], ex["wi"], ex.get("wg"), ex["wo"], counts,
         act=cfg.act, block=block, implementation=implementation,
+        max_rows=min(Rr, E_loc * R.capacity(g, moe) * Gl * ep),
     )[0]
 
     # ---- return all-to-all + combine on the source ------------------

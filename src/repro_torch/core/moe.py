@@ -129,13 +129,16 @@ def _einsum_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
 
 
 def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
-                     implementation: str):
+                     implementation: str, cap: int | None = None):
     """Sort the flat assignment stream by expert into a ragged buffer
     aligned to the ragged layout's block (:data:`ROW_BLOCK`; results do
     not depend on it): each ragged row taken from its token (a row map
     of the stream's units, ``R.stream_units``), the grouped FFN, each
     row weighted by its assignment's weight and each unit's rows summed
-    in stream order (``R.sum_rows``). Returns y (G, g, d)."""
+    in stream order (``R.sum_rows``). ``cap``: the routing's capacity;
+    with the stream's assignments it bounds a group's valid rows for
+    the kernels' meta route.
+    Returns y (G, g, d)."""
     G, g, d = xg.shape
     E = r.probs.shape[-1]
     experts = None if _token_major(r) else E
@@ -159,6 +162,7 @@ def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
     ys = ops.grouped_mlp(
         xs, ex["wi"], ex.get("wg"), ex["wo"], counts,
         act=cfg.act, block=ROW_BLOCK, implementation=implementation,
+        max_rows=None if cap is None else min(E * cap, tok.shape[1]),
     )
     yw = (ys.reshape(G * M, d) * wr[:, None]).to(xg.dtype)
     return R.units_to_tokens(R.sum_rows(yw, m), tok, g, experts)
@@ -251,8 +255,9 @@ def moe_apply(
             params, xg, r, cfg, moe, ctx=ctx,
             implementation=implementation)
     else:
+        kw = {"cap": R.capacity(g, moe)} if dispatch == "sorted" else {}
         y = dispatches[dispatch](params, xg, r, cfg,
-                                 implementation=implementation)
+                                 implementation=implementation, **kw)
     y = y.reshape(-1, d)
     if pad:
         y = y[:n]

@@ -7,9 +7,16 @@ with ``ctypes``. Libraries are named by a hash of their source, every
 header in ``csrc`` and the flags, so an edited source or header is
 rebuilt and a stale library is never loaded. Nothing is built when a
 module is imported: the CPU tests import every module.
+
+Inside a :func:`count_work` block every kernel call also adds its work
+model (``kernels/tiling.py``) to the block's :class:`WorkCount`: a
+launch on the card, and a call of a wrapper's shape-only route on the
+meta device (the dry run's path, ``kernels/ops.py``). Outside the block
+nothing is computed beyond the launch count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,9 +59,10 @@ class Kernel:
     one library.
 
     ``launches`` counts successful launches of the kernel itself; the
-    plain PyTorch versions never touch it. ``csrc`` is the directory of
-    the source and its headers (default: the package's own; a copy with
-    an edit builds a variant beside the original).
+    plain PyTorch versions and the meta route never touch it. ``csrc``
+    is the directory of the source and its headers (default: the
+    package's own; a copy with an edit builds a variant beside the
+    original).
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list, *,
@@ -99,9 +107,10 @@ class Kernel:
             build_all([self])
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, work=None) -> None:
         """Call the C entry point (which launches on the given stream)
-        and raise if ``cudaGetLastError()`` was not 0."""
+        and raise if ``cudaGetLastError()`` was not 0; then
+        :meth:`record` ``work``."""
         rc = self.fn()(*args)
         if rc != 0:
             raise RuntimeError(
@@ -109,6 +118,71 @@ class Kernel:
                 f"({self._err(rc).decode()})"
             )
         self.launches += 1
+        if work is not None:
+            self.record(work)
+
+    def record(self, work) -> None:
+        """Inside :func:`count_work`, add one call whose ``work()`` gives
+        its (bytes, FLOPs); outside it ``work`` is not called."""
+        if _COUNTER is not None:
+            _COUNTER.add(self.name, *work())
+
+
+class WorkCount:
+    """The kernel calls of one :func:`count_work` block: ``calls``,
+    ``bytes`` and ``flops`` by kernel name. A call's bytes and FLOPs
+    are ints, or int64 device scalars where they depend on the data
+    (ragged rows, slot lengths, lane starts): those are kept on their
+    device and read together, once, when the block closes; ``bytes``
+    and ``flops`` hold ints from then on."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.bytes: dict = {}
+        self.flops: dict = {}
+
+    def add(self, name: str, nbytes, flops) -> None:
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.bytes.setdefault(name, []).append(nbytes)
+        self.flops.setdefault(name, []).append(flops)
+
+    def _close(self) -> None:
+        import torch
+
+        tensors = {}  # device -> [values]
+        for table in (self.bytes, self.flops):
+            for vals in table.values():
+                for v in vals:
+                    if isinstance(v, torch.Tensor):
+                        tensors.setdefault(v.device, []).append(v)
+        read = {}
+        for dev, vals in tensors.items():
+            host = torch.stack([v.reshape(()) for v in vals]).cpu().tolist()
+            read.update(zip(map(id, vals), host))
+        for table in (self.bytes, self.flops):
+            for name, vals in table.items():
+                table[name] = sum(int(read[id(v)]) if isinstance(
+                    v, torch.Tensor) else int(v) for v in vals)
+
+
+_COUNTER: WorkCount | None = None
+
+
+@contextlib.contextmanager
+def count_work():
+    """Count the kernels' work in the block: yields a :class:`WorkCount`
+    whose totals are read when the block closes (one device-to-host copy
+    a device). The kernels launch as they would outside the block; their
+    results do not change. Blocks do not nest."""
+    global _COUNTER
+    if _COUNTER is not None:
+        raise RuntimeError("count_work() blocks do not nest")
+    counter = _COUNTER = WorkCount()
+    try:
+        yield counter
+    finally:
+        _COUNTER = None
+    counter._close()
 
 
 def build_all(kernels) -> float:

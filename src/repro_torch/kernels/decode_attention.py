@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 
@@ -100,5 +101,21 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
         B, H, Kh, dh, bs, nb, splits,
         int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
+        work=lambda: tiling.decode_work(
+            B, H, Kh, dh, bs, lengths, itemsize=q.element_size(),
+            kv_itemsize=k_pool.element_size()),
     )
     return out
+
+
+def paged_decode_attention_meta(q, k_pool, v_pool, block_tables, lengths):
+    """:func:`paged_decode_attention_cuda`'s output on the meta device
+    (empty, of its shape and dtype); records the work of slots whose
+    lengths fill their tables (the lengths are unknown there)."""
+    B, H, dh = q.shape
+    bs, Kh = k_pool.shape[1], k_pool.shape[2]
+    full = [block_tables.shape[1] * bs] * B
+    KERNEL.record(lambda: tiling.decode_work(
+        B, H, Kh, dh, bs, full, itemsize=q.element_size(),
+        kv_itemsize=k_pool.element_size()))
+    return torch.empty_like(q)

@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 
 _ACTS = {"silu": 0, "gelu": 1, "sqrelu": 2}
@@ -65,6 +66,13 @@ def _check(name, xe, wi, wg, wo, act, *extra):
     return G, E, cap, d, f
 
 
+def _work(kind, xe, f, gated):
+    """The call's work model (``tiling.expert_work``) as a thunk."""
+    G, E, cap, d = xe.shape
+    return lambda: tiling.expert_work(kind, G, E, cap, d, f, gated=gated,
+                                      itemsize=xe.element_size())
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -82,7 +90,8 @@ def expert_ffn_cuda(xe, wi, wg, wo, *, act: str = "silu"):
     h = torch.empty((G, E, cap, f), dtype=torch.float32, device=xe.device)
     KERNEL.launch(xe.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
                   h.data_ptr(), out.data_ptr(), G, E, cap, d, f, _ACTS[act],
-                  int(xe.dtype == torch.bfloat16), _stream(xe))
+                  int(xe.dtype == torch.bfloat16), _stream(xe),
+                  work=_work("fwd", xe, f, wg is not None))
     return out
 
 
@@ -104,7 +113,8 @@ def expert_ffn_dx_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
     KERNEL_DX.launch(xe.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
                      dy.data_ptr(), dx.data_ptr(), da.data_ptr(), _ptr(dg),
                      h.data_ptr(), G, E, cap, d, f, _ACTS[act],
-                     int(xe.dtype == torch.bfloat16), _stream(xe))
+                     int(xe.dtype == torch.bfloat16), _stream(xe),
+                     work=_work("dx", xe, f, wg is not None))
     return dx, da, dg, h
 
 
@@ -147,7 +157,7 @@ def expert_ffn_dw_cuda(xe, dy, da, dg, h):
     KERNEL_DW.launch(xe.data_ptr(), dy.data_ptr(), da.data_ptr(), _ptr(dg),
                      h.data_ptr(), dwi.data_ptr(), _ptr(dwg), dwo.data_ptr(),
                      G, E, cap, d, f, int(xe.dtype == torch.bfloat16),
-                     _stream(xe))
+                     _stream(xe), work=_work("dw", xe, f, dg is not None))
     return dwi, dwg, dwo
 
 
@@ -161,3 +171,27 @@ def expert_ffn_bwd_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
     del da, dg, h
     return (dx, dwi.to(wi.dtype),
             None if dwg is None else dwg.to(wg.dtype), dwo.to(wo.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the shape-only route on the meta device (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def expert_ffn_meta(xe, wi, wg, wo):
+    """:func:`expert_ffn_cuda`'s output on the meta device (empty, of its
+    shape and dtype); records the forward's work, which the buffer's
+    shape sets (every slot is computed)."""
+    KERNEL.record(_work("fwd", xe, wi.shape[-1], wg is not None))
+    return torch.empty_like(xe)
+
+
+def expert_ffn_bwd_meta(xe, wi, wg, wo, dy):
+    """:func:`expert_ffn_bwd_cuda`'s gradients on the meta device;
+    records the dx and dW kernels' work."""
+    f, gated = wi.shape[-1], wg is not None
+    KERNEL_DX.record(_work("dx", xe, f, gated))
+    KERNEL_DW.record(_work("dw", xe, f, gated))
+    return (torch.empty_like(xe), torch.empty_like(wi),
+            None if wg is None else torch.empty_like(wg),
+            torch.empty_like(wo))

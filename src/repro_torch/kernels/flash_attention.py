@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 
 FWD_ROWS = 64  # query rows (position x head) of a forward block
@@ -40,6 +41,16 @@ KERNEL_DQ = Kernel("flash_attention_dq", "flash_attention_dq",
 KERNEL_DKV = Kernel("flash_attention_dkv", "flash_attention_dkv",
                     [_P] * 10 + [_I] * 8 + [_P],
                     source="flash_attention_bwd")
+
+
+def _work(kind, q, k, q_offset, kv_len, causal):
+    """The call's work model (``tiling.flash_work``) as a thunk;
+    ``q_offset`` and ``kv_len`` are ints or device scalars."""
+    B, Sq, H, dh = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    return lambda: tiling.flash_work(
+        kind, B, Sq, Skv, H, Kh, dh, causal=causal,
+        itemsize=q.element_size(), q_offset=q_offset, kv_len=kv_len)
 
 
 def pick_fwd_q_tile(group: int, dh: int, *,
@@ -103,6 +114,7 @@ def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
         B, Sq, Skv, H, Kh, dh, bq, int(causal),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
+        work=_work("fwd", q, k, q_offset, kv_len, causal),
     )
     return o, lse
 
@@ -152,6 +164,7 @@ def flash_attention_dq_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
         kv_len.data_ptr(), dq.data_ptr(), B, Sq, Skv, H, Kh, dh,
         int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
+        work=_work("dq", q, k, q_offset, kv_len, causal),
     )
     return dq
 
@@ -175,6 +188,7 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, delta, q_offset, kv_len, *,
         kv_len.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Kh,
         dh, int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
+        work=_work("dkv", q, k, q_offset, kv_len, causal),
     )
     return dk, dv
 
@@ -189,3 +203,27 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, q_offset, kv_len, *,
     dq = flash_attention_dq_cuda(*args, causal=causal)
     dk, dv = flash_attention_dkv_cuda(*args, causal=causal)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the shape-only route on the meta device (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fwd_meta(q, k, v, q_offset: int, kv_len: int, *,
+                             causal: bool):
+    """:func:`flash_attention_fwd_cuda`'s (o, lse) on the meta device
+    (empty, of their shapes and dtypes); records the forward's work at
+    the host-known ``q_offset`` and ``kv_len``."""
+    KERNEL.record(_work("fwd", q, k, q_offset, kv_len, causal))
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def flash_attention_bwd_meta(q, k, v, q_offset: int, kv_len: int, *,
+                             causal: bool):
+    """:func:`flash_attention_bwd_cuda`'s (dq, dk, dv) on the meta
+    device; records the dq and dk/dv kernels' work."""
+    KERNEL_DQ.record(_work("dq", q, k, q_offset, kv_len, causal))
+    KERNEL_DKV.record(_work("dkv", q, k, q_offset, kv_len, causal))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

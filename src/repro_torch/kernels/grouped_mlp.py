@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 
 ROW_BLOCK = 16  # the ragged layout's block (kRowBlock in csrc/expert_gemm.cuh)
@@ -209,6 +210,9 @@ def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
         sizes.data_ptr(), h.data_ptr(), out.data_ptr(),
         G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16), bm,
         slots, torch.cuda.current_stream(xs.device).cuda_stream,
+        work=lambda: tiling.grouped_work(
+            "fwd", G, M, d, f, E, *tiling.grouped_rows(sizes),
+            gated=wg is not None, itemsize=xs.element_size()),
     )
     return out
 
@@ -241,6 +245,9 @@ def grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes, *,
         _ptr(dg), h.data_ptr(),
         G, M, d, f, E, _ACTS[act], int(xs.dtype == torch.bfloat16), bm,
         slots, torch.cuda.current_stream(dev).cuda_stream,
+        work=lambda: tiling.grouped_work(
+            "dx", G, M, d, f, E, *tiling.grouped_rows(sizes),
+            gated=wg is not None, itemsize=xs.element_size()),
     )
     return dx, da, dg, h
 
@@ -288,6 +295,9 @@ def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
         dwi.data_ptr(), _ptr(dwg), dwo.data_ptr(),
         G, M, d, f, E, int(xs.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
+        work=lambda: tiling.grouped_work(
+            "dw", G, M, d, f, E, *tiling.grouped_rows(group_sizes),
+            gated=dg is not None, itemsize=xs.element_size()),
     )
     return dwi, dwg, dwo
 
@@ -303,6 +313,45 @@ def grouped_mlp_bwd_cuda(xs, wi, wg, wo, dy, group_sizes, *,
                                         block=block)
     return (dx, dwi.to(wi.dtype), None if dwg is None else dwg.to(wg.dtype),
             dwo.to(wo.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the shape-only route on the meta device (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def _meta_work(kind, xs, wi, wg, max_rows):
+    """The capacity-full work of a grouped call on the meta device,
+    where the group sizes are unknown: ``max_rows`` valid rows a group
+    (default M - E * ROW_BLOCK, at least the assignments the buffer was
+    laid out for) and every expert live."""
+    G, M, d = xs.shape
+    E, _, f = wi.shape
+    rows = M - E * ROW_BLOCK
+    if max_rows is not None:
+        rows = min(rows, max_rows)
+    return lambda: tiling.grouped_work(
+        kind, G, M, d, f, E, G * rows, E, gated=wg is not None,
+        itemsize=xs.element_size())
+
+
+def grouped_mlp_meta(xs, wi, wg, wo, group_sizes, *, max_rows=None):
+    """:func:`grouped_mlp_cuda`'s output on the meta device (empty, of
+    its shape and dtype); records the forward's capacity-full work
+    (``max_rows`` valid rows a group)."""
+    KERNEL.record(_meta_work("fwd", xs, wi, wg, max_rows))
+    return torch.empty_like(xs)
+
+
+def grouped_mlp_bwd_meta(xs, wi, wg, wo, dy, group_sizes, *,
+                         max_rows=None):
+    """:func:`grouped_mlp_bwd_cuda`'s gradients on the meta device;
+    records the dx and dW kernels' capacity-full work."""
+    KERNEL_DX.record(_meta_work("dx", xs, wi, wg, max_rows))
+    KERNEL_DW.record(_meta_work("dw", xs, wi, wg, max_rows))
+    return (torch.empty_like(xs), torch.empty_like(wi),
+            None if wg is None else torch.empty_like(wg),
+            torch.empty_like(wo))
 
 
 def _ptr(t):

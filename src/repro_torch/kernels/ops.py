@@ -8,6 +8,16 @@ Every op takes ``implementation``:
 * ``"cuda"``  — the hand-written kernel; CPU tensors raise;
 * ``"eager"`` — the plain version (kernels/ref.py), only when asked for.
 
+On the meta device ``"auto"`` and ``"cuda"`` take the kernels'
+shape-only route (``"meta"``, the dry run's path, ``launch/dryrun.py``):
+each op returns empty outputs of the kernel's shapes and dtypes and
+records the kernel's work model in an open ``build.count_work`` block.
+Where the work depends on data the meta device does not hold, it
+records an upper bound: the grouped kernels' capacity-full rows
+(``max_rows``), decode slots and prefill lanes that fill their tables.
+A CUDA tensor still gets its kernel or an error, a CPU tensor its plain
+version; ``"eager"`` runs the plain version on any device.
+
 ``flash_attention``, ``grouped_mlp`` and ``expert_ffn`` are
 differentiable: each is a ``torch.autograd.Function`` whose backward
 runs the backward kernels (or, on "eager", the plain backward versions)
@@ -35,6 +45,8 @@ KERNELS = (_da.KERNEL, _pp.KERNEL, _gm.KERNEL, _fa.KERNEL, _fa.KERNEL_DQ,
 
 
 def resolve(implementation: str, x: torch.Tensor) -> str:
+    if implementation in ("auto", "cuda") and x.is_meta:
+        return "meta"
     if implementation == "auto":
         return "cuda" if x.is_cuda else "eager"
     if implementation == "cuda":
@@ -68,9 +80,13 @@ def decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     tokens per slot (0 = free slot -> exact zeros). Returns
     (B, 1, H, dh)."""
     qq = q[:, 0]
-    if resolve(implementation, q) == "eager":
+    impl = resolve(implementation, q)
+    if impl == "eager":
         y = _ref.decode_attention_ref(qq, k_pool, v_pool, block_tables,
                                       lengths)
+    elif impl == "meta":
+        y = _da.paged_decode_attention_meta(qq, k_pool, v_pool,
+                                            block_tables, lengths)
     else:
         y = _da.paged_decode_attention_cuda(
             qq.contiguous(), k_pool, v_pool,
@@ -87,9 +103,13 @@ def prefill_attention(q, k_pool, v_pool, block_tables, starts, lens, *,
     (NC,) absolute position of q[c, 0]; lens (NC,) valid rows (0 = dead
     lane -> exact zeros). Row i of chunk c attends pool positions
     ``<= starts[c] + i``. Returns (NC, C, H, dh)."""
-    if resolve(implementation, q) == "eager":
+    impl = resolve(implementation, q)
+    if impl == "eager":
         return _ref.prefill_attention_ref(q, k_pool, v_pool, block_tables,
                                           starts, lens)
+    if impl == "meta":
+        return _pp.paged_prefill_attention_meta(q, k_pool, v_pool,
+                                                block_tables, starts, lens)
     i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
     return _pp.paged_prefill_attention_cuda(
         q.contiguous(), k_pool, v_pool, i32(block_tables), i32(starts),
@@ -103,38 +123,50 @@ class _GroupedMLP(torch.autograd.Function):
     sizes only; the backward recomputes the hidden tiles."""
 
     @staticmethod
-    def forward(ctx, xs, wi, wg, wo, group_sizes, act, block, impl):
+    def forward(ctx, xs, wi, wg, wo, group_sizes, act, block, impl,
+                max_rows):
         ctx.save_for_backward(xs, wi, wg, wo, group_sizes)
         ctx.act, ctx.block, ctx.impl = act, block, impl
+        ctx.max_rows = max_rows
         if impl == "eager":
             return _ref.grouped_mlp_ref(xs, wi, wg, wo, group_sizes,
                                         block=block, act=act)
+        if impl == "meta":
+            return _gm.grouped_mlp_meta(xs, wi, wg, wo, group_sizes,
+                                        max_rows=max_rows)
         return _gm.grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, act=act,
                                     block=block)
 
     @staticmethod
     def backward(ctx, dy):
         xs, wi, wg, wo, group_sizes = ctx.saved_tensors
+        if ctx.impl == "meta":
+            grads = _gm.grouped_mlp_bwd_meta(xs, wi, wg, wo, dy,
+                                             group_sizes,
+                                             max_rows=ctx.max_rows)
+            return (*grads, None, None, None, None, None)
         bwd = (_ref.grouped_mlp_bwd_ref if ctx.impl == "eager"
                else _gm.grouped_mlp_bwd_cuda)
         dx, dwi, dwg, dwo = bwd(xs, wi, wg, wo, dy.contiguous(),
                                 group_sizes, block=ctx.block, act=ctx.act)
-        return dx, dwi, dwg, dwo, None, None, None, None
+        return dx, dwi, dwg, dwo, None, None, None, None, None
 
 
 def grouped_mlp(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
-                block: int = _gm.ROW_BLOCK, implementation="auto"):
+                block: int = _gm.ROW_BLOCK, implementation="auto",
+                max_rows: int | None = None):
     """Grouped expert FFN over the sorted ragged buffer (the
     ``dispatch="sorted"`` hot path), differentiable in xs and the
     weights. xs: (G, M, d) expert-sorted rows, each expert's segment
     padded to a multiple of ``block``; group_sizes (G, E) valid rows per
-    expert."""
+    expert. ``max_rows``: the most valid rows a group can hold (the
+    routing's capacity), read by the meta route only."""
     impl = resolve(implementation, xs)
     if impl == "cuda":
         xs = xs.contiguous()
     return _GroupedMLP.apply(xs, wi, wg, wo,
                              group_sizes.to(torch.int32).contiguous(), act,
-                             block, impl)
+                             block, impl, max_rows)
 
 
 class _ExpertFFN(torch.autograd.Function):
@@ -149,11 +181,16 @@ class _ExpertFFN(torch.autograd.Function):
         ctx.act, ctx.impl = act, impl
         if impl == "eager":
             return _ref.expert_ffn_ref(xe, wi, wg, wo, act=act)
+        if impl == "meta":
+            return _em.expert_ffn_meta(xe, wi, wg, wo)
         return _em.expert_ffn_cuda(xe, wi, wg, wo, act=act)
 
     @staticmethod
     def backward(ctx, dy):
         xe, wi, wg, wo = ctx.saved_tensors
+        if ctx.impl == "meta":
+            return (*_em.expert_ffn_bwd_meta(xe, wi, wg, wo, dy), None,
+                    None)
         bwd = (_ref.expert_ffn_bwd_ref if ctx.impl == "eager"
                else _em.expert_ffn_bwd_cuda)
         dx, dwi, dwg, dwo = bwd(xe, wi, wg, wo, dy.contiguous(),
@@ -184,6 +221,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_len, causal, impl):
+        ctx.causal, ctx.impl = causal, impl
+        if impl == "meta":  # q_offset, kv_len: host ints
+            ctx.save_for_backward(q, k, v)
+            ctx.offsets = (q_offset, kv_len)
+            return _fa.flash_attention_fwd_meta(q, k, v, q_offset, kv_len,
+                                                causal=causal)[0]
         if impl == "eager":
             o, lse = _ref.flash_attention_ref(
                 q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
@@ -191,11 +234,15 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = _fa.flash_attention_fwd_cuda(q, k, v, q_offset, kv_len,
                                                   causal=causal)
         ctx.save_for_backward(q, k, v, o, lse, q_offset, kv_len)
-        ctx.causal, ctx.impl = causal, impl
         return o
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.impl == "meta":
+            q, k, v = ctx.saved_tensors
+            return (*_fa.flash_attention_bwd_meta(
+                q, k, v, *ctx.offsets, causal=ctx.causal), None, None,
+                None, None)
         q, k, v, o, lse, q_offset, kv_len = ctx.saved_tensors
         do = do.contiguous()
         if ctx.impl == "eager":
@@ -218,6 +265,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     impl = resolve(implementation, q)
     if kv_len is None:
         kv_len = k.shape[1]
+    if impl == "meta":  # host ints: a meta tensor holds no value
+        return _FlashAttention.apply(q, k, v, int(q_offset), int(kv_len),
+                                     bool(causal), impl)
     qo = _fa.scalar_i32(q_offset, q.device)
     kl = _fa.scalar_i32(kv_len, q.device)
     if impl == "cuda":
@@ -237,7 +287,8 @@ def rwkv6(r, k, v, w, u, *, initial_state=None, chunk: int = 64,
     runs the step-by-step kernel, which has no chunk. The kernel is
     forward-only, as the reference's is: asking autograd for a gradient
     through it raises."""
-    if resolve(implementation, r) == "eager":
+    impl = resolve(implementation, r)
+    if impl == "eager":
         return _ref.rwkv6_chunked_ref(r, k, v, w, u,
                                       initial_state=initial_state,
                                       chunk=chunk)
@@ -249,6 +300,8 @@ def rwkv6(r, k, v, w, u, *, initial_state=None, chunk: int = 64,
             "kernel has no custom_vjp either): train rwkv stacks with "
             "mixer_impl='eager' (autograd through the plain chunked "
             "version); a backward kernel is queued in ROADMAP.md")
+    if impl == "meta":
+        return _wkv.rwkv6_meta(r, k, v, w, u, initial_state)
     f32 = torch.float32
     return _wkv.rwkv6_cuda(
         r.contiguous(), k.contiguous(), v.contiguous(),

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.decode_attention import (
     check_paged_inputs,
@@ -74,5 +75,25 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
         NC, C, H, Kh, dh, bs, nb, bq, splits,
         int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
+        work=lambda: tiling.prefill_work(
+            NC, C, H, Kh, dh, bs, P, block_tables, starts, lens,
+            itemsize=q.element_size(), kv_itemsize=k_pool.element_size()),
     )
     return out
+
+
+def paged_prefill_attention_meta(q, k_pool, v_pool, block_tables, starts,
+                                 lens):
+    """:func:`paged_prefill_attention_cuda`'s output on the meta device
+    (empty, of its shape and dtype); records the work of full lanes
+    ending at their tables' capacity over distinct blocks (the starts,
+    lengths and tables are unknown there)."""
+    NC, C, H, dh = q.shape
+    bs, Kh = k_pool.shape[1], k_pool.shape[2]
+    nb = block_tables.shape[1]
+    KERNEL.record(lambda: tiling.prefill_work(
+        NC, C, H, Kh, dh, bs, NC * nb,
+        torch.arange(NC * nb).reshape(NC, nb), [max(nb * bs - C, 0)] * NC,
+        [min(C, nb * bs)] * NC, itemsize=q.element_size(),
+        kv_itemsize=k_pool.element_size()))
+    return torch.empty_like(q)

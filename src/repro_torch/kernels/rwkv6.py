@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tiling
 from repro_torch.kernels.build import Kernel
 
 _P = ctypes.c_void_p
@@ -70,5 +71,20 @@ def rwkv6_cuda(r, k, v, w, u, initial_state=None):
                   None if initial_state is None else initial_state.data_ptr(),
                   o.data_ptr(), s_out.data_ptr(), B, T, H, K, V,
                   int(r.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(r.device).cuda_stream)
+                  torch.cuda.current_stream(r.device).cuda_stream,
+                  work=lambda: tiling.wkv_work(
+                      B, T, H, K, V, itemsize=r.element_size(),
+                      state_in=initial_state is not None))
     return o, s_out
+
+
+def rwkv6_meta(r, k, v, w, u, initial_state=None):
+    """:func:`rwkv6_cuda`'s (o, final state) on the meta device (empty,
+    of their shapes and dtypes); records the call's work."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    KERNEL.record(lambda: tiling.wkv_work(
+        B, T, H, K, V, itemsize=r.element_size(),
+        state_in=initial_state is not None))
+    return (r.new_empty((B, T, H, V), dtype=v.dtype),
+            r.new_empty((B, H, K, V), dtype=torch.float32))

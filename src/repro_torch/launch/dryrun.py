@@ -1,0 +1,337 @@
+"""Dry run: every (architecture x input shape x mesh) cell built and run
+once on the meta device, with no allocation, giving the roofline's raw
+terms a device (port of ``repro/launch/dryrun.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --arch granite-moe-1b-a400m --shape train_4k --mesh pod \\
+        --profile optimized
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # every
+        cell in this process; writes artifacts/dryrun_torch/*.json
+
+The reference lowers and compiles each cell for 512 forced host devices
+and reads XLA's memory and cost analyses and the partitioned HLO. The
+port builds the cell (``launch/specs.py``) and runs its step once on the
+meta device under ``launch/flops.step_cost``: the aten products are
+FlopCounterMode's, the kernels' FLOPs and bytes come from their work
+models through the shape-only route (``kernels/ops.py``), the flash
+kernels' among them (the counterpart of ``pallas_model.py``'s modelled
+attention traffic; its XLA-path half has none). Where the data decides
+the work (the grouped kernels' valid rows), the meta route counts the
+capacity-full bound, so the card's counted work is at most the dry
+run's. No XLA runs, so nothing needs a process of its own.
+
+Per device: the step is the global one, so FLOPs and bytes are the
+mesh's, divided evenly over its devices. ``memory.argument_bytes`` is
+exact: each input leaf's bytes over its shard factor under the rules'
+placement on the mesh (``sharding.spec_for``; the reference's
+``argument_size_in_bytes``). There is no counterpart of XLA's buffer
+assignment, so the record holds no temporary or peak bytes rather than
+a guess. ``collective_bytes_per_device`` models the collectives the
+port's runtime runs today: the gradient all-reduce, and the
+expert-parallel all-to-alls of ``core/ep.py``, whose buffers are static
+(:func:`ep_a2a_bytes`). FSDP and tensor-parallel collectives are not
+modelled (the runtime does not apply those placements yet).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+
+def argument_bytes(args, axes, ctx, kind: str) -> dict:
+    """Bytes a device of each input (params or train state, batch,
+    serve cache; mirroring the ``args`` and ``info["axes"]`` of a
+    cell of ``kind``):
+    each leaf's bytes over the product of the mesh axes its spec shards
+    it over, under the param rules for the parameters and the train
+    state and the activation rules for the rest."""
+    import torch
+
+    from repro_torch.sharding import mesh_shape, spec_for
+
+    sizes = mesh_shape(ctx.mesh)
+
+    def tree_bytes(tree, ax, rules) -> int:
+        if isinstance(tree, torch.Tensor):
+            spec = spec_for(ax, tuple(tree.shape), ctx.mesh, rules)
+            shards = math.prod(sizes[a] for e in spec if e is not None
+                               for a in ((e,) if isinstance(e, str) else e))
+            return tree.numel() * tree.element_size() // shards
+        if isinstance(tree, dict):
+            return sum(tree_bytes(tree[k], ax[k], rules) for k in tree)
+        if isinstance(tree, (list, tuple)):
+            return sum(tree_bytes(t, a, rules) for t, a in zip(tree, ax))
+        return 0  # host ints (a decode step's index)
+
+    names = {"train": ("state", "batch"), "prefill": ("params", "batch"),
+             "decode": ("params", "tokens", "cache", "index")}[kind]
+    out = {}
+    for name, a, ax in zip(names, args, axes):
+        rules = ctx.param_rules if name in ("state", "params") \
+            else ctx.act_rules
+        out[name] = tree_bytes(a, ax, rules)
+    out["total"] = sum(out.values())
+    return out
+
+
+def ep_a2a_bytes(cfg, *, tokens_per_rank: int, ep: int,
+                 itemsize: int) -> dict:
+    """Bytes one rank sends through the expert-parallel all-to-alls of
+    ONE MoE layer (``core/ep.sorted_dispatch_ep``), whose buffers are
+    static: ``ep * budget`` rows, ``budget`` the ``ep_row_budget`` of the
+    rank's assignments. Forward: the token rows (d in ``itemsize``),
+    their local expert ids (int32) and the returned rows; backward: the
+    two row buffers again."""
+    from repro_torch.core.ep import ep_row_budget
+    from repro_torch.core.routing import capacity
+    from repro_torch.kernels.grouped_mlp import ROW_BLOCK
+
+    moe = cfg.moe
+    g = min(moe.group_size, tokens_per_rank)
+    groups = -(-tokens_per_rank // g)
+    if moe.router == "expert_choice":
+        per_group = moe.num_experts * capacity(g, moe)
+    else:
+        per_group = g * (1 if moe.router == "switch" else moe.top_k)
+    rows = ep * ep_row_budget(groups * per_group, ep, moe.ep_budget_factor,
+                              ROW_BLOCK)
+    row = 2 * rows * cfg.d_model * itemsize
+    return {"forward": row + 4 * rows, "backward": row}
+
+
+def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
+                     mesh, tokens: int, itemsize: int) -> dict:
+    """The collectives a device runs in one step of the port's runtime
+    on ``mesh``, in bytes it sends. Training: the gradients' float32
+    all-reduce (``train_loop.reduce_grads``; a ring sends 2 (W - 1) / W
+    of the buffer), every leaf over the whole mesh but expert leaves
+    under expert parallelism, which reduce over the mesh's other axes.
+    Expert parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh
+    that hosts it): each MoE layer's all-to-alls (:func:`ep_a2a_bytes`),
+    the forward's again under ``remat`` full or dots (the layer is
+    recomputed) and the backward's in training."""
+    from repro_torch.models import param as pm
+    from repro_torch.models import stack as stk
+    from repro_torch.sharding import (
+        ep_dim,
+        expert_parallel_layout,
+        mesh_shape,
+    )
+
+    sizes = mesh_shape(mesh)
+    n = math.prod(sizes.values())
+    moe = cfg.moe
+    ep = 1
+    if (moe is not None and dispatch == "sorted" and moe.ep == "a2a"
+            and expert_parallel_layout(mesh, moe.num_experts) is not None):
+        ep = sizes["model"]
+    out = {"grad_all_reduce": 0, "a2a_forward": 0, "a2a_backward": 0,
+           "counts": {"all-reduce": 0, "all-to-all": 0}}
+    if kind == "train":
+        rep = exp = 0
+        for leaf in pm.tree_leaves(params):
+            if ep > 1 and ep_dim(pm.axes_of(leaf)) is not None:
+                exp += leaf.numel() // ep * 4
+            else:
+                rep += leaf.numel() * 4
+        for nbytes, w in ((rep, n), (exp, n // ep)):
+            if nbytes and w > 1:
+                out["grad_all_reduce"] += 2 * (w - 1) * nbytes // w
+                out["counts"]["all-reduce"] += 1
+    if ep > 1:
+        descs = stk.layer_descs(cfg)
+        if cfg.structure == "encoder_decoder":
+            descs = descs + stk.layer_descs(cfg, stack="encoder")
+        layers = sum(d.ffn == "moe" for d in descs)
+        one = ep_a2a_bytes(cfg, tokens_per_rank=tokens // n, ep=ep,
+                           itemsize=itemsize)
+        passes = 2 if kind == "train" and remat in ("full", "dots") else 1
+        out["a2a_forward"] = passes * layers * one["forward"]
+        out["counts"]["all-to-all"] += passes * layers * 3
+        if kind == "train":
+            out["a2a_backward"] = layers * one["backward"]
+            out["counts"]["all-to-all"] += layers * 2
+    out["bytes"] = (out["grad_all_reduce"] + out["a2a_forward"]
+                    + out["a2a_backward"])
+    return out
+
+
+def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
+             extra_ac: dict | None = None, tag: str = "",
+             mesh: dict | None = None) -> dict:
+    """Build, run on the meta device and record one cell. ``shape``: a
+    ``SHAPES`` name or a ``ShapeCfg``; ``mesh`` (a ``{axis: size}``
+    mapping) overrides ``mesh_kind``'s production mesh."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.launch.flops import model_flops, step_cost
+    from repro_torch.launch.mesh import (
+        HBM_BW,
+        HBM_BYTES,
+        NVLINK_BW,
+        PEAK_FLOPS_BF16,
+        production_mesh_shape,
+    )
+    from repro_torch.launch.specs import build_cell
+
+    shp = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg = get_config(arch)
+    ok, reason = shape_applicable(cfg, shp)
+    rec = {"arch": arch, "shape": shp.name, "mesh": mesh_kind,
+           "profile": profile, "tag": tag}
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        _write(rec, out_dir, tag)
+        print(f"[dryrun] SKIP {arch} x {shp.name}: {reason}")
+        return rec
+
+    if mesh is None:
+        mesh = production_mesh_shape(multi_pod=mesh_kind == "multipod")
+    n_chips = math.prod(mesh.values())
+    step, args, info = build_cell(arch, shp, mesh, profile=profile,
+                                  extra_ac=extra_ac)
+    axes, ctx, ac = info.pop("axes"), info.pop("ctx"), info.pop("ac")
+    info.pop("cfg")
+    rec.update(info)
+    rec["mesh_shape"] = dict(mesh)
+    t0 = time.perf_counter()
+    _, cost = step_cost(step, *args)
+    run_s = time.perf_counter() - t0
+
+    mem = argument_bytes(args, axes, ctx, shp.kind)
+    params = args[0]["params"] if shp.kind == "train" else args[0]
+    coll = collective_bytes(
+        cfg, kind=shp.kind, params=params, dispatch=ac.dispatch,
+        remat=ac.remat, mesh=mesh, tokens=shp.global_batch * shp.seq_len,
+        itemsize=torch.empty((), dtype=ac.cdtype).element_size())
+
+    flops_dev = cost["total_flops"] / n_chips
+    bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \
+        / n_chips
+    coll_dev = float(coll["bytes"])
+    t_compute = flops_dev / PEAK_FLOPS_BF16
+    t_memory = bytes_dev / HBM_BW
+    t_coll = coll_dev / NVLINK_BW
+    dominant = max(("compute", t_compute), ("memory", t_memory),
+                   ("collective", t_coll), key=lambda kv: kv[1])[0]
+    tokens = shp.global_batch * (shp.seq_len if shp.kind != "decode" else 1)
+    model_dev = model_flops(cfg, shp.kind, tokens,
+                            info["params_active"]) / n_chips
+    flash = [k for k in cost["kernel_flops"] if k.startswith("flash")]
+    rec.update(
+        status="ok",
+        n_chips=n_chips,
+        run_s=run_s,
+        flops_per_device=flops_dev,
+        aten_flops=cost["aten_flops"],
+        kernel_flops=cost["kernel_flops"],
+        kernel_bytes=cost["kernel_bytes"],
+        kernel_calls=cost["kernel_calls"],
+        bytes_per_device=bytes_dev,
+        attention={"flash_flops": sum(cost["kernel_flops"][k]
+                                      for k in flash),
+                   "flash_bytes": sum(cost["kernel_bytes"][k]
+                                      for k in flash)},
+        collective_bytes_per_device=coll_dev,
+        collectives=coll,
+        collective_counts=coll["counts"],
+        collectives_not_modelled="FSDP and tensor-parallel collectives "
+                                 "(the runtime does not apply them yet)",
+        memory={
+            "argument_bytes": mem["total"],
+            "argument_bytes_by_input": mem,
+            "arguments_fit_hbm": bool(mem["total"] < HBM_BYTES),
+            "temp_bytes": None,
+            "output_bytes": None,
+            "absent": "temporary, output and peak bytes: no counterpart "
+                      "of XLA's buffer assignment",
+        },
+        roofline={
+            "compute_s": t_compute,
+            "memory_s": t_memory,
+            "collective_s": t_coll,
+            "dominant": dominant,
+            "step_time_lower_bound_s": max(t_compute, t_memory, t_coll),
+        },
+        model_flops_per_device=model_dev,
+        useful_flops_ratio=model_dev / flops_dev if flops_dev else 0.0,
+    )
+    _write(rec, out_dir, tag)
+    print(f"[dryrun] {arch} x {shp.name} x {mesh_kind} ({profile}): "
+          f"{run_s:.1f} s on the meta device")
+    print(f"  flops/device={flops_dev:.4e} (aten {cost['aten_flops']:.4e}, "
+          f"kernels {sum(cost['kernel_flops'].values()):.4e}) "
+          f"bytes/device={bytes_dev:.4e} collective/device={coll_dev:.4e}")
+    print(f"  argument_bytes={mem['total']} ({mem})")
+    print("  roofline: compute=%.4fs memory=%.4fs collective=%.4fs -> %s"
+          % (t_compute, t_memory, t_coll, dominant))
+    print("  model_flops/counted_flops=%.3f" % rec["useful_flops_ratio"])
+    return rec
+
+
+def _write(rec: dict, out_dir: str, tag: str = "") -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    suffix = f"__{tag}" if tag else ""
+    name = (f"{rec['arch']}__{rec['shape']}__{rec['mesh']}"
+            f"__{rec['profile']}{suffix}.json").replace("/", "_")
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(rec, f, indent=2)
+
+
+def all_cells(meshes, profile):
+    from repro_torch.configs import SHAPES, assigned_archs
+
+    for arch in assigned_archs():
+        for shape in SHAPES:
+            for mesh_kind in meshes:
+                yield arch, shape, mesh_kind, profile
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"])
+    ap.add_argument("--profile", default="baseline",
+                    choices=["baseline", "optimized", "serve_tp"])
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--extra-ac", default="",
+                    help='JSON ApplyCfg overrides, e.g. {"ce_chunk":1024}')
+    ap.add_argument("--all", action="store_true",
+                    help="run every applicable cell, in this process")
+    ap.add_argument("--meshes", default="pod,multipod")
+    ap.add_argument("--out", default="artifacts/dryrun_torch")
+    args = ap.parse_args(argv)
+    extra_ac = json.loads(args.extra_ac) if args.extra_ac else None
+
+    if args.all:
+        failures = []
+        for arch, shape, mesh_kind, profile in all_cells(
+                args.meshes.split(","), args.profile):
+            print("=" * 72, flush=True)
+            try:
+                run_cell(arch, shape, mesh_kind, profile, args.out,
+                         extra_ac=extra_ac, tag=args.tag)
+            except Exception:  # a failed cell must not stop the others
+                traceback.print_exc()
+                failures.append((arch, shape, mesh_kind))
+        print("=" * 72)
+        if failures:
+            print(f"[dryrun] FAILURES: {failures}")
+            sys.exit(1)
+        print("[dryrun] all cells OK")
+        return
+    if not args.arch:
+        ap.error("--arch is required without --all")
+    run_cell(args.arch, args.shape, args.mesh, args.profile, args.out,
+             extra_ac=extra_ac, tag=args.tag)
+
+
+if __name__ == "__main__":
+    main()

@@ -60,7 +60,18 @@ object per run:
 * ``top``: the eight device kernels that took the most time;
 * ``movement_ms``: device ms per step of PyTorch's row-moving kernels
   (names holding ``index``, ``gather`` or ``scatter``: the MoE's
-  dispatch and combine, embedding lookups, the routers' tables).
+  dispatch and combine, embedding lookups, the routers' tables);
+* ``counted_flops`` (``aten_flops`` + the kernels' ``kernel_flops``),
+  ``kernel_bytes`` and ``kernel_calls``: one more step run under
+  ``launch/flops.step_cost`` after the timed ones (the count's dispatch
+  mode slows the step it counts, so no time is taken from it);
+  ``--train`` adds ``model_flops`` (6 N D, N the active parameters of
+  the model as built, D the step's tokens: images x patches for the
+  ViT, encoder tokens for T5), ``mfu`` and ``hardware_flops_util``
+  (model and counted FLOPs over ``wall_ms`` x the card's dense bf16
+  peak, 989 TFLOP/s, for every dtype) and ``useful_flops_ratio``; the
+  serve steps add ``hbm_share``, the kernels' bytes over ``wall_ms`` x
+  the card's HBM rate. The shares are ``null`` on the CPU.
 """
 from __future__ import annotations
 
@@ -308,6 +319,19 @@ def profile(step_fn, cfg, device, *, steps: int) -> dict:
     return out
 
 
+def cost_fields(step_fn, wall_ms: float) -> dict:
+    """One more step under ``step_cost``: its counted FLOPs and the
+    kernels' work (module docstring)."""
+    from repro_torch.launch.flops import step_cost
+
+    _, cost = step_cost(step_fn)
+    return {"counted_flops": cost["total_flops"],
+            "aten_flops": cost["aten_flops"],
+            "kernel_flops": cost["kernel_flops"],
+            "kernel_bytes": cost["kernel_bytes"],
+            "kernel_calls": cost["kernel_calls"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train", action="store_true",
@@ -377,6 +401,7 @@ def main(argv=None) -> None:
                    "seq": seq, "dtype": dtype}
             for phase, fn in zip(("prefill", "decode"), fns):
                 out[phase] = profile(fn, cfg, device, steps=args.steps)
+                out[phase].update(cost_fields(fn, out[phase]["wall_ms"]))
         out["card"] = out["prefill"]["card"]
         text = json.dumps(out)
         print(text, flush=True)
@@ -397,9 +422,26 @@ def main(argv=None) -> None:
                    else serve_step_fn(cfg, device, args.serve_step))
     out = profile(step_fn, cfg, device, steps=args.steps)
     out["step"] = "train" if args.train else args.serve_step
+    out.update(cost_fields(step_fn, out["wall_ms"]))
     if args.train:
+        from repro_torch.launch.flops import model_flops, utilization
+
+        tokens = batch * (cfg.n_frontend_positions
+                          if cfg.structure == "encoder_only" else seq)
         out.update(batch=batch, seq=seq, dispatch=cell["dispatch"],
-                   remat=args.remat, compute_dtype=args.compute_dtype)
+                   remat=args.remat, compute_dtype=args.compute_dtype,
+                   tokens=tokens,
+                   model_flops=model_flops(cfg, "train", tokens))
+        util = utilization(out["model_flops"], out["counted_flops"],
+                           out["wall_ms"] / 1e3)
+        # A share of the card's peak only from a step on the card.
+        out.update(util if device.type == "cuda" else dict.fromkeys(util))
+    else:
+        from repro_torch.launch.mesh import HBM_BW
+
+        out["hbm_share"] = (sum(out["kernel_bytes"].values())
+                            / (out["wall_ms"] / 1e3 * HBM_BW)
+                            if device.type == "cuda" else None)
     text = json.dumps(out)
     print(text, flush=True)
     if args.out:

@@ -357,6 +357,10 @@ def reference_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None):
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+CACHE_AXES = {"k": "batch cache_seq kv_heads head_dim",
+              "v": "batch cache_seq kv_heads head_dim"}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None):
     """The static engine's dense KV cache, (B, max_len, Kh, dh) each."""

@@ -62,8 +62,9 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 class ApplyCfg:
     """Runtime knobs. ``moe_impl``/``attn_impl``/``mixer_impl`` (the
     RWKV WKV) in ``auto|cuda|eager``: ``resolve(device)`` pins "auto" to
-    the CUDA kernels on a CUDA device and to the plain PyTorch versions
-    elsewhere. The reference's "pallas" is the port's "cuda"; its "xla"
+    the CUDA kernels on a CUDA device (on the meta device: their
+    shape-only route, ``kernels/ops.py``) and to the plain PyTorch
+    versions elsewhere. The reference's "pallas" is the port's "cuda"; its "xla"
     and "ref" are the port's "eager".
 
     ``remat``: none | full | dots | moe (``stack.stack_apply``).
@@ -98,7 +99,8 @@ class ApplyCfg:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype "
                              f"{self.compute_dtype!r} {COMPUTE_DTYPES}")
-        pin = "cuda" if torch.device(device).type == "cuda" else "eager"
+        pin = ("cuda" if torch.device(device).type in ("cuda", "meta")
+               else "eager")
         return dataclasses.replace(self, **{
             name: pin for name in impls if getattr(self, name) == "auto"})
 
@@ -390,6 +392,14 @@ def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         cache["enc"] = torch.zeros((batch, enc_len, cfg.d_model),
                                    dtype=dtype, device=device)
     return cache
+
+
+def serve_cache_axes(cfg: ArchConfig):
+    """The logical axes of :func:`init_serve_cache`'s caches."""
+    axes = {"stack": stk.stack_cache_axes(stk.layer_descs(cfg))}
+    if cfg.structure == "encoder_decoder":
+        axes["enc"] = "batch seq embed"
+    return axes
 
 
 def prefill(params, batch, cache, cfg: ArchConfig, *,

@@ -58,6 +58,13 @@ def time_mix_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     }
 
 
+TIME_MIX_CACHE_AXES = {
+    "x_prev": "batch embed",
+    "wkv": "batch heads head_dim head_dim",
+}
+CHANNEL_MIX_CACHE_AXES = {"x_prev": "batch embed"}
+
+
 def time_mix_cache_init(cfg: ArchConfig, batch: int, *,
                         dtype=torch.float32, device=None):
     H, K = _hk(cfg)

@@ -40,6 +40,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.moe import moe_apply, moe_init
 from repro_torch.models import rwkv, ssm
 from repro_torch.models.attention import (
+    CACHE_AXES,
     attention_apply,
     attention_init,
     init_cache as attn_cache_init,
@@ -150,6 +151,16 @@ def layer_cache_init(cfg: ArchConfig, desc: LayerDesc, batch: int,
         return {"mixer": ssm.mamba_cache_init(cfg, batch, **kw)}
     return {"mixer": rwkv.time_mix_cache_init(cfg, batch, **kw),
             "cm": rwkv.channel_mix_cache_init(cfg, batch, **kw)}
+
+
+def layer_cache_axes(desc: LayerDesc):
+    """The logical axes of :func:`layer_cache_init`'s cache."""
+    if desc.mixer == "attn":
+        return {"mixer": dict(CACHE_AXES)}
+    if desc.mixer == "mamba":
+        return {"mixer": dict(ssm.MAMBA_CACHE_AXES)}
+    return {"mixer": dict(rwkv.TIME_MIX_CACHE_AXES),
+            "cm": dict(rwkv.CHANNEL_MIX_CACHE_AXES)}
 
 
 def zero_metrics(device=None):
@@ -269,6 +280,14 @@ def stack_cache_init(cfg: ArchConfig, descs, batch: int, max_len: int, *,
                 lambda v: v[None].repeat(reps, *([1] * v.dim())), one)
         out.append(seg)
     return {"segments": out}
+
+
+def stack_cache_axes(descs):
+    """The logical axes of :func:`stack_cache_init`'s caches."""
+    return {"segments": [
+        {f"pos{i}": tree_map(lambda a: f"layer {a}", layer_cache_axes(d))
+         for i, d in enumerate(pdescs)}
+        for _, pdescs in find_segments(descs)]}
 
 
 def stack_paged_cache_init(cfg: ArchConfig, descs, num_blocks: int,
