@@ -177,15 +177,15 @@ any failure, before printing its result line. It
     for token; (b) in a world of one NCCL rank ``launch.train.main`` with
     ``--ep a2a`` trains granite 2 steps at 8 x 512 to the same bits as
     ``--ep none`` (no mesh can host expert parallelism: the fallback);
-    (c) granite upcycled from a conditioned dense init takes 2
-    expert-parallel steps at a global 8 x 512 on 2 spawned ranks sharing
+    (c) granite upcycled from a conditioned dense init takes 1
+    expert-parallel step at a global 8 x 512 on 2 spawned ranks sharing
     the card (gloo, which stages CUDA tensors through host memory; mesh
     (data=1, model=2), 16 of the 32 experts a rank, routing groups of
     2,048), each rank's grouped and flash launches exact (24 a kernel a
     step) and its first step witnessed, held against the single-process
     sorted steps (run first, on the same weights and batches, in 2
     microbatches of the ranks' rows: the same shapes route alike): the
-    losses of both steps and every leaf after the first at the
+    loss and every leaf after the step at the
     reference's distributed-step tolerances, ``ep_overflow_frac`` 0;
     then a starved budget (factor 0.25, capacity factor 4.0) reports
     overflow with a finite loss; step times, peak memory and the
@@ -210,7 +210,30 @@ any failure, before printing its result line. It
     and ``hardware_flops_util`` from synchronised steps timed outside
     the count; (d) the serve mixed step at phase 4's shapes: counted
     FLOPs, the kernels' bytes and their share of the HBM rate;
-20. prints one JSON line of per-kernel numbers (all twelve kernels,
+20. trains under the rules engine's placement (``[mesh]`` and ``[mesh
+    rank R]`` lines): 4 spawned ranks share the card through gloo on the
+    mesh (data=2, model=2) — FSDP of ``embed`` over data, heads, kv
+    heads, ``mlp`` and ``vocab`` tensor parallel over model, the MoE's
+    experts resident over model (``sharding.train_layout``,
+    ``sharding/comm.py``) — (a) granite upcycled at full width and
+    depth, sorted dispatch, ep "none", 2 Adafactor steps at a global
+    8 x 512 in groups of 2,048 (8 of 16 heads, 16 of 32 experts a rank)
+    and (b) the ViT upcycled at full width and depth, gather dispatch,
+    Expert Choice, its 1,000-class head vocab-parallel, 2 steps at a
+    global 16 images in groups of 784 tokens; each against one process
+    running the same steps first in 2 microbatches of the data ranks'
+    rows: each step's loss within 1e-4 and gradient norm within 1e-3
+    relative, every leaf of the gathered state after the first step
+    (optimizer slots included) at the reference's distributed-step
+    tolerances; every rank's launches exact (a flash kernel once an
+    attention layer, an expert kernel once a MoE layer, a step), its
+    first step witnessed against the plain versions and repeated bit
+    for bit; the payload bytes each rank counted through each kind of
+    collective a step equal to the dry run's
+    (``launch/dryrun.rules_collective_payloads``); each rank's peak
+    memory and step ms printed; the flash, grouped and expert-FFN
+    forwards timed at the ranks' local shapes;
+21. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -4801,7 +4824,7 @@ def other_families(device):
 # card, query-head padding through the flash kernels
 # ---------------------------------------------------------------------------
 
-# Granite at full width, 2 MoE steps at a global 8 x 512 (phase 12's
+# Granite at full width, 1 MoE step at a global 8 x 512 (phase 12's
 # batch) over 2 ranks of mesh (data=1, model=2): 16 of the 32 experts a
 # rank, budget factor 2.0 (= ep: no EP drops), then one forward at a
 # starved factor. The ranks share the one card: NCCL refuses two ranks
@@ -4814,7 +4837,8 @@ def other_families(device):
 # also raises the capacity factor to 4.0, as the reference's overflow
 # test does: at 2.0 a group keeps at most 32 x 128 assignments, 2,048 a
 # peer, which a budget of 0.25 x 16,384 / 2 = 2,048 rows still holds.
-MULTI = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, steps=2,
+# One step (two until phase 20 joined the smoke: its time limit).
+MULTI = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, steps=1,
              ranks=2, factor=2.0, starved=0.25, starved_capacity=4.0,
              group=2048, peak_lr=0.01, warmup=100)
 # The 2-rank steps against the single-process steps: the tolerances of
@@ -5252,8 +5276,9 @@ def ep_two_ranks(device, root):
     for (p, x), (q, y) in zip(_flatten(ref_params), _flatten(got)):
         if p != q:
             fail(f"the ranks' params differ in structure at {p} / {q}")
-        gap = (y.double() - x.double()).abs()
-        off = gap > MULTI_PARAM_ATOL + MULTI_PARAM_RTOL * x.double().abs()
+        x, y = x.to(device).double(), y.to(device).double()  # on the card
+        gap = (y - x).abs()
+        off = gap > MULTI_PARAM_ATOL + MULTI_PARAM_RTOL * x.abs()
         n_leaves += 1
         worst = max(worst, float(gap.max()))
         if off.any():
@@ -5602,6 +5627,400 @@ def step_costs(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rules' placement — FSDP over data, tensor parallelism over
+# model, expert-resident MoE — on a (data=2, model=2) mesh of 4 ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+# Two cells at full width and depth, 2 Adafactor steps each (phase 18's
+# schedule), on 4 spawned ranks sharing the card through gloo (host
+# staging, as phase 18): (a) granite, sorted dispatch, ep "none", a
+# global 8 x 512 in routing groups of 2,048 (one a data rank); (b) the
+# ViT, gather dispatch, Expert Choice, a global 16 images in groups of
+# 784 tokens (4 images: the config's 4,096 is not a multiple of the 196
+# patches an image, so a data rank's 8 images form 2 whole groups, the
+# single process's own). Each is held against one process running the
+# same steps on the same global batches in 2 microbatches of the data
+# ranks' rows (phase 18's rule: the same shapes route alike).
+# Adafactor takes eps1 = 1e-6 (the CPU parity tests' choice,
+# tests/test_torch_mesh_train.py): at step 1 its update of an unfactored
+# leaf (the attention weights, whose last two dims are heads and
+# head_dim; the routers) is g / sqrt(g^2 + eps1), sign(g) at the default
+# 1e-30, and splitting the heads and experts over ranks reassociates
+# float32 sums, so an element whose gradient lies at the rounding floor
+# (the upcycled ViT's routers: zero up to rounding) takes either sign in
+# two correct runs — 2 lr p_rms apart (at the default eps1 on an H100:
+# 159-340 elements of each granite attention leaf, about half of each
+# ViT router, 4.0e-4-6.4e-4 off, the losses within 3.4e-7 and 4.9e-5).
+MESH = dict(shape=(2, 2), steps=2, ranks=4, eps1=1e-6,
+            cells={"granite": dict(arch="granite-moe-1b-a400m", batch=8,
+                                   seq=512, group=2048, dispatch="sorted"),
+                   "vit": dict(arch="vit-b16-upcycled", batch=16, seq=196,
+                               group=784, dispatch="gather")})
+# Each step's loss within 1e-4 relative, the gradient norm within 1e-3
+# relative, every leaf of the gathered state after the first step
+# (optimizer slots included) at the reference's distributed-step
+# tolerances (MULTI_PARAM_ATOL, MULTI_PARAM_RTOL).
+MESH_LOSS_RTOL, MESH_GN_RTOL = 1e-4, 1e-3
+
+
+def mesh_setup(name, device):
+    """(cfg, upcycled params on ``device``, the global data iterator,
+    ApplyCfg, the path's kernels, the optimizer) of a phase 20 cell: the
+    package's dense init (seed 0) with its attention conditioned,
+    upcycled (routers from seed 7) — the same bits in every process."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.upcycle import upcycle_params
+    from repro_torch.data import ClusteredBigramTask, make_iterator
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import adafactor, inverse_sqrt
+
+    c = MESH["cells"][name]
+    full = get_config(c["arch"])
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, group_size=c["group"]))
+    dense_cfg = cfg.dense_parent()
+    dense = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                            dense_cfg, device=device)
+    condition_attention(dense, dense_cfg)
+    params = upcycle_params(dense, dense_cfg, cfg,
+                            torch.Generator(device=device).manual_seed(7))
+    del dense
+    task = (None if cfg.structure == "encoder_only" else
+            ClusteredBigramTask(vocab_size=min(cfg.vocab_size, TASK_VOCAB)))
+    it = make_iterator(cfg, global_batch=c["batch"], seq_len=c["seq"],
+                       task=task, host_index=0, host_count=1)
+    ac = zoo.ApplyCfg(dispatch=c["dispatch"], moe_impl="cuda",
+                      attn_impl="cuda")
+    kernels = TRAIN_KERNELS if c["dispatch"] == "sorted" else VIT_KERNELS
+    opt = adafactor(inverse_sqrt(peak=MULTI["peak_lr"],
+                                 warmup_steps=MULTI["warmup"]),
+                    eps1=MESH["eps1"])
+    return cfg, params, it, ac, kernels, opt
+
+
+def _mesh_compare(state, ref_path, layout, device):
+    """This rank's blocks of a state against the same blocks of the
+    single-process state saved at ``ref_path`` (read memory-mapped, each
+    block cut as the layout places it, compared on the card): (leaves,
+    {leaf: elements outside MULTI_PARAM_ATOL + MULTI_PARAM_RTOL |ref|},
+    max |diff|)."""
+    import torch
+
+    from repro_torch.checkpoint.store import _flatten
+
+    ref = layout.shard(torch.load(ref_path, mmap=True))
+    n, off, worst = 0, {}, 0.0
+    for (p, y), (q, x) in zip(_flatten(state), _flatten(ref)):
+        if p != q:
+            fail(f"phase 20: the state differs in structure at {p} / {q}")
+        x = x.to(device).double()
+        gap = (y.double() - x).abs()
+        bad = int((gap > MULTI_PARAM_ATOL + MULTI_PARAM_RTOL * x.abs()
+                   ).sum())
+        n += 1
+        worst = max(worst, float(gap.max()) if gap.numel() else 0.0)
+        if bad:
+            off[p] = bad
+    return n, off, worst
+
+
+def mesh_rank(rank, world, root):
+    """One rank of phase 20, in a process of its own on cuda:0. It sets
+    up while the parent runs the single-process steps, and starts its
+    timed steps when the parent writes ``go``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import build_all
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.param import count_params, tree_leaves, tree_map
+    from repro_torch.sharding import ShardCtx, comm, train_layout
+    from repro_torch.training import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rdzv",
+                            rank=rank, world_size=world)
+    root = Path(root)
+    build_all(ops.KERNELS)  # built by the parent: binds only
+    ctx = ShardCtx.for_mesh(make_mesh(MESH["shape"], ("data", "model"),
+                                      device_type="cpu"))
+    tag = f"[mesh rank {rank}]"
+    info = {}
+    for name in MESH["cells"]:
+        cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
+        state = init_train_state(None, cfg, opt, params=params)
+        del params
+        layout = train_layout(ctx, cfg, ac.dispatch, state)
+        state = layout.shard(state)
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = make_train_step(cfg, opt, ac=ac, layout=layout)
+        row, rows = layout.batch_rows()
+        print(f"{tag} {name}: {count_params(state['params']) / 1e9:.3f} B "
+              f"params held (data rows block {row} of {rows}), "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+              "allocated", flush=True)
+        want = step_launches(cfg, kernels, True)
+        start = tree_map(torch.clone, state)
+        while not (root / "go").exists():
+            if not root.exists():
+                sys.exit(1)
+            time.sleep(0.1)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+        for i in range(MESH["steps"]):
+            batch = next(it)
+            per = len(next(iter(batch.values()))) // rows
+            local = {k: v[row * per:(row + 1) * per] for k, v in
+                     batch.items()}
+            before = ops.launch_counts()
+            comm.reset_counts()
+            t0 = time.perf_counter()
+            if i == 0:
+                with witnessed_kernels() as wit:
+                    state, m = step(state, local)
+                    torch.cuda.synchronize()
+            else:
+                state, m = step(state, local)
+            ms = _sync_ms(t0)
+            rec["counts"].append(comm.counts())
+            m = {k: float(v) for k, v in m.items()}
+            launched = {k: v - before[k] for k, v in
+                        ops.launch_counts().items()}
+            print(f"{tag} {name} step {i + 1}: loss={m['loss']!r} "
+                  f"grad_norm={m['grad_norm']!r} ms={ms:.1f}"
+                  + (" (witnessed)" if i == 0 else "")
+                  + f" launches={ {k: v for k, v in launched.items() if v} }"
+                  f" collective payload B={rec['counts'][-1]}", flush=True)
+            check_step(f"mesh {name}", f"rank {rank}", m, launched, want)
+            rec["loss"].append(m["loss"])
+            rec["grad_norm"].append(m["grad_norm"])
+            rec["ms"].append(ms)
+            if i == 0:
+                report_witness(wit, kernels)
+                # The same step again from the same state and rows.
+                again, m2 = step(start, local)
+                rec["repeat"] = all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(again), tree_leaves(state))) and \
+                    {k: float(v) for k, v in m2.items()} == m
+                del again, start
+                rec["leaves"], rec["off"], rec["worst"] = _mesh_compare(
+                    state, root / f"mesh_{name}_ref.pt", layout, device)
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["launches"] = ops.launch_counts()
+        info[name] = rec
+        del state, step, layout
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(root / f"mesh_rank{rank}.json", "w") as fh:
+        json.dump(info, fh)
+    dist.destroy_process_group()
+
+
+def mesh_local_rows(device):
+    """The kernels at the local shapes of phase 20's ranks, timed: the
+    flash forward on granite's 8 of 16 query heads (4 of 8 KV heads) at
+    a data rank's 4 x 512, the expert FFN forward on the ViT's (2, 16,
+    49, 768) buffer (a data rank's 2 groups, 16 of the 32 experts)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    rows = []
+    g = get_config("granite-moe-1b-a400m")
+    half = dataclasses.replace(g, n_heads=g.n_heads // 2,
+                               n_kv_heads=g.n_kv_heads // 2,
+                               d_head=g.head_dim)
+    rows.append(flash_shape_row("mesh_granite_local", half, 4, 512, device,
+                                seed=20))
+    gen = torch.Generator(device=device).manual_seed(21)
+    v = get_config("vit-b16-upcycled")
+    vl = dataclasses.replace(v, moe=dataclasses.replace(
+        v.moe, num_experts=v.moe.num_experts // 2,
+        group_size=MESH["cells"]["vit"]["group"]))
+    E, d, f = vl.moe.num_experts, vl.d_model, vl.d_ff
+    ex = {"wi": torch.randn(E, d, f, generator=gen, device=device) * d ** -.5,
+          "wo": torch.randn(E, f, d, generator=gen, device=device) * f ** -.5}
+    # The expert FFN's capacity is the whole config's (32 experts): a
+    # local expert keeps the slots it has in one process.
+    cap_cfg = dataclasses.replace(vl, moe=dataclasses.replace(
+        vl.moe, num_experts=v.moe.num_experts))
+    rows.append(expert_shape_row("mesh_vit_local", cap_cfg, ex,
+                                 MESH["cells"]["vit"]["batch"] // 2
+                                 * vl.n_frontend_positions, device, seed=23))
+    del ex
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_train(device):
+    """Phase 20. The ranks start first and set up while this process
+    runs the single-process steps (its first-step state saved for the
+    ranks to hold their blocks against) and the local-shape rows; then
+    it writes ``go`` and the ranks run their timed steps. Returns
+    ({path: launches}, shape rows)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import rules_collective_payloads
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] phase 20 starts with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+          f"{card_line()}", flush=True)
+    dp = MESH["shape"][0]
+    refs, out = {}, {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs = torch.multiprocessing.start_processes(
+        mesh_rank, args=(MESH["ranks"], str(root)),
+        nprocs=MESH["ranks"], join=False, start_method="spawn")
+    try:
+        for name, c in MESH["cells"].items():
+            torch.cuda.reset_peak_memory_stats()
+            cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
+            step = make_train_step(cfg, opt, ac=ac,
+                                   tc=TrainConfig(grad_accum=dp))
+            state = init_train_state(None, cfg, opt, params=params)
+            del params
+            before = ops.launch_counts()
+            r = {"loss": [], "grad_norm": [], "ms": []}
+            for i in range(MESH["steps"]):
+                t0 = time.perf_counter()
+                state, m = step(state, next(it))
+                r["ms"].append(_sync_ms(t0))
+                r["loss"].append(float(m["loss"]))
+                r["grad_norm"].append(float(m["grad_norm"]))
+                if i == 0:
+                    torch.save(host_snapshot(state),
+                               root / f"mesh_{name}_ref.pt")
+            out[f"mesh_{name}_reference"] = {
+                k: v - before[k] for k, v in ops.launch_counts().items()}
+            r["peak"] = torch.cuda.max_memory_allocated()
+            refs[name] = r
+            print(f"[mesh] {name} single process, {c['batch']} x "
+                  f"{c['seq']} in {dp} microbatches: losses {r['loss']!r}, "
+                  f"grad norms {r['grad_norm']!r}, step ms "
+                  f"{', '.join(f'{x:.1f}' for x in r['ms'])}, peak "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB", flush=True)
+            del state, m, step, it
+            gc.collect()
+            torch.cuda.empty_cache()
+        rows = mesh_local_rows(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[mesh] {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+              f"left allocated when the ranks start their steps, "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase",
+              flush=True)
+        (root / "go").touch()
+        t0 = time.perf_counter()
+        while not procs.join():
+            pass
+        ranks_s = time.perf_counter() - t0
+        ranks = []
+        for rk in range(MESH["ranks"]):
+            with open(root / f"mesh_rank{rk}.json") as fh:
+                ranks.append(json.load(fh))
+    finally:
+        # A failure here must not leave ranks waiting for ``go``.
+        for proc in procs.processes:
+            if proc.is_alive():
+                proc.terminate()
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    for name, c in MESH["cells"].items():
+        ref = refs[name]
+        for rk, info in enumerate(ranks):
+            i = info[name]
+            print(f"[mesh rank {rk}] {name}: steps ms {i['ms']}; peak "
+                  f"memory {i['peak'] / 2 ** 30:.2f} GiB ({i['peak']} B); "
+                  f"collective payload B a step {i['counts'][0]} (sum "
+                  f"{sum(i['counts'][0].values())}; gloo over host memory "
+                  "on one card, not NCCL); second run of the first step "
+                  f"bit-identical: {i['repeat']}; its blocks of the first "
+                  f"step's state: {i['leaves'] - len(i['off'])} of "
+                  f"{i['leaves']} leaves within atol {MULTI_PARAM_ATOL} + "
+                  f"rtol {MULTI_PARAM_RTOL}, max |diff| {i['worst']:.3e}; "
+                  f"{card_line()}", flush=True)
+            for p, n_off in i["off"].items():
+                print(f"[mesh rank {rk}] {name} {p}: {n_off} elements "
+                      "outside the tolerance", flush=True)
+            if not i["repeat"]:
+                bad.append(f"rank {rk} {name}: a second run of the step "
+                           "differs")
+            if i["loss"] != ranks[0][name]["loss"]:
+                bad.append(f"rank {rk} {name}: losses differ between ranks")
+        got = ranks[0][name]
+        loss_d = max(abs(a - b) / abs(b) for a, b in
+                     zip(got["loss"], ref["loss"]))
+        gn_d = max(abs(a - b) / abs(b) for a, b in
+                   zip(got["grad_norm"], ref["grad_norm"]))
+        off = sorted({p for info in ranks for p in info[name]["off"]})
+        worst = max(info[name]["worst"] for info in ranks)
+        full = get_config(c["arch"])
+        cfg = dataclasses.replace(full, moe=dataclasses.replace(
+            full.moe, group_size=c["group"]))
+        pred = rules_collective_payloads(
+            cfg, params=zoo.init_params(None, cfg, device="meta"),
+            mesh=dict(zip(("data", "model"), MESH["shape"])),
+            dispatch=c["dispatch"], remat="none",
+            tokens=c["batch"] * c["seq"], itemsize=4)
+        counted = [info[name]["counts"] for info in ranks]
+        held = all(cs == pred for k in counted for cs in k)
+        print(f"[mesh] {name}: the dry run's collective payloads a rank a "
+              f"step {pred} (counted by every rank, each step: {held})",
+              flush=True)
+        if not held:
+            bad.append(f"{name}: the dry run predicts {pred}, the ranks "
+                       f"counted {counted}")
+        n = ranks[0][name]["leaves"]
+        print(f"[mesh] {name}: (2, 2) vs single process over "
+              f"{MESH['steps']} steps: losses {got['loss']!r} vs "
+              f"{ref['loss']!r}, max rel diff {loss_d:.3e} (limit "
+              f"{MESH_LOSS_RTOL}); grad norms {got['grad_norm']!r} vs "
+              f"{ref['grad_norm']!r}, max rel diff {gn_d:.3e} (limit "
+              f"{MESH_GN_RTOL}); the first step's state: {n - len(off)} of "
+              f"{n} leaves within atol {MULTI_PARAM_ATOL} + rtol "
+              f"{MULTI_PARAM_RTOL} on every rank, max |diff| {worst:.3e}",
+              flush=True)
+        if not (loss_d <= MESH_LOSS_RTOL and gn_d <= MESH_GN_RTOL
+                and not off):
+            bad.append(f"{name}: the (2, 2) steps part from the "
+                       "single-process steps")
+        for rk, info in enumerate(ranks):
+            out[f"mesh_{name}_rank{rk}"] = info[name]["launches"]
+    print(f"[mesh] the ranks' steps and checks {ranks_s:.1f} s after go; "
+          f"phase 20 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        fail("phase 20: " + "; ".join(bad))
+    return out, rows
+
 def main() -> int:
     import torch
 
@@ -5798,6 +6217,13 @@ def main() -> int:
     # A step's counted FLOPs and bytes against the dry run on the meta
     # device, and the steps' mfu.
     cost_launches = step_costs(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The rules' placement: granite and the ViT trained on a (data=2,
+    # model=2) mesh of 4 ranks sharing the card, against one process.
+    mesh_launches, rows = mesh_train(device)
+    shape_rows += rows
 
     for rec in records:
         name = rec["name"]
@@ -5818,6 +6244,8 @@ def main() -> int:
         by_path.update({path: n.get(name, 0)
                         for path, n in multi_launches.items()})
         by_path["step_cost"] = cost_launches.get(name, 0)
+        by_path.update({path: n.get(name, 0)
+                        for path, n in mesh_launches.items()})
         rec["launches"] = sum(by_path.values())
         if name in bf16_at:
             rec["bf16_at_train_shapes"] = bf16_at[name]

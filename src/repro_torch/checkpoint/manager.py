@@ -19,12 +19,13 @@ Fault-tolerance contract:
   * rotation keeps ``max_to_keep`` newest plus every multiple of
     ``keep_period`` (archival);
   * under a mesh (``layout=``, a ``sharding.TreeLayout``) the files hold
-    the global tree, in the single-process format: a save gathers the
-    expert shards over ``model`` (collective: every rank calls it), rank
-    0 writes and the others wait at a barrier; a restore reads the
-    global tree on every rank and keeps the rank's slice. A checkpoint
-    written by one world size restores on another (the counterpart of
-    the reference's ``restore(..., shardings=...)``).
+    the global tree, in the single-process format: a save gathers every
+    sharded dim of every leaf over its axes (collective: every rank
+    calls it), rank 0 writes and the others wait at a barrier; a
+    restore reads the global tree on every rank and keeps the rank's
+    block under the new layout's specs. A checkpoint written on one
+    mesh restores on another, or in one process (the counterpart of the
+    reference's ``restore(..., shardings=...)``).
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ from repro_torch.core import routing as R
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
 from repro_torch.models import param as pm
+from repro_torch.sharding import comm
 
 
 @torch.library.custom_op("repro_torch::moe_block", mutates_args=())
@@ -168,6 +169,26 @@ def _sorted_dispatch(params, xg, r: R.Routing, cfg: ArchConfig, *,
     return R.units_to_tokens(R.sum_rows(yw, m), tok, g, experts)
 
 
+def _local_routing(r: R.Routing, e0: int, El: int, ctx) -> R.Routing:
+    """The routing of this rank's experts ``[e0, e0 + El)`` (all of them
+    when ``El`` is the whole count): their slot tables, the token-major
+    assignments to them (others marked dropped, ``El``), their probs.
+    The combine weights pass :func:`comm.copy_to_model`: each ``model``
+    peer's gradient of them holds only its experts' (or its ``mlp``
+    block's) part, and the sum over the peers is the whole."""
+    kw = {"probs": r.probs[..., e0:e0 + El]}
+    if r.token_idx is not None:
+        kw["token_idx"] = r.token_idx[:, e0:e0 + El]
+        kw["combine"] = comm.copy_to_model(r.combine, ctx)[:, e0:e0 + El]
+    if r.token_expert is not None:
+        te = r.token_expert
+        mine = (te >= e0) & (te < e0 + El)
+        kw["token_expert"] = torch.where(mine, te - e0,
+                                         torch.full_like(te, El))
+        kw["token_weight"] = comm.copy_to_model(r.token_weight, ctx)
+    return r._replace(**kw)
+
+
 def ep_active(ctx, moe: MoECfg) -> bool:
     """Whether the sorted dispatch runs expert-parallel under ``ctx``."""
     from repro_torch.sharding import expert_parallel_layout
@@ -216,10 +237,18 @@ def moe_apply(
     ``ctx``: a ``ShardCtx``. With ``dispatch="sorted"``, ``moe.ep ==
     "a2a"`` and a mesh that can host expert parallelism, x holds this
     rank's tokens, ``params["experts"]`` this rank's ``E / ep`` experts,
-    and the layer runs ``core/ep.sorted_dispatch_ep``; otherwise (no
-    ctx, no ``model`` axis, size 1, E not divisible) the single-device
-    path. The metrics always hold ``ep_overflow_frac``, 0 outside the
-    expert-parallel path."""
+    and the layer runs ``core/ep.sorted_dispatch_ep``. Otherwise, under
+    the rules' placement, x holds the data rank's tokens (the same on
+    every ``model`` peer): where ``params["experts"]`` holds the rank's
+    ``E / m`` experts (the reference's expert-resident layout) or every
+    expert's block of ``mlp``, each dispatch runs on the rank's part
+    (:func:`_local_routing`) and the partial outputs are added over
+    ``model``; a sharded router's local logits are gathered so that
+    every peer routes alike. Under a ctx with more than one data rank
+    the rank's tokens must form whole routing groups (else
+    ``ValueError``): the single-process step's groups. The metrics
+    always hold ``ep_overflow_frac``, 0 outside the expert-parallel
+    path."""
     dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
                   "sorted": _sorted_dispatch}
     if dispatch not in dispatches:
@@ -237,11 +266,40 @@ def moe_apply(
         if pad:
             m1 = torch.cat([m1, m1.new_zeros(pad)])
         mg = m1.reshape(G, g)
-    logits = xg.float() @ params["router"]["w"].float()
+    ep = dispatch == "sorted" and ep_active(ctx, moe)
+    ex, E = params["experts"], moe.num_experts
+    El = ex["wi"].shape[0]
+    # Tensor parallel (the rules' placement): the rank holds El of the E
+    # experts, or every expert's block of ``mlp``.
+    tp = (ctx is not None and ctx.tp_size > 1
+          and (El != E or ex["wi"].shape[-1] != cfg.d_ff))
+    if ctx is not None and ctx.groups and not ep \
+            and ctx.size(ctx.replica_axes) > 1 \
+            and (pad or g != moe.group_size):
+        raise ValueError(
+            f"the rules shard the batch over "
+            f"{ctx.size(ctx.replica_axes)} data ranks, but this rank's {n} "
+            f"tokens are not divisible into groups of {moe.group_size}: "
+            f"the single-process step would route groups that straddle "
+            f"ranks — pick batch*seq and group_size so that each data "
+            f"rank holds whole groups")
+    w = params["router"]["w"]
+    if tp:
+        xt = comm.copy_to_model(xg, ctx)
+    if w.shape[-1] != E:  # the rank's block of ``expert``
+        logits = comm.gather_replicated(xt.float() @ w.float(), -1, ctx)
+    else:
+        logits = xg.float() @ w.float()
     r = R.route(logits, moe, router_kind, token_mask=mg,
                 slot_tables=dispatch != "sorted")
     ep_overflow = logits.new_zeros(())
-    if dispatch == "sorted" and ep_active(ctx, moe):
+    if tp:
+        kw = {"cap": R.capacity(g, moe)} if dispatch == "sorted" else {}
+        y = dispatches[dispatch](
+            params, xt, _local_routing(r, ctx.tp_rank * El, El, ctx), cfg,
+            implementation=implementation, **kw)
+        y = comm.reduce_from_model(y, ctx)
+    elif ep:
         from repro_torch.core.ep import sorted_dispatch_ep
 
         if pad or g != moe.group_size:

@@ -84,7 +84,10 @@ def make_iterator(
 
     ``host_index`` and ``host_count`` default to ``torch.distributed``'s
     rank and world size when a process group is initialised, else to 0
-    and 1 (one process)."""
+    and 1 (one process). A ``Trainer`` under a mesh sets them to its
+    layout's row blocks (``TreeLayout.batch_rows``: under the rules'
+    placement the data coordinate and the data size, so that ``model``
+    peers read the same rows)."""
     if host_index is None or host_count is None:
         rank, world = _process_topology()
         host_index = rank if host_index is None else host_index

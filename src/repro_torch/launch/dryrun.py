@@ -27,10 +27,13 @@ placement on the mesh (``sharding.spec_for``; the reference's
 ``argument_size_in_bytes``). There is no counterpart of XLA's buffer
 assignment, so the record holds no temporary or peak bytes rather than
 a guess. ``collective_bytes_per_device`` models the collectives the
-port's runtime runs today: the gradient all-reduce, and the
-expert-parallel all-to-alls of ``core/ep.py``, whose buffers are static
-(:func:`ep_a2a_bytes`). FSDP and tensor-parallel collectives are not
-modelled (the runtime does not apply those placements yet).
+port's runtime runs: under expert parallelism the gradient all-reduce
+and the all-to-alls of ``core/ep.py``, whose buffers are static
+(:func:`ep_a2a_bytes`); otherwise the rules' placement
+(:func:`rules_collective_payloads`): the FSDP all-gathers and
+reduce-scatters over the data axes, the tensor-parallel all-reduces over
+``model``, the router's all-gathers and the gradient all-reduce over
+the data axes.
 """
 from __future__ import annotations
 
@@ -104,14 +107,204 @@ def ep_a2a_bytes(cfg, *, tokens_per_rank: int, ep: int,
     return {"forward": row + 4 * rows, "backward": row}
 
 
+def _moe_tp_payloads(cfg, moe, n: int, m: int, dispatch: str,
+                     router: str, it: int) -> tuple:
+    """(forward all-reduce, backward all-reduce, router all-gather)
+    payload bytes of one MoE layer under tensor parallelism
+    (``core/moe``): the partial outputs' sum; the input's and the
+    combine weights' gradients; the sharded router's logits (float32)."""
+    from repro_torch.core.routing import capacity
+
+    E = moe.num_experts
+    g = min(moe.group_size, n)
+    G = -(-n // g)
+    rows = G * g * cfg.d_model * it
+    bwd = rows
+    if dispatch != "sorted" or router == "expert_choice":
+        bwd += G * E * capacity(g, moe) * 4  # the slot tables' weights
+    else:
+        k = 1 if router == "switch" else moe.top_k
+        bwd += G * g * k * 4  # the assignments' weights
+    return rows, bwd, (G * g * E * 4 if E % m == 0 else 0)
+
+
+def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
+                              remat: str, tokens: int,
+                              itemsize: int) -> dict:
+    """Payload bytes a rank moves through each kind of collective of one
+    train step under the rules' placement (``sharding/comm.py``: an
+    all-gather's output, a reduce-scatter's input, an all-reduce's
+    tensor), the sums ``comm.COUNTS`` keeps: ``fsdp_all_gather`` and
+    ``fsdp_reduce_scatter`` (each leaf's blocks over the data axes,
+    float32 masters, joined once a step and its gradient scattered
+    back), ``model_all_gather`` (a leaf over ``model`` in a module that
+    runs no tensor parallelism), ``tp_all_reduce`` (attention, MLP and
+    MoE inputs' gradients and outputs, a vocab-parallel lookup, head
+    and cross-entropy) and ``router_all_gather``. ``tokens`` is the
+    global batch's; ``remat`` other than none runs the stack's forward
+    collectives twice. Decoder-only and encoder-only stacks with
+    attention mixers are modelled layer by layer; an encoder-decoder's
+    cross-attention adds its inputs' gradients and output."""
+    from repro_torch.models import param as pm
+    from repro_torch.models import stack as stk
+    from repro_torch.models.attention import head_plan
+    from repro_torch.sharding import (
+        EP_AXIS,
+        entry_axes,
+        make_rules,
+        mesh_shape,
+        spec_for,
+    )
+    from repro_torch.sharding.comm import _tensor_parallel
+
+    sizes = mesh_shape(mesh)
+    m = sizes.get(EP_AXIS, 1)
+    D = math.prod(v for a, v in sizes.items() if a != EP_AXIS)
+    rules = make_rules(mesh, params=True,
+                       overrides=dict(cfg.sharding_overrides or {}) or None)
+    out = dict.fromkeys(("fsdp_all_gather", "fsdp_reduce_scatter",
+                         "tp_all_reduce", "router_all_gather",
+                         "model_all_gather"), 0)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if isinstance(v, (dict, list)):
+                    walk(v, path + (k,))
+                else:
+                    leaf(v, path + (k,), tree)
+        else:
+            for i, v in enumerate(tree):
+                walk(v, path + (i,))
+
+    def leaf(t, path, parent):
+        spec = spec_for(pm.axes_of(t), tuple(t.shape), mesh, rules)
+        n = t.numel() * 4
+        for e in spec:
+            n //= math.prod(sizes[a] for a in entry_axes(e))
+        for e in spec:
+            axes = entry_axes(e)
+            k = math.prod(sizes[a] for a in axes)
+            if k == 1:
+                continue
+            n *= k
+            if EP_AXIS not in axes:
+                out["fsdp_all_gather"] += n
+                out["fsdp_reduce_scatter"] += n
+            elif not _tensor_parallel(path, parent):
+                out["model_all_gather"] += n
+            else:
+                n //= k
+
+    walk(params, ())
+    if m == 1:
+        return out
+    it = itemsize
+    d = cfg.d_model
+    n = tokens // D
+    passes = 2 if remat != "none" else 1
+    ar = gather = 0
+    stacks = [("decoder", stk.layer_descs(cfg))]
+    if cfg.structure == "encoder_decoder":
+        stacks.append(("encoder", stk.layer_descs(cfg, stack="encoder")))
+    enc_n = n
+    dec_n = max(tokens // 4 // D, 1) if cfg.structure == \
+        "encoder_decoder" else n
+    for name, descs in stacks:
+        rows = dec_n if name == "decoder" else enc_n
+        router = stk.stack_router_kind(cfg, stack=name)
+        for desc in descs:
+            if desc.mixer == "attn" and head_plan(cfg, m) is not None:
+                fwd, bwd = rows * d * it, rows * d * it
+                if cfg.n_kv_heads % m:
+                    kv = 2 * d * cfg.n_kv_heads * cfg.head_dim
+                    kv += 2 * cfg.n_kv_heads * cfg.head_dim \
+                        if cfg.qkv_bias else 0
+                    bwd += kv * it
+                ar += passes * fwd + bwd
+                if desc.cross:
+                    ar += passes * rows * d * it + rows * d * it \
+                        + enc_n * d * it
+                    if cfg.n_kv_heads % m:
+                        ar += kv * it
+            if desc.ffn == "moe":
+                moe = cfg.moe
+                E = moe.num_experts
+                if E % m == 0 or cfg.d_ff % m == 0:
+                    fwd, bwd, r = _moe_tp_payloads(cfg, moe, rows, m,
+                                                   dispatch, router, it)
+                    ar += passes * fwd + bwd
+                    gather += passes * r
+            elif cfg.d_ff % m == 0:
+                ar += passes * rows * d * it + rows * d * it
+    V = cfg.vocab_size
+    if V % m == 0:
+        if cfg.structure == "encoder_only":
+            rows = n // cfg.n_frontend_positions
+        else:
+            rows = dec_n
+            ar += rows * d * it  # the vocab-parallel lookup
+            if cfg.structure == "encoder_decoder":
+                ar += enc_n * d * it
+        ar += rows * d * it + 3 * rows * 4  # head input, max, sum, target
+    out["tp_all_reduce"] = ar
+    out["router_all_gather"] = gather
+    return out
+
+
+def _rules_collectives(cfg, out, *, params, mesh, dispatch, remat,
+                       tokens, itemsize) -> dict:
+    """A train step under the rules' placement: the payloads of
+    :func:`rules_collective_payloads` (``out["payloads"]``), the bytes a
+    ring sends for each ((W - 1) / W of an all-gather's output or a
+    reduce-scatter's input, 2 (W - 1) / W of an all-reduce's tensor,
+    over the data axes' W ranks or ``model``'s), and the float32
+    gradient all-reduce over the data axes of every leaf not sharded
+    over them."""
+    from repro_torch.models import param as pm
+    from repro_torch.sharding import (
+        EP_AXIS,
+        entry_axes,
+        make_rules,
+        mesh_shape,
+        spec_for,
+    )
+
+    sizes = mesh_shape(mesh)
+    m = sizes.get(EP_AXIS, 1)
+    data = [a for a in sizes if a != EP_AXIS]
+    D = math.prod(sizes[a] for a in data)
+    rules = make_rules(mesh, params=True,
+                       overrides=dict(cfg.sharding_overrides or {}) or None)
+    pay = rules_collective_payloads(cfg, params=params, mesh=mesh,
+                                    dispatch=dispatch, remat=remat,
+                                    tokens=tokens, itemsize=itemsize)
+    out["payloads"] = pay
+    for leaf in pm.tree_leaves(params):
+        spec = spec_for(pm.axes_of(leaf), tuple(leaf.shape), mesh, rules)
+        lies = [a for e in spec for a in entry_axes(e)]
+        w = math.prod(sizes[a] for a in data if a not in lies)
+        if w > 1:
+            local = leaf.numel() * 4 // math.prod(sizes[a] for a in lies)
+            out["grad_all_reduce"] += 2 * (w - 1) * local // w
+    out["counts"]["all-reduce"] += 1 if out["grad_all_reduce"] else 0
+    ring = {"fsdp_all_gather": (D, 1), "fsdp_reduce_scatter": (D, 1),
+            "model_all_gather": (m, 1), "router_all_gather": (m, 1),
+            "tp_all_reduce": (m, 2)}
+    out["bytes"] = out["grad_all_reduce"] + sum(
+        f * pay[k] * (w - 1) // w for k, (w, f) in ring.items() if w > 1)
+    return out
+
+
 def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
                      mesh, tokens: int, itemsize: int) -> dict:
     """The collectives a device runs in one step of the port's runtime
-    on ``mesh``, in bytes it sends. Training: the gradients' float32
-    all-reduce (``train_loop.reduce_grads``; a ring sends 2 (W - 1) / W
-    of the buffer), every leaf over the whole mesh but expert leaves
-    under expert parallelism, which reduce over the mesh's other axes.
-    Expert parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh
+    on ``mesh``, in bytes it sends. Training under the rules' placement:
+    :func:`_rules_collectives`. Training under expert parallelism: the
+    gradients' float32 all-reduce (``train_loop.reduce_grads``; a ring
+    sends 2 (W - 1) / W of the buffer), every leaf over the whole mesh
+    but expert leaves, which reduce over the mesh's other axes. Expert
+    parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh
     that hosts it): each MoE layer's all-to-alls (:func:`ep_a2a_bytes`),
     the forward's again under ``remat`` full or dots (the layer is
     recomputed) and the backward's in training."""
@@ -132,6 +325,10 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
         ep = sizes["model"]
     out = {"grad_all_reduce": 0, "a2a_forward": 0, "a2a_backward": 0,
            "counts": {"all-reduce": 0, "all-to-all": 0}}
+    if ep == 1 and kind == "train":
+        return _rules_collectives(cfg, out, params=params, mesh=mesh,
+                                  dispatch=dispatch, remat=remat,
+                                  tokens=tokens, itemsize=itemsize)
     if kind == "train":
         rep = exp = 0
         for leaf in pm.tree_leaves(params):
@@ -241,8 +438,6 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
         collective_bytes_per_device=coll_dev,
         collectives=coll,
         collective_counts=coll["counts"],
-        collectives_not_modelled="FSDP and tensor-parallel collectives "
-                                 "(the runtime does not apply them yet)",
         memory={
             "argument_bytes": mem["total"],
             "argument_bytes_by_input": mem,

@@ -53,13 +53,19 @@ the launcher then initialises the process group from the environment
 (``nccl`` on CUDA, each rank on ``cuda:LOCAL_RANK``; ``gloo`` with
 ``--device cpu``), builds the mesh — ``(data=1, model=world)`` under
 ``--ep a2a``, ``(data=world,)`` otherwise — and trains with that
-``ShardCtx``: each rank takes its rows of every batch, the MoE layers
-run expert-parallel (``--dispatch sorted --ep a2a``: each rank holds
-``E / world`` experts, tokens cross ranks by all-to-all, budget
-``--ep-budget-factor``), gradients are reduced over the ranks, and
-checkpoints hold the global state (written by rank 0). In one process
-``--ep a2a`` falls back to the single-device sorted path, as the
-reference's launcher does without a mesh:
+``ShardCtx``: each rank takes its rows of every batch; under ``--ep
+a2a`` the MoE layers run expert-parallel (``--dispatch sorted``: each
+rank holds ``E / world`` experts, tokens cross ranks by all-to-all,
+budget ``--ep-budget-factor``); otherwise the state takes the rules'
+placement (``sharding.train_layout``), which on ``(data=world,)`` is
+FSDP: each rank holds its block of every ``embed`` dim, gathered at
+use and its gradient reduce-scattered. Gradients are reduced over the
+ranks, and checkpoints hold the global state (written by rank 0). The
+``model`` axis's tensor parallelism is reached through the API
+(``ShardCtx.for_mesh`` on a mesh with one, as the reference's
+launcher builds none). In one process ``--ep a2a`` falls back to the
+single-device sorted path, as the reference's launcher does without a
+mesh:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --reduced --steps 3 --batch 4 \\

@@ -69,7 +69,7 @@ def attention_init(gen, cfg: ArchConfig, *, dtype=torch.float32,
     return p
 
 
-def pad_heads(p, multiple: int):
+def pad_heads(p, multiple: int, kv_heads: int | None = None):
     """Zero query heads inserted PER KV GROUP up to a multiple of
     ``multiple`` (the reference's ``pad_heads_multiple``): ``wq``'s head
     dim and ``bq`` gain zero heads after each group's own, ``wo`` zero
@@ -77,12 +77,11 @@ def pad_heads(p, multiple: int):
     grouping of the attention kernels. The padded heads' attention
     meets zero ``wo`` rows: the output is exactly preserved. Returns
     ``p`` itself when the head count already divides."""
-    H, Kh = p["wq"].shape[1], p["wk"].shape[1]
-    if not multiple or H % multiple == 0:
+    H = p["wq"].shape[1]
+    Kh = p["wk"].shape[1] if kv_heads is None else kv_heads
+    g0, g1 = H // Kh, padded_heads(H, Kh, multiple) // Kh
+    if g1 == g0:
         return p
-    g0 = g1 = H // Kh
-    while (Kh * g1) % multiple:
-        g1 += 1
 
     def grouped(w, axis):
         w = w.movedim(axis, 0)
@@ -94,6 +93,97 @@ def pad_heads(p, multiple: int):
     out = dict(p, wq=grouped(p["wq"], 1), wo=grouped(p["wo"], 0))
     if "bq" in p:
         out["bq"] = grouped(p["bq"], 0)
+    return out
+
+
+def padded_heads(H: int, Kh: int, multiple: int) -> int:
+    """The query heads after :func:`pad_heads`: each of the ``Kh``
+    groups grown until ``Kh * g`` is a multiple of ``multiple``."""
+    if not multiple or H % multiple == 0:
+        return H
+    g = H // Kh
+    while (Kh * g) % multiple:
+        g += 1
+    return Kh * g
+
+
+def head_plan(cfg: ArchConfig, m: int, multiple: int = 0):
+    """How ``m`` tensor-parallel ranks split an attention layer's heads:
+    ``(Hp, Gp, kv)`` — the padded query heads ``Hp`` (rank r runs the
+    contiguous block ``[r * Hp / m, (r + 1) * Hp / m)``), their group
+    ``Gp = Hp / Kh``, and how a block finds its KV heads: ``"block"``
+    (whole groups: the contiguous KV block of ``Hl / Gp`` heads),
+    ``"one"`` (the block lies in one group: its one KV head) or
+    ``"each"`` (each query head its own KV head, by global index).
+    None when ``Hp`` does not divide over ``m`` (every rank then runs
+    every head)."""
+    H, Kh = cfg.n_heads, cfg.n_kv_heads
+    Hp = padded_heads(H, Kh, multiple)
+    if Hp % m:
+        return None
+    Hl, Gp = Hp // m, Hp // Kh
+    kv = "block" if Hl % Gp == 0 else "one" if Gp % Hl == 0 else "each"
+    return Hp, Gp, kv
+
+
+def _tp_heads(p, cfg: ArchConfig, ctx, multiple: int):
+    """The rank's attention weights under tensor parallelism: its block
+    of the (padded) query heads (``wq``, ``bq``, ``wo``) and the KV
+    heads they read (``wk``, ``wv``, ``bk``, ``bv``), global query
+    head ``h`` reading KV head ``h // Gp`` (:func:`head_plan`). A
+    leaf the rules shard over ``model`` (``heads``, ``kv_heads``)
+    arrives as the rank's block and is used as it is where the block is
+    the one the rank runs; otherwise the whole leaf is taken —
+    gathered (:func:`comm.gather_fsdp` over ``model``: the gradient's
+    blocks summed back) or, replicated, through
+    :func:`comm.copy_to_model` (every peer's partial gradient summed) —
+    padded, and cut. Returns None where the heads do not split."""
+    from repro_torch.sharding import comm
+
+    m, r = ctx.tp_size, ctx.tp_rank
+    plan = head_plan(cfg, m, multiple)
+    H, Kh = cfg.n_heads, cfg.n_kv_heads
+    q_sharded = p["wq"].shape[1] != H
+    kv_sharded = p["wk"].shape[1] != Kh
+    if plan is None:
+        if q_sharded or kv_sharded:
+            raise ValueError(
+                f"{cfg.name}: {H} query heads padded to multiple "
+                f"{multiple} do not split over {m} model ranks")
+        return None
+    Hp, Gp, kv = plan
+    Hl = Hp // m
+
+    def whole(t, sharded, dim):
+        if sharded:
+            return comm.gather_fsdp(t, dim, ctx.tp_group, m)
+        return comm.copy_to_model(t, ctx)
+
+    out = {}
+    qkeys = [k for k in ("wq", "bq", "wo") if k in p]
+    qdim = {"wq": 1, "bq": 0, "wo": 0}
+    if q_sharded and Hp == H:
+        out.update({k: p[k] for k in qkeys})
+    else:
+        full = {k: whole(p[k], q_sharded, qdim[k]) for k in qkeys}
+        full = pad_heads(full, multiple, kv_heads=Kh)
+        out.update({k: full[k].narrow(qdim[k], r * Hl, Hl) for k in qkeys})
+    kkeys = [k for k in ("wk", "wv", "bk", "bv") if k in p]
+    kdim = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
+    if kv_sharded:  # Kh % m == 0, so the block is whole groups
+        out.update({k: p[k] for k in kkeys})
+    else:
+        a = r * Hl
+        for k in kkeys:
+            t = comm.copy_to_model(p[k], ctx)
+            if kv == "block":
+                t = t.narrow(kdim[k], a // Gp, Hl // Gp)
+            elif kv == "one":
+                t = t.narrow(kdim[k], a // Gp, 1)
+            else:
+                idx = torch.arange(a, a + Hl, device=t.device) // Gp
+                t = t.index_select(kdim[k], idx)
+            out[k] = t
     return out
 
 
@@ -118,8 +208,16 @@ def attention_apply(
     kv_x=None,
     implementation: str = "auto",
     pad_heads_multiple: int = 0,
+    ctx=None,
 ):
     """Self- or cross-attention. Returns (y, cache).
+
+    ``ctx`` (a ``ShardCtx``; the training paths, ``cache`` None): with
+    a ``model`` axis, each rank runs its contiguous block of the
+    (padded) query heads and the KV heads they read (:func:`_tp_heads`)
+    through the flash kernels at the local head counts; the input is
+    column-parallel, ``wo`` row-parallel, the partial outputs added
+    over ``model``.
 
     ``pad_heads_multiple``: zero query heads padded up to a multiple of
     this (:func:`pad_heads`; e.g. qwen2.5's 40/8 heads become 48/8 at
@@ -175,8 +273,24 @@ def attention_apply(
     updated in place.
     """
     from repro_torch.kernels import ops
+    from repro_torch.sharding import comm
 
-    p = pad_heads(p, pad_heads_multiple)
+    local = None
+    if ctx is not None and ctx.tp_size > 1 and cache is None:
+        local = _tp_heads(p, cfg, ctx, pad_heads_multiple)
+    if local is not None:
+        p = local
+        x = comm.copy_to_model(x, ctx)
+        if kv_x is not None:
+            kv_x = comm.copy_to_model(kv_x, ctx)
+
+        def out(y):
+            return comm.reduce_from_model(_out(y, p["wo"]), ctx)
+    else:
+        p = pad_heads(p, pad_heads_multiple)
+
+        def out(y):
+            return _out(y, p["wo"])
     if kv_x is not None:
         if cache is not None or block_tables is not None:
             raise ValueError("cross-attention keeps no cache")
@@ -187,7 +301,7 @@ def attention_apply(
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         y = ops.flash_attention(q, k, v, causal=False,
                                 implementation=implementation)
-        return _out(y, p["wo"]), None
+        return out(y), None
     B, Sq, _ = x.shape
     if block_tables is not None and Sq != 1 and (mixed is not None
                                                  or B != 1):
@@ -207,7 +321,7 @@ def attention_apply(
             k = rope(k, positions, cfg.rope_theta)
         y = ops.flash_attention(q, k, v, causal=causal,
                                 implementation=implementation)
-        return _out(y, p["wo"]), None
+        return out(y), None
     if block_tables is None:
         return _static_attention(p, q, k, v, cfg, cache, int(cache_index),
                                  causal, implementation)

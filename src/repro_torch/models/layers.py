@@ -61,15 +61,30 @@ def mlp_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     return p
 
 
-def mlp_apply(p, x, cfg: ArchConfig):
-    """x: (..., d) -> (..., d)."""
+def _tp(ctx, local: int, full: int) -> bool:
+    """Whether a dim of ``full`` entries holds only this rank's block
+    under ``ctx`` (the rules' placement, ``sharding/comm.py``)."""
+    return ctx is not None and ctx.tp_size > 1 and local != full
+
+
+def mlp_apply(p, x, cfg: ArchConfig, ctx=None):
+    """x: (..., d) -> (..., d). With ``wi``/``wg`` holding the rank's
+    block of ``mlp`` (tensor parallel under ``ctx``): column-parallel
+    ``wi``/``wg``, row-parallel ``wo``, the partial sums added over
+    ``model``."""
+    from repro_torch.sharding import comm
+
+    tp = _tp(ctx, p["wi"].shape[-1], cfg.d_ff)
+    if tp:
+        x = comm.copy_to_model(x, ctx)
     act = activation(cfg.act)
     h = x @ p["wi"]
     if cfg.gated_mlp:
         h = act(h) * (x @ p["wg"])
     else:
         h = act(h)
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    return comm.reduce_from_model(y, ctx) if tp else y
 
 
 def embed_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
@@ -83,8 +98,23 @@ def embed_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
     return p
 
 
-def embed_apply(p, tokens, cfg: ArchConfig, *, positions=None):
-    x = p["tokens"][tokens]
+def embed_apply(p, tokens, cfg: ArchConfig, *, positions=None, ctx=None):
+    """The token embedding (plus positions). With ``tokens`` holding the
+    rank's block of ``vocab`` under ``ctx``: a vocab-parallel lookup,
+    each rank's rows of its ids (zero elsewhere) added over
+    ``model``."""
+    table = p["tokens"]
+    if _tp(ctx, table.shape[0], cfg.vocab_size):
+        from repro_torch.sharding import comm
+
+        n = table.shape[0]
+        local = tokens - ctx.tp_rank * n
+        mine = (local >= 0) & (local < n)
+        x = table[torch.where(mine, local, torch.zeros_like(local))]
+        x = comm.reduce_from_model(
+            torch.where(mine[..., None], x, torch.zeros_like(x)), ctx)
+    else:
+        x = table[tokens]
     if cfg.pos_emb == "learned" and positions is not None:
         x = x + p["pos"][positions]
     elif cfg.pos_emb == "sinusoidal" and positions is not None:
@@ -99,8 +129,20 @@ def head_init(gen, cfg: ArchConfig, *, dtype=torch.float32, device=None):
                           dtype=dtype, device=device)}
 
 
-def head_apply(p, x, embed_params, cfg: ArchConfig):
+def head_apply(p, x, embed_params, cfg: ArchConfig, ctx=None):
+    """Logits ``x @ w``: the rank's block of the vocabulary where ``w``
+    holds the rank's block of ``vocab`` under ``ctx`` (vocab-parallel;
+    ``model_zoo`` takes the cross-entropy over the blocks)."""
     w = embed_params["tokens"].T if cfg.tie_embeddings else p["w"]
+    return vocab_logits(x, w, cfg, ctx)
+
+
+def vocab_logits(x, w, cfg: ArchConfig, ctx=None):
+    """``x @ w`` for ``w (d, V)`` or the rank's ``(d, V / m)`` block."""
+    if _tp(ctx, w.shape[-1], cfg.vocab_size):
+        from repro_torch.sharding import comm
+
+        x = comm.copy_to_model(x, ctx)
     return x @ w
 
 

@@ -52,6 +52,7 @@ from repro_torch.models.layers import (
     norm_apply,
     norm_init,
     sinusoidal,
+    vocab_logits,
 )
 
 
@@ -164,7 +165,8 @@ def _cast_params(params, dtype):
         lambda p: p.to(dtype) if p.is_floating_point() else p, params)
 
 
-def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg):
+def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg,
+                         ctx=None):
     """The decoder's input: ``tokens`` (decoder-only) or ``dec_tokens``
     (encoder-decoder) embedded at positions 0..S-1, in the compute
     dtype. A decoder with a frontend whose batch carries
@@ -174,7 +176,7 @@ def _embed_decoder_input(params, batch, cfg: ArchConfig, ac: ApplyCfg):
               else batch["dec_tokens"]).long()
     x = embed_apply(params["embed"], tokens, cfg,
                     positions=torch.arange(tokens.shape[1],
-                                           device=tokens.device))
+                                           device=tokens.device), ctx=ctx)
     if cfg.frontend is not None and "patch_embeds" in batch:
         front = frontend_apply(params["frontend"], batch["patch_embeds"],
                                cfg).to(x.dtype)
@@ -197,7 +199,8 @@ def _encode(params, batch, cfg: ArchConfig, ac: ApplyCfg, ctx=None):
         tokens = batch["enc_tokens"].long()
         x = embed_apply(params["embed"], tokens, cfg,
                         positions=torch.arange(tokens.shape[1],
-                                               device=tokens.device))
+                                               device=tokens.device),
+                        ctx=ctx)
     x, mets, _ = stk.stack_apply(
         params["encoder"], x.to(ac.cdtype), cfg,
         stk.layer_descs(cfg, stack="encoder"), causal=False,
@@ -227,8 +230,12 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     pooling and the class head, logits (B, V). Returns (logits float32,
     metrics); with ``return_hidden`` (not encoder-only) the final-norm
     hidden states (B, S, d) in the compute dtype instead of the
-    logits. ``ctx``: a ``ShardCtx`` for the MoE layers (the batch holds
-    this rank's rows; expert leaves hold this rank's experts)."""
+    logits. ``ctx``: a ``ShardCtx`` (the batch holds this rank's rows,
+    the params the blocks the step computes with,
+    ``sharding/comm.params_for_compute``): the layers run tensor
+    parallel on their ``model`` blocks, and a head holding the rank's
+    block of ``vocab`` gives that block of the logits (:func:`loss_fn`
+    takes the cross-entropy over the blocks)."""
     params = _cast_params(params, ac.cdtype)
     if cfg.structure == "encoder_only":
         pe = batch["patch_embeds"]
@@ -244,8 +251,9 @@ def forward_train(params, batch, cfg: ArchConfig, *,
         )
         x = norm_apply(params["final_norm"], x, cfg)
         pooled = x.mean(dim=1)  # global average pooling (paper §2.2)
-        return (pooled @ params["head"]["w"]).float(), mets
-    x = _embed_decoder_input(params, batch, cfg, ac)
+        return vocab_logits(pooled, params["head"]["w"], cfg,
+                            ctx).float(), mets
+    x = _embed_decoder_input(params, batch, cfg, ac, ctx)
     ac = ac.resolve(x.device)
     enc, enc_mets = None, None
     if cfg.structure == "encoder_decoder":
@@ -258,7 +266,7 @@ def forward_train(params, batch, cfg: ArchConfig, *,
     if return_hidden:
         return x, mets
     return head_apply(params.get("head", {}), x, params["embed"],
-                      cfg).float(), mets
+                      cfg, ctx).float(), mets
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
@@ -274,21 +282,21 @@ def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
                                      return_hidden=True, ctx=ctx)
         w = (params["embed"]["tokens"].T if cfg.tie_embeddings
              else params["head"]["w"]).to(ac.cdtype)
-        ce = _chunked_ce(hidden, w, batch["targets"].long(), ac.ce_chunk)
+        targets = batch["targets"].long()
+        ce = (_chunked_ce(hidden, w, targets, ac.ce_chunk, cfg, ctx)
+              if ctx is not None and w.shape[-1] != cfg.vocab_size
+              else _chunked_ce(hidden, w, targets, ac.ce_chunk))
         loss = ce + mets["aux_loss"] + mets["z_loss"]
         out = dict(mets)
         out.update(loss=loss, ce=ce)
         return loss, out
     logits, mets = forward_train(params, batch, cfg, ac=ac, ctx=ctx)
-    logp = torch.log_softmax(logits, dim=-1)
     if cfg.structure == "encoder_only":
-        labels = batch["labels"].long()
-        ce = -torch.gather(logp, -1, labels[:, None]).mean()
+        ce = _token_ce(logits, batch["labels"].long(), cfg, ctx).mean()
     else:
         targets = batch["targets"].long()
         valid = targets >= 0
-        ce_tok = -torch.gather(logp, -1,
-                               targets.clamp(min=0)[..., None])[..., 0]
+        ce_tok = _token_ce(logits, targets.clamp(min=0), cfg, ctx)
         denom = torch.clamp(valid.sum(), min=1)
         ce = torch.where(valid, ce_tok,
                          torch.zeros_like(ce_tok)).sum() / denom
@@ -298,17 +306,43 @@ def loss_fn(params, batch, cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
     return loss, out
 
 
-def _ce_chunk(x, w, targets):
+def _token_ce(logits, targets, cfg: ArchConfig, ctx=None):
+    """Each row's cross-entropy at its target (in range) from float32
+    logits (..., V). Logits holding the rank's block of the vocabulary
+    (vocab-parallel, ``head_apply`` under ``ctx``): the max, the sum of
+    exponentials and the target's logit each taken over the blocks
+    (all-reduced over ``model``)."""
+    V = logits.shape[-1]
+    if ctx is None or V == cfg.vocab_size:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+    from repro_torch.sharding import comm
+
+    mx = comm.max_over_model(logits.max(-1).values, ctx)
+    se = comm.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(-1), ctx)
+    local = targets - ctx.tp_rank * V
+    mine = (local >= 0) & (local < V)
+    tl = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    tl = comm.reduce_from_model(
+        torch.where(mine, tl, torch.zeros_like(tl)), ctx)
+    return torch.log(se) + mx - tl
+
+
+def _ce_chunk(x, w, targets, cfg=None, ctx=None):
     """(summed CE, valid count) of one chunk: logits (B, c, V) in float32
-    from x and w's values (bfloat16 products are exact in float32)."""
-    logp = torch.log_softmax(x.float() @ w.float(), dim=-1)
+    from x and w's values (bfloat16 products are exact in float32); the
+    rank's vocabulary block of them where ``w`` holds it."""
+    logits = (x.float() @ w.float() if ctx is None
+              else vocab_logits(x.float(), w.float(), cfg, ctx))
     valid = targets >= 0
-    ce_tok = -torch.gather(logp, -1, targets.clamp(min=0)[..., None])[..., 0]
+    ce_tok = _token_ce(logits, targets.clamp(min=0), cfg, ctx)
     return (torch.where(valid, ce_tok, torch.zeros_like(ce_tok)).sum(),
             valid.sum())
 
 
-def _chunked_ce(hidden, w, targets, chunk: int):
+def _chunked_ce(hidden, w, targets, chunk: int, cfg=None, ctx=None):
     """Cross-entropy over sequence chunks (port of the reference's
     ``_chunked_ce``). hidden: (B, S, d); w: (d, V); targets (B, S) with
     -1 = masked. The sequence is padded to a multiple of
@@ -326,7 +360,8 @@ def _chunked_ce(hidden, w, targets, chunk: int):
     n = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for lo in range(0, S + pad, chunk):
         s, k = checkpoint(_ce_chunk, hidden[:, lo:lo + chunk], w,
-                          targets[:, lo:lo + chunk], use_reentrant=False)
+                          targets[:, lo:lo + chunk], cfg, ctx,
+                          use_reentrant=False)
         ce_sum = ce_sum + s
         n = n + k
     return ce_sum / torch.clamp(n, min=1)

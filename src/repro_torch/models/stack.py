@@ -187,9 +187,11 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     (B, Se, d), uncached. An rwkv6 layer gates its FFN output with the
     channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
     the ``remat="moe"`` boundary. ``pad_heads_multiple`` pads the
-    attention's query heads (``attention.pad_heads``); ``ctx`` (a
-    ``ShardCtx``) reaches the MoE layer, which runs expert-parallel on
-    a mesh that can host it. Returns (x, metrics, cache), the cache
+    attention's query heads (``attention.pad_heads``). ``ctx`` (a
+    ``ShardCtx``) reaches the attention, the MLP and the MoE layer:
+    each runs tensor parallel on the ``model`` blocks its weights hold
+    (``sharding/comm.params_for_compute``), the MoE expert-parallel
+    under ``moe.ep == "a2a"`` instead. Returns (x, metrics, cache), the cache
     updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
@@ -198,6 +200,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
             p["mixer"], h, cfg, cache=mix_cache, cache_index=cache_index,
             block_tables=block_tables, mixed=mixed, causal=causal,
             implementation=attn_impl, pad_heads_multiple=pad_heads_multiple,
+            ctx=ctx,
         )
     elif desc.mixer == "mamba":
         y, _ = ssm.mamba_apply(p["mixer"], h, cfg, cache=mix_cache,
@@ -210,7 +213,8 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         hc = norm_apply(p["cross_norm"], x, cfg)
         yc, _ = attention_apply(p["cross"], hc, cfg, kv_x=enc,
                                 implementation=attn_impl,
-                                pad_heads_multiple=pad_heads_multiple)
+                                pad_heads_multiple=pad_heads_multiple,
+                                ctx=ctx)
         x = x + yc
     h = norm_apply(p["ffn_norm"], x, cfg)
     gate = None
@@ -230,7 +234,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         if ctx is not None:
             metrics["ep_overflow_frac_sum"] = m["ep_overflow_frac"]
     else:
-        y = mlp_apply(p["ffn"], h, cfg)
+        y = mlp_apply(p["ffn"], h, cfg, ctx)
     if gate is not None:
         y = gate * y
     return x + y, metrics, cache

@@ -8,8 +8,9 @@
     a broadcast;
   * decay beta2_t = 1 - t^-0.8;
   * update clipped to RMS threshold 1.0, the RMS taken over the whole
-    (stacked) leaf — over every rank's slice of a sharded one
-    (``groups``, ``optim/base.py``);
+    (stacked) leaf — over every rank's block of a sharded one
+    (``groups``, ``optim/base.LeafShard``), as are the factored row
+    and column means over a sharded dim;
   * optional multiply-by-parameter-scale, the parameter RMS also over
     the whole stacked leaf (T5 pretraining default);
   * optional momentum (off by default — sublinear memory);
@@ -17,6 +18,7 @@
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -71,25 +73,34 @@ def adafactor(
         if groups is None:
             groups = tree_map(lambda _: None, params)
 
-        def upd(g, s, p, group):
+        def upd(g, s, p, shard):
             g = g.to(f32)
             g2 = torch.square(g) + eps1
             new_s = dict(s)
-            if _factored(g.shape, min_dim_size_to_factor):
-                vr = beta2 * s["v_row"] + (1 - beta2) * g2.mean(dim=-1)
-                vc = beta2 * s["v_col"] + (1 - beta2) * g2.mean(dim=-2)
-                new_s["v_row"], new_s["v_col"] = vr, vc
+            if "v_row" in s:  # factored at init, by the whole leaf's shape
+                # Each mean over a sharded dim sums over its axes and
+                # divides by the whole leaf's count; a slot the state
+                # holds in another placement is moved to the update's
+                # and back.
+                row, col = _slot_specs(shard)
+                vr = beta2 * _slot_in(shard, "v_row", s, row) \
+                    + (1 - beta2) * leaf_mean(g2, shard, dims=(-1,))
+                vc = beta2 * _slot_in(shard, "v_col", s, col) \
+                    + (1 - beta2) * leaf_mean(g2, shard, dims=(-2,))
+                new_s["v_row"] = _slot_out(shard, "v_row", vr, row)
+                new_s["v_col"] = _slot_out(shard, "v_col", vc, col)
                 # rank-1 reconstruction of 1/sqrt(v)
-                row_mean = vr.mean(dim=-1, keepdim=True)
+                row_mean = leaf_mean(vr, _sub(shard, row), dims=(-1,))
                 r = torch.rsqrt(
-                    (vr / torch.clamp(row_mean, min=eps1))[..., None])
+                    (vr / torch.clamp(row_mean[..., None], min=eps1)
+                     )[..., None])
                 c = torch.rsqrt(vc)[..., None, :]
                 u = g * r * c
             else:
                 v = beta2 * s["v"] + (1 - beta2) * g2
                 new_s["v"] = v
                 u = g * torch.rsqrt(v)
-            rms_u = torch.sqrt(leaf_mean(torch.square(u), group) + 1e-30)
+            rms_u = torch.sqrt(leaf_mean(torch.square(u), shard) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             if beta1 is not None:
                 m = beta1 * s["m"] + (1 - beta1) * u
@@ -98,7 +109,7 @@ def adafactor(
             scale = lr_t
             if multiply_by_parameter_scale:
                 p_rms = torch.sqrt(leaf_mean(torch.square(p.to(f32)),
-                                             group))
+                                             shard))
                 scale = scale * torch.clamp(p_rms, min=eps2)
             delta = -scale * u
             if weight_decay:
@@ -111,6 +122,27 @@ def adafactor(
         return _pick(both, 0), {"step": step, "slots": _pick(both, 1)}
 
     return Optimizer(init, update)
+
+
+def _slot_specs(shard):
+    """The specs ``v_row`` and ``v_col`` are computed in: the leaf's
+    without its last dim, without the one before."""
+    if shard is None:
+        return None, None
+    spec = shard.spec
+    return spec[:-1], spec[:-2] + spec[-1:]
+
+
+def _sub(shard, spec):
+    return None if shard is None else dataclasses.replace(shard, spec=spec)
+
+
+def _slot_in(shard, name, s, like):
+    return s[name] if shard is None else shard.slot_in(name, s[name], like)
+
+
+def _slot_out(shard, name, t, like):
+    return t if shard is None else shard.slot_out(name, t, like)
 
 
 def _pick(tree, i: int):

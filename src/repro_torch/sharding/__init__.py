@@ -1,19 +1,23 @@
 """The mesh + rules bundle and the port's explicit layout (port of
 ``repro/sharding/__init__.py``).
 
-``ShardCtx`` carries the mesh, the two rules tables and the process
-groups the port needs: the ``model`` group the expert-parallel
-all-to-all runs over, the group of the other axes (the data-parallel
-replicas of one expert shard) and the group of every token axis (the
-whole mesh). The reference lets GSPMD place every leaf by the rules;
-the port's runtime applies one placement so far, the expert-parallel
-one (``moe.ep == "a2a"`` on a mesh ``expert_parallel_layout`` accepts):
-each rank holds ``E / ep`` experts of every expert leaf (its slice of
-the leaf's ``expert`` dim over ``model``) and a full copy of every
-other leaf. :func:`ep_dims` names the sliced dim of each leaf,
-:func:`shard_tree` / :func:`gather_tree` move between the global tree
-and a rank's. The reference's ``act()`` constraints have no counterpart
-(layout hints that leave the numbers alone).
+``ShardCtx`` carries the mesh, the two rules tables and a process group
+for every set of the mesh's axes: the ``model`` group the
+tensor-parallel collectives and the expert-parallel all-to-all run
+over, the data axes' groups (FSDP's gathers and scatters, the gradient
+sums), the whole mesh. The reference lets GSPMD place every leaf by the
+rules; the port's runtime applies the placement explicitly
+(:func:`train_layout`): the reference's ``tree_specs(state_axes(cfg))``
+— ``embed`` over ``data`` (FSDP), ``heads``, ``kv_heads``, ``mlp``,
+``vocab`` and ``expert`` over ``model`` (tensor parallel), tokens over
+the data axes — or, with expert parallelism (``moe.ep == "a2a"``,
+sorted dispatch, a mesh ``expert_parallel_layout`` accepts), each
+expert leaf's ``expert`` dim over ``model`` and every other leaf
+replicated, tokens over every axis. A :class:`TreeLayout` holds each
+leaf's spec and moves between the global tree and a rank's
+(``shard``, ``gather``); ``sharding/comm.py`` holds the collectives a
+step computes with. The reference's ``act()`` constraints have no
+counterpart (layout hints that leave the numbers alone).
 """
 from __future__ import annotations
 
@@ -48,29 +52,33 @@ def _mesh_ranks(mesh):
 
 
 def _make_groups(mesh) -> dict:
-    """``{axes tuple: this rank's group over those axes}`` for the
-    ``model`` axis, the other axes and all of them, when the group spans
-    more than one rank. Every rank creates every group, in one order
-    (``new_subgroups_by_enumeration`` is collective)."""
+    """``{axes tuple: this rank's group over those axes}`` for every
+    non-empty set of the mesh's axes (in mesh order) that spans more
+    than one rank: the ``model`` axis, the others, all of them, and each
+    tuple a spec may shard a dim over (``("data",)``, ``("pod",
+    "data")``). A group's ranks are sorted, so a rank's place in it is
+    its row-major coordinate over the axes. Every rank creates every
+    group, in one order (``new_subgroups_by_enumeration`` is
+    collective)."""
+    import itertools
+
     import torch.distributed as dist
 
     names = tuple(mesh_shape(mesh))
     ranks = _mesh_ranks(mesh)
-    wanted = [names]
-    if EP_AXIS in names and len(names) > 1:
-        wanted += [(EP_AXIS,), tuple(a for a in names if a != EP_AXIS)]
     groups = {}
-    for axes in wanted:
-        idx = [names.index(a) for a in axes]
-        rest = [i for i in range(len(names)) if i not in idx]
-        size = math.prod(ranks.shape[i] for i in idx)
-        if size == 1:
-            continue
-        if size == dist.get_world_size():
-            groups[axes] = dist.group.WORLD
-            continue
-        enum = ranks.permute(*rest, *idx).reshape(-1, size).tolist()
-        groups[axes], _ = dist.new_subgroups_by_enumeration(enum)
+    for k in range(len(names), 0, -1):
+        for axes in itertools.combinations(names, k):
+            idx = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in idx]
+            size = math.prod(ranks.shape[i] for i in idx)
+            if size == 1:
+                continue
+            if size == dist.get_world_size():
+                groups[axes] = dist.group.WORLD
+                continue
+            enum = ranks.permute(*rest, *idx).reshape(-1, size).tolist()
+            groups[axes], _ = dist.new_subgroups_by_enumeration(enum)
     return groups
 
 
@@ -84,6 +92,11 @@ class ShardCtx:
     act_rules: Rules
     param_rules: Rules
     groups: Mapping[tuple, Any] = dataclasses.field(default_factory=dict)
+    # Set by the rules' layout (``train_layout``): the model's modules
+    # run tensor parallel over ``model`` (the ranks of a ``model`` group
+    # hold the same tokens). Off under expert parallelism, where they
+    # hold different tokens.
+    tensor_parallel: bool = False
 
     @classmethod
     def for_mesh(cls, mesh, *, cfg=None, **kw) -> "ShardCtx":
@@ -115,10 +128,13 @@ class ShardCtx:
     def size(self, axes) -> int:
         return math.prod(self.shape[a] for a in axes)
 
+    def _order(self, axes) -> tuple:
+        return tuple(a for a in self.shape if a in tuple(axes))
+
     def group(self, axes):
         """This rank's process group over ``axes`` (None when they span
         one rank)."""
-        return self.groups.get(tuple(axes))
+        return self.groups.get(self._order(axes))
 
     def coord(self, axis: str) -> int:
         """This rank's index along ``axis``."""
@@ -128,13 +144,40 @@ class ShardCtx:
         pos = (_mesh_ranks(self.mesh) == dist.get_rank()).nonzero()[0]
         return int(pos[names.index(axis)])
 
+    def index(self, axes) -> int:
+        """This rank's row-major coordinate over ``axes`` (its block of
+        a dim sharded over them, as ``NamedSharding`` places it; its
+        rank in :meth:`group`)."""
+        i = 0
+        for a in self._order(axes):
+            i = i * self.shape[a] + self.coord(a)
+        return i
+
+    @property
+    def tp_size(self) -> int:
+        """The tensor-parallel width: the ``model`` axis's size under
+        the rules' layout, else 1."""
+        if not (self.groups and self.tensor_parallel):
+            return 1
+        return self.shape.get(EP_AXIS, 1)
+
+    @property
+    def tp_group(self):
+        return self.group((EP_AXIS,)) if self.tp_size > 1 else None
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coord(EP_AXIS) if self.tp_size > 1 else 0
+
     @property
     def token_axes(self) -> tuple:
         return tuple(self.shape)
 
     @property
     def replica_axes(self) -> tuple:
-        """The axes an expert shard is replicated over."""
+        """Every axis but ``model``: the axes an expert shard is
+        replicated over, and those the rules shard a batch over
+        (ACT_RULES ``batch``)."""
         return tuple(a for a in self.shape if a != EP_AXIS)
 
 
@@ -152,8 +195,80 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the expert-parallel layout of a tree
+# a tree's layout over the mesh
 # ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one entry of a spec (None, an axis, a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _map(fn, tree, *others):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
+def shard_leaf(t, spec, ctx: ShardCtx):
+    """This rank's block of a global tensor (a copy of its own): each
+    dim cut to the contiguous block at the rank's row-major coordinate
+    over the dim's axes."""
+    if not isinstance(t, torch.Tensor) or not any(spec):
+        return t
+    for d, e in enumerate(spec):
+        axes = entry_axes(e)
+        if axes:
+            n = t.shape[d] // ctx.size(axes)
+            t = t.narrow(d, ctx.index(axes) * n, n)
+    return t.clone()
+
+
+def gather_leaf(t, spec, ctx: ShardCtx):
+    """The global tensor from every rank's blocks (collective over each
+    sharded dim's axes)."""
+    import torch.distributed as dist
+
+    if not isinstance(t, torch.Tensor):
+        return t
+    for d, e in enumerate(spec):
+        axes = entry_axes(e)
+        if ctx.size(axes) > 1:
+            parts = [torch.empty_like(t) for _ in range(ctx.size(axes))]
+            dist.all_gather(parts, t.contiguous(), group=ctx.group(axes))
+            t = torch.cat(parts, dim=d)
+    return t
+
+
+def global_leaf(t, spec, ctx: ShardCtx):
+    """An empty global-shaped tensor (meta device) for a rank's block."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    shape = list(t.shape)
+    for d, e in enumerate(spec):
+        shape[d] *= ctx.size(entry_axes(e))
+    return torch.empty(shape, dtype=t.dtype, device="meta")
+
+
+def reshard(t, src, dst, ctx: ShardCtx):
+    """A rank's block of a tensor laid out by spec ``src`` -> its block
+    under spec ``dst`` (no gradient): each dim whose axes differ joined
+    over ``src``'s axes, then cut by ``dst``'s."""
+    src = tuple(src) + (None,) * (t.dim() - len(src))
+    dst = tuple(dst) + (None,) * (t.dim() - len(dst))
+    if src == dst:
+        return t
+    for d, (a, b) in enumerate(zip(src, dst)):
+        if entry_axes(a) != entry_axes(b):
+            t = gather_leaf(t, (None,) * d + (a,), ctx)
+            t = shard_leaf(t, (None,) * d + (b,), ctx)
+    return t
 
 
 def ep_dim(axes: str) -> Optional[int]:
@@ -167,119 +282,81 @@ def ep_dim(axes: str) -> Optional[int]:
     return i if i < len(names) and names[i] == "expert" else None
 
 
-def _map(fn, tree, *others):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, *(o[k] for o in others))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v, *(o[i] for o in others))
-                          for i, v in enumerate(tree))
-    return fn(tree, *others)
-
-
-def param_ep_dims(param_axes):
-    """Axes tree -> tree of EP-sliced dims (int or None)."""
-    return _map(ep_dim, param_axes)
-
-
-def state_ep_dims(state, param_dims):
-    """EP-sliced dims of a train state (``params``, ``opt_state``,
-    ``step``, optional ``residual``): the params' own; each optimizer
-    slot of a leaf (Adafactor's ``v_row``/``v_col``/``v``, AdamW's
-    ``m``/``v``) keeps the leaf's leading dims, so it slices the same
-    dim; steps are replicated."""
-    out = {}
-    for k, v in state.items():
-        if k in ("params", "residual"):
-            out[k] = param_dims
-        elif k == "opt_state":
-            out[k] = {kk: (_map(lambda d, s: {n: d for n in s},
-                                param_dims, vv) if kk == "slots"
-                           else _map(lambda _: None, vv))
-                      for kk, vv in v.items()}
-        else:
-            out[k] = _map(lambda _: None, v)
-    return out
-
-
-def _ep_size(ctx: ShardCtx) -> int:
-    """The ``model`` axis's size; 1 when the mesh has none (then no leaf
-    is sliced and the tree moves as it is)."""
-    return ctx.shape.get(EP_AXIS, 1)
+def _dim_spec(d: Optional[int]) -> tuple:
+    return () if d is None else (None,) * d + (EP_AXIS,)
 
 
 def shard_tree(tree, dims, ctx: ShardCtx):
-    """This rank's slice of a global tree: each leaf with a dim in
-    ``dims`` cut to its ``model`` coordinate's contiguous block (a copy
-    of its own); other leaves kept as they are."""
-    ep = _ep_size(ctx)
-    if ep == 1:
-        return tree
-    m = ctx.coord(EP_AXIS)
-
-    def one(t, d):
-        if d is None or not isinstance(t, torch.Tensor):
-            return t
-        n = t.shape[d] // ep
-        return t.narrow(d, m * n, n).clone()
-
-    return _map(one, tree, dims)
+    """This rank's slice of a global tree under the EP layout: each leaf
+    with a dim in ``dims`` (int or None) cut to its ``model``
+    coordinate's contiguous block; other leaves kept as they are."""
+    return _map(lambda t, d: shard_leaf(t, _dim_spec(d), ctx), tree, dims)
 
 
 def gather_tree(tree, dims, ctx: ShardCtx):
-    """The global tree from every rank's slices (collective over
-    ``model``; every rank gets the whole tree)."""
-    import torch.distributed as dist
-
-    ep = _ep_size(ctx)
-    if ep == 1:
-        return tree
-    group = ctx.group((EP_AXIS,))
-
-    def one(t, d):
-        if d is None or not isinstance(t, torch.Tensor):
-            return t
-        parts = [torch.empty_like(t) for _ in range(ep)]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, dim=d)
-
-    return _map(one, tree, dims)
+    """The global tree from every rank's EP slices."""
+    return _map(lambda t, d: gather_leaf(t, _dim_spec(d), ctx), tree, dims)
 
 
-def global_like(tree, dims, ctx: ShardCtx):
-    """Empty global-shaped tensors (on the meta device) for a rank's
-    tree: the structure and shapes a checkpoint of it holds."""
-    ep = _ep_size(ctx)
+def state_axes_of(state, param_axes):
+    """Logical axes of a train state (``params``, ``opt_state``,
+    ``step``, optional ``residual``) from its params' (the reference's
+    ``state_axes``, for any of the port's optimizers): the residual's
+    are the params'; Adafactor's ``v_row`` drops a leaf's last name,
+    ``v_col`` the one before; other slots (``v``, ``m``) keep the
+    leaf's; steps have none."""
+    def slots(axes, s):
+        names = axes.split()
+        pick = {"v_row": names[:-1], "v_col": names[:-2] + names[-1:]}
+        return {n: " ".join(pick.get(n, names)) for n in s}
 
-    def one(t, d):
-        if not isinstance(t, torch.Tensor):
-            return t
-        shape = list(t.shape)
-        if d is not None:
-            shape[d] *= ep
-        return torch.empty(shape, dtype=t.dtype, device="meta")
-
-    return _map(one, tree, dims)
+    out = {}
+    for k, v in state.items():
+        if k in ("params", "residual"):
+            out[k] = param_axes
+        elif k == "opt_state":
+            out[k] = {kk: (_map(slots, param_axes, vv) if kk == "slots"
+                           else _map(lambda _: "", vv))
+                      for kk, vv in v.items()}
+        else:
+            out[k] = _map(lambda _: "", v)
+    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TreeLayout:
-    """How a rank's tree lies over the mesh: ``dims`` (mirroring the
-    tree) names each leaf's EP-sliced dim, None for a replicated leaf.
-    A checkpoint holds the global tree: rank 0 writes it and the others
+    """How a rank's tree lies over the mesh: ``specs`` (mirroring the
+    tree) gives each leaf's spec, the reference's ``PartitionSpec``
+    (one entry a dim: None, an axis, or a tuple of axes). Each rank
+    holds the contiguous block of every sharded dim at its row-major
+    coordinate over the dim's axes, as ``NamedSharding`` places it.
+    ``token_axes``: the axes the batch's rows are split over (every
+    axis under expert parallelism, the data axes under the rules). A
+    checkpoint holds the global tree: rank 0 writes it and the others
     wait (:meth:`barrier`)."""
 
     ctx: ShardCtx
-    dims: Any
+    specs: Any
+    token_axes: tuple
 
     def shard(self, tree):
-        return shard_tree(tree, self.dims, self.ctx)
+        return _map(lambda t, s: shard_leaf(t, s, self.ctx), tree,
+                    self.specs)
 
     def gather(self, tree):
-        return gather_tree(tree, self.dims, self.ctx)
+        return _map(lambda t, s: gather_leaf(t, s, self.ctx), tree,
+                    self.specs)
 
     def global_like(self, tree):
-        return global_like(tree, self.dims, self.ctx)
+        return _map(lambda t, s: global_leaf(t, s, self.ctx), tree,
+                    self.specs)
+
+    def batch_rows(self) -> tuple:
+        """(this rank's index, the count) of the batch's row blocks:
+        ranks that differ only along ``model`` under the rules take the
+        same rows."""
+        return self.ctx.index(self.token_axes), \
+            self.ctx.size(self.token_axes)
 
     @property
     def writer(self) -> bool:
@@ -294,18 +371,25 @@ class TreeLayout:
 
 
 def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
-    """The layout of a train state under ``ctx``: expert leaves sliced
-    over ``model`` when the MoE layers run expert-parallel (sorted
-    dispatch, ``moe.ep == "a2a"``, a mesh that can host it), everything
-    else replicated. None without a ctx or a process group."""
+    """The layout of a train state under ``ctx``, None without a ctx or
+    a process group. With expert parallelism (a MoE arch, sorted
+    dispatch, ``moe.ep == "a2a"``, a mesh that can host it) the expert
+    leaves are sliced over ``model`` on their ``expert`` dim and every
+    other leaf is replicated, tokens split over every axis. Otherwise
+    the reference's placement: ``tree_specs(state_axes(cfg), state,
+    mesh, param_rules)`` — ``embed`` over ``data`` (FSDP), ``heads``,
+    ``kv_heads``, ``mlp``, ``vocab`` and ``expert`` over ``model``
+    (tensor parallel) — with tokens split over the data axes."""
     if ctx is None or not ctx.groups:
         return None
     from repro_torch.core.moe import ep_active
     from repro_torch.models.model_zoo import param_axes
 
+    axes = state_axes_of(state, param_axes(cfg))
     if cfg.moe is not None and dispatch == "sorted" \
             and ep_active(ctx, cfg.moe):
-        dims = param_ep_dims(param_axes(cfg))
-    else:
-        dims = _map(lambda _: None, state["params"])
-    return TreeLayout(ctx, state_ep_dims(state, dims))
+        return TreeLayout(ctx, _map(lambda a: _dim_spec(ep_dim(a)), axes),
+                          ctx.token_axes)
+    return TreeLayout(dataclasses.replace(ctx, tensor_parallel=True),
+                      tree_specs(axes, state, ctx.mesh, ctx.param_rules),
+                      ctx.replica_axes)

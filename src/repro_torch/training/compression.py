@@ -29,20 +29,19 @@ def init_residual(params):
 
 def compress(grads, residual, kind: str, groups=None):
     """Returns (compressed-then-decompressed grads, new residual).
-    ``groups``: the process group each leaf's slices lie over, as the
-    optimizers take it (int8's scale is the whole leaf's largest
-    magnitude)."""
+    ``groups``: each leaf's ``LeafShard``, as the optimizers take it
+    (int8's scale is the whole leaf's largest magnitude)."""
     if kind == "none":
         return grads, residual
     if groups is None:
         groups = tree_map(lambda _: None, grads)
 
-    def one(g, e, group):
+    def one(g, e, shard):
         x = g.to(torch.float32) + e
         if kind == "bf16":
             c = x.to(torch.bfloat16).to(torch.float32)
         elif kind == "int8":
-            scale = torch.clamp(leaf_max(x.abs(), group), min=1e-12) / 127.0
+            scale = torch.clamp(leaf_max(x.abs(), shard), min=1e-12) / 127.0
             q = torch.clamp(torch.round(x / scale), -127, 127)
             c = q * scale
             # The residual x - q * scale rounded once, as XLA contracts

@@ -113,19 +113,28 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def loss_and_grads(params, batch, cfg: ArchConfig, *,
-                   ac: zoo.ApplyCfg = zoo.ApplyCfg(), ctx=None):
+                   ac: zoo.ApplyCfg = zoo.ApplyCfg(), ctx=None,
+                   specs=None):
     """(grads tree, metrics) of ``zoo.loss_fn`` at ``params`` — the
     port of ``jax.value_and_grad(loss_fn, has_aux=True)``; the metrics
     include ``loss`` and ``ce``. ``params`` is left as it was. Under a
     ``ctx`` these are this rank's: its batch rows' loss, and gradients
     of its leaves from that loss (an expert leaf's also from the other
-    ``model`` ranks' tokens its experts served)."""
+    ``model`` ranks' tokens its experts served). ``specs`` (the params'
+    specs of a ``TreeLayout``): the loss computes with
+    ``comm.params_for_compute(params, specs, ctx)``, so a leaf's
+    gradient over the data axes is already summed
+    (``comm.gather_fsdp``'s reduce-scatter)."""
+    from repro_torch.sharding import comm
+
     leaves = tree_leaves(params)
     with torch.enable_grad():
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, mets = zoo.loss_fn(params, batch, cfg, ac=ac, ctx=ctx)
+            used = (params if specs is None
+                    else comm.params_for_compute(params, specs, ctx))
+            loss, mets = zoo.loss_fn(used, batch, cfg, ac=ac, ctx=ctx)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
@@ -165,26 +174,52 @@ def _all_reduce_mean(tensors: list, group, world: int) -> list:
     return out
 
 
-def reduce_grads(grads, dims, ctx):
+def reduce_grads(grads, specs, ctx, token_axes):
     """The global gradients from each rank's (``make_train_step`` under
-    a ctx): every rank's loss is its rows' mean, so the global loss is
-    the mean over the ``W`` ranks, and each gradient is a sum over ranks
-    divided by W — a replicated leaf's over the whole mesh, an expert
-    leaf's over the axes its shard is replicated on (its ``model``
-    peers' tokens already reached it through the all-to-all; the
-    reference's psum transpose)."""
-    world = ctx.size(ctx.token_axes)
+    a layout): every rank's loss is its rows' mean, the rows split over
+    ``token_axes``, so the global loss is the mean over those ``W``
+    blocks and each gradient a sum over them divided by W. A leaf's sum
+    runs over the token axes it does not lie on: the ones it lies on
+    have summed already — an expert leaf's ``model`` peers' tokens
+    reached it through the all-to-all (the reference's psum
+    transpose), an FSDP leaf's data ranks' through ``gather_fsdp``'s
+    reduce-scatter. A leaf's blocks over ``model`` under the rules get
+    no sum over ``model``: ``comm.copy_to_model`` made every peer's
+    gradient the whole one."""
+    from repro_torch.sharding import entry_axes
+
+    world = ctx.size(token_axes)
     leaves = tree_leaves(grads)
-    ds = tree_leaves(dims)
-    rep = [i for i, d in enumerate(ds) if d is None]
-    exp = [i for i, d in enumerate(ds) if d is not None]
+    by_axes: dict = {}
+    spec_l = []
+    tree_zip_map(lambda g, sp: spec_l.append(sp), grads, specs)
+    for i, spec in enumerate(spec_l):
+        lies = {a for e in spec for a in entry_axes(e)}
+        axes = tuple(a for a in token_axes if a not in lies)
+        by_axes.setdefault(axes, []).append(i)
     out = list(leaves)
-    for idx, group in ((rep, ctx.group(ctx.token_axes)),
-                       (exp, ctx.group(ctx.replica_axes))):
+    for axes, idx in by_axes.items():
         for i, t in zip(idx, _all_reduce_mean([leaves[i] for i in idx],
-                                              group, world)):
+                                              ctx.group(axes), world)):
             out[i] = t
     return tree_unflatten(grads, out)
+
+
+def leaf_shards(params, layout):
+    """The optimizer's ``groups`` tree under a layout: each leaf's
+    ``LeafShard`` (its spec padded to its rank, its slots' specs as the
+    state holds them)."""
+    from repro_torch.optim.base import LeafShard
+
+    slots = layout.specs["opt_state"].get("slots")
+    if slots is None:
+        slots = tree_map(lambda _: {}, params)
+
+    def one(p, spec, slot):
+        return LeafShard(layout.ctx, tuple(spec) + (None,) * (
+            p.dim() - len(spec)), slot)
+
+    return tree_zip_map(one, params, layout.specs["params"], slots)
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
@@ -204,29 +239,30 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
 
     ``layout`` (the state's ``TreeLayout`` over a mesh,
     ``sharding.train_layout``; its ``ctx`` the ``ShardCtx``): the batch
-    holds this rank's rows and the state this rank's leaves; the
+    holds this rank's rows (the same on ranks that differ only along
+    ``model`` under the rules) and the state this rank's blocks; the
+    loss computes with ``comm.params_for_compute`` of them, the
     gradients are reduced to the global ones (:func:`reduce_grads`)
     before compression, every statistic over a whole sharded leaf
-    reduces over ``model``, and the metrics are the means over the
-    ranks. ``layout`` None is the single-process step."""
+    reduces over the axes it lies on (:func:`leaf_shards`), and the
+    metrics are the means over the row blocks. ``layout`` None is the
+    single-process step."""
     ctx = layout.ctx if layout is not None else None
-    dims = layout.dims["params"] if layout is not None else None
-    groups = None
-    if dims is not None:
-        ep_group = ctx.group(("model",))
-        groups = tree_map(lambda d: None if d is None else ep_group, dims)
+    specs = layout.specs["params"] if layout is not None else None
 
     @torch.no_grad()
     def train_step(state, batch, lr_scale=None):
         params = state["params"]
         device = tree_leaves(params)[0].device
         batch = batch_to(batch, device)
+        groups = None if layout is None else leaf_shards(params, layout)
         if tc.grad_accum > 1:
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=device), params)
             mets = None
             for mb in _microbatches(batch, tc.grad_accum):
-                g, m = loss_and_grads(params, mb, cfg, ac=ac, ctx=ctx)
+                g, m = loss_and_grads(params, mb, cfg, ac=ac, ctx=ctx,
+                                      specs=specs)
                 grads = tree_zip_map(torch.add, grads, g)
                 mets = m if mets is None else {
                     k: mets[k] + v for k, v in m.items()}
@@ -234,13 +270,14 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
             mets = {k: v / tc.grad_accum for k, v in mets.items()}
         else:
             grads, mets = loss_and_grads(params, batch, cfg, ac=ac,
-                                         ctx=ctx)
-        if dims is not None:
-            grads = reduce_grads(grads, dims, ctx)
+                                         ctx=ctx, specs=specs)
+        if layout is not None:
+            axes = layout.token_axes
+            grads = reduce_grads(grads, specs, ctx, axes)
             names = list(mets)
             mets = dict(zip(names, _all_reduce_mean(
-                [mets[k] for k in names], ctx.group(ctx.token_axes),
-                ctx.size(ctx.token_axes))))
+                [mets[k] for k in names], ctx.group(axes),
+                ctx.size(axes))))
         residual = state.get("residual")
         if tc.compression != "none":
             grads, residual = compression.compress(
@@ -302,31 +339,15 @@ def init_train_state(gen, cfg: ArchConfig, optimizer: Optimizer, *,
 def state_axes(cfg: ArchConfig, *, dtype=torch.float32,
                tc: TrainConfig = TrainConfig()):
     """Logical-axes tree matching ``init_train_state``'s structure with
-    the default Adafactor (the reference's ``state_axes``)."""
-    params = zoo.init_params(None, cfg, dtype=dtype, device="meta")
-    axes = tree_map(axes_of, params)
-    out = {"params": axes,
-           "opt_state": {"step": "",
-                         "slots": _adafactor_slot_axes(axes, params)},
-           "step": ""}
-    if tc.compression != "none":
-        out["residual"] = axes
-    return out
+    the default Adafactor (the reference's ``state_axes``): the state
+    built on the meta device, its axes read off
+    (``sharding.state_axes_of``)."""
+    from repro_torch.optim.adafactor import adafactor
+    from repro_torch.sharding import state_axes_of
 
-
-def _adafactor_slot_axes(axes_tree, shapes_tree):
-    """Map param logical axes -> Adafactor slot axes ({v_row, v_col} or
-    {v}); mirrors ``optim/adafactor._factored`` exactly."""
-    from repro_torch.optim.adafactor import _factored
-
-    def one(a: str, shaped):
-        names = a.split() if a else []
-        if _factored(tuple(shaped.shape)):
-            return {"v_row": " ".join(names[:-1]),
-                    "v_col": " ".join(names[:-2] + names[-1:])}
-        return {"v": a}
-
-    return tree_zip_map(one, axes_tree, shapes_tree)
+    state = init_train_state(None, cfg, adafactor(lambda step: step),
+                             dtype=dtype, device="meta", tc=tc)
+    return state_axes_of(state, tree_map(axes_of, state["params"]))
 
 
 class PreemptionSignal:
@@ -388,10 +409,11 @@ class Trainer:
     chaos: Optional[TrainChaosConfig] = None
     chaos_state: Optional[ChaosState] = None
     device: Any = None
-    # A ShardCtx: this process is one rank of a mesh. ``data`` must
-    # yield the rank's rows (make_iterator's defaults do); the state
-    # holds the rank's leaves (sharding.train_layout) and checkpoints
-    # hold the global tree.
+    # A ShardCtx: this process is one rank of a mesh. ``data`` yields
+    # the global batch's rows the layout gives the rank (``run`` sets
+    # its host index and count: TreeLayout.batch_rows); the state holds
+    # the rank's blocks (sharding.train_layout) and checkpoints hold the
+    # global tree.
     ctx: Any = None
 
     def __post_init__(self):
@@ -562,6 +584,10 @@ class Trainer:
                                    state)
         if self.layout is not None:
             state = self.layout.shard(state)
+            # The rank's rows: ranks that differ only along ``model``
+            # under the rules read the same ones.
+            self.data.host_index, self.data.host_count = \
+                self.layout.batch_rows()
         # ---- auto-resume -------------------------------------------------
         restored, step0, meta = self.manager.restore_latest(
             state, layout=self.layout)

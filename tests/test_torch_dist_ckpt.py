@@ -7,9 +7,10 @@ process restores on 2 ranks of mesh ``(data=1, model=2)`` (each rank
 its 4 of the 8 experts, exactly the checkpoint's slices), and one
 written by the 2 ranks (expert-parallel, rank 0 writing) restores in
 one process to the same tensors. On the data-parallel mesh ``(data=2,)``
-(no ``model`` axis: every leaf replicated) a ``Trainer`` checkpoints,
-resumes, and ends where one process on the whole batch ends (params
-atol 2e-4, rtol 2e-3, as ``tests/test_system.py``). Then ``torchrun
+(no ``model`` axis: FSDP, each ``embed`` dim split over the ranks) a
+``Trainer`` checkpoints, resumes, and its gathered state ends where one
+process on the whole batch ends (params atol 2e-4, rtol 2e-3, as
+``tests/test_system.py``). Then ``torchrun
 --nproc-per-node 2 -m repro_torch.launch.train ... --device cpu``, with
 ``--ep a2a`` and with the default ``--ep none``, trains 2 steps to the
 single-process launcher's loss (printed to 4 decimals; atol 2e-4).
@@ -84,8 +85,9 @@ def _worker(rank, world, tmp):
     tr = _trainer(f"{tmp}/dp", dp)
     out = tr.run(2)
     dp_resumed = tr.stats["resumed_from"]
+    dp_state = tr.layout.gather(out["state"])
     if rank == 0:
-        torch.save({"full": full, "same": same, "dp": out["state"],
+        torch.save({"full": full, "same": same, "dp": dp_state,
                     "dp_resumed": dp_resumed}, f"{tmp}/two.pt")
     dist.destroy_process_group()
 
