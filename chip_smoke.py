@@ -30,8 +30,9 @@ any failure, before printing its result line. It
    kernel's launches in that run and checks the single step signature
    and that no KV block leaked;
 5. serves the same traffic through the plain versions and requires
-   token-identical greedy outputs, times both paths over interleaved
-   repeats, and compares one mixed step through both paths;
+   token-identical greedy outputs, times both paths (``SERVE_RUNS``
+   runs each, interleaved), and compares one mixed step through both
+   paths;
 6. trains at full width through the kernels: granite's dense parent
    takes 2 Adafactor steps, is upcycled (``expert_init="copy"``) into
    granite-moe-1b-a400m, which takes 4 steps with ``dispatch="sorted"``
@@ -119,7 +120,7 @@ any failure, before printing its result line. It
     dense draft accepting >= 0.99 at temperature 0.8, one spec tick
     witnessed; (3) the over-subscribed trace of
     ``examples/serve_moe.py --overload`` with the robustness knobs and
-    seeded chaos (3 seeds), every request terminal once, completed ones
+    seeded chaos (2 seeds), every request terminal once, completed ones
     token-identical to an unchaosed run; (4) a fleet of 3 replica
     sessions with replica 0 killed mid-decode, every request completed
     once, token-identical to phase 4; each with its launches held
@@ -233,7 +234,29 @@ any failure, before printing its result line. It
     (``launch/dryrun.rules_collective_payloads``); each rank's peak
     memory and step ms printed; the flash, grouped and expert-FFN
     forwards timed at the ranks' local shapes;
-21. prints one JSON line of per-kernel numbers (all twelve kernels,
+21. serves under the rules' placement on phase 20's ranks after their
+    steps (``[mesh-serve]`` and ``[mesh-serve rank R]`` lines):
+    granite at full width and depth (phase 4's conditioned weights,
+    dropless) through ``ServeEngine(ctx=)`` (``sharding.serve_layout``:
+    8 of 16 query heads, 4 of 8 KV heads and 16 of 32 experts a rank),
+    (a) the static engine over 4 prompts padded to 128, 16 new (a cache
+    of 144 positions, ``cache_seq`` over model: a decode step's partial
+    softmaxes combined across the model ranks; the rows over data),
+    then the same prompts padded to 127 (143 positions, ``kv_heads``
+    over model), (b) the paged chunked engine over phase 4's settings
+    and requests (the pools a rank's KV heads, the rows replicated over
+    data); one process serves the same first, while the ranks train.
+    Every rank's tokens identical to the one process's (a top-2 gap
+    below 1e-4 excepted), ``compile_count`` 1, every request completed,
+    no block leaked, its pools within 1e-3 of its KV-head block of the
+    one process's, exact launches (flash forward and expert forward
+    static, decode, paged prefill and grouped paged) at the local
+    shapes, one static prefill and decode step and one mixed step
+    witnessed, and the payload bytes of each kind of collective in them
+    equal to the dry run's; each rank's tokens/s, step ms and peak
+    memory printed beside the one process's; the decode and paged
+    prefill kernels timed at a rank's 8/4 heads;
+22. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -265,8 +288,9 @@ SERVE = dict(max_batch=8, max_len=512, block_size=16, chunk_size=64,
              chunks_per_step=2)
 N_REQUESTS, MAX_NEW, PREFIX = 12, 32, 128
 # Timed serve runs per path (kernels, plain), interleaved on one card:
-# host-clock readings vary from run to run.
-SERVE_RUNS = 3
+# host-clock readings vary from run to run. (3 until phase 21 joined the
+# smoke: its time limit.)
+SERVE_RUNS = 1
 
 # |kernel - plain| <= ATOL + RTOL * |plain|. float32: both sides compute
 # in f32 and differ only in summation order (~1e-6 relative over
@@ -308,7 +332,8 @@ LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3
 # layer) at full width and RWKV_MOE_LAYERS layers (the full depth would
 # be 263 GB in float32), dropless: 8 prompts of 128 tokens, 16 new.
 RWKV_SERVE = dict(max_batch=8, max_len=576)
-RWKV_PROMPTS, RWKV_PLEN, RWKV_NEW, RWKV_RUNS = 8, (256, 512), 64, 2
+# (RWKV_RUNS 2 until phase 21 joined the smoke: its time limit.)
+RWKV_PROMPTS, RWKV_PLEN, RWKV_NEW, RWKV_RUNS = 8, (256, 512), 64, 1
 RWKV_MOE_LAYERS, RWKV_MOE_PLEN, RWKV_MOE_NEW = 4, 128, 16
 # The rwkv cells' near-tie bound. Even conditioned (condition_rwkv), a
 # random 32-layer rwkv6 amplifies float32 rounding into its logits: fed
@@ -348,14 +373,15 @@ SERVE_KERNELS = ("decode_attention", "paged_prefill", "grouped_mlp")
 # draft steps run the experts, in the first round only); the dense
 # draft at SPEC_TEMPERATURE must accept at least SPEC_MIN_ACCEPT (draft
 # and target agree up to float32 rounding).
-SPEC_K, SPEC_RUNS, SPEC_TEMPERATURE, SPEC_MIN_ACCEPT = 4, 2, 0.8, 0.99
+# (SPEC_RUNS 2 until phase 21 joined the smoke: its time limit.)
+SPEC_K, SPEC_RUNS, SPEC_TEMPERATURE, SPEC_MIN_ACCEPT = 4, 1, 0.8, 0.99
 # The over-subscribed trace of examples/serve_moe.py --overload (10
 # requests of 12 tokens, 8 new, two arrivals a tick, the last two at
 # priority 1, 2 slots, a pool of one request's blocks and a spare) with
 # the robustness knobs on and tests/test_serve_chaos.py's chaos, seeds
 # CHAOS_SEEDS.
 OVERLOAD = dict(n=10, plen=12, max_new=8, max_batch=2)
-CHAOS_SEEDS = (0, 1, 2)
+CHAOS_SEEDS = (0, 1)  # (0, 1, 2) until phase 21 joined the smoke
 CHAOS = dict(evict_prob=0.15, hold_prob=0.2, hold_max_blocks=3,
              hold_ticks=2, burst_prob=0.1, burst_size=2, burst_plen=9,
              burst_max_new=3, storm_prob=0.05, storm_ttft=10)
@@ -5825,6 +5851,8 @@ def mesh_rank(rank, world, root):
         del state, step, layout
         gc.collect()
         torch.cuda.empty_cache()
+    # Phase 21 on the same ranks and mesh.
+    info["serve"] = mesh_serve_rank(rank, ctx, root, device)
     with open(root / f"mesh_rank{rank}.json", "w") as fh:
         json.dump(info, fh)
     dist.destroy_process_group()
@@ -5867,11 +5895,12 @@ def mesh_local_rows(device):
 
 
 def mesh_train(device):
-    """Phase 20. The ranks start first and set up while this process
-    runs the single-process steps (its first-step state saved for the
-    ranks to hold their blocks against) and the local-shape rows; then
-    it writes ``go`` and the ranks run their timed steps. Returns
-    ({path: launches}, shape rows)."""
+    """Phases 20 and 21. The ranks start first and set up while this
+    process runs the single-process steps (its first-step state saved
+    for the ranks to hold their blocks against), the local-shape rows
+    and phase 21's one-process serving; then it writes ``go`` and the
+    ranks run their timed steps, then serve. Returns ({path: launches},
+    shape rows, {phase 21 path: launches})."""
     import shutil
     import tempfile
 
@@ -5934,6 +5963,11 @@ def mesh_train(device):
         rows = mesh_local_rows(device)
         gc.collect()
         torch.cuda.empty_cache()
+        # Phase 21's one process, while the ranks wait.
+        t_serve = time.perf_counter()
+        serve_eng, serve_ref = mesh_serve_reference(device, root)
+        print(f"[mesh-serve] one process {time.perf_counter() - t_serve:.1f}"
+              " s", flush=True)
         print(f"[mesh] {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
               f"left allocated when the ranks start their steps, "
               f"{time.perf_counter() - t_phase:.1f} s into the phase",
@@ -6015,11 +6049,447 @@ def mesh_train(device):
                        "single-process steps")
         for rk, info in enumerate(ranks):
             out[f"mesh_{name}_rank{rk}"] = info[name]["launches"]
-    print(f"[mesh] the ranks' steps and checks {ranks_s:.1f} s after go; "
-          f"phase 20 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"[mesh] the ranks' steps, serving and checks {ranks_s:.1f} s "
+          f"after go; phases 20 and 21 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     if bad:
         fail("phase 20: " + "; ".join(bad))
-    return out, rows
+    serve_launches = mesh_serve_check(serve_eng, serve_ref,
+                                      [info["serve"] for info in ranks])
+    del serve_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += mesh_serve_rows(device)
+    return out, rows, serve_launches
+
+# ---------------------------------------------------------------------------
+# phase 21: serving under the rules' placement on the (data=2, model=2)
+# mesh of phase 20's ranks
+# ---------------------------------------------------------------------------
+
+# Granite at full width and depth, f32 weights from seed 0 with attention
+# conditioned and dropless routing (phase 4's model), served by phase
+# 20's 4 ranks after their training steps (sharding.serve_layout: 8 of
+# 16 query heads, 4 of 8 KV heads and 16 of 32 experts a rank): (a) the
+# static engine, 4 prompts of 64-128 tokens padded to 128 and 16 new
+# (a cache of 144: cache_seq over model, a decode step's partial
+# softmaxes combined across the model ranks), then the same prompts cut
+# to 127 (a cache of 143: kv_heads over model), the rows over data;
+# (b) the paged chunked engine over phase 4's SERVE settings and
+# requests, the pools holding a rank's 4 KV heads, the rows replicated
+# over data. One process serves the same first, while the ranks train.
+MESH_SERVE = dict(prompts=4, plen=(64, 128), new=16, seed=31,
+                  static=dict(max_batch=8, max_len=576))
+# A rank's pools against its KV-head block of the one process's, row by
+# row (a layer's k or v at one pool position): within atol + rtol |x|
+# (tensor parallelism reassociates float32 sums: ~3e-6 in every layer).
+# A MoE router whose top-8 of 32 experts ties within float32 noise at a
+# token may pick another expert in one run, which moves that token's
+# hidden state, so its k and v rows in the layers above (on an H100:
+# one row, 2e-2 off in the last layer; one process through the kernels
+# against the plain versions shows the same, ~3 rows a layer above
+# layer 6, 4.7e-2 off; PERF.md). At most MESH_POOL_ROWS rows may lie
+# outside; a wrong placement or kernel moves them all.
+MESH_POOL_TOL, MESH_POOL_ROWS = (1e-3, 1e-3), 4
+
+
+def mesh_serve_prompts(cfg):
+    """{"seq": 4 prompts padded to 128 (the first 128 tokens long),
+    "heads": the same with the first cut to 127}."""
+    c = MESH_SERVE
+    prompts = static_prompts(cfg, c["prompts"], c["plen"], c["seed"])
+    prompts[0] = (prompts[0] * 2)[:c["plen"][1]]
+    return {"seq": prompts, "heads": [prompts[0][:-1]] + prompts[1:]}
+
+
+def mesh_serve_model(device):
+    """(phase 4's config, its conditioned weights on ``device``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    full = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=float(full.moe.num_experts)))
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_attention(params, cfg)
+    return cfg, params
+
+
+def serve_session(eng, cfg, *, witness=False):
+    """Phase 4's requests through a chunked session, a tick at a time:
+    (outputs, finished, generated tokens, wall s, each step's ms, the
+    first step's collective payloads, its witness, the cache)."""
+    import torch
+
+    from repro_torch.sharding import comm
+
+    reqs = make_requests(cfg)
+    sess = eng.open_session()
+    for r in reqs:
+        sess.submit(r)
+    step_ms, steps, first, wit = [], 0, None, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        comm.reset_counts()
+        t1 = time.perf_counter()
+        if witness and first is None:
+            with witnessed_kernels() as wit:
+                alive = sess.tick()
+                torch.cuda.synchronize()
+        else:
+            alive = sess.tick()
+        if sess.stats["mixed_steps"] != steps:
+            steps = sess.stats["mixed_steps"]
+            step_ms.append(_sync_ms(t1))
+            first = comm.counts() if first is None else first
+        if not alive:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs, fin = sess.close()
+    gen = sum(len(outs[r.rid]) - len(r.prompt) for r in reqs)
+    return outs, fin, gen, wall, step_ms, first, wit, sess.cache
+
+
+def mesh_static_steps(eng, prompts, tokens, new):
+    """A static batch's prefill and first decode step teacher-forced on
+    ``tokens`` (a run's outputs) under the engine's layout, every kernel
+    call witnessed: (the payloads each counted, the witness)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.sharding import comm
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    toks = torch.zeros(B, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    nxt = torch.tensor([[t[len(p)]] for t, p in zip(tokens, prompts)])
+    cache, ctx, (lo, hi) = eng.static_cache(B, plen + new)
+    counts = []
+    with torch.no_grad(), witnessed_kernels() as wit:
+        comm.reset_counts()
+        cache, _ = zoo.prefill(eng.params, {"tokens": toks[lo:hi].to(
+            eng.device)}, cache, eng.cfg, ac=eng.ac, ctx=ctx)
+        counts.append(comm.counts())
+        comm.reset_counts()
+        zoo.decode_step(eng.params, nxt[lo:hi].to(eng.device), cache, plen,
+                        eng.cfg, ac=eng.ac, ctx=ctx)
+        counts.append(comm.counts())
+        torch.cuda.synchronize()
+    return counts, wit
+
+
+def mesh_serve_reference(device, root):
+    """Phase 21's one process, before the ranks start: the static
+    engine over both prompt sets and the paged engine over phase 4's
+    requests through the kernels; the tokens, times and launches to
+    ``mesh_serve_ref.json``, the pools at close to
+    ``mesh_serve_pools.pt``. Returns (the paged engine, for near-tie
+    gaps; {tokens}; launches)."""
+    import torch
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, params = mesh_serve_model(device)
+    ref = {"static": {}, "launches": {}}
+    eng = ServeEngine(params, cfg, ServeConfig(**MESH_SERVE["static"]),
+                      device=device)
+    before = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for case, prompts in mesh_serve_prompts(cfg).items():
+        out = eng.generate(prompts, MESH_SERVE["new"])
+        st = eng.last_stats
+        ref["static"][case] = {"tokens": out, "prefill_s": st["prefill_s"],
+                               "decode_s": st["decode_s"]}
+    peng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
+                       device=device)
+    outs, _, n_gen, wall, step_ms, _, _, cache = serve_session(peng, cfg)
+    ref["launches"] = {k: v - before[k] for k, v in
+                       ops.launch_counts().items()}
+    ref["paged"] = {"tokens": {str(k): v for k, v in outs.items()},
+                    "tokens_s": n_gen / wall, "step_ms": step_ms,
+                    "compile_count": peng.last_stats["compile_count"]}
+    ref["peak"] = torch.cuda.max_memory_allocated()
+    torch.save(host_snapshot(cache), root / "mesh_serve_pools.pt")
+    del cache
+    with open(root / "mesh_serve_ref.json", "w") as fh:
+        json.dump(ref, fh)
+    s = ref["static"]
+    print(f"[mesh-serve] one process: static prefill "
+          f"{s['seq']['prefill_s']:.3f} s and {MESH_SERVE['new'] - 1} "
+          "decode steps "
+          f"{s['seq']['decode_s']:.3f} s (cache_seq over model), "
+          f"{s['heads']['prefill_s']:.3f} / {s['heads']['decode_s']:.3f} s "
+          f"(kv_heads); paged {n_gen} tokens in {wall:.3f} s = "
+          f"{n_gen / wall:.1f} tokens/s, {len(step_ms)} mixed steps, median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms; peak "
+          f"{ref['peak'] / 2 ** 30:.2f} GiB; {card_line()}", flush=True)
+    return peng, ref
+
+
+def mesh_serve_rank(rank, ctx, root, device):
+    """A rank's phase 21: the same engines under ``ctx``; returns what
+    the parent checks (tokens, launches, payloads, pools' distance, times,
+    peak memory)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    tag = f"[mesh-serve rank {rank}]"
+    cfg, params = mesh_serve_model(device)
+    eng = ServeEngine(params, cfg, ServeConfig(**MESH_SERVE["static"]),
+                      device=device, ctx=ctx)
+    peng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
+                       device=device, ctx=ctx)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info = {"static": {}}
+    new, L = MESH_SERVE["new"], cfg.n_layers
+    for case, prompts in mesh_serve_prompts(cfg).items():
+        before = ops.launch_counts()
+        out = eng.generate(prompts, new)
+        ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+               if v != before[k]}
+        want = {"flash_attention": L, "expert_mlp": L * new}
+        if ran != want:
+            fail(f"{tag} static {case}: launched {ran}, expected {want}")
+        st = eng.last_stats
+        rec = {"tokens": out, "prefill_s": st["prefill_s"],
+               "decode_s": st["decode_s"], "launches": ran}
+        if case == "seq":
+            rec["counts"], wit = mesh_static_steps(eng, prompts, out, new)
+            report_witness(wit, ("flash_attention", "expert_mlp"))
+        info["static"][case] = rec
+        print(f"{tag} static {case}: prefill {st['prefill_s']:.3f} s, "
+              f"{new - 1} decode steps {st['decode_s']:.3f} s "
+              f"({st['decode_s'] * 1e3 / (new - 1):.1f} ms a step), "
+              f"launches {ran}", flush=True)
+    before = ops.launch_counts()
+    outs, fin, n_gen, wall, step_ms, first, wit, cache = serve_session(
+        peng, cfg, witness=True)
+    report_witness(wit, SERVE_KERNELS)
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    st = peng.last_stats
+    want = {k: L * st["mixed_steps"] for k in SERVE_KERNELS}
+    if ran != want:
+        fail(f"{tag} paged: launched {ran}, expected {want}")
+    if st["compile_count"] != 1 or any(
+            r["status"] != "completed" for r in fin.values()):
+        fail(f"{tag} paged: compile_count {st['compile_count']}, statuses "
+             f"{st['status_counts']}")
+    # The rank's pools against its KV-head block of the one process's.
+    lay = peng._paged_layout(peng.layout)[0]
+    want_pools = lay.shard_cache(torch.load(root / "mesh_serve_pools.pt",
+                                            mmap=True))
+    atol, rtol = MESH_POOL_TOL
+    worst, off, layers = 0.0, 0, []
+    for seg, ref_seg in zip(cache["stack"]["segments"],
+                            want_pools["stack"]["segments"]):
+        for pos, ref_pos in zip(seg.values(), ref_seg.values()):
+            rows = 0
+            for k in ("k", "v"):
+                y = pos["mixer"][k][:, 1:]  # block 0: the trash block
+                x = ref_pos["mixer"][k][:, 1:].to(device)
+                gap = (y - x).abs()
+                worst = max(worst, float(gap.max()))
+                rows = rows | (gap > atol + rtol * x.abs()).flatten(3).any(3)
+                # Per layer: (max |diff|, max |ref|).
+                layers.append([k, gap.flatten(1).max(1).values.tolist(),
+                               x.abs().flatten(1).max(1).values.tolist()])
+            off += int(rows.sum())
+    info["paged"] = {
+        "tokens": {str(k): v for k, v in outs.items()},
+        "tokens_s": n_gen / wall, "step_ms": step_ms, "counts": first,
+        "launches": ran, "compile_count": st["compile_count"],
+        "free_blocks_at_close": st["free_blocks_at_close"],
+        "pool_max_diff": worst, "pool_off": off, "pool_layers": layers,
+        "pool_shape": list(cache["stack"]["segments"][0]["pos0"]["mixer"]
+                           ["k"].shape)}
+    info["peak"] = torch.cuda.max_memory_allocated()
+    info["launches"] = {k: sum(r["launches"].get(k, 0) for r in
+                               info["static"].values()) + ran.get(k, 0)
+                        for k in ops.launch_counts()}
+    print(f"{tag} paged: {n_gen} tokens in {wall:.3f} s = "
+          f"{n_gen / wall:.1f} tokens/s, {len(step_ms)} mixed steps, median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms (the first "
+          f"witnessed); pools {info['paged']['pool_shape']}: max |diff| from "
+          f"the one process's block {worst:.3e} (largest in "
+          f"{[(k, g.index(max(g))) for k, g, _ in layers]}, (k or v, "
+          f"layer)), {off} rows outside atol "
+          f"{atol} + rtol {rtol} (at most {MESH_POOL_ROWS}); peak "
+          f"{info['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    del eng, peng, cache, want_pools
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def check_static_tokens(tag, got, want, prompts, gap_eng) -> None:
+    """Hold a static run's rows token for token: a divergence is accepted
+    only at a top-2 gap below TIE_GAP, measured by replaying the row as
+    the static engine saw it (its prompt right-padded with 0) through
+    ``gap_eng``."""
+    plen = max(len(p) for p in prompts)
+    for i, (x, y, p) in enumerate(zip(got, want, prompts)):
+        if x == y:
+            continue
+        n = next(j for j in range(len(x)) if x[j] != y[j])
+        seq = p + [0] * (plen - len(p)) + x[len(p):n]
+        gap = top2_gap(gap_eng, seq)
+        print(f"[check] {tag}: row {i} diverges at token {n}: top-2 logit "
+              f"gap {gap:.3e}", flush=True)
+        if gap >= TIE_GAP:
+            fail(f"{tag}: row {i} diverges at token {n} with top-2 gap "
+                 f"{gap:.3e} >= {TIE_GAP}")
+    if got == want:
+        print(f"[check] {tag}: token-identical", flush=True)
+
+
+def mesh_serve_check(peng, ref, ranks):
+    """Phase 21's checks over the ranks' results against the one
+    process's; returns {path: launches}."""
+    from repro_torch.launch.dryrun import rules_collective_payloads
+
+    cfg = peng.cfg
+    prompts = mesh_serve_prompts(cfg)
+    mesh = dict(zip(("data", "model"), MESH["shape"]))
+    B, new = MESH_SERVE["prompts"], MESH_SERVE["new"]
+    S = MESH_SERVE["plen"][1]
+    kw = dict(params=None, mesh=mesh, remat="none", itemsize=4)
+    pred = {
+        "prefill": rules_collective_payloads(
+            cfg, dispatch="gather", kind="prefill", tokens=B * S, batch=B,
+            cache_len=S + new, **kw),
+        "decode": rules_collective_payloads(
+            cfg, dispatch="gather", kind="decode", tokens=B, batch=B,
+            cache_len=S + new, **kw),
+        "mixed": rules_collective_payloads(
+            cfg, dispatch="sorted", kind="mixed",
+            tokens=SERVE["max_batch"] + SERVE["chunks_per_step"]
+            * SERVE["chunk_size"],
+            logits_rows=SERVE["max_batch"] + SERVE["chunks_per_step"], **kw)}
+    print(f"[mesh-serve] the dry run's collective payloads a rank: {pred}",
+          flush=True)
+    rids = [r.rid for r in make_requests(cfg)]
+    bad = []
+    for rk, info in enumerate(ranks):
+        s = info["static"]
+        for case in ("seq", "heads"):
+            check_static_tokens(f"mesh serve rank {rk} static {case} vs one "
+                                "process", s[case]["tokens"],
+                                ref["static"][case]["tokens"], prompts[case],
+                                peng)
+        check_tokens(f"mesh serve rank {rk} paged vs one process",
+                     {int(k): v for k, v in info["paged"]["tokens"].items()},
+                     {int(k): v for k, v in ref["paged"]["tokens"].items()},
+                     rids, peng)
+        got = {"prefill": s["seq"]["counts"][0],
+               "decode": s["seq"]["counts"][1],
+               "mixed": info["paged"]["counts"]}
+        if got != pred:
+            bad.append(f"rank {rk}: counted {got}")
+        if info["paged"]["pool_off"] > MESH_POOL_ROWS:
+            bad.append(f"rank {rk}: {info['paged']['pool_off']} pool rows "
+                       "off the one process's block")
+        p = info["paged"]
+        med = sorted(ref["paged"]["step_ms"])[len(ref["paged"]["step_ms"])
+                                              // 2]
+        print(f"[mesh-serve rank {rk}] static prefill "
+              f"{s['seq']['prefill_s']:.3f} / {s['heads']['prefill_s']:.3f} s"
+              f", decode {s['seq']['decode_s']:.3f} / "
+              f"{s['heads']['decode_s']:.3f} s (one process "
+              f"{ref['static']['seq']['prefill_s']:.3f} / "
+              f"{ref['static']['heads']['prefill_s']:.3f}, "
+              f"{ref['static']['seq']['decode_s']:.3f} / "
+              f"{ref['static']['heads']['decode_s']:.3f}); paged "
+              f"{p['tokens_s']:.1f} tokens/s, median step "
+              f"{sorted(p['step_ms'])[len(p['step_ms']) // 2]:.1f} ms (one "
+              f"process {ref['paged']['tokens_s']:.1f}, "
+              f"{med:.1f}); peak {info['peak'] / 2 ** 30:.2f} GiB ({info['peak']} B; "
+              f"one process {ref['peak'] / 2 ** 30:.2f}); payload B "
+              f"counted = the dry run's: {got == pred}; compile_count "
+              f"{p['compile_count']}; {card_line()}", flush=True)
+    if bad:
+        fail("phase 21: " + "; ".join(bad))
+    total = {}
+    for info in ranks:
+        for k, v in info["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"mesh_serve": total, "mesh_serve_reference": ref["launches"]}
+
+
+def mesh_serve_rows(device):
+    """The paged decode and prefill kernels at a rank's local heads (8
+    of 16 query heads, 4 of 8 KV heads) at the serve shapes
+    (attention_case), against the plain versions and SDPA over each
+    row's blocks gathered dense."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref
+
+    g = get_config("granite-moe-1b-a400m")
+    half = dataclasses.replace(g, n_heads=g.n_heads // 2,
+                               n_kv_heads=g.n_kv_heads // 2,
+                               d_head=g.head_dim)
+    a = attention_case(half, torch.float32,
+                       device, torch.Generator(device=device).manual_seed(32))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    nb, bs = a["tables"].shape[1], a["kp"].shape[1]
+    H, Kh, dh = half.n_heads, half.n_kv_heads, half.head_dim
+
+    def dense(tab):
+        n = tab.shape[0]
+        k = a["kp"][tab.long()].reshape(n, nb * bs, Kh, dh)
+        v = a["vp"][tab.long()].reshape(n, nb * bs, Kh, dh)
+        return tuple(t.transpose(1, 2).repeat_interleave(H // Kh, 1)
+                     .contiguous() for t in (k, v))
+
+    kd, vd = dense(a["tables"])
+    dmask = (torch.arange(nb * bs, device=device)[None]
+             < a["lengths"][:, None])[:, None, None]
+    kc, vc = dense(a["ctab"])
+    qpos = a["starts"][:, None] + torch.arange(SERVE["chunk_size"],
+                                               device=device)[None]
+    cmask = (torch.arange(nb * bs, device=device)[None, None]
+             <= qpos[..., None])[:, None]
+    qd, qc = a["q_dec"][:, :, None], a["q_ch"].transpose(1, 2)
+    rows = []
+    for kname, kern, plain, args, work, lib in (
+            ("decode_attention", da.paged_decode_attention_cuda,
+             ref.decode_attention_ref,
+             (a["q_dec"], a["kp"], a["vp"], a["tables"], a["lengths"]),
+             decode_case_work(a, 4),
+             lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                    attn_mask=dmask)),
+            ("paged_prefill", pp.paged_prefill_attention_cuda,
+             ref.prefill_attention_ref,
+             (a["q_ch"], a["kp"], a["vp"], a["ctab"], a["starts"],
+              a["lens"]),
+             prefill_case_work(a, 4),
+             lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                    attn_mask=cmask))):
+        y = kern(*args)
+        torch.cuda.synchronize()
+        rows.append(_shape_row("mesh_serve_local", kname, y, plain(*args),
+                               lambda: kern(*args), lambda: plain(*args),
+                               lib, 1, work, flush, 20))
+    return rows
+
 
 def main() -> int:
     import torch
@@ -6222,7 +6692,10 @@ def main() -> int:
 
     # The rules' placement: granite and the ViT trained on a (data=2,
     # model=2) mesh of 4 ranks sharing the card, against one process.
-    mesh_launches, rows = mesh_train(device)
+    # Serving under the same placement: granite's static and paged
+    # engines on the same ranks, against one process.
+    mesh_launches, rows, serve_launches = mesh_train(device)
+    mesh_launches.update(serve_launches)
     shape_rows += rows
 
     for rec in records:

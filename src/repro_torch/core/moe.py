@@ -207,6 +207,22 @@ def _group(x2d, group_size: int):
     return x2d.reshape(-1, g, d), n, pad
 
 
+def _serve_rows(ctx, moe: MoECfg, n: int):
+    """Under a serving ctx whose static batch is split over data axes
+    (``ServePlan.batch_axes``): the rank's ``[start, stop)`` among the
+    global rows where its ``n`` rows do not form whole groups of the
+    global batch's routing (a decode step's few rows, a short prefill),
+    so the layer must route the global rows; None where they do (the
+    rank's groups are the global batch's own) or outside serving."""
+    if ctx is None or not ctx.groups or ctx.serve is None:
+        return None
+    k = ctx.size(ctx.serve.batch_axes)
+    if k == 1 or n % min(moe.group_size, n * k) == 0:
+        return None
+    i = ctx.index(ctx.serve.batch_axes)
+    return i * n, (i + 1) * n
+
+
 def moe_apply(
     params,
     x: torch.Tensor,
@@ -248,7 +264,14 @@ def moe_apply(
     the rank's tokens must form whole routing groups (else
     ``ValueError``): the single-process step's groups. The metrics
     always hold ``ep_overflow_frac``, 0 outside the expert-parallel
-    path."""
+    path.
+
+    Under a serving ctx (``sharding.serve_layout``) the rows of a static
+    batch split over data ranks are routed as the global batch's groups:
+    where the rank's rows do not form whole global groups they are
+    gathered over the data axes, every rank routes the global rows and
+    keeps its own (:func:`_serve_rows`); routing local groups would
+    change the groups' capacity and which tokens compete."""
     dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
                   "sorted": _sorted_dispatch}
     if dispatch not in dispatches:
@@ -257,12 +280,23 @@ def moe_apply(
     router_kind = router_kind or moe.router
     orig_shape = x.shape
     x2d = x.reshape(-1, x.shape[-1])
-    xg, n, pad = _group(x2d, moe.group_size)
-    G, g, d = xg.shape
-    mg = None
+    m1 = None
     if token_mask is not None:
         m1 = torch.broadcast_to(token_mask, orig_shape[:-1]).reshape(-1)
         m1 = m1.to(torch.bool)
+    own = _serve_rows(ctx, moe, x2d.shape[0])
+    if own is not None:
+        # The rank's rows are a block of the global batch that does not
+        # form whole global groups: route the global rows, keep its own.
+        axes = ctx.serve.batch_axes
+        x2d = comm.gather_rows(x2d, ctx, axes, "row_all_gather")
+        if m1 is not None:
+            m1 = comm.gather_rows(m1.to(torch.uint8), ctx, axes,
+                                  "row_all_gather").to(torch.bool)
+    xg, n, pad = _group(x2d, moe.group_size)
+    G, g, d = xg.shape
+    mg = None
+    if m1 is not None:
         if pad:
             m1 = torch.cat([m1, m1.new_zeros(pad)])
         mg = m1.reshape(G, g)
@@ -273,7 +307,7 @@ def moe_apply(
     # experts, or every expert's block of ``mlp``.
     tp = (ctx is not None and ctx.tp_size > 1
           and (El != E or ex["wi"].shape[-1] != cfg.d_ff))
-    if ctx is not None and ctx.groups and not ep \
+    if ctx is not None and ctx.groups and not ep and ctx.serve is None \
             and ctx.size(ctx.replica_axes) > 1 \
             and (pad or g != moe.group_size):
         raise ValueError(
@@ -298,7 +332,8 @@ def moe_apply(
         y = dispatches[dispatch](
             params, xt, _local_routing(r, ctx.tp_rank * El, El, ctx), cfg,
             implementation=implementation, **kw)
-        y = comm.reduce_from_model(y, ctx)
+        if own is None:
+            y = comm.reduce_from_model(y, ctx)
     elif ep:
         from repro_torch.core.ep import sorted_dispatch_ep
 
@@ -319,6 +354,10 @@ def moe_apply(
     y = y.reshape(-1, d)
     if pad:
         y = y[:n]
+    if own is not None:
+        y = y[own[0]:own[1]]
+        if tp:
+            y = comm.reduce_from_model(y, ctx)
     y = y.reshape(orig_shape).to(x.dtype)
     if tag:
         y = moe_block(y)

@@ -33,7 +33,10 @@ and the all-to-alls of ``core/ep.py``, whose buffers are static
 (:func:`rules_collective_payloads`): the FSDP all-gathers and
 reduce-scatters over the data axes, the tensor-parallel all-reduces over
 ``model``, the router's all-gathers and the gradient all-reduce over
-the data axes.
+the data axes. A prefill or decode cell runs the static engine's step
+under the cell's ctx; its collectives are those of serving under the
+rules (:func:`serve_collective_payloads`): the weights are joined once
+when an engine is built, so a step moves only its activations.
 """
 from __future__ import annotations
 
@@ -128,9 +131,110 @@ def _moe_tp_payloads(cfg, moe, n: int, m: int, dispatch: str,
     return rows, bwd, (G * g * E * 4 if E % m == 0 else 0)
 
 
+def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
+                              itemsize: int, batch: int = 0,
+                              cache_len: int = 0, logits_rows: int = 0,
+                              ring: bool = False) -> dict:
+    """Payload bytes a rank moves through each kind of collective of one
+    serving step under ``sharding.serve_layout`` (the sums
+    ``comm.COUNTS`` keeps; an all-gather's output, an all-reduce's
+    tensor). ``kind`` "prefill" or "decode": the static engine's step
+    over ``batch`` rows of ``tokens // batch`` tokens and a cache of
+    ``cache_len`` positions, its rows over the data axes where the
+    cache's ``batch`` spec splits them; "mixed": a paged step (mixed,
+    verify, prefill-on-join or decode) of ``tokens`` rows replicated
+    over the data axes, ``logits_rows`` of logits. Per attention layer:
+    ``wo``'s all-reduce; where the static cache lies over ``model`` by
+    position (``cache_seq``) or is replicated, the gathers of the step's
+    k and v, and at a decode step of q, and with ``cache_seq`` the
+    partials' gather (``softmax_combine``, float32). Per MoE layer: the
+    partial outputs' sum, over the global rows where a data rank's rows
+    do not form whole groups (their ``row_all_gather``); the router is
+    whole on every rank (``ServeLayout.place``). A dense FFN's
+    all-reduce, a vocab-parallel lookup's, and the logits gathered over
+    ``model`` (vocab-parallel head) and over the data axes (the static
+    batch's rows). The dispatch does not change them. With ``ring``,
+    ``{"payloads": ..., "bytes": ...}``: the bytes a ring sends ((W - 1)
+    / W of an all-gather's output, 2 (W - 1) / W of an all-reduce's
+    tensor over its W ranks)."""
+    from repro_torch.models import stack as stk
+    from repro_torch.models.attention import head_plan
+    from repro_torch.sharding import (
+        EP_AXIS,
+        entry_axes,
+        make_rules,
+        mesh_shape,
+        spec_for,
+    )
+    from repro_torch.sharding.comm import KINDS
+
+    sizes = mesh_shape(mesh)
+    m = sizes.get(EP_AXIS, 1)
+    out = dict.fromkeys(KINDS, 0)
+    sent = [0]
+
+    def add(key, n, w, f=1):
+        out[key] += n
+        if w > 1:
+            sent[0] += f * n * (w - 1) // w
+
+    it, d, V = itemsize, cfg.d_model, cfg.vocab_size
+    Kh, dh = cfg.n_kv_heads, cfg.head_dim
+    if kind in ("prefill", "decode"):
+        spec = spec_for("batch cache_seq kv_heads head_dim",
+                        (batch, cache_len, Kh, dh), mesh,
+                        make_rules(mesh, params=False))
+        spec = tuple(spec) + (None,) * (4 - len(spec))
+        D = math.prod(sizes[a] for a in entry_axes(spec[0]))
+        Sq = tokens // batch
+        B_l = batch // D
+        n = B_l * Sq
+        mode = ("seq" if entry_axes(spec[1]) else "heads"
+                if entry_axes(spec[2]) else "replicated")
+        out_rows = B_l
+    else:
+        D, Sq, n, mode, out_rows = 1, 1, tokens, "heads", logits_rows
+    plan = head_plan(cfg, m) if m > 1 else None
+    for desc in stk.layer_descs(cfg):
+        if m > 1 and desc.mixer == "attn":
+            if plan is not None:
+                add("tp_all_reduce", n * d * it, m, 2)
+            if mode != "heads":
+                if plan is not None:
+                    Hp, Gp, kv = plan
+                    Hl = Hp // m
+                    Kl = {"block": Hl // Gp, "one": 1, "each": Hl}[kv]
+                    add("cache_all_gather", 2 * m * n * Kl * dh * it, m)
+                    if Sq == 1:
+                        add("cache_all_gather", B_l * Hp * dh * it, m)
+                if Sq == 1 and mode == "seq":
+                    H = plan[0] if plan is not None else cfg.n_heads
+                    add("softmax_combine", m * B_l * H * (dh + 2) * 4, m)
+        if desc.ffn == "moe":
+            moe = cfg.moe
+            E = moe.num_experts
+            gathered = D > 1 and n % min(moe.group_size, n * D) != 0
+            nr = n * D if gathered else n
+            g = min(moe.group_size, nr)
+            G = -(-nr // g)
+            if gathered:
+                add("row_all_gather", nr * d * it, D)
+            if m > 1 and (E % m == 0 or cfg.d_ff % m == 0):
+                add("tp_all_reduce", (n if gathered else G * g) * d * it,
+                    m, 2)
+        elif m > 1 and cfg.d_ff % m == 0:
+            add("tp_all_reduce", n * d * it, m, 2)
+    if m > 1 and V % m == 0:
+        add("tp_all_reduce", n * d * it, m, 2)  # the vocab-parallel lookup
+        add("logits_all_gather", out_rows * V * 4, m)
+    if D > 1:
+        add("logits_all_gather", out_rows * D * V * 4, D)
+    return {"payloads": out, "bytes": sent[0]} if ring else out
+
+
 def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
-                              remat: str, tokens: int,
-                              itemsize: int) -> dict:
+                              remat: str, tokens: int, itemsize: int,
+                              kind: str = "train", **serve) -> dict:
     """Payload bytes a rank moves through each kind of collective of one
     train step under the rules' placement (``sharding/comm.py``: an
     all-gather's output, a reduce-scatter's input, an all-reduce's
@@ -144,7 +248,13 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
     global batch's; ``remat`` other than none runs the stack's forward
     collectives twice. Decoder-only and encoder-only stacks with
     attention mixers are modelled layer by layer; an encoder-decoder's
-    cross-attention adds its inputs' gradients and output."""
+    cross-attention adds its inputs' gradients and output. A serving
+    ``kind`` ("prefill", "decode", "mixed"; ``serve`` its shapes) is
+    :func:`serve_collective_payloads`."""
+    if kind != "train":
+        return serve_collective_payloads(cfg, mesh=mesh, kind=kind,
+                                         tokens=tokens, itemsize=itemsize,
+                                         **serve)
     from repro_torch.models import param as pm
     from repro_torch.models import stack as stk
     from repro_torch.models.attention import head_plan
@@ -162,9 +272,9 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
     D = math.prod(v for a, v in sizes.items() if a != EP_AXIS)
     rules = make_rules(mesh, params=True,
                        overrides=dict(cfg.sharding_overrides or {}) or None)
-    out = dict.fromkeys(("fsdp_all_gather", "fsdp_reduce_scatter",
-                         "tp_all_reduce", "router_all_gather",
-                         "model_all_gather"), 0)
+    from repro_torch.sharding.comm import KINDS
+
+    out = dict.fromkeys(KINDS, 0)
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -297,7 +407,8 @@ def _rules_collectives(cfg, out, *, params, mesh, dispatch, remat,
 
 
 def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
-                     mesh, tokens: int, itemsize: int) -> dict:
+                     mesh, tokens: int, itemsize: int, batch: int = 0,
+                     seq: int = 0) -> dict:
     """The collectives a device runs in one step of the port's runtime
     on ``mesh``, in bytes it sends. Training under the rules' placement:
     :func:`_rules_collectives`. Training under expert parallelism: the
@@ -307,7 +418,11 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
     parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh
     that hosts it): each MoE layer's all-to-alls (:func:`ep_a2a_bytes`),
     the forward's again under ``remat`` full or dots (the layer is
-    recomputed) and the backward's in training."""
+    recomputed) and the backward's in training. Prefill and decode cells
+    without expert parallelism: the static engine's step under the
+    rules' serving placement (:func:`serve_collective_payloads`, a
+    ``batch`` x ``seq`` prompt or one token a row against a cache of
+    ``seq``), under ``"payloads"``."""
     from repro_torch.models import param as pm
     from repro_torch.models import stack as stk
     from repro_torch.sharding import (
@@ -329,6 +444,14 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
         return _rules_collectives(cfg, out, params=params, mesh=mesh,
                                   dispatch=dispatch, remat=remat,
                                   tokens=tokens, itemsize=itemsize)
+    if ep == 1 and cfg.structure == "decoder_only" and all(
+            d.mixer == "attn" for d in stk.layer_descs(cfg)):
+        step = 1 if kind == "decode" else seq
+        r = serve_collective_payloads(
+            cfg, mesh=mesh, kind=kind, tokens=batch * step,
+            itemsize=itemsize, batch=batch, cache_len=seq, ring=True)
+        out.update(r)
+        return out
     if kind == "train":
         rep = exp = 0
         for leaf in pm.tree_leaves(params):
@@ -406,7 +529,8 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
     coll = collective_bytes(
         cfg, kind=shp.kind, params=params, dispatch=ac.dispatch,
         remat=ac.remat, mesh=mesh, tokens=shp.global_batch * shp.seq_len,
-        itemsize=torch.empty((), dtype=ac.cdtype).element_size())
+        itemsize=torch.empty((), dtype=ac.cdtype).element_size(),
+        batch=shp.global_batch, seq=shp.seq_len)
 
     flops_dev = cost["total_flops"] / n_chips
     bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \

@@ -170,7 +170,9 @@ def build_cell(
     Adafactor, the WKV through its plain chunked version as the train
     launcher runs it (the kernel is forward-only); prefill and decode
     cells take bf16 weights and the static engine's serve cache, a
-    decode step one new token at position S - 1."""
+    decode step one new token at position S - 1; their steps run under
+    the cell's ctx, as the reference's do (it has no process groups, so
+    the step is the global one)."""
     from repro_torch.training.train_loop import state_axes
 
     cfg = get_config(arch)
@@ -230,7 +232,8 @@ def build_cell(
         info["axes"] = (p_axes, batch_axes(batch))
 
         def prefill_step(params, batch):
-            return zoo.prefill(params, batch, fresh_cache(), cfg, ac=ac)
+            return zoo.prefill(params, batch, fresh_cache(), cfg, ac=ac,
+                               ctx=ctx)
 
         return prefill_step, (params, batch), info
 
@@ -238,7 +241,8 @@ def build_cell(
     info["axes"] = (p_axes, "batch seq", zoo.serve_cache_axes(cfg), None)
 
     def serve_step(params, tokens, cache, index):
-        return zoo.decode_step(params, tokens, cache, index, cfg, ac=ac)
+        return zoo.decode_step(params, tokens, cache, index, cfg, ac=ac,
+                               ctx=ctx)
 
     return serve_step, (params, tokens, fresh_cache(), S - 1), info
 

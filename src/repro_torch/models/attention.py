@@ -212,12 +212,15 @@ def attention_apply(
 ):
     """Self- or cross-attention. Returns (y, cache).
 
-    ``ctx`` (a ``ShardCtx``; the training paths, ``cache`` None): with
-    a ``model`` axis, each rank runs its contiguous block of the
-    (padded) query heads and the KV heads they read (:func:`_tp_heads`)
-    through the flash kernels at the local head counts; the input is
-    column-parallel, ``wo`` row-parallel, the partial outputs added
-    over ``model``.
+    ``ctx`` (a ``ShardCtx``; the training paths with ``cache`` None, the
+    serving paths under ``sharding.serve_layout``'s ctx): with a
+    ``model`` axis, each rank runs its contiguous block of the (padded)
+    query heads and the KV heads they read (:func:`_tp_heads`) through
+    the kernels at the local head counts; the input is column-parallel,
+    ``wo`` row-parallel, the partial outputs added over ``model``. The
+    paged pools then hold the rank's KV heads; a static cache its KV
+    heads, or its block of positions of every KV head
+    (:func:`_static_attention`).
 
     ``pad_heads_multiple``: zero query heads padded up to a multiple of
     this (:func:`pad_heads`; e.g. qwen2.5's 40/8 heads become 48/8 at
@@ -276,7 +279,8 @@ def attention_apply(
     from repro_torch.sharding import comm
 
     local = None
-    if ctx is not None and ctx.tp_size > 1 and cache is None:
+    if ctx is not None and ctx.tp_size > 1 and (
+            cache is None or ctx.serve is not None):
         local = _tp_heads(p, cfg, ctx, pad_heads_multiple)
     if local is not None:
         p = local
@@ -323,8 +327,14 @@ def attention_apply(
                                 implementation=implementation)
         return out(y), None
     if block_tables is None:
-        return _static_attention(p, q, k, v, cfg, cache, int(cache_index),
-                                 causal, implementation)
+        mode = None
+        if ctx is not None and ctx.tp_size > 1 and ctx.serve is not None:
+            mode = ctx.serve.cache
+        y = _static_attention(q, k, v, cfg, cache, int(cache_index), causal,
+                              implementation, mode=mode, ctx=ctx,
+                              tp=local is not None,
+                              multiple=pad_heads_multiple)
+        return out(y), cache
     pool_k, pool_v = cache["k"], cache["v"]
     if mixed is None and Sq > 1:
         if cfg.pos_emb == "rope":
@@ -335,7 +345,7 @@ def attention_apply(
         paged_prefill_write(pool_v, v, block_tables)
         y = ops.flash_attention(q, k, v, causal=True,
                                 implementation=implementation)
-        return _out(y, p["wo"]), cache
+        return out(y), cache
     if mixed is None:
         lengths = cache_index
         if cfg.pos_emb == "rope":
@@ -350,7 +360,7 @@ def attention_apply(
             lengths + (lengths > 0).to(lengths.dtype),
             implementation=implementation,
         )
-        return _out(y, p["wo"]), cache
+        return out(y), cache
 
     positions = cache_index  # (R,) absolute write position per row
     if cfg.pos_emb == "rope":
@@ -410,12 +420,24 @@ def attention_apply(
         )
         ys.append(y_ch.reshape(NC * C, 1, *y_ch.shape[2:]))
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=0)
-    return _out(y, p["wo"]), cache
+    return out(y), cache
 
 
-def _static_attention(p, q, k, v, cfg, cache, index: int, causal: bool,
-                      implementation: str):
-    """The static-cache branch of :func:`attention_apply`."""
+def _static_attention(q, k, v, cfg, cache, index: int, causal: bool,
+                      implementation: str, *, mode=None, ctx=None,
+                      tp: bool = False, multiple: int = 0):
+    """The static-cache branch of :func:`attention_apply`; returns the
+    attention's output before ``wo``. ``mode`` (the serving ctx's
+    ``ServePlan.cache`` under tensor parallelism, else None): ``"heads"``
+    — the cache holds this rank's KV heads, the step runs on them as
+    one process does; ``"seq"`` — the cache holds every KV head at this
+    rank's block of positions; ``"replicated"`` — every head and
+    position. In the last two the step's k and v (and a decode step's
+    q) are gathered over ``model`` in one all-gather
+    (:func:`_gather_heads`) and each position is written by the rank
+    that holds it; a prefill attends over its fresh k/v at the rank's
+    heads, a decode step over the cache (:func:`_cache_decode`).
+    ``tp``: q, k and v hold the rank's heads (``_tp_heads``)."""
     from repro_torch.kernels import ops
 
     Sq = q.shape[1]
@@ -423,15 +445,121 @@ def _static_attention(p, q, k, v, cfg, cache, index: int, causal: bool,
         positions = torch.arange(index, index + Sq, device=q.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    cache["k"][:, index:index + Sq] = k.to(cache["k"].dtype)
-    cache["v"][:, index:index + Sq] = v.to(cache["v"].dtype)
+    ck, cv = cache["k"], cache["v"]
+    if mode not in ("seq", "replicated"):
+        ck[:, index:index + Sq] = k.to(ck.dtype)
+        cv[:, index:index + Sq] = v.to(cv.dtype)
+        if Sq > 1:
+            # Prefill: attend over the LOCAL fresh k/v, not the cache.
+            return ops.flash_attention(q, k, v, causal=causal,
+                                       q_offset=index,
+                                       implementation=implementation)
+        return _decode_attention(q, ck, cv, index + 1)
+    qa, ka, va = q, k, v
+    if tp:
+        parts = [k, v] + ([q] if Sq == 1 else [])
+        ka, va, *qa = _gather_heads(parts, ctx)
+        pick = _kv_pick(cfg, ctx.tp_size, multiple)
+        if pick != list(range(ka.shape[2])):
+            idx = torch.tensor(pick, device=q.device)
+            ka, va = ka.index_select(2, idx), va.index_select(2, idx)
+    S_l = ck.shape[1]
+    lo = ctx.tp_rank * S_l if mode == "seq" else 0
+    a, b = max(index, lo), min(index + Sq, lo + S_l)
+    if a < b:
+        ck[:, a - lo:b - lo] = ka[:, a - index:b - index].to(ck.dtype)
+        cv[:, a - lo:b - lo] = va[:, a - index:b - index].to(cv.dtype)
     if Sq > 1:
-        # Prefill: attend over the LOCAL fresh k/v, not the cache view.
-        y = ops.flash_attention(q, k, v, causal=causal, q_offset=index,
-                                implementation=implementation)
+        return ops.flash_attention(q, k, v, causal=causal, q_offset=index,
+                                   implementation=implementation)
+    y = _cache_decode(qa[0] if tp else q, ck, cv, index + 1, lo, ctx,
+                      seq=mode == "seq")
+    if tp:
+        y = y.narrow(2, ctx.tp_rank * q.shape[2], q.shape[2])
+    return y.to(q.dtype)
+
+
+def _kv_pick(cfg, m: int, multiple: int) -> list:
+    """Where each global KV head lies in the ``model`` gather of the
+    ranks' KV blocks (:func:`head_plan`: rank r reads the KV heads of
+    query heads ``[r Hl, (r + 1) Hl)``): the first place holding it."""
+    Hp, Gp, kv = head_plan(cfg, m, multiple)
+    Hl = Hp // m
+    flat = []
+    for r in range(m):
+        a = r * Hl
+        if kv == "block":
+            flat += range(a // Gp, a // Gp + Hl // Gp)
+        elif kv == "one":
+            flat.append(a // Gp)
+        else:
+            flat += [(a + i) // Gp for i in range(Hl)]
+    return [flat.index(j) for j in range(cfg.n_kv_heads)]
+
+
+def _gather_heads(ts, ctx) -> list:
+    """Each of ``ts`` (B, S, n_i, dh; one dtype) joined over ``model``
+    along its heads in rank order, through one all-gather."""
+    from repro_torch.sharding import comm
+
+    sizes = [t.shape[2] for t in ts]
+    g = comm.gather_replicated(torch.cat(ts, 2), 2, ctx, "cache_all_gather")
+    B, S, _, dh = g.shape
+    g = g.reshape(B, S, ctx.tp_size, sum(sizes), dh)
+    return [t.reshape(B, S, -1, dh) for t in g.split(sizes, 3)]
+
+
+def decode_partial(q, k, v, n: int):
+    """The partial softmax of one query a row over the first ``n``
+    positions of a block of the cache. q: (B, 1, H, dh); k, v: (B, S_l,
+    Kh, dh). Returns (u (B, Kh, G, dh) the unnormalised sum of
+    ``exp(s - mx) v``, mx (B, Kh, G) the largest score, l (B, Kh, G) the
+    sum of ``exp(s - mx)``), float32; a block with no position (``n`` 0)
+    gives u = l = 0 and mx = -inf."""
+    B, _, H, dh = q.shape
+    Kh = k.shape[2]
+    qg = q.float().reshape(B, Kh, H // Kh, dh)
+    if n == 0:
+        z = qg.new_zeros((B, Kh, H // Kh))
+        return torch.zeros_like(qg), z - float("inf"), z
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k[:, :n].float()) * dh ** -0.5
+    mx = s.max(-1).values
+    p = torch.exp(s - mx[..., None])
+    return torch.einsum("bkgt,btkd->bkgd", p, v[:, :n].float()), mx, \
+        p.sum(-1)
+
+
+def combine_partials(u, mx, l):
+    """One softmax's output from the partials of the blocks of a
+    sequence, stacked on dim 0 (:func:`decode_partial`): each block's
+    sums rescaled to the largest score by log-sum-exp, summed in block
+    order. A block with no position (mx -inf, l 0) weighs 0; at least
+    one block must hold a position."""
+    top = mx.max(0).values
+    w = torch.where(torch.isfinite(mx), torch.exp(mx - top),
+                    torch.zeros_like(mx))
+    return (u * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+
+
+def _cache_decode(q, k, v, kv_len: int, lo: int, ctx, *, seq: bool):
+    """A decode step over a cache holding every KV head at positions
+    ``[lo, lo + S_l)``, q (B, 1, H, dh) every (padded) query head: the
+    partial softmax over the block's valid positions; with ``seq`` the
+    partials of every ``model`` rank gathered and combined
+    (:func:`combine_partials`). Plain PyTorch in float32, as
+    :func:`_decode_attention`. Returns (B, 1, H, dh) float32."""
+    from repro_torch.sharding import comm
+
+    B, _, H, dh = q.shape
+    n = min(max(kv_len - lo, 0), k.shape[1])
+    u, mx, l = decode_partial(q, k, v, n)
+    if seq:
+        part = torch.cat([u, mx[..., None], l[..., None]], dim=-1)
+        part = comm.gather_replicated(part[None], 0, ctx, "softmax_combine")
+        y = combine_partials(part[..., :dh], part[..., dh], part[..., dh + 1])
     else:
-        y = _decode_attention(q, cache["k"], cache["v"], index + 1)
-    return _out(y, p["wo"]), cache
+        y = u / l[..., None]
+    return y.reshape(B, 1, H, dh)
 
 
 def _decode_attention(q, k, v, kv_len: int):

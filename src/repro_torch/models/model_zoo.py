@@ -26,7 +26,10 @@ reaching the float32 masters through the cast, as the reference's
 ``_cast_params``), and the query-head padding ``pad_heads_multiple``
 (``attention.pad_heads``; output exactly preserved). The training entry
 points take a ``ShardCtx`` (``ctx``), which reaches the MoE layers
-(expert parallelism, ``core/ep.py``).
+(expert parallelism, ``core/ep.py``). So do the six serving entry
+points: under the ctx of ``sharding.serve_layout`` each rank runs its
+blocks of the heads, KV heads, experts and ``mlp`` over ``model`` on
+its caches' blocks, and the logits come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -401,10 +404,42 @@ def _stack(params, x, cfg, ac: ApplyCfg, **kw):
     )
 
 
-def _logits(params, h, cfg):
+def _serving(cfg: ArchConfig, ctx):
+    """The ctx a serving entry point runs under: None for one process;
+    a ctx with process groups must come from ``sharding.serve_layout``
+    (a ``ServePlan``), and its stack must be decoder-only attention."""
+    if ctx is None or not ctx.groups:
+        return ctx
+    from repro_torch.sharding import _check_serving_stack
+
+    _check_serving_stack(cfg)
+    if ctx.serve is None:
+        raise ValueError(
+            "serving under a mesh runs with the ctx of "
+            "sharding.serve_layout (its ServePlan places the rows and "
+            "caches)")
+    return ctx
+
+
+def _logits(params, h, cfg, ctx=None, rows: bool = False):
+    """float32 logits of the final-normed ``h``, whole on every rank
+    under a serving ctx: a vocab-parallel head's blocks gathered over
+    ``model``, and with ``rows`` the static batch's row blocks over its
+    data axes (``ServePlan.batch_axes``)."""
     h = norm_apply(params["final_norm"], h, cfg)
-    return head_apply(params.get("head", {}), h, params["embed"],
-                      cfg).float()
+    logits = head_apply(params.get("head", {}), h, params["embed"],
+                        cfg, ctx).float()
+    if ctx is None or not ctx.groups:
+        return logits
+    from repro_torch.sharding import comm
+
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = comm.gather_replicated(logits, -1, ctx,
+                                        "logits_all_gather")
+    if rows:
+        logits = comm.gather_rows(logits, ctx, ctx.serve.batch_axes,
+                                  "logits_all_gather")
+    return logits
 
 
 def init_serve_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -438,7 +473,7 @@ def serve_cache_axes(cfg: ArchConfig):
 
 
 def prefill(params, batch, cache, cfg: ArchConfig, *,
-            ac: ApplyCfg = ApplyCfg()):
+            ac: ApplyCfg = ApplyCfg(), ctx=None):
     """Run the full prompts ``batch["tokens"] (B, S)`` from an empty
     cache, writing it in place. An encoder-decoder model first encodes
     ``batch["enc_tokens"]`` (or ``"frames"``) and stores the states in
@@ -447,47 +482,55 @@ def prefill(params, batch, cache, cfg: ArchConfig, *,
     is ``batch["dec_tokens"]``. A ``patch`` frontend's
     ``batch["patch_embeds"]`` replace the first positions' embeddings,
     as in training. Returns (cache, logits (B, 1, V) float32 at the last
-    position)."""
+    position).
+
+    ``ctx``: the ctx of ``sharding.serve_layout`` (or None). The batch
+    then holds this rank's block of the rows (``ServePlan.batch_axes``),
+    ``params`` and ``cache`` the rank's blocks, and the logits come back
+    for every row of the global batch."""
     _check_structure(cfg, "decoder_only", "encoder_decoder")
+    ctx = _serving(cfg, ctx)
     params = _cast_params(params, ac.cdtype)
-    x = _embed_decoder_input(params, batch, cfg, ac)
+    x = _embed_decoder_input(params, batch, cfg, ac, ctx)
     ac = ac.resolve(x.device)
     enc = None
     if cfg.structure == "encoder_decoder":
-        enc, _ = _encode(params, batch, cfg, ac)
+        enc, _ = _encode(params, batch, cfg, ac, ctx)
         cache["enc"] = enc.to(cache["enc"].dtype)
     x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
                                   cache=cache["stack"], cache_index=0,
-                                  mode="prefill")
-    return cache, _logits(params, x[:, -1:], cfg)
+                                  mode="prefill", ctx=ctx)
+    return cache, _logits(params, x[:, -1:], cfg, ctx, rows=True)
 
 
 def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
-                *, ac: ApplyCfg = ApplyCfg()):
+                *, ac: ApplyCfg = ApplyCfg(), ctx=None):
     """One autoregressive step of the static engine. tokens: (B, 1) at
     position ``cache_index`` (an int, shared by the batch); an
     encoder-decoder model's cross-attention reads ``cache["enc"]``.
     Updates the cache in place; returns (cache, logits (B, 1, V)
-    float32)."""
+    float32). ``ctx``: as :func:`prefill`'s (tokens the rank's rows,
+    logits every row's)."""
     _check_structure(cfg, "decoder_only", "encoder_decoder")
+    ctx = _serving(cfg, ctx)
     tokens = tokens.long()
     ac = ac.resolve(tokens.device)
     params = _cast_params(params, ac.cdtype)
     index = int(cache_index)
     x = embed_apply(params["embed"], tokens, cfg,
                     positions=torch.arange(index, index + 1,
-                                           device=tokens.device)
-                    ).to(ac.cdtype)
+                                           device=tokens.device),
+                    ctx=ctx).to(ac.cdtype)
     enc = (cache["enc"].to(x.dtype) if cfg.structure == "encoder_decoder"
            else None)
     x, _, cache["stack"] = _stack(params, x, cfg, ac, enc=enc,
                                   cache=cache["stack"], cache_index=index,
-                                  mode="decode")
-    return cache, _logits(params, x, cfg)
+                                  mode="decode", ctx=ctx)
+    return cache, _logits(params, x, cfg, ctx, rows=True)
 
 
 def paged_prefill(params, tokens, cache, block_table, length,
-                  cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+                  cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(), ctx=None):
     """Prefill ONE request into its freshly allocated KV blocks
     (continuous batching's prefill-on-join).
 
@@ -498,44 +541,50 @@ def paged_prefill(params, tokens, cache, block_table, length,
     length (an int). Attention runs over the local fresh k/v through
     ``ops.flash_attention``. Updates the pools in place; returns (cache,
     logits (1, 1, V)) at the TRUE last prompt position ``length - 1``,
-    not the padded one."""
+    not the padded one. ``ctx``: the ctx of ``sharding.serve_layout``
+    (the rows replicated over the data axes, the pools the rank's KV
+    heads), or None."""
+    ctx = _serving(cfg, ctx)
     tokens = tokens.long()
     ac = ac.resolve(tokens.device)
     params = _cast_params(params, ac.cdtype)
-    x = _embed_decoder_input(params, {"tokens": tokens}, cfg, ac)
+    x = _embed_decoder_input(params, {"tokens": tokens}, cfg, ac, ctx)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"],
         cache_index=torch.zeros((1,), dtype=torch.int32,
                                 device=tokens.device),
-        block_tables=block_table,
+        block_tables=block_table, ctx=ctx,
     )
     n = int(length)
-    return cache, _logits(params, x[:, n - 1:n], cfg)
+    return cache, _logits(params, x[:, n - 1:n], cfg, ctx)
 
 
 def paged_decode_step(params, tokens, cache, block_tables, lengths,
-                      cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+                      cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
+                      ctx=None):
     """One continuous-batching decode step over the slot batch.
 
     tokens: (B, 1); block_tables: (B, nb); lengths: (B,) tokens already
     cached per slot (0 = free slot: masked out of routing, write to the
     trash block). Updates the pools in place; returns (cache, logits
-    (B, 1, V))."""
+    (B, 1, V)). ``ctx``: as :func:`paged_prefill`'s."""
+    ctx = _serving(cfg, ctx)
     ac = ac.resolve(tokens.device)
     params = _cast_params(params, ac.cdtype)
     live = lengths > 0
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=lengths[:, None]).to(ac.cdtype)
+                    positions=lengths[:, None], ctx=ctx).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=lengths,
-        block_tables=block_tables, token_mask=live[:, None],
+        block_tables=block_tables, token_mask=live[:, None], ctx=ctx,
     )
-    return cache, _logits(params, x, cfg)
+    return cache, _logits(params, x, cfg, ctx)
 
 
 def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
                      dec_lengths, chunk_tables, chunk_starts, chunk_lens,
-                     cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+                     cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
+                     ctx=None):
     """One fused continuous-batching step: the decode batch AND the
     pending prefill chunks through a single forward.
 
@@ -550,7 +599,8 @@ def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
 
     Returns ``(cache, logits (B + NC, V))``: rows [:B] are the decode
     slots' next-token logits, rows [B:] each chunk lane's logits at its
-    last valid row."""
+    last valid row. ``ctx``: as :func:`paged_prefill`'s."""
+    ctx = _serving(cfg, ctx)
     ac = ac.resolve(dec_tokens.device)
     params = _cast_params(params, ac.cdtype)
     dev = dec_tokens.device
@@ -573,24 +623,25 @@ def paged_mixed_step(params, dec_tokens, chunk_tokens, cache, dec_tables,
     token_mask = torch.cat([dec_lengths > 0,
                             chunk_live.reshape(NC * C)])[:, None]
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=positions[:, None]).to(ac.cdtype)
+                    positions=positions[:, None], ctx=ctx).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=positions,
         block_tables=row_tables, token_mask=token_mask,
         mixed=MixedMeta(num_decode=B, num_chunks=NC, chunk_tokens=C,
-                        chunk_lens=chunk_lens),
+                        chunk_lens=chunk_lens), ctx=ctx,
     )
     d = x.shape[-1]
     last = torch.clamp(chunk_lens - 1, 0, C - 1).long()
     xc = x[B:, 0].reshape(NC, C, d)[torch.arange(NC, device=dev), last]
     h = torch.cat([x[:B, 0], xc])[:, None]
-    return cache, _logits(params, h, cfg)[:, 0]
+    return cache, _logits(params, h, cfg, ctx)[:, 0]
 
 
 def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
                       verify_tables, verify_starts, verify_lens,
                       chunk_tables, chunk_starts, chunk_lens,
-                      cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg()):
+                      cfg: ArchConfig, *, ac: ApplyCfg = ApplyCfg(),
+                      ctx=None):
     """One fused speculative-verify + chunked-prefill step: the target
     scores B verify lanes of K1 = k + 1 positions (a slot's pending token
     and its k drafts) AND the pending prefill chunks in one forward.
@@ -607,7 +658,8 @@ def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
     Returns ``(cache, logits (B*K1 + NC, V))``: rows [:B*K1] the target
     logits at EVERY verify position (row b*K1 + j scores the token after
     verify_tokens[b, j]), rows [B*K1:] each chunk lane's last valid
-    row."""
+    row. ``ctx``: as :func:`paged_prefill`'s."""
+    ctx = _serving(cfg, ctx)
     ac = ac.resolve(verify_tokens.device)
     params = _cast_params(params, ac.cdtype)
     dev = verify_tokens.device
@@ -635,17 +687,18 @@ def paged_verify_step(params, verify_tokens, chunk_tokens, cache,
     token_mask = torch.cat([ver_live.reshape(B * K1),
                             chunk_live.reshape(NC * C)])[:, None]
     x = embed_apply(params["embed"], tokens, cfg,
-                    positions=positions[:, None]).to(ac.cdtype)
+                    positions=positions[:, None], ctx=ctx).to(ac.cdtype)
     x, _, cache["stack"] = _stack(
         params, x, cfg, ac, cache=cache["stack"], cache_index=positions,
         block_tables=row_tables, token_mask=token_mask,
         mixed=MixedMeta(num_decode=0, num_chunks=NC, chunk_tokens=C,
                         chunk_lens=chunk_lens, num_verify=B,
                         verify_tokens=K1, verify_lens=verify_lens),
+        ctx=ctx,
     )
     d = x.shape[-1]
     last = torch.clamp(chunk_lens - 1, 0, C - 1).long()
     xc = x[B * K1:, 0].reshape(NC, C, d)[torch.arange(NC, device=dev),
                                          last]
     h = torch.cat([x[:B * K1, 0], xc])[:, None]
-    return cache, _logits(params, h, cfg)[:, 0]
+    return cache, _logits(params, h, cfg, ctx)[:, 0]

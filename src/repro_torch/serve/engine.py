@@ -41,6 +41,17 @@ construction, naming the static engine):
 
 Where the reference counts jit compiles, the engine counts the distinct
 input shapes each step function ran (``compile_count``).
+
+Under a mesh (``ServeEngine(ctx=)``, a ``ShardCtx`` with process
+groups; decoder-only attention stacks) every rank builds the same
+engine: its weights are placed once at construction
+(``sharding.serve_layout``: joined over their FSDP dims, cut to the
+rank's blocks over ``model``), the static engine's cache by the act
+rules (rows over the data axes, ``cache_seq`` or ``kv_heads`` over
+``model``) and the paged pools with their KV heads over ``model``, the
+paged rows replicated over the data axes. Every step returns whole
+logits on every rank, so every rank runs the same scheduler, samples
+the same tokens and keeps the same block tables.
 """
 from __future__ import annotations
 
@@ -154,13 +165,16 @@ class ServeEngine:
     over ``params`` (a tensor tree on ``device``, which defaults to
     "cuda" and raises without a card). ``draft_params``/``draft_cfg``
     override the draft that ``sc.draft`` builds; ``tracker`` is the
-    sessions' default tracker."""
+    sessions' default tracker. ``ctx``: a ``ShardCtx`` with process
+    groups to serve under the rules' placement (``params`` the global
+    tree, or the rank's blocks under the param rules); None, or a ctx
+    without process groups, serves in one process."""
 
     def __init__(self, params, cfg: ArchConfig,
                  sc: Optional[ServeConfig] = None, *,
                  ac: zoo.ApplyCfg = zoo.ApplyCfg(), device=None,
                  draft_params=None, draft_cfg: Optional[ArchConfig] = None,
-                 tracker: Optional[Tracker] = None):
+                 tracker: Optional[Tracker] = None, ctx=None):
         sc = ServeConfig() if sc is None else sc
         if cfg.structure == "encoder_decoder":
             # The reference's engines cannot serve one either: its static
@@ -238,9 +252,24 @@ class ServeEngine:
             zoo.init_paged_serve_cache(cfg, 2, sc.block_size,
                                        dtype=self.cache_dtype,
                                        device=self.device)
+        self.layout = self._draft_layout = self._pctx = self._dctx = None
+        if ctx is not None and ctx.groups:
+            from repro_torch.sharding import serve_layout
+
+            self.layout = serve_layout(ctx, cfg, params)
+            params = self.layout.join(params)
+            if sc.paged:
+                self._pctx = self._paged_layout(self.layout)[0].ctx
         if self._spec:
             if draft_params is None or draft_cfg is None:
                 draft_params, draft_cfg = make_draft(params, cfg, sc.draft)
+        if self.layout is not None:
+            self.params = params = self.layout.place(params)
+            if self._spec:
+                self._draft_layout = serve_layout(ctx, draft_cfg,
+                                                  draft_params)
+                draft_params = self._draft_layout.place(draft_params)
+                self._dctx = self._paged_layout(self._draft_layout)[0].ctx
         self._draft_params, self._draft_cfg = draft_params, draft_cfg
         self.last_stats: dict = {}
         # Distinct input shapes each step function ran over the engine's
@@ -249,6 +278,26 @@ class ServeEngine:
         self._verify_signatures: set = set()
         self._draft_signatures: set = set()  # draft decode + catch-up
         self._pp_signatures: set = set()  # prefill-on-join + its decode
+
+    def _paged_layout(self, layout, num_blocks: int = 2):
+        """``layout`` with the paged pools' placement (the pools of
+        ``num_blocks`` blocks on the meta device)."""
+        meta = zoo.init_paged_serve_cache(layout.cfg, num_blocks,
+                                          self.sc.block_size,
+                                          dtype=self.cache_dtype,
+                                          device="meta")
+        return layout.for_cache(meta, paged=True), meta
+
+    def _paged_cache(self, cfg, num_blocks: int, layout=None):
+        """KV block pools: the global pools, or this rank's block of
+        them under ``layout``."""
+        if layout is None:
+            return zoo.init_paged_serve_cache(cfg, num_blocks,
+                                              self.sc.block_size,
+                                              dtype=self.cache_dtype,
+                                              device=self.device)
+        lay, meta = self._paged_layout(layout, num_blocks)
+        return lay.alloc(meta, device=self.device)
 
     # -- the static-batch engine --------------------------------------------
     def generate(self, prompts: list[list[int]], max_new: int = 32, *,
@@ -276,12 +325,10 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.perf_counter()
         with torch.no_grad():
-            cache = zoo.init_serve_cache(self.cfg, B, plen + max_new,
-                                         dtype=self.cache_dtype,
-                                         device=self.device)
+            cache, ctx, (lo, hi) = self.static_cache(B, plen + max_new)
             cache, logits = zoo.prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(
-                    self.device)}, cache, self.cfg, ac=self.ac)
+                self.params, {"tokens": torch.from_numpy(toks[lo:hi]).to(
+                    self.device)}, cache, self.cfg, ac=self.ac, ctx=ctx)
             cur = self._sample(logits, gen)
             cur_host = cur.cpu()
             t1 = time.perf_counter()
@@ -291,9 +338,9 @@ class ServeEngine:
                     out[i].append(int(cur_host[i, 0]))
                 if t == max_new - 1:
                     break
-                cache, logits = zoo.decode_step(self.params, cur, cache,
-                                                plen + t, self.cfg,
-                                                ac=self.ac)
+                cache, logits = zoo.decode_step(self.params, cur[lo:hi],
+                                                cache, plen + t, self.cfg,
+                                                ac=self.ac, ctx=ctx)
                 cur = self._sample(logits, gen)
                 cur_host = cur.cpu()
         self.last_stats = {
@@ -302,6 +349,24 @@ class ServeEngine:
             "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
         }
         return out
+
+    def static_cache(self, batch: int, max_len: int):
+        """The static engine's cache for ``batch`` rows of ``max_len``
+        positions: (the cache, the ctx its steps run under, this rank's
+        ``[lo, hi)`` of the rows). In one process the whole cache, None
+        and every row; under a mesh the rank's block of each (the
+        cache's placement, ``ServeLayout.for_cache``)."""
+        kw = dict(dtype=self.cache_dtype)
+        if self.layout is None:
+            return (zoo.init_serve_cache(self.cfg, batch, max_len,
+                                         device=self.device, **kw),
+                    None, (0, batch))
+        meta = zoo.init_serve_cache(self.cfg, batch, max_len, device="meta",
+                                    **kw)
+        lay = self.layout.for_cache(meta)
+        i, n = lay.rows()
+        return (lay.alloc(meta, device=self.device), lay.ctx,
+                (i * batch // n, (i + 1) * batch // n))
 
     def _sample(self, logits, gen):
         """Next tokens (B, 1) from the last position's logits: argmax, or
@@ -338,7 +403,7 @@ class ServeEngine:
         cache, logits = zoo.paged_mixed_step(
             self.params, t["cur"], t["ctoks"], cache, t["dec_tables"],
             t["dec_lengths"], t["ctab"], t["cstart"], t["clen"], self.cfg,
-            ac=self.ac,
+            ac=self.ac, ctx=self._pctx,
         )
         return cache, logits.cpu().numpy()
 
@@ -353,7 +418,7 @@ class ServeEngine:
         cache, logits = zoo.paged_verify_step(
             self.params, t["vtoks"], t["ctoks"], cache, t["vtab"],
             t["vstart"], t["vlen"], t["ctab"], t["cstart"], t["clen"],
-            self.cfg, ac=self.ac,
+            self.cfg, ac=self.ac, ctx=self._pctx,
         )
         return cache, logits.cpu().numpy()
 
@@ -364,7 +429,8 @@ class ServeEngine:
         self._draft_signatures.add(self._sig("draft", arrs))
         t = self._h2d(arrs)
         cache, logits = zoo.paged_decode_step(params, *t[:1], cache, *t[1:],
-                                              self._draft_cfg, ac=self.ac)
+                                              self._draft_cfg, ac=self.ac,
+                                              ctx=self._dctx)
         return cache, logits.cpu().numpy()
 
     def _draft_prefill(self, params, ctoks, cache, ctab, cstart, clen):
@@ -377,7 +443,7 @@ class ServeEngine:
         z = torch.zeros((0,), dtype=torch.int32, device=self.device)
         return zoo.paged_mixed_step(
             params, z.reshape(0, 1), ct, cache, z.reshape(0, nb), z, tab,
-            st, ln, self._draft_cfg, ac=self.ac,
+            st, ln, self._draft_cfg, ac=self.ac, ctx=self._dctx,
         )
 
     def _paged_prefill(self, cache, toks, table, length: int):
@@ -386,7 +452,8 @@ class ServeEngine:
         self._pp_signatures.add(self._sig("prefill", (toks, table)))
         t, tab = self._h2d((toks, table))
         cache, logits = zoo.paged_prefill(self.params, t, cache, tab,
-                                          length, self.cfg, ac=self.ac)
+                                          length, self.cfg, ac=self.ac,
+                                          ctx=self._pctx)
         return cache, logits[0, 0].cpu().numpy()
 
     def _paged_step(self, cache, cur, tables, lengths):
@@ -395,7 +462,8 @@ class ServeEngine:
         self._pp_signatures.add(self._sig("decode", arrs))
         t = self._h2d(arrs)
         cache, logits = zoo.paged_decode_step(self.params, *t[:1], cache,
-                                              *t[1:], self.cfg, ac=self.ac)
+                                              *t[1:], self.cfg, ac=self.ac,
+                                              ctx=self._pctx)
         return cache, logits[:, 0].cpu().numpy()
 
     @staticmethod
@@ -478,10 +546,7 @@ class ServeEngine:
             )
         else:
             sched = Scheduler(sc.max_batch, pool, sc.max_len)
-        cache = zoo.init_paged_serve_cache(
-            self.cfg, num_blocks, bs, dtype=self.cache_dtype,
-            device=self.device,
-        )
+        cache = self._paged_cache(self.cfg, num_blocks, self.layout)
         return pool, sched, cache, nb, num_blocks
 
     def _finisher(self, sched, clear_slot):
@@ -659,10 +724,8 @@ class ChunkedSession:
         if self.spec:
             from repro_torch.serve.speculative import SpecRunner
 
-            dcache = zoo.init_paged_serve_cache(
-                engine._draft_cfg, self.nblk, self.bs,
-                dtype=engine.cache_dtype, device=engine.device,
-            )
+            dcache = engine._paged_cache(engine._draft_cfg, self.nblk,
+                                         engine._draft_layout)
             self.runner = SpecRunner(
                 draft_step=engine._draft_step,
                 draft_prefill=engine._draft_prefill,

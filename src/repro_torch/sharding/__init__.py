@@ -16,8 +16,13 @@ expert leaf's ``expert`` dim over ``model`` and every other leaf
 replicated, tokens over every axis. A :class:`TreeLayout` holds each
 leaf's spec and moves between the global tree and a rank's
 (``shard``, ``gather``); ``sharding/comm.py`` holds the collectives a
-step computes with. The reference's ``act()`` constraints have no
-counterpart (layout hints that leave the numbers alone).
+step computes with. Serving (:func:`serve_layout`) places the weights
+by the same param rules, joined over their FSDP dims once, and the
+static cache and the paged pools by the act rules (``batch`` over the
+data axes, ``cache_seq`` or ``kv_heads`` over ``model``); a
+:class:`ServePlan` on the ctx tells the model code how its rows and
+caches lie. The reference's ``act()`` constraints have no counterpart
+(layout hints that leave the numbers alone).
 """
 from __future__ import annotations
 
@@ -97,6 +102,9 @@ class ShardCtx:
     # hold the same tokens). Off under expert parallelism, where they
     # hold different tokens.
     tensor_parallel: bool = False
+    # Set by ``serve_layout``: how a serving step's rows and KV caches lie
+    # over the mesh. None in training.
+    serve: Optional["ServePlan"] = None
 
     @classmethod
     def for_mesh(cls, mesh, *, cfg=None, **kw) -> "ShardCtx":
@@ -393,3 +401,235 @@ def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
     return TreeLayout(dataclasses.replace(ctx, tensor_parallel=True),
                       tree_specs(axes, state, ctx.mesh, ctx.param_rules),
                       ctx.replica_axes)
+
+
+# ---------------------------------------------------------------------------
+# serving under the rules
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """How a serving step's rows and KV caches lie over the mesh.
+    ``batch_axes``: the axes the static engine's rows are split over (the
+    cache's ``batch`` entry; () when the rows are replicated, as the
+    paged engine's always are). ``cache``: how a static cache or the
+    paged pools lie over ``model`` — ``"heads"`` (each rank its block of
+    the KV heads, every position), ``"seq"`` (``cache_seq``: each rank
+    its block of positions, every KV head) or ``"replicated"``."""
+
+    batch_axes: tuple = ()
+    cache: str = "heads"
+
+
+def _check_serving_stack(cfg) -> None:
+    from repro_torch.models import stack as stk
+
+    mixers = sorted({d.mixer for d in stk.layer_descs(cfg)})
+    if cfg.structure != "decoder_only" or mixers != ["attn"]:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.structure}, mixers {mixers}): serving under "
+            "a mesh runs decoder-only attention stacks; rwkv, mamba and "
+            "encoder-decoder stacks under a serving mesh are ROADMAP "
+            "queue 1")
+    if cfg.moe is not None and cfg.moe.ep == "a2a":
+        raise NotImplementedError(
+            f"{cfg.name}: moe.ep='a2a' under a serving mesh (expert "
+            "parallelism composed with tensor parallelism is ROADMAP "
+            "queue 1); serve with moe.ep='none'")
+
+
+def _walk(fn, tree, *others, path=()):
+    """``fn(leaf, *other leaves, path, parent dict)`` over a tree of
+    dicts and lists (``others`` mirror it; their leaves may be
+    tuples)."""
+    if isinstance(tree, dict):
+        return {k: (_walk(fn, v, *(o[k] for o in others), path=path + (k,))
+                    if isinstance(v, (dict, list))
+                    else fn(v, *(o[k] for o in others), path + (k,), tree))
+                for k, v in tree.items()}
+    return [_walk(fn, v, *(o[i] for o in others), path=path + (i,))
+            for i, v in enumerate(tree)]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ServeLayout:
+    """A serving engine's placement (:func:`serve_layout`): ``ctx`` (the
+    tensor-parallel ctx with the :class:`ServePlan` the model code
+    reads), ``specs`` (each parameter's spec under the param rules),
+    ``cache_specs`` (the cache's, None without one) and the global
+    parameters on the meta device (``shapes``)."""
+
+    ctx: ShardCtx
+    cfg: Any
+    specs: Any
+    shapes: Any
+    cache_specs: Any = None
+
+    def for_cache(self, cache, *, paged: bool = False) -> "ServeLayout":
+        """This layout with a cache's placement: a static cache
+        (``zoo.serve_cache_axes`` under the act rules) or, ``paged``,
+        the KV block pools (``kv_heads`` over ``model``). ``cache``
+        holds global shapes (the meta device will do)."""
+        from repro_torch.models.param import tree_map
+
+        cfg, ctx = self.cfg, self.ctx
+        m = ctx.shape.get(EP_AXIS, 1)
+        if paged:
+            Kh = cfg.n_kv_heads
+            if m > 1 and Kh % m:
+                raise ValueError(
+                    f"{cfg.name}: the paged pools (P, bs, Kh, dh) hold "
+                    f"each rank's KV heads, but {Kh} KV heads do not split "
+                    f"over {m} model ranks")
+            spec = (None, None, None, EP_AXIS) if m > 1 else ()
+            specs = tree_map(lambda _: spec, cache)
+            plan = ServePlan((), "heads" if m > 1 else "replicated")
+        else:
+            from repro_torch.models.model_zoo import serve_cache_axes
+
+            specs = tree_specs(serve_cache_axes(cfg), cache, ctx.mesh,
+                               ctx.act_rules)
+            # Every attention layer's cache has one shape: one spec.
+            spec = specs["stack"]["segments"][0]["pos0"]["mixer"]["k"]
+            spec = tuple(spec) + (None,) * (5 - len(spec))
+            batch, seq, heads = (entry_axes(e) for e in spec[1:4])
+            for name, axes in (("cache_seq", seq), ("kv_heads", heads)):
+                if axes and axes != (EP_AXIS,):
+                    raise ValueError(
+                        f"{cfg.name}: the static cache's {name} over "
+                        f"{axes} (spec {spec}) is not a placement the "
+                        "port serves (model alone or nothing)")
+            if EP_AXIS in batch:
+                raise ValueError(
+                    f"{cfg.name}: the static cache's batch over {batch} "
+                    f"(spec {spec}): rows over model are not served")
+            mode = ("seq" if seq else "heads" if heads
+                    else "replicated")
+            plan = ServePlan(batch, mode)
+        return dataclasses.replace(
+            self, cache_specs=specs,
+            ctx=dataclasses.replace(ctx, serve=plan))
+
+    def join(self, params):
+        """The global tree of ``params``, each leaf the global tensor or
+        this rank's block under its spec (``train_layout``'s placement):
+        blocks gathered over their axes, global leaves kept as they
+        are."""
+        def leaf(t, spec, g, path, parent):
+            if tuple(t.shape) == tuple(g.shape):
+                return t
+            return gather_leaf(t, spec, self.ctx)
+
+        return _walk(leaf, params, self.specs, self.shapes)
+
+    def place(self, params):
+        """The parameters this rank serves with, from the global tree or
+        its blocks (:meth:`join`): every dim over the data axes joined
+        (FSDP, once), every dim over ``model`` cut to the rank's block
+        where its module runs tensor parallel
+        (``comm._tensor_parallel``: attention, the FFNs, the embedding
+        table and the head), whole elsewhere. A MoE router stays whole:
+        every peer routes alike, so its logits need no gather a step."""
+        from repro_torch.sharding.comm import _tensor_parallel
+
+        ctx = self.ctx
+
+        def leaf(t, spec, path, parent):
+            if "router" in path:
+                return t
+            for d, e in enumerate(spec):
+                if entry_axes(e) == (EP_AXIS,) \
+                        and _tensor_parallel(path, parent):
+                    n = t.shape[d] // ctx.size((EP_AXIS,))
+                    t = t.narrow(d, ctx.index((EP_AXIS,)) * n, n).clone()
+            return t
+
+        return _walk(leaf, self.join(params), self.specs)
+
+    def alloc(self, cache, *, device=None):
+        """Zeros of this rank's block of every leaf of a global cache
+        (meta tensors will do) under :attr:`cache_specs`."""
+        def leaf(t, spec, path, parent):
+            shape = list(t.shape)
+            for d, e in enumerate(spec):
+                shape[d] //= self.ctx.size(entry_axes(e))
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+
+        return _walk(leaf, cache, self.cache_specs)
+
+    def shard_cache(self, cache):
+        """This rank's block of a global cache (e.g. one process's
+        pools)."""
+        return _map(lambda t, s: shard_leaf(t, s, self.ctx), cache,
+                    self.cache_specs)
+
+    def rows(self) -> tuple:
+        """(this rank's index, the count) of the static batch's row
+        blocks."""
+        axes = self.ctx.serve.batch_axes
+        return self.ctx.index(axes), self.ctx.size(axes)
+
+
+def _check_param_specs(cfg, axes, specs) -> None:
+    """Raise where the rules place a weight the port cannot serve with: a
+    dim over ``model`` together with another axis, or a dim other than
+    the FSDP ``embed`` over a data axis (``serve_tp``'s weight-stationary
+    expert ``mlp`` over ``data``)."""
+    def leaf(ax, spec, path, parent):
+        names = ax.split()
+        for d, e in enumerate(spec):
+            a = entry_axes(e)
+            if not a or a == (EP_AXIS,) or (EP_AXIS not in a
+                                             and names[d] == "embed"):
+                continue
+            raise ValueError(
+                f"{cfg.name}: {'/'.join(map(str, path))} ({ax}) has spec "
+                f"{spec}: its {names[d]} dim over {a} is not a placement "
+                "the port serves with (weights are joined over their "
+                "FSDP embed dims and cut over model only; ROADMAP queue "
+                "1)")
+
+    _walk(leaf, axes, specs)
+
+
+def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
+                 paged: bool = False) -> ServeLayout:
+    """The serving counterpart of :func:`train_layout`: the weights by
+    ``model_zoo.param_axes`` under ``ctx.param_rules``, and with
+    ``cache`` the static cache by ``model_zoo.serve_cache_axes`` under
+    ``ctx.act_rules`` (``batch`` over the data axes, ``cache_seq`` over
+    ``model``, or ``kv_heads`` where ``max_len`` does not divide) or,
+    ``paged``, the pools with ``kv_heads`` over ``model``
+    (:meth:`ServeLayout.for_cache`). ``params``, where given, must hold
+    each leaf global or as the rank's block under its spec (else
+    ``ValueError``); :meth:`ServeLayout.place` gives the rank's. The
+    model runs under ``layout.ctx`` (tensor parallel, with the
+    :class:`ServePlan`). Decoder-only
+    attention stacks only (``NotImplementedError`` otherwise); a
+    placement the port cannot run raises ``ValueError`` naming the leaf
+    and its spec. Needs no process group."""
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import axes_of, tree_map
+
+    _check_serving_stack(cfg)
+    shapes = zoo.init_params(None, cfg, device="meta")
+    axes = tree_map(axes_of, shapes)
+    specs = tree_specs(axes, shapes, ctx.mesh, ctx.param_rules)
+    _check_param_specs(cfg, axes, specs)
+    layout = ServeLayout(
+        dataclasses.replace(ctx, tensor_parallel=True, serve=ServePlan()),
+        cfg, specs, shapes)
+    if params is not None:
+        def check(t, spec, g, path, parent):
+            block = [n // ctx.size(entry_axes(e)) for n, e in
+                     zip(g.shape, tuple(spec) + (None,) * g.dim())]
+            if list(t.shape) not in (list(g.shape), block):
+                raise ValueError(
+                    f"{cfg.name}: {'/'.join(map(str, path))} has shape "
+                    f"{tuple(t.shape)}: neither the global {tuple(g.shape)}"
+                    f" nor its block {tuple(block)} under spec {spec}")
+
+        _walk(check, params, specs, shapes)
+    if cache is not None:
+        layout = layout.for_cache(cache, paged=paged)
+    return layout

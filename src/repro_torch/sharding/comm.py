@@ -38,7 +38,8 @@ from __future__ import annotations
 import torch
 
 KINDS = ("fsdp_all_gather", "fsdp_reduce_scatter", "tp_all_reduce",
-         "router_all_gather", "model_all_gather")
+         "router_all_gather", "model_all_gather", "cache_all_gather",
+         "softmax_combine", "row_all_gather", "logits_all_gather")
 COUNTS = dict.fromkeys(KINDS, 0)
 
 
@@ -184,6 +185,18 @@ def gather_replicated(x, dim: int, ctx, kind: str = "router_all_gather"):
     if g is None:
         return x
     return _GatherReplicated.apply(x, dim, g, ctx.tp_size, kind)
+
+
+def gather_rows(x, ctx, axes, kind: str):
+    """The blocks of ``x`` along dim 0 held by the ranks over ``axes``,
+    joined in their row-major order (no gradient; ``x`` itself over one
+    rank)."""
+    n = ctx.size(axes)
+    if n == 1:
+        return x
+    out = _all_gather(x, 0, ctx.group(axes), n)
+    _count(kind, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

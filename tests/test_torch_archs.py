@@ -33,6 +33,7 @@ from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adafactor, schedules
 from repro_torch.training import init_train_state, make_train_step
 from repro_torch.training.train_loop import batch_to
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ALL = tconfigs.assigned_archs() + ["t5-base-upcycled", "vit-b16-upcycled"]
 # The archs beside granite, whisper, rwkv6 and the paper's T5 and ViT,

@@ -24,6 +24,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models.convert import from_jax_values
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BS = 8
 ATOL = 1e-5

@@ -27,6 +27,7 @@ from repro_torch.models.attention import (
     pad_heads,
 )
 from repro_torch.models.convert import from_jax_values
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CASES = [
     ("qwen2.5-14b", 3),    # 4 heads / 2 kv -> pad to 6

@@ -35,6 +35,7 @@ from repro_torch.models.convert import from_jax_values
 from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adafactor, schedules
 from repro_torch.training import init_train_state, make_train_step
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _bits(x) -> np.ndarray:

@@ -21,6 +21,7 @@ from repro_torch.core import routing as trt
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
 from repro_torch.models.convert import from_jax_values
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROUTERS = ["top_k", "switch", "expert_choice"]
 

@@ -31,6 +31,7 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adafactor, constant
 from repro_torch.training import TrainConfig, Trainer, init_train_state
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 WORLD = 2
 

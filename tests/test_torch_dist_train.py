@@ -27,6 +27,7 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adafactor, constant
 from repro_torch.training import init_train_state, make_train_step
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 WORLD = 4
 

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.moe import moe_apply, moe_init
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROUTERS = ["top_k", "expert_choice", "switch"]
 WORLD = 4

@@ -18,6 +18,7 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models import stack as stk
 from repro_torch.optim import adafactor, inverse_sqrt
 from repro_torch.training import init_train_state, make_train_step
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, S = 2, 16
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import grouped_mlp as gm
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROW = gm.ROW_BLOCK
 

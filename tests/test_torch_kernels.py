@@ -20,6 +20,7 @@ from repro_torch.kernels.grouped_mlp import (
     ragged_buffer_rows,
     ragged_row_offsets,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BS = 16
 

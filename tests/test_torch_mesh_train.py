@@ -55,6 +55,7 @@ from repro_torch.data import make_iterator
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import adafactor, constant
 from repro_torch.training import TrainConfig, init_train_state, make_train_step
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 GRANITE = "granite-moe-1b-a400m"
 VIT = "vit-b16-upcycled"

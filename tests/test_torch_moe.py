@@ -26,6 +26,7 @@ from repro_torch.core import routing as trt
 from repro_torch.kernels import grouped_mlp as tgm
 from repro_torch.kernels import ops
 from repro_torch.models.convert import from_jax_values
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -13,6 +13,7 @@ import repro.checkpoint as jckpt
 import repro.obs as jobs
 import repro_torch.checkpoint as tckpt
 import repro_torch.obs as tobs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 OBS = {"jax": jobs, "torch": tobs}
 CKPT = {"jax": jckpt, "torch": tckpt}

@@ -37,6 +37,7 @@ from repro_torch.training import (
     init_train_state,
     make_train_step,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCH, VIT = "granite-moe-1b-a400m", "vit-b16-upcycled"
 

@@ -39,6 +39,7 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models import rwkv
 from repro_torch.models.convert import from_jax_values, to_jax_values
 from repro_torch.serve import ServeConfig, ServeEngine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 ARCH = "rwkv6-7b"

@@ -29,6 +29,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.convert import from_jax_values, to_jax_values
 from repro_torch.serve import ChaosConfig, Request, ServeConfig, ServeEngine
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BS = 8
 ATOL = 1e-5

@@ -29,6 +29,7 @@ from repro_torch.serve import (
     ServeConfig,
     ServeEngine,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BS = 8
 BASE = dict(max_batch=3, max_len=64, paged=True, block_size=BS,

@@ -27,6 +27,7 @@ from repro_torch.sharding import (
     tree_specs,
 )
 from repro_torch.training.train_loop import state_axes
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def mesh2():

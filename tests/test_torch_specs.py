@@ -23,6 +23,7 @@ from repro.training.train_loop import init_train_state as jinit_train_state
 from repro.training.train_loop import state_axes as jstate_axes
 from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun, specs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 MESH = {"data": 16, "model": 16}
 

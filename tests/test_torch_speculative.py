@@ -38,6 +38,7 @@ from repro_torch.models.draft import (
 )
 from repro_torch.serve import ChaosConfig, Request, ServeConfig, ServeEngine
 from repro_torch.serve import speculative as spec
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BS = 8
 ATOL = 1e-5

@@ -42,6 +42,7 @@ from repro_torch.optim import adafactor, schedules
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.training import init_train_state, make_train_step
 from repro_torch.training.train_loop import loss_and_grads
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCH = "jamba-1.5-large-398b"
 ATOL = 1e-5

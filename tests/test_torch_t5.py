@@ -49,6 +49,7 @@ from repro_torch.models.param import count_params
 from repro_torch.optim import adafactor, schedules
 from repro_torch.training import init_train_state, make_train_step
 from repro_torch.training.train_loop import batch_to, loss_and_grads
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 # The reference's registry loads its config modules only while it is
 # empty: importing one module by name first would leave every other

@@ -12,6 +12,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro.kernels import tiling as jtiling
 from repro_torch.kernels import ref
 from repro_torch.kernels import tiling
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def flops_of(fn, *args, **kw) -> int:

@@ -31,6 +31,7 @@ from repro_torch.models.param import tree_leaves
 from repro_torch.optim import adafactor, schedules
 from repro_torch.training import init_train_state, make_train_step
 from repro_torch.training.train_loop import batch_to, loss_and_grads
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-moe-1b-a400m"
 # The JAX model's sorted dispatch on its CPU ("xla") paths; the port

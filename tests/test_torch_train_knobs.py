@@ -28,6 +28,7 @@ from repro_torch.data import make_iterator
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.convert import from_jax_values, to_jax_values
 from repro_torch.training.train_loop import batch_to, loss_and_grads
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 GRANITE, VIT = "granite-moe-1b-a400m", "vit-b16-upcycled"
 JAC = {GRANITE: dict(dispatch="sorted", sorted_block=8, moe_impl="xla",

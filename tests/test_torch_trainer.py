@@ -55,6 +55,7 @@ from repro_torch.training import (
     Trainer,
     run_chaotic,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-moe-1b-a400m"
 JAC = jzoo.ApplyCfg(dispatch="sorted", sorted_block=8, moe_impl="xla",
