@@ -60,12 +60,12 @@ any failure, before printing its result line. It
    sequential oracle at the rwkv serve shapes (prefill 8 x 512 and a
    decode step, 64 heads of 64, f32 and bf16), requires two calls to
    give the same bits (as of the grouped dW in 2), and times it;
-10. builds rwkv6-7b at full width and depth (7.5 B params, float32) and
-    serves 8 prompts of 256..512 tokens, 64 new tokens each, through the
-    static engine, through the kernels and the plain versions twice
-    each, interleaved: token-identical, exactly 32 x 64 WKV launches a
-    run, prefill and decode tokens/s and peak memory, one prefill and
-    decode step witnessed;
+10. builds rwkv6-7b at full width and RWKV_LAYERS of its 32 layers
+    (float32) and serves 8 prompts of 256..512 tokens, 64 new tokens
+    each, through the static engine, through the kernels and the plain
+    versions, interleaved: token-identical, exactly RWKV_LAYERS x 64 WKV
+    launches a run, prefill and decode tokens/s and peak memory, one
+    prefill and decode step witnessed;
 11. upcycles rwkv6-7b's dense parent at full width and 4 layers into
     its channel-mix MoE (32 experts, top-2, every other layer, 8.7 B
     params) and serves 8 prompts of 128 tokens, 16 new, the same way
@@ -113,7 +113,8 @@ any failure, before printing its result line. It
     chunked outputs, launches and one compile per bucket checked, one
     prefill and one decode step witnessed, the flash forward timed at
     the buckets; (2) speculative decoding at spec_k 4 on a fresh upcycle
-    of the dense parent (copy init, normalised combine weights): the
+    of the dense parent at SPEC_LAYERS layers (copy init, normalised
+    combine weights): the
     ``dense`` and ``top1`` drafts token-identical to vanilla serving
     (vanilla and dense over interleaved rounds, top1 in the first;
     acceptance, drafted tokens, target steps and tokens/s printed), the
@@ -236,12 +237,13 @@ any failure, before printing its result line. It
     forwards timed at the ranks' local shapes;
 21. serves under the rules' placement on phase 20's ranks after their
     steps (``[mesh-serve]`` and ``[mesh-serve rank R]`` lines):
-    granite at full width and depth (phase 4's conditioned weights,
-    dropless) through ``ServeEngine(ctx=)`` (``sharding.serve_layout``:
-    8 of 16 query heads, 4 of 8 KV heads and 16 of 32 experts a rank),
-    (a) the static engine over 4 prompts padded to 128, 16 new (a cache
-    of 144 positions, ``cache_seq`` over model: a decode step's partial
-    softmaxes combined across the model ranks; the rows over data),
+    granite at full width and 12 of 24 layers (phase 4's conditioned
+    weights, dropless) through ``ServeEngine(ctx=)``
+    (``sharding.serve_layout``: 8 of 16 query heads, 4 of 8 KV heads
+    and 16 of 32 experts a rank), (a) the static engine over 4 prompts
+    padded to 128, 16 new (a cache of 144 positions, ``cache_seq`` over
+    model: a decode step's partial softmaxes combined across the model
+    ranks; the rows over data),
     then the same prompts padded to 127 (143 positions, ``kv_heads``
     over model), (b) the paged chunked engine over phase 4's settings
     and requests (the pools a rank's KV heads, the rows replicated over
@@ -256,7 +258,24 @@ any failure, before printing its result line. It
     equal to the dry run's; each rank's tokens/s, step ms and peak
     memory printed beside the one process's; the decode and paged
     prefill kernels timed at a rank's 8/4 heads;
-22. prints one JSON line of per-kernel numbers (all twelve kernels,
+22. on the same ranks after phase 21 (``[mesh-ep]``, ``[mesh-rwkv]``
+    and ``[mesh-ep rank R]`` lines): (a) granite upcycled at full width
+    and depth trained expert-parallel under the rules' placement
+    (sorted dispatch, ``moe.ep="a2a"``, a ``tensor_parallel`` ctx: FSDP
+    over data, TP over model, 16 of 32 experts a rank, each model peer
+    sending its block of its data rank's routing groups through the
+    all-to-all), 2 Adafactor steps at a global 8 x 512 in groups of
+    1,024, against one process in 2 microbatches of the data ranks'
+    rows: losses, grad norms, every leaf of the first step's state,
+    ``ep_overflow_frac`` 0, launches exact, the grouped kernels at 16
+    experts a rank, the first step witnessed, payloads equal to the dry
+    run's; (b) rwkv6-7b at full width and 4 layers served through the
+    static engine under ``ServeEngine(ctx=)`` (the time mix tensor
+    parallel over heads, WKV at 32 heads a rank), 8 prompts of 128, 16
+    new, token-identical to one process (near-ties judged by
+    ``RWKV_TIE_GAP``), payloads equal to the dry run's; the one process
+    runs both while the ranks run phases 20 and 21;
+23. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -325,7 +344,10 @@ VIT_TRAIN = dict(arch="vit-b16-upcycled", batch=104, seq=196, dense_steps=2,
 LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3
 
 # The rwkv serve cells, static engine, greedy, float32 caches. Dense
-# rwkv6-7b at full width and depth: 8 prompts of 256..512 tokens from
+# rwkv6-7b at full width and RWKV_LAYERS of its 32 layers (all 32, 30
+# GB, until phase 22 joined the smoke: its time limit; the WKV kernel
+# is held and timed at the same shapes in phase 9's first part): 8
+# prompts of 256..512 tokens from
 # the seed, 64 new tokens each, served through the kernels and through
 # the plain versions RWKV_RUNS times each, interleaved. The upcycled
 # channel-mix MoE (rwkv6_7b.upcycled(): 32 experts, top-2, every other
@@ -334,6 +356,7 @@ LOSS_RTOL, GRAD_NORM_RTOL = 1e-4, 1e-3
 RWKV_SERVE = dict(max_batch=8, max_len=576)
 # (RWKV_RUNS 2 until phase 21 joined the smoke: its time limit.)
 RWKV_PROMPTS, RWKV_PLEN, RWKV_NEW, RWKV_RUNS = 8, (256, 512), 64, 1
+RWKV_LAYERS = 16
 RWKV_MOE_LAYERS, RWKV_MOE_PLEN, RWKV_MOE_NEW = 4, 128, 16
 # The rwkv cells' near-tie bound. Even conditioned (condition_rwkv), a
 # random 32-layer rwkv6 amplifies float32 rounding into its logits: fed
@@ -372,9 +395,12 @@ SERVE_KERNELS = ("decode_attention", "paged_prefill", "grouped_mlp")
 # runs in SPEC_RUNS interleaved rounds of vanilla and dense (top1, whose
 # draft steps run the experts, in the first round only); the dense
 # draft at SPEC_TEMPERATURE must accept at least SPEC_MIN_ACCEPT (draft
-# and target agree up to float32 rounding).
-# (SPEC_RUNS 2 until phase 21 joined the smoke: its time limit.)
+# and target agree up to float32 rounding). The upcycle takes
+# SPEC_LAYERS of granite's 24 layers at full width.
+# (SPEC_RUNS 2 until phase 21 joined the smoke, SPEC_LAYERS 24 until
+# phase 22: its time limit.)
 SPEC_K, SPEC_RUNS, SPEC_TEMPERATURE, SPEC_MIN_ACCEPT = 4, 1, 0.8, 0.99
+SPEC_LAYERS = 12
 # The over-subscribed trace of examples/serve_moe.py --overload (10
 # requests of 12 tokens, 8 new, two arrivals a tick, the last two at
 # priority 1, 2 slots, a pool of one request's blocks and a spare) with
@@ -618,9 +644,11 @@ def attention_case(cfg, dtype, device, gen):
                 ctab=ctab, starts=starts, lens=lens, q_ch=q_ch)
 
 
-def grouped_case(cfg, dtype, device, gen):
+def grouped_case(cfg, dtype, device, gen, n_assign=None, rows=None):
     """A ragged buffer as the mixed step lays it out: 136 rows x top-8 =
-    1088 assignments over 32 experts, skewed, with empty experts."""
+    1088 assignments over 32 experts, skewed, with empty experts; or
+    ``n_assign`` valid rows in a buffer laid out for ``rows`` (an
+    expert-parallel rank's: the all-to-all's static rows)."""
     import torch
 
     from repro_torch.kernels.grouped_mlp import (
@@ -630,13 +658,14 @@ def grouped_case(cfg, dtype, device, gen):
     )
 
     E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
-    n_assign = (SERVE["max_batch"] + SERVE["chunks_per_step"]
-                * SERVE["chunk_size"]) * cfg.moe.top_k
+    if n_assign is None:
+        n_assign = (SERVE["max_batch"] + SERVE["chunks_per_step"]
+                    * SERVE["chunk_size"]) * cfg.moe.top_k
     w = torch.rand(E, generator=gen, device=device) ** 3
-    w[[5, 17]] = 0.0
+    w[[e for e in (5, 17) if e < E]] = 0.0
     counts = torch.floor(w / w.sum() * n_assign).to(torch.int32)
     counts[0] += n_assign - int(counts.sum())
-    M = ragged_buffer_rows(n_assign, E, ROW_BLOCK)
+    M = ragged_buffer_rows(rows or n_assign, E, ROW_BLOCK)
     row_off, _ = ragged_row_offsets(counts[None], ROW_BLOCK)
     xs = torch.zeros(1, M, d, device=device)
     for e in range(E):
@@ -2481,7 +2510,8 @@ def witness_static_step(tag, eng, prompts, expect):
 
 
 def rwkv_dense(device):
-    """R2: rwkv6-7b at full width and depth through the static engine."""
+    """R2: rwkv6-7b at full width, RWKV_LAYERS layers, through the
+    static engine."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2489,12 +2519,12 @@ def rwkv_dense(device):
     from repro_torch.models.param import count_params
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=RWKV_LAYERS)
     t0 = time.perf_counter()
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg, device=device)
     torch.cuda.synchronize()
-    print(f"[rwkv] {cfg.name} full width and depth: "
+    print(f"[rwkv] {cfg.name} full width, {cfg.n_layers} of 32 layers: "
           f"{count_params(params) / 1e9:.3f} B params (float32), init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     prompts = static_prompts(cfg, RWKV_PROMPTS, RWKV_PLEN, seed=5)
@@ -3562,7 +3592,8 @@ def spec_path(cfg, device):
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    params, scfg = upcycled_granite(cfg, device)
+    params, scfg = upcycled_granite(
+        dataclasses.replace(cfg, n_layers=SPEC_LAYERS), device)
     L = scfg.n_layers
     base = dict(paged=True, **SERVE)
     engines = {
@@ -4621,21 +4652,24 @@ def pixtral_path(device):
     return {"pixtral_train": train_launches, "pixtral_decode": expect}, cfg
 
 
-def grouped_shape_row(tag, cfg, experts, device, *, seed):
+def grouped_shape_row(tag, cfg, experts, device, *, seed, **case):
     """The grouped forward where the paged mixed step runs it: the
     ragged buffer of grouped_case at ``cfg``'s top-k and expert count
-    (136 rows, skewed, two experts empty), through the served model's
-    own expert weights of one MoE layer, float32, held against the plain
-    version (TOL["float32"]), timed beside it (synchronised per call:
-    it reads the sizes on the host) and the library chain."""
+    (136 rows, skewed, two experts empty; or ``case``'s), through the
+    served model's own expert weights of one MoE layer (random ones for
+    ``experts`` None), float32, held against the plain version
+    (TOL["float32"]), timed beside it (synchronised per call: it reads
+    the sizes on the host) and the library chain."""
     import torch
 
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import ref
 
     g = grouped_case(cfg, torch.float32, device,
-                     torch.Generator(device=device).manual_seed(seed))
-    g.update(wi=experts["wi"], wg=experts["wg"], wo=experts["wo"])
+                     torch.Generator(device=device).manual_seed(seed),
+                     **case)
+    if experts is not None:
+        g.update(wi=experts["wi"], wg=experts["wg"], wo=experts["wo"])
     args = (g["xs"], g["wi"], g["wg"], g["wo"], g["counts"])
     kern = lambda: gm.grouped_mlp_cuda(*args)  # noqa: E731
     plain = lambda: ref.grouped_mlp_ref(*args, block=gm.ROW_BLOCK)  # noqa
@@ -5160,10 +5194,10 @@ def ep_rank(rank, world, root):
     a2a = {"calls": 0, "bytes": 0, "s": 0.0}
     real = ep_mod._all_to_all
 
-    def timed(x, group, budget, ep):
+    def timed(x, group):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = real(x, group, budget, ep)
+        out = real(x, group)
         out = out + 0 if out.is_floating_point() else out  # wait for it
         torch.cuda.synchronize()
         a2a["calls"] += 1
@@ -5693,9 +5727,10 @@ MESH_LOSS_RTOL, MESH_GN_RTOL = 1e-4, 1e-3
 
 def mesh_setup(name, device):
     """(cfg, upcycled params on ``device``, the global data iterator,
-    ApplyCfg, the path's kernels, the optimizer) of a phase 20 cell: the
-    package's dense init (seed 0) with its attention conditioned,
-    upcycled (routers from seed 7) — the same bits in every process."""
+    ApplyCfg, the path's kernels, the optimizer) of a phase 20 cell (or
+    phase 22's ``granite_ep``): the package's dense init (seed 0) with
+    its attention conditioned, upcycled (routers from seed 7) — the same
+    bits in every process."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5705,10 +5740,12 @@ def mesh_setup(name, device):
     from repro_torch.models import model_zoo as zoo
     from repro_torch.optim import adafactor, inverse_sqrt
 
-    c = MESH["cells"][name]
+    c = {**MESH["cells"], "granite_ep": MESH_EP}[name]
     full = get_config(c["arch"])
+    ep = dict(ep="a2a", ep_budget_factor=c["factor"]) if "factor" in c \
+        else {}
     cfg = dataclasses.replace(full, moe=dataclasses.replace(
-        full.moe, group_size=c["group"]))
+        full.moe, group_size=c["group"], **ep))
     dense_cfg = cfg.dense_parent()
     dense = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                             dense_cfg, device=device)
@@ -5851,8 +5888,9 @@ def mesh_rank(rank, world, root):
         del state, step, layout
         gc.collect()
         torch.cuda.empty_cache()
-    # Phase 21 on the same ranks and mesh.
+    # Phase 21 on the same ranks and mesh, then phase 22.
     info["serve"] = mesh_serve_rank(rank, ctx, root, device)
+    info["ep"] = mesh_ep_rank(rank, ctx, root, device)
     with open(root / f"mesh_rank{rank}.json", "w") as fh:
         json.dump(info, fh)
     dist.destroy_process_group()
@@ -5895,12 +5933,14 @@ def mesh_local_rows(device):
 
 
 def mesh_train(device):
-    """Phases 20 and 21. The ranks start first and set up while this
+    """Phases 20, 21 and 22. The ranks start first and set up while this
     process runs the single-process steps (its first-step state saved
     for the ranks to hold their blocks against), the local-shape rows
     and phase 21's one-process serving; then it writes ``go`` and the
-    ranks run their timed steps, then serve. Returns ({path: launches},
-    shape rows, {phase 21 path: launches})."""
+    ranks run their timed steps, then serve, while this process runs
+    phase 22's one process and writes ``ep_go``; then the ranks run
+    phase 22. Returns ({path: launches}, shape rows, {phase 21 and 22
+    path: launches})."""
     import shutil
     import tempfile
 
@@ -5974,6 +6014,8 @@ def mesh_train(device):
               flush=True)
         (root / "go").touch()
         t0 = time.perf_counter()
+        # Phase 22's one process while the ranks run phases 20 and 21.
+        ep_ref = mesh_ep_reference(device, root)
         while not procs.join():
             pass
         ranks_s = time.perf_counter() - t0
@@ -6050,12 +6092,15 @@ def mesh_train(device):
         for rk, info in enumerate(ranks):
             out[f"mesh_{name}_rank{rk}"] = info[name]["launches"]
     print(f"[mesh] the ranks' steps, serving and checks {ranks_s:.1f} s "
-          f"after go; phases 20 and 21 {time.perf_counter() - t_phase:.1f} s",
+          f"after go; phases 20 to 22 {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     if bad:
         fail("phase 20: " + "; ".join(bad))
     serve_launches = mesh_serve_check(serve_eng, serve_ref,
                                       [info["serve"] for info in ranks])
+    serve_launches.update(mesh_ep_check(ep_ref,
+                                        [info["ep"] for info in ranks]))
+    rows.append(mesh_ep_row(device, ranks[0]["ep"]["shapes"]))
     del serve_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -6067,7 +6112,7 @@ def mesh_train(device):
 # mesh of phase 20's ranks
 # ---------------------------------------------------------------------------
 
-# Granite at full width and depth, f32 weights from seed 0 with attention
+# Granite at full width, f32 weights from seed 0 with attention
 # conditioned and dropless routing (phase 4's model), served by phase
 # 20's 4 ranks after their training steps (sharding.serve_layout: 8 of
 # 16 query heads, 4 of 8 KV heads and 16 of 32 experts a rank): (a) the
@@ -6078,7 +6123,9 @@ def mesh_train(device):
 # (b) the paged chunked engine over phase 4's SERVE settings and
 # requests, the pools holding a rank's 4 KV heads, the rows replicated
 # over data. One process serves the same first, while the ranks train.
-MESH_SERVE = dict(prompts=4, plen=(64, 128), new=16, seed=31,
+# 12 of its 24 layers (24 until phase 22 joined the smoke: its time
+# limit; the placements do not depend on the depth).
+MESH_SERVE = dict(prompts=4, plen=(64, 128), new=16, seed=31, layers=12,
                   static=dict(max_batch=8, max_len=576))
 # A rank's pools against its KV-head block of the one process's, row by
 # row (a layer's k or v at one pool position): within atol + rtol |x|
@@ -6103,15 +6150,17 @@ def mesh_serve_prompts(cfg):
 
 
 def mesh_serve_model(device):
-    """(phase 4's config, its conditioned weights on ``device``)."""
+    """(phase 4's config at MESH_SERVE's layers, its conditioned weights
+    on ``device``)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
 
     full = get_config("granite-moe-1b-a400m")
-    cfg = dataclasses.replace(full, moe=dataclasses.replace(
-        full.moe, capacity_factor=float(full.moe.num_experts)))
+    cfg = dataclasses.replace(
+        full, n_layers=MESH_SERVE["layers"], moe=dataclasses.replace(
+            full.moe, capacity_factor=float(full.moe.num_experts)))
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg, device=device)
     condition_attention(params, cfg)
@@ -6491,6 +6540,401 @@ def mesh_serve_rows(device):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 22: expert parallelism under the rules' placement, and rwkv6 under
+# a serving mesh, on phase 20's ranks after phase 21
+# ---------------------------------------------------------------------------
+
+# (a) Granite at full width and depth, sorted dispatch, moe.ep "a2a" at
+# budget factor 2.0 (= the model axis: no assignment dropped), the
+# default rules with tensor parallelism (ShardCtx tensor_parallel): FSDP
+# of embed over data, heads, kv heads and vocab over model, 16 of the 32
+# experts a rank, each model peer routing its data rank's 2 groups and
+# sending its one group's rows through the all-to-all. 2 Adafactor steps
+# at a global 8 x 512 in groups of 1,024 (cut from phase 20's 2,048: the
+# global group count must divide the 4 ranks, as the reference requires),
+# against one process running the same steps in 2 microbatches of the
+# data ranks' rows. (b) rwkv6-7b at full width and 4 of its 32 layers
+# (f32, condition_rwkv), the static engine over 8 prompts of 128 tokens,
+# 16 new: each rank its 32 of the 64 heads of the time mix and of the
+# WKV state, the rows over data, the FFN's f over model; against one
+# process, a divergence accepted only at a top-2 gap below RWKV_TIE_GAP.
+# The one process runs both while the ranks run phases 20 and 21; the
+# ranks start phase 22 when it has written "ep_go".
+MESH_EP = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, group=1024,
+               dispatch="sorted", factor=2.0, steps=2)
+MESH_RWKV = dict(layers=4, prompts=8, plen=128, new=16, seed=34,
+                 static=dict(max_batch=8, max_len=160))
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the shapes the grouped and WKV kernels are called at inside
+    the block: {kernel: {(rows' shape, experts or heads): calls}}, and a
+    grouped kernel's first call's valid rows (``<kernel>_valid_rows``)."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import rwkv6 as wkv
+
+    seen = {}
+    keys = [(gm, "grouped_mlp_cuda", "grouped_mlp", 4),
+            (gm, "grouped_mlp_dx_cuda", "grouped_mlp_dx", 5),
+            (gm, "grouped_mlp_dw_cuda", "grouped_mlp_dw", 5),
+            (wkv, "rwkv6_cuda", "rwkv6", None)]
+
+    def record(fn, name, sizes):
+        def call(*args, **kw):
+            # (the rows' shape, the experts a call runs or the heads)
+            n = args[0].shape[2] if sizes is None else args[sizes].shape[-1]
+            key = f"{tuple(args[0].shape)} x {n}"
+            if name not in seen and sizes is not None:
+                seen[f"{name}_valid_rows"] = int(args[sizes].sum())
+            seen.setdefault(name, {})
+            seen[name][key] = seen[name].get(key, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in keys]
+    for mod, attr, name, sizes in keys:
+        setattr(mod, attr, record(getattr(mod, attr), name, sizes))
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def mesh_rwkv_model(device):
+    """(rwkv6-7b at MESH_RWKV's layers, its conditioned weights on
+    ``device``, the prompts)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"),
+                              n_layers=MESH_RWKV["layers"])
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    condition_rwkv(params, cfg)
+    prompts = static_prompts(cfg, MESH_RWKV["prompts"], MESH_RWKV["plen"],
+                             MESH_RWKV["seed"])
+    return cfg, params, prompts
+
+
+def mesh_ep_reference(device, root):
+    """Phase 22's one process, while the ranks run phases 20 and 21: (a)
+    the granite EP cell's 2 steps in 2 microbatches of the data ranks'
+    rows, its first-step state to ``mesh_ep_ref.pt``; (b) the rwkv cell
+    through the static engine, and its top-2 gaps fed its own tokens.
+    Writes ``ep_go`` last. Returns what the checks read."""
+    import torch
+
+    from repro_torch.checkpoint.manager import host_snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.training import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, it, ac, _, opt = mesh_setup("granite_ep", device)
+    step = make_train_step(cfg, opt, ac=ac,
+                           tc=TrainConfig(grad_accum=MESH["shape"][0]))
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    before = ops.launch_counts()
+    ref = {"loss": [], "grad_norm": [], "ms": [], "launches": {}}
+    for i in range(MESH_EP["steps"]):
+        t1 = time.perf_counter()
+        state, m = step(state, next(it))
+        ref["ms"].append(_sync_ms(t1))
+        ref["loss"].append(float(m["loss"]))
+        ref["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            torch.save(host_snapshot(state), root / "mesh_ep_ref.pt")
+    ref["launches"]["mesh_ep_reference"] = {
+        k: v - before[k] for k, v in ops.launch_counts().items()}
+    ref["peak"] = torch.cuda.max_memory_allocated()
+    print(f"[mesh-ep] granite EP cell, one process, {MESH_EP['batch']} x "
+          f"{MESH_EP['seq']} in groups of {MESH_EP['group']}, 2 "
+          f"microbatches: losses {ref['loss']!r}, grad norms "
+          f"{ref['grad_norm']!r}, step ms "
+          f"{', '.join(f'{x:.1f}' for x in ref['ms'])}, peak "
+          f"{ref['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    del state, m, step, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rcfg, rparams, prompts = mesh_rwkv_model(device)
+    eng = ServeEngine(rparams, rcfg, ServeConfig(**MESH_RWKV["static"]),
+                      device=device)
+    del rparams
+    eng.generate([prompts[0][:16]], max_new=2)  # warm-up
+    before = ops.launch_counts()
+    out = eng.generate(prompts, MESH_RWKV["new"])
+    ref["launches"]["mesh_rwkv_reference"] = {
+        k: v - before[k] for k, v in ops.launch_counts().items()}
+    st = eng.last_stats
+    _, gaps = teacher_forced({"one": (eng, contextlib.nullcontext)},
+                             prompts, out)
+    ref["rwkv"] = {"tokens": out, "gaps": gaps.tolist(),
+                   "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                   "peak": torch.cuda.max_memory_allocated()}
+    print(f"[mesh-rwkv] one process, {rcfg.n_layers} layers, "
+          f"{len(prompts)} x {MESH_RWKV['plen']} + {MESH_RWKV['new']} new: "
+          f"prefill {st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s "
+          f"({st['decode_s'] * 1e3 / (MESH_RWKV['new'] - 1):.1f} ms a step);"
+          f" peak {ref['rwkv']['peak'] / 2 ** 30:.2f} GiB; phase 22's one "
+          f"process {time.perf_counter() - t0:.1f} s", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    (root / "ep_go").touch()
+    return ref
+
+
+def mesh_ep_rank(rank, ctx, root, device):
+    """A rank's phase 22: the granite EP steps under the tensor-parallel
+    ctx, then the rwkv cell's static engine under ``ctx``; returns what
+    the parent checks."""
+    import torch
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.param import count_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.sharding import comm, train_layout
+    from repro_torch.training import init_train_state, make_train_step
+
+    while not (root / "ep_go").exists():
+        if not root.exists():
+            sys.exit(1)
+        time.sleep(0.1)
+    tag = f"[mesh-ep rank {rank}]"
+    tp = dataclasses.replace(ctx, tensor_parallel=True)
+    cfg, params, it, ac, kernels, opt = mesh_setup("granite_ep", device)
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    layout = train_layout(tp, cfg, ac.dispatch, state)
+    state = layout.shard(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt, ac=ac, layout=layout)
+    row, rows = layout.batch_rows()
+    print(f"{tag} {count_params(state['params']) / 1e9:.3f} B params held "
+          f"(data rows block {row} of {rows}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    want = step_launches(cfg, kernels, True)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"loss": [], "grad_norm": [], "over": [], "ms": [], "counts": [],
+           "launches": {}}
+    for i in range(MESH_EP["steps"]):
+        batch = next(it)
+        per = len(next(iter(batch.values()))) // rows
+        local = {k: v[row * per:(row + 1) * per] for k, v in batch.items()}
+        before = ops.launch_counts()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        if i == 0:
+            with witnessed_kernels() as wit, kernel_shapes() as shapes:
+                state, m = step(state, local)
+                torch.cuda.synchronize()
+        else:
+            state, m = step(state, local)
+        ms = _sync_ms(t0)
+        rec["counts"].append(comm.counts())
+        m = {k: float(v) for k, v in m.items()}
+        ran = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        for k, v in ran.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
+        print(f"{tag} granite EP step {i + 1}: loss={m['loss']!r} "
+              f"grad_norm={m['grad_norm']!r} ep_overflow_frac_sum="
+              f"{m['ep_overflow_frac_sum']!r} ms={ms:.1f}"
+              + (" (witnessed)" if i == 0 else "")
+              + f" launches={ {k: v for k, v in ran.items() if v} }"
+              f" collective payload B={rec['counts'][-1]}", flush=True)
+        check_step("mesh EP", f"rank {rank}", m, ran, want)
+        for key, v in (("loss", m["loss"]), ("grad_norm", m["grad_norm"]),
+                       ("over", m["ep_overflow_frac_sum"]), ("ms", ms)):
+            rec[key].append(v)
+        if i == 0:
+            report_witness(wit, kernels)
+            rec["shapes"] = shapes
+            print(f"{tag} the grouped kernels' shapes in step 1 (rows' "
+                  f"shape x experts): {shapes}", flush=True)
+            rec["leaves"], rec["off"], rec["worst"] = _mesh_compare(
+                state, root / "mesh_ep_ref.pt", layout, device)
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    del state, step, layout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rcfg, rparams, prompts = mesh_rwkv_model(device)
+    eng = ServeEngine(rparams, rcfg, ServeConfig(**MESH_RWKV["static"]),
+                      device=device, ctx=ctx)
+    del rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    new = MESH_RWKV["new"]
+    before = ops.launch_counts()
+    with kernel_shapes() as shapes:
+        out = eng.generate(prompts, new)
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    wantr = {"rwkv6": rcfg.n_layers * new}
+    if ran != wantr:
+        fail(f"{tag} rwkv: launched {ran}, expected {wantr}")
+    st = eng.last_stats
+    counts, wit = mesh_static_steps(eng, prompts, out, new)
+    report_witness(wit, ("rwkv6",))
+    rec["rwkv"] = {"tokens": out, "prefill_s": st["prefill_s"],
+                   "decode_s": st["decode_s"], "launches": ran,
+                   "counts": counts, "shapes": shapes,
+                   "peak": torch.cuda.max_memory_allocated()}
+    print(f"{tag} rwkv: prefill {st['prefill_s']:.3f} s, {new - 1} decode "
+          f"steps {st['decode_s']:.3f} s "
+          f"({st['decode_s'] * 1e3 / (new - 1):.1f} ms a step), launches "
+          f"{ran}, WKV shapes {shapes.get('rwkv6')}, peak "
+          f"{rec['rwkv']['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_ep_row(device, shapes):
+    """The grouped forward at rank 0's expert-parallel buffer of step 1
+    (its rows' shape, its experts, its first call's valid rows, skewed
+    over the 16 experts), random weights, timed against the plain version
+    and the library chain."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_mlp import ROW_BLOCK
+
+    (key,) = shapes["grouped_mlp"]
+    M, E = int(key.split(", ")[1]), int(key.split(" x ")[1])
+    full = get_config(MESH_EP["arch"])
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, num_experts=E))
+    return grouped_shape_row(
+        "mesh_ep_local", cfg, None, device, seed=36,
+        n_assign=shapes["grouped_mlp_valid_rows"],
+        rows=M - E * ROW_BLOCK)
+
+
+def mesh_ep_check(ref, ranks):
+    """Phase 22's checks over the ranks' results against the one
+    process's; returns {path: launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import rules_collective_payloads
+    from repro_torch.models import model_zoo as zoo
+
+    full = get_config(MESH_EP["arch"])
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, group_size=MESH_EP["group"], ep="a2a",
+        ep_budget_factor=MESH_EP["factor"]))
+    rcfg = dataclasses.replace(get_config("rwkv6-7b"),
+                               n_layers=MESH_RWKV["layers"])
+    mesh = dict(zip(("data", "model"), MESH["shape"]))
+    m = MESH["shape"][1]
+    kw = dict(mesh=mesh, remat="none", itemsize=4)
+    pred = rules_collective_payloads(
+        cfg, params=zoo.init_params(None, cfg, device="meta"),
+        dispatch="sorted", tokens=MESH_EP["batch"] * MESH_EP["seq"], **kw)
+    B, S, new = MESH_RWKV["prompts"], MESH_RWKV["plen"], MESH_RWKV["new"]
+    rpred = [rules_collective_payloads(
+        rcfg, params=None, dispatch="gather", kind=kind,
+        tokens=B * (S if kind == "prefill" else 1), batch=B,
+        cache_len=S + new, **kw) for kind in ("prefill", "decode")]
+    print(f"[mesh-ep] the dry run's collective payloads a rank: granite EP "
+          f"step {pred}; rwkv prefill {rpred[0]}, decode {rpred[1]}",
+          flush=True)
+    bad = []
+    E_l = cfg.moe.num_experts // m
+    H_l = rcfg.d_model // rcfg.ssm.head_size // m
+    prompts = static_prompts(rcfg, B, S, MESH_RWKV["seed"])
+    want_tokens = ref["rwkv"]["tokens"]
+    for rk, info in enumerate(ranks):
+        if any(c != pred for c in info["counts"]):
+            bad.append(f"rank {rk}: counted {info['counts']}, the dry run "
+                       f"{pred}")
+        if info["off"]:
+            bad.append(f"rank {rk}: leaves off the one process's "
+                       f"{info['off']}")
+        if any(info["over"]):
+            bad.append(f"rank {rk}: ep_overflow_frac {info['over']}")
+        for k in ("grouped_mlp", "grouped_mlp_dx", "grouped_mlp_dw"):
+            ran = info["shapes"].get(k, {})
+            if {int(key.split(" x ")[1]) for key in ran} != {E_l} \
+                    or len(ran) != 1:
+                bad.append(f"rank {rk}: {k} ran at {ran}, not {E_l} "
+                           "experts")
+        ran = info["rwkv"]["shapes"].get("rwkv6", {})
+        if {int(key.split(" x ")[1]) for key in ran} != {H_l}:
+            bad.append(f"rank {rk}: the WKV kernel ran at {ran}, not {H_l} "
+                       "heads")
+        if info["rwkv"]["counts"] != rpred:
+            bad.append(f"rank {rk}: rwkv counted {info['rwkv']['counts']}, "
+                       f"the dry run {rpred}")
+        got = info["rwkv"]["tokens"]
+        div = first_static_divergence(prompts, got, want_tokens)
+        if div is not None:
+            i, n = div
+            gap = ref["rwkv"]["gaps"][n - len(prompts[i])][i]
+            print(f"[mesh-rwkv rank {rk}] row {i} diverges from the one "
+                  f"process at token {n}: its top-2 gap {gap:.3e}",
+                  flush=True)
+            if gap >= RWKV_TIE_GAP:
+                bad.append(f"rank {rk}: rwkv row {i} diverges at token {n}"
+                           f" with top-2 gap {gap:.3e} >= {RWKV_TIE_GAP}")
+        r = info["rwkv"]
+        print(f"[mesh-ep rank {rk}] granite EP: steps ms {info['ms']}; peak "
+              f"{info['peak'] / 2 ** 30:.2f} GiB ({info['peak']} B); payload "
+              f"B a step {info['counts'][0]} (sum "
+              f"{sum(info['counts'][0].values())}); its blocks of the first "
+              f"step's state: {info['leaves'] - len(info['off'])} of "
+              f"{info['leaves']} leaves within atol {MULTI_PARAM_ATOL} + "
+              f"rtol {MULTI_PARAM_RTOL}, max |diff| {info['worst']:.3e}; "
+              f"rwkv: prefill {r['prefill_s']:.3f} s (one process "
+              f"{ref['rwkv']['prefill_s']:.3f}), decode {r['decode_s']:.3f} "
+              f"s (one process {ref['rwkv']['decode_s']:.3f}), peak "
+              f"{r['peak'] / 2 ** 30:.2f} GiB, token-identical to the one "
+              f"process: {got == want_tokens}; {card_line()}", flush=True)
+    got = ranks[0]
+    loss_d = max(abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                     ref["loss"]))
+    gn_d = max(abs(a - b) / abs(b) for a, b in zip(got["grad_norm"],
+                                                   ref["grad_norm"]))
+    print(f"[mesh-ep] granite EP (2, 2) vs one process over "
+          f"{MESH_EP['steps']} steps: losses {got['loss']!r} vs "
+          f"{ref['loss']!r}, max rel diff {loss_d:.3e} (limit "
+          f"{MESH_LOSS_RTOL}); grad norms {got['grad_norm']!r} vs "
+          f"{ref['grad_norm']!r}, max rel diff {gn_d:.3e} (limit "
+          f"{MESH_GN_RTOL}); payloads equal to the dry run's on every rank: "
+          f"{all(c == pred for info in ranks for c in info['counts'])}",
+          flush=True)
+    if not (loss_d <= MESH_LOSS_RTOL and gn_d <= MESH_GN_RTOL):
+        bad.append("granite EP: the (2, 2) steps part from the one "
+                   "process's")
+    if any(info["loss"] != got["loss"] for info in ranks):
+        bad.append("granite EP: the ranks' losses differ")
+    if bad:
+        fail("phase 22: " + "; ".join(bad))
+    total = {"mesh_ep": {}, "mesh_rwkv": {}}
+    for info in ranks:
+        for path, ran in (("mesh_ep", info["launches"]),
+                          ("mesh_rwkv", info["rwkv"]["launches"])):
+            for k, v in ran.items():
+                total[path][k] = total[path].get(k, 0) + v
+    return {**total, **ref["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -6630,7 +7074,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # rwkv6: the WKV kernel, then the static engine on the dense model at
-    # full width and depth and on its upcycled channel-mix MoE.
+    # full width (RWKV_LAYERS layers) and on its upcycled channel-mix MoE.
     records.append(check_rwkv_kernel(get_config("rwkv6-7b"), device))
     rwkv_launches = rwkv_dense(device)
     torch.cuda.empty_cache()

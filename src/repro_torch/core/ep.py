@@ -25,12 +25,11 @@ all-to-alls (dispatch + return). Each rank:
    the SOURCE rank (weight multiply + ``routing.sum_rows``, the
    fixed-order combine), so combine weights never travel.
 
-The rows' all-to-all is differentiable
-(``all_to_all_single_autograd``: its backward is the same exchange
-reversed), so autograd carries the gradients of the rank's tokens and of
-its experts from every source. The reference's psum transpose of the
-replicated-in expert weights — the sum of their gradients over the
-non-``model`` axes — is the train step's reduction
+The rows' all-to-all is differentiable (its backward is the same
+exchange of the gradient), so autograd carries the gradients of the
+rank's tokens and of its experts from every source. The reference's
+psum transpose of the replicated-in expert weights — the sum of their
+gradients over the non-``model`` axes — is the train step's reduction
 (``training/train_loop.py``). The module calls the group's collectives
 and nothing else: the transport is the process group's (NCCL across
 cards, gloo on the CPU or between ranks sharing a card).
@@ -42,6 +41,7 @@ import torch
 from repro_torch.configs import ArchConfig, MoECfg
 from repro_torch.core import routing as R
 from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
+from repro_torch.sharding import comm
 
 
 def ep_row_budget(n_local: int, ep: int, factor: float, block: int) -> int:
@@ -54,22 +54,37 @@ def ep_row_budget(n_local: int, ep: int, factor: float, block: int) -> int:
     return min(b, -(-n_local // block) * block)
 
 
-def _all_to_all(x: torch.Tensor, group, budget: int, ep: int):
-    """Equal-split all-to-all of ``ep`` blocks of ``budget`` rows over
-    ``group`` (differentiable for floating ``x``)."""
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
-    if x.is_floating_point():
-        from torch.distributed._functional_collectives import (
-            all_to_all_single_autograd,
-        )
-
-        splits = [budget] * ep
-        return all_to_all_single_autograd(x.contiguous(), splits, splits,
-                                          group)
+    comm._count("ep_all_to_all", x)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The equal-split exchange; its backward is the same exchange of
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group):
+    """Equal-split all-to-all of ``x``'s rows over ``group`` (one block
+    of ``budget`` rows a peer; differentiable for floating ``x``); each
+    exchange's input counted as ``ep_all_to_all``
+    (``sharding/comm.py``)."""
+    if x.is_floating_point():
+        return _AllToAll.apply(x, group)
+    return _exchange(x, group)
 
 
 def sorted_dispatch_ep(params, xg, r: R.Routing, cfg: ArchConfig,
@@ -121,8 +136,8 @@ def sorted_dispatch_ep(params, xg, r: R.Routing, cfg: ArchConfig,
     )[:ep * budget]
 
     # ---- dispatch all-to-all (tokens + local-expert ids) ------------
-    recv_x = _all_to_all(send_x, group, budget, ep)
-    recv_e = _all_to_all(send_e, group, budget, ep)
+    recv_x = _all_to_all(send_x, group)
+    recv_e = _all_to_all(send_e, group)
 
     # ---- local ragged sort by expert + grouped GEMM -----------------
     # The single-device path's layout (recv_e == E_loc marks an empty
@@ -145,7 +160,7 @@ def sorted_dispatch_ep(params, xg, r: R.Routing, cfg: ArchConfig,
     # ---- return all-to-all + combine on the source ------------------
     ys_pad = torch.cat([ys, ys.new_zeros((1, d))], 0)
     y_recv = ys_pad.new_zeros((Rr, d)).index_copy(0, perm, ys_pad[dest])
-    y_ret = _all_to_all(y_recv, group, budget, ep)
+    y_ret = _all_to_all(y_recv, group)
     w_eff = torch.where(keep, w.reshape(Nl), torch.zeros_like(
         w.reshape(Nl)))
     w_row = w_eff.new_zeros(ep * budget + 1).index_copy(

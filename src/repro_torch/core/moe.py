@@ -35,7 +35,7 @@ from repro_torch.core import routing as R
 from repro_torch.kernels import ops
 from repro_torch.kernels.grouped_mlp import ROW_BLOCK, ragged_destinations
 from repro_torch.models import param as pm
-from repro_torch.sharding import comm
+from repro_torch.sharding import EP_AXIS, comm
 
 
 @torch.library.custom_op("repro_torch::moe_block", mutates_args=())
@@ -223,6 +223,56 @@ def _serve_rows(ctx, moe: MoECfg, n: int):
     return i * n, (i + 1) * n
 
 
+def _ep_blocks(params, xg, r: R.Routing, cfg: ArchConfig, moe: MoECfg,
+               ctx, own, implementation: str):
+    """Expert parallelism under the rules' placement: the rank's rows
+    (``xg``, G groups, already through ``comm.copy_to_model``) and their
+    routing are the same on every rank over the axes the rows are
+    replicated over (``model``; in serving every axis the rows are not
+    split over). Each takes its contiguous block of the G groups, runs
+    ``core/ep.sorted_dispatch_ep`` on it with its ``E / m`` experts, and
+    the blocks are joined again (``comm.gather_blocks``, counted as
+    ``ep_all_gather``). The combine weights pass ``comm.copy_to_model``
+    before the cut, as the rows did: the peers' zero-padded block
+    gradients sum to the whole on every peer, and the join's backward
+    keeps the rank's block of a gradient every peer holds whole. The
+    global group count must divide the rank count (the reference's
+    ``ValueError``)."""
+    from repro_torch.core.ep import sorted_dispatch_ep
+
+    if ctx.serve is None:
+        rep = (EP_AXIS,)
+    else:
+        split = ctx.serve.batch_axes if own is None else ()
+        rep = tuple(a for a in ctx.shape if a not in split)
+    k, G = ctx.size(rep), xg.shape[0]
+    if G % k:
+        world = ctx.size(ctx.token_axes)
+        raise ValueError(
+            f"moe.ep='a2a' shards routing groups over all {world} mesh "
+            f"devices, but G={G * world // k} groups (tokens/group_size) "
+            f"is not divisible — pick batch*seq and group_size so that "
+            f"G % {world} == 0")
+    n = G // k
+    lo = ctx.index(rep) * n
+
+    def cut(t, weights=False):
+        if t is None:
+            return None
+        if weights:
+            t = comm.copy_to_model(t, ctx)
+        return t[lo:lo + n]
+
+    rb = r._replace(token_idx=cut(r.token_idx),
+                    combine=cut(r.combine, True), probs=cut(r.probs),
+                    token_expert=cut(r.token_expert),
+                    token_weight=cut(r.token_weight, True),
+                    token_slot=cut(r.token_slot))
+    y, over = sorted_dispatch_ep(params, cut(xg), rb, cfg, moe, ctx=ctx,
+                                 implementation=implementation)
+    return comm.gather_blocks(y, 0, ctx, rep, "ep_all_gather"), over
+
+
 def moe_apply(
     params,
     x: torch.Tensor,
@@ -250,21 +300,24 @@ def moe_apply(
     ``tag``: pass y through :func:`moe_block`, the boundary that
     ``remat="moe"`` saves (off by default: the tag copies y).
 
-    ``ctx``: a ``ShardCtx``. With ``dispatch="sorted"``, ``moe.ep ==
-    "a2a"`` and a mesh that can host expert parallelism, x holds this
-    rank's tokens, ``params["experts"]`` this rank's ``E / ep`` experts,
-    and the layer runs ``core/ep.sorted_dispatch_ep``. Otherwise, under
-    the rules' placement, x holds the data rank's tokens (the same on
-    every ``model`` peer): where ``params["experts"]`` holds the rank's
-    ``E / m`` experts (the reference's expert-resident layout) or every
-    expert's block of ``mlp``, each dispatch runs on the rank's part
-    (:func:`_local_routing`) and the partial outputs are added over
-    ``model``; a sharded router's local logits are gathered so that
-    every peer routes alike. Under a ctx with more than one data rank
-    the rank's tokens must form whole routing groups (else
-    ``ValueError``): the single-process step's groups. The metrics
-    always hold ``ep_overflow_frac``, 0 outside the expert-parallel
-    path.
+    ``ctx``: a ``ShardCtx``. Under the rules' placement (a tensor
+    parallel ctx) x holds the data rank's tokens (the same on every
+    ``model`` peer) and a sharded router's local logits are gathered so
+    that every peer routes alike. With ``dispatch="sorted"``, ``moe.ep
+    == "a2a"`` and a mesh that can host expert parallelism, each peer
+    then runs ``core/ep.sorted_dispatch_ep`` on its block of the groups
+    with its ``E / m`` experts and the blocks are joined
+    (:func:`_ep_blocks`); otherwise, where ``params["experts"]`` holds
+    the rank's ``E / m`` experts (the reference's expert-resident
+    layout) or every expert's block of ``mlp``, each dispatch runs on
+    the rank's part (:func:`_local_routing`) and the partial outputs
+    are added over ``model``. Under an expert-only ctx (not tensor
+    parallel) with expert parallelism, x holds this rank's own tokens
+    and the layer runs ``sorted_dispatch_ep`` on them. Under a ctx with
+    more than one data rank the rank's tokens must form whole routing
+    groups (else ``ValueError``): the single-process step's groups. The
+    metrics always hold ``ep_overflow_frac``, 0 outside the
+    expert-parallel path.
 
     Under a serving ctx (``sharding.serve_layout``) the rows of a static
     batch split over data ranks are routed as the global batch's groups:
@@ -307,8 +360,8 @@ def moe_apply(
     # experts, or every expert's block of ``mlp``.
     tp = (ctx is not None and ctx.tp_size > 1
           and (El != E or ex["wi"].shape[-1] != cfg.d_ff))
-    if ctx is not None and ctx.groups and not ep and ctx.serve is None \
-            and ctx.size(ctx.replica_axes) > 1 \
+    if ctx is not None and ctx.groups and not (ep and not tp) \
+            and ctx.serve is None and ctx.size(ctx.replica_axes) > 1 \
             and (pad or g != moe.group_size):
         raise ValueError(
             f"the rules shard the batch over "
@@ -327,7 +380,10 @@ def moe_apply(
     r = R.route(logits, moe, router_kind, token_mask=mg,
                 slot_tables=dispatch != "sorted")
     ep_overflow = logits.new_zeros(())
-    if tp:
+    if tp and ep:
+        y, ep_overflow = _ep_blocks(params, xt, r, cfg, moe, ctx, own,
+                                    implementation)
+    elif tp:
         kw = {"cap": R.capacity(g, moe)} if dispatch == "sorted" else {}
         y = dispatches[dispatch](
             params, xt, _local_routing(r, ctx.tp_rank * El, El, ctx), cfg,
@@ -356,7 +412,7 @@ def moe_apply(
         y = y[:n]
     if own is not None:
         y = y[own[0]:own[1]]
-        if tp:
+        if tp and not ep:
             y = comm.reduce_from_model(y, ctx)
     y = y.reshape(orig_shape).to(x.dtype)
     if tag:

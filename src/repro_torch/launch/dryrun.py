@@ -143,7 +143,9 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
     ``cache_len`` positions, its rows over the data axes where the
     cache's ``batch`` spec splits them; "mixed": a paged step (mixed,
     verify, prefill-on-join or decode) of ``tokens`` rows replicated
-    over the data axes, ``logits_rows`` of logits. Per attention layer:
+    over the data axes, ``logits_rows`` of logits. Per rwkv layer whose
+    heads split over ``model``: the time mix's ``wo`` all-reduce. Per
+    attention layer:
     ``wo``'s all-reduce; where the static cache lies over ``model`` by
     position (``cache_seq``) or is replicated, the gathers of the step's
     k and v, and at a decode step of q, and with ``cache_seq`` the
@@ -194,8 +196,13 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
         out_rows = B_l
     else:
         D, Sq, n, mode, out_rows = 1, 1, tokens, "heads", logits_rows
-    plan = head_plan(cfg, m) if m > 1 else None
-    for desc in stk.layer_descs(cfg):
+    descs = stk.layer_descs(cfg)
+    plan = head_plan(cfg, m) if m > 1 and any(
+        d.mixer == "attn" for d in descs) else None
+    H = cfg.d_model // cfg.ssm.head_size if cfg.ssm is not None else 0
+    for desc in descs:
+        if m > 1 and desc.mixer == "rwkv6" and H % m == 0:
+            add("tp_all_reduce", n * d * it, m, 2)  # the time mix's wo
         if m > 1 and desc.mixer == "attn":
             if plan is not None:
                 add("tp_all_reduce", n * d * it, m, 2)
@@ -244,7 +251,12 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
     back), ``model_all_gather`` (a leaf over ``model`` in a module that
     runs no tensor parallelism), ``tp_all_reduce`` (attention, MLP and
     MoE inputs' gradients and outputs, a vocab-parallel lookup, head
-    and cross-entropy) and ``router_all_gather``. ``tokens`` is the
+    and cross-entropy) and ``router_all_gather``; with expert
+    parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh that
+    hosts it) a MoE layer's all-to-alls at each peer's block of its
+    data rank's groups (``ep_all_to_all``, :func:`ep_a2a_bytes`) and
+    the blocks' join (``ep_all_gather``) in place of the partial
+    outputs' sum. ``tokens`` is the
     global batch's; ``remat`` other than none runs the stack's forward
     collectives twice. Decoder-only and encoder-only stacks with
     attention mixers are modelled layer by layer; an encoder-decoder's
@@ -272,6 +284,7 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
     D = math.prod(v for a, v in sizes.items() if a != EP_AXIS)
     rules = make_rules(mesh, params=True,
                        overrides=dict(cfg.sharding_overrides or {}) or None)
+    ep = _ep_degree(cfg, mesh, dispatch) > 1
     from repro_torch.sharding.comm import KINDS
 
     out = dict.fromkeys(KINDS, 0)
@@ -343,6 +356,15 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
                 if E % m == 0 or cfg.d_ff % m == 0:
                     fwd, bwd, r = _moe_tp_payloads(cfg, moe, rows, m,
                                                    dispatch, router, it)
+                    if ep:
+                        # Each peer's block of the groups through the
+                        # all-to-alls, the blocks joined; no partial sum.
+                        a2a = ep_a2a_bytes(cfg, tokens_per_rank=rows // m,
+                                           ep=m, itemsize=it)
+                        out["ep_all_to_all"] += passes * a2a["forward"] \
+                            + a2a["backward"]
+                        out["ep_all_gather"] += passes * fwd
+                        fwd = 0
                     ar += passes * fwd + bwd
                     gather += passes * r
             elif cfg.d_ff % m == 0:
@@ -400,52 +422,59 @@ def _rules_collectives(cfg, out, *, params, mesh, dispatch, remat,
     out["counts"]["all-reduce"] += 1 if out["grad_all_reduce"] else 0
     ring = {"fsdp_all_gather": (D, 1), "fsdp_reduce_scatter": (D, 1),
             "model_all_gather": (m, 1), "router_all_gather": (m, 1),
-            "tp_all_reduce": (m, 2)}
+            "tp_all_reduce": (m, 2), "ep_all_to_all": (m, 1),
+            "ep_all_gather": (m, 1)}
     out["bytes"] = out["grad_all_reduce"] + sum(
         f * pay[k] * (w - 1) // w for k, (w, f) in ring.items() if w > 1)
     return out
 
 
-def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
-                     mesh, tokens: int, itemsize: int, batch: int = 0,
-                     seq: int = 0) -> dict:
-    """The collectives a device runs in one step of the port's runtime
-    on ``mesh``, in bytes it sends. Training under the rules' placement:
-    :func:`_rules_collectives`. Training under expert parallelism: the
-    gradients' float32 all-reduce (``train_loop.reduce_grads``; a ring
-    sends 2 (W - 1) / W of the buffer), every leaf over the whole mesh
-    but expert leaves, which reduce over the mesh's other axes. Expert
-    parallelism (sorted dispatch, ``moe.ep == "a2a"``, a mesh
-    that hosts it): each MoE layer's all-to-alls (:func:`ep_a2a_bytes`),
-    the forward's again under ``remat`` full or dots (the layer is
-    recomputed) and the backward's in training. Prefill and decode cells
-    without expert parallelism: the static engine's step under the
-    rules' serving placement (:func:`serve_collective_payloads`, a
-    ``batch`` x ``seq`` prompt or one token a row against a cache of
-    ``seq``), under ``"payloads"``."""
-    from repro_torch.models import param as pm
-    from repro_torch.models import stack as stk
-    from repro_torch.sharding import (
-        ep_dim,
-        expert_parallel_layout,
-        mesh_shape,
-    )
+def _ep_degree(cfg, mesh, dispatch: str) -> int:
+    """The ``model`` ranks a MoE layer's all-to-all spans (1 without
+    expert parallelism)."""
+    from repro_torch.sharding import expert_parallel_layout, mesh_shape
 
-    sizes = mesh_shape(mesh)
-    n = math.prod(sizes.values())
     moe = cfg.moe
-    ep = 1
     if (moe is not None and dispatch == "sorted" and moe.ep == "a2a"
             and expert_parallel_layout(mesh, moe.num_experts) is not None):
-        ep = sizes["model"]
+        return mesh_shape(mesh)["model"]
+    return 1
+
+
+def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
+                     mesh, tokens: int, itemsize: int, batch: int = 0,
+                     seq: int = 0, tensor_parallel: bool = False) -> dict:
+    """The collectives a device runs in one step of the port's runtime
+    on ``mesh``, in bytes it sends. Training under the rules' placement
+    (with expert parallelism, for a ``tensor_parallel`` ctx:
+    ``train_layout``): :func:`_rules_collectives`. Training under the
+    expert-only layout: the gradients' float32 all-reduce
+    (``train_loop.reduce_grads``; a ring sends 2 (W - 1) / W of the
+    buffer), every leaf over the whole mesh but expert leaves, which
+    reduce over the mesh's other axes, and each MoE layer's all-to-alls
+    (sorted dispatch, ``moe.ep == "a2a"``, a mesh that hosts it;
+    :func:`ep_a2a_bytes`), the forward's again under ``remat`` full or
+    dots (the layer is recomputed) and the backward's. Prefill and
+    decode cells of attention or rwkv stacks without expert
+    parallelism: the static engine's step under the rules' serving
+    placement (:func:`serve_collective_payloads`, a ``batch`` x ``seq``
+    prompt or one token a row against a cache of ``seq``), under
+    ``"payloads"``; with it, the all-to-alls of the forward."""
+    from repro_torch.models import param as pm
+    from repro_torch.models import stack as stk
+    from repro_torch.sharding import ep_dim, mesh_shape
+
+    n = math.prod(mesh_shape(mesh).values())
+    ep = _ep_degree(cfg, mesh, dispatch)
     out = {"grad_all_reduce": 0, "a2a_forward": 0, "a2a_backward": 0,
            "counts": {"all-reduce": 0, "all-to-all": 0}}
-    if ep == 1 and kind == "train":
+    if kind == "train" and (ep == 1 or tensor_parallel):
         return _rules_collectives(cfg, out, params=params, mesh=mesh,
                                   dispatch=dispatch, remat=remat,
                                   tokens=tokens, itemsize=itemsize)
-    if ep == 1 and cfg.structure == "decoder_only" and all(
-            d.mixer == "attn" for d in stk.layer_descs(cfg)):
+    mixers = {d.mixer for d in stk.layer_descs(cfg)}
+    if ep == 1 and cfg.structure == "decoder_only" \
+            and mixers in ({"attn"}, {"rwkv6"}):
         step = 1 if kind == "decode" else seq
         r = serve_collective_payloads(
             cfg, mesh=mesh, kind=kind, tokens=batch * step,
@@ -530,7 +559,8 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
         cfg, kind=shp.kind, params=params, dispatch=ac.dispatch,
         remat=ac.remat, mesh=mesh, tokens=shp.global_batch * shp.seq_len,
         itemsize=torch.empty((), dtype=ac.cdtype).element_size(),
-        batch=shp.global_batch, seq=shp.seq_len)
+        batch=shp.global_batch, seq=shp.seq_len,
+        tensor_parallel=ctx.tensor_parallel)
 
     flops_dev = cost["total_flops"] / n_chips
     bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \

@@ -102,21 +102,34 @@ def _heads(x, w):
 
 
 def time_mix_apply(p, x, cfg: ArchConfig, *, cache=None,
-                   implementation="auto"):
+                   implementation="auto", ctx=None):
     """x: (B, T, d) -> (y, cache). With a cache (the reference's modes
     "prefill" and "decode", which run alike) the step starts from its
     ``x_prev`` and ``wkv`` state and leaves the new ones in it, in place;
     without one (its "train" mode) it starts from zeros and returns
-    None."""
+    None.
+
+    Tensor parallel over heads (a serving ctx, ``sharding.serve_layout``,
+    whose weights hold the rank's ``H / m`` heads; read off ``wr``'s
+    shape): x is whole on every ``model`` peer; the token shift and the
+    decay ``w0 + lora(x)`` run at full d and are cut to the rank's
+    heads' columns; ``wr``, ``wk``, ``wv``, ``wg`` and ``u`` are its
+    head blocks, the WKV state its heads, ``ln_x`` a group norm on its
+    heads with its block of the scale and bias; ``wo`` is row parallel
+    (``comm.reduce_from_model``)."""
     from repro_torch.kernels import ops
 
     H, K = _hk(cfg)
     B, T, d = x.shape
+    Hl = p["wr"].shape[1]
+    c0 = ctx.tp_rank * Hl * K if Hl != H else 0
+    cols = slice(c0, c0 + Hl * K)
     xs = _shift(x, None if cache is None else cache["x_prev"])
     xx = xs - x
     xw, xk, xv, xr, xg = (x + xx * p["mu"][i] for i in range(5))
     w_raw = p["w0"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = torch.exp(-torch.exp(w_raw.float())).reshape(B, T, H, K)
+    w = torch.exp(-torch.exp(w_raw[..., cols].float())).reshape(
+        B, T, Hl, K)
     r = _heads(xr, p["wr"])
     k = _heads(xk, p["wk"])
     v = _heads(xv, p["wv"])
@@ -126,10 +139,15 @@ def time_mix_apply(p, x, cfg: ArchConfig, *, cache=None,
         initial_state=None if cache is None else cache["wkv"],
         implementation=implementation,
     )
-    o = _group_norm(o.reshape(B, T, d), p["ln_x"]["scale"],
-                    p["ln_x"]["bias"], H)
-    o = o.reshape(B, T, H, K) * g
-    y = (o.reshape(B * T, d) @ p["wo"].reshape(d, d)).reshape(B, T, d)
+    o = _group_norm(o.reshape(B, T, Hl * K), p["ln_x"]["scale"][cols],
+                    p["ln_x"]["bias"][cols], Hl)
+    o = o.reshape(B, T, Hl, K) * g
+    y = (o.reshape(B * T, Hl * K) @ p["wo"].reshape(Hl * K, d)).reshape(
+        B, T, d)
+    if Hl != H:
+        from repro_torch.sharding import comm
+
+        y = comm.reduce_from_model(y, ctx)
     if cache is None:
         return y, None
     cache["x_prev"].copy_(x[:, -1])

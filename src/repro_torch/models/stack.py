@@ -188,10 +188,11 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
     the ``remat="moe"`` boundary. ``pad_heads_multiple`` pads the
     attention's query heads (``attention.pad_heads``). ``ctx`` (a
-    ``ShardCtx``) reaches the attention, the MLP and the MoE layer:
-    each runs tensor parallel on the ``model`` blocks its weights hold
-    (``sharding/comm.params_for_compute``), the MoE expert-parallel
-    under ``moe.ep == "a2a"`` instead. Returns (x, metrics, cache), the cache
+    ``ShardCtx``) reaches the attention, the rwkv time mix, the MLP
+    and the MoE layer: each runs tensor parallel on the ``model`` blocks
+    its weights hold (``sharding/comm.params_for_compute``,
+    ``ServeLayout.place``), the MoE expert-parallel under ``moe.ep ==
+    "a2a"`` with the sorted dispatch. Returns (x, metrics, cache), the cache
     updated in place."""
     h = norm_apply(p["pre_norm"], x, cfg)
     mix_cache = None if cache is None else cache["mixer"]
@@ -207,7 +208,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
                                mode=mode)
     else:
         y, _ = rwkv.time_mix_apply(p["mixer"], h, cfg, cache=mix_cache,
-                                   implementation=mixer_impl)
+                                   implementation=mixer_impl, ctx=ctx)
     x = x + y
     if desc.cross:
         hc = norm_apply(p["cross_norm"], x, cfg)

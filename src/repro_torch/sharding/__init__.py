@@ -10,8 +10,9 @@ rules; the port's runtime applies the placement explicitly
 (:func:`train_layout`): the reference's ``tree_specs(state_axes(cfg))``
 — ``embed`` over ``data`` (FSDP), ``heads``, ``kv_heads``, ``mlp``,
 ``vocab`` and ``expert`` over ``model`` (tensor parallel), tokens over
-the data axes — or, with expert parallelism (``moe.ep == "a2a"``,
-sorted dispatch, a mesh ``expert_parallel_layout`` accepts), each
+the data axes, the MoE expert-parallel under ``moe.ep == "a2a"`` —
+or, for a ctx that is not ``tensor_parallel`` with expert parallelism
+(sorted dispatch, a mesh ``expert_parallel_layout`` accepts), each
 expert leaf's ``expert`` dim over ``model`` and every other leaf
 replicated, tokens over every axis. A :class:`TreeLayout` holds each
 leaf's spec and moves between the global tree and a rank's
@@ -97,10 +98,13 @@ class ShardCtx:
     act_rules: Rules
     param_rules: Rules
     groups: Mapping[tuple, Any] = dataclasses.field(default_factory=dict)
-    # Set by the rules' layout (``train_layout``): the model's modules
-    # run tensor parallel over ``model`` (the ranks of a ``model`` group
-    # hold the same tokens). Off under expert parallelism, where they
-    # hold different tokens.
+    # The model's modules run tensor parallel over ``model`` (the ranks
+    # of a ``model`` group hold the same tokens). Set by the rules'
+    # layout (``train_layout``, ``serve_layout``); a ctx given it
+    # (``dataclasses.replace(ctx, tensor_parallel=True)``) asks
+    # ``train_layout`` for the rules' placement under expert parallelism
+    # too, which otherwise keeps the expert-only layout (the ranks hold
+    # different tokens).
     tensor_parallel: bool = False
     # Set by ``serve_layout``: how a serving step's rows and KV caches lie
     # over the mesh. None in training.
@@ -339,7 +343,7 @@ class TreeLayout:
     holds the contiguous block of every sharded dim at its row-major
     coordinate over the dim's axes, as ``NamedSharding`` places it.
     ``token_axes``: the axes the batch's rows are split over (every
-    axis under expert parallelism, the data axes under the rules). A
+    axis in the expert-only layout, the data axes under the rules). A
     checkpoint holds the global tree: rank 0 writes it and the others
     wait (:meth:`barrier`)."""
 
@@ -380,14 +384,19 @@ class TreeLayout:
 
 def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
     """The layout of a train state under ``ctx``, None without a ctx or
-    a process group. With expert parallelism (a MoE arch, sorted
-    dispatch, ``moe.ep == "a2a"``, a mesh that can host it) the expert
-    leaves are sliced over ``model`` on their ``expert`` dim and every
-    other leaf is replicated, tokens split over every axis. Otherwise
-    the reference's placement: ``tree_specs(state_axes(cfg), state,
-    mesh, param_rules)`` — ``embed`` over ``data`` (FSDP), ``heads``,
-    ``kv_heads``, ``mlp``, ``vocab`` and ``expert`` over ``model``
-    (tensor parallel) — with tokens split over the data axes."""
+    a process group: the reference's placement, ``tree_specs(
+    state_axes(cfg), state, mesh, param_rules)`` — with the default
+    rules ``embed`` over ``data`` (FSDP), ``heads``, ``kv_heads``,
+    ``mlp``, ``vocab`` and ``expert`` over ``model`` (tensor parallel)
+    — with tokens split over the data axes and the model's modules
+    tensor parallel over ``model``; expert parallelism (a MoE arch,
+    sorted dispatch, ``moe.ep == "a2a"``, a mesh that can host it) then
+    runs on each peer's block of its data rank's routing groups
+    (``core/moe.py``). A ctx that is not ``tensor_parallel`` (as
+    ``ShardCtx.for_mesh`` builds it) keeps expert
+    parallelism without tensor parallelism: the expert leaves sliced
+    over ``model`` on their ``expert`` dim, every other leaf replicated,
+    tokens split over every axis."""
     if ctx is None or not ctx.groups:
         return None
     from repro_torch.core.moe import ep_active
@@ -395,7 +404,7 @@ def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
 
     axes = state_axes_of(state, param_axes(cfg))
     if cfg.moe is not None and dispatch == "sorted" \
-            and ep_active(ctx, cfg.moe):
+            and ep_active(ctx, cfg.moe) and not ctx.tensor_parallel:
         return TreeLayout(ctx, _map(lambda a: _dim_spec(ep_dim(a)), axes),
                           ctx.token_axes)
     return TreeLayout(dataclasses.replace(ctx, tensor_parallel=True),
@@ -425,17 +434,13 @@ def _check_serving_stack(cfg) -> None:
     from repro_torch.models import stack as stk
 
     mixers = sorted({d.mixer for d in stk.layer_descs(cfg)})
-    if cfg.structure != "decoder_only" or mixers != ["attn"]:
+    if cfg.structure != "decoder_only" or mixers not in (["attn"],
+                                                          ["rwkv6"]):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.structure}, mixers {mixers}): serving under "
-            "a mesh runs decoder-only attention stacks; rwkv, mamba and "
+            "a mesh runs decoder-only attention and rwkv stacks; mamba and "
             "encoder-decoder stacks under a serving mesh are ROADMAP "
             "queue 1")
-    if cfg.moe is not None and cfg.moe.ep == "a2a":
-        raise NotImplementedError(
-            f"{cfg.name}: moe.ep='a2a' under a serving mesh (expert "
-            "parallelism composed with tensor parallelism is ROADMAP "
-            "queue 1); serve with moe.ep='none'")
 
 
 def _walk(fn, tree, *others, path=()):
@@ -489,11 +494,20 @@ class ServeLayout:
 
             specs = tree_specs(serve_cache_axes(cfg), cache, ctx.mesh,
                                ctx.act_rules)
-            # Every attention layer's cache has one shape: one spec.
-            spec = specs["stack"]["segments"][0]["pos0"]["mixer"]["k"]
+            # Every layer's cache has one shape: one spec. An attention
+            # layer's k (layer batch cache_seq kv_heads head_dim); an
+            # rwkv layer's WKV state (layer batch heads head_dim
+            # head_dim), its x_prev replicated over model.
+            mixer = specs["stack"]["segments"][0]["pos0"]["mixer"]
+            spec = mixer["k"] if "k" in mixer else mixer["wkv"]
             spec = tuple(spec) + (None,) * (5 - len(spec))
-            batch, seq, heads = (entry_axes(e) for e in spec[1:4])
-            for name, axes in (("cache_seq", seq), ("kv_heads", heads)):
+            if "k" in mixer:
+                batch, seq, heads = (entry_axes(e) for e in spec[1:4])
+            else:
+                batch, seq, heads = (entry_axes(spec[1]), (),
+                                     entry_axes(spec[2]))
+            for name, axes in (("cache_seq", seq), (
+                    "kv_heads" if "k" in mixer else "heads", heads)):
                 if axes and axes != (EP_AXIS,):
                     raise ValueError(
                         f"{cfg.name}: the static cache's {name} over "
@@ -528,8 +542,9 @@ class ServeLayout:
         (FSDP, once), every dim over ``model`` cut to the rank's block
         where its module runs tensor parallel
         (``comm._tensor_parallel``: attention, the FFNs, the embedding
-        table and the head), whole elsewhere. A MoE router stays whole:
-        every peer routes alike, so its logits need no gather a step."""
+        table and the head; in serving also the rwkv time mix's heads),
+        whole elsewhere. A MoE router stays whole: every peer routes
+        alike, so its logits need no gather a step."""
         from repro_torch.sharding.comm import _tensor_parallel
 
         ctx = self.ctx
@@ -539,7 +554,7 @@ class ServeLayout:
                 return t
             for d, e in enumerate(spec):
                 if entry_axes(e) == (EP_AXIS,) \
-                        and _tensor_parallel(path, parent):
+                        and _tensor_parallel(path, parent, serving=True):
                     n = t.shape[d] // ctx.size((EP_AXIS,))
                     t = t.narrow(d, ctx.index((EP_AXIS,)) * n, n).clone()
             return t
@@ -604,8 +619,8 @@ def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
     each leaf global or as the rank's block under its spec (else
     ``ValueError``); :meth:`ServeLayout.place` gives the rank's. The
     model runs under ``layout.ctx`` (tensor parallel, with the
-    :class:`ServePlan`). Decoder-only
-    attention stacks only (``NotImplementedError`` otherwise); a
+    :class:`ServePlan`). Decoder-only attention and rwkv stacks only
+    (``NotImplementedError`` otherwise); a
     placement the port cannot run raises ``ValueError`` naming the leaf
     and its spec. Needs no process group."""
     from repro_torch.models import model_zoo as zoo

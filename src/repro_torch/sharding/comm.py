@@ -21,7 +21,9 @@ replicated over ``model``:
 * :func:`gather_replicated` — all-gather forward, the rank's block of
   the gradient backward: a computation every ``model`` peer repeats
   identically (the router's logits; a weight whose module runs no
-  tensor parallelism).
+  tensor parallelism); :func:`gather_blocks` over any axes (the
+  expert-parallel MoE's outputs, each peer having computed its block
+  of the groups).
 
 :func:`params_for_compute` applies them to a rank's params at the top of
 a step. Gloo has no reduce-scatter: on a gloo group it is built from
@@ -29,9 +31,10 @@ an all-to-all (each rank's blocks sent to their owners, who add them
 in rank order; ``_reduce_scatter``); all-gather and all-reduce are
 gloo's own. Gloo stages CUDA tensors through host memory. Each
 collective adds its payload bytes (an all-gather's output, a
-reduce-scatter's input, an all-reduce's tensor) to :data:`COUNTS` under
-its kind; ``launch/dryrun.rules_collective_payloads`` models the same
-sums.
+reduce-scatter's input, an all-reduce's tensor, an all-to-all's input)
+to :data:`COUNTS` under its kind (``core/ep.py``'s all-to-alls as
+``ep_all_to_all``); ``launch/dryrun.rules_collective_payloads`` models
+the same sums.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ import torch
 
 KINDS = ("fsdp_all_gather", "fsdp_reduce_scatter", "tp_all_reduce",
          "router_all_gather", "model_all_gather", "cache_all_gather",
-         "softmax_combine", "row_all_gather", "logits_all_gather")
+         "softmax_combine", "row_all_gather", "logits_all_gather",
+         "ep_all_to_all", "ep_all_gather")
 COUNTS = dict.fromkeys(KINDS, 0)
 
 
@@ -187,6 +191,17 @@ def gather_replicated(x, dim: int, ctx, kind: str = "router_all_gather"):
     return _GatherReplicated.apply(x, dim, g, ctx.tp_size, kind)
 
 
+def gather_blocks(x, dim: int, ctx, axes, kind: str):
+    """The blocks of ``x`` along ``dim`` held by the ranks over
+    ``axes``, joined in their row-major order; the backward keeps the
+    rank's block of the gradient, which every rank holds whole (no
+    sum). ``x`` itself over one rank."""
+    n = ctx.size(axes)
+    if n == 1:
+        return x
+    return _GatherReplicated.apply(x, dim, ctx.group(axes), n, kind)
+
+
 def gather_rows(x, ctx, axes, kind: str):
     """The blocks of ``x`` along dim 0 held by the ranks over ``axes``,
     joined in their row-major order (no gradient; ``x`` itself over one
@@ -204,14 +219,21 @@ def gather_rows(x, ctx, axes, kind: str):
 # ---------------------------------------------------------------------------
 
 ATTENTION_KEYS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+# The rwkv time mix's per-head leaves (a dict with ``w_lora_a``).
+RWKV_HEAD_KEYS = ("wr", "wk", "wv", "wg", "u", "wo")
 
 
-def _tensor_parallel(path: tuple, parent: dict) -> bool:
+def _tensor_parallel(path: tuple, parent: dict,
+                     serving: bool = False) -> bool:
     """Whether the module owning the leaf at ``path`` runs tensor
     parallel on its ``model`` blocks: attention (a dict with ``wq``),
     every FFN (``ffn``: the MLP, the router and the experts), the
-    embedding table (vocab-parallel lookup) and the head."""
+    embedding table (vocab-parallel lookup) and the head; ``serving``
+    also the rwkv time mix over its heads (``models/rwkv.py``; its
+    training step joins them)."""
     if "ffn" in path or path in (("embed", "tokens"), ("head", "w")):
+        return True
+    if serving and "w_lora_a" in parent and path[-1] in RWKV_HEAD_KEYS:
         return True
     return "wq" in parent and path[-1] in ATTENTION_KEYS
 
