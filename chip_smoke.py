@@ -82,8 +82,8 @@ any failure, before printing its result line. It
     bit for bit from the full train-state checkpoint and upcycles them
     into granite-moe-1b-a400m, which trains 2 steps (sorted dispatch) to
     a checkpoint; ``launch.serve.load_params`` restores it bit for bit
-    and the 12 requests of 4 are served from it and from the Trainer's
-    in-memory params (both conditioned as in 4), token-identical; then ``launch.train.main --upcycle-from``
+    (the Trainer's in-memory params) and the 12 requests of 4 are served
+    from it (conditioned as in 4); then ``launch.train.main --upcycle-from``
     and ``launch.serve.main --ckpt-dir --paged`` run once each. Every
     step's launches are counted; every save and restore is timed (bytes,
     seconds, GB/s);
@@ -108,9 +108,9 @@ any failure, before printing its result line. It
 15. serves granite (phase 4's weights and SERVE settings, the 12
     requests) through the rest of the serving engine: (1)
     ``admission="prefill_on_join"`` (bucketed B = 1 prefills through the
-    flash forward, batched decode steps) through the kernels and the
-    plain versions, token-identical to each other and to phase 4's
-    chunked outputs, launches and one compile per bucket checked, one
+    flash forward, batched decode steps) through the kernels,
+    token-identical to phase 4's chunked outputs (held against the plain
+    versions), launches and one compile per bucket checked, one
     prefill and one decode step witnessed, the flash forward timed at
     the buckets; (2) speculative decoding at spec_k 4 on a fresh upcycle
     of the dense parent at SPEC_LAYERS layers (copy init, normalised
@@ -179,11 +179,12 @@ any failure, before printing its result line. It
     for token; (b) in a world of one NCCL rank ``launch.train.main`` with
     ``--ep a2a`` trains granite 2 steps at 8 x 512 to the same bits as
     ``--ep none`` (no mesh can host expert parallelism: the fallback);
-    (c) granite upcycled from a conditioned dense init takes 1
+    (c) granite upcycled from a conditioned dense init (12 of its 24
+    layers since phase 23 joined the smoke: its time limit) takes 1
     expert-parallel step at a global 8 x 512 on 2 spawned ranks sharing
     the card (gloo, which stages CUDA tensors through host memory; mesh
     (data=1, model=2), 16 of the 32 experts a rank, routing groups of
-    2,048), each rank's grouped and flash launches exact (24 a kernel a
+    2,048), each rank's grouped and flash launches exact (12 a kernel a
     step) and its first step witnessed, held against the single-process
     sorted steps (run first, on the same weights and batches, in 2
     microbatches of the ranks' rows: the same shapes route alike): the
@@ -217,9 +218,10 @@ any failure, before printing its result line. It
     mesh (data=2, model=2) — FSDP of ``embed`` over data, heads, kv
     heads, ``mlp`` and ``vocab`` tensor parallel over model, the MoE's
     experts resident over model (``sharding.train_layout``,
-    ``sharding/comm.py``) — (a) granite upcycled at full width and
-    depth, sorted dispatch, ep "none", 2 Adafactor steps at a global
-    8 x 512 in groups of 2,048 (8 of 16 heads, 16 of 32 experts a rank)
+    ``sharding/comm.py``) — (a) granite upcycled at full width and 12
+    of its 24 layers, sorted dispatch, ep "none", 2 Adafactor steps at
+    a global 8 x 512 in groups of 2,048 (8 of 16 heads, 16 of 32
+    experts a rank)
     and (b) the ViT upcycled at full width and depth, gather dispatch,
     Expert Choice, its 1,000-class head vocab-parallel, 2 steps at a
     global 16 images in groups of 784 tokens; each against one process
@@ -251,7 +253,10 @@ any failure, before printing its result line. It
     Every rank's tokens identical to the one process's (a top-2 gap
     below 1e-4 excepted), ``compile_count`` 1, every request completed,
     no block leaked, its pools within 1e-3 of its KV-head block of the
-    one process's, exact launches (flash forward and expert forward
+    one process's (at most ``MESH_POOL_ROWS`` rows outside, each traced
+    to its request, position and the router's top-8 gaps there, on the
+    rank and in the one process, and held to sit above a gap below
+    ``TIE_GAP``), exact launches (flash forward and expert forward
     static, decode, paged prefill and grouped paged) at the local
     shapes, one static prefill and decode step and one mixed step
     witnessed, and the payload bytes of each kind of collective in them
@@ -260,9 +265,10 @@ any failure, before printing its result line. It
     prefill kernels timed at a rank's 8/4 heads;
 22. on the same ranks after phase 21 (``[mesh-ep]``, ``[mesh-rwkv]``
     and ``[mesh-ep rank R]`` lines): (a) granite upcycled at full width
-    and depth trained expert-parallel under the rules' placement
-    (sorted dispatch, ``moe.ep="a2a"``, a ``tensor_parallel`` ctx: FSDP
-    over data, TP over model, 16 of 32 experts a rank, each model peer
+    and 12 of its 24 layers trained expert-parallel under the rules'
+    placement
+    (sorted dispatch, ``moe.ep="a2a"``, ``ShardCtx.for_mesh``'s ctx:
+    FSDP over data, TP over model, 16 of 32 experts a rank, each model peer
     sending its block of its data rank's routing groups through the
     all-to-all), 2 Adafactor steps at a global 8 x 512 in groups of
     1,024, against one process in 2 microbatches of the data ranks'
@@ -275,7 +281,26 @@ any failure, before printing its result line. It
     new, token-identical to one process (near-ties judged by
     ``RWKV_TIE_GAP``), payloads equal to the dry run's; the one process
     runs both while the ranks run phases 20 and 21;
-23. prints one JSON line of per-kernel numbers (all twelve kernels,
+23. on the same ranks after phase 22 (``[mesh-t5]``, ``[mesh-whisper]``,
+    ``[mesh-jamba]`` and ``[mesh-family rank R]`` lines): (a)
+    t5-base-upcycled (2.003 B) trained under the rules' placement at
+    full width and depth, 2 steps at a global 8 x 512 encoder and 8 x
+    128 decoder tokens in groups of 512 (whole groups a data rank), held
+    as phase 20 holds its cells, its six kernels witnessed at a rank's
+    6 of 12 heads and 16 of 32 experts; (b) T5 and whisper-base decoded
+    greedily through ``zoo.prefill``/``decode_step`` under a serving
+    ctx (8 requests of 512 tokens, 32 new; 4 of 1,500 frames, 16 new),
+    token-identical to one process on every rank (near-ties judged by
+    ``TIE_GAP``), launches exact, payloads equal to the dry run's; (c)
+    jamba-1.5-large at full width and 2 of 72 layers (12.18 B params,
+    bfloat16) served through ``ServeEngine(ctx=)``, each rank placing
+    its blocks one leaf at a time from the one process's weights read
+    memory-mapped (the mamba mixers tensor parallel over ``d_in``, 8 of
+    16 experts a rank), 4 prompts of 64-128 tokens, 8 new, tokens as one
+    process's (near-ties judged by ``JAMBA_TIE_GAP``), the expert FFN
+    witnessed at 8 experts, payloads equal to the dry run's, the mamba
+    caches' blocks against one process's and each rank's peak printed;
+24. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -290,6 +315,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -497,9 +523,9 @@ def _spin_cycles_per_ms() -> float:
 
 def _queued_ms(body, n: int, spin: int):
     """Device ms of ``n`` calls of ``body`` queued behind a spin kernel of
-    ``spin`` cycles, and whether the device reached the first event
-    before the host had queued the last call (then host gaps may lie
-    inside the reading)."""
+    ``spin`` cycles, whether the device reached the first event before
+    the host had queued the last call (then host gaps may lie inside the
+    reading), and the host ms the queueing took."""
     import torch
 
     a = torch.cuda.Event(enable_timing=True)
@@ -507,12 +533,14 @@ def _queued_ms(body, n: int, spin: int):
     torch.cuda.synchronize()
     torch.cuda._sleep(spin)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(n):
         body()
+    queued = (time.perf_counter() - t0) * 1e3
     b.record()
     late = a.query()
     b.synchronize()
-    return a.elapsed_time(b), late
+    return a.elapsed_time(b), late, queued
 
 
 def time_synced_ms(fn, *, flush, iters: int = 20) -> float:
@@ -571,9 +599,17 @@ def time_ms(fn, *, flush, iters: int = 20) -> float:
         flush.zero_()
         fn()
 
+    waited = 0
     for _ in range(4):
-        both, late_a = _queued_ms(pair, iters, spin)
-        only, late_b = _queued_ms(flush.zero_, iters, spin)
+        both, late_a, queued = _queued_ms(pair, iters, spin)
+        # The host waited out the spin twice running (the second 4x the
+        # first): a call reads device values on the host, and no longer
+        # spin would queue it.
+        waited = waited + 1 if late_a and \
+            queued >= spin / _spin_cycles_per_ms() else 0
+        if waited == 2:
+            break
+        only, late_b, _ = _queued_ms(flush.zero_, iters, spin)
         if not (late_a or late_b):
             return (both - only) / iters
         spin *= 4
@@ -2904,14 +2940,12 @@ def checkpoint_chain(device):
             del sparse
             check_rows("moe", moe_sink, full, True)
 
-            # 4. Served from the checkpoint, and from the Trainer's
-            # in-memory params: token-identical, no block leaked. Both
-            # trees are conditioned alike first (condition_attention, as
-            # phases 4-5 serve): the sorted dispatch's combine sums with
-            # atomics (scatter_add, core/moe.py), so two runs of one
-            # model differ in the last bits, and at the reference init's
-            # attention scale such bits flip greedy tokens at top-2 gaps
-            # far above TIE_GAP.
+            # 4. Served from the checkpoint, whose params are the
+            # Trainer's in-memory ones bit for bit (a second serve from
+            # those was cut for the smoke's time: the combine adds in a
+            # fixed order, so it repeated the first's tokens); every
+            # request completed, no block leaked. Conditioned first
+            # (condition_attention, as phases 4-5 serve).
             params, step = lserve.load_params(
                 serve_cfg, device=device,
                 manager=CheckpointManager(dirs["moe"]))
@@ -2920,23 +2954,17 @@ def checkpoint_chain(device):
                   f"in-memory params: bit-identical={same}", flush=True)
             if step != CKPT["moe_steps"] or not same:
                 fail(f"serve restored step {step}, bit-identical={same}")
-            for p in (params, out_m["state"]["params"]):
-                condition_attention(p, serve_cfg)
-            sc = ServeConfig(paged=True, **SERVE)
-            outs = {}
-            for tag, p in (("checkpoint", params),
-                           ("in-memory", out_m["state"]["params"])):
-                eng = ServeEngine(p, serve_cfg, sc, device=device)
-                outs[tag], finished, n_gen, wall = serve_once(eng, serve_cfg)
-                es = eng.last_stats
-                print(f"[ckpt] served from the {tag} params: {n_gen} tokens "
-                      f"in {wall:.3f} s, free_blocks_at_close="
-                      f"{es['free_blocks_at_close']}", flush=True)
-                if any(r["status"] != "completed" for r in finished.values()):
-                    fail(f"not every request completed: {finished}")
-            check_tokens("served from the restored vs the in-memory params",
-                         outs["checkpoint"], outs["in-memory"],
-                         [r.rid for r in make_requests(serve_cfg)], eng)
+            condition_attention(params, serve_cfg)
+            eng = ServeEngine(params, serve_cfg, ServeConfig(paged=True,
+                                                             **SERVE),
+                              device=device)
+            _, finished, n_gen, wall = serve_once(eng, serve_cfg)
+            es = eng.last_stats
+            print(f"[ckpt] served from the checkpoint params: {n_gen} tokens "
+                  f"in {wall:.3f} s, free_blocks_at_close="
+                  f"{es['free_blocks_at_close']}", flush=True)
+            if any(r["status"] != "completed" for r in finished.values()):
+                fail(f"not every request completed: {finished}")
             del params, out_m, eng
             torch.cuda.empty_cache()
 
@@ -2997,13 +3025,15 @@ WHISPER = dict(arch="whisper-base", batch=8, seq=1500, steps=2, peak_lr=0.01,
 
 def encdec_batch(cfg, n, seq, step):
     """``n`` sequences of the arch's stream at ``step`` (the task over the
-    first TASK_VOCAB ids, as training reads it)."""
+    first TASK_VOCAB ids, as training reads it), all of them in every
+    process (a rank of a process group too)."""
     from repro_torch.data import ClusteredBigramTask, make_iterator
     from repro_torch.launch.train import TASK_VOCAB
 
     it = make_iterator(cfg, global_batch=n, seq_len=seq,
                        task=ClusteredBigramTask(
-                           vocab_size=min(cfg.vocab_size, TASK_VOCAB)))
+                           vocab_size=min(cfg.vocab_size, TASK_VOCAB)),
+                       host_index=0, host_count=1)
     it.step = step
     return next(it)
 
@@ -3460,9 +3490,9 @@ def verify_lane_row(cfg, device, *, seed):
 def prefill_on_join_path(params, cfg, device, chunked, gap_eng):
     """Phase 15.1: the 12 requests through ``admission="prefill_on_join"``
     (one bucketed B = 1 prefill an admission, the flash forward; one
-    batched decode step a tick, the decode kernel), through the kernels
-    and the plain versions; held token for token against each other and
-    against phase 4's chunked outputs; launches and ``compile_count``
+    batched decode step a tick, the decode kernel), through the kernels;
+    held token for token against phase 4's chunked outputs (themselves
+    held against the plain versions); launches and ``compile_count``
     (one shape a bucket plus the decode step's) checked; one prefill and
     one decode step witnessed. Returns the kernels' run's launches."""
     import torch
@@ -3498,13 +3528,9 @@ def prefill_on_join_path(params, cfg, device, chunked, gap_eng):
             "paged_prefill": 0}
     if any(launches[k] != n for k, n in want.items()):
         fail(f"prefill-on-join launches {launches}, want {want}")
-    eager = ServeEngine(params, cfg, sc, device=device,
-                        ac=zoo.ApplyCfg(moe_impl="eager", attn_impl="eager"))
-    outs_e, _, n_e, wall_e = serve_once(eager, cfg)
-    print(f"[pp] plain: {n_e} tokens in {wall_e:.3f} s = "
-          f"{n_e / wall_e:.1f} tokens/s", flush=True)
+    # Phase 4 held the chunked outputs against the plain versions; a
+    # plain run of this path too was cut for the smoke's time.
     rids = [r.rid for r in reqs]
-    check_tokens("pp kernels vs plain", outs, outs_e, rids, gap_eng)
     check_tokens("pp vs chunked (phase 4)", outs, chunked, rids, gap_eng)
 
     # One B = 1 prefill and one decode step, every kernel call witnessed.
@@ -4900,7 +4926,7 @@ def other_families(device):
 # One step (two until phase 20 joined the smoke: its time limit).
 MULTI = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, steps=1,
              ranks=2, factor=2.0, starved=0.25, starved_capacity=4.0,
-             group=2048, peak_lr=0.01, warmup=100)
+             group=2048, peak_lr=0.01, warmup=100, layers=12)
 # The 2-rank steps against the single-process steps: the tolerances of
 # the reference's distributed step (tests/test_system.py), on every leaf.
 MULTI_LOSS_RTOL, MULTI_PARAM_ATOL, MULTI_PARAM_RTOL = 2e-4, 2e-4, 2e-3
@@ -5108,9 +5134,9 @@ def launcher_ep_world1(device, root):
 
 def multi_setup(device):
     """(cfg, upcycled params on ``device``, the data iterator): granite
-    at full width with ep="a2a", upcycled (copy init, routers from seed
-    7) from the package's dense init with its attention conditioned —
-    the same bits in every process."""
+    at full width and MULTI's layers with ep="a2a", upcycled (copy init,
+    routers from seed 7) from the package's dense init with its
+    attention conditioned — the same bits in every process."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5119,7 +5145,8 @@ def multi_setup(device):
     from repro_torch.launch.train import TASK_VOCAB
     from repro_torch.models import model_zoo as zoo
 
-    full = get_config(MULTI["arch"])
+    full = dataclasses.replace(get_config(MULTI["arch"]),
+                               n_layers=MULTI["layers"])
     cfg = dataclasses.replace(full, moe=dataclasses.replace(
         full.moe, ep="a2a", ep_budget_factor=MULTI["factor"],
         group_size=MULTI["group"]))
@@ -5171,9 +5198,14 @@ def ep_rank(rank, world, root):
                             rank=rank, world_size=world)
     build_all(ops.KERNELS)  # built by the parent: binds only
     # The mesh names the ranks (its device type only matters to DTensor,
-    # which the port does not use); the tensors live on cuda:0.
-    ctx = ShardCtx.for_mesh(make_mesh((1, world), ("data", "model"),
-                                      device_type="cpu"))
+    # which the port does not use); the tensors live on cuda:0. The
+    # expert-only layout, asked for explicitly (tensor_parallel False):
+    # for_mesh's ctx composes expert parallelism with the rules'
+    # placement (phase 22).
+    ctx = dataclasses.replace(
+        ShardCtx.for_mesh(make_mesh((1, world), ("data", "model"),
+                                    device_type="cpu")),
+        tensor_parallel=False)
     tag = f"[multi rank {rank}]"
     cfg, params, it = multi_setup(device)
     opt, ac, _ = multi_step_fns(cfg)
@@ -5715,9 +5747,19 @@ def step_costs(device):
 # ViT router, 4.0e-4-6.4e-4 off, the losses within 3.4e-7 and 4.9e-5).
 MESH = dict(shape=(2, 2), steps=2, ranks=4, eps1=1e-6,
             cells={"granite": dict(arch="granite-moe-1b-a400m", batch=8,
-                                   seq=512, group=2048, dispatch="sorted"),
+                                   seq=512, group=2048, dispatch="sorted",
+                                   layers=12),
                    "vit": dict(arch="vit-b16-upcycled", batch=16, seq=196,
-                               group=784, dispatch="gather")})
+                               group=784, dispatch="gather"),
+                   "t5": dict(arch="t5-base-upcycled", batch=8, seq=512,
+                              group=512, dispatch="gather")})
+# Phase 20's cells (granite at 12 of its 24 layers since phase 23 joined
+# the smoke: its time limit; the placement does not depend on the
+# depth); phase 23 (a) trains "t5" at full depth: 8 x 512 encoder and
+# 8 x 128 decoder tokens cut from phase 13's 16 rows, in routing groups
+# of 512, so that a data rank's 4 x 512 encoder and 4 x 128 decoder
+# tokens form whole groups.
+MESH_TRAIN = ("granite", "vit")
 # Each step's loss within 1e-4 relative, the gradient norm within 1e-3
 # relative, every leaf of the gathered state after the first step
 # (optimizer slots included) at the reference's distributed-step
@@ -5725,15 +5767,29 @@ MESH = dict(shape=(2, 2), steps=2, ranks=4, eps1=1e-6,
 MESH_LOSS_RTOL, MESH_GN_RTOL = 1e-4, 1e-3
 
 
+def mesh_cfg(name):
+    """The config of a phase 20, 22 or 23 training cell: the arch at the
+    cell's routing groups (and depth, and expert parallelism)."""
+    from repro_torch.configs import get_config
+
+    c = {**MESH["cells"], "granite_ep": MESH_EP}[name]
+    full = get_config(c["arch"])
+    if "layers" in c:
+        full = dataclasses.replace(full, n_layers=c["layers"])
+    ep = dict(ep="a2a", ep_budget_factor=c["factor"]) if "factor" in c \
+        else {}
+    return dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, group_size=c["group"], **ep))
+
+
 def mesh_setup(name, device):
     """(cfg, upcycled params on ``device``, the global data iterator,
-    ApplyCfg, the path's kernels, the optimizer) of a phase 20 cell (or
-    phase 22's ``granite_ep``): the package's dense init (seed 0) with
-    its attention conditioned, upcycled (routers from seed 7) — the same
-    bits in every process."""
+    ApplyCfg, the path's kernels, the optimizer) of a phase 20 or 23
+    cell (or phase 22's ``granite_ep``): the package's dense init (seed
+    0) with its attention conditioned, upcycled (routers from seed 7) —
+    the same bits in every process."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.upcycle import upcycle_params
     from repro_torch.data import ClusteredBigramTask, make_iterator
     from repro_torch.launch.train import TASK_VOCAB
@@ -5741,11 +5797,7 @@ def mesh_setup(name, device):
     from repro_torch.optim import adafactor, inverse_sqrt
 
     c = {**MESH["cells"], "granite_ep": MESH_EP}[name]
-    full = get_config(c["arch"])
-    ep = dict(ep="a2a", ep_budget_factor=c["factor"]) if "factor" in c \
-        else {}
-    cfg = dataclasses.replace(full, moe=dataclasses.replace(
-        full.moe, group_size=c["group"], **ep))
+    cfg = mesh_cfg(name)
     dense_cfg = cfg.dense_parent()
     dense = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                             dense_cfg, device=device)
@@ -5780,7 +5832,7 @@ def _mesh_compare(state, ref_path, layout, device):
     n, off, worst = 0, {}, 0.0
     for (p, y), (q, x) in zip(_flatten(state), _flatten(ref)):
         if p != q:
-            fail(f"phase 20: the state differs in structure at {p} / {q}")
+            fail(f"the mesh state differs in structure at {p} / {q}")
         x = x.to(device).double()
         gap = (y.double() - x).abs()
         bad = int((gap > MULTI_PARAM_ATOL + MULTI_PARAM_RTOL * x.abs()
@@ -5792,10 +5844,103 @@ def _mesh_compare(state, ref_path, layout, device):
     return n, off, worst
 
 
+def wait_for(root, name) -> None:
+    """Block a rank until the parent writes ``root / name`` (exit if the
+    parent removed the directory: it failed)."""
+    while not (root / name).exists():
+        if not root.exists():
+            sys.exit(1)
+        time.sleep(0.1)
+
+
+def mesh_cell_rank(name, ctx, root, device, tag, go, *, repeat=True):
+    """A rank's steps of a training cell under the rules' placement: it
+    sets up (its blocks of the state) and waits for the parent's ``go``;
+    the first step is witnessed, its kernels' shapes recorded and, with
+    ``repeat``, repeated bit for bit from the same state and rows; its
+    state after the first step is held against the single-process state
+    the parent saved. Returns what the parent checks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.param import count_params, tree_leaves, tree_map
+    from repro_torch.sharding import comm, train_layout
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    layout = train_layout(ctx, cfg, ac.dispatch, state)
+    state = layout.shard(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt, ac=ac, layout=layout)
+    row, rows = layout.batch_rows()
+    print(f"{tag} {name}: {count_params(state['params']) / 1e9:.3f} B "
+          f"params held (data rows block {row} of {rows}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    want = step_launches(cfg, kernels, True)
+    start = tree_map(torch.clone, state) if repeat else None
+    wait_for(root, go)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    first = ops.launch_counts()
+    rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+    for i in range(MESH["steps"]):
+        batch = next(it)
+        per = len(next(iter(batch.values()))) // rows
+        local = {k: v[row * per:(row + 1) * per] for k, v in batch.items()}
+        before = ops.launch_counts()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        if i == 0:
+            with witnessed_kernels() as wit, kernel_shapes() as shapes:
+                state, m = step(state, local)
+                torch.cuda.synchronize()
+        else:
+            state, m = step(state, local)
+        ms = _sync_ms(t0)
+        rec["counts"].append(comm.counts())
+        m = {k: float(v) for k, v in m.items()}
+        launched = {k: v - before[k] for k, v in
+                    ops.launch_counts().items()}
+        print(f"{tag} {name} step {i + 1}: loss={m['loss']!r} "
+              f"grad_norm={m['grad_norm']!r} ms={ms:.1f}"
+              + (" (witnessed)" if i == 0 else "")
+              + f" launches={ {k: v for k, v in launched.items() if v} }"
+              f" collective payload B={rec['counts'][-1]}", flush=True)
+        check_step(f"mesh {name}", tag, m, launched, want)
+        rec["loss"].append(m["loss"])
+        rec["grad_norm"].append(m["grad_norm"])
+        rec["ms"].append(ms)
+        if i == 0:
+            report_witness(wit, kernels)
+            rec["shapes"] = shapes
+            if repeat:
+                # The same step again from the same state and rows.
+                again, m2 = step(start, local)
+                rec["repeat"] = all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(again), tree_leaves(state))) and \
+                    {k: float(v) for k, v in m2.items()} == m
+                del again, start
+            rec["leaves"], rec["off"], rec["worst"] = _mesh_compare(
+                state, root / f"mesh_{name}_ref.pt", layout, device)
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = {k: v - first[k] for k, v in
+                       ops.launch_counts().items()}
+    del state, step, layout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mesh_rank(rank, world, root):
-    """One rank of phase 20, in a process of its own on cuda:0. It sets
-    up while the parent runs the single-process steps, and starts its
-    timed steps when the parent writes ``go``."""
+    """One rank of phases 20 to 23, in a process of its own on cuda:0. It
+    sets up while the parent runs the single-process steps, and starts
+    its timed steps when the parent writes ``go``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -5803,9 +5948,7 @@ def mesh_rank(rank, world, root):
     from repro_torch.kernels import ops
     from repro_torch.kernels.build import build_all
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.param import count_params, tree_leaves, tree_map
-    from repro_torch.sharding import ShardCtx, comm, train_layout
-    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.sharding import ShardCtx
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5818,79 +5961,12 @@ def mesh_rank(rank, world, root):
     ctx = ShardCtx.for_mesh(make_mesh(MESH["shape"], ("data", "model"),
                                       device_type="cpu"))
     tag = f"[mesh rank {rank}]"
-    info = {}
-    for name in MESH["cells"]:
-        cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
-        state = init_train_state(None, cfg, opt, params=params)
-        del params
-        layout = train_layout(ctx, cfg, ac.dispatch, state)
-        state = layout.shard(state)
-        gc.collect()
-        torch.cuda.empty_cache()
-        step = make_train_step(cfg, opt, ac=ac, layout=layout)
-        row, rows = layout.batch_rows()
-        print(f"{tag} {name}: {count_params(state['params']) / 1e9:.3f} B "
-              f"params held (data rows block {row} of {rows}), "
-              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
-              "allocated", flush=True)
-        want = step_launches(cfg, kernels, True)
-        start = tree_map(torch.clone, state)
-        while not (root / "go").exists():
-            if not root.exists():
-                sys.exit(1)
-            time.sleep(0.1)
-        dist.barrier()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
-        for i in range(MESH["steps"]):
-            batch = next(it)
-            per = len(next(iter(batch.values()))) // rows
-            local = {k: v[row * per:(row + 1) * per] for k, v in
-                     batch.items()}
-            before = ops.launch_counts()
-            comm.reset_counts()
-            t0 = time.perf_counter()
-            if i == 0:
-                with witnessed_kernels() as wit:
-                    state, m = step(state, local)
-                    torch.cuda.synchronize()
-            else:
-                state, m = step(state, local)
-            ms = _sync_ms(t0)
-            rec["counts"].append(comm.counts())
-            m = {k: float(v) for k, v in m.items()}
-            launched = {k: v - before[k] for k, v in
-                        ops.launch_counts().items()}
-            print(f"{tag} {name} step {i + 1}: loss={m['loss']!r} "
-                  f"grad_norm={m['grad_norm']!r} ms={ms:.1f}"
-                  + (" (witnessed)" if i == 0 else "")
-                  + f" launches={ {k: v for k, v in launched.items() if v} }"
-                  f" collective payload B={rec['counts'][-1]}", flush=True)
-            check_step(f"mesh {name}", f"rank {rank}", m, launched, want)
-            rec["loss"].append(m["loss"])
-            rec["grad_norm"].append(m["grad_norm"])
-            rec["ms"].append(ms)
-            if i == 0:
-                report_witness(wit, kernels)
-                # The same step again from the same state and rows.
-                again, m2 = step(start, local)
-                rec["repeat"] = all(
-                    torch.equal(a, b) for a, b in
-                    zip(tree_leaves(again), tree_leaves(state))) and \
-                    {k: float(v) for k, v in m2.items()} == m
-                del again, start
-                rec["leaves"], rec["off"], rec["worst"] = _mesh_compare(
-                    state, root / f"mesh_{name}_ref.pt", layout, device)
-        rec["peak"] = torch.cuda.max_memory_allocated()
-        rec["launches"] = ops.launch_counts()
-        info[name] = rec
-        del state, step, layout
-        gc.collect()
-        torch.cuda.empty_cache()
-    # Phase 21 on the same ranks and mesh, then phase 22.
+    info = {name: mesh_cell_rank(name, ctx, root, device, tag, "go")
+            for name in MESH_TRAIN}
+    # Phase 21 on the same ranks and mesh, then phases 22 and 23.
     info["serve"] = mesh_serve_rank(rank, ctx, root, device)
     info["ep"] = mesh_ep_rank(rank, ctx, root, device)
+    info["family"] = mesh_family_rank(rank, ctx, root, device)
     with open(root / f"mesh_rank{rank}.json", "w") as fh:
         json.dump(info, fh)
     dist.destroy_process_group()
@@ -5932,30 +6008,132 @@ def mesh_local_rows(device):
     return rows
 
 
-def mesh_train(device):
-    """Phases 20, 21 and 22. The ranks start first and set up while this
-    process runs the single-process steps (its first-step state saved
-    for the ranks to hold their blocks against), the local-shape rows
-    and phase 21's one-process serving; then it writes ``go`` and the
-    ranks run their timed steps, then serve, while this process runs
-    phase 22's one process and writes ``ep_go``; then the ranks run
-    phase 22. Returns ({path: launches}, shape rows, {phase 21 and 22
-    path: launches})."""
-    import shutil
-    import tempfile
-
+def mesh_cell_reference(name, device, root):
+    """The single-process steps of a training cell, in as many
+    microbatches as the mesh has data ranks (the ranks' rows), its state
+    after the first step saved for the ranks to hold their blocks
+    against: ({losses, grad norms, step ms, peak}, launches)."""
     import torch
 
     from repro_torch.checkpoint.manager import host_snapshot
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.dryrun import rules_collective_payloads
-    from repro_torch.models import model_zoo as zoo
     from repro_torch.training import (
         TrainConfig,
         init_train_state,
         make_train_step,
     )
+
+    c, dp = MESH["cells"][name], MESH["shape"][0]
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
+    step = make_train_step(cfg, opt, ac=ac, tc=TrainConfig(grad_accum=dp))
+    state = init_train_state(None, cfg, opt, params=params)
+    del params
+    before = ops.launch_counts()
+    r = {"loss": [], "grad_norm": [], "ms": []}
+    for i in range(MESH["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, next(it))
+        r["ms"].append(_sync_ms(t0))
+        r["loss"].append(float(m["loss"]))
+        r["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            torch.save(host_snapshot(state), root / f"mesh_{name}_ref.pt")
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    r["peak"] = torch.cuda.max_memory_allocated()
+    print(f"[mesh] {name} single process, {c['batch']} x {c['seq']} in "
+          f"{dp} microbatches: losses {r['loss']!r}, grad norms "
+          f"{r['grad_norm']!r}, step ms "
+          f"{', '.join(f'{x:.1f}' for x in r['ms'])}, peak "
+          f"{r['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    del state, m, step, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, launches
+
+
+def mesh_cell_check(name, ref, ranks, bad) -> dict:
+    """A training cell's checks over the ranks' results (``ranks``: each
+    rank's record of the cell) against the one process's ``ref``; appends
+    to ``bad``; returns {path: launches} of each rank."""
+    from repro_torch.launch.dryrun import rules_collective_payloads
+    from repro_torch.models import model_zoo as zoo
+
+    c = MESH["cells"][name]
+    for rk, i in enumerate(ranks):
+        print(f"[mesh rank {rk}] {name}: steps ms {i['ms']}; peak "
+              f"memory {i['peak'] / 2 ** 30:.2f} GiB ({i['peak']} B); "
+              f"collective payload B a step {i['counts'][0]} (sum "
+              f"{sum(i['counts'][0].values())}; gloo over host memory "
+              "on one card, not NCCL); second run of the first step "
+              f"bit-identical: {i.get('repeat', 'not run')}; its blocks of "
+              f"the first step's state: {i['leaves'] - len(i['off'])} of "
+              f"{i['leaves']} leaves within atol {MULTI_PARAM_ATOL} + "
+              f"rtol {MULTI_PARAM_RTOL}, max |diff| {i['worst']:.3e}; "
+              f"{card_line()}", flush=True)
+        for p, n_off in i["off"].items():
+            print(f"[mesh rank {rk}] {name} {p}: {n_off} elements "
+                  "outside the tolerance", flush=True)
+        if i.get("repeat") is False:
+            bad.append(f"rank {rk} {name}: a second run of the step "
+                       "differs")
+        if i["loss"] != ranks[0]["loss"]:
+            bad.append(f"rank {rk} {name}: losses differ between ranks")
+    got = ranks[0]
+    loss_d = max(abs(a - b) / abs(b) for a, b in
+                 zip(got["loss"], ref["loss"]))
+    gn_d = max(abs(a - b) / abs(b) for a, b in
+               zip(got["grad_norm"], ref["grad_norm"]))
+    off = sorted({p for i in ranks for p in i["off"]})
+    worst = max(i["worst"] for i in ranks)
+    cfg = mesh_cfg(name)
+    pred = rules_collective_payloads(
+        cfg, params=zoo.init_params(None, cfg, device="meta"),
+        mesh=dict(zip(("data", "model"), MESH["shape"])),
+        dispatch=c["dispatch"], remat="none",
+        tokens=c["batch"] * c["seq"], itemsize=4)
+    counted = [i["counts"] for i in ranks]
+    held = all(cs == pred for k in counted for cs in k)
+    print(f"[mesh] {name}: the dry run's collective payloads a rank a "
+          f"step {pred} (counted by every rank, each step: {held})",
+          flush=True)
+    if not held:
+        bad.append(f"{name}: the dry run predicts {pred}, the ranks "
+                   f"counted {counted}")
+    n = ranks[0]["leaves"]
+    print(f"[mesh] {name}: (2, 2) vs single process over "
+          f"{MESH['steps']} steps: losses {got['loss']!r} vs "
+          f"{ref['loss']!r}, max rel diff {loss_d:.3e} (limit "
+          f"{MESH_LOSS_RTOL}); grad norms {got['grad_norm']!r} vs "
+          f"{ref['grad_norm']!r}, max rel diff {gn_d:.3e} (limit "
+          f"{MESH_GN_RTOL}); the first step's state: {n - len(off)} of "
+          f"{n} leaves within atol {MULTI_PARAM_ATOL} + rtol "
+          f"{MULTI_PARAM_RTOL} on every rank, max |diff| {worst:.3e}",
+          flush=True)
+    if not (loss_d <= MESH_LOSS_RTOL and gn_d <= MESH_GN_RTOL
+            and not off):
+        bad.append(f"{name}: the (2, 2) steps part from the "
+                   "single-process steps")
+    return {f"mesh_{name}_rank{rk}": i["launches"]
+            for rk, i in enumerate(ranks)}
+
+
+def mesh_train(device):
+    """Phases 20 to 23. The ranks start first and set up while this
+    process runs the single-process steps (their first-step states saved
+    for the ranks to hold their blocks against), the local-shape rows,
+    phase 21's one-process serving and phase 23 (c)'s one-process jamba
+    (its weights saved for the ranks); then it writes ``go`` and the
+    ranks run their timed steps and serve, while this process runs phase
+    22's one process and phase 23 (a)'s, and writes ``ep_go`` (so that
+    none of its large models shares the card with phase 22's ranks),
+    then phase 23 (b)'s one-process decoding, and writes ``family_go``;
+    the ranks run phases 22 and 23. Returns ({path: launches}, shape
+    rows, {phase 21 to 23 path: launches})."""
+    import shutil
+    import tempfile
+
+    import torch
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -5963,59 +6141,40 @@ def mesh_train(device):
     print(f"[mesh] phase 20 starts with "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
           f"{card_line()}", flush=True)
-    dp = MESH["shape"][0]
     refs, out = {}, {}
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     procs = torch.multiprocessing.start_processes(
         mesh_rank, args=(MESH["ranks"], str(root)),
         nprocs=MESH["ranks"], join=False, start_method="spawn")
     try:
-        for name, c in MESH["cells"].items():
-            torch.cuda.reset_peak_memory_stats()
-            cfg, params, it, ac, kernels, opt = mesh_setup(name, device)
-            step = make_train_step(cfg, opt, ac=ac,
-                                   tc=TrainConfig(grad_accum=dp))
-            state = init_train_state(None, cfg, opt, params=params)
-            del params
-            before = ops.launch_counts()
-            r = {"loss": [], "grad_norm": [], "ms": []}
-            for i in range(MESH["steps"]):
-                t0 = time.perf_counter()
-                state, m = step(state, next(it))
-                r["ms"].append(_sync_ms(t0))
-                r["loss"].append(float(m["loss"]))
-                r["grad_norm"].append(float(m["grad_norm"]))
-                if i == 0:
-                    torch.save(host_snapshot(state),
-                               root / f"mesh_{name}_ref.pt")
-            out[f"mesh_{name}_reference"] = {
-                k: v - before[k] for k, v in ops.launch_counts().items()}
-            r["peak"] = torch.cuda.max_memory_allocated()
-            refs[name] = r
-            print(f"[mesh] {name} single process, {c['batch']} x "
-                  f"{c['seq']} in {dp} microbatches: losses {r['loss']!r}, "
-                  f"grad norms {r['grad_norm']!r}, step ms "
-                  f"{', '.join(f'{x:.1f}' for x in r['ms'])}, peak "
-                  f"{r['peak'] / 2 ** 30:.2f} GiB", flush=True)
-            del state, m, step, it
-            gc.collect()
-            torch.cuda.empty_cache()
+        for name in MESH_TRAIN:
+            refs[name], out[f"mesh_{name}_reference"] = mesh_cell_reference(
+                name, device, root)
         rows = mesh_local_rows(device)
         gc.collect()
         torch.cuda.empty_cache()
-        # Phase 21's one process, while the ranks wait.
+        # Phase 21's one process, then phase 23 (c)'s (a 49 GiB peak),
+        # while the ranks hold their blocks and wait.
         t_serve = time.perf_counter()
         serve_eng, serve_ref = mesh_serve_reference(device, root)
         print(f"[mesh-serve] one process {time.perf_counter() - t_serve:.1f}"
               " s", flush=True)
+        family_ref = {"jamba": mesh_jamba_reference(device, root)}
         print(f"[mesh] {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
               f"left allocated when the ranks start their steps, "
               f"{time.perf_counter() - t_phase:.1f} s into the phase",
               flush=True)
         (root / "go").touch()
         t0 = time.perf_counter()
-        # Phase 22's one process while the ranks run phases 20 and 21.
+        # Phase 22's and phase 23 (a)'s one process while the ranks run
+        # phases 20 and 21.
         ep_ref = mesh_ep_reference(device, root)
+        family_ref["t5"] = mesh_cell_reference("t5", device, root)
+        (root / "ep_go").touch()
+        family_ref["decode"] = mesh_decode_reference(device)
+        (root / "family_go").touch()
+        print(f"[mesh] this process's phases 22 and 23 "
+              f"{time.perf_counter() - t0:.1f} s after go", flush=True)
         while not procs.join():
             pass
         ranks_s = time.perf_counter() - t0
@@ -6030,69 +6189,11 @@ def mesh_train(device):
                 proc.terminate()
         shutil.rmtree(root, ignore_errors=True)
     bad = []
-    for name, c in MESH["cells"].items():
-        ref = refs[name]
-        for rk, info in enumerate(ranks):
-            i = info[name]
-            print(f"[mesh rank {rk}] {name}: steps ms {i['ms']}; peak "
-                  f"memory {i['peak'] / 2 ** 30:.2f} GiB ({i['peak']} B); "
-                  f"collective payload B a step {i['counts'][0]} (sum "
-                  f"{sum(i['counts'][0].values())}; gloo over host memory "
-                  "on one card, not NCCL); second run of the first step "
-                  f"bit-identical: {i['repeat']}; its blocks of the first "
-                  f"step's state: {i['leaves'] - len(i['off'])} of "
-                  f"{i['leaves']} leaves within atol {MULTI_PARAM_ATOL} + "
-                  f"rtol {MULTI_PARAM_RTOL}, max |diff| {i['worst']:.3e}; "
-                  f"{card_line()}", flush=True)
-            for p, n_off in i["off"].items():
-                print(f"[mesh rank {rk}] {name} {p}: {n_off} elements "
-                      "outside the tolerance", flush=True)
-            if not i["repeat"]:
-                bad.append(f"rank {rk} {name}: a second run of the step "
-                           "differs")
-            if i["loss"] != ranks[0][name]["loss"]:
-                bad.append(f"rank {rk} {name}: losses differ between ranks")
-        got = ranks[0][name]
-        loss_d = max(abs(a - b) / abs(b) for a, b in
-                     zip(got["loss"], ref["loss"]))
-        gn_d = max(abs(a - b) / abs(b) for a, b in
-                   zip(got["grad_norm"], ref["grad_norm"]))
-        off = sorted({p for info in ranks for p in info[name]["off"]})
-        worst = max(info[name]["worst"] for info in ranks)
-        full = get_config(c["arch"])
-        cfg = dataclasses.replace(full, moe=dataclasses.replace(
-            full.moe, group_size=c["group"]))
-        pred = rules_collective_payloads(
-            cfg, params=zoo.init_params(None, cfg, device="meta"),
-            mesh=dict(zip(("data", "model"), MESH["shape"])),
-            dispatch=c["dispatch"], remat="none",
-            tokens=c["batch"] * c["seq"], itemsize=4)
-        counted = [info[name]["counts"] for info in ranks]
-        held = all(cs == pred for k in counted for cs in k)
-        print(f"[mesh] {name}: the dry run's collective payloads a rank a "
-              f"step {pred} (counted by every rank, each step: {held})",
-              flush=True)
-        if not held:
-            bad.append(f"{name}: the dry run predicts {pred}, the ranks "
-                       f"counted {counted}")
-        n = ranks[0][name]["leaves"]
-        print(f"[mesh] {name}: (2, 2) vs single process over "
-              f"{MESH['steps']} steps: losses {got['loss']!r} vs "
-              f"{ref['loss']!r}, max rel diff {loss_d:.3e} (limit "
-              f"{MESH_LOSS_RTOL}); grad norms {got['grad_norm']!r} vs "
-              f"{ref['grad_norm']!r}, max rel diff {gn_d:.3e} (limit "
-              f"{MESH_GN_RTOL}); the first step's state: {n - len(off)} of "
-              f"{n} leaves within atol {MULTI_PARAM_ATOL} + rtol "
-              f"{MULTI_PARAM_RTOL} on every rank, max |diff| {worst:.3e}",
-              flush=True)
-        if not (loss_d <= MESH_LOSS_RTOL and gn_d <= MESH_GN_RTOL
-                and not off):
-            bad.append(f"{name}: the (2, 2) steps part from the "
-                       "single-process steps")
-        for rk, info in enumerate(ranks):
-            out[f"mesh_{name}_rank{rk}"] = info[name]["launches"]
+    for name in MESH_TRAIN:
+        out.update(mesh_cell_check(name, refs[name],
+                                   [info[name] for info in ranks], bad))
     print(f"[mesh] the ranks' steps, serving and checks {ranks_s:.1f} s "
-          f"after go; phases 20 to 22 {time.perf_counter() - t_phase:.1f} s",
+          f"after go; phases 20 to 23 {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     if bad:
         fail("phase 20: " + "; ".join(bad))
@@ -6100,6 +6201,9 @@ def mesh_train(device):
                                       [info["serve"] for info in ranks])
     serve_launches.update(mesh_ep_check(ep_ref,
                                         [info["ep"] for info in ranks]))
+    serve_launches.update(mesh_family_check(family_ref,
+                                            [info["family"]
+                                             for info in ranks]))
     rows.append(mesh_ep_row(device, ranks[0]["ep"]["shapes"]))
     del serve_eng
     gc.collect()
@@ -6136,8 +6240,12 @@ MESH_SERVE = dict(prompts=4, plen=(64, 128), new=16, seed=31, layers=12,
 # one row, 2e-2 off in the last layer; one process through the kernels
 # against the plain versions shows the same, ~3 rows a layer above
 # layer 6, 4.7e-2 off; PERF.md). At most MESH_POOL_ROWS rows may lie
-# outside; a wrong placement or kernel moves them all.
-MESH_POOL_TOL, MESH_POOL_ROWS = (1e-3, 1e-3), 4
+# outside, each traced to its token (mesh_pool_trace: the first
+# MESH_POOL_TRACE tokens of the ranks' rows) and held to sit above a
+# router gap below TIE_GAP, on the rank or in the one process, in a MoE
+# layer at or below its own; a wrong placement or kernel moves them
+# all, with no near-tie beneath.
+MESH_POOL_TOL, MESH_POOL_ROWS, MESH_POOL_TRACE = (1e-3, 1e-3), 4, 8
 
 
 def mesh_serve_prompts(cfg):
@@ -6170,7 +6278,9 @@ def mesh_serve_model(device):
 def serve_session(eng, cfg, *, witness=False):
     """Phase 4's requests through a chunked session, a tick at a time:
     (outputs, finished, generated tokens, wall s, each step's ms, the
-    first step's collective payloads, its witness, the cache)."""
+    first step's collective payloads, its witness, the cache, each pool
+    block's last owner {block: (rid, its index in the request's
+    table)})."""
     import torch
 
     from repro_torch.sharding import comm
@@ -6179,10 +6289,14 @@ def serve_session(eng, cfg, *, witness=False):
     sess = eng.open_session()
     for r in reqs:
         sess.submit(r)
-    step_ms, steps, first, wit = [], 0, None, None
+    step_ms, steps, first, wit, owners = [], 0, None, None, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while True:
+        for slot in sess.sched.slots:
+            if slot.request is not None:
+                for j, b in enumerate(slot.blocks):
+                    owners[int(b)] = (slot.request.rid, j)
         comm.reset_counts()
         t1 = time.perf_counter()
         if witness and first is None:
@@ -6201,7 +6315,7 @@ def serve_session(eng, cfg, *, witness=False):
     wall = time.perf_counter() - t0
     outs, fin = sess.close()
     gen = sum(len(outs[r.rid]) - len(r.prompt) for r in reqs)
-    return outs, fin, gen, wall, step_ms, first, wit, sess.cache
+    return outs, fin, gen, wall, step_ms, first, wit, sess.cache, owners
 
 
 def mesh_static_steps(eng, prompts, tokens, new):
@@ -6259,7 +6373,8 @@ def mesh_serve_reference(device, root):
                                "decode_s": st["decode_s"]}
     peng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
                        device=device)
-    outs, _, n_gen, wall, step_ms, _, _, cache = serve_session(peng, cfg)
+    outs, _, n_gen, wall, step_ms, _, _, cache, _ = serve_session(peng,
+                                                                 cfg)
     ref["launches"] = {k: v - before[k] for k, v in
                        ops.launch_counts().items()}
     ref["paged"] = {"tokens": {str(k): v for k, v in outs.items()},
@@ -6281,6 +6396,84 @@ def mesh_serve_reference(device, root):
           f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms; peak "
           f"{ref['peak'] / 2 ** 30:.2f} GiB; {card_line()}", flush=True)
     return peng, ref
+
+
+@contextlib.contextmanager
+def router_logits():
+    """Record every MoE layer's router logits inside the block, in call
+    order: a list of (tokens, E) float32 tensors."""
+    from repro_torch.core import routing
+
+    seen, real = [], routing.route
+
+    def route(logits, *args, **kw):
+        seen.append(logits.detach().reshape(-1, logits.shape[-1]).float())
+        return real(logits, *args, **kw)
+
+    routing.route = route
+    try:
+        yield seen
+    finally:
+        routing.route = real
+
+
+def router_gaps(eng, seq, ctx=None) -> list:
+    """The router's top-k gap (the k-th largest logit less the next) at
+    the last token of ``seq`` in every MoE layer, layer by layer: ``seq``
+    prefilled alone through ``eng``'s weights (under ``ctx``, a serving
+    ctx of one replicated row, on a rank)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    cfg, k = eng.cfg, eng.cfg.moe.top_k
+    with torch.no_grad(), router_logits() as seen:
+        if ctx is None:
+            cache = zoo.init_serve_cache(cfg, 1, len(seq), device=eng.device,
+                                         dtype=eng.cache_dtype)
+        else:
+            cache, ctx, _ = eng.static_cache(1, len(seq))
+        zoo.prefill(eng.params, {"tokens": torch.tensor([seq],
+                                                        device=eng.device)},
+                    cache, cfg, ac=eng.ac, ctx=ctx)
+    out = []
+    for lg in seen:
+        top = torch.topk(lg[len(seq) - 1], k + 1).values
+        out.append(float(top[k - 1] - top[k]))
+    return out
+
+
+def mesh_pool_trace(eng, moved, owners, outs, ctx, tag) -> list:
+    """Phase 21's pool rows outside MESH_POOL_TOL traced to their tokens:
+    every rank's moved rows (layer, pool block, offset) gathered, each
+    block's last owner giving the request and position, and the router's
+    top-k gaps at that token in every MoE layer through the rank's
+    static engine (``eng``, every rank replaying the same tokens in one
+    order). Returns [{layer, block, offset, rid, pos, gaps (the rank's,
+    one a MoE layer)}] of the rank's own rows; prints each."""
+    import torch.distributed as dist
+
+    bs = SERVE["block_size"]
+    mine = []
+    for li, b, o in moved:
+        rid, j = owners.get(b, (None, None))
+        mine.append({"layer": li, "block": b, "offset": o, "rid": rid,
+                     "pos": None if rid is None else j * bs + o})
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    tokens = sorted({(r["rid"], r["pos"]) for rows in every for r in rows
+                     if r["rid"] is not None})[:MESH_POOL_TRACE]
+    gaps = {t: router_gaps(eng, outs[t[0]][:t[1] + 1], ctx) for t in tokens}
+    for r in mine:
+        r["gaps"] = gaps.get((r["rid"], r["pos"]))
+        low = None if r["gaps"] is None else min(r["gaps"][:r["layer"] + 1])
+        print(f"{tag} pool row off the one process's: layer {r['layer']}, "
+              f"block {r['block']} offset {r['offset']}: request {r['rid']} "
+              f"position {r['pos']}; the router's top-8 gap there in layers "
+              f"0..{r['layer']} on this rank "
+              f"{None if r['gaps'] is None else [f'{g:.3e}' for g in r['gaps'][:r['layer'] + 1]]}"
+              f" (smallest {low})", flush=True)
+    return mine
 
 
 def mesh_serve_rank(rank, ctx, root, device):
@@ -6324,8 +6517,8 @@ def mesh_serve_rank(rank, ctx, root, device):
               f"({st['decode_s'] * 1e3 / (new - 1):.1f} ms a step), "
               f"launches {ran}", flush=True)
     before = ops.launch_counts()
-    outs, fin, n_gen, wall, step_ms, first, wit, cache = serve_session(
-        peng, cfg, witness=True)
+    outs, fin, n_gen, wall, step_ms, first, wit, cache, owners = \
+        serve_session(peng, cfg, witness=True)
     report_witness(wit, SERVE_KERNELS)
     ran = {k: v - before[k] for k, v in ops.launch_counts().items()
            if v != before[k]}
@@ -6342,7 +6535,7 @@ def mesh_serve_rank(rank, ctx, root, device):
     want_pools = lay.shard_cache(torch.load(root / "mesh_serve_pools.pt",
                                             mmap=True))
     atol, rtol = MESH_POOL_TOL
-    worst, off, layers = 0.0, 0, []
+    worst, off, layers, moved = 0.0, 0, [], []
     for seg, ref_seg in zip(cache["stack"]["segments"],
                             want_pools["stack"]["segments"]):
         for pos, ref_pos in zip(seg.values(), ref_seg.values()):
@@ -6357,12 +6550,18 @@ def mesh_serve_rank(rank, ctx, root, device):
                 layers.append([k, gap.flatten(1).max(1).values.tolist(),
                                x.abs().flatten(1).max(1).values.tolist()])
             off += int(rows.sum())
+            # (layer, block, offset) of each row off: granite's stack is
+            # one segment of one position, its layers the repeats.
+            moved += [(int(li), int(b) + 1, int(o)) for li, b, o in
+                      rows.nonzero().tolist()]
+    trace = mesh_pool_trace(eng, moved, owners, outs, ctx, tag)
     info["paged"] = {
         "tokens": {str(k): v for k, v in outs.items()},
         "tokens_s": n_gen / wall, "step_ms": step_ms, "counts": first,
         "launches": ran, "compile_count": st["compile_count"],
         "free_blocks_at_close": st["free_blocks_at_close"],
         "pool_max_diff": worst, "pool_off": off, "pool_layers": layers,
+        "pool_trace": trace,
         "pool_shape": list(cache["stack"]["segments"][0]["pos0"]["mixer"]
                            ["k"].shape)}
     info["peak"] = torch.cuda.max_memory_allocated()
@@ -6431,7 +6630,15 @@ def mesh_serve_check(peng, ref, ranks):
     print(f"[mesh-serve] the dry run's collective payloads a rank: {pred}",
           flush=True)
     rids = [r.rid for r in make_requests(cfg)]
-    bad = []
+    ref_outs = {int(k): v for k, v in ref["paged"]["tokens"].items()}
+    # The one process's router gaps replay each traced token through a
+    # static engine on the paged engine's weights.
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    peng_static = ServeEngine(peng.params, cfg,
+                              ServeConfig(**MESH_SERVE["static"]),
+                              device=peng.device)
+    bad, one_gaps = [], {}
     for rk, info in enumerate(ranks):
         s = info["static"]
         for case in ("seq", "heads"):
@@ -6451,6 +6658,28 @@ def mesh_serve_check(peng, ref, ranks):
         if info["paged"]["pool_off"] > MESH_POOL_ROWS:
             bad.append(f"rank {rk}: {info['paged']['pool_off']} pool rows "
                        "off the one process's block")
+        for r in info["paged"]["pool_trace"]:
+            if r["gaps"] is None:
+                bad.append(f"rank {rk}: pool row {r} not traced to a token")
+                continue
+            key = (r["rid"], r["pos"])
+            if key not in one_gaps:
+                one_gaps[key] = router_gaps(
+                    peng_static, ref_outs[r["rid"]][:r["pos"] + 1])
+            one = one_gaps[key]
+            low = min(r["gaps"][:r["layer"] + 1] + one[:r["layer"] + 1])
+            print(f"[mesh-serve rank {rk}] pool row off at layer "
+                  f"{r['layer']}, request {r['rid']} position {r['pos']}: "
+                  f"the router's top-8 gaps in layers 0..{r['layer']} in the "
+                  f"one process {[f'{g:.3e}' for g in one[:r['layer'] + 1]]},"
+                  f" on the rank "
+                  f"{[f'{g:.3e}' for g in r['gaps'][:r['layer'] + 1]]}; "
+                  f"smallest {low:.3e} (TIE_GAP {TIE_GAP})", flush=True)
+            if low >= TIE_GAP:
+                bad.append(f"rank {rk}: pool row {r['layer']}/{r['rid']}/"
+                           f"{r['pos']} moved with no router near-tie at or "
+                           f"below it (smallest gap {low:.3e}): a placement "
+                           "fault")
         p = info["paged"]
         med = sorted(ref["paged"]["step_ms"])[len(ref["paged"]["step_ms"])
                                               // 2]
@@ -6545,9 +6774,10 @@ def mesh_serve_rows(device):
 # a serving mesh, on phase 20's ranks after phase 21
 # ---------------------------------------------------------------------------
 
-# (a) Granite at full width and depth, sorted dispatch, moe.ep "a2a" at
+# (a) Granite at full width and 12 of its 24 layers (24 until phase 23
+# joined the smoke: its time limit), sorted dispatch, moe.ep "a2a" at
 # budget factor 2.0 (= the model axis: no assignment dropped), the
-# default rules with tensor parallelism (ShardCtx tensor_parallel): FSDP
+# default rules with tensor parallelism (ShardCtx.for_mesh's ctx): FSDP
 # of embed over data, heads, kv heads and vocab over model, 16 of the 32
 # experts a rank, each model peer routing its data rank's 2 groups and
 # sending its one group's rows through the all-to-all. 2 Adafactor steps
@@ -6562,31 +6792,44 @@ def mesh_serve_rows(device):
 # The one process runs both while the ranks run phases 20 and 21; the
 # ranks start phase 22 when it has written "ep_go".
 MESH_EP = dict(arch="granite-moe-1b-a400m", batch=8, seq=512, group=1024,
-               dispatch="sorted", factor=2.0, steps=2)
+               dispatch="sorted", factor=2.0, steps=2, layers=12)
 MESH_RWKV = dict(layers=4, prompts=8, plen=128, new=16, seed=34,
                  static=dict(max_batch=8, max_len=160))
 
 
 @contextlib.contextmanager
 def kernel_shapes():
-    """Record the shapes the grouped and WKV kernels are called at inside
-    the block: {kernel: {(rows' shape, experts or heads): calls}}, and a
-    grouped kernel's first call's valid rows (``<kernel>_valid_rows``)."""
+    """Record the shapes the grouped, WKV, flash and expert-FFN kernels
+    are called at inside the block: {kernel: {"(first input's shape) x
+    n": calls}}, n the experts a grouped call runs, a WKV or flash call's
+    (query) heads or an expert-FFN call's experts; and a grouped kernel's
+    first call's valid rows (``<kernel>_valid_rows``)."""
+    from repro_torch.kernels import expert_mlp as em
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import rwkv6 as wkv
 
     seen = {}
+    heads = lambda args: args[0].shape[2]  # noqa: E731
+    experts = lambda args: args[0].shape[1]  # noqa: E731
     keys = [(gm, "grouped_mlp_cuda", "grouped_mlp", 4),
             (gm, "grouped_mlp_dx_cuda", "grouped_mlp_dx", 5),
             (gm, "grouped_mlp_dw_cuda", "grouped_mlp_dw", 5),
-            (wkv, "rwkv6_cuda", "rwkv6", None)]
+            (wkv, "rwkv6_cuda", "rwkv6", heads),
+            (fa, "flash_attention_fwd_cuda", "flash_attention", heads),
+            (fa, "flash_attention_dq_cuda", "flash_attention_dq", heads),
+            (fa, "flash_attention_dkv_cuda", "flash_attention_dkv", heads),
+            (em, "expert_ffn_cuda", "expert_mlp", experts),
+            (em, "expert_ffn_dx_cuda", "expert_mlp_dx", experts),
+            (em, "expert_ffn_dw_cuda", "expert_mlp_dw", experts)]
 
     def record(fn, name, sizes):
         def call(*args, **kw):
             # (the rows' shape, the experts a call runs or the heads)
-            n = args[0].shape[2] if sizes is None else args[sizes].shape[-1]
+            grouped = isinstance(sizes, int)
+            n = args[sizes].shape[-1] if grouped else sizes(args)
             key = f"{tuple(args[0].shape)} x {n}"
-            if name not in seen and sizes is not None:
+            if name not in seen and grouped:
                 seen[f"{name}_valid_rows"] = int(args[sizes].sum())
             seen.setdefault(name, {})
             seen[name][key] = seen[name].get(key, 0) + 1
@@ -6601,6 +6844,12 @@ def kernel_shapes():
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def shape_counts(shapes, name) -> set:
+    """The n of every call of ``name`` that :func:`kernel_shapes`
+    recorded."""
+    return {int(key.split(" x ")[1]) for key in shapes.get(name, {})}
 
 
 def mesh_rwkv_model(device):
@@ -6626,7 +6875,7 @@ def mesh_ep_reference(device, root):
     the granite EP cell's 2 steps in 2 microbatches of the data ranks'
     rows, its first-step state to ``mesh_ep_ref.pt``; (b) the rwkv cell
     through the static engine, and its top-2 gaps fed its own tokens.
-    Writes ``ep_go`` last. Returns what the checks read."""
+    Returns what the checks read."""
     import torch
 
     from repro_torch.checkpoint.manager import host_snapshot
@@ -6692,7 +6941,6 @@ def mesh_ep_reference(device, root):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    (root / "ep_go").touch()
     return ref
 
 
@@ -6710,16 +6958,12 @@ def mesh_ep_rank(rank, ctx, root, device):
     from repro_torch.sharding import comm, train_layout
     from repro_torch.training import init_train_state, make_train_step
 
-    while not (root / "ep_go").exists():
-        if not root.exists():
-            sys.exit(1)
-        time.sleep(0.1)
+    wait_for(root, "ep_go")
     tag = f"[mesh-ep rank {rank}]"
-    tp = dataclasses.replace(ctx, tensor_parallel=True)
     cfg, params, it, ac, kernels, opt = mesh_setup("granite_ep", device)
     state = init_train_state(None, cfg, opt, params=params)
     del params
-    layout = train_layout(tp, cfg, ac.dispatch, state)
+    layout = train_layout(ctx, cfg, ac.dispatch, state)
     state = layout.shard(state)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6835,10 +7079,7 @@ def mesh_ep_check(ref, ranks):
     from repro_torch.launch.dryrun import rules_collective_payloads
     from repro_torch.models import model_zoo as zoo
 
-    full = get_config(MESH_EP["arch"])
-    cfg = dataclasses.replace(full, moe=dataclasses.replace(
-        full.moe, group_size=MESH_EP["group"], ep="a2a",
-        ep_budget_factor=MESH_EP["factor"]))
+    cfg = mesh_cfg("granite_ep")
     rcfg = dataclasses.replace(get_config("rwkv6-7b"),
                                n_layers=MESH_RWKV["layers"])
     mesh = dict(zip(("data", "model"), MESH["shape"]))
@@ -6871,12 +7112,11 @@ def mesh_ep_check(ref, ranks):
             bad.append(f"rank {rk}: ep_overflow_frac {info['over']}")
         for k in ("grouped_mlp", "grouped_mlp_dx", "grouped_mlp_dw"):
             ran = info["shapes"].get(k, {})
-            if {int(key.split(" x ")[1]) for key in ran} != {E_l} \
-                    or len(ran) != 1:
+            if shape_counts(info["shapes"], k) != {E_l} or len(ran) != 1:
                 bad.append(f"rank {rk}: {k} ran at {ran}, not {E_l} "
                            "experts")
         ran = info["rwkv"]["shapes"].get("rwkv6", {})
-        if {int(key.split(" x ")[1]) for key in ran} != {H_l}:
+        if shape_counts(info["rwkv"]["shapes"], "rwkv6") != {H_l}:
             bad.append(f"rank {rk}: the WKV kernel ran at {ran}, not {H_l} "
                        "heads")
         if info["rwkv"]["counts"] != rpred:
@@ -6933,6 +7173,497 @@ def mesh_ep_check(ref, ranks):
             for k, v in ran.items():
                 total[path][k] = total[path].get(k, 0) + v
     return {**total, **ref["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: every family under the rules' placement on phase 20's ranks
+# ---------------------------------------------------------------------------
+
+# (a) is MESH's "t5" cell. (b) T5 (the cell's initial weights: upcycled,
+# attention conditioned) and whisper-base (seed 0, attention
+# conditioned) decoded greedily under a serving ctx through
+# zoo.prefill / zoo.decode_step at full width: phase 13's 8 requests of
+# 512 encoder tokens (32 new) and phase 14's 4 of 1,500 frames (16 new),
+# 8-token decoder prompts of the stream at data step 1000; a rank holds
+# its rows (over data) and its 6 of 12 heads, T5's 16 of 32 experts.
+MESH_DECODE = {"t5": dict(requests=8, enc=512, plen=8, new=32),
+               "whisper": dict(requests=4, enc=1500, plen=8, new=16),
+               "data_step": 1000}
+# (c) jamba-1.5-large at full width (d 8192, d_in 16,384), its first 2 of
+# 72 layers: a mamba layer with a dense FFN and a mamba layer with a MoE
+# of 16 experts (dropless), 12.18 B params in bfloat16 from seed 0,
+# served through ServeEngine(ctx=) as phase 17 serves it (bfloat16
+# compute and cache): 4 prompts of 64-128 tokens, 8 new. The one process
+# saves its weights; each rank reads them memory-mapped and places its
+# blocks one leaf at a time (its d_in block of both mamba layers, half of
+# the dense FFN, 8 of 16 experts, its vocabulary blocks), never holding
+# the whole model on the card.
+MESH_JAMBA = dict(layers=2, prompts=4, plen=(64, 128), new=8, seed=37,
+                  static=dict(max_batch=4, max_len=136,
+                              cache_dtype="bfloat16"))
+
+
+def mesh_decode_model(name, device):
+    """(cfg, params on ``device``, the requests' batch) of a phase 23 (b)
+    model."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as zoo
+
+    if name == "t5":
+        cfg, params, *_ = mesh_setup("t5", device)
+    else:
+        cfg = get_config(WHISPER["arch"])
+        params = zoo.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg,
+            device=device)
+        condition_attention(params, cfg)
+    d = MESH_DECODE[name]
+    return cfg, params, encdec_batch(cfg, d["requests"], d["enc"],
+                                     MESH_DECODE["data_step"])
+
+
+def mesh_greedy(name, device, ctx=None):
+    """Greedy decoding of a phase 23 (b) model through the kernels: in one
+    process (``ctx`` None) or under ``sharding.serve_layout`` on a rank
+    (its rows, its heads and experts, the decoder's cache by the act
+    rules). Returns {tokens (rows of the global batch), each step's top-2
+    gaps (steps, rows), launches, prefill s, decode s, the payloads of
+    the prefill and the first decode step, the launches it must make}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import stack as stk
+    from repro_torch.sharding import comm, serve_layout
+    from repro_torch.training.train_loop import batch_to
+
+    cfg, params, batch = mesh_decode_model(name, device)
+    d = MESH_DECODE[name]
+    plen, new = d["plen"], d["new"]
+    b = batch_to({k: v for k, v in batch.items() if k != "targets"}, device)
+    b["dec_tokens"] = b["dec_tokens"][:, :plen]
+    B, enc = b["dec_tokens"].shape[0], d["enc"]
+    ac = zoo.ApplyCfg(moe_impl="cuda", attn_impl="cuda")
+    meta = zoo.init_serve_cache(cfg, B, plen + new, dtype=torch.float32,
+                                device="meta", enc_len=enc)
+    if ctx is None:
+        cache = zoo.init_serve_cache(cfg, B, plen + new, dtype=torch.float32,
+                                     device=device, enc_len=enc)
+        sctx, lo, hi = None, 0, B
+    else:
+        lay = serve_layout(ctx, cfg, params, cache=meta)
+        params = lay.place(params)
+        cache, sctx = lay.alloc(meta, device=device), lay.ctx
+        i, n = lay.rows()
+        lo, hi = i * B // n, (i + 1) * B // n
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = {k: v[lo:hi] for k, v in b.items()}
+    enc_d, dec_d = (stk.layer_descs(cfg, stack="encoder"),
+                    stk.layer_descs(cfg))
+    n_moe = sum(x.ffn == "moe" for x in dec_d)
+    expect = {"flash_attention": len(enc_d) + len(dec_d) * (new + 1),
+              "expert_mlp": sum(x.ffn == "moe" for x in enc_d)
+              + n_moe * new}
+    expect = {k: v for k, v in expect.items() if v}
+    toks, gaps, counts = [], [], []
+    before = ops.launch_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.reset_counts()
+        cache, lg = zoo.prefill(params, b, cache, cfg, ac=ac, ctx=sctx)
+        counts.append(comm.counts())
+        for t in range(new):
+            lg = lg[:, -1]
+            top = torch.topk(lg, 2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).tolist())
+            cur = lg.argmax(-1)
+            toks.append(cur.tolist())
+            if t == 0:
+                pre_s, t1 = _sync_ms(t0) / 1e3, time.perf_counter()
+            if t == new - 1:
+                break
+            comm.reset_counts()
+            cache, lg = zoo.decode_step(params, cur[lo:hi, None], cache,
+                                        plen + t, cfg, ac=ac, ctx=sctx)
+            if t == 0:
+                counts.append(comm.counts())
+        dec_s = _sync_ms(t1) / 1e3
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": [list(r) for r in zip(*toks)], "gaps": gaps,
+            "launches": ran, "expect": expect, "prefill_s": pre_s,
+            "decode_s": dec_s, "counts": counts}
+
+
+def mesh_decode_reference(device):
+    """Phase 23 (b)'s one process: {model: mesh_greedy's record}."""
+    out = {}
+    for name in ("t5", "whisper"):
+        out[name] = r = mesh_greedy(name, device)
+        d = MESH_DECODE[name]
+        print(f"[mesh-{name}] one process: {d['requests']} requests, "
+              f"prefill {r['prefill_s']:.3f} s, {d['new'] - 1} decode steps "
+              f"{r['decode_s']:.3f} s; launches {r['launches']}", flush=True)
+        if r["launches"] != r["expect"]:
+            fail(f"phase 23 {name} one process: launched {r['launches']}, "
+                 f"expected {r['expect']}")
+    return out
+
+
+def mesh_jamba_cfg():
+    from repro_torch.configs import get_config
+
+    return _dropless(dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                                         n_layers=MESH_JAMBA["layers"]))
+
+
+def mesh_jamba_steps(eng, prompts, tokens):
+    """The static batch teacher-forced on ``tokens`` (a run's outputs)
+    through ``eng`` (one process or a rank's): (each step's top-2 logit
+    gaps (steps, rows), the mamba layers' caches at the end on the host:
+    {layer: {"conv", "ssm"}}, this rank's rows, the collective payloads
+    of the prefill and the first decode step)."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.sharding import comm
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    new = len(tokens[0]) - len(prompts[0])
+    toks = torch.zeros(B, plen, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    cache, ctx, (lo, hi) = eng.static_cache(B, plen + new)
+    gaps, counts = [], []
+    with torch.no_grad():
+        comm.reset_counts()
+        cache, lg = zoo.prefill(eng.params, {"tokens": toks[lo:hi].to(
+            eng.device)}, cache, eng.cfg, ac=eng.ac, ctx=ctx)
+        counts.append(comm.counts())
+        for s in range(new):
+            top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).tolist())
+            if s == new - 1:
+                break
+            cur = torch.tensor([[o[len(p) + s]] for o, p in
+                                zip(tokens, prompts)])
+            comm.reset_counts()
+            cache, lg = zoo.decode_step(eng.params, cur[lo:hi].to(
+                eng.device), cache, plen + s, eng.cfg, ac=eng.ac, ctx=ctx)
+            counts.append(comm.counts())
+    caches = {f"{si}/{pos}": {k: layer["mixer"][k].cpu() for k in
+                              ("conv", "ssm")}
+              for si, seg in enumerate(cache["stack"]["segments"])
+              for pos, layer in seg.items() if "ssm" in layer["mixer"]}
+    return gaps, caches, (lo, hi), counts[:2]
+
+
+def mesh_jamba_reference(device, root):
+    """Phase 23 (c)'s one process, before the ranks start their steps:
+    the model from seed 0 in bfloat16, served; its mamba caches after the
+    teacher-forced steps saved to ``mesh_jamba_caches.pt``, and its
+    weights copied to the host, freed on the card and saved to
+    ``mesh_jamba.pt`` for the ranks by a thread, which writes
+    ``jamba_saved`` when done. Returns what the checks read."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.param import count_params, tree_map
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mesh_jamba_cfg()
+    params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, dtype=torch.bfloat16, device=device)
+    n = count_params(params)
+    free = shutil.disk_usage(root).free
+    if free < 1.2 * 2 * n:
+        fail(f"phase 23: jamba's {2 * n / 1e9:.1f} GB of weights do not fit "
+             f"the {free / 1e9:.1f} GB free under {root}")
+    eng = ServeEngine(params, cfg, ServeConfig(**MESH_JAMBA["static"]),
+                      ac=zoo.ApplyCfg(compute_dtype="bfloat16"),
+                      device=device)
+    prompts = static_prompts(cfg, MESH_JAMBA["prompts"], MESH_JAMBA["plen"],
+                             MESH_JAMBA["seed"])
+    before = ops.launch_counts()
+    out = eng.generate(prompts, MESH_JAMBA["new"])
+    st = eng.last_stats
+    gaps, caches, _, _ = mesh_jamba_steps(eng, prompts, out)
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(caches, root / "mesh_jamba_caches.pt")
+    t1 = time.perf_counter()
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    copy_s = time.perf_counter() - t1
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def save():
+        # The marker comes last whatever happens: a failed save leaves
+        # the ranks a missing or partial file, on which they raise.
+        t2 = time.perf_counter()
+        try:
+            torch.save(host, root / "mesh_jamba.pt")
+            print(f"[mesh-jamba] the weights saved for the ranks in "
+                  f"{time.perf_counter() - t2:.1f} s", flush=True)
+        finally:
+            (root / "jamba_saved").touch()
+
+    threading.Thread(target=save, daemon=True).start()
+    print(f"[mesh-jamba] one process: {cfg.name} at {cfg.n_layers} of 72 "
+          f"layers, {n / 1e9:.3f} B params (bfloat16); {len(prompts)} "
+          f"prompts of {[len(p) for p in prompts]} tokens, "
+          f"{MESH_JAMBA['new']} new: prefill {st['prefill_s']:.3f} s, "
+          f"decode {st['decode_s']:.3f} s; peak {peak / 2 ** 30:.2f} GiB; "
+          f"weights copied to the host in {copy_s:.1f} s, saved for the "
+          f"ranks in the background ({free / 1e9:.0f} GB free); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"tokens": out, "gaps": gaps, "launches": launches, "peak": peak,
+            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+            "params": n, "prompts": prompts}
+
+
+def mesh_jamba_rank(rank, ctx, root, device, tag):
+    """A rank's phase 23 (c): ServeEngine(ctx=) over the one process's
+    weights, read memory-mapped and placed one leaf at a time; the
+    teacher-forced steps witnessed, their mamba caches against the one
+    process's blocks."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = mesh_jamba_cfg()
+    wait_for(root, "jamba_saved")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = torch.load(root / "mesh_jamba.pt", mmap=True,
+                        map_location="cpu", weights_only=True)
+    eng = ServeEngine(params, cfg, ServeConfig(**MESH_JAMBA["static"]),
+                      ac=zoo.ApplyCfg(compute_dtype="bfloat16"),
+                      device=device, ctx=ctx)
+    del params
+    place_s = time.perf_counter() - t0
+    placed = torch.cuda.max_memory_allocated()
+    prompts = static_prompts(cfg, MESH_JAMBA["prompts"], MESH_JAMBA["plen"],
+                             MESH_JAMBA["seed"])
+    new = MESH_JAMBA["new"]
+    before = ops.launch_counts()
+    out = eng.generate(prompts, new)
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    st = eng.last_stats
+    # Rank 0 holds every expert FFN call of the steps against the plain
+    # version (a float32 copy of its 8 experts' weights, 19 GB: one rank
+    # at a time fits beside the others).
+    witness = witnessed_kernels() if rank == 0 else contextlib.nullcontext()
+    with witness as wit, kernel_shapes() as shapes:
+        _, caches, (lo, hi), counts = mesh_jamba_steps(eng, prompts, out)
+    if rank == 0:
+        report_witness(wit, ("expert_mlp",))
+    want = torch.load(root / "mesh_jamba_caches.pt")
+    m, k = ctx.shape["model"], ctx.coord("model")
+    diffs = {}
+    for layer, c in caches.items():
+        n = want[layer]["ssm"].shape[2] // m
+        diffs[layer] = {
+            "ssm": float((c["ssm"] - want[layer]["ssm"][
+                :, lo:hi, k * n:(k + 1) * n]).abs().max()),
+            "conv": float((c["conv"].float() - want[layer]["conv"][
+                :, lo:hi, :, k * n:(k + 1) * n].float()).abs().max()),
+            "shape": list(c["ssm"].shape)}
+    rec = {"tokens": out, "launches": ran, "shapes": shapes,
+           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+           "place_s": place_s, "placed": placed, "caches": diffs,
+           "counts": counts,
+           "peak": torch.cuda.max_memory_allocated()}
+    print(f"{tag} jamba: placed from the memory-mapped weights in "
+          f"{place_s:.1f} s ({placed / 2 ** 30:.2f} GiB on the card); "
+          f"prefill {st['prefill_s']:.3f} s, {new - 1} decode steps "
+          f"{st['decode_s']:.3f} s; launches {ran}; expert FFN shapes "
+          f"{shapes.get('expert_mlp')}; mamba caches, this rank's rows "
+          f"{lo}..{hi} and d_in block {k} of {m}, max |diff| from the one "
+          f"process's block {diffs}; peak {rec['peak'] / 2 ** 30:.2f} GiB",
+          flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_family_rank(rank, ctx, root, device):
+    """A rank's phase 23, after phase 22: (a) T5's training steps, (b)
+    T5's and whisper's decoding, (c) jamba served."""
+    import torch
+
+    wait_for(root, "family_go")
+    t0 = time.perf_counter()
+    tag = f"[mesh-family rank {rank}]"
+    info = {"t5": mesh_cell_rank("t5", ctx, root, device, tag, "family_go",
+                                 repeat=False)}
+    info["decode"] = {}
+    for name in ("t5", "whisper"):
+        torch.cuda.reset_peak_memory_stats()
+        r = info["decode"][name] = mesh_greedy(name, device, ctx)
+        r["peak"] = torch.cuda.max_memory_allocated()
+        print(f"{tag} {name} decoding: prefill {r['prefill_s']:.3f} s, "
+              f"{MESH_DECODE[name]['new'] - 1} decode steps "
+              f"{r['decode_s']:.3f} s; launches {r['launches']}; payload B "
+              f"{r['counts']}; peak {r['peak'] / 2 ** 30:.2f} GiB",
+              flush=True)
+    info["jamba"] = mesh_jamba_rank(rank, ctx, root, device, tag)
+    info["s"] = time.perf_counter() - t0
+    print(f"{tag} phase 23 {info['s']:.1f} s", flush=True)
+    return info
+
+
+def mesh_family_check(ref, ranks):
+    """Phase 23's checks over the ranks' results against the one
+    process's; returns {path: launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import rules_collective_payloads
+
+    bad = []
+    m = MESH["shape"][1]
+    mesh = dict(zip(("data", "model"), MESH["shape"]))
+    # (a) T5 trained: the cell's checks, its kernels at a rank's shapes.
+    t5, t5_launches = ref["t5"]
+    out = mesh_cell_check("t5", t5, [info["t5"] for info in ranks], bad)
+    cfg = mesh_cfg("t5")
+    for rk, info in enumerate(ranks):
+        sh = info["t5"]["shapes"]
+        for k in FLASH_KERNELS:
+            if shape_counts(sh, k) != {cfg.n_heads // m}:
+                bad.append(f"rank {rk}: t5 {k} ran at {sh.get(k)}, not "
+                           f"{cfg.n_heads // m} heads")
+        for k in EXPERT_KERNELS:
+            if shape_counts(sh, k) != {cfg.moe.num_experts // m}:
+                bad.append(f"rank {rk}: t5 {k} ran at {sh.get(k)}, not "
+                           f"{cfg.moe.num_experts // m} experts")
+        print(f"[mesh-t5 rank {rk}] kernels' shapes in step 1 (first "
+              f"input x heads or experts): "
+              f"{ {k: sh.get(k) for k in VIT_KERNELS} }", flush=True)
+    # (b) T5 and whisper decoded.
+    decode_launches = {}
+    for name in ("t5", "whisper"):
+        want, d = ref["decode"][name], MESH_DECODE[name]
+        B = d["requests"]
+        dcfg = cfg if name == "t5" else get_config(WHISPER["arch"])
+        pred = [rules_collective_payloads(
+            dcfg, params=None, mesh=mesh, dispatch="gather", remat="none",
+            itemsize=4, kind=kind,
+            tokens=B * (d["plen"] if kind == "prefill" else 1), batch=B,
+            cache_len=d["plen"] + d["new"], enc_len=d["enc"])
+            for kind in ("prefill", "decode")]
+        for rk, info in enumerate(ranks):
+            got = info["decode"][name]
+            for path, n in got["launches"].items():
+                decode_launches[path] = decode_launches.get(path, 0) + n
+            if got["launches"] != got["expect"]:
+                bad.append(f"rank {rk}: {name} decoding launched "
+                           f"{got['launches']}, expected {got['expect']}")
+            if got["counts"] != pred:
+                bad.append(f"rank {rk}: {name} decoding counted "
+                           f"{got['counts']}, the dry run {pred}")
+            same = got["tokens"] == want["tokens"]
+            for i, (x, y) in enumerate(zip(got["tokens"], want["tokens"])):
+                n = next((j for j in range(len(x)) if x[j] != y[j]), None)
+                if n is None:
+                    continue
+                gap = want["gaps"][n][i]
+                print(f"[mesh-{name} rank {rk}] row {i} diverges from the "
+                      f"one process at generated token {n}: top-2 gap "
+                      f"{gap:.3e}", flush=True)
+                if gap >= TIE_GAP:
+                    bad.append(f"rank {rk}: {name} row {i} diverges at "
+                               f"token {n} with top-2 gap {gap:.3e} >= "
+                               f"{TIE_GAP}")
+                break  # MoE rows share routing: later rows follow
+            print(f"[mesh-{name} rank {rk}] decoded under the serving ctx: "
+                  f"token-identical to the one process: {same}; prefill "
+                  f"{got['prefill_s']:.3f} s (one process "
+                  f"{want['prefill_s']:.3f}), decode {got['decode_s']:.3f} s "
+                  f"(one process {want['decode_s']:.3f}); payloads equal "
+                  f"to the dry run's: {got['counts'] == pred}; peak "
+                  f"{got['peak'] / 2 ** 30:.2f} GiB; {card_line()}",
+                  flush=True)
+        print(f"[mesh-{name}] the dry run's payloads a rank: prefill "
+              f"{pred[0]}, decode step {pred[1]}", flush=True)
+    # (c) jamba served.
+    jref, jcfg = ref["jamba"], mesh_jamba_cfg()
+    prompts = jref["prompts"]
+    jamba_launches = {}
+    n_moe = sum(d.ffn == "moe" for d in all_descs(jcfg))
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    jpred = [rules_collective_payloads(
+        jcfg, params=None, mesh=mesh, dispatch="gather", remat="none",
+        itemsize=2, kind=kind, tokens=B * (plen if kind == "prefill" else 1),
+        batch=B, cache_len=plen + MESH_JAMBA["new"])
+        for kind in ("prefill", "decode")]
+    print(f"[mesh-jamba] the dry run's payloads a rank: prefill {jpred[0]}, "
+          f"decode step {jpred[1]}", flush=True)
+    for rk, info in enumerate(ranks):
+        got = info["jamba"]
+        for k, n in got["launches"].items():
+            jamba_launches[k] = jamba_launches.get(k, 0) + n
+        if got["launches"] != {"expert_mlp": n_moe * MESH_JAMBA["new"]}:
+            bad.append(f"rank {rk}: jamba launched {got['launches']}")
+        if got["counts"] != jpred:
+            bad.append(f"rank {rk}: jamba counted {got['counts']}, the dry "
+                       f"run {jpred}")
+        if shape_counts(got["shapes"], "expert_mlp") != {
+                jcfg.moe.num_experts // m}:
+            bad.append(f"rank {rk}: jamba's expert FFN ran at "
+                       f"{got['shapes'].get('expert_mlp')}")
+        div = first_static_divergence(prompts, got["tokens"], jref["tokens"])
+        if div is not None:
+            i, n = div
+            gap = jref["gaps"][n - len(prompts[i])][i]
+            print(f"[mesh-jamba rank {rk}] row {i} diverges from the one "
+                  f"process at token {n}: its top-2 gap {gap:.3e}",
+                  flush=True)
+            if gap >= JAMBA_TIE_GAP:
+                bad.append(f"rank {rk}: jamba row {i} diverges at token {n}"
+                           f" with top-2 gap {gap:.3e} >= {JAMBA_TIE_GAP}")
+        print(f"[mesh-jamba rank {rk}] token-identical to the one process: "
+              f"{got['tokens'] == jref['tokens']}; payloads equal to the dry "
+              f"run's: {got['counts'] == jpred}; placed in "
+              f"{got['place_s']:.1f} s; prefill {got['prefill_s']:.3f} s "
+              f"(one process {jref['prefill_s']:.3f}), decode "
+              f"{got['decode_s']:.3f} s (one process {jref['decode_s']:.3f});"
+              f" peak {got['peak'] / 2 ** 30:.2f} GiB ({got['peak']} B; one "
+              f"process {jref['peak'] / 2 ** 30:.2f}); {card_line()}",
+              flush=True)
+    print(f"[mesh-family] the ranks' phase 23 {[info['s'] for info in ranks]}"
+          " s", flush=True)
+    if bad:
+        fail("phase 23: " + "; ".join(bad))
+    t5_ranks = {}
+    for path, launches in out.items():
+        for k, v in launches.items():
+            t5_ranks[k] = t5_ranks.get(k, 0) + v
+    return {"mesh_t5": t5_ranks, "mesh_t5_reference": t5_launches,
+            "mesh_encdec_decode": decode_launches,
+            "mesh_encdec_decode_reference": {
+                k: sum(r["launches"].get(k, 0)
+                       for r in ref["decode"].values())
+                for k in set().union(*(r["launches"]
+                                       for r in ref["decode"].values()))},
+            "mesh_jamba": jamba_launches,
+            "mesh_jamba_reference": ref["jamba"]["launches"]}
 
 
 def main() -> int:

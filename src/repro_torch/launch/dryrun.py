@@ -134,7 +134,7 @@ def _moe_tp_payloads(cfg, moe, n: int, m: int, dispatch: str,
 def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                               itemsize: int, batch: int = 0,
                               cache_len: int = 0, logits_rows: int = 0,
-                              ring: bool = False) -> dict:
+                              enc_len: int = 0, ring: bool = False) -> dict:
     """Payload bytes a rank moves through each kind of collective of one
     serving step under ``sharding.serve_layout`` (the sums
     ``comm.COUNTS`` keeps; an all-gather's output, an all-reduce's
@@ -145,6 +145,12 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
     verify, prefill-on-join or decode) of ``tokens`` rows replicated
     over the data axes, ``logits_rows`` of logits. Per rwkv layer whose
     heads split over ``model``: the time mix's ``wo`` all-reduce. Per
+    mamba layer whose ``d_in`` splits over ``model``: the all-reduces of
+    ``x_proj``'s partial products (dt_rank + 2 d_state a token) and of
+    ``out_proj``'s partial outputs. An encoder-decoder's prefill first
+    runs its encoder over the rank's rows of ``enc_len`` positions (its
+    lookup where it embeds tokens, its layers as below, no cache); every
+    decoder layer adds its cross attention's output all-reduce. Per
     attention layer:
     ``wo``'s all-reduce; where the static cache lies over ``model`` by
     position (``cache_seq``) or is replicated, the gathers of the step's
@@ -197,40 +203,59 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
     else:
         D, Sq, n, mode, out_rows = 1, 1, tokens, "heads", logits_rows
     descs = stk.layer_descs(cfg)
-    plan = head_plan(cfg, m) if m > 1 and any(
-        d.mixer == "attn" for d in descs) else None
+    encdec = cfg.structure == "encoder_decoder"
+    plan = head_plan(cfg, m) if m > 1 and (encdec or any(
+        d.mixer == "attn" for d in descs)) else None
     H = cfg.d_model // cfg.ssm.head_size if cfg.ssm is not None else 0
-    for desc in descs:
-        if m > 1 and desc.mixer == "rwkv6" and H % m == 0:
-            add("tp_all_reduce", n * d * it, m, 2)  # the time mix's wo
-        if m > 1 and desc.mixer == "attn":
-            if plan is not None:
-                add("tp_all_reduce", n * d * it, m, 2)
-            if mode != "heads":
+    d_in = cfg.ssm.expand * d if cfg.ssm is not None else 0
+    dt_rank = max(1, math.ceil(d / 16))
+
+    def layers(descs, n, Sq, cached):
+        for desc in descs:
+            if m > 1 and desc.mixer == "rwkv6" and H % m == 0:
+                add("tp_all_reduce", n * d * it, m, 2)  # the time mix's wo
+            if m > 1 and desc.mixer == "mamba" and d_in % m == 0:
+                add("tp_all_reduce",
+                    n * (dt_rank + 2 * cfg.ssm.d_state) * it, m, 2)
+                add("tp_all_reduce", n * d * it, m, 2)  # out_proj
+            if m > 1 and desc.mixer == "attn":
                 if plan is not None:
-                    Hp, Gp, kv = plan
-                    Hl = Hp // m
-                    Kl = {"block": Hl // Gp, "one": 1, "each": Hl}[kv]
-                    add("cache_all_gather", 2 * m * n * Kl * dh * it, m)
-                    if Sq == 1:
-                        add("cache_all_gather", B_l * Hp * dh * it, m)
-                if Sq == 1 and mode == "seq":
-                    H = plan[0] if plan is not None else cfg.n_heads
-                    add("softmax_combine", m * B_l * H * (dh + 2) * 4, m)
-        if desc.ffn == "moe":
-            moe = cfg.moe
-            E = moe.num_experts
-            gathered = D > 1 and n % min(moe.group_size, n * D) != 0
-            nr = n * D if gathered else n
-            g = min(moe.group_size, nr)
-            G = -(-nr // g)
-            if gathered:
-                add("row_all_gather", nr * d * it, D)
-            if m > 1 and (E % m == 0 or cfg.d_ff % m == 0):
-                add("tp_all_reduce", (n if gathered else G * g) * d * it,
-                    m, 2)
-        elif m > 1 and cfg.d_ff % m == 0:
-            add("tp_all_reduce", n * d * it, m, 2)
+                    add("tp_all_reduce", n * d * it, m, 2)
+                if cached and mode != "heads":
+                    if plan is not None:
+                        Hp, Gp, kv = plan
+                        Hl = Hp // m
+                        Kl = {"block": Hl // Gp, "one": 1, "each": Hl}[kv]
+                        add("cache_all_gather", 2 * m * n * Kl * dh * it, m)
+                        if Sq == 1:
+                            add("cache_all_gather", B_l * Hp * dh * it, m)
+                    if Sq == 1 and mode == "seq":
+                        Hq = plan[0] if plan is not None else cfg.n_heads
+                        add("softmax_combine",
+                            m * B_l * Hq * (dh + 2) * 4, m)
+            if m > 1 and desc.cross and plan is not None:
+                add("tp_all_reduce", n * d * it, m, 2)  # cross attention
+            if desc.ffn == "moe":
+                moe = cfg.moe
+                E = moe.num_experts
+                gathered = D > 1 and n % min(moe.group_size, n * D) != 0
+                nr = n * D if gathered else n
+                g = min(moe.group_size, nr)
+                G = -(-nr // g)
+                if gathered:
+                    add("row_all_gather", nr * d * it, D)
+                if m > 1 and (E % m == 0 or cfg.d_ff % m == 0):
+                    add("tp_all_reduce",
+                        (n if gathered else G * g) * d * it, m, 2)
+            elif m > 1 and cfg.d_ff % m == 0:
+                add("tp_all_reduce", n * d * it, m, 2)
+
+    if encdec and kind == "prefill":
+        n_enc = B_l * enc_len
+        if m > 1 and V % m == 0 and cfg.frontend is None:
+            add("tp_all_reduce", n_enc * d * it, m, 2)  # its lookup
+        layers(stk.layer_descs(cfg, stack="encoder"), n_enc, enc_len, False)
+    layers(descs, n, Sq, True)
     if m > 1 and V % m == 0:
         add("tp_all_reduce", n * d * it, m, 2)  # the vocab-parallel lookup
         add("logits_all_gather", out_rows * V * 4, m)
@@ -376,8 +401,8 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
         else:
             rows = dec_n
             ar += rows * d * it  # the vocab-parallel lookup
-            if cfg.structure == "encoder_decoder":
-                ar += enc_n * d * it
+            if cfg.structure == "encoder_decoder" and cfg.frontend is None:
+                ar += enc_n * d * it  # the encoder's (not frames)
         ar += rows * d * it + 3 * rows * 4  # head input, max, sum, target
     out["tp_all_reduce"] = ar
     out["router_all_gather"] = gather
@@ -560,7 +585,7 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
         remat=ac.remat, mesh=mesh, tokens=shp.global_batch * shp.seq_len,
         itemsize=torch.empty((), dtype=ac.cdtype).element_size(),
         batch=shp.global_batch, seq=shp.seq_len,
-        tensor_parallel=ctx.tensor_parallel)
+        tensor_parallel=ctx.tensor_parallel is not False)
 
     flops_dev = cost["total_flops"] / n_chips
     bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \

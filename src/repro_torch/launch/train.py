@@ -53,14 +53,18 @@ the launcher then initialises the process group from the environment
 (``nccl`` on CUDA, each rank on ``cuda:LOCAL_RANK``; ``gloo`` with
 ``--device cpu``), builds the mesh — ``(data=1, model=world)`` under
 ``--ep a2a``, ``(data=world,)`` otherwise — and trains with that
-``ShardCtx``: each rank takes its rows of every batch; under ``--ep
-a2a`` the MoE layers run expert-parallel (``--dispatch sorted``: each
-rank holds ``E / world`` experts, tokens cross ranks by all-to-all,
-budget ``--ep-budget-factor``); otherwise the state takes the rules'
-placement (``sharding.train_layout``), which on ``(data=world,)`` is
-FSDP: each rank holds its block of every ``embed`` dim, gathered at
-use and its gradient reduce-scattered. Gradients are reduced over the
-ranks, and checkpoints hold the global state (written by rank 0). The
+``ShardCtx``: the state takes the rules' placement
+(``sharding.train_layout``). On ``(data=world,)`` that is FSDP: each
+rank takes its rows of every batch and holds its block of every
+``embed`` dim, gathered at use and its gradient reduce-scattered. Under
+``--ep a2a`` (``--dispatch sorted``) it is tensor parallelism of heads,
+KV heads, ``mlp`` and ``vocab`` over the ``world`` ranks, which take
+the same rows, with the MoE layers expert-parallel on top: each rank
+holds ``E / world`` experts and sends its block of the routing groups
+through the all-to-all (budget ``--ep-budget-factor``; the groups must
+divide the ranks), as the reference's default rules compose them.
+Gradients are reduced over the ranks, and checkpoints hold the global
+state (written by rank 0). The
 ``model`` axis's tensor parallelism is reached through the API
 (``ShardCtx.for_mesh`` on a mesh with one, as the reference's
 launcher builds none). In one process ``--ep a2a`` falls back to the

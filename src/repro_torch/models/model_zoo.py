@@ -407,7 +407,7 @@ def _stack(params, x, cfg, ac: ApplyCfg, **kw):
 def _serving(cfg: ArchConfig, ctx):
     """The ctx a serving entry point runs under: None for one process;
     a ctx with process groups must come from ``sharding.serve_layout``
-    (a ``ServePlan``), and its stack must be decoder-only attention."""
+    (a ``ServePlan``)."""
     if ctx is None or not ctx.groups:
         return ctx
     from repro_torch.sharding import _check_serving_stack

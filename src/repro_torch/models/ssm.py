@@ -17,6 +17,17 @@ Caches (the static serve engine): ``conv`` (B, d_conv - 1, d_in), the
 last inputs of the conv window, in the cache dtype; ``ssm`` (B, d_in,
 d_state), always float32. The step overwrites them in place after it
 has read them (the reference returns new arrays).
+
+Under a serving mesh (``sharding.serve_layout``) the mixer runs tensor
+parallel over its inner dim ``d_in``, which the rules put on ``model``
+(``mlp``): a rank holds its block ``[r d_in / m, (r + 1) d_in / m)`` of
+every ``mlp`` dim (:func:`tp_block`: both halves of ``in_proj``, the
+conv, ``dt_w``, ``dt_b``, ``A_log``, ``D``, the rows of ``x_proj`` and
+``out_proj``) and of the caches. ``x_proj`` contracts over ``d_in``, so
+its partial products are summed over ``model`` before dt, B and C are
+formed; ``out_proj`` is row parallel, its partial outputs summed. The
+training step joins the mixer's leaves (``sharding/comm.py``) and runs
+the one-process path.
 """
 from __future__ import annotations
 
@@ -81,6 +92,29 @@ def mamba_cache_init(cfg: ArchConfig, batch: int, *, dtype=torch.float32,
 
 MAMBA_CACHE_AXES = {"conv": "batch conv mlp", "ssm": "batch mlp state"}
 
+# The dim of each leaf (counted from the end: a stacked leaf leads with
+# its layer dim) that runs over ``d_in``.
+INNER_DIM = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
+             "dt_w": -1, "dt_b": -1, "A_log": -2, "D": -1, "out_proj": -2}
+
+
+def tp_block(key: str, t, r: int, m: int):
+    """Rank ``r``'s block (of ``m``) of a mixer leaf's ``d_in`` dim
+    (:data:`INNER_DIM`): the contiguous block, and for
+    ``in_proj`` (..., 2 d_in) the same block of each of its halves (x,
+    z) side by side. The rules store ``in_proj``'s ``mlp`` dim as
+    contiguous blocks of ``2 d_in`` instead (on 2 ranks, x on one and z
+    on the other), so the serving placement takes the rank's block from
+    the joined leaf, once, at placement; it holds as many bytes as the
+    rules' block."""
+    dim = INNER_DIM[key]
+    if key == "in_proj":
+        halves = t.unflatten(-1, (2, t.shape[-1] // 2))
+        n = halves.shape[-1] // m
+        return halves.narrow(-1, r * n, n).flatten(-2)
+    n = t.shape[dim] // m
+    return t.narrow(dim, r * n, n)
+
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x: (B, T, d_in); w: (d_conv, d_in). A
@@ -92,18 +126,33 @@ def _causal_conv(x, w, b):
     return out.transpose(1, 2) + b
 
 
-def mamba_apply(p, x, cfg: ArchConfig, *, cache=None, mode: str = "train"):
+def mamba_apply(p, x, cfg: ArchConfig, *, cache=None, mode: str = "train",
+                ctx=None):
     """x: (B, T, d) -> (y, cache). ``mode``: "train" (no cache; starts
     from a zero state), "prefill" (the prompt from an empty cache: the
     conv reads zeros before position 0, the state starts from
     ``cache["ssm"]``) or "decode" (T = 1, the conv window rolled). With a
-    cache the new window and state are written into it in place."""
+    cache the new window and state are written into it in place.
+
+    ``ctx``: a ``ShardCtx``. Where ``p`` holds the rank's block of
+    ``d_in`` (``conv_w`` narrower than the config's ``d_in``; the
+    serving placement, :func:`tp_block`) the mixer runs tensor parallel
+    over it with the cache's block: ``x_proj``'s partial products and
+    ``out_proj``'s partial outputs summed over ``model``."""
+    from repro_torch.sharding import comm
+
     if mode not in MODES:
         raise ValueError(f"unknown mamba mode {mode!r} {MODES}")
     if (cache is None) != (mode == "train"):
         raise ValueError(f"mamba mode {mode!r} "
                          f"{'needs' if cache is None else 'takes no'} cache")
     s, d_in, dt_rank = _dims(cfg)
+    tp = p["conv_w"].shape[-1] != d_in
+    if tp and (ctx is None or ctx.tp_size * p["conv_w"].shape[-1] != d_in):
+        raise ValueError(
+            f"{cfg.name}: the mixer holds {p['conv_w'].shape[-1]} of "
+            f"{d_in} inner channels without a ctx that splits them")
+    d_in = p["conv_w"].shape[-1]
     B, T, _ = x.shape
     x_in, z = (x @ p["in_proj"]).split(d_in, dim=-1)
 
@@ -122,6 +171,8 @@ def mamba_apply(p, x, cfg: ArchConfig, *, cache=None, mode: str = "train"):
             new_conv = tail[:, tail.shape[1] - win:]
 
     xdb = xc @ p["x_proj"]
+    if tp:
+        xdb = comm.reduce_from_model(xdb, ctx)
     dt_r = xdb[..., :dt_rank]
     Bm = xdb[..., dt_rank:dt_rank + s.d_state].float()
     Cm = xdb[..., dt_rank + s.d_state:].float()
@@ -142,6 +193,8 @@ def mamba_apply(p, x, cfg: ArchConfig, *, cache=None, mode: str = "train"):
     y = y + p["D"] * xc
     y = y * F.silu(z)
     out = y @ p["out_proj"]
+    if tp:
+        out = comm.reduce_from_model(out, ctx)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(h)

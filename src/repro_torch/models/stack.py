@@ -188,9 +188,9 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
     channel-mix receptance. ``tag_moe`` tags a MoE layer's output as
     the ``remat="moe"`` boundary. ``pad_heads_multiple`` pads the
     attention's query heads (``attention.pad_heads``). ``ctx`` (a
-    ``ShardCtx``) reaches the attention, the rwkv time mix, the MLP
-    and the MoE layer: each runs tensor parallel on the ``model`` blocks
-    its weights hold (``sharding/comm.params_for_compute``,
+    ``ShardCtx``) reaches the attention, the rwkv time mix, the mamba
+    mixer, the MLP and the MoE layer: each runs tensor parallel on the
+    ``model`` blocks its weights hold (``sharding/comm.params_for_compute``,
     ``ServeLayout.place``), the MoE expert-parallel under ``moe.ep ==
     "a2a"`` with the sorted dispatch. Returns (x, metrics, cache), the cache
     updated in place."""
@@ -205,7 +205,7 @@ def layer_apply(p, x, cfg: ArchConfig, desc: LayerDesc, *, enc=None,
         )
     elif desc.mixer == "mamba":
         y, _ = ssm.mamba_apply(p["mixer"], h, cfg, cache=mix_cache,
-                               mode=mode)
+                               mode=mode, ctx=ctx)
     else:
         y, _ = rwkv.time_mix_apply(p["mixer"], h, cfg, cache=mix_cache,
                                    implementation=mixer_impl, ctx=ctx)

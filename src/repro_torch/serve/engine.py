@@ -43,12 +43,13 @@ Where the reference counts jit compiles, the engine counts the distinct
 input shapes each step function ran (``compile_count``).
 
 Under a mesh (``ServeEngine(ctx=)``, a ``ShardCtx`` with process
-groups; decoder-only attention stacks) every rank builds the same
-engine: its weights are placed once at construction
-(``sharding.serve_layout``: joined over their FSDP dims, cut to the
-rank's blocks over ``model``), the static engine's cache by the act
-rules (rows over the data axes, ``cache_seq`` or ``kv_heads`` over
-``model``) and the paged pools with their KV heads over ``model``, the
+groups; decoder-only stacks of attention, rwkv and mamba mixers)
+every rank builds the same engine: its weights are placed once at
+construction (``sharding.serve_layout``: joined over their FSDP dims,
+cut to the rank's blocks over ``model``), the static engine's cache by
+the act rules (rows over the data axes, ``cache_seq`` or ``kv_heads``
+over ``model``, a mamba layer's ``d_in`` over ``model``) and the paged
+pools with their KV heads over ``model``, the
 paged rows replicated over the data axes. Every step returns whole
 logits on every rank, so every rank runs the same scheduler, samples
 the same tokens and keeps the same block tables.
@@ -167,8 +168,10 @@ class ServeEngine:
     override the draft that ``sc.draft`` builds; ``tracker`` is the
     sessions' default tracker. ``ctx``: a ``ShardCtx`` with process
     groups to serve under the rules' placement (``params`` the global
-    tree, or the rank's blocks under the param rules); None, or a ctx
-    without process groups, serves in one process."""
+    tree, or the rank's blocks under the param rules, on any device:
+    ``ServeLayout.place`` moves each leaf's block to ``device`` one leaf
+    at a time, so a rank never holds the whole model on the card);
+    None, or a ctx without process groups, serves in one process."""
 
     def __init__(self, params, cfg: ArchConfig,
                  sc: Optional[ServeConfig] = None, *,
@@ -231,7 +234,9 @@ class ServeEngine:
         if sc.cache_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown cache_dtype {sc.cache_dtype!r}")
         self.device = resolve_device(device)
-        if params["embed"]["tokens"].device.type != self.device.type:
+        mesh = ctx is not None and bool(ctx.groups)
+        if not mesh and params["embed"]["tokens"].device.type \
+                != self.device.type:
             raise ValueError(
                 f"params live on {params['embed']['tokens'].device}, the "
                 f"engine on {self.device}"
@@ -253,22 +258,25 @@ class ServeEngine:
                                        dtype=self.cache_dtype,
                                        device=self.device)
         self.layout = self._draft_layout = self._pctx = self._dctx = None
-        if ctx is not None and ctx.groups:
+        if mesh:
             from repro_torch.sharding import serve_layout
 
             self.layout = serve_layout(ctx, cfg, params)
-            params = self.layout.join(params)
+            if self._spec:  # the draft is made from the global tree
+                params = self.layout.join(params)
             if sc.paged:
                 self._pctx = self._paged_layout(self.layout)[0].ctx
         if self._spec:
             if draft_params is None or draft_cfg is None:
                 draft_params, draft_cfg = make_draft(params, cfg, sc.draft)
         if self.layout is not None:
-            self.params = params = self.layout.place(params)
+            self.params = params = self.layout.place(params,
+                                                     device=self.device)
             if self._spec:
                 self._draft_layout = serve_layout(ctx, draft_cfg,
                                                   draft_params)
-                draft_params = self._draft_layout.place(draft_params)
+                draft_params = self._draft_layout.place(
+                    draft_params, device=self.device)
                 self._dctx = self._paged_layout(self._draft_layout)[0].ctx
         self._draft_params, self._draft_cfg = draft_params, draft_cfg
         self.last_stats: dict = {}

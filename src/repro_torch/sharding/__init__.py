@@ -11,10 +11,10 @@ rules; the port's runtime applies the placement explicitly
 — ``embed`` over ``data`` (FSDP), ``heads``, ``kv_heads``, ``mlp``,
 ``vocab`` and ``expert`` over ``model`` (tensor parallel), tokens over
 the data axes, the MoE expert-parallel under ``moe.ep == "a2a"`` —
-or, for a ctx that is not ``tensor_parallel`` with expert parallelism
-(sorted dispatch, a mesh ``expert_parallel_layout`` accepts), each
-expert leaf's ``expert`` dim over ``model`` and every other leaf
-replicated, tokens over every axis. A :class:`TreeLayout` holds each
+or, for a ctx whose ``tensor_parallel`` is False with expert
+parallelism (sorted dispatch, a mesh ``expert_parallel_layout``
+accepts), each expert leaf's ``expert`` dim over ``model`` and every
+other leaf replicated, tokens over every axis. A :class:`TreeLayout` holds each
 leaf's spec and moves between the global tree and a rank's
 (``shard``, ``gather``); ``sharding/comm.py`` holds the collectives a
 step computes with. Serving (:func:`serve_layout`) places the weights
@@ -99,13 +99,16 @@ class ShardCtx:
     param_rules: Rules
     groups: Mapping[tuple, Any] = dataclasses.field(default_factory=dict)
     # The model's modules run tensor parallel over ``model`` (the ranks
-    # of a ``model`` group hold the same tokens). Set by the rules'
-    # layout (``train_layout``, ``serve_layout``); a ctx given it
-    # (``dataclasses.replace(ctx, tensor_parallel=True)``) asks
-    # ``train_layout`` for the rules' placement under expert parallelism
-    # too, which otherwise keeps the expert-only layout (the ranks hold
-    # different tokens).
-    tensor_parallel: bool = False
+    # of a ``model`` group hold the same tokens) when True: set by the
+    # rules' layout (``train_layout``, ``serve_layout``). None (as
+    # ``for_mesh`` builds a ctx) runs no tensor parallelism itself and
+    # asks ``train_layout`` for the rules' placement, expert parallelism
+    # composed on top where ``ep_active`` holds, as the reference's
+    # default rules place it. False asks for the expert-only layout
+    # under expert parallelism (``dataclasses.replace(ctx,
+    # tensor_parallel=False)``: the expert leaves over ``model``, every
+    # other leaf replicated, the ranks holding different tokens).
+    tensor_parallel: Optional[bool] = None
     # Set by ``serve_layout``: how a serving step's rows and KV caches lie
     # over the mesh. None in training.
     serve: Optional["ServePlan"] = None
@@ -392,11 +395,11 @@ def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
     tensor parallel over ``model``; expert parallelism (a MoE arch,
     sorted dispatch, ``moe.ep == "a2a"``, a mesh that can host it) then
     runs on each peer's block of its data rank's routing groups
-    (``core/moe.py``). A ctx that is not ``tensor_parallel`` (as
-    ``ShardCtx.for_mesh`` builds it) keeps expert
-    parallelism without tensor parallelism: the expert leaves sliced
-    over ``model`` on their ``expert`` dim, every other leaf replicated,
-    tokens split over every axis."""
+    (``core/moe.py``), as ``ShardCtx.for_mesh``'s ctx asks. A ctx whose
+    ``tensor_parallel`` is False asks for expert parallelism without
+    tensor parallelism: the expert leaves sliced over ``model`` on their
+    ``expert`` dim, every other leaf replicated, tokens split over every
+    axis."""
     if ctx is None or not ctx.groups:
         return None
     from repro_torch.core.moe import ep_active
@@ -404,7 +407,7 @@ def train_layout(ctx: Optional[ShardCtx], cfg, dispatch: str, state):
 
     axes = state_axes_of(state, param_axes(cfg))
     if cfg.moe is not None and dispatch == "sorted" \
-            and ep_active(ctx, cfg.moe) and not ctx.tensor_parallel:
+            and ep_active(ctx, cfg.moe) and ctx.tensor_parallel is False:
         return TreeLayout(ctx, _map(lambda a: _dim_spec(ep_dim(a)), axes),
                           ctx.token_axes)
     return TreeLayout(dataclasses.replace(ctx, tensor_parallel=True),
@@ -431,16 +434,68 @@ class ServePlan:
 
 
 def _check_serving_stack(cfg) -> None:
-    from repro_torch.models import stack as stk
-
-    mixers = sorted({d.mixer for d in stk.layer_descs(cfg)})
-    if cfg.structure != "decoder_only" or mixers not in (["attn"],
-                                                          ["rwkv6"]):
+    """Raise for a stack the port does not serve under a mesh: every
+    decoder-only and encoder-decoder stack of attention, rwkv and mamba
+    mixers serves; an encoder-only one has no serving path."""
+    if cfg.structure not in ("decoder_only", "encoder_decoder"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.structure}, mixers {mixers}): serving under "
-            "a mesh runs decoder-only attention and rwkv stacks; mamba and "
-            "encoder-decoder stacks under a serving mesh are ROADMAP "
-            "queue 1")
+            f"{cfg.name} ({cfg.structure}): serving runs decoder-only and "
+            "encoder-decoder stacks")
+
+
+def _static_plan(cfg, specs) -> ServePlan:
+    """The :class:`ServePlan` of a static cache's specs, checked: every
+    layer's cache splits its rows over the same data axes (the
+    encoder's states ``enc`` too); an attention layer's k (layer batch
+    cache_seq kv_heads head_dim) puts ``cache_seq`` or ``kv_heads`` over
+    ``model`` or neither, which sets the plan's cache mode; an rwkv
+    layer's WKV state (layer batch heads head_dim head_dim) its heads,
+    its ``x_prev`` replicated over ``model``; a mamba layer's conv window
+    (layer batch conv mlp) and state (layer batch mlp state) their
+    ``d_in`` block (``mlp``)."""
+    found = []
+    for seg in specs["stack"]["segments"]:
+        for pos in seg.values():
+            mixer = pos["mixer"]
+            key = next(k for k in ("k", "wkv", "ssm") if k in mixer)
+            spec = tuple(mixer[key]) + (None,) * 5
+            batch = entry_axes(spec[1])
+            if key == "k":
+                inner = (("cache_seq", entry_axes(spec[2])),
+                         ("kv_heads", entry_axes(spec[3])))
+            elif key == "wkv":
+                inner = (("heads", entry_axes(spec[2])),)
+            else:
+                inner = (("mlp", entry_axes(spec[2])),)
+            for name, axes in inner:
+                if axes and axes != (EP_AXIS,):
+                    raise ValueError(
+                        f"{cfg.name}: the static cache's {name} over "
+                        f"{axes} (spec {mixer[key]}) is not a placement "
+                        "the port serves (model alone or nothing)")
+            found.append((key, batch, dict(inner)))
+    if "enc" in specs:
+        found.append(("enc", entry_axes((tuple(specs["enc"]) + (None,))[0]),
+                      {}))
+    batch = found[0][1]
+    for key, b, _ in found:
+        if EP_AXIS in b:
+            raise ValueError(
+                f"{cfg.name}: the static cache's batch over {b} (its "
+                f"{key!r}): rows over model are not served")
+        if b != batch:
+            raise ValueError(
+                f"{cfg.name}: the static cache's leaves split the batch "
+                f"over {batch} and {b}: one placement of the rows serves")
+    mode = "replicated"
+    for key, _, inner in found:
+        if key == "k":
+            mode = ("seq" if inner["cache_seq"] else "heads"
+                    if inner["kv_heads"] else "replicated")
+            break
+        if key == "wkv" and inner["heads"]:
+            mode = "heads"
+    return ServePlan(batch, mode)
 
 
 def _walk(fn, tree, *others, path=()):
@@ -494,32 +549,7 @@ class ServeLayout:
 
             specs = tree_specs(serve_cache_axes(cfg), cache, ctx.mesh,
                                ctx.act_rules)
-            # Every layer's cache has one shape: one spec. An attention
-            # layer's k (layer batch cache_seq kv_heads head_dim); an
-            # rwkv layer's WKV state (layer batch heads head_dim
-            # head_dim), its x_prev replicated over model.
-            mixer = specs["stack"]["segments"][0]["pos0"]["mixer"]
-            spec = mixer["k"] if "k" in mixer else mixer["wkv"]
-            spec = tuple(spec) + (None,) * (5 - len(spec))
-            if "k" in mixer:
-                batch, seq, heads = (entry_axes(e) for e in spec[1:4])
-            else:
-                batch, seq, heads = (entry_axes(spec[1]), (),
-                                     entry_axes(spec[2]))
-            for name, axes in (("cache_seq", seq), (
-                    "kv_heads" if "k" in mixer else "heads", heads)):
-                if axes and axes != (EP_AXIS,):
-                    raise ValueError(
-                        f"{cfg.name}: the static cache's {name} over "
-                        f"{axes} (spec {spec}) is not a placement the "
-                        "port serves (model alone or nothing)")
-            if EP_AXIS in batch:
-                raise ValueError(
-                    f"{cfg.name}: the static cache's batch over {batch} "
-                    f"(spec {spec}): rows over model are not served")
-            mode = ("seq" if seq else "heads" if heads
-                    else "replicated")
-            plan = ServePlan(batch, mode)
+            plan = _static_plan(cfg, specs)
         return dataclasses.replace(
             self, cache_specs=specs,
             ctx=dataclasses.replace(ctx, serve=plan))
@@ -536,30 +566,54 @@ class ServeLayout:
 
         return _walk(leaf, params, self.specs, self.shapes)
 
-    def place(self, params):
+    def place(self, params, *, device=None):
         """The parameters this rank serves with, from the global tree or
-        its blocks (:meth:`join`): every dim over the data axes joined
-        (FSDP, once), every dim over ``model`` cut to the rank's block
-        where its module runs tensor parallel
-        (``comm._tensor_parallel``: attention, the FFNs, the embedding
-        table and the head; in serving also the rwkv time mix's heads),
-        whole elsewhere. A MoE router stays whole: every peer routes
-        alike, so its logits need no gather a step."""
+        its blocks (:meth:`join`), one leaf at a time (a leaf's blocks
+        joined, cut, and the joined leaf dropped before the next, so the
+        rank never holds the whole model; each leaf moved to ``device``
+        where given): every dim over the data axes joined (FSDP, once),
+        every dim over ``model`` cut to the rank's block where its
+        module runs tensor parallel (``comm._tensor_parallel``:
+        attention, the FFNs, the embedding table and the head; in
+        serving also the rwkv time mix's heads), whole elsewhere. A
+        mamba mixer's leaves are cut to the rank's block of ``d_in``
+        (``models/ssm.tp_block``; ``in_proj``'s two halves each cut)
+        where ``d_in`` splits over ``model``. A MoE router stays whole:
+        every peer routes alike, so its logits need no gather a
+        step."""
+        from repro_torch.models.ssm import INNER_DIM, tp_block
         from repro_torch.sharding.comm import _tensor_parallel
 
         ctx = self.ctx
+        m = ctx.shape.get(EP_AXIS, 1)
+        r = ctx.index((EP_AXIS,)) if m > 1 else 0
+        d_in = (self.cfg.ssm.expand * self.cfg.d_model
+                if self.cfg.ssm is not None else 0)
 
-        def leaf(t, spec, path, parent):
-            if "router" in path:
-                return t
-            for d, e in enumerate(spec):
-                if entry_axes(e) == (EP_AXIS,) \
-                        and _tensor_parallel(path, parent, serving=True):
-                    n = t.shape[d] // ctx.size((EP_AXIS,))
-                    t = t.narrow(d, ctx.index((EP_AXIS,)) * n, n).clone()
+        def leaf(t, spec, g, path, parent):
+            if tuple(t.shape) != tuple(g.shape):
+                t = gather_leaf(t, spec, ctx)
+            whole = t
+            if m == 1 or "router" in path:
+                pass
+            elif "A_log" in parent and path[-1] in INNER_DIM:
+                if d_in % m == 0:
+                    t = tp_block(path[-1], t, r, m)
+            else:
+                for d, e in enumerate(spec):
+                    if entry_axes(e) == (EP_AXIS,) \
+                            and _tensor_parallel(path, parent, serving=True):
+                        n = t.shape[d] // m
+                        t = t.narrow(d, r * n, n)
+            if device is not None:
+                t = t.to(device)
+            # A block is a copy of its own (one copy, to the device, where
+            # the leaf lies elsewhere), so that the joined leaf is freed.
+            if t is not whole and t._base is not None:
+                t = t.clone()
             return t
 
-        return _walk(leaf, self.join(params), self.specs)
+        return _walk(leaf, params, self.specs, self.shapes)
 
     def alloc(self, cache, *, device=None):
         """Zeros of this rank's block of every leaf of a global cache
@@ -619,8 +673,12 @@ def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
     each leaf global or as the rank's block under its spec (else
     ``ValueError``); :meth:`ServeLayout.place` gives the rank's. The
     model runs under ``layout.ctx`` (tensor parallel, with the
-    :class:`ServePlan`). Decoder-only attention and rwkv stacks only
-    (``NotImplementedError`` otherwise); a
+    :class:`ServePlan`). Decoder-only and encoder-decoder stacks of
+    attention, rwkv and mamba mixers (``NotImplementedError`` for an
+    encoder-only one): a mamba layer's leaves by ``param_axes`` and its
+    caches by ``serve_cache_axes`` (``batch`` over data, ``mlp``, its
+    ``d_in``, over model), an encoder-decoder's encoder states
+    ``cache["enc"]`` as ``"batch seq embed"`` (the rank's rows). A
     placement the port cannot run raises ``ValueError`` naming the leaf
     and its spec. Needs no process group."""
     from repro_torch.models import model_zoo as zoo

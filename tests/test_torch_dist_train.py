@@ -1,6 +1,10 @@
 """Training under a mesh on ``gloo`` ranks on the CPU: one
-expert-parallel train step on 4 ranks equals the single-process step,
-and the launcher's ``--ep a2a`` in one process equals ``--ep none``.
+expert-parallel train step on 4 ranks (the expert-only layout,
+``tensor_parallel=False``) equals the single-process step, the
+launcher's ``--ep a2a`` in one process equals ``--ep none``, and under
+``torchrun`` on 4 ranks (``ShardCtx.for_mesh``'s composed placement:
+expert parallelism over ``model`` with the rules' tensor parallelism)
+trains to the one process's losses.
 
 ``get_reduced("granite-moe-1b-a400m")`` upcycled from its dense parent,
 sorted dispatch, ``ep="a2a"`` with a budget factor >= ep (no EP drops),
@@ -15,6 +19,10 @@ directory.
 """
 import dataclasses
 import json
+import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -69,7 +77,11 @@ def _step_worker(rank, world, tmp):
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.sharding import ShardCtx, train_layout
 
-    ctx = ShardCtx.for_mesh(make_debug_mesh((2, 2), ("data", "model")))
+    # The expert-only layout, asked for explicitly: ``for_mesh``'s ctx
+    # composes expert parallelism with the rules' placement.
+    ctx = dataclasses.replace(
+        ShardCtx.for_mesh(make_debug_mesh((2, 2), ("data", "model"))),
+        tensor_parallel=False)
     cfg, params, batch = _setup()
     opt = adafactor(constant(1e-2))
     ac = zoo.ApplyCfg(dispatch="sorted")
@@ -131,3 +143,33 @@ def test_launcher_ep_a2a_in_one_process_equals_ep_none(tmp_path):
     for x, y in zip(tree_leaves(a["state"]), tree_leaves(b["state"])):
         assert torch.equal(x, y)
     assert json.dumps(a["metrics"]) == json.dumps(b["metrics"])
+
+
+def test_launcher_ep_a2a_on_four_ranks_matches_one_process(tmp_path):
+    """``torchrun --nproc-per-node 4 ... --ep a2a``: mesh (data=1,
+    model=4), ``ShardCtx.for_mesh``'s ctx, so ``train_layout`` composes
+    expert parallelism (2 of the 8 experts a rank, one of the 4 routing
+    groups of 64 a rank through the all-to-all) with the rules' tensor
+    parallelism (a query head a rank, vocabulary and ``mlp`` blocks).
+    Two steps at 8 x 32 end at the one process's loss (printed to 4
+    decimals; atol 2e-4)."""
+    args = ["-m", "repro_torch.launch.train", "--arch",
+            "granite-moe-1b-a400m", "--reduced", "--steps", "2", "--batch",
+            "8", "--seq", "32", "--dispatch", "sorted", "--device", "cpu"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        ["src", os.environ.get("PYTHONPATH", "")]))
+    runs = []
+    for pre in ([], ["-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "4"]):
+        run = subprocess.run(
+            [sys.executable, *pre, *args, "--ep", "a2a", "--ckpt-dir",
+             str(tmp_path / str(len(pre)))],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr[-3000:]
+        m = re.search(r"finished at step (\d+), loss ([0-9.]+)", run.stdout)
+        assert m, run.stdout[-2000:]
+        runs.append((int(m.group(1)), float(m.group(2)), run.stdout))
+    (s1, l1, _), (s4, l4, out) = runs
+    assert "ranks=4 mesh={'data': 1, 'model': 4}" in out
+    assert s1 == s4 == 2
+    assert abs(l4 - l1) <= 2e-4

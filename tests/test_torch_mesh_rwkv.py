@@ -27,8 +27,7 @@ engine's first step of one request is one routing group, which 4 ranks
 cannot split: the reference's ``ValueError``, raised by both; with
 routing groups of 4 tokens a paged step of 16 rows is 4 groups, one a
 rank through the all-to-all, and the engine serves the one process's
-tokens. mamba and encoder-decoder stacks still raise
-``NotImplementedError``. One spawn of 4 ranks and two reference
+tokens. ``serve_layout`` places mamba and encoder-decoder stacks too. One spawn of 4 ranks and two reference
 subprocesses; the ranks import torch and the port only.
 """
 import dataclasses
@@ -378,10 +377,24 @@ def test_collective_payloads_match_the_dry_run(runs, case):
 
 
 def test_mamba_and_encoder_decoder_still_raise():
+    """``serve_layout`` places mamba and encoder-decoder stacks as it
+    places rwkv's (they are served: ``tests/test_torch_mesh_mamba.py``,
+    ``tests/test_torch_mesh_encdec.py``): a mamba layer's conv window and
+    state split their rows over data and ``d_in`` over model, an
+    encoder-decoder's ``cache["enc"]`` its rows over data."""
     from repro_torch.sharding import ShardCtx, serve_layout
 
     ctx = ShardCtx.for_mesh({"data": 2, "model": 2})
-    for arch in ("jamba-1.5-large-398b", "t5-base-upcycled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            serve_layout(ctx, get_reduced(arch))
-    serve_layout(ctx, get_reduced("rwkv6-7b"))
+    for arch in ("jamba-1.5-large-398b", "t5-base-upcycled", "rwkv6-7b"):
+        cfg = get_reduced(arch)
+        meta = zoo.init_serve_cache(cfg, 4, 16, dtype=torch.float32,
+                                    device="meta", enc_len=8)
+        lay = serve_layout(ctx, cfg, cache=meta)
+        assert lay.ctx.serve.batch_axes == ("data",), arch
+        if arch.startswith("jamba"):
+            mixer = lay.cache_specs["stack"]["segments"][0]["pos0"]["mixer"]
+            assert mixer == {"conv": (None, "data", None, "model"),
+                             "ssm": (None, "data", "model")}
+            assert lay.ctx.serve.cache == "seq"  # its attention layer
+        if arch.startswith("t5"):
+            assert lay.cache_specs["enc"] == ("data",)

@@ -238,13 +238,16 @@ def _worker(rank, world, tmp):
                       for d in ("gather", "sorted")}
     out["rows"] = (i, n)
     out["model_rank"] = ctx.coord("model")
-    # rwkv serves under a mesh (tests/test_torch_mesh_rwkv.py); a mamba
-    # stack does not yet.
+    # rwkv and mamba stacks serve under a mesh too
+    # (tests/test_torch_mesh_rwkv.py, tests/test_torch_mesh_mamba.py):
+    # the engine places a jamba stack, its mamba caches its d_in block.
     rwkv = get_reduced("jamba-1.5-large-398b")
     try:
-        ServeEngine(zoo.init_params(0, rwkv, device="cpu"), rwkv,
-                    device="cpu", ctx=ctx)
-        out["rwkv"] = None
+        eng = ServeEngine(zoo.init_params(0, rwkv, device="cpu"), rwkv,
+                          device="cpu", ctx=ctx)
+        cache, _, _ = eng.static_cache(4, 16)
+        out["rwkv"] = tuple(cache["stack"]["segments"][0]["pos0"]["mixer"][
+            "ssm"].shape)
     except NotImplementedError as e:
         out["rwkv"] = str(e)
     torch.save(out, f"{tmp}/rank{rank}.pt")
@@ -495,19 +498,22 @@ def test_dry_run_serve_cells_count_collectives():
 
 
 def test_rwkv_under_a_serving_mesh_raises(runs):
-    """Stacks the port does not serve under a mesh yet raise, naming
-    ROADMAP queue 1: a mamba stack in the ranks' ``ServeEngine``, mamba
-    and encoder-decoder stacks in ``serve_layout`` (rwkv stacks serve:
-    ``tests/test_torch_mesh_rwkv.py``)."""
+    """Every decoder-only and encoder-decoder stack serves under a mesh:
+    the ranks' ``ServeEngine`` places a mamba stack (its ssm state
+    (layer, rows, d_in, d_state) the rank's 2 of 4 rows and 64 of 128
+    inner channels), ``serve_layout`` places mamba and encoder-decoder
+    stacks (rwkv stacks serve: ``tests/test_torch_mesh_rwkv.py``); an
+    encoder-only stack has no serving path and raises."""
     ranks, _, _ = runs
     for got in ranks:
-        assert got["rwkv"] is not None and "ROADMAP" in got["rwkv"]
+        assert got["rwkv"] == (1, 2, 64, 8)
     from repro_torch.sharding import ShardCtx, serve_layout
 
     ctx = ShardCtx.for_mesh({"data": 2, "model": 2})
     for arch in ("jamba-1.5-large-398b", "t5-base-upcycled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            serve_layout(ctx, get_reduced(arch))
+        assert serve_layout(ctx, get_reduced(arch)).ctx.tensor_parallel
+    with pytest.raises(NotImplementedError, match="encoder_only"):
+        serve_layout(ctx, get_reduced("vit-b16-upcycled"))
 
 
 def test_unservable_placements_raise():
