@@ -300,7 +300,26 @@ any failure, before printing its result line. It
     process's (near-ties judged by ``JAMBA_TIE_GAP``), the expert FFN
     witnessed at 8 experts, payloads equal to the dry run's, the mamba
     caches' blocks against one process's and each rank's peak printed;
-24. prints one JSON line of per-kernel numbers (all twelve kernels,
+24. (``[mesh-serve-tp]``, ``[mesh-serve-tp rank R]`` and ``[examples]``
+    lines) (a) on the same ranks after phase 23, the reference's
+    weight-stationary ``serve_tp`` profile: phase 21's model served by
+    ``ServeEngine(ctx=make_ctx(mesh, cfg, PROFILES["serve_tp"]))``,
+    static (phase 21's prompt sets) and paged (phase 4's requests), each
+    rank holding its 16 of 32 experts' half of d_ff ((16, 1024, 256)
+    blocks), no weight joined at build, tokens held against phase 21's
+    one process (near-ties judged by ``TIE_GAP``), exact launches, one
+    static prefill and decode step and one mixed step witnessed, the
+    payload bytes of each kind of collective equal to the dry run's
+    under the profile's rules, each rank's decode and mixed-step ms and
+    peak printed beside phase 21's; the expert FFN and the grouped
+    forward timed at a rank's f-256 shapes; (b) in this process while
+    the ranks run phases 22-24, the four examples
+    (``examples/torch_*.py``) at the cuts of :data:`EXAMPLES`: the
+    quickstart and the initial-drop ablation, the 100M run preempted and
+    resumed in a temporary directory, the MoE served static and paged
+    through the kernels token-identical to the same example through the
+    plain versions; each example's launches counted, its losses finite;
+25. prints one JSON line of per-kernel numbers (all twelve kernels,
     with their bfloat16 numbers at the training shapes), then the
     result line ``{"ok": true, "device": {...}}``.
 """
@@ -5938,7 +5957,7 @@ def mesh_cell_rank(name, ctx, root, device, tag, go, *, repeat=True):
 
 
 def mesh_rank(rank, world, root):
-    """One rank of phases 20 to 23, in a process of its own on cuda:0. It
+    """One rank of phases 20 to 24, in a process of its own on cuda:0. It
     sets up while the parent runs the single-process steps, and starts
     its timed steps when the parent writes ``go``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -5967,6 +5986,7 @@ def mesh_rank(rank, world, root):
     info["serve"] = mesh_serve_rank(rank, ctx, root, device)
     info["ep"] = mesh_ep_rank(rank, ctx, root, device)
     info["family"] = mesh_family_rank(rank, ctx, root, device)
+    info["serve_tp"] = mesh_serve_tp_rank(rank, device)
     with open(root / f"mesh_rank{rank}.json", "w") as fh:
         json.dump(info, fh)
     dist.destroy_process_group()
@@ -6119,7 +6139,7 @@ def mesh_cell_check(name, ref, ranks, bad) -> dict:
 
 
 def mesh_train(device):
-    """Phases 20 to 23. The ranks start first and set up while this
+    """Phases 20 to 24. The ranks start first and set up while this
     process runs the single-process steps (their first-step states saved
     for the ranks to hold their blocks against), the local-shape rows,
     phase 21's one-process serving and phase 23 (c)'s one-process jamba
@@ -6127,9 +6147,10 @@ def mesh_train(device):
     ranks run their timed steps and serve, while this process runs phase
     22's one process and phase 23 (a)'s, and writes ``ep_go`` (so that
     none of its large models shares the card with phase 22's ranks),
-    then phase 23 (b)'s one-process decoding, and writes ``family_go``;
-    the ranks run phases 22 and 23. Returns ({path: launches}, shape
-    rows, {phase 21 to 23 path: launches})."""
+    then phase 23 (b)'s one-process decoding, writes ``family_go`` and
+    runs phase 24 (b), the examples; the ranks run phases 22 to 24.
+    Returns ({path: launches}, shape rows, {phase 21 to 24 path:
+    launches})."""
     import shutil
     import tempfile
 
@@ -6175,6 +6196,8 @@ def mesh_train(device):
         (root / "family_go").touch()
         print(f"[mesh] this process's phases 22 and 23 "
               f"{time.perf_counter() - t0:.1f} s after go", flush=True)
+        # Phase 24 (b) while the ranks run phases 22 to 24.
+        example_launches = run_examples(device)
         while not procs.join():
             pass
         ranks_s = time.perf_counter() - t0
@@ -6193,7 +6216,7 @@ def mesh_train(device):
         out.update(mesh_cell_check(name, refs[name],
                                    [info[name] for info in ranks], bad))
     print(f"[mesh] the ranks' steps, serving and checks {ranks_s:.1f} s "
-          f"after go; phases 20 to 23 {time.perf_counter() - t_phase:.1f} s",
+          f"after go; phases 20 to 24 {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     if bad:
         fail("phase 20: " + "; ".join(bad))
@@ -6204,11 +6227,15 @@ def mesh_train(device):
     serve_launches.update(mesh_family_check(family_ref,
                                             [info["family"]
                                              for info in ranks]))
+    serve_launches.update(mesh_serve_tp_check(
+        serve_eng, serve_ref, ranks))
+    serve_launches.update(example_launches)
     rows.append(mesh_ep_row(device, ranks[0]["ep"]["shapes"]))
     del serve_eng
     gc.collect()
     torch.cuda.empty_cache()
     rows += mesh_serve_rows(device)
+    rows += mesh_serve_tp_rows(device, ranks[0]["serve_tp"]["shapes"])
     return out, rows, serve_launches
 
 # ---------------------------------------------------------------------------
@@ -7664,6 +7691,381 @@ def mesh_family_check(ref, ranks):
                                        for r in ref["decode"].values()))},
             "mesh_jamba": jamba_launches,
             "mesh_jamba_reference": ref["jamba"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the reference's weight-stationary serve_tp profile on phase 20's
+# ranks after phase 23, and the four examples in this process
+# ---------------------------------------------------------------------------
+
+# (a) Phase 21's model (granite at full width, 12 of 24 layers, conditioned,
+# dropless) served under launch/specs.PROFILES["serve_tp"] (no FSDP, embed
+# (), mlp over model then data): each rank holds its 16 of the 32 experts'
+# half of d_ff, the static engine gathers a step's rows over data and every
+# MoE layer sums the ranks' partial outputs over data and model; phase 21's
+# prompt sets and phase 4's requests, its one-process tokens the reference.
+# (b) The examples at these cuts (the reference's values beside them): the
+# quickstart's PRETRAIN and EXTRA 200 -> 20, the ablation's PRETRAIN 200 ->
+# 20, the 100M run's 300 MoE and 50 dense steps -> 30 and 10, preempted at
+# step 20 and rerun (its SLIM, batch 16 x 256 and grad_accum 2 as they are),
+# its data task over the first 2,048 token ids as the training launcher's
+# (launch/train.TASK_VOCAB): the whole 32,000-id vocabulary's bigram tables
+# (8, V, V) are 65.5 GB of float64 on the host, more than a 96-GiB host
+# holds beside phase 23's ranks.
+SERVE_TP_EXPERTS = {"wi": (16, 1024, 256), "wg": (16, 1024, 256),
+                    "wo": (16, 256, 1024)}
+EXAMPLES = {"quickstart": dict(PRETRAIN=20, EXTRA=20),
+            "ablation_initial_drop": dict(PRETRAIN=20),
+            "train_upcycled_100m": ["--steps", "30", "--dense-steps", "10"],
+            "preempt_at": 20}
+EXAMPLE_TRAIN_KERNELS = FLASH_KERNELS + EXPERT_KERNELS
+
+
+def serve_tp_ctx(cfg):
+    """The ``serve_tp`` profile's ctx on phase 20's (data=2, model=2) mesh
+    of the ranks' process group (its process groups built by every rank
+    alike)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import PROFILES, make_ctx
+
+    return make_ctx(make_mesh(MESH["shape"], ("data", "model"),
+                              device_type="cpu"), cfg, PROFILES["serve_tp"])
+
+
+def mesh_serve_tp_rank(rank, device):
+    """A rank's phase 24 (a): phase 21's engines under the ``serve_tp``
+    profile's ctx; returns what the parent checks (tokens, launches,
+    payloads, the experts' blocks, build payloads, times, peak)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import PROFILES
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.sharding import comm
+
+    t0 = time.perf_counter()
+    tag = f"[mesh-serve-tp rank {rank}]"
+    cfg, params = mesh_serve_model(device)
+    ctx = serve_tp_ctx(cfg)
+    ac = zoo.ApplyCfg(
+        pad_heads_multiple=PROFILES["serve_tp"].pad_heads_multiple)
+    comm.reset_counts()
+    eng = ServeEngine(params, cfg, ServeConfig(**MESH_SERVE["static"]),
+                      device=device, ctx=ctx, ac=ac)
+    peng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
+                       device=device, ctx=ctx, ac=ac)
+    info = {"build": comm.counts(), "static": {},
+            "experts": {k: list(w.shape) for k, w in
+                        model_experts(eng.params).items()}}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    new, L = MESH_SERVE["new"], cfg.n_layers
+    for case, prompts in mesh_serve_prompts(cfg).items():
+        before = ops.launch_counts()
+        out = eng.generate(prompts, new)
+        ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+               if v != before[k]}
+        want = {"flash_attention": L, "expert_mlp": L * new}
+        if ran != want:
+            fail(f"{tag} static {case}: launched {ran}, expected {want}")
+        st = eng.last_stats
+        rec = {"tokens": out, "prefill_s": st["prefill_s"],
+               "decode_s": st["decode_s"], "launches": ran}
+        if case == "seq":
+            with kernel_shapes() as shapes:
+                rec["counts"], wit = mesh_static_steps(eng, prompts, out, new)
+            report_witness(wit, ("flash_attention", "expert_mlp"))
+            info["shapes"] = {"expert_mlp": shapes.get("expert_mlp", {})}
+        info["static"][case] = rec
+        print(f"{tag} static {case}: prefill {st['prefill_s']:.3f} s, "
+              f"{new - 1} decode steps {st['decode_s']:.3f} s "
+              f"({st['decode_s'] * 1e3 / (new - 1):.1f} ms a step), "
+              f"launches {ran}", flush=True)
+    before = ops.launch_counts()
+    with kernel_shapes() as shapes:
+        outs, fin, n_gen, wall, step_ms, first, wit, cache, _ = \
+            serve_session(peng, cfg, witness=True)
+    report_witness(wit, SERVE_KERNELS)
+    info["shapes"]["grouped_mlp_valid_rows"] = shapes.get(
+        "grouped_mlp_valid_rows")
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v != before[k]}
+    st = peng.last_stats
+    want = {k: L * st["mixed_steps"] for k in SERVE_KERNELS}
+    if ran != want:
+        fail(f"{tag} paged: launched {ran}, expected {want}")
+    if st["compile_count"] != 1 or any(
+            r["status"] != "completed" for r in fin.values()):
+        fail(f"{tag} paged: compile_count {st['compile_count']}, statuses "
+             f"{st['status_counts']}")
+    info["paged"] = {"tokens": {str(k): v for k, v in outs.items()},
+                     "tokens_s": n_gen / wall, "step_ms": step_ms,
+                     "counts": first, "launches": ran,
+                     "free_blocks_at_close": st["free_blocks_at_close"]}
+    info["peak"] = torch.cuda.max_memory_allocated()
+    info["launches"] = {k: sum(r["launches"].get(k, 0) for r in
+                               info["static"].values()) + ran.get(k, 0)
+                        for k in ops.launch_counts()}
+    info["s"] = time.perf_counter() - t0
+    print(f"{tag} paged: {n_gen} tokens in {wall:.3f} s = "
+          f"{n_gen / wall:.1f} tokens/s, {len(step_ms)} mixed steps, median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms (the first "
+          f"witnessed); experts {info['experts']}; build payload B "
+          f"{ {k: v for k, v in info['build'].items() if v} }; peak "
+          f"{info['peak'] / 2 ** 30:.2f} GiB; phase 24 {info['s']:.1f} s",
+          flush=True)
+    del eng, peng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def mesh_serve_tp_check(peng, ref, ranks):
+    """Phase 24 (a)'s checks over the ranks' results against phase 21's
+    one process; returns {path: launches}."""
+    from repro_torch.launch.dryrun import serve_collective_payloads
+    from repro_torch.launch.specs import PROFILES, make_ctx
+    from repro_torch.sharding.comm import KINDS
+
+    cfg = peng.cfg
+    prompts = mesh_serve_prompts(cfg)
+    mesh = dict(zip(("data", "model"), MESH["shape"]))
+    rules = make_ctx(mesh, cfg, PROFILES["serve_tp"]).param_rules
+    B, new = MESH_SERVE["prompts"], MESH_SERVE["new"]
+    S = MESH_SERVE["plen"][1]
+    kw = dict(mesh=mesh, itemsize=4, param_rules=rules)
+    pred = {
+        "prefill": serve_collective_payloads(
+            cfg, kind="prefill", tokens=B * S, batch=B, cache_len=S + new,
+            **kw),
+        "decode": serve_collective_payloads(
+            cfg, kind="decode", tokens=B, batch=B, cache_len=S + new, **kw),
+        "mixed": serve_collective_payloads(
+            cfg, kind="mixed", tokens=SERVE["max_batch"]
+            + SERVE["chunks_per_step"] * SERVE["chunk_size"],
+            logits_rows=SERVE["max_batch"] + SERVE["chunks_per_step"], **kw)}
+    print(f"[mesh-serve-tp] the dry run's collective payloads a rank under "
+          f"serve_tp: {pred}", flush=True)
+    rids = [r.rid for r in make_requests(cfg)]
+    bad = []
+    for rk, info in enumerate(ranks):
+        tp, p21 = info["serve_tp"], info["serve"]
+        s = tp["static"]
+        for case in ("seq", "heads"):
+            check_static_tokens(f"mesh serve_tp rank {rk} static {case} vs "
+                                "phase 21's one process", s[case]["tokens"],
+                                ref["static"][case]["tokens"], prompts[case],
+                                peng)
+        check_tokens(f"mesh serve_tp rank {rk} paged vs phase 21's one "
+                     "process",
+                     {int(k): v for k, v in tp["paged"]["tokens"].items()},
+                     {int(k): v for k, v in ref["paged"]["tokens"].items()},
+                     rids, peng)
+        got = {"prefill": s["seq"]["counts"][0],
+               "decode": s["seq"]["counts"][1],
+               "mixed": tp["paged"]["counts"]}
+        if got != pred:
+            bad.append(f"rank {rk}: counted {got}")
+        if tp["build"] != dict.fromkeys(KINDS, 0):
+            bad.append(f"rank {rk}: the build moved {tp['build']}")
+        want = {k: list(v) for k, v in SERVE_TP_EXPERTS.items()}
+        if tp["experts"] != want:
+            bad.append(f"rank {rk}: expert blocks {tp['experts']}, not "
+                       f"{want}")
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        print(f"[mesh-serve-tp rank {rk}] static decode "
+              f"{s['seq']['decode_s'] * 1e3 / (new - 1):.1f} / "
+              f"{s['heads']['decode_s'] * 1e3 / (new - 1):.1f} ms a step "
+              f"(phase 21's rank "
+              f"{p21['static']['seq']['decode_s'] * 1e3 / (new - 1):.1f} / "
+              f"{p21['static']['heads']['decode_s'] * 1e3 / (new - 1):.1f}, "
+              f"one process "
+              f"{ref['static']['seq']['decode_s'] * 1e3 / (new - 1):.1f}), "
+              f"prefill {s['seq']['prefill_s']:.3f} s (phase 21's "
+              f"{p21['static']['seq']['prefill_s']:.3f}); mixed step median "
+              f"{med(tp['paged']['step_ms']):.1f} ms (phase 21's "
+              f"{med(p21['paged']['step_ms']):.1f}, one process "
+              f"{med(ref['paged']['step_ms']):.1f}), "
+              f"{tp['paged']['tokens_s']:.1f} tokens/s; peak "
+              f"{tp['peak'] / 2 ** 30:.2f} GiB ({tp['peak']} B; phase 21's "
+              f"{p21['peak'] / 2 ** 30:.2f}); payload B counted = the dry "
+              f"run's: {got == pred}; the build's payload B {tp['build']}; "
+              f"{card_line()}", flush=True)
+    print(f"[mesh-serve-tp] the ranks' phase 24 "
+          f"{[info['serve_tp']['s'] for info in ranks]} s", flush=True)
+    if bad:
+        fail("phase 24: " + "; ".join(bad))
+    total = {}
+    for info in ranks:
+        for k, v in info["serve_tp"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"mesh_serve_tp": total}
+
+
+def mesh_serve_tp_rows(device, shapes):
+    """The expert FFN at a rank's static prefill buffer and the grouped
+    forward over a rank's first mixed step's valid rows under
+    ``serve_tp`` (16 experts, f 256; random weights, in one ragged
+    group), against the plain versions and the per-expert chain."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    full = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=float(full.moe.num_experts)))
+    gen = torch.Generator(device=device).manual_seed(41)
+    E, d, f = SERVE_TP_EXPERTS["wi"]
+    ex = {"wi": torch.randn(E, d, f, generator=gen, device=device) * d ** -.5,
+          "wg": torch.randn(E, d, f, generator=gen, device=device) * d ** -.5,
+          "wo": torch.randn(E, f, d, generator=gen, device=device) * f ** -.5}
+    B, S = MESH_SERVE["prompts"], MESH_SERVE["plen"][1]
+    rows = [expert_shape_row("mesh_serve_tp_local", cfg, ex, B * S, device,
+                             seed=42)]
+    got = rows[0][2]["shape"]
+    ran = sorted(shapes["expert_mlp"])
+    if f"{tuple(got[:4])} x {E}" not in ran:
+        fail(f"phase 24: the timed expert buffer {got} is none of the "
+             f"rank's {ran}")
+    half = dataclasses.replace(cfg, d_ff=f, moe=dataclasses.replace(
+        cfg.moe, num_experts=E))
+    rows.append(grouped_shape_row(
+        "mesh_serve_tp_local", half, None, device, seed=43,
+        n_assign=shapes["grouped_mlp_valid_rows"]))
+    return rows
+
+
+def _load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(device):
+    """Phase 24 (b): the four examples in this process on the card at
+    :data:`EXAMPLES`'s cuts, each example's kernel launches counted and
+    its losses held finite; the served MoE through the kernels against
+    the same example through the plain versions. Returns {path:
+    launches}."""
+    import io
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import ClusteredBigramTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TASK_VOCAB
+    from repro_torch.models import model_zoo as zoo
+
+    t_phase = time.perf_counter()
+    print(f"[examples] start with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    launches = {}
+
+    def run(path, fn, expect, counted=True):
+        before = ops.launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+               if v != before[k]}
+        for line in text.splitlines()[-6:]:
+            print(f"[examples] {path} | {line}", flush=True)
+        print(f"[examples] {path}: {time.perf_counter() - t0:.1f} s, "
+              f"launches {ran}", flush=True)
+        if counted:
+            missing = [k for k in expect if not ran.get(k)]
+            if missing:
+                fail(f"phase 24 {path}: never launched {missing}")
+            total = launches.setdefault(f"example_{path}", {})
+            for k, v in ran.items():
+                total[k] = total.get(k, 0) + v
+        elif ran:
+            fail(f"phase 24 {path}: the plain run launched {ran}")
+        return res, text
+
+    def finite(path, *vals):
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"phase 24 {path}: non-finite losses {vals}")
+
+    dev = ["--device", "cuda"]
+    mod = _load_example("quickstart")
+    for k, v in EXAMPLES["quickstart"].items():
+        setattr(mod, k, v)
+    res, _ = run("quickstart", lambda: mod.main(dev), EXAMPLE_TRAIN_KERNELS)
+    finite("quickstart", *res.values())
+    mod = _load_example("ablation_initial_drop")
+    for k, v in EXAMPLES["ablation_initial_drop"].items():
+        setattr(mod, k, v)
+    # Dense steps, then the upcycled models' forward losses only.
+    res, _ = run("ablation_initial_drop", lambda: mod.main(dev),
+                 FLASH_KERNELS + ("expert_mlp",))
+    finite("ablation_initial_drop", res["dense_ce"], res["eval_dense_ce"],
+           *res["grid"].values())
+    mod = _load_example("train_upcycled_100m")
+    mod.make_iterator = functools.partial(
+        mod.make_iterator, task=ClusteredBigramTask(
+            vocab_size=min(mod.SLIM.vocab_size, TASK_VOCAB)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    flags = EXAMPLES["train_upcycled_100m"] + ["--ckpt-dir", tmp] + dev
+    term = signal.getsignal(signal.SIGTERM)
+    try:
+        at = EXAMPLES["preempt_at"]
+        res, text = run("train_upcycled_100m",
+                        lambda: mod.main(flags + ["--preempt-at", str(at)]),
+                        EXAMPLE_TRAIN_KERNELS)
+        if f"preempted at step {at}" not in text:
+            fail(f"phase 24: the 100M run was not preempted at step {at}")
+        res, text = run("train_upcycled_100m", lambda: mod.main(flags),
+                        EXAMPLE_TRAIN_KERNELS)
+        steps = int(EXAMPLES["train_upcycled_100m"][1])
+        if f"resumed from step {at}" not in text or \
+                int(res["state"]["step"]) != steps:
+            fail(f"phase 24: the 100M rerun did not resume from step {at} "
+                 f"to {steps}")
+        finite("train_upcycled_100m", res["metrics"]["loss"])
+    finally:
+        # The example installs its SIGTERM handler (PreemptionSignal).
+        signal.signal(signal.SIGTERM, term)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    for paged in (False, True):
+        flags = (["--paged"] if paged else []) + dev
+        path = "serve_moe" + ("_paged" if paged else "")
+        kernels = SERVE_KERNELS if paged else ("flash_attention",
+                                               "expert_mlp")
+        mod = _load_example("serve_moe")
+        got, _ = run(path, lambda: mod.main(flags), kernels)
+        mod.ServeEngine = functools.partial(
+            mod.ServeEngine,
+            ac=zoo.ApplyCfg(moe_impl="eager", attn_impl="eager"))
+        want, _ = run(path + "_plain", lambda: mod.main(flags), (),
+                      counted=False)
+        if got != want:
+            fail(f"phase 24 {path}: the greedy outputs through the kernels "
+                 f"{got} differ from the plain versions' {want}")
+        print(f"[examples] {path}: greedy outputs through the kernels "
+              "token-identical to the plain versions'", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[examples] phase 24 (b) {time.perf_counter() - t_phase:.1f} s; "
+          f"{card_line()}", flush=True)
+    return launches
 
 
 def main() -> int:

@@ -212,15 +212,27 @@ def _serve_rows(ctx, moe: MoECfg, n: int):
     (``ServePlan.batch_axes``): the rank's ``[start, stop)`` among the
     global rows where its ``n`` rows do not form whole groups of the
     global batch's routing (a decode step's few rows, a short prefill),
-    so the layer must route the global rows; None where they do (the
-    rank's groups are the global batch's own) or outside serving."""
+    so the layer must route the global rows, and always under the
+    weight-stationary placement (``ServePlan.expert_axes``: a rank's
+    block of d_ff serves every row of its data group); None where they
+    do (the rank's groups are the global batch's own) or outside
+    serving."""
     if ctx is None or not ctx.groups or ctx.serve is None:
         return None
     k = ctx.size(ctx.serve.batch_axes)
-    if k == 1 or n % min(moe.group_size, n * k) == 0:
+    if k == 1 or (not ctx.serve.expert_axes
+                  and n % min(moe.group_size, n * k) == 0):
         return None
     i = ctx.index(ctx.serve.batch_axes)
     return i * n, (i + 1) * n
+
+
+def _expert_axes(ctx) -> tuple:
+    """The data axes a serving ctx cuts the experts' d_ff over (the
+    weight-stationary placement), () otherwise."""
+    if ctx is None or not ctx.groups or ctx.serve is None:
+        return ()
+    return ctx.serve.expert_axes
 
 
 def _ep_blocks(params, xg, r: R.Routing, cfg: ArchConfig, moe: MoECfg,
@@ -324,7 +336,14 @@ def moe_apply(
     where the rank's rows do not form whole global groups they are
     gathered over the data axes, every rank routes the global rows and
     keeps its own (:func:`_serve_rows`); routing local groups would
-    change the groups' capacity and which tokens compete."""
+    change the groups' capacity and which tokens compete. Under the
+    weight-stationary placement (``serve_tp``: ``ServePlan.expert_axes``)
+    each rank holds its ``E / m`` experts' block of d_ff: it runs either
+    dispatch on every row of its data group (a static batch's gathered
+    over the data axes, a paged step's already on every rank), and the
+    partial outputs are summed over the data axes and ``model``
+    (``comm.reduce_over``, ``expert_all_reduce``); a static rank then
+    keeps its own rows. Expert parallelism does not run there."""
     dispatches = {"gather": _gather_dispatch, "einsum": _einsum_dispatch,
                   "sorted": _sorted_dispatch}
     if dispatch not in dispatches:
@@ -353,12 +372,13 @@ def moe_apply(
         if pad:
             m1 = torch.cat([m1, m1.new_zeros(pad)])
         mg = m1.reshape(G, g)
-    ep = dispatch == "sorted" and ep_active(ctx, moe)
+    ws = _expert_axes(ctx)
+    ep = dispatch == "sorted" and ep_active(ctx, moe) and not ws
     ex, E = params["experts"], moe.num_experts
     El = ex["wi"].shape[0]
     # Tensor parallel (the rules' placement): the rank holds El of the E
     # experts, or every expert's block of ``mlp``.
-    tp = (ctx is not None and ctx.tp_size > 1
+    tp = (ctx is not None and (ctx.tp_size > 1 or bool(ws))
           and (El != E or ex["wi"].shape[-1] != cfg.d_ff))
     if ctx is not None and ctx.groups and not (ep and not tp) \
             and ctx.serve is None and ctx.size(ctx.replica_axes) > 1 \
@@ -388,7 +408,7 @@ def moe_apply(
         y = dispatches[dispatch](
             params, xt, _local_routing(r, ctx.tp_rank * El, El, ctx), cfg,
             implementation=implementation, **kw)
-        if own is None:
+        if own is None and not ws:
             y = comm.reduce_from_model(y, ctx)
     elif ep:
         from repro_torch.core.ep import sorted_dispatch_ep
@@ -410,9 +430,12 @@ def moe_apply(
     y = y.reshape(-1, d)
     if pad:
         y = y[:n]
+    if tp and ws:
+        # Every rank's partial: its experts, its block of d_ff.
+        y = comm.reduce_over(y, ctx, ws + (EP_AXIS,), "expert_all_reduce")
     if own is not None:
         y = y[own[0]:own[1]]
-        if tp and not ep:
+        if tp and not ep and not ws:
             y = comm.reduce_from_model(y, ctx)
     y = y.reshape(orig_shape).to(x.dtype)
     if tag:

@@ -134,7 +134,8 @@ def _moe_tp_payloads(cfg, moe, n: int, m: int, dispatch: str,
 def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                               itemsize: int, batch: int = 0,
                               cache_len: int = 0, logits_rows: int = 0,
-                              enc_len: int = 0, ring: bool = False) -> dict:
+                              enc_len: int = 0, ring: bool = False,
+                              param_rules=None) -> dict:
     """Payload bytes a rank moves through each kind of collective of one
     serving step under ``sharding.serve_layout`` (the sums
     ``comm.COUNTS`` keeps; an all-gather's output, an all-reduce's
@@ -156,9 +157,16 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
     position (``cache_seq``) or is replicated, the gathers of the step's
     k and v, and at a decode step of q, and with ``cache_seq`` the
     partials' gather (``softmax_combine``, float32). Per MoE layer: the
-    partial outputs' sum, over the global rows where a data rank's rows
-    do not form whole groups (their ``row_all_gather``); the router is
-    whole on every rank (``ServeLayout.place``). A dense FFN's
+    partial outputs' sum over ``model``, over the global rows where a
+    data rank's rows do not form whole groups (their
+    ``row_all_gather``); the router is whole on every rank
+    (``ServeLayout.place``). Where ``param_rules`` (the cell's; the
+    default rules with the arch's overrides when None) put the experts'
+    ``mlp`` over data axes (``serve_tp``'s weight-stationary experts,
+    ``ServePlan.expert_axes``), a static step gathers every row of the
+    data group (``row_all_gather``, whenever the rows are split) and
+    every MoE layer sums the partial outputs of all those rows over the
+    data axes and ``model`` (``expert_all_reduce``) instead. A dense FFN's
     all-reduce, a vocab-parallel lookup's, and the logits gathered over
     ``model`` (vocab-parallel head) and over the data axes (the static
     batch's rows). The dispatch does not change them. With ``ring``,
@@ -204,6 +212,18 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
         D, Sq, n, mode, out_rows = 1, 1, tokens, "heads", logits_rows
     descs = stk.layer_descs(cfg)
     encdec = cfg.structure == "encoder_decoder"
+    ws = ()
+    if cfg.moe is not None:
+        rules = param_rules if param_rules is not None else make_rules(
+            mesh, params=True,
+            overrides=dict(cfg.sharding_overrides or {}) or None)
+        espec = tuple(spec_for("expert embed mlp",
+                               (cfg.moe.num_experts, d, cfg.d_ff), mesh,
+                               rules)) + (None,) * 3
+        if entry_axes(espec[0]) == (EP_AXIS,) and entry_axes(espec[2]) \
+                and EP_AXIS not in entry_axes(espec[2]):
+            ws = entry_axes(espec[2])
+    W = math.prod(sizes[a] for a in ws) * m
     plan = head_plan(cfg, m) if m > 1 and (encdec or any(
         d.mixer == "attn" for d in descs)) else None
     H = cfg.d_model // cfg.ssm.head_size if cfg.ssm is not None else 0
@@ -235,7 +255,12 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                             m * B_l * Hq * (dh + 2) * 4, m)
             if m > 1 and desc.cross and plan is not None:
                 add("tp_all_reduce", n * d * it, m, 2)  # cross attention
-            if desc.ffn == "moe":
+            if desc.ffn == "moe" and ws:
+                nr = n * D
+                if D > 1:
+                    add("row_all_gather", nr * d * it, D)
+                add("expert_all_reduce", nr * d * it, W, 2)
+            elif desc.ffn == "moe":
                 moe = cfg.moe
                 E = moe.num_experts
                 gathered = D > 1 and n % min(moe.group_size, n * D) != 0
@@ -468,7 +493,8 @@ def _ep_degree(cfg, mesh, dispatch: str) -> int:
 
 def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
                      mesh, tokens: int, itemsize: int, batch: int = 0,
-                     seq: int = 0, tensor_parallel: bool = False) -> dict:
+                     seq: int = 0, tensor_parallel: bool = False,
+                     param_rules=None) -> dict:
     """The collectives a device runs in one step of the port's runtime
     on ``mesh``, in bytes it sends. Training under the rules' placement
     (with expert parallelism, for a ``tensor_parallel`` ctx:
@@ -483,8 +509,9 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
     decode cells of attention or rwkv stacks without expert
     parallelism: the static engine's step under the rules' serving
     placement (:func:`serve_collective_payloads`, a ``batch`` x ``seq``
-    prompt or one token a row against a cache of ``seq``), under
-    ``"payloads"``; with it, the all-to-alls of the forward."""
+    prompt or one token a row against a cache of ``seq``; the experts'
+    placement by ``param_rules``, the cell's), under ``"payloads"``;
+    with it, the all-to-alls of the forward."""
     from repro_torch.models import param as pm
     from repro_torch.models import stack as stk
     from repro_torch.sharding import ep_dim, mesh_shape
@@ -503,7 +530,8 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
         step = 1 if kind == "decode" else seq
         r = serve_collective_payloads(
             cfg, mesh=mesh, kind=kind, tokens=batch * step,
-            itemsize=itemsize, batch=batch, cache_len=seq, ring=True)
+            itemsize=itemsize, batch=batch, cache_len=seq, ring=True,
+            param_rules=param_rules)
         out.update(r)
         return out
     if kind == "train":
@@ -585,7 +613,8 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
         remat=ac.remat, mesh=mesh, tokens=shp.global_batch * shp.seq_len,
         itemsize=torch.empty((), dtype=ac.cdtype).element_size(),
         batch=shp.global_batch, seq=shp.seq_len,
-        tensor_parallel=ctx.tensor_parallel is not False)
+        tensor_parallel=ctx.tensor_parallel is not False,
+        param_rules=ctx.param_rules)
 
     flops_dev = cost["total_flops"] / n_chips
     bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \

@@ -16,15 +16,17 @@ step is the global one on one device: its FLOPs are the whole mesh's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import SHAPES, ArchConfig, ShapeCfg, get_config
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models import param as pm
 from repro_torch.optim import adafactor, inverse_sqrt
-from repro_torch.sharding import ShardCtx, make_rules
+from repro_torch.sharding import ShardCtx, _make_groups, make_rules, mesh_shape
 from repro_torch.training.train_loop import (
     TrainConfig,
     init_train_state,
@@ -69,8 +71,9 @@ PROFILES = {
     "optimized": Profile("optimized", dispatch="gather", ce_chunk=2048,
                          fsdp=True, pad_heads_multiple=16),
     # Inference-only weight-stationary layout: expert weights shard
-    # (E -> model, F -> data) and stay resident; dense d_ff shards over
-    # model (classic TP).
+    # (E -> model, F -> data) and stay resident, the MoE's partial
+    # outputs summed over data and model (core/moe.py); dense d_ff shards
+    # over model (classic TP). Served by ServeEngine(ctx=make_ctx(...)).
     "serve_tp": Profile(
         "serve_tp", dispatch="gather", ce_chunk=0, fsdp=False,
         pad_heads_multiple=16,
@@ -103,10 +106,18 @@ def count_params(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def make_ctx(mesh, cfg: ArchConfig, profile: Profile) -> ShardCtx:
-    """The cell's rules on ``mesh`` (no process groups)."""
+    """The cell's rules on ``mesh``, and the process groups where a
+    process group spanning the mesh is initialised (so that
+    ``ServeEngine(ctx=make_ctx(mesh, cfg, PROFILES["serve_tp"]))`` serves
+    on every rank, as the reference's engine takes any ``ShardCtx``);
+    none in the dry run."""
     overrides = dict(cfg.sharding_overrides or {})
     overrides.update(profile.param_overrides or {})
     act_overrides = dict(profile.act_overrides or {})
+    groups = {}
+    if dist.is_available() and dist.is_initialized() and \
+            math.prod(mesh_shape(mesh).values()) == dist.get_world_size():
+        groups = _make_groups(mesh)
     return ShardCtx(
         mesh=mesh,
         act_rules=make_rules(mesh, params=False, overrides=act_overrides),
@@ -116,6 +127,7 @@ def make_ctx(mesh, cfg: ArchConfig, profile: Profile) -> ShardCtx:
             fsdp_over_pod=profile.fsdp_over_pod,
             overrides=overrides,
         ),
+        groups=groups,
     )
 
 

@@ -18,12 +18,14 @@ other leaf replicated, tokens over every axis. A :class:`TreeLayout` holds each
 leaf's spec and moves between the global tree and a rank's
 (``shard``, ``gather``); ``sharding/comm.py`` holds the collectives a
 step computes with. Serving (:func:`serve_layout`) places the weights
-by the same param rules, joined over their FSDP dims once, and the
-static cache and the paged pools by the act rules (``batch`` over the
-data axes, ``cache_seq`` or ``kv_heads`` over ``model``); a
-:class:`ServePlan` on the ctx tells the model code how its rows and
-caches lie. The reference's ``act()`` constraints have no counterpart
-(layout hints that leave the numbers alone).
+by the same param rules, joined over their FSDP dims once (under the
+weight-stationary ``serve_tp`` profile the experts' ``mlp`` stays cut
+over the data axes), and the static cache and the paged pools by the
+act rules (``batch`` over the data axes, ``cache_seq`` or ``kv_heads``
+over ``model``); a :class:`ServePlan` on the ctx tells the model code
+how its rows, caches and expert blocks lie. The reference's ``act()``
+constraints have no counterpart (layout hints that leave the numbers
+alone).
 """
 from __future__ import annotations
 
@@ -427,10 +429,15 @@ class ServePlan:
     paged engine's always are). ``cache``: how a static cache or the
     paged pools lie over ``model`` — ``"heads"`` (each rank its block of
     the KV heads, every position), ``"seq"`` (``cache_seq``: each rank
-    its block of positions, every KV head) or ``"replicated"``."""
+    its block of positions, every KV head) or ``"replicated"``.
+    ``expert_axes``: the data axes the experts' d_ff (``mlp``) is cut
+    over (the weight-stationary ``serve_tp`` placement: each rank holds
+    its ``E / m`` experts' block of d_ff and the MoE sums its partial
+    outputs over these axes and ``model``); () otherwise."""
 
     batch_axes: tuple = ()
     cache: str = "heads"
+    expert_axes: tuple = ()
 
 
 def _check_serving_stack(cfg) -> None:
@@ -550,6 +557,7 @@ class ServeLayout:
             specs = tree_specs(serve_cache_axes(cfg), cache, ctx.mesh,
                                ctx.act_rules)
             plan = _static_plan(cfg, specs)
+        plan = dataclasses.replace(plan, expert_axes=ctx.serve.expert_axes)
         return dataclasses.replace(
             self, cache_specs=specs,
             ctx=dataclasses.replace(ctx, serve=plan))
@@ -571,16 +579,21 @@ class ServeLayout:
         its blocks (:meth:`join`), one leaf at a time (a leaf's blocks
         joined, cut, and the joined leaf dropped before the next, so the
         rank never holds the whole model; each leaf moved to ``device``
-        where given): every dim over the data axes joined (FSDP, once),
-        every dim over ``model`` cut to the rank's block where its
-        module runs tensor parallel (``comm._tensor_parallel``:
+        where given): every dim over ``model`` cut to the rank's block
+        where its module runs tensor parallel (``comm._tensor_parallel``:
         attention, the FFNs, the embedding table and the head; in
-        serving also the rwkv time mix's heads), whole elsewhere. A
-        mamba mixer's leaves are cut to the rank's block of ``d_in``
-        (``models/ssm.tp_block``; ``in_proj``'s two halves each cut)
-        where ``d_in`` splits over ``model``. A MoE router stays whole:
-        every peer routes alike, so its logits need no gather a
-        step."""
+        serving also the rwkv time mix's heads), whole elsewhere; an
+        expert leaf's ``mlp`` dim over the data axes (``serve_tp``) cut
+        to the rank's block; every other dim over the data axes (FSDP)
+        joined, once. A leaf handed over as the rank's block of what it
+        keeps is kept as it is: under ``serve_tp`` (``embed: ()``) the
+        blocks join nothing over the data axes. The joins are counted
+        (``comm.COUNTS``: ``fsdp_all_gather`` over the data axes,
+        ``model_all_gather`` over ``model``). A mamba mixer's leaves are
+        cut to the rank's block of ``d_in`` (``models/ssm.tp_block``;
+        ``in_proj``'s two halves each cut) where ``d_in`` splits over
+        ``model``. A MoE router stays whole: every peer routes alike, so
+        its logits need no gather a step."""
         from repro_torch.models.ssm import INNER_DIM, tp_block
         from repro_torch.sharding.comm import _tensor_parallel
 
@@ -589,22 +602,39 @@ class ServeLayout:
         r = ctx.index((EP_AXIS,)) if m > 1 else 0
         d_in = (self.cfg.ssm.expand * self.cfg.d_model
                 if self.cfg.ssm is not None else 0)
+        ws = ctx.serve.expert_axes if ctx.serve is not None else ()
+
+        def mamba(path, parent):
+            return "A_log" in parent and path[-1] in INNER_DIM
+
+        def kept(spec, path, parent):
+            """The entries of ``spec`` the rank keeps cut."""
+            out = []
+            for e in spec:
+                a = entry_axes(e)
+                if m > 1 and a == (EP_AXIS,) and "router" not in path \
+                        and not mamba(path, parent) \
+                        and _tensor_parallel(path, parent, serving=True):
+                    out.append(e)
+                elif a and a == ws and "experts" in path:
+                    out.append(e)
+                else:
+                    out.append(None)
+            return tuple(out)
 
         def leaf(t, spec, g, path, parent):
+            keep = kept(spec, path, parent)
             if tuple(t.shape) != tuple(g.shape):
-                t = gather_leaf(t, spec, ctx)
+                if keep == tuple(spec):
+                    keep = ()  # already the rank's block
+                else:
+                    t = _join(t, spec, ctx)
             whole = t
-            if m == 1 or "router" in path:
-                pass
-            elif "A_log" in parent and path[-1] in INNER_DIM:
-                if d_in % m == 0:
+            if mamba(path, parent):
+                if m > 1 and d_in % m == 0:
                     t = tp_block(path[-1], t, r, m)
             else:
-                for d, e in enumerate(spec):
-                    if entry_axes(e) == (EP_AXIS,) \
-                            and _tensor_parallel(path, parent, serving=True):
-                        n = t.shape[d] // m
-                        t = t.narrow(d, r * n, n)
+                t = shard_leaf(t, keep, ctx) if any(keep) else t
             if device is not None:
                 t = t.to(device)
             # A block is a copy of its own (one copy, to the device, where
@@ -639,11 +669,31 @@ class ServeLayout:
         return self.ctx.index(axes), self.ctx.size(axes)
 
 
-def _check_param_specs(cfg, axes, specs) -> None:
-    """Raise where the rules place a weight the port cannot serve with: a
-    dim over ``model`` together with another axis, or a dim other than
-    the FSDP ``embed`` over a data axis (``serve_tp``'s weight-stationary
-    expert ``mlp`` over ``data``)."""
+def _join(t, spec, ctx):
+    """A rank's block of a leaf joined over every sharded dim (counted:
+    ``fsdp_all_gather`` over data axes, ``model_all_gather`` over
+    ``model``)."""
+    from repro_torch.sharding import comm
+
+    for d, e in enumerate(spec):
+        axes = entry_axes(e)
+        if ctx.size(axes) > 1:
+            t = gather_leaf(t, (None,) * d + (e,), ctx)
+            comm._count("model_all_gather" if EP_AXIS in axes
+                        else "fsdp_all_gather", t)
+    return t
+
+
+def _check_param_specs(cfg, axes, specs) -> tuple:
+    """The data axes the experts' d_ff is cut over (``ServePlan.
+    expert_axes``; () outside ``serve_tp``'s placement). Raise where the
+    rules place a weight the port cannot serve with: a dim over
+    ``model`` together with another axis, or a dim over a data axis
+    other than the FSDP ``embed`` and an expert leaf's ``mlp`` whose
+    ``expert`` dim lies over ``model`` (``serve_tp``'s weight-stationary
+    experts)."""
+    found = set()
+
     def leaf(ax, spec, path, parent):
         names = ax.split()
         for d, e in enumerate(spec):
@@ -651,14 +701,23 @@ def _check_param_specs(cfg, axes, specs) -> None:
             if not a or a == (EP_AXIS,) or (EP_AXIS not in a
                                              and names[d] == "embed"):
                 continue
+            if EP_AXIS not in a and names[d] == "mlp" and "expert" in names \
+                    and entry_axes(spec[names.index("expert")]) \
+                    == (EP_AXIS,):
+                found.add(a)
+                continue
             raise ValueError(
                 f"{cfg.name}: {'/'.join(map(str, path))} ({ax}) has spec "
                 f"{spec}: its {names[d]} dim over {a} is not a placement "
                 "the port serves with (weights are joined over their "
-                "FSDP embed dims and cut over model only; ROADMAP queue "
-                "1)")
+                "FSDP embed dims and cut over model, the experts' mlp "
+                "also over the data axes)")
 
     _walk(leaf, axes, specs)
+    if len(found) > 1:
+        raise ValueError(f"{cfg.name}: the experts' mlp lies over "
+                         f"{sorted(found)}: one placement serves")
+    return found.pop() if found else ()
 
 
 def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
@@ -678,7 +737,10 @@ def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
     encoder-only one): a mamba layer's leaves by ``param_axes`` and its
     caches by ``serve_cache_axes`` (``batch`` over data, ``mlp``, its
     ``d_in``, over model), an encoder-decoder's encoder states
-    ``cache["enc"]`` as ``"batch seq embed"`` (the rank's rows). A
+    ``cache["enc"]`` as ``"batch seq embed"`` (the rank's rows). Under
+    the weight-stationary ``serve_tp`` profile (``launch/specs.py``)
+    an expert leaf's ``expert`` dim lies over ``model`` and its ``mlp``
+    over the data axes: the plan's ``expert_axes``. A
     placement the port cannot run raises ``ValueError`` naming the leaf
     and its spec. Needs no process group."""
     from repro_torch.models import model_zoo as zoo
@@ -688,9 +750,9 @@ def serve_layout(ctx: ShardCtx, cfg, params=None, cache=None, *,
     shapes = zoo.init_params(None, cfg, device="meta")
     axes = tree_map(axes_of, shapes)
     specs = tree_specs(axes, shapes, ctx.mesh, ctx.param_rules)
-    _check_param_specs(cfg, axes, specs)
+    plan = ServePlan(expert_axes=_check_param_specs(cfg, axes, specs))
     layout = ServeLayout(
-        dataclasses.replace(ctx, tensor_parallel=True, serve=ServePlan()),
+        dataclasses.replace(ctx, tensor_parallel=True, serve=plan),
         cfg, specs, shapes)
     if params is not None:
         def check(t, spec, g, path, parent):

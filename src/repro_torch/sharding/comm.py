@@ -23,7 +23,11 @@ replicated over ``model``:
   identically (the router's logits; a weight whose module runs no
   tensor parallelism); :func:`gather_blocks` over any axes (the
   expert-parallel MoE's outputs, each peer having computed its block
-  of the groups).
+  of the groups);
+* :func:`reduce_over` — all-reduce over any axes (serving, no
+  gradient): the weight-stationary MoE's partial outputs, each rank's
+  ``E / m`` experts' block of d_ff, summed over the data axes and
+  ``model`` (``expert_all_reduce``).
 
 :func:`params_for_compute` applies them to a rank's params at the top of
 a step. Gloo has no reduce-scatter: on a gloo group it is built from
@@ -43,7 +47,7 @@ import torch
 KINDS = ("fsdp_all_gather", "fsdp_reduce_scatter", "tp_all_reduce",
          "router_all_gather", "model_all_gather", "cache_all_gather",
          "softmax_combine", "row_all_gather", "logits_all_gather",
-         "ep_all_to_all", "ep_all_gather")
+         "ep_all_to_all", "ep_all_gather", "expert_all_reduce")
 COUNTS = dict.fromkeys(KINDS, 0)
 
 
@@ -212,6 +216,15 @@ def gather_rows(x, ctx, axes, kind: str):
     out = _all_gather(x, 0, ctx.group(axes), n)
     _count(kind, out)
     return out
+
+
+def reduce_over(x, ctx, axes, kind: str):
+    """``x`` summed over the ranks of ``axes`` (no gradient; ``x`` itself
+    over one rank)."""
+    if ctx.size(axes) == 1:
+        return x
+    _count(kind, x)
+    return _all_reduce(x, ctx.group(axes))
 
 
 # ---------------------------------------------------------------------------

@@ -517,18 +517,25 @@ def test_rwkv_under_a_serving_mesh_raises(runs):
 
 
 def test_unservable_placements_raise():
-    """``serve_tp``'s expert ``mlp`` over data (its weight-stationary
-    layout) and paged pools whose KV heads do not split over model raise
+    """``serve_tp``'s weight-stationary experts (``mlp`` over data once
+    ``expert`` takes model) now serve (``tests/test_torch_mesh_serve_tp.
+    py``); a dim over model together with another axis in one entry and
+    paged pools whose KV heads do not split over model still raise
     ``ValueError`` naming the leaf and its spec."""
+    from repro_torch.launch.specs import PROFILES, make_ctx
     from repro_torch.sharding import ShardCtx, serve_layout
 
     cfg = _cfg()
-    tp = ShardCtx.for_mesh({"data": 2, "model": 2},
-                           overrides={"embed": (),
-                                      "mlp": (("model",), ("data",))})
+    tp = make_ctx({"data": 2, "model": 2}, cfg, PROFILES["serve_tp"])
+    lay = serve_layout(tp, cfg)
+    assert lay.ctx.serve.expert_axes == ("data",)
+    assert tuple(lay.specs["stack"]["segments"][0]["pos0"]["ffn"]
+                 ["experts"]["wi"]) == (None, "model", None, "data")
+    both = ShardCtx.for_mesh({"data": 2, "model": 2},
+                             overrides={"heads": (("model", "data"),)})
     with pytest.raises(ValueError,
-                       match=r"experts/wi .*'model', None, 'data'"):
-        serve_layout(tp, cfg)
+                       match=r"mixer/wo .*heads dim over \('model', 'data'\)"):
+        serve_layout(both, cfg)
     pools = zoo.init_paged_serve_cache(cfg, 4, 8, device="meta")
     with pytest.raises(ValueError, match="2 KV heads do not split over 4"):
         serve_layout(ShardCtx.for_mesh({"data": 1, "model": 4}), cfg,
