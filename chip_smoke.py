@@ -212,7 +212,11 @@ any failure, before printing its result line. It
     against the dry run of its meta twin the same way; each with ``mfu``
     and ``hardware_flops_util`` from synchronised steps timed outside
     the count; (d) the serve mixed step at phase 4's shapes: counted
-    FLOPs, the kernels' bytes and their share of the HBM rate;
+    FLOPs, the kernels' bytes and their share of the HBM rate; the dry
+    run's peak of (a)'s step (``launch/memory.py`` over rank 0's step on
+    the meta device) held against the uncounted step's
+    ``max_memory_allocated`` (a ``[memory]`` line; within
+    ``MEMORY_RTOL`` or ``MEMORY_ATOL``);
 20. trains under the rules engine's placement (``[mesh]`` and ``[mesh
     rank R]`` lines): 4 spawned ranks share the card through gloo on the
     mesh (data=2, model=2) — FSDP of ``embed`` over data, heads, kv
@@ -235,8 +239,12 @@ any failure, before printing its result line. It
     for bit; the payload bytes each rank counted through each kind of
     collective a step equal to the dry run's
     (``launch/dryrun.rules_collective_payloads``); each rank's peak
-    memory and step ms printed; the flash, grouped and expert-FFN
-    forwards timed at the ranks' local shapes;
+    memory and step ms printed, and (a)'s second step's own peak held
+    against the dry run of rank 0's step under a fake process group
+    (``launch/dryrun.rank_memory``, gloo's reduce-scatter; ``[memory]``
+    lines, run in processes of their own beside the phases, as are the
+    predictions of phases 21, 23 (c) and 24 (a)); the flash, grouped
+    and expert-FFN forwards timed at the ranks' local shapes;
 21. serves under the rules' placement on phase 20's ranks after their
     steps (``[mesh-serve]`` and ``[mesh-serve rank R]`` lines):
     granite at full width and 12 of 24 layers (phase 4's conditioned
@@ -261,8 +269,11 @@ any failure, before printing its result line. It
     shapes, one static prefill and decode step and one mixed step
     witnessed, and the payload bytes of each kind of collective in them
     equal to the dry run's; each rank's tokens/s, step ms and peak
-    memory printed beside the one process's; the decode and paged
-    prefill kernels timed at a rank's 8/4 heads;
+    memory printed beside the one process's; the one process's static
+    prefill of the 4 x 128 prompts (a cache of 128) held against the dry
+    run's step peak (``[memory]``), rank 0's prediction printed beside
+    its serving peak; the decode and paged prefill kernels timed at a
+    rank's 8/4 heads;
 22. on the same ranks after phase 21 (``[mesh-ep]``, ``[mesh-rwkv]``
     and ``[mesh-ep rank R]`` lines): (a) granite upcycled at full width
     and 12 of its 24 layers trained expert-parallel under the rules'
@@ -300,6 +311,8 @@ any failure, before printing its result line. It
     process's (near-ties judged by ``JAMBA_TIE_GAP``), the expert FFN
     witnessed at 8 experts, payloads equal to the dry run's, the mamba
     caches' blocks against one process's and each rank's peak printed;
+    the dry run's peaks of the one process's prefill and of its weights'
+    build printed beside its measured peak (``[memory]``);
 24. (``[mesh-serve-tp]``, ``[mesh-serve-tp rank R]`` and ``[examples]``
     lines) (a) on the same ranks after phase 23, the reference's
     weight-stationary ``serve_tp`` profile: phase 21's model served by
@@ -311,7 +324,9 @@ any failure, before printing its result line. It
     static prefill and decode step and one mixed step witnessed, the
     payload bytes of each kind of collective equal to the dry run's
     under the profile's rules, each rank's decode and mixed-step ms and
-    peak printed beside phase 21's; the expert FFN and the grouped
+    peak printed beside phase 21's, with the dry run's static prefill
+    peak of a rank under each profile (``[memory]``); the expert FFN and
+    the grouped
     forward timed at a rank's f-256 shapes; (b) in this process while
     the ranks run phases 22-24, the four examples
     (``examples/torch_*.py``) at the cuts of :data:`EXAMPLES`: the
@@ -5512,6 +5527,47 @@ def multi_gpu(device):
 # Synchronised steps timed for the mfu (after the counted ones, outside
 # step_cost, whose dispatch modes add host work to the step they count).
 COST_STEPS = 3
+# The dry run's step peak (launch/memory.py on the meta device) against
+# the card's: within MEMORY_RTOL of the card's figure or MEMORY_ATOL
+# bytes, whichever is larger. The card's figure is the step's own:
+# max_memory_allocated after reset_peak_memory_stats just before it, less
+# what the process held then beyond the step's arguments.
+MEMORY_RTOL, MEMORY_ATOL = 0.05, 128 * 2 ** 20
+
+
+def alloc_bytes(tree) -> int:
+    """The caching allocator's bytes of a tree's storages, each rounded
+    up to 512 B (a block of over 1 MB may hold up to 1 MB more)."""
+    import torch
+
+    from repro_torch.launch.memory import rounded
+    from repro_torch.models.param import tree_leaves
+
+    seen = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)}
+    return sum(rounded(n) for n in seen.values())
+
+
+def memory_line(tag, mem, card, *, held=True) -> None:
+    """A ``[memory]`` line: the dry run's step peak (``mem``: a record's
+    ``memory``, or ``rank_memory``'s) beside the card's, their
+    difference and the dry run's largest live groups at its peak; with
+    ``held``, fails outside MEMORY_RTOL / MEMORY_ATOL."""
+    pred = mem["peak_bytes"]
+    diff = pred - card
+    limit = max(MEMORY_RTOL * card, MEMORY_ATOL)
+    top = "; ".join(f"{g['bytes']} B x{g['count']} {g['op']} ({g['where']})"
+                    for g in mem["at_peak"])
+    print(f"[memory] {tag}: predicted step peak {pred} B "
+          f"({pred / 2 ** 30:.3f} GiB; arguments {mem['argument_bytes']}, "
+          f"temporaries {mem['temp_bytes']}, outputs {mem['output_bytes']}),"
+          f" the card's {card} B ({card / 2 ** 30:.3f} GiB): difference "
+          f"{diff:+d} B ({diff / max(card, 1):+.4f})"
+          + (f", limit {limit:.0f} B" if held else ", no limit")
+          + f"; at the predicted peak: {top}; {card_line()}", flush=True)
+    if held and abs(diff) > limit:
+        fail(f"{tag}: the dry run predicts a step peak of {pred} B, the "
+             f"card's is {card} B ({diff:+d} B, limit {limit:.0f})")
 
 
 def meta_twin(tree):
@@ -5651,15 +5707,26 @@ def step_costs(device):
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
     runs = {}
     for counted in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         st = clone(state)
         before = ops.launch_counts()
         if counted:
             (st, m), cost = step_cost(step, st, batch)
         else:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             st, m = step(st, batch)
+            torch.cuda.synchronize()
+            # Held beyond the arguments (the clone and the batch): base
+            # less the batch.
+            card_peak = (torch.cuda.max_memory_allocated() - base
+                         + alloc_bytes(batch))
         torch.cuda.synchronize()
         runs[counted] = (st, m, {k: v - before[k] for k, v in
                                  ops.launch_counts().items()})
+    memory_line(f"phase 19 {cfg.name} train {B} x {S} on a mesh of one",
+                dry["memory"], card_peak)
     del state
     (s0, m0, l0), (s1, m1, l1) = runs[False], runs[True]
     same = (torch.equal(m0["loss"], m1["loss"]) and l0 == l1 and all(
@@ -5907,6 +5974,7 @@ def mesh_cell_rank(name, ctx, root, device, tag, go, *, repeat=True):
     torch.cuda.reset_peak_memory_stats()
     first = ops.launch_counts()
     rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+    peak = 0
     for i in range(MESH["steps"]):
         batch = next(it)
         per = len(next(iter(batch.values()))) // rows
@@ -5919,7 +5987,18 @@ def mesh_cell_rank(name, ctx, root, device, tag, go, *, repeat=True):
                 state, m = step(state, local)
                 torch.cuda.synchronize()
         else:
+            # The step's own peak (its rows reach the card inside it):
+            # held beyond the arguments, the process's bytes less the
+            # state's.
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - alloc_bytes(state)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             state, m = step(state, local)
+            torch.cuda.synchronize()
+            rec["step_peak"] = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            peak = max(peak, rec["step_peak"] + base)
         ms = _sync_ms(t0)
         rec["counts"].append(comm.counts())
         m = {k: float(v) for k, v in m.items()}
@@ -5947,7 +6026,7 @@ def mesh_cell_rank(name, ctx, root, device, tag, go, *, repeat=True):
                 del again, start
             rec["leaves"], rec["off"], rec["worst"] = _mesh_compare(
                 state, root / f"mesh_{name}_ref.pt", layout, device)
-    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["peak"] = max(peak, torch.cuda.max_memory_allocated())
     rec["launches"] = {k: v - first[k] for k, v in
                        ops.launch_counts().items()}
     del state, step, layout
@@ -6138,6 +6217,65 @@ def mesh_cell_check(name, ref, ranks, bad) -> dict:
             for rk, i in enumerate(ranks)}
 
 
+def mesh_memory_predictions(out: dict) -> None:
+    """The dry run's step peaks (``launch/dryrun.rank_memory``: rank 0's
+    step on the meta device under a "fake" process group, reduce-scatters
+    built as gloo's) of phase 20 (a)'s granite step on (2, 2), phase 21's
+    one-process static prefill and its rank's, phase 23 (c)'s jamba
+    prefill and phase 24 (a)'s serve_tp rank's, into ``out`` (its
+    ``"error"`` where one raised). Each runs in a process of its own, on
+    the host's cores while the card runs the phases."""
+    import torch
+
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import rank_memory
+    from repro_torch.launch.memory import measure
+    from repro_torch.models import model_zoo as zoo
+
+    t0 = time.perf_counter()
+    try:
+        arch, f32 = "granite-moe-1b-a400m", torch.float32
+        mesh = dict(zip(("data", "model"), MESH["shape"]))
+        one = {"data": 1, "model": 1}
+        c = MESH["cells"]["granite"]
+        out["granite"] = rank_memory(
+            arch, ShapeCfg("mesh_granite", c["seq"], c["batch"], "train"),
+            mesh, profile="optimized", cfg=mesh_cfg("granite"),
+            param_dtype=f32, transport="gloo",
+            extra_ac=dict(dispatch=c["dispatch"], compute_dtype="float32",
+                          remat="none", ce_chunk=0, pad_heads_multiple=0))
+        serve = dict(cfg=mesh_serve_cfg(), param_dtype=f32, cache_dtype=f32)
+        shape = ShapeCfg("mesh_serve", MESH_SERVE["plen"][1],
+                         MESH_SERVE["prompts"], "prefill")
+        ac = dict(dispatch="gather", compute_dtype="float32",
+                  pad_heads_multiple=0)
+        out["serve_one"] = rank_memory(arch, shape, one, extra_ac=ac,
+                                       **serve)
+        out["serve_rank"] = rank_memory(arch, shape, mesh,
+                                        profile="optimized", extra_ac=ac,
+                                        transport="gloo", **serve)
+        out["serve_tp"] = rank_memory(
+            arch, shape, mesh, profile="serve_tp", transport="gloo",
+            extra_ac={**ac, "pad_heads_multiple": 16}, **serve)
+        jcfg = mesh_jamba_cfg()
+        prompts = static_prompts(jcfg, MESH_JAMBA["prompts"],
+                                 MESH_JAMBA["plen"], MESH_JAMBA["seed"])
+        bf16 = torch.bfloat16
+        out["jamba"] = rank_memory(
+            jcfg.name, ShapeCfg("mesh_jamba", max(map(len, prompts)),
+                                len(prompts), "prefill"), one, cfg=jcfg,
+            param_dtype=bf16, cache_dtype=bf16,
+            extra_ac=dict(dispatch="gather", compute_dtype="bfloat16",
+                          pad_heads_multiple=0))
+        # The same process's weights built (a dispatch mode holds to its
+        # thread: the card's phases run on beside it).
+        _, out["jamba_init"] = measure(lambda: zoo.init_params(
+            None, jcfg, dtype=bf16, device="meta"))
+    except Exception as e:  # re-raised by the parent as a failure
+        out["error"] = repr(e)
+    out["s"] = time.perf_counter() - t0
+
+
 def mesh_train(device):
     """Phases 20 to 24. The ranks start first and set up while this
     process runs the single-process steps (their first-step states saved
@@ -6167,6 +6305,10 @@ def mesh_train(device):
     procs = torch.multiprocessing.start_processes(
         mesh_rank, args=(MESH["ranks"], str(root)),
         nprocs=MESH["ranks"], join=False, start_method="spawn")
+    preds = {}
+    dry = threading.Thread(target=mesh_memory_predictions, args=(preds,),
+                           daemon=True)
+    dry.start()
     try:
         for name in MESH_TRAIN:
             refs[name], out[f"mesh_{name}_reference"] = mesh_cell_reference(
@@ -6211,6 +6353,33 @@ def mesh_train(device):
             if proc.is_alive():
                 proc.terminate()
         shutil.rmtree(root, ignore_errors=True)
+    dry.join()
+    if "error" in preds:
+        fail(f"the dry run's memory predictions: {preds['error']}")
+    print(f"[memory] the dry run's step peaks of phases 20, 21, 23 (c) and "
+          f"24 (a), each in a process of its own: {preds['s']:.1f} s",
+          flush=True)
+    for rk, info in enumerate(ranks):
+        memory_line(f"phase 20 (a) granite rank {rk} (its second step)",
+                    preds["granite"], info["granite"]["step_peak"])
+    memory_line("phase 21 one process: static prefill of "
+                f"{MESH_SERVE['prompts']} x 128", preds["serve_one"],
+                serve_ref["prefill_peak"])
+    memory_line(f"phase 23 (c) jamba at {MESH_JAMBA['layers']} layers, one "
+                "process: its static prefill (beside the run's whole peak: "
+                "weights built, prefill and decode)", preds["jamba"],
+                family_ref["jamba"]["peak"], held=False)
+    memory_line(f"phase 23 (c) jamba at {MESH_JAMBA['layers']} layers, one "
+                "process: its weights' build (init_params in bfloat16, "
+                "beside the run's whole peak)", preds["jamba_init"],
+                family_ref["jamba"]["peak"], held=False)
+    for key, phase in (("serve_rank", "21"), ("serve_tp", "24 (a)")):
+        got = [info["serve" if key == "serve_rank" else "serve_tp"]["peak"]
+               for info in ranks]
+        memory_line(f"phase {phase} rank 0 ({key}): its static prefill of "
+                    f"{MESH_SERVE['prompts']} x 128 (beside rank 0's whole "
+                    f"serving peak; the ranks' {got})", preds[key], got[0],
+                    held=False)
     bad = []
     for name in MESH_TRAIN:
         out.update(mesh_cell_check(name, refs[name],
@@ -6284,18 +6453,24 @@ def mesh_serve_prompts(cfg):
     return {"seq": prompts, "heads": [prompts[0][:-1]] + prompts[1:]}
 
 
+def mesh_serve_cfg():
+    """Phase 4's config (dropless) at MESH_SERVE's layers."""
+    from repro_torch.configs import get_config
+
+    full = get_config("granite-moe-1b-a400m")
+    return dataclasses.replace(
+        full, n_layers=MESH_SERVE["layers"], moe=dataclasses.replace(
+            full.moe, capacity_factor=float(full.moe.num_experts)))
+
+
 def mesh_serve_model(device):
     """(phase 4's config at MESH_SERVE's layers, its conditioned weights
     on ``device``)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import model_zoo as zoo
 
-    full = get_config("granite-moe-1b-a400m")
-    cfg = dataclasses.replace(
-        full, n_layers=MESH_SERVE["layers"], moe=dataclasses.replace(
-            full.moe, capacity_factor=float(full.moe.num_experts)))
+    cfg = mesh_serve_cfg()
     params = zoo.init_params(torch.Generator(device=device).manual_seed(0),
                              cfg, device=device)
     condition_attention(params, cfg)
@@ -6374,6 +6549,35 @@ def mesh_static_steps(eng, prompts, tokens, new):
     return counts, wit
 
 
+def static_prefill_peak(eng, prompts) -> int:
+    """The card's peak of one static prefill step of ``eng`` (one
+    process) over ``prompts`` right-padded to the longest (int32 tokens),
+    its cache of as many positions, as the dry run's prefill cell runs
+    it: max_memory_allocated over the cache's allocation and the
+    prefill, less what the process held beyond the weights and tokens."""
+    import torch
+
+    from repro_torch.models import model_zoo as zoo
+
+    B, plen = len(prompts), max(len(p) for p in prompts)
+    toks = torch.zeros(B, plen, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.to(eng.device)
+    torch.cuda.synchronize()
+    base = (torch.cuda.memory_allocated() - alloc_bytes(eng.params)
+            - alloc_bytes(toks))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        cache, ctx, _ = eng.static_cache(B, plen)
+        out = zoo.prefill(eng.params, {"tokens": toks}, cache, eng.cfg,
+                          ac=eng.ac, ctx=ctx)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, cache
+    return peak
+
+
 def mesh_serve_reference(device, root):
     """Phase 21's one process, before the ranks start: the static
     engine over both prompt sets and the paged engine over phase 4's
@@ -6398,6 +6602,8 @@ def mesh_serve_reference(device, root):
         st = eng.last_stats
         ref["static"][case] = {"tokens": out, "prefill_s": st["prefill_s"],
                                "decode_s": st["decode_s"]}
+    ref["prefill_peak"] = static_prefill_peak(
+        eng, mesh_serve_prompts(cfg)["seq"])
     peng = ServeEngine(params, cfg, ServeConfig(paged=True, **SERVE),
                        device=device)
     outs, _, n_gen, wall, step_ms, _, _, cache, _ = serve_session(peng,
@@ -7017,7 +7223,18 @@ def mesh_ep_rank(rank, ctx, root, device):
                 state, m = step(state, local)
                 torch.cuda.synchronize()
         else:
+            # The step's own peak (its rows reach the card inside it):
+            # held beyond the arguments, the process's bytes less the
+            # state's.
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() - alloc_bytes(state)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             state, m = step(state, local)
+            torch.cuda.synchronize()
+            rec["step_peak"] = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            peak = max(peak, rec["step_peak"] + base)
         ms = _sync_ms(t0)
         rec["counts"].append(comm.counts())
         m = {k: float(v) for k, v in m.items()}

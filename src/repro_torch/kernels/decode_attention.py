@@ -33,6 +33,12 @@ KERNEL = Kernel(
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
+    """The card's SMs; on the meta device (the dry run) the H100 SXM's
+    (``launch/mesh.SM_COUNT``), whose split walks it allocates for."""
+    if device.type == "meta":
+        from repro_torch.launch.mesh import SM_COUNT
+
+        return SM_COUNT
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -66,6 +72,24 @@ def check_paged_inputs(name, q, k_pool, v_pool, tables, int_args):
                          f"{tuple(k_pool.shape)}")
 
 
+def buffers(q, k_pool, nb: int, splits: int | None = None):
+    """The wrapper's buffers, in the order it allocates them: (out like
+    ``q``, the float32 split partials (None for one run), the runs a
+    walk: :func:`pick_splits`'s unless given; 0 for no slot, which
+    launches nothing)."""
+    B, H, dh = q.shape
+    Kh = k_pool.shape[2]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out, None, 0
+    if splits is None:
+        tiles = -(-(H // Kh) // (32 * k_pool.element_size() // 16))
+        splits = pick_splits(B * Kh * tiles, nb, sm_count(q.device))
+    part = (torch.empty(splits * B * H * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    return out, part, splits
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
                                 *, splits: int | None = None):
     """q: (B, H, dh); pools: (P, bs, Kh, dh), 16-byte aligned;
@@ -86,14 +110,9 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
                          "slot")
     if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
         raise ValueError(f"{name}: the pools must be 16-byte aligned")
-    out = torch.empty_like(q)
-    if B == 0:
+    out, part, splits = buffers(q, k_pool, nb, splits)
+    if splits == 0:
         return out
-    if splits is None:
-        tiles = -(-(H // Kh) // (32 * k_pool.element_size() // 16))
-        splits = pick_splits(B * Kh * tiles, nb, sm_count(q.device))
-    part = (torch.empty(splits * B * H * (dh + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
     KERNEL.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -109,13 +128,17 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, lengths,
 
 
 def paged_decode_attention_meta(q, k_pool, v_pool, block_tables, lengths):
-    """:func:`paged_decode_attention_cuda`'s output on the meta device
-    (empty, of its shape and dtype); records the work of slots whose
-    lengths fill their tables (the lengths are unknown there)."""
+    """:func:`paged_decode_attention_cuda` on the meta device: its
+    buffers (:func:`buffers`, the partials dropped at return) and the
+    work of slots whose lengths fill their tables (the lengths are
+    unknown there). Returns the output (empty, of its shape and
+    dtype)."""
     B, H, dh = q.shape
     bs, Kh = k_pool.shape[1], k_pool.shape[2]
+    out, part, splits = buffers(q, k_pool, block_tables.shape[1])
     full = [block_tables.shape[1] * bs] * B
-    KERNEL.record(lambda: tiling.decode_work(
-        B, H, Kh, dh, bs, full, itemsize=q.element_size(),
-        kv_itemsize=k_pool.element_size()))
-    return torch.empty_like(q)
+    if splits:
+        KERNEL.record(lambda: tiling.decode_work(
+            B, H, Kh, dh, bs, full, itemsize=q.element_size(),
+            kv_itemsize=k_pool.element_size()))
+    return out

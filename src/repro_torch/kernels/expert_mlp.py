@@ -73,6 +73,37 @@ def _work(kind, xe, f, gated):
                                       itemsize=xe.element_size())
 
 
+def fwd_buffers(xe, f: int):
+    """The forward's buffers, in the order the wrapper allocates them:
+    (out like ``xe``, the float32 (G, E, cap, f) scratch ``h``; None
+    for an empty buffer, which launches nothing)."""
+    G, E, cap, _ = xe.shape
+    out = torch.empty_like(xe)
+    if out.numel() == 0:
+        return out, None
+    return out, torch.empty((G, E, cap, f), dtype=torch.float32,
+                            device=xe.device)
+
+
+def dx_buffers(xe, f: int, gated: bool):
+    """The dx kernel's buffers, in order: (dx like ``xe``, the float32
+    (G, E, cap, f) da, dg (None ungated) and h)."""
+    G, E, cap, _ = xe.shape
+    dx = torch.empty_like(xe)
+    da = torch.empty((G, E, cap, f), dtype=torch.float32, device=xe.device)
+    dg = torch.empty_like(da) if gated else None
+    return dx, da, dg, torch.empty_like(da)
+
+
+def dw_buffers(xe, f: int, gated: bool):
+    """The dW kernel's float32 (dwi, dwg (None ungated), dwo)."""
+    E, d = xe.shape[1], xe.shape[3]
+    f32 = torch.float32
+    dwi = torch.empty((E, d, f), dtype=f32, device=xe.device)
+    dwg = torch.empty_like(dwi) if gated else None
+    return dwi, dwg, torch.empty((E, f, d), dtype=f32, device=xe.device)
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -84,10 +115,9 @@ def expert_ffn_cuda(xe, wi, wg, wo, *, act: str = "silu"):
     two passes meet in a float32 (G, E, cap, f) scratch, alive for the
     call only. Returns (G, E, cap, d)."""
     G, E, cap, d, f = _check("expert FFN kernel", xe, wi, wg, wo, act)
-    out = torch.empty_like(xe)
-    if out.numel() == 0:
+    out, h = fwd_buffers(xe, f)
+    if h is None:
         return out
-    h = torch.empty((G, E, cap, f), dtype=torch.float32, device=xe.device)
     KERNEL.launch(xe.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
                   h.data_ptr(), out.data_ptr(), G, E, cap, d, f, _ACTS[act],
                   int(xe.dtype == torch.bfloat16), _stream(xe),
@@ -103,11 +133,7 @@ def expert_ffn_dx_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
     from them. Returns (dx, da, dg, h)."""
     G, E, cap, d, f = _check("expert FFN dx kernel", xe, wi, wg, wo, act,
                              dy)
-    f32 = torch.float32
-    dx = torch.empty_like(xe)
-    da = torch.empty((G, E, cap, f), dtype=f32, device=xe.device)
-    dg = torch.empty_like(da) if wg is not None else None
-    h = torch.empty_like(da)
+    dx, da, dg, h = dx_buffers(xe, f, wg is not None)
     if dx.numel() == 0:
         return dx, da, dg, h
     KERNEL_DX.launch(xe.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
@@ -145,10 +171,7 @@ def expert_ffn_dw_cuda(xe, dy, da, dg, h):
         raise ValueError(f"{name}: xe {tuple(xe.shape)}, dy "
                          f"{tuple(dy.shape)} and float32 da/dg/h "
                          f"{tuple(da.shape)} disagree")
-    f32 = torch.float32
-    dwi = torch.empty((E, d, f), dtype=f32, device=xe.device)
-    dwg = torch.empty_like(dwi) if dg is not None else None
-    dwo = torch.empty((E, f, d), dtype=f32, device=xe.device)
+    dwi, dwg, dwo = dw_buffers(xe, f, dg is not None)
     if xe.numel() == 0:
         for t in (dwi, dwg, dwo):
             if t is not None:
@@ -179,19 +202,26 @@ def expert_ffn_bwd_cuda(xe, wi, wg, wo, dy, *, act: str = "silu"):
 
 
 def expert_ffn_meta(xe, wi, wg, wo):
-    """:func:`expert_ffn_cuda`'s output on the meta device (empty, of its
-    shape and dtype); records the forward's work, which the buffer's
-    shape sets (every slot is computed)."""
-    KERNEL.record(_work("fwd", xe, wi.shape[-1], wg is not None))
-    return torch.empty_like(xe)
+    """:func:`expert_ffn_cuda` on the meta device: its buffers
+    (:func:`fwd_buffers`, the scratch dropped at return) and the
+    forward's work, which the buffer's shape sets (every slot is
+    computed). Returns the output (empty, of its shape and dtype)."""
+    out, h = fwd_buffers(xe, wi.shape[-1])
+    if h is not None:
+        KERNEL.record(_work("fwd", xe, wi.shape[-1], wg is not None))
+    return out
 
 
 def expert_ffn_bwd_meta(xe, wi, wg, wo, dy):
-    """:func:`expert_ffn_bwd_cuda`'s gradients on the meta device;
-    records the dx and dW kernels' work."""
+    """:func:`expert_ffn_bwd_cuda` on the meta device: the dx and dW
+    kernels' buffers in its order (:func:`dx_buffers`,
+    :func:`dw_buffers`; the scratch dropped after the dW kernel, the
+    float32 sums cast to the weights' dtype) and their work."""
     f, gated = wi.shape[-1], wg is not None
+    dx, da, dg, h = dx_buffers(xe, f, gated)
     KERNEL_DX.record(_work("dx", xe, f, gated))
+    dwi, dwg, dwo = dw_buffers(xe, f, gated)
     KERNEL_DW.record(_work("dw", xe, f, gated))
-    return (torch.empty_like(xe), torch.empty_like(wi),
-            None if wg is None else torch.empty_like(wg),
-            torch.empty_like(wo))
+    del da, dg, h
+    return (dx, dwi.to(wi.dtype), None if dwg is None else dwg.to(wg.dtype),
+            dwo.to(wo.dtype))

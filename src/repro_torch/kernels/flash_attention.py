@@ -93,6 +93,14 @@ def _check(name, q, k, v, *rest):
         raise ValueError(f"{name}: q, k and v must share a dtype")
 
 
+def fwd_buffers(q):
+    """The forward's buffers, in order: (o like ``q``, the float32 (B,
+    H, Sq) lse)."""
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), torch.empty((B, H, Sq), dtype=torch.float32,
+                                            device=q.device)
+
+
 def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
     """q (B, Sq, H, dh), k/v (B, Skv, Kh, dh); q_offset, kv_len (1,)
     int32 on the card. Returns (o (B, Sq, H, dh) in q's dtype,
@@ -104,8 +112,7 @@ def flash_attention_fwd_cuda(q, k, v, q_offset, kv_len, *, causal: bool):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention kernel: q, k and v must be "
                          "16-byte aligned")
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    o, lse = fwd_buffers(q)
     if B * Sq * H == 0:
         return o, lse
     KERNEL.launch(
@@ -212,18 +219,23 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, q_offset, kv_len, *,
 
 def flash_attention_fwd_meta(q, k, v, q_offset: int, kv_len: int, *,
                              causal: bool):
-    """:func:`flash_attention_fwd_cuda`'s (o, lse) on the meta device
-    (empty, of their shapes and dtypes); records the forward's work at
-    the host-known ``q_offset`` and ``kv_len``."""
+    """:func:`flash_attention_fwd_cuda` on the meta device: its (o, lse)
+    (:func:`fwd_buffers`, empty) and the forward's work at the
+    host-known ``q_offset`` and ``kv_len``."""
     KERNEL.record(_work("fwd", q, k, q_offset, kv_len, causal))
-    B, Sq, H, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32)
+    return fwd_buffers(q)
 
 
-def flash_attention_bwd_meta(q, k, v, q_offset: int, kv_len: int, *,
-                             causal: bool):
-    """:func:`flash_attention_bwd_cuda`'s (dq, dk, dv) on the meta
-    device; records the dq and dk/dv kernels' work."""
+def flash_attention_bwd_meta(q, k, v, o, do, q_offset: int, kv_len: int,
+                             *, causal: bool):
+    """:func:`flash_attention_bwd_cuda` on the meta device: its buffers
+    in its order (``delta`` from :func:`attention_delta`, dropped at
+    return; dq, dk, dv) and the dq and dk/dv kernels' work. Returns
+    (dq, dk, dv)."""
+    delta = attention_delta(o, do)
     KERNEL_DQ.record(_work("dq", q, k, q_offset, kv_len, causal))
+    dq = torch.empty_like(q)
     KERNEL_DKV.record(_work("dkv", q, k, q_offset, kv_len, causal))
-    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    del delta
+    return dq, dk, dv

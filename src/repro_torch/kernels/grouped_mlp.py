@@ -185,6 +185,53 @@ def _tiling(M: int, E: int, tiles=ROW_TILES):
     return bm, tile_slots(M, E, bm)
 
 
+def fwd_buffers(xs, f: int, group_sizes):
+    """The forward's buffers, in the order the wrapper allocates them:
+    (out like ``xs``, the int32 group sizes, the float32 (G, M, f)
+    scratch ``h``); the last two None for an empty buffer, which
+    launches nothing."""
+    G, M, _ = xs.shape
+    out = torch.empty_like(xs)
+    if G * M == 0:
+        return out, None, None
+    sizes = group_sizes.to(torch.int32).contiguous()
+    return out, sizes, torch.empty((G, M, f), dtype=torch.float32,
+                                   device=xs.device)
+
+
+def dx_buffers(xs, f: int, gated: bool, group_sizes):
+    """The dx kernel's buffers, in order: (dx like ``xs``, the float32
+    (G, M, f) da, dg (None ungated) and h, the int32 group sizes (None
+    for an empty buffer))."""
+    G, M, _ = xs.shape
+    dx = torch.empty_like(xs)
+    da = torch.empty((G, M, f), dtype=torch.float32, device=xs.device)
+    dg = torch.empty_like(da) if gated else None
+    h = torch.empty_like(da)
+    if G * M == 0:
+        return dx, da, dg, h, None
+    return dx, da, dg, h, group_sizes.to(torch.int32).contiguous()
+
+
+def dw_buffers(xs, f: int, gated: bool, group_sizes, block: int):
+    """The dW kernel's buffers, in order: the float32 (dwi, dwg (None
+    ungated), dwo) and the int32 aligned segment starts (None, and the
+    sums zeros, for an empty buffer: every (tile, expert) block writes
+    its whole tile; no rows, no launch)."""
+    G, M, d = xs.shape
+    E = group_sizes.shape[1]
+    empty = G * M == 0
+    alloc = torch.zeros if empty else torch.empty
+    kw = dict(dtype=torch.float32, device=xs.device)
+    dwi = alloc((E, d, f), **kw)
+    dwg = alloc((E, d, f), **kw) if gated else None
+    dwo = alloc((E, f, d), **kw)
+    if empty:
+        return dwi, dwg, dwo, None
+    row_off, _ = ragged_row_offsets(group_sizes, block)
+    return dwi, dwg, dwo, row_off.to(torch.int32).contiguous()
+
+
 def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
                      block: int = ROW_BLOCK):
     """xs: (G, M, d) expert-sorted block-aligned rows -> (G, M, d), on
@@ -199,12 +246,10 @@ def grouped_mlp_cuda(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
     _check(name, xs, wi, wg, wo, group_sizes, act, block)
     G, M, d = xs.shape
     E, _, f = wi.shape
-    out = torch.empty_like(xs)
-    if G * M == 0:
+    out, sizes, h = fwd_buffers(xs, f, group_sizes)
+    if h is None:
         return out
     bm, slots = _tiling(M, E)
-    sizes = group_sizes.to(torch.int32).contiguous()
-    h = torch.empty((G, M, f), dtype=torch.float32, device=xs.device)
     KERNEL.launch(
         xs.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
         sizes.data_ptr(), h.data_ptr(), out.data_ptr(),
@@ -230,15 +275,11 @@ def grouped_mlp_dx_cuda(xs, wi, wg, wo, dy, group_sizes, *,
     _check(name, xs, wi, wg, wo, group_sizes, act, block, dy)
     G, M, d = xs.shape
     E, _, f = wi.shape
-    dev, f32 = xs.device, torch.float32
-    dx = torch.empty_like(xs)
-    da = torch.empty((G, M, f), dtype=f32, device=dev)
-    dg = torch.empty_like(da) if wg is not None else None
-    h = torch.empty_like(da)
-    if G * M == 0:
+    dev = xs.device
+    dx, da, dg, h, sizes = dx_buffers(xs, f, wg is not None, group_sizes)
+    if sizes is None:
         return dx, da, dg, h
     bm, slots = _tiling(M, E, DX_ROW_TILES)
-    sizes = group_sizes.to(torch.int32).contiguous()
     KERNEL_DX.launch(
         xs.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
         dy.data_ptr(), sizes.data_ptr(), dx.data_ptr(), da.data_ptr(),
@@ -279,16 +320,11 @@ def grouped_mlp_dw_cuda(xs, dy, da, dg, h, group_sizes, *,
                          f"{tuple(dy.shape)}, float32 da/dg/h "
                          f"{tuple(da.shape)} and int32 group_sizes "
                          f"{tuple(group_sizes.shape)} disagree")
-    dev, f32 = xs.device, torch.float32
-    # Every (tile, expert) block writes its whole tile; no rows, no launch.
-    alloc = torch.zeros if G * M == 0 else torch.empty
-    dwi = alloc((E, d, f), dtype=f32, device=dev)
-    dwg = alloc((E, d, f), dtype=f32, device=dev) if dg is not None else None
-    dwo = alloc((E, f, d), dtype=f32, device=dev)
-    if G * M == 0:
+    dev = xs.device
+    dwi, dwg, dwo, row_off = dw_buffers(xs, f, dg is not None, group_sizes,
+                                        block)
+    if row_off is None:
         return dwi, dwg, dwo
-    row_off, _ = ragged_row_offsets(group_sizes, block)
-    row_off = row_off.to(torch.int32).contiguous()
     KERNEL_DW.launch(
         xs.data_ptr(), dy.data_ptr(), da.data_ptr(), _ptr(dg),
         h.data_ptr(), row_off.data_ptr(), group_sizes.data_ptr(),
@@ -336,22 +372,31 @@ def _meta_work(kind, xs, wi, wg, max_rows):
 
 
 def grouped_mlp_meta(xs, wi, wg, wo, group_sizes, *, max_rows=None):
-    """:func:`grouped_mlp_cuda`'s output on the meta device (empty, of
-    its shape and dtype); records the forward's capacity-full work
-    (``max_rows`` valid rows a group)."""
-    KERNEL.record(_meta_work("fwd", xs, wi, wg, max_rows))
-    return torch.empty_like(xs)
+    """:func:`grouped_mlp_cuda` on the meta device: its buffers
+    (:func:`fwd_buffers`, the scratch dropped at return) and the
+    forward's capacity-full work (``max_rows`` valid rows a group).
+    Returns the output (empty, of its shape and dtype)."""
+    out, _, h = fwd_buffers(xs, wi.shape[-1], group_sizes)
+    if h is not None:
+        KERNEL.record(_meta_work("fwd", xs, wi, wg, max_rows))
+    return out
 
 
 def grouped_mlp_bwd_meta(xs, wi, wg, wo, dy, group_sizes, *,
-                         max_rows=None):
-    """:func:`grouped_mlp_bwd_cuda`'s gradients on the meta device;
-    records the dx and dW kernels' capacity-full work."""
-    KERNEL_DX.record(_meta_work("dx", xs, wi, wg, max_rows))
-    KERNEL_DW.record(_meta_work("dw", xs, wi, wg, max_rows))
-    return (torch.empty_like(xs), torch.empty_like(wi),
-            None if wg is None else torch.empty_like(wg),
-            torch.empty_like(wo))
+                         max_rows=None, block: int = ROW_BLOCK):
+    """:func:`grouped_mlp_bwd_cuda` on the meta device: the dx and dW
+    kernels' buffers in its order (:func:`dx_buffers`,
+    :func:`dw_buffers`; the float32 sums cast to the weights' dtype
+    while the scratch lives) and their capacity-full work."""
+    f, gated = wi.shape[-1], wg is not None
+    dx, da, dg, h, sizes = dx_buffers(xs, f, gated, group_sizes)
+    if sizes is not None:
+        KERNEL_DX.record(_meta_work("dx", xs, wi, wg, max_rows))
+    dwi, dwg, dwo, row_off = dw_buffers(xs, f, gated, group_sizes, block)
+    if row_off is not None:
+        KERNEL_DW.record(_meta_work("dw", xs, wi, wg, max_rows))
+    return (dx, dwi.to(wi.dtype), None if dwg is None else dwg.to(wg.dtype),
+            dwo.to(wo.dtype))
 
 
 def _ptr(t):

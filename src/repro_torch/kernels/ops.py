@@ -84,15 +84,12 @@ def decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     if impl == "eager":
         y = _ref.decode_attention_ref(qq, k_pool, v_pool, block_tables,
                                       lengths)
-    elif impl == "meta":
-        y = _da.paged_decode_attention_meta(qq, k_pool, v_pool,
-                                            block_tables, lengths)
     else:
-        y = _da.paged_decode_attention_cuda(
-            qq.contiguous(), k_pool, v_pool,
-            block_tables.to(torch.int32).contiguous(),
-            lengths.to(torch.int32).contiguous(),
-        )
+        kernel = (_da.paged_decode_attention_meta if impl == "meta"
+                  else _da.paged_decode_attention_cuda)
+        y = kernel(qq.contiguous(), k_pool, v_pool,
+                   block_tables.to(torch.int32).contiguous(),
+                   lengths.to(torch.int32).contiguous())
     return y[:, None]
 
 
@@ -107,14 +104,11 @@ def prefill_attention(q, k_pool, v_pool, block_tables, starts, lens, *,
     if impl == "eager":
         return _ref.prefill_attention_ref(q, k_pool, v_pool, block_tables,
                                           starts, lens)
-    if impl == "meta":
-        return _pp.paged_prefill_attention_meta(q, k_pool, v_pool,
-                                                block_tables, starts, lens)
+    kernel = (_pp.paged_prefill_attention_meta if impl == "meta"
+              else _pp.paged_prefill_attention_cuda)
     i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-    return _pp.paged_prefill_attention_cuda(
-        q.contiguous(), k_pool, v_pool, i32(block_tables), i32(starts),
-        i32(lens),
-    )
+    return kernel(q.contiguous(), k_pool, v_pool, i32(block_tables),
+                  i32(starts), i32(lens))
 
 
 class _GroupedMLP(torch.autograd.Function):
@@ -141,8 +135,8 @@ class _GroupedMLP(torch.autograd.Function):
     def backward(ctx, dy):
         xs, wi, wg, wo, group_sizes = ctx.saved_tensors
         if ctx.impl == "meta":
-            grads = _gm.grouped_mlp_bwd_meta(xs, wi, wg, wo, dy,
-                                             group_sizes,
+            grads = _gm.grouped_mlp_bwd_meta(xs, wi, wg, wo, dy.contiguous(),
+                                             group_sizes, block=ctx.block,
                                              max_rows=ctx.max_rows)
             return (*grads, None, None, None, None, None)
         bwd = (_ref.grouped_mlp_bwd_ref if ctx.impl == "eager"
@@ -162,7 +156,7 @@ def grouped_mlp(xs, wi, wg, wo, group_sizes, *, act: str = "silu",
     expert. ``max_rows``: the most valid rows a group can hold (the
     routing's capacity), read by the meta route only."""
     impl = resolve(implementation, xs)
-    if impl == "cuda":
+    if impl in ("cuda", "meta"):
         xs = xs.contiguous()
     return _GroupedMLP.apply(xs, wi, wg, wo,
                              group_sizes.to(torch.int32).contiguous(), act,
@@ -189,8 +183,8 @@ class _ExpertFFN(torch.autograd.Function):
     def backward(ctx, dy):
         xe, wi, wg, wo = ctx.saved_tensors
         if ctx.impl == "meta":
-            return (*_em.expert_ffn_bwd_meta(xe, wi, wg, wo, dy), None,
-                    None)
+            return (*_em.expert_ffn_bwd_meta(xe, wi, wg, wo, dy.contiguous()),
+                    None, None)
         bwd = (_ref.expert_ffn_bwd_ref if ctx.impl == "eager"
                else _em.expert_ffn_bwd_cuda)
         dx, dwi, dwg, dwo = bwd(xe, wi, wg, wo, dy.contiguous(),
@@ -208,7 +202,7 @@ def expert_ffn(xe, wi, wg, wo, *, act: str = "silu", implementation="auto"):
     squeeze = xe.dim() == 3
     if squeeze:
         xe = xe[None]
-    if impl == "cuda":
+    if impl in ("cuda", "meta"):
         xe, wi, wo = xe.contiguous(), wi.contiguous(), wo.contiguous()
         wg = None if wg is None else wg.contiguous()
     y = _ExpertFFN.apply(xe, wi, wg, wo, act, impl)
@@ -217,19 +211,19 @@ def expert_ffn(xe, wi, wg, wo, *, act: str = "silu", implementation="auto"):
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward kernels (port of
-    ``_make_flash_vjp``): saves q, k, v, o and the per-row lse."""
+    ``_make_flash_vjp``): saves q, k, v, o, the per-row lse and the
+    offsets as (1,) int32 tensors. On the meta device ``offsets`` holds
+    them as host ints as well (a meta tensor holds no value)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kv_len, causal, impl):
-        ctx.causal, ctx.impl = causal, impl
-        if impl == "meta":  # q_offset, kv_len: host ints
-            ctx.save_for_backward(q, k, v)
-            ctx.offsets = (q_offset, kv_len)
-            return _fa.flash_attention_fwd_meta(q, k, v, q_offset, kv_len,
-                                                causal=causal)[0]
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, impl, offsets):
+        ctx.causal, ctx.impl, ctx.offsets = causal, impl, offsets
         if impl == "eager":
             o, lse = _ref.flash_attention_ref(
                 q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+        elif impl == "meta":
+            o, lse = _fa.flash_attention_fwd_meta(q, k, v, *offsets,
+                                                  causal=causal)
         else:
             o, lse = _fa.flash_attention_fwd_cuda(q, k, v, q_offset, kv_len,
                                                   causal=causal)
@@ -238,21 +232,19 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.impl == "meta":
-            q, k, v = ctx.saved_tensors
-            return (*_fa.flash_attention_bwd_meta(
-                q, k, v, *ctx.offsets, causal=ctx.causal), None, None,
-                None, None)
         q, k, v, o, lse, q_offset, kv_len = ctx.saved_tensors
         do = do.contiguous()
         if ctx.impl == "eager":
             dq, dk, dv = _ref.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, causal=ctx.causal, q_offset=q_offset,
                 kv_len=kv_len)
+        elif ctx.impl == "meta":
+            dq, dk, dv = _fa.flash_attention_bwd_meta(
+                q, k, v, o, do, *ctx.offsets, causal=ctx.causal)
         else:
             dq, dk, dv = _fa.flash_attention_bwd_cuda(
                 q, k, v, o, lse, do, q_offset, kv_len, causal=ctx.causal)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
@@ -265,14 +257,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     impl = resolve(implementation, q)
     if kv_len is None:
         kv_len = k.shape[1]
-    if impl == "meta":  # host ints: a meta tensor holds no value
-        return _FlashAttention.apply(q, k, v, int(q_offset), int(kv_len),
-                                     bool(causal), impl)
+    # Host ints on the meta device, where a tensor holds no value.
+    offsets = (int(q_offset), int(kv_len)) if impl == "meta" else None
     qo = _fa.scalar_i32(q_offset, q.device)
     kl = _fa.scalar_i32(kv_len, q.device)
-    if impl == "cuda":
+    if impl in ("cuda", "meta"):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return _FlashAttention.apply(q, k, v, qo, kl, bool(causal), impl)
+    return _FlashAttention.apply(q, k, v, qo, kl, bool(causal), impl,
+                                 offsets)
 
 
 def rwkv6(r, k, v, w, u, *, initial_state=None, chunk: int = 64,
@@ -300,10 +292,9 @@ def rwkv6(r, k, v, w, u, *, initial_state=None, chunk: int = 64,
             "kernel has no custom_vjp either): train rwkv stacks with "
             "mixer_impl='eager' (autograd through the plain chunked "
             "version); a backward kernel is queued in ROADMAP.md")
-    if impl == "meta":
-        return _wkv.rwkv6_meta(r, k, v, w, u, initial_state)
+    kernel = _wkv.rwkv6_meta if impl == "meta" else _wkv.rwkv6_cuda
     f32 = torch.float32
-    return _wkv.rwkv6_cuda(
+    return kernel(
         r.contiguous(), k.contiguous(), v.contiguous(),
         w.to(f32).contiguous(), u.to(f32).contiguous(),
         None if initial_state is None

@@ -40,6 +40,25 @@ def pick_splits(blocks: int, kv_tiles: int, sms: int) -> int:
     return max(1, min(-(-sms // blocks), kv_tiles // 2))
 
 
+def buffers(q, k_pool, nb: int, splits: int | None = None):
+    """The wrapper's buffers, in the order it allocates them: (out like
+    ``q``, the float32 split partials (None for one run), the q tile,
+    the runs a walk: :func:`pick_splits`'s unless given; 0 for no rows,
+    which launches nothing)."""
+    NC, C, H, dh = q.shape
+    bs, Kh = k_pool.shape[1], k_pool.shape[2]
+    bq = pick_fwd_q_tile(H // Kh, dh, name="paged prefill kernel")
+    out = torch.empty_like(q)
+    if NC * C == 0:
+        return out, None, bq, 0
+    if splits is None:
+        splits = pick_splits(-(-C // bq) * Kh * NC, -(-nb * bs // KV_TILE),
+                             sm_count(q.device))
+    part = (torch.empty(splits * NC * C * H * (dh + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    return out, part, bq, splits
+
+
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
                                  lens, *, splits: int | None = None):
     """q: (NC, C, H, dh); pools: (P, bs, Kh, dh) with the chunks' k/v
@@ -56,18 +75,12 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
             or lens.shape != (NC,)):
         raise ValueError("paged prefill kernel: tables/starts/lens must "
                          "have one row per chunk lane")
-    bq = pick_fwd_q_tile(H // Kh, dh, name="paged prefill kernel")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("paged prefill kernel: q and the pools must be "
                          "16-byte aligned")
-    out = torch.empty_like(q)
-    if NC * C == 0:
+    out, part, bq, splits = buffers(q, k_pool, nb, splits)
+    if splits == 0:
         return out
-    if splits is None:
-        splits = pick_splits(-(-C // bq) * Kh * NC, -(-nb * bs // KV_TILE),
-                             sm_count(q.device))
-    part = (torch.empty(splits * NC * C * H * (dh + 2), dtype=torch.float32,
-                        device=q.device) if splits > 1 else None)
     KERNEL.launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), starts.data_ptr(), lens.data_ptr(),
@@ -84,16 +97,19 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_tables, starts,
 
 def paged_prefill_attention_meta(q, k_pool, v_pool, block_tables, starts,
                                  lens):
-    """:func:`paged_prefill_attention_cuda`'s output on the meta device
-    (empty, of its shape and dtype); records the work of full lanes
-    ending at their tables' capacity over distinct blocks (the starts,
-    lengths and tables are unknown there)."""
+    """:func:`paged_prefill_attention_cuda` on the meta device: its
+    buffers (:func:`buffers`, the partials dropped at return) and the
+    work of full lanes ending at their tables' capacity over distinct
+    blocks (the starts, lengths and tables are unknown there). Returns
+    the output (empty, of its shape and dtype)."""
     NC, C, H, dh = q.shape
     bs, Kh = k_pool.shape[1], k_pool.shape[2]
     nb = block_tables.shape[1]
-    KERNEL.record(lambda: tiling.prefill_work(
-        NC, C, H, Kh, dh, bs, NC * nb,
-        torch.arange(NC * nb).reshape(NC, nb), [max(nb * bs - C, 0)] * NC,
-        [min(C, nb * bs)] * NC, itemsize=q.element_size(),
-        kv_itemsize=k_pool.element_size()))
-    return torch.empty_like(q)
+    out, part, _, splits = buffers(q, k_pool, nb)
+    if splits:
+        KERNEL.record(lambda: tiling.prefill_work(
+            NC, C, H, Kh, dh, bs, NC * nb,
+            torch.arange(NC * nb).reshape(NC, nb),
+            [max(nb * bs - C, 0)] * NC, [min(C, nb * bs)] * NC,
+            itemsize=q.element_size(), kv_itemsize=k_pool.element_size()))
+    return out

@@ -28,6 +28,15 @@ HEAD_SIZES = (8, 16, 32, 64)  # the kernel's K template instances
 MAX_V = 1024  # value columns the kernel takes
 
 
+def buffers(r, v):
+    """The wrapper's outputs, in order: (o (B, T, H, V) in v's dtype, the
+    float32 final state (B, H, K, V))."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    return (torch.empty((B, T, H, V), dtype=v.dtype, device=r.device),
+            torch.empty((B, H, K, V), dtype=torch.float32, device=r.device))
+
+
 def rwkv6_cuda(r, k, v, w, u, initial_state=None):
     """WKV-6 on the card. r, k (B, T, H, K) and v (B, T, H, V) in one
     dtype (float32 or bfloat16); w (B, T, H, K), u (H, K) and
@@ -62,8 +71,7 @@ def rwkv6_cuda(r, k, v, w, u, initial_state=None):
     if K not in HEAD_SIZES or not 1 <= V <= MAX_V:
         raise ValueError(f"{name}: head size K={K} (want one of "
                          f"{HEAD_SIZES}) or V={V} (1..{MAX_V}) not supported")
-    o = torch.empty((B, T, H, V), dtype=v.dtype, device=r.device)
-    s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    o, s_out = buffers(r, v)
     if B * H == 0:
         return o, s_out
     KERNEL.launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -79,12 +87,11 @@ def rwkv6_cuda(r, k, v, w, u, initial_state=None):
 
 
 def rwkv6_meta(r, k, v, w, u, initial_state=None):
-    """:func:`rwkv6_cuda`'s (o, final state) on the meta device (empty,
-    of their shapes and dtypes); records the call's work."""
+    """:func:`rwkv6_cuda`'s (o, final state) on the meta device
+    (:func:`buffers`, empty); records the call's work."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     KERNEL.record(lambda: tiling.wkv_work(
         B, T, H, K, V, itemsize=r.element_size(),
         state_in=initial_state is not None))
-    return (r.new_empty((B, T, H, V), dtype=v.dtype),
-            r.new_empty((B, H, K, V), dtype=torch.float32))
+    return buffers(r, v)

@@ -18,16 +18,33 @@ kernels' among them (the counterpart of ``pallas_model.py``'s modelled
 attention traffic; its XLA-path half has none). Where the data decides
 the work (the grouped kernels' valid rows), the meta route counts the
 capacity-full bound, so the card's counted work is at most the dry
-run's. No XLA runs, so nothing needs a process of its own.
+run's. No XLA runs: only the rank step below needs a process of its
+own, for its process group.
 
 Per device: the step is the global one, so FLOPs and bytes are the
 mesh's, divided evenly over its devices. ``memory.argument_bytes`` is
 exact: each input leaf's bytes over its shard factor under the rules'
 placement on the mesh (``sharding.spec_for``; the reference's
-``argument_size_in_bytes``). There is no counterpart of XLA's buffer
-assignment, so the record holds no temporary or peak bytes rather than
-a guess. ``collective_bytes_per_device`` models the collectives the
-port's runtime runs: under expert parallelism the gradient all-reduce
+``argument_size_in_bytes``). The rest of ``memory`` comes from a second
+run, rank 0's own step (:func:`rank_memory`): in a process of its own,
+started by spawn (so that no process group is left in the caller),
+under a "fake" process group whose world is the mesh's size, its state
+and batch cut to its blocks by the rules' placement
+(``specs.build_cell(rank=True)``), counted by ``launch/memory.py``'s
+live-bytes tracker on the meta device: ``temp_bytes``, ``output_bytes``,
+``total_bytes`` = ``peak_bytes`` (the reference's sum of arguments,
+temporaries and outputs), ``fits_hbm`` (the reference's ``fits_16g``
+against the card's HBM) and ``at_peak`` (the largest live groups at the
+peak). The rank's arguments must equal ``argument_bytes``. The kernels'
+shape-only routes allocate the scratch their CUDA wrappers allocate;
+where the data decides a kernel's work the buffers are the static ones
+on both devices. The fake group's collectives move nothing; a
+reduce-scatter is built as NCCL's (:func:`rank_memory`'s
+``transport="gloo"``: as gloo's, from an all-to-all, as the smoke's
+ranks run it).
+
+``collective_bytes_per_device`` models the collectives the port's
+runtime runs: under expert parallelism the gradient all-reduce
 and the all-to-alls of ``core/ep.py``, whose buffers are static
 (:func:`ep_a2a_bytes`); otherwise the rules' placement
 (:func:`rules_collective_payloads`): the FSDP all-gathers and
@@ -135,7 +152,8 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                               itemsize: int, batch: int = 0,
                               cache_len: int = 0, logits_rows: int = 0,
                               enc_len: int = 0, ring: bool = False,
-                              param_rules=None) -> dict:
+                              param_rules=None,
+                              pad_heads_multiple: int = 0) -> dict:
     """Payload bytes a rank moves through each kind of collective of one
     serving step under ``sharding.serve_layout`` (the sums
     ``comm.COUNTS`` keeps; an all-gather's output, an all-reduce's
@@ -169,7 +187,13 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
     data axes and ``model`` (``expert_all_reduce``) instead. A dense FFN's
     all-reduce, a vocab-parallel lookup's, and the logits gathered over
     ``model`` (vocab-parallel head) and over the data axes (the static
-    batch's rows). The dispatch does not change them. With ``ring``,
+    batch's rows). The dispatch does not change them. Under
+    ``pad_heads_multiple`` (``ApplyCfg``'s) the query heads are padded
+    (``head_plan``): where the rules put the heads over ``model`` and the
+    padding adds heads, every attention layer gathers its ``wq``, ``wo``
+    (and ``bq``) blocks over ``model`` a step (``fsdp_all_gather``,
+    weights of ``itemsize`` bytes) and pads and cuts them
+    (``models/attention._tp_heads``). With ``ring``,
     ``{"payloads": ..., "bytes": ...}``: the bytes a ring sends ((W - 1)
     / W of an all-gather's output, 2 (W - 1) / W of an all-reduce's
     tensor over its W ranks)."""
@@ -224,8 +248,18 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                 and EP_AXIS not in entry_axes(espec[2]):
             ws = entry_axes(espec[2])
     W = math.prod(sizes[a] for a in ws) * m
-    plan = head_plan(cfg, m) if m > 1 and (encdec or any(
-        d.mixer == "attn" for d in descs)) else None
+    plan = head_plan(cfg, m, pad_heads_multiple) if m > 1 and (
+        encdec or any(d.mixer == "attn" for d in descs)) else None
+    Hq, dh_q = cfg.n_heads, cfg.head_dim
+    regather = 0  # the padded query weights' bytes gathered a layer
+    if plan is not None and plan[0] != Hq:
+        rules = param_rules if param_rules is not None else make_rules(
+            mesh, params=True,
+            overrides=dict(cfg.sharding_overrides or {}) or None)
+        qspec = tuple(spec_for("embed heads head_dim", (d, Hq, dh_q), mesh,
+                               rules)) + (None,) * 3
+        if EP_AXIS in entry_axes(qspec[1]):
+            regather = (2 * d + cfg.qkv_bias) * Hq * dh_q * itemsize
     H = cfg.d_model // cfg.ssm.head_size if cfg.ssm is not None else 0
     d_in = cfg.ssm.expand * d if cfg.ssm is not None else 0
     dt_rank = max(1, math.ceil(d / 16))
@@ -239,6 +273,8 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                     n * (dt_rank + 2 * cfg.ssm.d_state) * it, m, 2)
                 add("tp_all_reduce", n * d * it, m, 2)  # out_proj
             if m > 1 and desc.mixer == "attn":
+                if regather:
+                    add("fsdp_all_gather", regather, m)
                 if plan is not None:
                     add("tp_all_reduce", n * d * it, m, 2)
                 if cached and mode != "heads":
@@ -254,6 +290,8 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
                         add("softmax_combine",
                             m * B_l * Hq * (dh + 2) * 4, m)
             if m > 1 and desc.cross and plan is not None:
+                if regather:
+                    add("fsdp_all_gather", regather, m)
                 add("tp_all_reduce", n * d * it, m, 2)  # cross attention
             if desc.ffn == "moe" and ws:
                 nr = n * D
@@ -291,7 +329,8 @@ def serve_collective_payloads(cfg, *, mesh, kind: str, tokens: int,
 
 def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
                               remat: str, tokens: int, itemsize: int,
-                              kind: str = "train", **serve) -> dict:
+                              kind: str = "train", ce_chunk: int = 0,
+                              seq: int = 0, **serve) -> dict:
     """Payload bytes a rank moves through each kind of collective of one
     train step under the rules' placement (``sharding/comm.py``: an
     all-gather's output, a reduce-scatter's input, an all-reduce's
@@ -308,7 +347,11 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
     the blocks' join (``ep_all_gather``) in place of the partial
     outputs' sum. ``tokens`` is the
     global batch's; ``remat`` other than none runs the stack's forward
-    collectives twice. Decoder-only and encoder-only stacks with
+    collectives twice. ``ce_chunk`` (with ``seq``, a row's positions):
+    the vocab-parallel cross-entropy over checkpointed chunks, whose
+    backward recomputes each chunk's max, sum and target all-reduces and
+    all-reduces the float32 head input's gradient, over the rows padded
+    to whole chunks. Decoder-only and encoder-only stacks with
     attention mixers are modelled layer by layer; an encoder-decoder's
     cross-attention adds its inputs' gradients and output. A serving
     ``kind`` ("prefill", "decode", "mixed"; ``serve`` its shapes) is
@@ -421,6 +464,7 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
                 ar += passes * rows * d * it + rows * d * it
     V = cfg.vocab_size
     if V % m == 0:
+        chunked = bool(ce_chunk) and cfg.structure != "encoder_only"
         if cfg.structure == "encoder_only":
             rows = n // cfg.n_frontend_positions
         else:
@@ -428,14 +472,22 @@ def rules_collective_payloads(cfg, *, params, mesh, dispatch: str,
             ar += rows * d * it  # the vocab-parallel lookup
             if cfg.structure == "encoder_decoder" and cfg.frontend is None:
                 ar += enc_n * d * it  # the encoder's (not frames)
-        ar += rows * d * it + 3 * rows * 4  # head input, max, sum, target
+        if chunked:
+            S = (max(seq // 4, 1) if cfg.structure == "encoder_decoder"
+                 else seq) or rows
+            c = min(ce_chunk, S)
+            rows = rows // S * (S + (-S) % c)
+            # the head input (float32), then max, sum, target twice
+            ar += rows * d * 4 + 2 * 3 * rows * 4
+        else:
+            ar += rows * d * it + 3 * rows * 4  # head input, max, sum, target
     out["tp_all_reduce"] = ar
     out["router_all_gather"] = gather
     return out
 
 
 def _rules_collectives(cfg, out, *, params, mesh, dispatch, remat,
-                       tokens, itemsize) -> dict:
+                       tokens, itemsize, ce_chunk=0, seq=0) -> dict:
     """A train step under the rules' placement: the payloads of
     :func:`rules_collective_payloads` (``out["payloads"]``), the bytes a
     ring sends for each ((W - 1) / W of an all-gather's output or a
@@ -460,7 +512,8 @@ def _rules_collectives(cfg, out, *, params, mesh, dispatch, remat,
                        overrides=dict(cfg.sharding_overrides or {}) or None)
     pay = rules_collective_payloads(cfg, params=params, mesh=mesh,
                                     dispatch=dispatch, remat=remat,
-                                    tokens=tokens, itemsize=itemsize)
+                                    tokens=tokens, itemsize=itemsize,
+                                    ce_chunk=ce_chunk, seq=seq)
     out["payloads"] = pay
     for leaf in pm.tree_leaves(params):
         spec = spec_for(pm.axes_of(leaf), tuple(leaf.shape), mesh, rules)
@@ -494,7 +547,8 @@ def _ep_degree(cfg, mesh, dispatch: str) -> int:
 def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
                      mesh, tokens: int, itemsize: int, batch: int = 0,
                      seq: int = 0, tensor_parallel: bool = False,
-                     param_rules=None) -> dict:
+                     param_rules=None, ce_chunk: int = 0,
+                     pad_heads_multiple: int = 0) -> dict:
     """The collectives a device runs in one step of the port's runtime
     on ``mesh``, in bytes it sends. Training under the rules' placement
     (with expert parallelism, for a ``tensor_parallel`` ctx:
@@ -511,7 +565,10 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
     placement (:func:`serve_collective_payloads`, a ``batch`` x ``seq``
     prompt or one token a row against a cache of ``seq``; the experts'
     placement by ``param_rules``, the cell's), under ``"payloads"``;
-    with it, the all-to-alls of the forward."""
+    with it, the all-to-alls of the forward. ``ce_chunk``: the train
+    cell's chunked cross-entropy (:func:`rules_collective_payloads`);
+    ``pad_heads_multiple``: a serving cell's padded query heads
+    (:func:`serve_collective_payloads`)."""
     from repro_torch.models import param as pm
     from repro_torch.models import stack as stk
     from repro_torch.sharding import ep_dim, mesh_shape
@@ -523,7 +580,8 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
     if kind == "train" and (ep == 1 or tensor_parallel):
         return _rules_collectives(cfg, out, params=params, mesh=mesh,
                                   dispatch=dispatch, remat=remat,
-                                  tokens=tokens, itemsize=itemsize)
+                                  tokens=tokens, itemsize=itemsize,
+                                  ce_chunk=ce_chunk, seq=seq)
     mixers = {d.mixer for d in stk.layer_descs(cfg)}
     if ep == 1 and cfg.structure == "decoder_only" \
             and mixers in ({"attn"}, {"rwkv6"}):
@@ -531,7 +589,7 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
         r = serve_collective_payloads(
             cfg, mesh=mesh, kind=kind, tokens=batch * step,
             itemsize=itemsize, batch=batch, cache_len=seq, ring=True,
-            param_rules=param_rules)
+            param_rules=param_rules, pad_heads_multiple=pad_heads_multiple)
         out.update(r)
         return out
     if kind == "train":
@@ -563,12 +621,75 @@ def collective_bytes(cfg, *, kind: str, params, dispatch: str, remat: str,
     return out
 
 
+def _rank_child(arch, shape, mesh, transport, **build) -> dict:
+    """:func:`rank_memory`'s body, in the spawned process."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.memory import measure
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.sharding import comm
+
+    torch.set_num_threads(1)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.values()))
+    try:
+        comm.TRANSPORT = transport
+        dmesh = make_mesh(tuple(mesh.values()), tuple(mesh),
+                          device_type="cpu")
+        step, args, info = build_cell(arch, shape, dmesh, rank=True,
+                                      **build)
+        want = argument_bytes(info["global_args"], info["axes"],
+                              info["ctx"], shape.kind)["total"]
+        t0 = time.perf_counter()
+        _, rep = measure(step, *args)
+        rep["run_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    if rep["argument_bytes"] != want:
+        raise AssertionError(
+            f"rank 0's step holds {rep['argument_bytes']} argument bytes, "
+            f"the rules' placement {want}")
+    return rep
+
+
+def rank_memory(arch: str, shape, mesh: dict, *, profile: str = "baseline",
+                extra_ac: dict | None = None, cfg=None, param_dtype=None,
+                cache_dtype=None, transport: str | None = None) -> dict:
+    """Rank 0's step of a cell on the meta device under a "fake" process
+    group of ``mesh``'s size (``torch.testing._internal.distributed.
+    fake_pg``), in a child process started by spawn, counted by
+    ``launch/memory.measure``: its ``argument_bytes`` (checked equal to
+    the rules' placement's), ``output_bytes``, ``temp_bytes``,
+    ``peak_bytes``, ``total_bytes`` and ``at_peak``, and ``run_s``.
+    ``transport="gloo"`` builds the reduce-scatters as gloo's, from an
+    all-to-all (``sharding/comm.py``); None, as NCCL's.
+    The cell's arguments are :func:`run_cell`'s. Raises where the rank's
+    step cannot be built or run."""
+    import multiprocessing
+
+    from repro_torch.configs import SHAPES
+
+    cell = dict(arch=arch, mesh=dict(mesh), profile=profile,
+                extra_ac=extra_ac, cfg=cfg, param_dtype=param_dtype,
+                cache_dtype=cache_dtype, transport=transport,
+                shape=SHAPES[shape] if isinstance(shape, str) else shape)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_rank_child, kwds=cell)
+
+
 def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
              extra_ac: dict | None = None, tag: str = "",
-             mesh: dict | None = None) -> dict:
+             mesh: dict | None = None, *, cfg=None, param_dtype=None,
+             cache_dtype=None) -> dict:
     """Build, run on the meta device and record one cell. ``shape``: a
     ``SHAPES`` name or a ``ShapeCfg``; ``mesh`` (a ``{axis: size}``
-    mapping) overrides ``mesh_kind``'s production mesh."""
+    mapping) overrides ``mesh_kind``'s production mesh; ``cfg`` (the
+    arch's config changed), ``param_dtype`` and ``cache_dtype`` override
+    the cell's (``specs.build_cell``). The memory record is rank 0's
+    step with NCCL's reduce-scatter (:func:`rank_memory`)."""
     import torch
 
     from repro_torch.configs import SHAPES, get_config, shape_applicable
@@ -583,7 +704,7 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
     from repro_torch.launch.specs import build_cell
 
     shp = SHAPES[shape] if isinstance(shape, str) else shape
-    cfg = get_config(arch)
+    cfg = cfg if cfg is not None else get_config(arch)
     ok, reason = shape_applicable(cfg, shp)
     rec = {"arch": arch, "shape": shp.name, "mesh": mesh_kind,
            "profile": profile, "tag": tag}
@@ -596,15 +717,19 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
     if mesh is None:
         mesh = production_mesh_shape(multi_pod=mesh_kind == "multipod")
     n_chips = math.prod(mesh.values())
+    over = dict(cfg=cfg, param_dtype=param_dtype, cache_dtype=cache_dtype)
     step, args, info = build_cell(arch, shp, mesh, profile=profile,
-                                  extra_ac=extra_ac)
+                                  extra_ac=extra_ac, **over)
     axes, ctx, ac = info.pop("axes"), info.pop("ctx"), info.pop("ac")
-    info.pop("cfg")
+    cfg = info.pop("cfg")
+    info.pop("global_args")
     rec.update(info)
     rec["mesh_shape"] = dict(mesh)
     t0 = time.perf_counter()
     _, cost = step_cost(step, *args)
     run_s = time.perf_counter() - t0
+    rank = rank_memory(arch, shp, mesh, profile=profile, extra_ac=extra_ac,
+                       **over)
 
     mem = argument_bytes(args, axes, ctx, shp.kind)
     params = args[0]["params"] if shp.kind == "train" else args[0]
@@ -614,7 +739,8 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
         itemsize=torch.empty((), dtype=ac.cdtype).element_size(),
         batch=shp.global_batch, seq=shp.seq_len,
         tensor_parallel=ctx.tensor_parallel is not False,
-        param_rules=ctx.param_rules)
+        param_rules=ctx.param_rules, ce_chunk=ac.ce_chunk,
+        pad_heads_multiple=ac.pad_heads_multiple)
 
     flops_dev = cost["total_flops"] / n_chips
     bytes_dev = (cost["aten_bytes"] + sum(cost["kernel_bytes"].values())) \
@@ -650,10 +776,14 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
             "argument_bytes": mem["total"],
             "argument_bytes_by_input": mem,
             "arguments_fit_hbm": bool(mem["total"] < HBM_BYTES),
-            "temp_bytes": None,
-            "output_bytes": None,
-            "absent": "temporary, output and peak bytes: no counterpart "
-                      "of XLA's buffer assignment",
+            "temp_bytes": rank["peak_bytes"] - mem["total"]
+            - rank["output_bytes"],
+            "output_bytes": rank["output_bytes"],
+            "total_bytes": rank["peak_bytes"],
+            "peak_bytes": rank["peak_bytes"],
+            "fits_hbm": bool(rank["peak_bytes"] < HBM_BYTES),
+            "at_peak": rank["at_peak"],
+            "rank_run_s": rank["run_s"],
         },
         roofline={
             "compute_s": t_compute,
@@ -672,6 +802,14 @@ def run_cell(arch: str, shape, mesh_kind: str, profile: str, out_dir: str,
           f"kernels {sum(cost['kernel_flops'].values()):.4e}) "
           f"bytes/device={bytes_dev:.4e} collective/device={coll_dev:.4e}")
     print(f"  argument_bytes={mem['total']} ({mem})")
+    m = rec["memory"]
+    print(f"  rank 0's step ({m['rank_run_s']:.1f} s): temp_bytes="
+          f"{m['temp_bytes']} output_bytes={m['output_bytes']} "
+          f"total_bytes=peak_bytes={m['peak_bytes']} "
+          f"fits_hbm={m['fits_hbm']}")
+    for g in m["at_peak"]:
+        print(f"    at the peak: {g['bytes']} B in {g['count']} from "
+              f"{g['op']} ({g['where']})")
     print("  roofline: compute=%.4fs memory=%.4fs collective=%.4fs -> %s"
           % (t_compute, t_memory, t_coll, dominant))
     print("  model_flops/counted_flops=%.3f" % rec["useful_flops_ratio"])

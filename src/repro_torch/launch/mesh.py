@@ -67,6 +67,7 @@ PEAK_FLOPS_TF32 = 495e12  # TF32 tensor cores, FLOP/s
 PEAK_FLOPS_F32 = 67e12  # float32 on CUDA cores, FLOP/s
 HBM_BW = 3.35e12  # HBM3 bytes/s
 HBM_BYTES = 80 * 10 ** 9  # HBM capacity (80 GB)
+SM_COUNT = 132  # streaming multiprocessors of the SXM part
 # NVLink 4: 900 GB/s a card in both directions together, 450 GB/s each
 # way (the counterpart of the reference's per-link ICI_BW).
 NVLINK_BW = 450e9

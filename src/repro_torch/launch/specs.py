@@ -12,6 +12,8 @@ that runs on them through the kernels' shape-only route
 (``make_ctx``, the rules of ``sharding/logical.py``) that the dry run's
 per-device bytes read. Building a cell starts no process group, and the
 step is the global one on one device: its FLOPs are the whole mesh's.
+Asked for ``rank``, under a process group spanning the mesh, the cell
+is rank 0's own step on its blocks (the dry run's memory record).
 """
 from __future__ import annotations
 
@@ -26,7 +28,16 @@ from repro_torch.configs import SHAPES, ArchConfig, ShapeCfg, get_config
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models import param as pm
 from repro_torch.optim import adafactor, inverse_sqrt
-from repro_torch.sharding import ShardCtx, _make_groups, make_rules, mesh_shape
+from repro_torch.sharding import (
+    ShardCtx,
+    _make_groups,
+    _map,
+    make_rules,
+    mesh_shape,
+    serve_layout,
+    shard_leaf,
+    train_layout,
+)
 from repro_torch.training.train_loop import (
     TrainConfig,
     init_train_state,
@@ -170,6 +181,10 @@ def build_cell(
     *,
     profile: str = "baseline",
     extra_ac: Optional[dict] = None,
+    cfg: Optional[ArchConfig] = None,
+    param_dtype: Optional[torch.dtype] = None,
+    cache_dtype: Optional[torch.dtype] = None,
+    rank: bool = False,
 ):
     """Returns (step_fn, args on the meta device, info dict). ``shape``
     is a ``SHAPES`` name or a ``ShapeCfg`` of one's own. ``info`` adds
@@ -184,10 +199,24 @@ def build_cell(
     cells take bf16 weights and the static engine's serve cache, a
     decode step one new token at position S - 1; their steps run under
     the cell's ctx, as the reference's do (it has no process groups, so
-    the step is the global one)."""
+    the step is the global one).
+
+    ``cfg`` (the arch's config cut or changed), ``param_dtype`` and
+    ``cache_dtype`` override the cell's. ``rank``: rank 0's own step
+    under a process group spanning the mesh (``launch/dryrun``'s rank
+    step, on a "fake" group): a train cell's state cut to the rank's
+    blocks by ``sharding.train_layout`` and its rows of the batch, the
+    step ``make_train_step(layout=)``; a serving cell's weights cut to
+    the rank's blocks under the param rules and placed inside the step
+    (``ServeLayout.place``: the joins over their FSDP dims counted as
+    the step's, as the reference's program gathers them), its rows of
+    the batch or tokens and its block of the cache
+    (``serve_layout``); ``info["global_args"]`` the global inputs. On a
+    mesh of one the rank's step is the global one; on a larger mesh
+    without the process group it raises."""
     from repro_torch.training.train_loop import state_axes
 
-    cfg = get_config(arch)
+    cfg = cfg if cfg is not None else get_config(arch)
     shp = SHAPES[shape] if isinstance(shape, str) else shape
     prof = PROFILES[profile]
     ctx = make_ctx(mesh, cfg, prof)
@@ -210,9 +239,9 @@ def build_cell(
 
     if shp.kind == "train":
         ac = zoo.ApplyCfg(**{"mixer_impl": "eager", **ac_kw})
-        param_dtype = (
-            torch.bfloat16 if total > BIG_PARAM_THRESHOLD else torch.float32
-        )
+        if param_dtype is None:
+            param_dtype = (torch.bfloat16 if total > BIG_PARAM_THRESHOLD
+                           else torch.float32)
         info["param_dtype"] = str(param_dtype).split(".")[1]
         opt = adafactor(inverse_sqrt(peak=0.01, warmup_steps=10_000))
         tc = TrainConfig()
@@ -222,41 +251,101 @@ def build_cell(
         info["axes"] = (state_axes(cfg, dtype=param_dtype, tc=tc),
                         batch_axes(batch))
         info["ac"] = ac
-        step = make_train_step(cfg, opt, ac=ac, tc=tc)
-        return step, (state, batch), info
+        info["global_args"] = (state, batch)
+        layout = _rank_layout(rank, ctx, mesh, lambda: train_layout(
+            ctx, cfg, ac.dispatch, state))
+        if layout is None:
+            return make_train_step(cfg, opt, ac=ac, tc=tc), (state, batch), \
+                info
+        i, n = layout.batch_rows()
+        return (make_train_step(cfg, opt, ac=ac, tc=tc, layout=layout),
+                (layout.shard(state), _rows(batch, i, n)), info)
 
-    # Serving cells: bf16 weights.
+    # Serving cells: bf16 weights and cache by default.
     ac = info["ac"] = zoo.ApplyCfg(**{**ac_kw, "remat": "none",
                                       "ce_chunk": 0})
-    params = zoo.init_params(None, cfg, dtype=torch.bfloat16, device="meta")
+    param_dtype = param_dtype or torch.bfloat16
+    cache_dtype = cache_dtype or torch.bfloat16
+    params = zoo.init_params(None, cfg, dtype=param_dtype, device="meta")
     p_axes = zoo.param_axes(cfg)
-    info["param_dtype"] = "bfloat16"
+    info["param_dtype"] = str(param_dtype).split(".")[1]
     B, S = shp.global_batch, shp.seq_len
     enc_len = WHISPER_ENC_FRAMES if cfg.structure == "encoder_decoder" \
         else 0
 
     def fresh_cache():
-        return zoo.init_serve_cache(cfg, B, S, dtype=torch.bfloat16,
+        return zoo.init_serve_cache(cfg, B, S, dtype=cache_dtype,
                                     device="meta", enc_len=enc_len)
 
+    # The global cache's shapes, for the rank's layout (on the card too
+    # a meta tensor: ``ServeEngine.static_cache``).
+    shapes = fresh_cache()
+    lay = _rank_layout(rank, ctx, mesh, lambda: serve_layout(
+        ctx, cfg, cache=shapes))
+    if lay is not None:
+        blocks = _map(lambda t, s: shard_leaf(t, s, ctx), params, lay.specs)
+        i, n = lay.rows()
     if shp.kind == "prefill":
         batch = _batch_struct(cfg, shp)
         info["axes"] = (p_axes, batch_axes(batch))
+        info["global_args"] = (params, batch)
+        if lay is None:
+            def prefill_step(params, batch):
+                return zoo.prefill(params, batch, fresh_cache(), cfg, ac=ac,
+                                   ctx=ctx)
 
-        def prefill_step(params, batch):
-            return zoo.prefill(params, batch, fresh_cache(), cfg, ac=ac,
-                               ctx=ctx)
+            return prefill_step, (params, batch), info
 
-        return prefill_step, (params, batch), info
+        def prefill_rank(blocks, batch):
+            return zoo.prefill(lay.place(blocks), batch,
+                               lay.alloc(shapes, device="meta"), cfg,
+                               ac=ac, ctx=lay.ctx)
+
+        return prefill_rank, (blocks, _rows(batch, i, n)), info
 
     tokens = _meta((B, 1), torch.int32)
     info["axes"] = (p_axes, "batch seq", zoo.serve_cache_axes(cfg), None)
+    info["global_args"] = (params, tokens, shapes, S - 1)
+    if lay is None:
+        def serve_step(params, tokens, cache, index):
+            return zoo.decode_step(params, tokens, cache, index, cfg, ac=ac,
+                                   ctx=ctx)
 
-    def serve_step(params, tokens, cache, index):
-        return zoo.decode_step(params, tokens, cache, index, cfg, ac=ac,
-                               ctx=ctx)
+        return serve_step, info["global_args"], info
 
-    return serve_step, (params, tokens, fresh_cache(), S - 1), info
+    def decode_rank(blocks, tokens, cache, index):
+        return zoo.decode_step(lay.place(blocks), tokens, cache, index, cfg,
+                               ac=ac, ctx=lay.ctx)
+
+    return decode_rank, (blocks, _rows(tokens, i, n), lay.alloc(
+        shapes, device="meta"), S - 1), info
+
+
+def _rank_layout(rank: bool, ctx: ShardCtx, mesh, make):
+    """The rank's layout (``make()``) for a ``rank`` cell on a mesh of
+    more than one device; None for the global step (``rank`` False, or a
+    mesh of one, whose rank's step is the global one). Raises where the
+    ctx has no process groups: a rank's step is never the global one on
+    a larger mesh."""
+    if not rank or math.prod(mesh_shape(mesh).values()) == 1:
+        return None
+    if not ctx.groups:
+        raise RuntimeError(
+            "a rank's step needs a process group spanning the mesh "
+            f"{dict(mesh_shape(mesh))} (init_process_group with its world "
+            "size)")
+    return make()
+
+
+def _rows(tree, i: int, n: int):
+    """Block ``i`` of ``n`` of every leaf's rows, each a copy of its own
+    (a rank's rows, as the card's step receives them)."""
+    def one(t):
+        per = t.shape[0] // n
+        return t[i * per:(i + 1) * per].clone()
+
+    return {k: one(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else one(tree)
 
 
 def input_specs(arch: str, shape_name: str = "train_4k", mesh=None,

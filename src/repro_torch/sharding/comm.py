@@ -49,6 +49,10 @@ KINDS = ("fsdp_all_gather", "fsdp_reduce_scatter", "tp_all_reduce",
          "softmax_combine", "row_all_gather", "logits_all_gather",
          "ep_all_to_all", "ep_all_gather", "expert_all_reduce")
 COUNTS = dict.fromkeys(KINDS, 0)
+# The backend whose reduce-scatter :func:`_reduce_scatter` builds: None
+# reads the group's; the dry run's rank step, on a "fake" group
+# (``launch/dryrun.rank_memory``), names the one it models.
+TRANSPORT = None
 
 
 def reset_counts() -> None:
@@ -89,7 +93,7 @@ def _reduce_scatter(x, dim: int, group, n: int):
 
     k = x.shape[dim] // n
     inp = x.movedim(dim, 0).contiguous()
-    if dist.get_backend(group) == "gloo":
+    if (TRANSPORT or dist.get_backend(group)) == "gloo":
         got = torch.empty_like(inp)
         dist.all_to_all_single(got, inp, group=group)
         out = got.reshape(n, k, *inp.shape[1:]).sum(0)

@@ -181,7 +181,11 @@ def test_dryrun_main_writes_the_record(tmp_path):
     assert rec["status"] == "ok" and rec["n_chips"] == 256
     assert rec["params_active"] == 428_068_864
     assert rec["memory"]["argument_bytes"] > 0
-    assert rec["memory"]["temp_bytes"] is None
+    mem = rec["memory"]
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+    assert mem["total_bytes"] == mem["peak_bytes"] == (
+        mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"])
+    assert "absent" not in mem
     assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s",
                                     "dominant", "step_time_lower_bound_s"}
     assert rec["roofline"]["step_time_lower_bound_s"] == max(

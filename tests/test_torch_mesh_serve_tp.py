@@ -29,8 +29,11 @@ model); the bytes each rank counts through each kind of collective in a
 prefill, a decode and a mixed step equal ``launch/dryrun.
 serve_collective_payloads`` under the profile's rules. Without ranks:
 ``serve_layout``'s specs under ``serve_tp`` equal the reference's
-``spec_for`` for every servable arch on (2, 2) and (16, 16). One spawn
-of 4 ranks; the ranks import torch and the port only.
+``spec_for`` for every servable arch on (2, 2) and (16, 16). Granite
+also served under the profile's ``pad_heads_multiple`` (its 4 heads
+padded to 16): the same tokens, and the padded weights' gathers the dry
+run models. One spawn of 4 ranks; the ranks import torch and the port
+only.
 """
 import json
 import os
@@ -63,6 +66,10 @@ WORLD, MESH = 4, (2, 2)
 STATIC = {"seq": 6, "heads": 5}
 JAMBA_NEW = 5
 RTOL, ATOL = 1e-4, 1e-5
+# The profile's query-head padding: the reduced granite's 4 heads (2 a
+# model rank) padded to 16, each rank gathering and cutting its padded
+# wq and wo a step.
+PAD = 16
 
 
 def _jamba_params():
@@ -110,6 +117,11 @@ def _engines(ctx, blocks=None):
                      "build": build,
                      "experts": {k: _experts(eng, k)
                                  for k in ("wi", "wg", "wo")}}
+    eng = ServeEngine(params, cfg, ServeConfig(max_batch=4), device="cpu",
+                      ctx=ctx, ac=zoo.ApplyCfg(pad_heads_multiple=PAD))
+    toks = eng.generate(prompts, STATIC["seq"])
+    logits, counts = _static_steps(eng, prompts, toks, STATIC["seq"])
+    out["padded"] = {"tokens": toks, "logits": logits, "counts": counts}
     eng = ServeEngine(params, cfg, ServeConfig(paged=True, **PAGED),
                       device="cpu", ctx=ctx)
     toks, logits, counts, _, stats = _session(eng)
@@ -287,6 +299,19 @@ def test_engines_match_reference_and_one_process(runs, case):
         assert st["compile_count"] == 1 and st["prefix_hit_frac"] > 0
 
 
+def test_padded_heads_serve_the_same_tokens(runs):
+    """Granite served with its 4 query heads padded to 16 (zero heads,
+    exactly preserved outputs) gives the unpadded engine's tokens on
+    every rank, its teacher-forced logits within tolerance of the one
+    process's padded engine."""
+    ranks, one, _ = runs
+    assert one["padded"]["tokens"] == one["seq"]["tokens"]
+    for r, got in enumerate(ranks):
+        assert got["padded"]["tokens"] == got["seq"]["tokens"], r
+        _close(got["padded"]["logits"], one["padded"]["logits"],
+               f"padded rank {r}")
+
+
 @pytest.mark.parametrize("arch", [GRANITE, JAMBA])
 def test_ranks_hold_their_expert_blocks(runs, arch):
     """Every rank serves with the ``(E/2, d, F/2)`` blocks of ``wi`` and
@@ -366,20 +391,26 @@ def _payloads(case, step):
             cfg, mesh=mesh, kind="mixed",
             tokens=PAGED["max_batch"] + PAGED["chunk_size"], itemsize=4,
             logits_rows=PAGED["max_batch"] + 1, param_rules=rules)
-    new = JAMBA_NEW if case == "jamba" else STATIC[case]
+    new = {"jamba": JAMBA_NEW, "padded": STATIC["seq"]}.get(case) \
+        or STATIC[case]
     return serve_collective_payloads(
         cfg, mesh=mesh, kind=("prefill", "decode")[step],
         tokens=B * (plen if step == 0 else 1), itemsize=4, batch=B,
-        cache_len=plen + new, param_rules=rules)
+        cache_len=plen + new, param_rules=rules,
+        pad_heads_multiple=PAD if case == "padded" else 0)
 
 
-@pytest.mark.parametrize("case", ["seq", "heads", "paged", "jamba"])
+@pytest.mark.parametrize("case", ["seq", "heads", "paged", "jamba",
+                                  "padded"])
 def test_collective_bytes_match_the_dry_run(runs, case):
     """Every kind of collective's payload each rank counted in a static
     prefill and its first decode step, or the first mixed step, equals
     the dry run's model under the profile's rules: the rows' gather over
     data and each MoE layer's partial sum over data and model
-    (``expert_all_reduce``) in place of the sum over model alone."""
+    (``expert_all_reduce``) in place of the sum over model alone;
+    ``padded``: the profile's ``pad_heads_multiple`` (4 heads padded to
+    16), each attention layer gathering its wq and wo blocks over model
+    a step."""
     cfg = get_reduced(JAMBA if case == "jamba" else GRANITE)
     moe_layers = cfg.n_layers if case != "jamba" else cfg.n_layers // 2
     for r, got in enumerate(runs[0]):
@@ -398,6 +429,10 @@ def test_collective_bytes_match_the_dry_run(runs, case):
             if case != "paged":
                 assert want["row_all_gather"] >= \
                     moe_layers * rows * cfg.d_model * 4
+            # wq (d, 4, dh) and wo (4, dh, d) whole a layer, float32.
+            assert want["fsdp_all_gather"] == (
+                cfg.n_layers * 2 * cfg.d_model * cfg.n_heads * cfg.head_dim
+                * 4 if case == "padded" else 0)
 
 
 def test_dry_run_serve_tp_cell_models_its_placement():

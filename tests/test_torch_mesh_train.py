@@ -33,7 +33,8 @@ default.
 
 Also on ``(2, 2)``: a second run of the step repeats the first bit for
 bit; int8 gradient compression (its residual held); the vocab-parallel
-cross-entropy (vocab 256, with and without ``ce_chunk``); heads that
+cross-entropy (vocab 256, with and without ``ce_chunk``); remat under
+the full and the "dots" policies; heads that
 need ``pad_heads_multiple`` (6 query heads over 3 KV heads, padded to
 12, each rank's 6 reading their KV heads by global index); the reduced
 ViT (Expert Choice, its 16-class head vocab-parallel); a batch whose
@@ -79,7 +80,8 @@ def _knobs(case):
     dispatch = case.split("/")[-1] if "/" in case else "gather"
     ac = zoo.ApplyCfg(dispatch=dispatch,
                       ce_chunk=8 if case == "ce_chunk" else 0,
-                      pad_heads_multiple=4 if case == "pad" else 0)
+                      pad_heads_multiple=4 if case == "pad" else 0,
+                      remat=case[6:] if case.startswith("remat_") else "none")
     tc = TrainConfig(compression="int8" if case == "int8" else "none")
     return ac, tc, adafactor(constant(1e-2), eps1=1e-6)
 
@@ -156,7 +158,8 @@ def _worker(rank, world, tmp, shapes):
         tag = "x".join(map(str, shape))
         cases = [f"{tag}/{d}" for d in DISPATCHES]
         if shape == (2, 2):
-            cases += ["int8", "ce", "ce_chunk", "pad", "vit"]
+            cases += ["int8", "ce", "ce_chunk", "pad", "vit", "remat_full",
+                      "remat_dots"]
         for case in cases:
             full, mets, counts, mine, grads = _mesh_step(case, ctx)
             out[case] = {"state": full, "mets": mets, "counts": counts,
@@ -238,7 +241,8 @@ def test_mesh_step_matches_single_process_step(mesh_runs, mesh, dispatch):
     _hold(mesh_runs[f"{mesh}/{dispatch}"], f"{mesh}/{dispatch}")
 
 
-@pytest.mark.parametrize("case", ["int8", "ce", "ce_chunk", "pad", "vit"])
+@pytest.mark.parametrize("case", ["int8", "ce", "ce_chunk", "pad", "vit",
+                                  "remat_full", "remat_dots"])
 def test_mesh_step_knobs_match_single_process_step(mesh_runs, case):
     """int8 compression, the vocab-parallel cross-entropy with and
     without chunks, padded heads split over model, and the ViT's Expert
@@ -275,10 +279,14 @@ def test_groups_straddling_data_ranks_raise(mesh_runs):
 
 
 @pytest.mark.parametrize("case", ["2x2/gather", "2x2/einsum", "2x2/sorted",
-                                  "1x2/sorted", "2x1/gather", "vit"])
+                                  "1x2/sorted", "2x1/gather", "vit",
+                                  "ce_chunk", "remat_full", "remat_dots"])
 def test_collective_bytes_match_the_dry_run(mesh_runs, case):
     """Every kind of collective's payload a rank counted in the step
-    equals the dry run's model of it."""
+    equals the dry run's model of it: also the vocab-parallel
+    cross-entropy over checkpointed chunks (its backward recomputes the
+    chunks' all-reduces) and remat's recomputed forward, under the full
+    policy and the selective "dots"."""
     from repro_torch.launch.dryrun import rules_collective_payloads
 
     cfg = _cfg(case)
@@ -289,7 +297,8 @@ def test_collective_bytes_match_the_dry_run(mesh_runs, case):
     want = rules_collective_payloads(
         cfg, params=zoo.init_params(None, cfg, device="meta"),
         mesh={"data": shape[0], "model": shape[1]}, dispatch=ac.dispatch,
-        remat="none", tokens=tokens, itemsize=4)
+        remat=ac.remat, tokens=tokens, itemsize=4, ce_chunk=ac.ce_chunk,
+        seq=SEQ)
     got = mesh_runs[case]["counts"]
     assert got == want
     assert got["fsdp_all_gather"] > 0 or shape[0] == 1

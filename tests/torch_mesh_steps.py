@@ -2,7 +2,9 @@
 ranks, the same step in one process, and the reference's sharded step
 (``make_train_step(ctx=)`` on a forced 4-device (2, 2) debug mesh, run
 in a subprocess): the parts that ``tests/test_torch_mesh_encdec.py`` and
-``tests/test_torch_mesh_families.py`` share.
+``tests/test_torch_mesh_families.py`` share, and the spawn of the ranks
+(:func:`spawn_ranks`, :func:`join_ranks`) with the rank step whose live
+bytes ``tests/test_torch_memory.py`` counts (:func:`memory_worker`).
 
 Every case starts from the port's random weights (seed 0; an upcycled
 case from its dense parent at seed 0, routers from seed 7; conditioned,
@@ -197,6 +199,75 @@ def hold(got, one, ref):
     for k, v in ref["params"].items():
         np.testing.assert_allclose(mine[k], v, atol=ATOL, rtol=RTOL,
                                    err_msg=f"reference {k}")
+
+
+def spawn_ranks(worker, tmp, *args, world: int = 4):
+    """``world`` spawned ranks of ``worker(rank, world, tmp, *args)``,
+    not joined: the caller runs its one process meanwhile, then
+    :func:`join_ranks`."""
+    return torch.multiprocessing.start_processes(
+        worker, args=(world, tmp, *args), nprocs=world, join=False,
+        start_method="spawn")
+
+
+def join_ranks(procs, tmp, world: int = 4) -> list:
+    """Wait for the ranks; each rank's ``rank{r}.pt`` under ``tmp``."""
+    while not procs.join():
+        pass
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def init_rank(rank, world, tmp) -> None:
+    """A rank's process group (gloo, rendezvous through a file under
+    ``tmp``), one torch thread."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world)
+
+
+# The train cell whose rank step ``tests/test_torch_memory.py`` counts:
+# the reduced granite at BATCH x SEQ under the ``optimized`` profile's
+# rules on (2, 2), the plain versions (the CPU's), as ``launch/specs.
+# build_cell`` builds it (its Adafactor, TrainConfig and int32 batch).
+MEMORY_ARCH, MEMORY_PROFILE = "granite-moe-1b-a400m", "optimized"
+MEMORY_AC = dict(dispatch="gather", compute_dtype="float32", remat="none",
+                 ce_chunk=0, pad_heads_multiple=0, moe_impl="eager",
+                 attn_impl="eager", mixer_impl="eager")
+
+
+def memory_worker(rank, world, tmp):
+    """A rank's step of the memory cell on the CPU under
+    ``launch/memory.measure``: its report to ``rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.memory import measure
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import PROFILES, make_ctx
+    from repro_torch.optim import adafactor, inverse_sqrt
+    from repro_torch.sharding import train_layout
+    from repro_torch.training import TrainConfig
+
+    init_rank(rank, world, tmp)
+    cfg = get_reduced(MEMORY_ARCH)
+    ctx = make_ctx(make_debug_mesh((2, 2), ("data", "model")), cfg,
+                   PROFILES[MEMORY_PROFILE])
+    ac = zoo.ApplyCfg(**MEMORY_AC)
+    opt = adafactor(inverse_sqrt(peak=0.01, warmup_steps=10_000))
+    state = init_train_state(0, cfg, opt, device="cpu")
+    layout = train_layout(ctx, cfg, ac.dispatch, state)
+    state = layout.shard(state)
+    i, n = layout.batch_rows()
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH // n, SEQ), dtype=np.int32))
+        for k in ("tokens", "targets")}
+    step = make_train_step(cfg, opt, ac=ac, tc=TrainConfig(), layout=layout)
+    _, rep = measure(step, state, batch)
+    torch.save(rep, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
 
 
 def payloads(case):
